@@ -1,12 +1,26 @@
-"""Drive the PyTorch port's inference path once on an NVIDIA GPU.
+"""Drive the PyTorch port's inference paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from matryodshka_tpu_torch/csrc, checks each
-kernel against its plain PyTorch version at the shapes of the flagship
-configuration (640x320 ODS input, 32 planes per eye, 32 shells, ngf 64,
-blend_psv, bf16), renders three requests through entry.forward with seeded
-random weights, and times the stages and kernels with CUDA events.
+Builds the port's CUDA kernels from matryodshka_tpu_torch/csrc and checks
+each kernel against its plain PyTorch version at the shapes its path gives
+it, all at the full width of the flagship configuration (640x320 ODS input,
+32 planes per eye, 32 shells, ngf 64, bf16) with seeded random weights.
+Then it drives three paths, each with every launch count set to 0 just
+before it and read just after:
+
+1. entry.forward (blend_psv: sweep, U-Net, blend-fused render) on three
+   requests;
+2. the test CLI's build_infer_fn (matryodshka_tpu_torch/cli/test.py) once
+   per colour scheme, each at its own target position: image and depth
+   through the blend-fused render's colour and depth modes (blend_psv) or
+   the prepared assembly and the layer-stack render (the other three);
+   then once front to back (the ftb=True prepared render);
+3. the test CLI's 4096x2048 high-res re-render from the blend_psv
+   request's blend weights and alphas.
+
+Every output is gated against its all-plain float32 twin. Stages, kernels
+and plain versions are timed with CUDA events.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 Every check that fails raises, so the script exits non-zero before its last
@@ -35,6 +49,12 @@ import torch
 E2E_TOL = 2e-2
 REQUESTS = [(0, (0.05, 0.0, 0.0)), (1, (-0.03, 0.02, 0.04)),
             (2, (0.0, -0.05, -0.02))]
+#: (scheme, image seed, target position) of the test CLI's requests.
+CLI_REQUESTS = [("blend_psv", 3, (0.04, 0.01, -0.02)),
+                ("blend_bg", 4, (-0.02, 0.03, 0.01)),
+                ("blend_bg_psv", 5, (0.01, -0.04, 0.03)),
+                ("alpha_only", 6, (-0.05, 0.0, -0.01))]
+HRES = (2048, 4096)
 
 
 def nvidia_smi_line() -> str:
@@ -75,6 +95,14 @@ def rot_y(deg: float, device) -> torch.Tensor:
     return rt[None]
 
 
+def random_stack(rng, p: int, h: int, w: int, dev) -> torch.Tensor:
+    """A bf16 layer stack [1, P, 4, H, W]: colours uniform in [-1, 1],
+    alphas in [0, 1]."""
+    stack = torch.rand((1, p, 4, h, w), generator=rng, device=dev) * 2 - 1
+    stack[:, :, 3] = torch.sigmoid(3.0 * stack[:, :, 3])
+    return stack.to(torch.bfloat16)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU route here",
@@ -87,12 +115,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from matryodshka_tpu_torch import entry
+    from matryodshka_tpu_torch.cli import test as cli_test
     from matryodshka_tpu_torch.geometry import render as render_lib
     from matryodshka_tpu_torch.models import msi as msi_lib
     from matryodshka_tpu_torch.ops import _build
     from matryodshka_tpu_torch.ops import conv as conv_ops
     from matryodshka_tpu_torch.ops import layernorm as ln_ops
     from matryodshka_tpu_torch.ops import render as render_ops
+    from matryodshka_tpu_torch.ops import render_layers as rl_ops
     from matryodshka_tpu_torch.ops import sweep as sweep_ops
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -116,7 +146,9 @@ def main() -> None:
     batch = entry.synthetic_batch(cfg, 0, dev)
     rng = torch.Generator(device=dev).manual_seed(1234)
     h, w, p = cfg.height, cfg.width, cfg.num_msi_planes
-    errs = {"sweep": 0.0, "conv": 0.0, "layernorm": 0.0, "render": 0.0}
+    errs = {"sweep": 0.0, "conv": 0.0, "layernorm": 0.0, "render": 0.0,
+            "render_depth": 0.0, "render_layers_k4": 0.0,
+            "render_layers_k5": 0.0, "render_layers_k6": 0.0}
 
     def gate(name, what, got, want, tol_abs):
         err = (got.float() - want.float()).abs().max().item()
@@ -171,6 +203,7 @@ def main() -> None:
     # T < 1e-6: 1e-5 on values in [-1, 1].
     pred = torch.tanh(1.5 * torch.randn((1, 2 * p, h, w), generator=rng,
                                         device=dev))
+    stack = random_stack(rng, p, h, w, dev)
     for what, rt, pos in (("translated (0.05, 0, 0)", torch.eye(4)[None],
                            (0.05, 0.0, 0.0)),
                           ("rotated 30 deg + (0.02, 0, 0)", rot_y(30, "cpu"),
@@ -180,6 +213,22 @@ def main() -> None:
             h, w)
         gate("render", what, render_ops.render_blend(vol, pred, u, v),
              render_ops.render_blend_plain(vol, pred, u, v), 1e-5)
+        # K3's depth mode: the same composite of the constant p/P.
+        gate("render_depth", what,
+             render_ops.render_blend(vol, pred, u, v, depth=True),
+             render_ops.render_blend_plain(vol, pred, u, v, depth=True),
+             1e-5)
+        # K4 (back to front) and K6 (front to back, T < 1e-6) on a bf16
+        # layer stack, colours in [-1, 1] and alphas in [0, 1], against the
+        # shell-streamed plain composite: the same f32 samples composited
+        # in another order, 1e-5.
+        for name, ftb in (("render_layers_k4", False),
+                          ("render_layers_k6", True)):
+            for depth in (False, True):
+                gate(name, f"{what}{' depth' if depth else ''}",
+                     rl_ops.render_layers(stack, u, v, ftb=ftb, depth=depth),
+                     rl_ops.render_layers_plain(stack, u, v, depth=depth),
+                     1e-5)
 
     # ---- the slice: three requests through entry.forward -----------------
     mods = {"sweep": sweep_ops, "conv": conv_ops, "layernorm": ln_ops,
@@ -207,6 +256,110 @@ def main() -> None:
               f"(gate {E2E_TOL:.0e}); vs f32 reference semantics max "
               f"{err_ref.max().item():.3e} mean {err_ref.mean().item():.3e}")
         check(err.max().item() <= E2E_TOL, "slice vs all-plain f32 path")
+
+    # ---- path 2: the test CLI, one request per colour scheme ---------------
+    counted = {"sweep": sweep_ops, "conv": conv_ops, "layernorm": ln_ops,
+               "render": render_ops, "render_layers": rl_ops}
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        for m in counted.values():
+            m.launches = 0
+        render_ops.depth_launches = 0
+        rl_ops.ftb_launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        got = {k: m.launches for k, m in counted.items()}
+        got["render_depth"] = render_ops.depth_launches
+        got["render_layers_ftb"] = rl_ops.ftb_launches
+        return got
+
+    def gate_e2e(what, got, want):
+        for k in ("output_image", "output_depth"):
+            g, wnt = got[k], want[k]
+            check(tuple(g.shape) == tuple(wnt.shape) and g.shape[-1] == 3,
+                  f"{what} {k} shape {tuple(g.shape)}")
+            check(bool(torch.isfinite(g).all()), f"{what} {k} non-finite")
+            err = (g - wnt).abs()
+            print(f"{what} {k}: |bf16 kernels - f32 plain| max "
+                  f"{err.max().item():.3e} mean {err.mean().item():.3e} "
+                  f"(gate {E2E_TOL:.0e})")
+            check(err.max().item() <= E2E_TOL, f"{what} {k} vs all-plain")
+
+    cli = []
+    for scheme, seed, pos in CLI_REQUESTS:
+        c = entry.flagship_cfg(which_color_pred=scheme)
+        cli.append((scheme, c, entry.make_params(c, seed=0, device=dev),
+                    entry.synthetic_batch(c, seed, dev, tgt_pos=pos)))
+    cli_outputs = "tgt_image_blend_weights_alphas"
+    reset_counts()
+    cli_outs = [cli_test.build_infer_fn(c, prm, cli_outputs)(b)
+                for _, c, prm, b in cli]
+    cli_launches = read_counts()
+    print(f"launches over the {len(cli)} test CLI requests: {cli_launches}")
+    for k in ("sweep", "conv", "layernorm", "render", "render_depth",
+              "render_layers"):
+        check(cli_launches[k] > 0, f"kernel {k} was not launched on the "
+                                   f"test CLI's low-res path")
+    for (scheme, c, prm, b), o, (_, _, pos) in zip(cli, cli_outs,
+                                                   CLI_REQUESTS):
+        gate_e2e(f"cli {scheme:12s} tgt_pos {pos}", o,
+                 cli_test.infer_plain(c, prm, b))
+
+    # the ftb=True prepared render (K6), blend_bg request
+    _, c1, prm1, b1 = cli[1]
+    reset_counts()
+    ftb_out = cli_test.build_infer_fn(c1, prm1, "tgt_image", ftb=True)(b1)
+    ftb_launches = read_counts()
+    print(f"launches of the ftb=True request: {ftb_launches}")
+    check(ftb_launches["render_layers_ftb"] > 0,
+          "the front-to-back layer-stack kernel was not launched")
+    gate_e2e("cli blend_bg ftb", ftb_out, cli_test.infer_plain(c1, prm1, b1))
+    ftb_diff = (ftb_out["output_image"] - cli_outs[1]["output_image"]).abs()
+    print(f"ftb vs back-to-front output_image max |diff| "
+          f"{ftb_diff.max().item():.3e}")
+
+    # ---- path 3: the 4096x2048 re-render from the blend_psv request -------
+    hh, hw = HRES
+    _, c0, _, bq = cli[0]
+    check((c0.hres_height, c0.hres_width) == HRES, "hres default shape")
+    hrng = torch.Generator(device=dev).manual_seed(77)
+    eye = torch.eye(4, device=dev)[None]
+    hargs = (torch.rand((1, hh, hw, 3), generator=hrng, device=dev),
+             torch.rand((1, hh, hw, 3), generator=hrng, device=dev),
+             cli_outs[0]["blend_weights"], cli_outs[0]["alphas"], eye, eye,
+             eye, bq["intrinsics"], bq["tgt_pose"])
+    hres_render = cli_test.build_hres_render_fn(c0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_counts()
+    hres_rgb, hres_depth = hres_render(*hargs)
+    hres_launches = read_counts()
+    hres_peak = torch.cuda.max_memory_allocated()
+    print(f"launches of the {hw}x{hh} re-render: {hres_launches}")
+    print(f"hres peak device memory {hres_peak / 2**30:.3f} GiB "
+          f"({(hres_peak - mem0) / 2**30:.3f} GiB above the "
+          f"{mem0 / 2**30:.3f} GiB held before) {tag}")
+    for k in ("sweep", "render_layers"):
+        check(hres_launches[k] > 0, f"kernel {k} was not launched on the "
+                                    f"high-res path")
+    rgb_p, depth_p = cli_test.hres_render_plain(
+        c0, hargs[0], hargs[1], hargs[2], hargs[3], hargs[7], hargs[8])
+    gate_e2e(f"hres {hw}x{hh}",
+             {"output_image": hres_rgb, "output_depth": hres_depth},
+             {"output_image": rgb_p, "output_depth": depth_p})
+    del hres_rgb, hres_depth, rgb_p, depth_p
+    # K5 at the shape the high-res path gives it: a bf16 stack of 32
+    # 4096x2048 shells, tables of the blend_psv request's pose.
+    hstack = random_stack(rng, p, hh, hw, dev)
+    hu, hv = render_lib.uv_tables(eye, bq["tgt_pose"], params.psv_depths,
+                                  hh, hw)
+    for depth in (False, True):
+        gate("render_layers_k5", f"{hw}x{hh}{' depth' if depth else ''}",
+             rl_ops.render_layers(hstack, hu, hv, depth=depth),
+             rl_ops.render_layers_plain(hstack, hu, hv, depth=depth), 1e-5)
 
     # ---- times (CUDA events, 2 warm-up, median of 10) ----------------------
     b0 = batches[0]
@@ -268,10 +421,76 @@ def main() -> None:
         lambda: render_ops.render_blend(vol0, pred0, u0, v0))
     plain_ms["render"] = time_ms(
         lambda: render_ops.render_blend_plain(vol0, pred0, u0, v0))
+    kernel_ms["render_depth"] = time_ms(
+        lambda: render_ops.render_blend(vol0, pred0, u0, v0, depth=True))
+    plain_ms["render_depth"] = time_ms(
+        lambda: render_ops.render_blend_plain(vol0, pred0, u0, v0,
+                                              depth=True), iters=5)
+    for name, ftb in (("render_layers_k4", False),
+                      ("render_layers_k6", True)):
+        kernel_ms[name] = time_ms(
+            lambda: rl_ops.render_layers(stack, u0, v0, ftb=ftb))
+        plain_ms[name] = time_ms(
+            lambda: rl_ops.render_layers_plain(stack, u0, v0), iters=5)
+    kernel_ms["render_layers_k5"] = time_ms(
+        lambda: rl_ops.render_layers(hstack, hu, hv), iters=5)
+    plain_ms["render_layers_k5"] = time_ms(
+        lambda: rl_ops.render_layers_plain(hstack, hu, hv), iters=1,
+        warmup=1)
     for k in kernel_ms:
-        print(f"kernel {k:9s} {kernel_ms[k]:9.3f} ms  plain "
+        print(f"kernel {k:16s} {kernel_ms[k]:9.3f} ms  plain "
               f"{plain_ms[k]:9.3f} ms {tag}")
 
+    # the test CLI, per scheme: stages and end to end (median of 5)
+    for (scheme, c, prm, b) in cli:
+        vq = msi_lib.sweep_stage(c, b, prm.psv_depths)
+        pq = msi_lib.net_stage(prm.stages, vq)
+        po = msi_lib.assemble_outputs_planar(c, vq, pq)
+        infer = cli_test.build_infer_fn(c, prm, "tgt_image")
+        ms = {
+            "sweep": time_ms(lambda: msi_lib.sweep_stage(c, b,
+                                                         prm.psv_depths),
+                             iters=5),
+            "net": time_ms(lambda: msi_lib.net_stage(prm.stages, vq),
+                           iters=5),
+            "assemble": time_ms(lambda: msi_lib.assemble_outputs_planar(
+                c, vq, pq), iters=5),
+            "render": time_ms(
+                lambda: msi_lib.render_equirect_view_from_prepared(
+                    po, eye, b["tgt_pose"], prm.msi_depths), iters=5),
+            "depth": time_ms(
+                lambda: msi_lib.render_equirect_depth_from_prepared(
+                    po, eye, b["tgt_pose"], prm.msi_depths), iters=5),
+            "e2e": time_ms(lambda: infer(b), iters=5),
+            "e2e_plain_f32": time_ms(lambda: cli_test.infer_plain(c, prm, b),
+                                     iters=3),
+        }
+        print(f"cli {scheme:12s} " + " ".join(
+            f"{k} {t:.3f}" for k, t in ms.items()) + f" ms {tag}")
+    del vq, pq, po
+
+    # the 4096x2048 re-render: stages and end to end (median of 3)
+    hb, ha = hargs[2], hargs[3]
+    hms = {
+        "sweep": time_ms(lambda: sweep_ops.sweep_volume(
+            msi_lib.preprocess_image(hargs[0]),
+            msi_lib.preprocess_image(hargs[1]), params.psv_depths,
+            bq["intrinsics"], out_dtype=torch.bfloat16), iters=3),
+        "upsample": time_ms(lambda: msi_lib.upsample_align_corners_cf(
+            torch.cat([hb, ha], dim=-1).permute(0, 3, 1, 2), hh, hw),
+            iters=3),
+        "uv_tables": time_ms(lambda: render_lib.uv_tables(
+            eye, bq["tgt_pose"], params.psv_depths, hh, hw), iters=3),
+        "e2e": time_ms(lambda: hres_render(*hargs), iters=3, warmup=1),
+    }
+    print(f"hres {hw}x{hh} " + " ".join(
+        f"{k} {t:.3f}" for k, t in hms.items()) + f" ms (render kernel "
+          f"{kernel_ms['render_layers_k5']:.3f} ms per image) {tag}")
+
+    launches["render_depth"] = cli_launches["render_depth"]
+    launches["render_layers_k4"] = cli_launches["render_layers"]
+    launches["render_layers_k5"] = hres_launches["render_layers"]
+    launches["render_layers_k6"] = ftb_launches["render_layers_ftb"]
     sources = {
         "sweep": ("matryodshka_tpu_torch/csrc/sweep.cu",
                   "matryodshka_tpu/ops/pallas_sweep.py:230"),
@@ -281,6 +500,14 @@ def main() -> None:
                       "matryodshka_tpu/ops/pallas_net.py:356"),
         "render": ("matryodshka_tpu_torch/csrc/render.cu",
                    "matryodshka_tpu/ops/pallas_render.py:920"),
+        "render_depth": ("matryodshka_tpu_torch/csrc/render.cu",
+                         "matryodshka_tpu/ops/pallas_render.py:920"),
+        "render_layers_k4": ("matryodshka_tpu_torch/csrc/render_layers.cu",
+                             "matryodshka_tpu/ops/pallas_render.py:295"),
+        "render_layers_k5": ("matryodshka_tpu_torch/csrc/render_layers.cu",
+                             "matryodshka_tpu/ops/pallas_render.py:132"),
+        "render_layers_k6": ("matryodshka_tpu_torch/csrc/render_layers.cu",
+                             "matryodshka_tpu/ops/pallas_render.py:694"),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0],

@@ -1,0 +1,355 @@
+"""Inference entry point (the reference's test.py), ODS input.
+
+    python -m matryodshka_tpu_torch.cli.test --image_dir DIR \
+        --cameras_glob 'CAMS/*.txt' [--params net.npz] [--device cuda] \
+        [--test_type high_res] [--test_outputs ...] [--num_runs N]
+
+Counterpart of `matryodshka_tpu/cli/test.py`. Runs batch-1 inference over
+the camera files, renders the requested outputs and writes PNGs plus
+blend_weights.npy / alphas.npy per example, under the JAX CLI's file names
+(test.py:87-281). `--test_type high_res` then re-renders every example at
+hres_height x hres_width (4096x2048 by default) from its saved blend
+weights and alphas and the high-res image pair (test.py:284-394).
+
+Every stage runs through the port's kernels on a CUDA device: the sweep
+(csrc/sweep.cu), the U-Net (conv.cu, layernorm.cu), then for blend_psv the
+blend-fused render (render.cu, colour and depth mode) and for the other
+schemes the prepared assembly and the layer-stack render
+(render_layers.cu); the high-res re-render sweeps at full size and draws
+through render_layers.cu. `--device cpu` runs each kernel's plain version.
+
+The net's weights come from `--params`, an .npz of the flax parameter tree
+(training/checkpoint.py), or from weights.seeded_init(cfg, random_seed).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from matryodshka_tpu_torch import entry
+from matryodshka_tpu_torch.config import (MatryConfig, add_config_args,
+                                          config_from_args)
+from matryodshka_tpu_torch.data.images import write_image
+from matryodshka_tpu_torch.data.loader import OdsLoader, make_loader
+from matryodshka_tpu_torch.geometry import render as render_lib
+from matryodshka_tpu_torch.geometry import sweep as sweep_lib
+from matryodshka_tpu_torch.models import msi as msi_lib
+from matryodshka_tpu_torch.ops import render as render_ops
+from matryodshka_tpu_torch.ops import render_layers as rl_ops
+from matryodshka_tpu_torch.ops import sweep as sweep_ops
+from matryodshka_tpu_torch.ops.resample import resample_layers_uv
+
+#: Outputs of the JAX CLI that the port does not render yet, with the
+#: ROADMAP item that ports them.
+NOT_PORTED = {
+    "psp": "render_perspective_view (ROADMAP Queue 1 item 5)",
+    "src_output_image": "render_ods_view (ROADMAP Queue 1 item 5)",
+    "ref_output_image": "render_ods_view (ROADMAP Queue 1 item 5)",
+}
+
+DEFAULT_TEST_OUTPUTS = ("rgba_layers_src_image_ref_image_tgt_image_"
+                        "blend_weights_alphas")
+
+
+def _eye(b, device):
+    return torch.eye(4, device=device).expand(b, 4, 4)
+
+
+def build_infer_fn(cfg: MatryConfig, params: entry.Params,
+                   test_outputs: str, ftb: bool = False):
+    """infer(batch) -> dict of the requested outputs, each [B, ...] on the
+    batch's device: output_image ([0, 1]) and output_depth (tgt_image),
+    rgba_layers, blend_weights, alphas, psv. The target view is the ERP
+    view at batch['tgt_pose']; ftb renders the layer stack front to back
+    with early termination (schemes other than blend_psv)."""
+    for key, what in NOT_PORTED.items():
+        if key in test_outputs:
+            raise NotImplementedError(f"test output {key!r} needs {what}")
+
+    @torch.no_grad()
+    def infer(batch):
+        pouts = msi_lib.infer_msi_prepared(cfg, params.stages, batch,
+                                           params.psv_depths)
+        vol, pred = pouts["vol"], pouts["pred"]
+        outs = {}
+        if any(k in test_outputs
+               for k in ("rgba_layers", "blend_weights", "alphas")):
+            asm = msi_lib.assemble_rgba(
+                cfg.which_color_pred, pred.permute(0, 2, 3, 1),
+                vol.permute(0, 2, 3, 1), cfg.num_msi_planes)
+            for k in ("rgba_layers", "blend_weights", "alphas"):
+                if k in asm and k in test_outputs:
+                    outs[k] = asm[k]
+        if "psv" in test_outputs:
+            outs["psv"] = vol.permute(0, 2, 3, 1)
+        if "tgt_image" in test_outputs:
+            eye = _eye(vol.shape[0], vol.device)
+            outs["output_image"] = msi_lib.deprocess_image(
+                msi_lib.render_equirect_view_from_prepared(
+                    pouts, eye, batch["tgt_pose"], params.msi_depths,
+                    ftb=ftb))
+            outs["output_depth"] = msi_lib.render_equirect_depth_from_prepared(
+                pouts, eye, batch["tgt_pose"], params.msi_depths, ftb=ftb)
+        return outs
+
+    return infer
+
+
+@torch.no_grad()
+def infer_plain(cfg: MatryConfig, params: entry.Params, batch):
+    """build_infer_fn's output_image and output_depth with every kernel
+    replaced by its plain version, in float32: ods_sweep_plain, the plain
+    MSIUNet, then render_blend_plain (blend_psv) or the prepared assembly
+    and render_layers_plain."""
+    images, rowp = sweep_ops.sweep_inputs(
+        msi_lib.preprocess_image(batch["ref_image"]),
+        msi_lib.preprocess_image(batch["src_image"]), params.psv_depths,
+        batch["intrinsics"])
+    vol = sweep_ops.ods_sweep_plain(images, rowp, torch.float32)
+    pred = params.net(vol, dtype=torch.float32)
+    u, v = render_lib.uv_tables(_eye(vol.shape[0], vol.device),
+                                batch["tgt_pose"], params.msi_depths,
+                                cfg.height, cfg.width)
+    if cfg.which_color_pred == "blend_psv":
+        img = render_ops.render_blend_plain(vol, pred, u, v)
+        depth = render_ops.render_blend_plain(vol, pred, u, v, depth=True)
+    else:
+        layers = msi_lib.assemble_rgba_prepared(
+            cfg.which_color_pred, pred, vol, cfg.num_msi_planes,
+            torch.float32)
+        img = rl_ops.render_layers_plain(layers, u, v)
+        depth = rl_ops.render_layers_plain(layers, u, v, depth=True)
+    return {"output_image": msi_lib.deprocess_image(img),
+            "output_depth": depth}
+
+
+def _psv_depths(cfg: MatryConfig, device):
+    return torch.tensor(sweep_lib.inv_depths(cfg.min_depth, cfg.max_depth,
+                                             cfg.num_psv_planes),
+                        dtype=torch.float32, device=device)
+
+
+def build_hres_render_fn(cfg: MatryConfig):
+    """High-res re-render with the semantics of the JAX
+    build_hres_render_fn_fused (cli/test.py:178-229): the identity-pose
+    dual sweep at hres_height x hres_width (the sweep kernel has no VMEM
+    bound, so no row chunks), the low-res blend weights and alphas
+    upsampled (align corners), the high-res prepared assembly, and the
+    layer-stack render of colour and depth with the PSV depths as radii.
+
+    render(hres_ref, hres_src, blend_weights, alphas, ref_pose, src_pose,
+    ref_pose_inv, intrinsics, tgt_pose) -> (rgb [B, Hh, Wh, 3] in [0, 1],
+    depth [B, Hh, Wh, 3]). As in the fused JAX path, the ODS loader's
+    identity ref/src poses are assumed, not read. blend_psv only, as that
+    path; the JAX shell scan for the other schemes is not ported (ROADMAP
+    Queue 1 item 5)."""
+    if cfg.which_color_pred != "blend_psv":
+        raise NotImplementedError(
+            f"high_res with which_color_pred {cfg.which_color_pred!r}: only "
+            f"blend_psv is ported (the JAX shell scan for the other schemes "
+            f"is ROADMAP Queue 1 item 5)")
+    hh, hw, p = cfg.hres_height, cfg.hres_width, cfg.num_psv_planes
+    dtype = cfg.torch_compute_dtype
+
+    @torch.no_grad()
+    def render(hres_ref, hres_src, blend_weights, alphas, ref_pose,
+               src_pose, ref_pose_inv, intrinsics, tgt_pose):
+        del ref_pose, src_pose, ref_pose_inv
+        depths = _psv_depths(cfg, hres_ref.device)
+        u_ba = msi_lib.upsample_align_corners_cf(
+            torch.cat([blend_weights, alphas], dim=-1).permute(0, 3, 1, 2),
+            hh, hw)
+        vol = sweep_ops.sweep_volume(msi_lib.preprocess_image(hres_ref),
+                                     msi_lib.preprocess_image(hres_src),
+                                     depths, intrinsics, out_dtype=dtype)
+        layers = msi_lib.assemble_hres_prepared(
+            cfg.which_color_pred, u_ba[:, :p], u_ba[:, p:], vol, dtype=dtype)
+        del u_ba, vol
+        eye = _eye(layers.shape[0], layers.device)
+        rgb = msi_lib.deprocess_image(render_lib.render_equirect_view_prepared(
+            layers, eye, tgt_pose, depths))
+        depth = render_lib.render_equirect_view_prepared(
+            layers, eye, tgt_pose, depths, depth=True)
+        return rgb, depth
+
+    return render
+
+
+@torch.no_grad()
+def hres_render_plain(cfg: MatryConfig, hres_ref, hres_src, blend_weights,
+                      alphas, intrinsics, tgt_pose):
+    """build_hres_render_fn's (rgb, depth) from the plain versions in
+    float32, streamed one shell at a time as the JAX shell scan does
+    (cli/test.py:232-334), so memory stays at one high-res shell: per
+    shell the plain sweep of both eyes, the blend with the upsampled
+    weights, a gather of the shell at its lookup table, and a
+    nearest-first composite."""
+    hh, hw, p = cfg.hres_height, cfg.hres_width, cfg.num_psv_planes
+    b = hres_ref.shape[0]
+    dev = hres_ref.device
+    depths = _psv_depths(cfg, dev)
+    ref = msi_lib.preprocess_image(hres_ref)
+    src = msi_lib.preprocess_image(hres_src)
+    eye = _eye(b, dev)
+    rgb = torch.zeros((b, hh, hw, 3), device=dev)
+    dep = torch.zeros((b, hh, hw, 3), device=dev)
+    trans = torch.ones((b, hh, hw, 1), device=dev)
+    for s in range(p - 1, -1, -1):
+        d = depths[s:s + 1]
+        images, rowp = sweep_ops.sweep_inputs(ref, src, d, intrinsics)
+        vol = sweep_ops.ods_sweep_plain(images, rowp, torch.float32)
+        wa = msi_lib.upsample_align_corners_cf(
+            torch.stack([blend_weights[..., s], alphas[..., s]], dim=1),
+            hh, hw)
+        layer = msi_lib.assemble_hres_prepared(
+            "blend_psv", wa[:, :1], wa[:, 1:], vol, dtype=torch.float32)
+        u, v = render_lib.uv_tables(eye, tgt_pose, d, hh, hw)
+        for i in range(b):
+            img = resample_layers_uv(
+                layer[i, 0].permute(1, 2, 0)[None], u[i], v[i])[0]
+            a = img[..., 3:] if s > 0 else 1.0
+            rgb[i] += img[..., :3] * a * trans[i]
+            dep[i] += (s / p) * a * trans[i]
+            trans[i] *= 1.0 - a
+    return msi_lib.deprocess_image(rgb), dep
+
+
+def save_outputs(cfg: MatryConfig, out_dir: str, dirname: str, batch, outs,
+                 test_outputs: str):
+    """Write the outputs (numpy, batch 1) under the JAX CLI's names
+    (matryodshka_tpu/cli/test.py:save_outputs)."""
+    os.makedirs(out_dir, exist_ok=True)
+    if "tgt_image" in test_outputs:
+        write_image(f"{out_dir}/tgt_image_{dirname}.png",
+                    batch["tgt_image"][0] * 255.0)
+        write_image(f"{out_dir}/output_tgt_{dirname}.png",
+                    outs["output_image"][0] * 255.0)
+        write_image(f"{out_dir}/output_depth_{dirname}.png",
+                    outs["output_depth"][0] * 255.0)
+    for key in ("src_image", "ref_image"):
+        if key in test_outputs:
+            write_image(f"{out_dir}/{key}_{dirname}.png",
+                        batch[key][0] * 255.0)
+    if "psv" in outs:
+        psv = outs["psv"][0]
+        for j in range(cfg.num_psv_planes):
+            write_image(f"{out_dir}/psv_plane_{j:03d}.png",
+                        (psv[:, :, j * 3:(j + 1) * 3] + 1) / 2 * 255)
+    if "blend_weights" in outs:
+        np.save(f"{out_dir}/blend_weights.npy", outs["blend_weights"])
+        for i in range(cfg.num_msi_planes):
+            write_image(f"{out_dir}/blend_weight_{i:03d}.png",
+                        outs["blend_weights"][0, :, :, i] * 255.0)
+    if "alphas" in outs:
+        np.save(f"{out_dir}/alphas.npy", outs["alphas"])
+    if "rgba_layers" in outs:
+        rgba = outs["rgba_layers"][0]
+        for i in range(cfg.num_msi_planes):
+            write_image(f"{out_dir}/msi_alpha_{i:02d}.png",
+                        rgba[:, :, i, 3] * 255.0)
+            write_image(f"{out_dir}/msi_rgb_{i:02d}.png",
+                        (rgba[:, :, i, :3] + 1) / 2 * 255.0)
+
+
+def example_dirname(batch, video: bool, prefix: str) -> str:
+    dirname = ""
+    if video:
+        dirname += "video_"
+        if prefix:
+            dirname += f"{prefix}_"
+    dirname += batch["scene_id"][0]
+    dirname += "_" + "".join(batch["image_ids"][0])
+    return dirname
+
+
+def _to_device(batch, device):
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+            if isinstance(v, np.ndarray)}
+
+
+def _to_numpy(t):
+    return t.float().cpu().numpy()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="matryodshka test (torch)")
+    add_config_args(parser)
+    parser.add_argument("--test_type", type=str, default="")
+    parser.add_argument("--prefix", type=str, default="")
+    parser.add_argument("--test_outputs", type=str,
+                        default=DEFAULT_TEST_OUTPUTS)
+    parser.add_argument("--num_runs", type=int, default=-1)
+    parser.add_argument("--params", type=str, default="",
+                        help=".npz of the flax parameter tree; empty: "
+                             "weights.seeded_init(cfg, random_seed)")
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args)
+    if cfg.batch_size != 1:
+        raise ValueError("batch_size must be 1 when testing")
+    if cfg.shard_shells:
+        raise NotImplementedError("shard_shells: the shell-sharded high-res "
+                                  "render is ROADMAP Queue 1 item 9")
+    device = torch.device(args.device)
+
+    tree, step = None, 0
+    if args.params:
+        from matryodshka_tpu_torch.training.checkpoint import restore_params
+        tree, step = restore_params(args.params)
+        print(f"[test] restored {args.params} @ step {step}")
+    else:
+        print(f"[test] no --params: seeded random weights "
+              f"(seed {cfg.random_seed})")
+    params = entry.make_params(cfg, flax_params=tree, seed=cfg.random_seed,
+                               device=device)
+
+    out_root = os.path.join(cfg.output_root, cfg.experiment_name)
+    os.makedirs(out_root, exist_ok=True)
+    with open(os.path.join(out_root, "step.txt"), "w") as fh:
+        fh.write(str(step))
+
+    video = "on_video" in args.test_type
+    if "high_res_only" not in args.test_type:
+        loader = make_loader(cfg, training=False)
+        infer = build_infer_fn(cfg, params, args.test_outputs)
+        for run, batch in enumerate(loader.batches()):
+            if 0 <= args.num_runs <= run:
+                break
+            outs = infer(_to_device(batch, device))
+            outs = {k: _to_numpy(v) for k, v in outs.items()}
+            dirname = example_dirname(batch, video, args.prefix)
+            out_dir = os.path.join(out_root, dirname)
+            print(f"[test] saving to {out_dir}")
+            save_outputs(cfg, out_dir, dirname, batch, outs,
+                         args.test_outputs)
+
+    if "high_res" in args.test_type:
+        loader = OdsLoader(cfg, training=False, load_hres=True)
+        render = build_hres_render_fn(cfg)
+        for run, batch in enumerate(loader.batches()):
+            if 0 <= args.num_runs <= run:
+                break
+            dirname = example_dirname(batch, video, args.prefix)
+            out_dir = os.path.join(out_root, dirname)
+            t = _to_device(batch, device)
+            bw = torch.from_numpy(np.load(
+                os.path.join(out_dir, "blend_weights.npy"))).to(device)
+            al = torch.from_numpy(np.load(
+                os.path.join(out_dir, "alphas.npy"))).to(device)
+            rgb, depth = render(t["hres_ref_image"], t["hres_src_image"], bw,
+                                al, t["ref_pose"], t["src_pose"],
+                                t["ref_pose_inv"], t["intrinsics"],
+                                t["tgt_pose"])
+            print(f"[test] saving hres render to {out_dir}")
+            write_image(f"{out_dir}/output_hrestgt_{dirname}.png",
+                        _to_numpy(rgb[0]) * 255.0)
+            write_image(f"{out_dir}/output_hresdepth_{dirname}.png",
+                        _to_numpy(depth[0]) * 255.0)
+
+
+if __name__ == "__main__":
+    main()

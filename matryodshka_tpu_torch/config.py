@@ -1,44 +1,68 @@
-"""The subset of `MatryConfig` that the ported inference path reads.
+"""The subset of `MatryConfig` that the ported inference paths read.
 
 Field names and defaults are those of `matryodshka_tpu/config.py`, so a
-configuration moves between the two packages by keyword.
+configuration moves between the two packages by keyword, and the test CLI
+takes the same `--<field>` flags.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
-#: Colour-prediction schemes the port accepts. The other three of the
-#: reference (blend_bg, blend_bg_psv, alpha_only) are not ported yet.
-COLOR_PREDS = ("blend_psv",)
+#: Colour-prediction schemes (the reference's scheme table,
+#: matryodshka/msi.py:108-118).
+COLOR_PREDS = ("blend_psv", "blend_bg", "blend_bg_psv", "alpha_only")
+#: Input types the port accepts. PP and REALESTATE_PP need the MPI render
+#: and the homography path (ROADMAP Queue 1 item 5).
+INPUT_TYPES = ("ODS",)
 
 
 @dataclass(frozen=True)
 class MatryConfig:
+    # --- i/o (the test CLI) -----------------------------------------------
+    cameras_glob: str = "glob/train/ods/*.txt"
+    image_dir: str = "train_640x320"
+    hres_image_dir: str = "train_4096x2048"
+    experiment_name: str = ""
+    output_root: str = "./test"
+    shuffle_seq_length: int = 3
+    random_seed: int = 8964
+
+    # --- image geometry -----------------------------------------------------
     height: int = 320
     width: int = 640
+    hres_height: int = 2048
+    hres_width: int = 4096
     batch_size: int = 1
+
+    # --- model --------------------------------------------------------------
+    input_type: str = "ODS"
+    which_color_pred: str = "blend_psv"
     ngf: int = 64
     min_depth: float = 1.0
     max_depth: float = 100.0
     num_psv_planes: int = 32
     num_msi_planes: int = 32
-    which_color_pred: str = "blend_psv"
     compute_dtype: str = "bfloat16"
+    shard_shells: bool = False
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
     def num_net_outputs(self) -> int:
-        """Net channels for the colour scheme: P blend weights + P alphas."""
-        if self.which_color_pred == "blend_psv":
-            return 2 * self.num_msi_planes
-        raise ValueError(
-            f"which_color_pred {self.which_color_pred!r} is not ported; "
-            f"supported: {COLOR_PREDS}")
+        """Net channels for the colour scheme (msi.py:108-118): P blend
+        weights and P alphas (blend_psv), plus a background RGB (blend_bg),
+        plus P background blend weights (blend_bg_psv); P alphas only
+        (alpha_only)."""
+        p = self.num_msi_planes
+        return {"blend_psv": 2 * p, "blend_bg": 2 * p + 3,
+                "blend_bg_psv": 3 * p + 3,
+                "alpha_only": p}[self.which_color_pred]
 
     def num_net_inputs(self) -> int:
         """Channels of the double sphere-sweep volume (ODS input)."""
@@ -47,11 +71,38 @@ class MatryConfig:
     def validate(self) -> "MatryConfig":
         if self.which_color_pred not in COLOR_PREDS:
             raise ValueError(
-                f"which_color_pred {self.which_color_pred!r} is not ported; "
-                f"supported: {COLOR_PREDS}")
+                f"which_color_pred {self.which_color_pred!r}; known: "
+                f"{COLOR_PREDS}")
+        if self.input_type not in INPUT_TYPES:
+            raise ValueError(
+                f"input_type {self.input_type!r} is not ported (PP and "
+                f"REALESTATE_PP wait for the MPI render and the homography "
+                f"path, ROADMAP Queue 1 item 5); supported: {INPUT_TYPES}")
+        if self.num_msi_planes != self.num_psv_planes:
+            raise ValueError("the port's renders pair shell p with sweep "
+                             "plane p: num_msi_planes must equal "
+                             "num_psv_planes")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if self.height % 8 or self.width % 8:
             raise ValueError("U-Net has 3 stride-2 stages; H and W must be "
                              "multiples of 8")
         return self
+
+
+def add_config_args(parser: argparse.ArgumentParser) -> None:
+    """Register one --flag per MatryConfig field."""
+    for f in dataclasses.fields(MatryConfig):
+        if isinstance(f.default, bool):
+            parser.add_argument(
+                "--" + f.name, metavar="BOOL", default=f.default,
+                type=lambda s: s.lower() in ("1", "true", "yes"))
+        else:
+            parser.add_argument("--" + f.name, type=type(f.default),
+                                default=f.default)
+
+
+def config_from_args(args: argparse.Namespace) -> MatryConfig:
+    names = {f.name for f in dataclasses.fields(MatryConfig)}
+    return MatryConfig(**{k: v for k, v in vars(args).items()
+                          if k in names}).validate()

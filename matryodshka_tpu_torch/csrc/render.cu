@@ -17,11 +17,15 @@
 // stops once its transmittance T < eps (1e-6, K3's FTB_EPS): every farther
 // shell could change the output by at most T, as |rgb| <= 1.
 //
+// DEPTH=true is K3's depth mode (render_mid_fused_blend(depth=True)): the
+// colour is the constant p/P (shell 0 contributes 0), so only the alpha
+// prediction is read; the value goes to all three output channels.
+//
 // Bound: memory and latency of the gathers (per pixel and shell: two table
-// reads, four taps of 3 volume + 2 prediction values). Design: one thread
-// per target pixel, consecutive threads on consecutive j so the u/v reads
-// coalesce and the taps of a warp fall in a few source rows that L1/L2
-// serve; the composite state stays in registers.
+// reads, four taps of 3 volume + 2 prediction values; 1 in depth mode).
+// Design: one thread per target pixel, consecutive threads on consecutive
+// j so the u/v reads coalesce and the taps of a warp fall in a few source
+// rows that L1/L2 serve; the composite state stays in registers.
 //
 // Inputs: vol [B, 2*P*3, H, W] (ops/sweep.py output: the ref eye's planes
 // are fg, the src eye's bg), pred [B, 2P, H, W] f32 (the net head),
@@ -31,7 +35,7 @@
 
 namespace {
 
-template <typename TV>
+template <typename TV, bool DEPTH>
 __global__ void render_kernel(const TV* __restrict__ vol,
                               const float* __restrict__ pred,
                               const float* __restrict__ U,
@@ -49,6 +53,7 @@ __global__ void render_kernel(const TV* __restrict__ vol,
   const float* pr = pred + b * 2 * P * hw;
   const float* ub = U + b * P * hw + pix;
   const float* vb = V + b * P * hw + pix;
+  const float inv_p = 1.f / (float)P;
 
   float r = 0.f, g = 0.f, bl = 0.f, T = 1.f;
   for (int p = P - 1; p >= 0; --p) {
@@ -69,8 +74,9 @@ __global__ void render_kernel(const TV* __restrict__ vol,
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       const int o = off[t];
+      sa += wt[t] * ((aw[o] + 1.f) * 0.5f);
+      if (DEPTH) continue;
       const float w = (bw[o] + 1.f) * 0.5f;
-      const float a = (aw[o] + 1.f) * 0.5f;
       const float cr = w * matry::to_f32(fgp[o]) +
                        (1.f - w) * matry::to_f32(bgp[o]);
       const float cg = w * matry::to_f32(fgp[hw + o]) +
@@ -80,8 +86,8 @@ __global__ void render_kernel(const TV* __restrict__ vol,
       sr += wt[t] * cr;
       sg += wt[t] * cg;
       sb += wt[t] * cb;
-      sa += wt[t] * a;
     }
+    if (DEPTH) sr = sg = sb = (float)p * inv_p;
     if (p > 0) {
       const float ta = T * sa;
       r += ta * sr;
@@ -101,22 +107,33 @@ __global__ void render_kernel(const TV* __restrict__ vol,
   o[2] = bl;
 }
 
+template <typename TV>
+void launch(const void* vol, const void* pred, const void* U, const void* V,
+            void* out, int B, int P, int H, int W, int depth, float eps,
+            cudaStream_t s) {
+  const long long total = (long long)B * H * W;
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if (depth)
+    render_kernel<TV, true><<<blocks, threads, 0, s>>>(
+        (const TV*)vol, (const float*)pred, (const float*)U, (const float*)V,
+        (float*)out, B, P, H, W, eps);
+  else
+    render_kernel<TV, false><<<blocks, threads, 0, s>>>(
+        (const TV*)vol, (const float*)pred, (const float*)U, (const float*)V,
+        (float*)out, B, P, H, W, eps);
+}
+
 }  // namespace
 
 extern "C" int matry_render(const void* vol, const void* pred, const void* U,
                             const void* V, void* out, int B, int P, int H,
-                            int W, int vol_bf16, float eps, void* stream) {
-  const long long total = (long long)B * H * W;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+                            int W, int vol_bf16, int depth, float eps,
+                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (vol_bf16)
-    render_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (const __nv_bfloat16*)vol, (const float*)pred, (const float*)U,
-        (const float*)V, (float*)out, B, P, H, W, eps);
+    launch<__nv_bfloat16>(vol, pred, U, V, out, B, P, H, W, depth, eps, s);
   else
-    render_kernel<float><<<blocks, threads, 0, s>>>(
-        (const float*)vol, (const float*)pred, (const float*)U,
-        (const float*)V, (float*)out, B, P, H, W, eps);
+    launch<float>(vol, pred, U, V, out, B, P, H, W, depth, eps, s);
   return (int)cudaGetLastError();
 }

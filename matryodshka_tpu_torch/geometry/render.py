@@ -1,9 +1,10 @@
-"""MSI novel-view rendering: over-compositing, the gather render and the
-entry of the blend-fused render.
+"""MSI novel-view rendering: over-compositing, the gather renders and the
+entries of the two kernel renders.
 
 Counterpart of `matryodshka_tpu/geometry/render.py` (`over_composite`,
-`render_equirect_view`, `render_equirect_view_fused_blend`). Layer 0 is the
-farthest shell and its alpha is taken as 1.
+`over_composite_depth`, `render_equirect_view`, `render_equirect_depth`,
+`render_equirect_view_prepared`, `render_equirect_view_fused_blend`).
+Layer 0 is the farthest shell and its alpha is taken as 1.
 """
 
 from __future__ import annotations
@@ -11,7 +12,16 @@ from __future__ import annotations
 import torch
 
 from matryodshka_tpu_torch.geometry import intersect
+from matryodshka_tpu_torch.ops import render_layers as rl_ops
 from matryodshka_tpu_torch.ops.resample import resample_layers
+
+
+def _transmittance(alpha):
+    """T_i = prod_{j > i} (1 - a_j) along axis -2 (T_{P-1} = 1)."""
+    rcp = torch.flip(torch.cumprod(torch.flip(1.0 - alpha, [-2]), dim=-2),
+                     [-2])
+    return torch.cat([rcp[..., 1:, :], torch.ones_like(rcp[..., :1, :])],
+                     dim=-2)
 
 
 def over_composite(rgba):
@@ -19,13 +29,22 @@ def over_composite(rgba):
     sum_i rgb_i a_i T_i with T_i = prod_{j>i} (1 - a_j) and a_0 = 1."""
     rgb = rgba[..., :3]
     alpha = rgba[..., 3:]
-    rcp = torch.flip(torch.cumprod(torch.flip(1.0 - alpha, [-2]), dim=-2),
-                     [-2])
-    trans = torch.cat([rcp[..., 1:, :], torch.ones_like(rcp[..., :1, :])],
-                      dim=-2)
     eff_alpha = torch.cat([torch.ones_like(alpha[..., :1, :]),
                            alpha[..., 1:, :]], dim=-2)
-    return torch.sum(rgb * eff_alpha * trans, dim=-2)
+    return torch.sum(rgb * eff_alpha * _transmittance(alpha), dim=-2)
+
+
+def over_composite_depth(rgba):
+    """Depth-proxy composite of [..., P, 4] layers -> [..., 3]: layer i
+    carries the value i/P, layer 0 contributes 0 (projector.py:225-244);
+    only the alphas are read. The value is broadcast to 3 channels."""
+    p = rgba.shape[-2]
+    alpha = rgba[..., 3:]
+    vals = (torch.arange(p, dtype=alpha.dtype, device=alpha.device)
+            / p)[:, None]
+    out = torch.sum((vals * alpha * _transmittance(alpha))[..., 1:, :],
+                    dim=-2)
+    return out.expand(*out.shape[:-1], 3)
 
 
 def render_equirect_view(rgba_layers, tgt_pose, tgt_pos, radii):
@@ -37,21 +56,57 @@ def render_equirect_view(rgba_layers, tgt_pose, tgt_pos, radii):
     return over_composite(proj.permute(1, 2, 0, 3))
 
 
+def render_equirect_depth(rgba_layers, tgt_pose, tgt_pos, radii):
+    """Gather depth-proxy render of one view (msi.py:384-405):
+    [H, W, P, 4] -> [H, W, 3] float32."""
+    h, w = rgba_layers.shape[0], rgba_layers.shape[1]
+    uv = intersect.intersect_sphere(tgt_pose, tgt_pos, radii, w, h)
+    proj = resample_layers(rgba_layers.permute(2, 0, 1, 3), uv)
+    return over_composite_depth(proj.permute(1, 2, 0, 3))
+
+
+#: Elements of one [shells, H, W] slab of the uv computation: the tables
+#: are built this many at a time, so each float32 temporary of
+#: intersect_sphere_uv holds at most 64 MiB (2 shells at 4096x2048, where
+#: all 32 at once would make each 1 GiB); 640x320x32 is one slab.
+UV_SLAB = 1 << 24
+
+
 def uv_tables(tgt_pose, tgt_pos, radii, height: int, width: int):
     """Per-shell lookup tables of a batch of target views: tgt_pose
     [B, 4, 4], tgt_pos [B, 3] -> (u, v), each [B, P, H, W] float32."""
-    uvs = [intersect.intersect_sphere_uv(tgt_pose[i], tgt_pos[i], radii,
-                                         width, height)
-           for i in range(tgt_pose.shape[0])]
-    return (torch.stack([t[0] for t in uvs]).float().contiguous(),
-            torch.stack([t[1] for t in uvs]).float().contiguous())
+    b, p = tgt_pose.shape[0], radii.shape[0]
+    u = torch.empty((b, p, height, width), dtype=torch.float32,
+                    device=radii.device)
+    v = torch.empty_like(u)
+    step = max(1, UV_SLAB // (height * width))
+    for i in range(b):
+        for p0 in range(0, p, step):
+            ui, vi = intersect.intersect_sphere_uv(
+                tgt_pose[i], tgt_pos[i], radii[p0:p0 + step], width, height)
+            u[i, p0:p0 + step] = ui
+            v[i, p0:p0 + step] = vi
+    return u, v
 
 
-def render_equirect_view_fused_blend(vol, pred, tgt_pose, tgt_pos, radii):
+def render_equirect_view_prepared(layers, tgt_pose, tgt_pos, radii,
+                                  ftb: bool = False, depth: bool = False):
+    """The layer-stack render of a batch: layers [B, P, 4, H, W] (the
+    prepared assembly's stack, models/msi.py), tgt_pose [B, 4, 4], tgt_pos
+    [B, 3] -> [B, H, W, 3] float32, any pose. ftb composites front to back
+    with early termination; depth renders the depth proxy."""
+    u, v = uv_tables(tgt_pose, tgt_pos, radii, layers.shape[3],
+                     layers.shape[4])
+    return rl_ops.render_layers(layers, u, v, ftb=ftb, depth=depth)
+
+
+def render_equirect_view_fused_blend(vol, pred, tgt_pose, tgt_pos, radii,
+                                     depth: bool = False):
     """The blend-fused render of a batch, straight from the sweep volume
     vol [B, 2*P*3, H, W] and the net prediction pred [B, 2P, H, W]:
-    tgt_pose [B, 4, 4], tgt_pos [B, 3] -> [B, H, W, 3] float32. Any pose."""
+    tgt_pose [B, 4, 4], tgt_pos [B, 3] -> [B, H, W, 3] float32. Any pose;
+    depth renders the depth proxy from the alphas."""
     # Imported here: ops.render takes over_composite from this module.
     from matryodshka_tpu_torch.ops import render as render_ops
     u, v = uv_tables(tgt_pose, tgt_pos, radii, vol.shape[2], vol.shape[3])
-    return render_ops.render_blend(vol, pred.contiguous(), u, v)
+    return render_ops.render_blend(vol, pred.contiguous(), u, v, depth=depth)

@@ -1,22 +1,30 @@
-"""MSI inference and rendering: the plain reference path and the fused hot
-path.
+"""MSI inference and rendering: the plain reference path and the kernel
+paths.
 
 Counterpart of `matryodshka_tpu/models/msi.py`. The reference path
-(`infer_msi` + `render_equirect_view`) sweeps by gather, runs the plain
-MSIUNet and assembles [B, H, W, P, 4] layers, in the JAX layouts. The hot
-path (`sweep_stage` -> `net_stage` -> `render_stage`) replaces
-`infer_msi_prepared`, `assemble_outputs_planar` and
-`render_equirect_view_from_prepared`: the sweep kernel writes the net input
-channels first, the net runs through the conv and layer-norm kernels, and
-the render kernel blends, samples and composites straight from the sweep
-volume and the prediction -- no layer stack is ever written.
+(`infer_msi` + `render_equirect_view` / `render_equirect_depth`) sweeps by
+gather, runs the plain MSIUNet and assembles [B, H, W, P, 4] layers, in the
+JAX layouts. The kernel path (`infer_msi_prepared` ->
+`render_equirect_view_from_prepared` / `render_equirect_depth_from_prepared`)
+runs the sweep kernel, which writes the net input channels first, and the
+net through the conv and layer-norm kernels; then
+
+* blend_psv: the blend-fused render kernel blends, samples and composites
+  straight from the sweep volume and the prediction (no layer stack);
+* the other schemes: the prepared assembly writes the layer stack
+  [B, P, 4, H, W] (channels first, unflipped, unpadded, in the compute
+  dtype) and the layer-stack render kernel draws it.
+
+The JAX prepared stack is W-flipped, row-padded and split from two pole-cap
+bands for the TPU ladder kernels; none of that is needed here.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from matryodshka_tpu_torch.geometry import render as render_lib
 from matryodshka_tpu_torch.geometry import sweep as sweep_lib
@@ -29,26 +37,138 @@ def preprocess_image(image):
     return image * 2.0 - 1.0
 
 
+def deprocess_image(image):
+    """[-1, 1] -> [0, 1] (clipping deferred to image IO)."""
+    return (image + 1.0) / 2.0
+
+
+def upsample_align_corners_cf(img, out_h: int, out_w: int):
+    """Bilinear resize of [B, C, H, W] with align_corners=True semantics
+    (msi.py:151-152, tf.image.resize(..., align_corners=True)) -> float32
+    [B, C, out_h, out_w]."""
+    return F.interpolate(img.float(), size=(out_h, out_w), mode="bilinear",
+                         align_corners=True)
+
+
+def upsample_align_corners(img, out_h: int, out_w: int):
+    """As upsample_align_corners_cf in the JAX layout [B, H, W, C]."""
+    return upsample_align_corners_cf(img.permute(0, 3, 1, 2), out_h,
+                                     out_w).permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# RGBA assembly, the four colour schemes (msi.py:108-273).
+# ---------------------------------------------------------------------------
+
 def assemble_rgba(which_color_pred: str, msi_pred, net_input,
                   num_planes: int) -> Dict[str, torch.Tensor]:
-    """blend_psv: msi_pred [B, H, W, 2P] + net_input [B, H, W, 2*P*3] ->
-    {'rgba_layers' [B, H, W, P, 4] (net_input's dtype), 'blend_weights',
-    'alphas'}."""
-    if which_color_pred != "blend_psv":
-        raise ValueError(f"which_color_pred {which_color_pred!r} is not "
-                         f"ported")
+    """msi_pred [B, H, W, K] tanh + net_input [B, H, W, 2*P*3] ->
+    {'rgba_layers' [B, H, W, P, 4] (net_input's dtype), 'alphas' and the
+    scheme's intermediates: 'blend_weights' (all but alpha_only), 'bg_rgb'
+    (blend_bg: the raw tanh of the last 3 channels), 'bg_blend_weights'
+    (blend_bg_psv, which blends twice)}."""
     b, h, w, _ = net_input.shape
     p = num_planes
     fg = net_input[..., :p * 3].reshape(b, h, w, p, 3)
-    bg = net_input[..., p * 3:2 * p * 3].reshape(b, h, w, p, 3)
-    blend = (msi_pred[..., :p] + 1.0) / 2.0
-    alphas = (msi_pred[..., p:2 * p] + 1.0) / 2.0
-    wgt = blend[..., None]
-    rgb = wgt * fg + (1.0 - wgt) * bg
-    return {"blend_weights": blend, "alphas": alphas,
-            "rgba_layers": torch.cat([rgb, alphas[..., None]],
-                                     dim=-1).to(net_input.dtype)}
+    out: Dict[str, torch.Tensor] = {}
+    if which_color_pred == "alpha_only":
+        out["alphas"] = (msi_pred[..., :p] + 1.0) / 2.0
+        rgb = fg
+    else:
+        blend = (msi_pred[..., :p] + 1.0) / 2.0
+        out["blend_weights"] = blend
+        out["alphas"] = (msi_pred[..., p:2 * p] + 1.0) / 2.0
+        wgt = blend[..., None]
+        if which_color_pred == "blend_bg":
+            bg_rgb = msi_pred[..., -3:]
+            out["bg_rgb"] = bg_rgb
+            rgb = wgt * fg + (1.0 - wgt) * bg_rgb[..., None, :]
+        elif which_color_pred in ("blend_psv", "blend_bg_psv"):
+            bg = net_input[..., p * 3:2 * p * 3].reshape(b, h, w, p, 3)
+            rgb = wgt * fg + (1.0 - wgt) * bg
+            if which_color_pred == "blend_bg_psv":
+                bg_blend = (msi_pred[..., 2 * p:3 * p] + 1.0) / 2.0
+                out["bg_blend_weights"] = bg_blend
+                bgw = bg_blend[..., None]
+                rgb = bgw * rgb + (1.0 - bgw) * msi_pred[..., None, -3:]
+        else:
+            raise ValueError(which_color_pred)
+    out["rgba_layers"] = torch.cat([rgb, out["alphas"][..., None]],
+                                   dim=-1).to(net_input.dtype)
+    return out
 
+
+def _shell_rgb(which_color_pred: str, vol, num_planes: int, blend,
+               bg_blend=None, bg_rgb=None):
+    """Shell colours [B, P, 3, H, W] float32 from the sweep volume
+    vol [B, 2*P*3, H, W] (ref eye = fg, src eye = bg) and the scheme's
+    weights [B, P, H, W] in [0, 1]; bg_rgb [B, 3, H, W]."""
+    b, _, h, w = vol.shape
+    v6 = vol.reshape(b, 2, num_planes, 3, h, w)
+    fg = v6[:, 0].to(torch.float32, copy=True)
+    if which_color_pred == "alpha_only":
+        return fg
+    wgt = blend[:, :, None]
+    if which_color_pred == "blend_bg":
+        return fg.mul_(wgt).add_((1.0 - wgt) * bg_rgb[:, None])
+    rgb = fg.mul_(wgt).add_(
+        v6[:, 1].to(torch.float32, copy=True).mul_(1.0 - wgt))
+    if bg_blend is not None:
+        bgw = bg_blend[:, :, None]
+        rgb = rgb.mul_(bgw).add_((1.0 - bgw) * bg_rgb[:, None])
+    return rgb
+
+
+def _layer_stack(rgb, alpha, dtype):
+    """[B, P, 3, H, W] + [B, P, H, W] float32 -> [B, P, 4, H, W] in dtype,
+    one rounding (the storage cast of _finish_prepared, msi.py:217-242)."""
+    b, p, _, h, w = rgb.shape
+    out = torch.empty((b, p, 4, h, w), dtype=dtype, device=rgb.device)
+    out[:, :, :3] = rgb
+    out[:, :, 3] = alpha
+    return out
+
+
+def assemble_rgba_prepared(which_color_pred: str, pred, vol,
+                           num_planes: int, dtype=None):
+    """Counterpart of assemble_rgba_prepared (msi.py:146): the net's tanh
+    prediction pred [B, K, H, W] + the sweep volume vol [B, 2*P*3, H, W] ->
+    the layer stack [B, P, 4, H, W] in dtype (default vol's), blended in
+    float32. Same colour math as assemble_rgba."""
+    p = num_planes
+    pred = pred.float()
+    if which_color_pred == "alpha_only":
+        blend, alpha = None, (pred[:, :p] + 1.0) / 2.0
+    else:
+        blend = (pred[:, :p] + 1.0) / 2.0
+        alpha = (pred[:, p:2 * p] + 1.0) / 2.0
+    bg_blend = ((pred[:, 2 * p:3 * p] + 1.0) / 2.0
+                if which_color_pred == "blend_bg_psv" else None)
+    rgb = _shell_rgb(which_color_pred, vol, p, blend, bg_blend,
+                     pred[:, -3:])
+    return _layer_stack(rgb, alpha, vol.dtype if dtype is None else dtype)
+
+
+def assemble_hres_prepared(which_color_pred: str, u_blend, u_alphas, vol,
+                           u_bg_rgb: Optional[torch.Tensor] = None,
+                           dtype=None):
+    """Counterpart of assemble_hres_prepared (msi.py:284): upsampled blend
+    weights and alphas [B, P, H, W] (already in [0, 1], msi.py:149-165)
+    applied to the high-res sweep volume vol [B, 2*P*3, H, W] -> the layer
+    stack [B, P, 4, H, W] in dtype (default vol's). As in the JAX function,
+    blend_bg_psv blends with the src eye only (no background blend), and
+    blend_bg takes the upsampled background u_bg_rgb [B, 3, H, W]."""
+    which = "blend_psv" if which_color_pred == "blend_bg_psv" \
+        else which_color_pred
+    rgb = _shell_rgb(which, vol, u_alphas.shape[1], u_blend,
+                     bg_rgb=u_bg_rgb)
+    return _layer_stack(rgb, u_alphas.float(),
+                        vol.dtype if dtype is None else dtype)
+
+
+# ---------------------------------------------------------------------------
+# The reference path (gather sweep, plain MSIUNet, gather render).
+# ---------------------------------------------------------------------------
 
 def infer_msi(net, cfg, batch, psv_depths, dtype=None):
     """Reference path: gather sweep + plain MSIUNet + assembly. dtype
@@ -75,9 +195,22 @@ def render_equirect_view(rgba_layers, tgt_pose_rt, tgt_pos, radii):
         for i in range(rgba_layers.shape[0])])
 
 
+def render_equirect_depth(rgba_layers, tgt_pose_rt, tgt_pos, radii):
+    """Gather depth-proxy render of a batch: [B, H, W, P, 4] ->
+    [B, H, W, 3]."""
+    return torch.stack([
+        render_lib.render_equirect_depth(rgba_layers[i], tgt_pose_rt[i],
+                                         tgt_pos[i], radii)
+        for i in range(rgba_layers.shape[0])])
+
+
+# ---------------------------------------------------------------------------
+# The kernel path.
+# ---------------------------------------------------------------------------
+
 def sweep_stage(cfg, batch, psv_depths):
-    """Hot path, stage 1: identity-pose dual-eye sweep of the batch's ODS
-    pair -> net input [B, 2*P*3, H, W] in the compute dtype."""
+    """Stage 1: identity-pose dual-eye sweep of the batch's ODS pair -> net
+    input [B, 2*P*3, H, W] in the compute dtype."""
     return sweep_ops.sweep_volume(preprocess_image(batch["ref_image"]),
                                   preprocess_image(batch["src_image"]),
                                   psv_depths, batch["intrinsics"],
@@ -85,11 +218,52 @@ def sweep_stage(cfg, batch, psv_depths):
 
 
 def net_stage(stages, vol):
-    """Hot path, stage 2: the U-Net -> prediction [B, 2P, H, W] f32."""
+    """Stage 2: the U-Net -> prediction [B, K, H, W] f32."""
     return net_ops.unet_forward(stages, vol)
 
 
 def render_stage(vol, pred, tgt_pose_rt, tgt_pos, msi_depths):
-    """Hot path, stage 3: blend-fused render -> [B, H, W, 3] f32."""
+    """Stage 3 of blend_psv: blend-fused render -> [B, H, W, 3] f32."""
     return render_lib.render_equirect_view_fused_blend(
         vol, pred, tgt_pose_rt, tgt_pos, msi_depths)
+
+
+def assemble_outputs_planar(cfg, vol, pred) -> Dict[str, torch.Tensor]:
+    """The post-net tail (msi.py:578): {'vol', 'pred'} for blend_psv,
+    which the blend-fused render reads as they are; plus 'layers', the
+    prepared layer stack, for the other schemes."""
+    out = {"vol": vol, "pred": pred}
+    if cfg.which_color_pred != "blend_psv":
+        out["layers"] = assemble_rgba_prepared(
+            cfg.which_color_pred, pred, vol, cfg.num_msi_planes,
+            cfg.torch_compute_dtype)
+    return out
+
+
+def infer_msi_prepared(cfg, stages, batch, psv_depths):
+    """Sweep kernel -> net kernels -> assemble_outputs_planar."""
+    vol = sweep_stage(cfg, batch, psv_depths)
+    return assemble_outputs_planar(cfg, vol, net_stage(stages, vol))
+
+
+def render_equirect_view_from_prepared(outputs, tgt_pose_rt, tgt_pos, radii,
+                                       ftb: bool = False,
+                                       depth: bool = False):
+    """Batched render of infer_msi_prepared's outputs -> [B, H, W, 3]
+    float32: the layer-stack kernel (front to back when ftb) where there
+    is a stack, else the blend-fused kernel."""
+    if "layers" in outputs:
+        return render_lib.render_equirect_view_prepared(
+            outputs["layers"], tgt_pose_rt, tgt_pos, radii, ftb=ftb,
+            depth=depth)
+    return render_lib.render_equirect_view_fused_blend(
+        outputs["vol"], outputs["pred"], tgt_pose_rt, tgt_pos, radii,
+        depth=depth)
+
+
+def render_equirect_depth_from_prepared(outputs, tgt_pose_rt, tgt_pos,
+                                        radii, ftb: bool = False):
+    """The depth proxy through the same kernels' depth modes (only the
+    alphas are read; msi.py:639-659)."""
+    return render_equirect_view_from_prepared(outputs, tgt_pose_rt, tgt_pos,
+                                              radii, ftb=ftb, depth=True)

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface, loaded through `ctypes`. The build
-runs at the first CUDA launch, not at import, and lands in `_build/` beside
-this package (listed in `.gitignore`), under a name that carries a hash of
-the sources and flags: a changed source rebuilds, an unchanged one loads
-in milliseconds. The compiler's output, `-Xptxas -v` register and spill
-counts included, is kept beside the library as `<name>.log`.
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`), one
+`nvcc` process per source, all started together, and the objects are linked
+into one shared library with a plain C interface, loaded through `ctypes`.
+The build runs at the first CUDA launch, not at import, and lands in
+`_build/` beside this package (listed in `.gitignore`), under a name that
+carries a hash of the sources and flags: a changed source rebuilds, an
+unchanged one loads in milliseconds. The compiler's output, `-Xptxas -v`
+register and spill counts included, is kept beside the library as
+`<name>.log`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,7 +37,8 @@ SIGNATURES = {
     "matry_conv": [_P] * 4 + [_I] * 19 + [_P],
     "matry_layernorm": [_P] * 5 + [_I, _I, ctypes.c_longlong, _I,
                                    ctypes.c_float, _I, _I, _P],
-    "matry_render": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
+    "matry_render": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
+    "matry_render_layers": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
 }
 
 _lib = None
@@ -70,16 +73,44 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    objs, procs = [], []
+    try:
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        log, failed = [], []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        if not failed:
+            done = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  check=False)
+            log.append(" ".join(link) + "\n" + done.stdout)
+            if done.returncode != 0:
+                failed.append(done.stdout)
+        so.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-4000:])
+        os.replace(tmp, so)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return so
 
 

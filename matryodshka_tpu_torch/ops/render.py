@@ -6,22 +6,25 @@ pole caps beside it; its source note gives the bound and the design.
 Inputs are the sweep's net input vol [B, 2*P*3, H, W] (ref eye = fg, src
 eye = bg), the net's tanh prediction pred [B, 2P, H, W] float32 (blend
 weights then alphas) and per-shell lookup tables u, v [B, P, H, W]; the
-output is the ERP view [B, H, W, 3] float32.
+output is the ERP view [B, H, W, 3] float32. depth=True is K3's depth
+mode: the depth proxy from the alphas alone.
 """
 
 from __future__ import annotations
 
 import torch
 
-from matryodshka_tpu_torch.geometry.render import over_composite
+from matryodshka_tpu_torch.geometry.render import (over_composite,
+                                                   over_composite_depth)
 from matryodshka_tpu_torch.ops import _build
 from matryodshka_tpu_torch.ops.resample import resample_layers_uv
 
 #: Early ray termination threshold on the transmittance (K3's FTB_EPS).
 EPS = 1e-6
 
-#: Launches of the render kernel in this process.
+#: Launches of the render kernel in this process: colour and depth mode.
 launches = 0
+depth_launches = 0
 
 
 def blend_layers(vol, pred):
@@ -36,24 +39,25 @@ def blend_layers(vol, pred):
     return torch.cat([rgb, alpha[:, :, None]], dim=2)
 
 
-def render_blend_plain(vol, pred, u, v):
+def render_blend_plain(vol, pred, u, v, depth: bool = False):
     """Plain version of the kernel: blend at source pixels, gather-sample
     each shell, back-to-front closed-form over-composite (no early
-    termination)."""
+    termination); over_composite_depth for depth."""
     layers = blend_layers(vol, pred)
+    composite = over_composite_depth if depth else over_composite
     outs = []
     for i in range(vol.shape[0]):
         proj = resample_layers_uv(layers[i].permute(0, 2, 3, 1), u[i], v[i])
-        outs.append(over_composite(proj.permute(1, 2, 0, 3)))
+        outs.append(composite(proj.permute(1, 2, 0, 3)))
     return torch.stack(outs)
 
 
-def render_blend(vol, pred, u, v):
+def render_blend(vol, pred, u, v, depth: bool = False):
     """The render: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
     if vol.device.type == "cpu":
-        return render_blend_plain(vol, pred, u, v)
-    global launches
+        return render_blend_plain(vol, pred, u, v, depth)
+    global launches, depth_launches
     b, c2, h, w = vol.shape
     p = c2 // 6
     req = _build.require
@@ -73,8 +77,11 @@ def render_blend(vol, pred, u, v):
     out = torch.empty((b, h, w, 3), dtype=torch.float32, device=vol.device)
     err = _build.lib().matry_render(
         vol.data_ptr(), pred.data_ptr(), u.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, p, h, w, int(vol.dtype == torch.bfloat16), EPS,
-        _build.stream_ptr(vol.device))
+        out.data_ptr(), b, p, h, w, int(vol.dtype == torch.bfloat16),
+        int(depth), EPS, _build.stream_ptr(vol.device))
     _build.check(err, "matry_render")
-    launches += 1
+    if depth:
+        depth_launches += 1
+    else:
+        launches += 1
     return out

@@ -25,6 +25,7 @@ from matryodshka_tpu_torch.ops import conv as conv_ops
 from matryodshka_tpu_torch.ops import layernorm as ln_ops
 from matryodshka_tpu_torch.ops import net as net_ops
 from matryodshka_tpu_torch.ops import render as render_ops
+from matryodshka_tpu_torch.ops import render_layers as rl_ops
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
 
 H, W, P, NGF = 32, 64, 4, 8
@@ -105,27 +106,107 @@ def test_layernorm_kernel_matches_plain(cuda, dtype):
     assert (got - want).abs().max().item() <= tol
 
 
+def _uv(dev, rot_deg, h=H, w=W):
+    a = math.radians(rot_deg)
+    rt = torch.eye(4, device=dev)[None]
+    rt[0, 0, 0], rt[0, 0, 2] = math.cos(a), math.sin(a)
+    rt[0, 2, 0], rt[0, 2, 2] = -math.sin(a), math.cos(a)
+    radii = torch.tensor([100.0, 5.0, 1.5, 1.0], device=dev)
+    return render_lib.uv_tables(rt, torch.tensor([[0.05, 0.0, 0.01]],
+                                                 device=dev), radii, h, w)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("depth", [False, True])
 @pytest.mark.parametrize("rot_deg", [0.0, 40.0])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_render_kernel_matches_plain(cuda, rot_deg, dtype):
+def test_render_kernel_matches_plain(cuda, rot_deg, dtype, depth):
     """The same f32 math in another order, plus early termination at
-    T < 1e-6: 1e-5 on values in [-1, 1]."""
+    T < 1e-6: 1e-5 on values in [-1, 1] (colour) and [0, 1) (depth)."""
     rng = np.random.RandomState(8)
     vol = torch.from_numpy(rng.uniform(-1, 1, (1, 6 * P, H, W)).astype(
         np.float32)).to(cuda, dtype)
     pred = torch.from_numpy(np.tanh(rng.randn(1, 2 * P, H, W) * 1.5).astype(
         np.float32)).to(cuda)
-    a = math.radians(rot_deg)
-    rt = torch.eye(4, device=cuda)[None]
-    rt[0, 0, 0], rt[0, 0, 2] = math.cos(a), math.sin(a)
-    rt[0, 2, 0], rt[0, 2, 2] = -math.sin(a), math.cos(a)
-    radii = torch.tensor([100.0, 5.0, 1.5, 1.0], device=cuda)
-    u, v = render_lib.uv_tables(rt, torch.tensor([[0.05, 0.0, 0.01]],
-                                                 device=cuda), radii, H, W)
-    got = render_ops.render_blend(vol, pred, u, v)
-    want = render_ops.render_blend_plain(vol, pred, u, v)
+    u, v = _uv(cuda, rot_deg)
+    n = render_ops.depth_launches if depth else render_ops.launches
+    got = render_ops.render_blend(vol, pred, u, v, depth=depth)
+    want = render_ops.render_blend_plain(vol, pred, u, v, depth=depth)
     assert (got - want).abs().max().item() <= 1e-5
+    assert (render_ops.depth_launches if depth else render_ops.launches) \
+        == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [False, True])
+@pytest.mark.parametrize("ftb", [False, True])
+@pytest.mark.parametrize("rot_deg", [0.0, 40.0])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_render_layers_kernel_matches_plain(cuda, rot_deg, dtype, ftb,
+                                            depth):
+    """Back to front (K4/K5) and front to back with early termination at
+    T < 1e-6 (K6), colour and depth, against the shell-streamed plain
+    composite: the same f32 samples composited in another order, 1e-5 on
+    values in [-1, 1]."""
+    rng = np.random.RandomState(9)
+    layers = rng.uniform(-1, 1, (2, P, 4, H, W)).astype(np.float32)
+    layers[:, :, 3] = 1.0 / (1.0 + np.exp(-3.0 * layers[:, :, 3]))
+    layers = torch.from_numpy(layers).to(cuda, dtype)
+    u, v = _uv(cuda, rot_deg)
+    u, v = torch.cat([u, u]), torch.cat([v, v.flip(-1)])
+    before = (rl_ops.launches, rl_ops.ftb_launches)
+    got = rl_ops.render_layers(layers, u, v, ftb=ftb, depth=depth)
+    want = rl_ops.render_layers_plain(layers, u, v, depth=depth)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (rl_ops.launches, rl_ops.ftb_launches) == (
+        before[0] + (not ftb), before[1] + ftb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["blend_psv", "blend_bg", "blend_bg_psv",
+                                    "alpha_only"])
+def test_infer_fn_matches_plain(cuda, scheme):
+    """cli.test.build_infer_fn on the card (bf16 kernels) against its
+    all-plain f32 twin, image and depth, to the bf16 bound of
+    chip_smoke.py; the head widths 2P, 2P+3, 3P+3 and P go through the
+    conv kernel."""
+    from matryodshka_tpu_torch.cli import test as cli_test
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P, ngf=NGF,
+                             which_color_pred=scheme)
+    params = entry.make_params(cfg, seed=3, device=cuda)
+    b = entry.synthetic_batch(cfg, 2, cuda, tgt_pos=(0.03, -0.01, 0.02))
+    got = cli_test.build_infer_fn(cfg, params, "tgt_image")(b)
+    want = cli_test.infer_plain(cfg, params, b)
+    for k in ("output_image", "output_depth"):
+        assert (got[k] - want[k]).abs().max().item() <= 2e-2, k
+
+
+@pytest.mark.cuda
+def test_hres_render_matches_plain(cuda):
+    """The high-res re-render (sweep, upsample, hres assembly, layer-stack
+    kernel) at 128x256 against the shell-streamed plain f32 path."""
+    from matryodshka_tpu_torch.cli import test as cli_test
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P, ngf=NGF, hres_height=2 * H,
+                             hres_width=2 * W, min_depth=2.0, max_depth=20.0)
+    rng = np.random.RandomState(10)
+
+    def t(*shape):
+        return torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+
+    ref, src, bw, al = t(1, 2 * H, 2 * W, 3), t(1, 2 * H, 2 * W, 3), \
+        t(1, H, W, P), t(1, H, W, P)
+    eye = torch.eye(4, device=cuda)[None]
+    intr = torch.eye(3, device=cuda)[None].clone()
+    intr[0, 0, 0] = 0.032
+    pos = torch.tensor([[0.02, 0.01, -0.015]], device=cuda)
+    rgb, depth = cli_test.build_hres_render_fn(cfg)(ref, src, bw, al, eye,
+                                                    eye, eye, intr, pos)
+    rgb_p, depth_p = cli_test.hres_render_plain(cfg, ref, src, bw, al, intr,
+                                                pos)
+    assert (rgb - rgb_p).abs().max().item() <= 2e-2
+    assert (depth - depth_p).abs().max().item() <= 2e-2
 
 
 @pytest.mark.cuda

@@ -34,6 +34,7 @@ from matryodshka_tpu_torch.models import msi as tmsi
 from matryodshka_tpu_torch.ops import conv as conv_ops
 from matryodshka_tpu_torch.ops import layernorm as ln_ops
 from matryodshka_tpu_torch.ops import render as render_ops
+from matryodshka_tpu_torch.ops import render_layers as rl_ops
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
 
 torch.set_num_threads(1)
@@ -156,9 +157,11 @@ def test_forward_matches_forward_plain(kind):
 
 def test_import_leaves_jax_out():
     code = ("import sys, matryodshka_tpu_torch.entry, "
-            "matryodshka_tpu_torch.ops.net; "
+            "matryodshka_tpu_torch.ops.net, matryodshka_tpu_torch.cli.test, "
+            "matryodshka_tpu_torch.data.loader, "
+            "matryodshka_tpu_torch.ops.render_layers; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'matryodshka_tpu')); "
+            "('jax', 'jaxlib', 'flax', 'matryodshka_tpu', 'PIL')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -182,10 +185,25 @@ def test_wrappers_raise_off_cpu_and_cuda():
     vol = torch.empty((1, 12, 8, 16), device=meta)
     with pytest.raises(ValueError):
         render_ops.render_blend(vol, vol[:, :4], vol[:, :2], vol[:, :2])
+    with pytest.raises(ValueError):
+        render_ops.render_blend(vol, vol[:, :4], vol[:, :2], vol[:, :2],
+                                depth=True)
+    layers = torch.empty((1, 2, 4, 8, 16), device=meta)
+    for ftb in (False, True):
+        with pytest.raises(ValueError):
+            rl_ops.render_layers(layers, vol[:, :2], vol[:, :2], ftb=ftb)
 
 
 def test_config_accepts_only_blend_psv():
-    cfg = entry.flagship_cfg()
-    assert cfg.num_net_outputs() == 64 and cfg.num_net_inputs() == 192
-    with pytest.raises(ValueError):
-        entry.flagship_cfg(which_color_pred="alpha_only")
+    """All four colour schemes of the JAX package are accepted, with its
+    head widths; an unknown scheme, an unported input type and unequal
+    plane counts are rejected."""
+    widths = {"blend_psv": 64, "blend_bg": 67, "blend_bg_psv": 99,
+              "alpha_only": 32}
+    for scheme, k in widths.items():
+        cfg = entry.flagship_cfg(which_color_pred=scheme)
+        assert cfg.num_net_outputs() == k and cfg.num_net_inputs() == 192
+    for bad in (dict(which_color_pred="blend_nothing"),
+                dict(input_type="PP"), dict(num_msi_planes=16)):
+        with pytest.raises(ValueError):
+            entry.flagship_cfg(**bad)
