@@ -6,7 +6,7 @@ Builds the port's CUDA kernels from matryodshka_tpu_torch/csrc and checks
 each kernel against its plain PyTorch version at the shapes its path gives
 it, all at the full width of the flagship configuration (640x320 ODS input,
 32 planes per eye, 32 shells, ngf 64, bf16) with seeded random weights.
-Then it drives three paths, each with every launch count set to 0 just
+Then it drives four paths, each with every launch count set to 0 just
 before it and read just after:
 
 1. entry.forward (blend_psv: sweep, U-Net, blend-fused render) on three
@@ -17,10 +17,18 @@ before it and read just after:
    the prepared assembly and the layer-stack render (the other three);
    then once front to back (the ftb=True prepared render);
 3. the test CLI's 4096x2048 high-res re-render from the blend_psv
-   request's blend weights and alphas.
+   request's blend weights and alphas;
+4. the coord net (coord_net=True, the released checkpoints' architecture:
+   the conv kernel in its zero-padding and coord-channel mode) through
+   entry.forward on two requests and the test CLI once (blend_psv, image
+   and depth).
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
-and plain versions are timed with CUDA events.
+and plain versions are timed with CUDA events, and beside each kernel the
+least time the card could take for its work (bound_ms: the larger of its
+bytes over the memory rate and its operations over the peak rate for
+their type, computed from this run's inputs) and, where one PyTorch call
+computes the same function, that call's time (library_ms).
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 Every check that fails raises, so the script exits non-zero before its last
@@ -55,6 +63,37 @@ CLI_REQUESTS = [("blend_psv", 3, (0.04, 0.01, -0.02)),
                 ("blend_bg_psv", 5, (0.01, -0.04, 0.03)),
                 ("alpha_only", 6, (-0.05, 0.0, -0.01))]
 HRES = (2048, 4096)
+
+#: H100 SXM peaks (NVIDIA's data sheet, dense, at a 700 W power limit):
+#: device memory bytes/s, bf16 tensor-core FLOP/s, f32 FLOP/s outside the
+#: tensor cores.
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+#: f32 operations per sample of the render kernels (estimates from their
+#: inner loops): a blend-fused colour sample (4 taps x (6 volume values
+#: blended + 2 prediction values) with bilinear weights, and the
+#: composite); a layer-stack colour sample (4 taps x 4 channels); a depth
+#: sample (4 taps x 1 alpha). Memory bounds every render by far.
+OPS_RENDER_BLEND = 80
+OPS_RENDER_LAYERS = 40
+OPS_RENDER_DEPTH = 16
+#: f32 operations per output element: the sweep (two vertical and one
+#: horizontal lerp, 3 ops each) and the layer norm (sum and sum of
+#: squares, then normalize, scale, shift, ReLU).
+OPS_SWEEP = 9
+OPS_LAYERNORM = 7
+
+
+def bound(nbytes: float, ops: float, peak: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM_BPS and ops over
+    peak."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def nvidia_smi_line() -> str:
@@ -124,6 +163,7 @@ def main() -> None:
     from matryodshka_tpu_torch.ops import render as render_ops
     from matryodshka_tpu_torch.ops import render_layers as rl_ops
     from matryodshka_tpu_torch.ops import sweep as sweep_ops
+    from matryodshka_tpu_torch.ops.resample import resample_layers_uv
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} {tag}")
@@ -146,14 +186,14 @@ def main() -> None:
     batch = entry.synthetic_batch(cfg, 0, dev)
     rng = torch.Generator(device=dev).manual_seed(1234)
     h, w, p = cfg.height, cfg.width, cfg.num_msi_planes
-    errs = {"sweep": 0.0, "conv": 0.0, "layernorm": 0.0, "render": 0.0,
-            "render_depth": 0.0, "render_layers_k4": 0.0,
+    errs = {"sweep": 0.0, "conv": 0.0, "conv_coord": 0.0, "layernorm": 0.0,
+            "render": 0.0, "render_depth": 0.0, "render_layers_k4": 0.0,
             "render_layers_k5": 0.0, "render_layers_k6": 0.0}
 
     def gate(name, what, got, want, tol_abs):
         err = (got.float() - want.float()).abs().max().item()
         fin = bool(torch.isfinite(got.float()).all())
-        print(f"{name:9s} {what:34s} max_abs_err {err:.3e} tol "
+        print(f"{name:10s} {what:34s} max_abs_err {err:.3e} tol "
               f"{tol_abs:.3e} {'ok' if err <= tol_abs and fin else 'FAIL'}")
         check(fin and err <= tol_abs, f"{name} {what}")
         errs[name] = max(errs[name], err)
@@ -197,6 +237,23 @@ def main() -> None:
             gate("layernorm", f"{name} {tuple(y.shape[1:])}",
                  ln_ops.layer_norm_relu(y, g, bt), zp,
                  2.0 ** -7 * zp.float().abs().max().item())
+
+    # the coord net's conv kernel mode: every stage of its plan at ngf 64,
+    # on the wrap stages' inputs (same shapes), with the same tolerance.
+    # Convs and downs read the coord channel (Cin + 1 weights) and pad with
+    # zeros (downs SAME: 320x640 -> 160x320); deconvs pad with zeros.
+    ccfg = entry.flagship_cfg(coord_net=True)
+    cparams = entry.make_params(ccfg, seed=0, device=dev)
+    for plan, st in zip(cparams.net.plan, cparams.stages):
+        name, kind, _, _, cout, _, outd, _ = plan
+        x = stage_inputs[name]
+        y = conv_ops.conv(x, st["w"], st["b"], **st["args"])
+        check(tuple(y.shape[2:]) == (h // outd, w // outd),
+              f"coord {name} output {tuple(y.shape)}")
+        yp = conv_ops.conv_plain(x, st["w"], st["b"], **st["args"])
+        gate("conv_coord", f"{name} {kind} {tuple(x.shape[1:])}->{cout}"
+             f"{' +coord' if 'coord' in st['args'] else ''}", y, yp,
+             2.0 ** -7 * yp.float().abs().max().item())
 
     # render: translated and rotated target, bf16 volume, f32 prediction.
     # The same f32 math in another order, plus early termination at
@@ -267,12 +324,14 @@ def main() -> None:
             m.launches = 0
         render_ops.depth_launches = 0
         rl_ops.ftb_launches = 0
+        conv_ops.coord_launches = 0
 
     def read_counts():
         torch.cuda.synchronize()
         got = {k: m.launches for k, m in counted.items()}
         got["render_depth"] = render_ops.depth_launches
         got["render_layers_ftb"] = rl_ops.ftb_launches
+        got["conv_coord"] = conv_ops.coord_launches
         return got
 
     def gate_e2e(what, got, want):
@@ -361,60 +420,181 @@ def main() -> None:
              rl_ops.render_layers(hstack, hu, hv, depth=depth),
              rl_ops.render_layers_plain(hstack, hu, hv, depth=depth), 1e-5)
 
+    # ---- path 4: the coord net through entry.forward and the test CLI ------
+    cbatches = [entry.synthetic_batch(ccfg, seed, dev, tgt_pos=pos)
+                for seed, pos in REQUESTS[:2]]
+    reset_counts()
+    couts = [entry.forward(cparams, b) for b in cbatches]
+    coord_launches = read_counts()
+    print(f"launches over {len(cbatches)} coord-net requests: "
+          f"{coord_launches}")
+    for k in ("sweep", "conv_coord", "layernorm", "render"):
+        check(coord_launches[k] > 0, f"kernel {k} was not launched on the "
+                                     f"coord net's entry.forward path")
+    for (seed, pos), b, out in zip(REQUESTS, cbatches, couts):
+        check(tuple(out.shape) == (1, h, w, 3), f"coord output {out.shape}")
+        check(bool(torch.isfinite(out).all()), "coord: non-finite output")
+        err = (out - entry.forward_plain(cparams, b)).abs()
+        err_ref = (out - entry.forward_reference(cparams, b)).abs()
+        print(f"coord request seed {seed} tgt_pos {pos}: |bf16 kernels - f32 "
+              f"plain| max {err.max().item():.3e} mean "
+              f"{err.mean().item():.3e} (gate {E2E_TOL:.0e}); vs f32 "
+              f"reference semantics max {err_ref.max().item():.3e} mean "
+              f"{err_ref.mean().item():.3e}")
+        check(err.max().item() <= E2E_TOL, "coord slice vs all-plain f32")
+    cscheme, cseed, cpos = CLI_REQUESTS[0]
+    cb_cli = entry.synthetic_batch(ccfg, cseed, dev, tgt_pos=cpos)
+    reset_counts()
+    ccli_out = cli_test.build_infer_fn(ccfg, cparams, cli_outputs)(cb_cli)
+    ccli_launches = read_counts()
+    print(f"launches of the coord-net test CLI request: {ccli_launches}")
+    for k in ("sweep", "conv_coord", "layernorm", "render", "render_depth"):
+        check(ccli_launches[k] > 0, f"kernel {k} was not launched on the "
+                                    f"coord net's test CLI path")
+    gate_e2e(f"cli coord {cscheme} tgt_pos {cpos}", ccli_out,
+             cli_test.infer_plain(ccfg, cparams, cb_cli))
+
     # ---- times (CUDA events, 2 warm-up, median of 10) ----------------------
     b0 = batches[0]
     rt0 = torch.eye(4, device=dev)[None]
-    vol0 = msi_lib.sweep_stage(cfg, b0, params.psv_depths)
-    pred0 = msi_lib.net_stage(params.stages, vol0)
-    stage_ms = {
-        "sweep": time_ms(lambda: msi_lib.sweep_stage(cfg, b0,
-                                                     params.psv_depths)),
-        "net": time_ms(lambda: msi_lib.net_stage(params.stages, vol0)),
-        "render": time_ms(lambda: msi_lib.render_stage(
-            vol0, pred0, rt0, b0["tgt_pose"], params.msi_depths)),
-        "e2e": time_ms(lambda: entry.forward(params, b0)),
-        "e2e_plain_f32": time_ms(lambda: entry.forward_plain(params, b0),
-                                 iters=5),
-    }
-    for k, t in stage_ms.items():
-        print(f"stage {k:14s} {t:9.3f} ms {tag}")
-    print(f"e2e {1000.0 / stage_ms['e2e']:.2f} frames/s {tag}")
 
-    kernel_ms, plain_ms = {}, {}
+    def stage_times(prm, bq):
+        c = prm.cfg
+        vq = msi_lib.sweep_stage(c, bq, prm.psv_depths)
+        pq = msi_lib.net_stage(prm.stages, vq)
+        return {
+            "sweep": time_ms(lambda: msi_lib.sweep_stage(c, bq,
+                                                         prm.psv_depths)),
+            "net": time_ms(lambda: msi_lib.net_stage(prm.stages, vq)),
+            "render": time_ms(lambda: msi_lib.render_stage(
+                vq, pq, rt0, bq["tgt_pose"], prm.msi_depths)),
+            "e2e": time_ms(lambda: entry.forward(prm, bq)),
+            "e2e_plain_f32": time_ms(lambda: entry.forward_plain(prm, bq),
+                                     iters=5),
+        }, vq, pq
+
+    stage_ms, vol0, pred0 = stage_times(params, b0)
+    cstage_ms, _, _ = stage_times(cparams, cbatches[0])
+    for k in stage_ms:
+        print(f"stage {k:14s} wrap {stage_ms[k]:9.3f} ms  coord "
+              f"{cstage_ms[k]:9.3f} ms {tag}")
+    print(f"e2e {1000.0 / stage_ms['e2e']:.2f} frames/s (wrap), "
+          f"{1000.0 / cstage_ms['e2e']:.2f} frames/s (coord) {tag}")
+
+    kernel_ms, plain_ms, lib_ms, bounds = {}, {}, {}, {}
     kernel_ms["sweep"] = time_ms(
         lambda: sweep_ops.ods_sweep(images, rowp, torch.bfloat16))
     plain_ms["sweep"] = time_ms(
         lambda: sweep_ops.ods_sweep_plain(images, rowp, torch.bfloat16))
-    kernel_ms["conv"] = plain_ms["conv"] = 0.0
-    kernel_ms["layernorm"] = plain_ms["layernorm"] = 0.0
-    flops = 0.0
-    for plan, st in zip(params.net.plan, params.stages):
-        name, kind, _, cins, cout, _, _, _ = plan
-        x = stage_inputs[name]
-        y = conv_ops.conv(x, st["w"], st["b"], **st["args"])
-        kt = time_ms(lambda: conv_ops.conv(x, st["w"], st["b"],
-                                           **st["args"]))
-        pt = time_ms(lambda: conv_ops.conv_plain(x, st["w"], st["b"],
-                                                 **st["args"]))
-        kk = st["w"].shape[0] * st["w"].shape[1]      # taps x Cin per pixel
-        f = 2.0 * kk * cout * y.shape[2] * y.shape[3] / st["w"].shape[0]
-        flops += f
-        line = (f"conv {name:10s} kernel {kt:8.3f} ms ({f / kt / 1e9:6.2f} "
-                f"TFLOP/s) plain {pt:8.3f} ms")
-        kernel_ms["conv"] += kt
-        plain_ms["conv"] += pt
-        if "gamma" in st:
-            lt = time_ms(lambda: ln_ops.layer_norm_relu(y, st["gamma"],
-                                                        st["beta"]))
-            lp = time_ms(lambda: ln_ops.layer_norm_relu_plain(
-                y, st["gamma"], st["beta"]))
-            kernel_ms["layernorm"] += lt
-            plain_ms["layernorm"] += lp
-            line += f" | layernorm kernel {lt:7.3f} ms plain {lp:7.3f} ms"
-        print(line, tag)
-    print(f"net conv total {flops / 1e9:.1f} GFLOP: kernel "
-          f"{kernel_ms['conv']:.3f} ms = "
-          f"{flops / kernel_ms['conv'] / 1e9:.2f} TFLOP/s {tag}")
+    lib_ms["sweep"] = None
+    out_elems = 2 * p * 3 * h * w
+    bounds["sweep"] = bound(
+        nbytes(images, *rowp.values()) + 2 * out_elems,
+        OPS_SWEEP * out_elems, F32_FLOPS)
+
+    def time_net(prm, key):
+        """Per stage: the conv kernel, its plain version and the library
+        conv (cuDNN in bf16 on the same operands, zero padded: F.conv2d on
+        the input with the coord channel appended for coord stages,
+        F.conv_transpose2d for deconvs); for the wrap net also the LN+ReLU
+        kernel, its plain version and two library calls, F.group_norm
+        with one group and F.layer_norm over (C, H, W) with gamma and beta
+        expanded, each + relu_. Sums into kernel_ms / plain_ms / lib_ms
+        (for the LN the faster call's sum) and the bounds."""
+        kernel_ms[key] = plain_ms[key] = lib_ms[key] = 0.0
+        with_ln = key == "conv"
+        if with_ln:
+            kernel_ms["layernorm"] = plain_ms["layernorm"] = 0.0
+            ln_lib = {"group_norm": 0.0, "layer_norm": 0.0}
+        flops = cbytes = ln_bytes = ln_elems = 0.0
+        for plan, st in zip(prm.net.plan, prm.stages):
+            name, kind, _, cins, cout, _, _, rate = plan
+            args = st["args"]
+            x = stage_inputs[name]
+            y = conv_ops.conv(x, st["w"], st["b"], **args)
+            kt = time_ms(lambda: conv_ops.conv(x, st["w"], st["b"], **args))
+            pt = time_ms(lambda: conv_ops.conv_plain(x, st["w"], st["b"],
+                                                     **args))
+            layer = getattr(prm.net, name)
+            wb = layer.weight.detach().to(torch.bfloat16)
+            bb = st["b"].to(torch.bfloat16)
+            if kind == "deconv":
+                wt = wb.flip(2, 3).transpose(0, 1).contiguous()
+                lt = time_ms(lambda: torch.nn.functional.conv_transpose2d(
+                    x, wt, bb, stride=2, padding=1))
+            else:
+                xl = (conv_ops.with_coord(x, args["coord"])
+                      if "coord" in args else x)
+                lo = conv_ops.pad_pair(args.get("pad", 0))
+                xl = torch.nn.functional.pad(xl, (lo[0], lo[1], lo[0],
+                                                  lo[1]))
+                lt = time_ms(lambda: torch.nn.functional.conv2d(
+                    xl, wb, bb, stride=args.get("stride", 1),
+                    dilation=args.get("dil", 1)))
+            kk = st["w"].shape[0] * st["w"].shape[1]   # taps x Cin' per px
+            f = 2.0 * kk * cout * y.shape[2] * y.shape[3] / st["w"].shape[0]
+            flops += f
+            cbytes += nbytes(x, st["w"], st["b"], y) + (
+                nbytes(args["coord"]) if "coord" in args else 0)
+            line = (f"{key} {name:10s} kernel {kt:8.3f} ms "
+                    f"({f / kt / 1e9:6.2f} TFLOP/s) plain {pt:8.3f} ms "
+                    f"library bf16 {lt:7.3f} ms")
+            kernel_ms[key] += kt
+            plain_ms[key] += pt
+            lib_ms[key] += lt
+            if with_ln and "gamma" in st:
+                g, bt = st["gamma"], st["beta"]
+                nt = time_ms(lambda: ln_ops.layer_norm_relu(y, g, bt))
+                npt = time_ms(lambda: ln_ops.layer_norm_relu_plain(y, g, bt))
+                gnt = time_ms(lambda: torch.relu_(
+                    torch.nn.functional.group_norm(
+                        y, 1, g.to(y.dtype), bt.to(y.dtype),
+                        eps=ln_ops.EPS)))
+                chw = y.shape[1:]
+                ge = g.to(y.dtype)[:, None, None].expand(chw).contiguous()
+                be = bt.to(y.dtype)[:, None, None].expand(chw).contiguous()
+                lnt = time_ms(lambda: torch.relu_(
+                    torch.nn.functional.layer_norm(y, chw, ge, be,
+                                                   eps=ln_ops.EPS)))
+                kernel_ms["layernorm"] += nt
+                plain_ms["layernorm"] += npt
+                ln_lib["group_norm"] += gnt
+                ln_lib["layer_norm"] += lnt
+                ln_bytes += 2 * nbytes(y) + nbytes(g, bt)
+                ln_elems += y.numel()
+                line += (f" | layernorm kernel {nt:7.3f} ms plain "
+                         f"{npt:7.3f} ms library group_norm {gnt:7.3f} ms "
+                         f"layer_norm {lnt:7.3f} ms")
+            print(line, tag)
+        bounds[key] = bound(cbytes, flops, BF16_FLOPS)
+        if with_ln:
+            bounds["layernorm"] = bound(ln_bytes, OPS_LAYERNORM * ln_elems,
+                                        F32_FLOPS)
+            call = min(ln_lib, key=ln_lib.get)
+            lib_ms["layernorm"] = ln_lib[call]
+            print(f"net layernorm library: F.group_norm "
+                  f"{ln_lib['group_norm']:.3f} ms, F.layer_norm "
+                  f"{ln_lib['layer_norm']:.3f} ms; "
+                  f"library_ms is F.{call} {tag}")
+        print(f"net {key} total {flops / 1e9:.1f} GFLOP: kernel "
+              f"{kernel_ms[key]:.3f} ms = "
+              f"{flops / kernel_ms[key] / 1e9:.2f} TFLOP/s; library bf16 "
+              f"{lib_ms[key]:.3f} ms; bound {bounds[key][0]:.3f} ms "
+              f"({bounds[key][1]}) {tag}")
+
+    time_net(params, "conv")
+    time_net(cparams, "conv_coord")
+
+    def visited(alpha, u, v):
+        """Share of (pixel, shell) samples a front-to-back kernel takes on
+        these inputs: alpha [P, H, W] in [0, 1] at source pixels, sampled
+        at each shell's table; shell P-1 first, stop once T < EPS."""
+        a = resample_layers_uv(alpha[..., None], u, v)[..., 0].flip(0)
+        trans = torch.cumprod(1.0 - a, dim=0)
+        reached = torch.cat([torch.ones_like(trans[:1]),
+                             (trans[:-1] >= render_ops.EPS).float()])
+        return reached.mean().item()
+
     u0, v0 = render_lib.uv_tables(rt0, b0["tgt_pose"], params.msi_depths,
                                   h, w)
     kernel_ms["render"] = time_ms(
@@ -426,20 +606,44 @@ def main() -> None:
     plain_ms["render_depth"] = time_ms(
         lambda: render_ops.render_blend_plain(vol0, pred0, u0, v0,
                                               depth=True), iters=5)
+    out3 = 3 * 4 * h * w
+    frac = visited((pred0[0, p:] + 1.0) / 2.0, u0[0], v0[0])
+    bounds["render"] = bound(
+        frac * nbytes(vol0, pred0, u0, v0) + out3,
+        frac * OPS_RENDER_BLEND * p * h * w, F32_FLOPS)
+    bounds["render_depth"] = bound(
+        frac * (nbytes(pred0) / 2 + nbytes(u0, v0)) + out3,
+        frac * OPS_RENDER_DEPTH * p * h * w, F32_FLOPS)
+    print(f"K3 front to back takes {frac:.4f} of the (pixel, shell) samples "
+          f"on this request")
     for name, ftb in (("render_layers_k4", False),
                       ("render_layers_k6", True)):
         kernel_ms[name] = time_ms(
             lambda: rl_ops.render_layers(stack, u0, v0, ftb=ftb))
         plain_ms[name] = time_ms(
             lambda: rl_ops.render_layers_plain(stack, u0, v0), iters=5)
+        frac = visited(stack[0, :, 3].float(), u0[0], v0[0]) if ftb else 1.0
+        bounds[name] = bound(frac * nbytes(stack, u0, v0) + out3,
+                             frac * OPS_RENDER_LAYERS * p * h * w, F32_FLOPS)
+        if ftb:
+            print(f"K6 front to back takes {frac:.4f} of the (pixel, shell) "
+                  f"samples on this stack")
     kernel_ms["render_layers_k5"] = time_ms(
         lambda: rl_ops.render_layers(hstack, hu, hv), iters=5)
     plain_ms["render_layers_k5"] = time_ms(
         lambda: rl_ops.render_layers_plain(hstack, hu, hv), iters=1,
         warmup=1)
+    bounds["render_layers_k5"] = bound(
+        nbytes(hstack, hu, hv) + 3 * 4 * hh * hw,
+        OPS_RENDER_LAYERS * p * hh * hw, F32_FLOPS)
+    for k in ("render", "render_depth", "render_layers_k4",
+              "render_layers_k5", "render_layers_k6"):
+        lib_ms[k] = None
     for k in kernel_ms:
+        lib = "null" if lib_ms[k] is None else f"{lib_ms[k]:9.3f} ms"
         print(f"kernel {k:16s} {kernel_ms[k]:9.3f} ms  plain "
-              f"{plain_ms[k]:9.3f} ms {tag}")
+              f"{plain_ms[k]:9.3f} ms  library {lib}  bound "
+              f"{bounds[k][0]:.4f} ms ({bounds[k][1]}) {tag}")
 
     # the test CLI, per scheme: stages and end to end (median of 5)
     for (scheme, c, prm, b) in cli:
@@ -468,6 +672,12 @@ def main() -> None:
         print(f"cli {scheme:12s} " + " ".join(
             f"{k} {t:.3f}" for k, t in ms.items()) + f" ms {tag}")
     del vq, pq, po
+    cinfer = cli_test.build_infer_fn(ccfg, cparams, "tgt_image")
+    ce2e = time_ms(lambda: cinfer(cb_cli), iters=5)
+    cplain = time_ms(lambda: cli_test.infer_plain(ccfg, cparams, cb_cli),
+                     iters=3)
+    print(f"cli coord {cscheme} e2e {ce2e:.3f} e2e_plain_f32 {cplain:.3f} "
+          f"ms {tag}")
 
     # the 4096x2048 re-render: stages and end to end (median of 3)
     hb, ha = hargs[2], hargs[3]
@@ -487,15 +697,27 @@ def main() -> None:
         f"{k} {t:.3f}" for k, t in hms.items()) + f" ms (render kernel "
           f"{kernel_ms['render_layers_k5']:.3f} ms per image) {tag}")
 
+    # launches on each kernel's path, and per frame (one request is one
+    # frame; the re-render draws image and depth of one frame)
     launches["render_depth"] = cli_launches["render_depth"]
     launches["render_layers_k4"] = cli_launches["render_layers"]
     launches["render_layers_k5"] = hres_launches["render_layers"]
     launches["render_layers_k6"] = ftb_launches["render_layers_ftb"]
+    launches["conv_coord"] = (coord_launches["conv_coord"]
+                              + ccli_launches["conv_coord"])
+    frames = {"sweep": len(batches), "conv": len(batches),
+              "layernorm": len(batches), "render": len(batches),
+              "render_depth": 1, "render_layers_k4": len(cli) - 1,
+              "render_layers_k5": 1, "render_layers_k6": 1,
+              "conv_coord": len(cbatches) + 1}
     sources = {
         "sweep": ("matryodshka_tpu_torch/csrc/sweep.cu",
                   "matryodshka_tpu/ops/pallas_sweep.py:230"),
         "conv": ("matryodshka_tpu_torch/csrc/conv.cu",
                  "matryodshka_tpu/ops/pallas_net.py:356"),
+        "conv_coord": ("matryodshka_tpu_torch/csrc/conv.cu",
+                       "matryodshka_tpu/ops/pallas_net.py:356 "
+                       "(variant=coord)"),
         "layernorm": ("matryodshka_tpu_torch/csrc/layernorm.cu",
                       "matryodshka_tpu/ops/pallas_net.py:356"),
         "render": ("matryodshka_tpu_torch/csrc/render.cu",
@@ -512,7 +734,10 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1], "launches": launches[k],
-         "max_abs_err": errs[k], "ms": kernel_ms[k], "plain_ms": plain_ms[k]}
+         "launches_per_frame": launches[k] / frames[k],
+         "max_abs_err": errs[k], "ms": kernel_ms[k], "plain_ms": plain_ms[k],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": lib_ms[k]}
         for k in sources]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Inference entry point (the reference's test.py), ODS input.
 
     python -m matryodshka_tpu_torch.cli.test --image_dir DIR \
-        --cameras_glob 'CAMS/*.txt' [--params net.npz] [--device cuda] \
-        [--test_type high_res] [--test_outputs ...] [--num_runs N]
+        --cameras_glob 'CAMS/*.txt' [--params net.npz] [--coord_net true] \
+        [--device cuda] [--test_type high_res] [--test_outputs ...] \
+        [--num_runs N]
 
 Counterpart of `matryodshka_tpu/cli/test.py`. Runs batch-1 inference over
 the camera files, renders the requested outputs and writes PNGs plus
@@ -12,14 +13,17 @@ hres_height x hres_width (4096x2048 by default) from its saved blend
 weights and alphas and the high-res image pair (test.py:284-394).
 
 Every stage runs through the port's kernels on a CUDA device: the sweep
-(csrc/sweep.cu), the U-Net (conv.cu, layernorm.cu), then for blend_psv the
+(csrc/sweep.cu), the U-Net (conv.cu in the wrap net's mode, or in the coord
+net's with `--coord_net true`; layernorm.cu), then for blend_psv the
 blend-fused render (render.cu, colour and depth mode) and for the other
 schemes the prepared assembly and the layer-stack render
 (render_layers.cu); the high-res re-render sweeps at full size and draws
 through render_layers.cu. `--device cpu` runs each kernel's plain version.
 
 The net's weights come from `--params`, an .npz of the flax parameter tree
-(training/checkpoint.py), or from weights.seeded_init(cfg, random_seed).
+(training/checkpoint.py; `python -m matryodshka_tpu_torch.tf_import` writes
+one from a reference TF checkpoint), or from
+weights.seeded_init(cfg, random_seed).
 """
 
 from __future__ import annotations

@@ -42,6 +42,10 @@ class MatryConfig:
     # --- model --------------------------------------------------------------
     input_type: str = "ODS"
     which_color_pred: str = "blend_psv"
+    #: The U-Net variant: False is the wrap net (ERP wrap padding), True
+    #: the coord net of the released checkpoints (SAME zero padding and an
+    #: |sin(lat)| channel before every conv).
+    coord_net: bool = False
     ngf: int = 64
     min_depth: float = 1.0
     max_depth: float = 100.0
@@ -53,6 +57,10 @@ class MatryConfig:
     @property
     def torch_compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+    @property
+    def net_variant(self) -> str:
+        return "coord" if self.coord_net else "wrap"
 
     def num_net_outputs(self) -> int:
         """Net channels for the colour scheme (msi.py:108-118): P blend

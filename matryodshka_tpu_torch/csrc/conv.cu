@@ -1,30 +1,42 @@
 // Implicit-GEMM convolution for every conv stage of the MSI U-Net.
 //
 // Replaces the conv block of matryodshka_tpu/ops/pallas_net.py:_build_kernel
-// (K2: the 3x3 wrap convs, stride-2 downs, rate-2 dilated convs, the three
-// subpixel deconvs and the 1x1 tanh head); the layer norm is
-// layernorm.cu. One launch is one layer: M = Cout, N = output pixels,
-// K = KH*KW*Cin, with the input patch gathered on the fly.
+// (K2, both variants: the 3x3 convs, stride-2 downs, rate-2 dilated convs,
+// the three 4x4 stride-2 transposed convs and the 1x1 tanh head); the
+// layer norm is layernorm.cu. One launch is one layer: M = Cout,
+// N = output pixels, K = KH*KW*Cin', with the input patch gathered on the
+// fly.
 //
 // Input taps: input row iy = oy*stride + kh*dil - pad_h is zero outside
-// [0, Hi) (the vertical zero padding of wrap_pad) and input column
-// ix = ox*stride + kw*dil - pad_w wraps mod Wi (the horizontal ERP wrap).
+// [0, Hi) (vertical zero padding; the high side needs no argument, so a
+// stride-2 SAME down runs with pad_h = 0) and input column
+// ix = ox*stride + kw*dil - pad_w
+//   * wraps mod Wi in kWrap mode (the wrap net's horizontal ERP wrap);
+//   * reads zero outside [0, Wi) in kZero and kCoord mode (the coord net's
+//     SAME padding).
+// kCoord adds the coord net's |sin(lat)| channel as input channel Cin
+// (Cin' = Cin + 1, its weights last in each tap): the patch loader reads
+// coord[iy], an f32 value per input row, where it would read channel Cin
+// of x, and zero where (iy, ix) falls in the padding, as the zero-padded
+// concatenated input would hold. No Cin+1-channel copy of x is made.
 // npar == 4 is the transposed 4x4/2 conv in its subpixel form
-// (models/unet.py FusedDeconvCrop): blockIdx.z carries the output parity
-// (da, db), each parity is a 2x2 conv with pads (pad_h - da, pad_w - db),
-// and the epilogue writes output pixel (2*oy + da, 2*ox + db), so the
-// interleave costs nothing.
+// (models/unet.py FusedDeconvCrop; the coord net's SAME ConvTranspose has
+// the same index map, with zero padding): blockIdx.z carries the output
+// parity (da, db), each parity is a 2x2 conv with pads (pad_h - da,
+// pad_w - db), and the epilogue writes output pixel (2*oy + da, 2*ox + db),
+// so the interleave costs nothing.
 //
-// Bound: compute (about 293 GFLOP per 640x320 frame). This first kernel
-// runs on the CUDA cores in f32 FMA: a 64 (Cout) x 128 (pixel) tile per
-// block, K in steps of 16 staged in shared memory, and a 4 x 8 register
-// tile per thread, so each shared-memory operand is reused 4-8 times.
-// Operands are bf16 (or f32) in device memory and f32 in shared memory;
-// accumulation is f32; bias (and tanh for the head) are applied in the
-// epilogue before the single rounding to the output type. The tensor
-// cores (mma/wgmma) are the next step for this kernel.
+// Bound: compute (301.2 GFLOP per 640x320 frame for the wrap net, 302.4
+// for the coord net). This first kernel runs on the CUDA cores in f32 FMA:
+// a 64 (Cout) x 128 (pixel) tile per block, K in steps of 16 staged in
+// shared memory, and a 4 x 8 register tile per thread, so each
+// shared-memory operand is reused 4-8 times. Operands are bf16 (or f32) in
+// device memory and f32 in shared memory; accumulation is f32; bias (and
+// tanh for the head) are applied in the epilogue before the single
+// rounding to the output type. The tensor cores (mma/wgmma) are the next
+// step for this kernel.
 //
-// Weights are packed [npar, K, Cout] with k = (kh*KW + kw)*Cin + c
+// Weights are packed [npar, K, Cout] with k = (kh*KW + kw)*Cin' + c
 // (ops/conv.py:pack_conv / pack_deconv).
 
 #include "common.cuh"
@@ -37,15 +49,21 @@ constexpr int BK = 16;   // reduction step
 constexpr int TM = 4;    // channels per thread
 constexpr int TN = 8;    // pixels per thread
 
+// Horizontal padding and input channels (see the note above).
+constexpr int kWrap = 0;   // columns wrap mod Wi
+constexpr int kZero = 1;   // columns outside [0, Wi) read zero
+constexpr int kCoord = 2;  // kZero plus the coord channel as channel Cin
+
 struct ConvArgs {
   int B, Cin, Hi, Wi, Cout, Ho, Wo, KH, KW, stride, dil, pad_h, pad_w, npar,
       out_h, out_w, act;
 };
 
-template <typename TI, typename TO>
+template <typename TI, typename TO, int MODE>
 __global__ void __launch_bounds__(256)
     conv_kernel(const TI* __restrict__ x, const TI* __restrict__ w,
-                const float* __restrict__ bias, TO* __restrict__ out,
+                const float* __restrict__ bias,
+                const float* __restrict__ coord, TO* __restrict__ out,
                 ConvArgs a) {
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
@@ -57,7 +75,8 @@ __global__ void __launch_bounds__(256)
   const int da = par >> 1, db = par & 1;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int K = a.KH * a.KW * a.Cin;
+  const int Ck = a.Cin + (MODE == kCoord);  // channels per tap in K
+  const int K = a.KH * a.KW * Ck;
   const int npix = a.Ho * a.Wo;
 
   // B (input patch) loader: one pixel column, 8 consecutive k rows.
@@ -94,8 +113,8 @@ __global__ void __launch_bounds__(256)
                            : 0.f;
     }
     int k = k0 + bk;
-    int tap = k / a.Cin;
-    int c = k - tap * a.Cin;
+    int tap = k / Ck;
+    int c = k - tap * Ck;
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       float v = 0.f;
@@ -104,13 +123,22 @@ __global__ void __launch_bounds__(256)
         const int kw = tap - kh * a.KW;
         const int iy = iy0 + kh * a.dil;
         if (iy >= 0 && iy < a.Hi) {
-          const int ix = matry::wrap(ix0 + kw * a.dil, a.Wi);
-          v = matry::to_f32(xb[((long long)c * a.Hi + iy) * a.Wi + ix]);
+          if (MODE == kWrap) {
+            const int ix = matry::wrap(ix0 + kw * a.dil, a.Wi);
+            v = matry::to_f32(xb[((long long)c * a.Hi + iy) * a.Wi + ix]);
+          } else {
+            const int ix = ix0 + kw * a.dil;
+            if (ix >= 0 && ix < a.Wi)
+              v = (MODE == kCoord && c == a.Cin)
+                      ? coord[iy]
+                      : matry::to_f32(
+                            xb[((long long)c * a.Hi + iy) * a.Wi + ix]);
+          }
         }
       }
       Bs[bk + q][bn] = v;
       ++k;
-      if (++c == a.Cin) {
+      if (++c == Ck) {
         c = 0;
         ++tap;
       }
@@ -153,37 +181,57 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename TI, typename TO>
-void launch(const void* x, const void* w, const void* bias, void* out,
-            const ConvArgs& a, cudaStream_t s) {
+template <typename TI, typename TO, int MODE>
+void launch(const void* x, const void* w, const void* bias,
+            const void* coord, void* out, const ConvArgs& a,
+            cudaStream_t s) {
   dim3 grid((a.Ho * a.Wo + BN - 1) / BN, (a.Cout + BM - 1) / BM,
             a.B * a.npar);
-  conv_kernel<TI, TO><<<grid, 256, 0, s>>>(
-      (const TI*)x, (const TI*)w, (const float*)bias, (TO*)out, a);
+  conv_kernel<TI, TO, MODE><<<grid, 256, 0, s>>>(
+      (const TI*)x, (const TI*)w, (const float*)bias, (const float*)coord,
+      (TO*)out, a);
+}
+
+template <typename TI, typename TO>
+void launch_mode(const void* x, const void* w, const void* bias,
+                 const void* coord, void* out, const ConvArgs& a,
+                 int mode, cudaStream_t s) {
+  if (mode == kCoord)
+    launch<TI, TO, kCoord>(x, w, bias, coord, out, a, s);
+  else if (mode == kZero)
+    launch<TI, TO, kZero>(x, w, bias, coord, out, a, s);
+  else
+    launch<TI, TO, kWrap>(x, w, bias, coord, out, a, s);
 }
 
 }  // namespace
 
+// coord: null, or the coord channel's f32 value per input row [Hi] (then
+// zero_w must be set); zero_w: zero horizontal padding, else wrap.
 extern "C" int matry_conv(const void* x, const void* w, const void* bias,
-                          void* out, int B, int Cin, int Hi, int Wi,
-                          int Cout, int Ho, int Wo, int KH, int KW,
-                          int stride, int dil, int pad_h, int pad_w,
+                          const void* coord, void* out, int B, int Cin,
+                          int Hi, int Wi, int Cout, int Ho, int Wo, int KH,
+                          int KW, int stride, int dil, int pad_h, int pad_w,
                           int npar, int out_h, int out_w, int act,
-                          int in_f32, int out_f32, void* stream) {
+                          int in_f32, int out_f32, int zero_w,
+                          void* stream) {
   const ConvArgs a{B,  Cin,    Hi,  Wi,    Cout,  Ho,    Wo,
                    KH, KW,     stride, dil, pad_h, pad_w, npar,
                    out_h, out_w, act};
   cudaStream_t s = (cudaStream_t)stream;
+  if (coord && !zero_w) return (int)cudaErrorInvalidValue;
+  const int mode = coord ? kCoord : (zero_w ? kZero : kWrap);
   if (in_f32) {
     if (out_f32)
-      launch<float, float>(x, w, bias, out, a, s);
+      launch_mode<float, float>(x, w, bias, coord, out, a, mode, s);
     else
-      launch<float, __nv_bfloat16>(x, w, bias, out, a, s);
+      launch_mode<float, __nv_bfloat16>(x, w, bias, coord, out, a, mode, s);
   } else {
     if (out_f32)
-      launch<__nv_bfloat16, float>(x, w, bias, out, a, s);
+      launch_mode<__nv_bfloat16, float>(x, w, bias, coord, out, a, mode, s);
     else
-      launch<__nv_bfloat16, __nv_bfloat16>(x, w, bias, out, a, s);
+      launch_mode<__nv_bfloat16, __nv_bfloat16>(x, w, bias, coord, out, a,
+                                                mode, s);
   }
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 
 Counterpart of `__graft_entry__.py` (`_flagship_cfg`, `_synthetic_batch`,
 `entry`). `forward(params, batch)` runs the hot path -- sweep kernel, U-Net
-through the conv and layer-norm kernels, blend-fused render kernel;
+(the wrap net, or the coord net with `coord_net=True`) through the conv and
+layer-norm kernels, blend-fused render kernel;
 `forward_plain(params, batch)` the same path with each kernel's plain
 version in float32; `forward_reference(params, batch)` the
 reference-semantics path (general-pose gather sweep, plain MSIUNet,
@@ -73,12 +74,13 @@ class Params:
 
 def make_params(cfg: MatryConfig, flax_params=None, seed: int = 0,
                 device="cpu") -> Params:
-    """Net from a flax parameter tree (numpy leaves), or from
-    weights.seeded_init(cfg, seed) when none is given."""
+    """Net of cfg's variant (cfg.coord_net) from a flax parameter tree
+    (numpy leaves), or from weights.seeded_init(cfg, seed) when none is
+    given."""
     tree = weights.seeded_init(cfg, seed) if flax_params is None \
         else flax_params
     net = MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
-                  dtype=cfg.torch_compute_dtype)
+                  dtype=cfg.torch_compute_dtype, variant=cfg.net_variant)
     net.load_state_dict(weights.from_flax(tree))
     net = net.to(device).eval()
 
@@ -87,7 +89,8 @@ def make_params(cfg: MatryConfig, flax_params=None, seed: int = 0,
                                                  cfg.max_depth, n),
                             dtype=torch.float32, device=device)
 
-    return Params(cfg, net, net_ops.prepare(net, cfg.torch_compute_dtype),
+    return Params(cfg, net,
+                  net_ops.prepare(net, cfg.torch_compute_dtype, cfg.height),
                   depths(cfg.num_psv_planes), depths(cfg.num_msi_planes))
 
 

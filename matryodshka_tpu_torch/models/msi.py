@@ -7,7 +7,9 @@ gather, runs the plain MSIUNet and assembles [B, H, W, P, 4] layers, in the
 JAX layouts. The kernel path (`infer_msi_prepared` ->
 `render_equirect_view_from_prepared` / `render_equirect_depth_from_prepared`)
 runs the sweep kernel, which writes the net input channels first, and the
-net through the conv and layer-norm kernels; then
+net (either variant: its stages carry their padding mode and coord
+vectors, `ops/net.py:prepare`) through the conv and layer-norm kernels;
+then
 
 * blend_psv: the blend-fused render kernel blends, samples and composites
   straight from the sweep volume and the prediction (no layer stack);

@@ -1,16 +1,25 @@
-"""The MSI prediction U-Net (wrap variant), the plain version of the net.
+"""The MSI prediction U-Net, both variants, the plain version of the net.
 
 Counterpart of `matryodshka_tpu/models/unet.py` (`MSIUNet` with
-variant="wrap", `SpatialLayerNorm`, `FusedDeconvCrop`, `WrapConv3x3`).
-Layout is [B, C, H, W]; parameter names follow the flax tree (`conv1_1`,
-`conv1_1_ln`, ..., `color_pred`), with `weight` [Cout, Cin, KH, KW] in
-place of flax's `kernel` [KH, KW, Cin, Cout] (see weights.from_flax).
+variant="wrap" or "coord", `SpatialLayerNorm`, `FusedDeconvCrop`,
+`WrapConv3x3`, `sph_coord_channel`). Layout is [B, C, H, W]; parameter
+names follow the flax tree (`conv1_1`, `conv1_1_ln`, ..., `color_pred`),
+with `weight` [Cout, Cin, KH, KW] in place of flax's `kernel`
+[KH, KW, Cin, Cout] (see weights.from_flax).
 
-Every 3x3 conv wraps `rate` columns horizontally and zero-pads `rate` rows
-vertically (wrap_pad); the 4x4 stride-2 transposed convs run as the
-subpixel decomposition of FusedDeconvCrop; layer norm is over (C, H, W)
-in float32; the 1x1 head ends in tanh and returns float32. Convs compute
-in the model's dtype, as flax's dtype=compute_dtype does.
+variant="wrap": every 3x3 conv wraps `rate` columns horizontally and
+zero-pads `rate` rows vertically (wrap_pad); the 4x4 stride-2 transposed
+convs run as the subpixel decomposition of FusedDeconvCrop.
+
+variant="coord" (the released checkpoints' architecture): every 3x3 conv
+and stride-2 down sees its input with an |sin(lat)| channel appended last
+(so its weight has Cin + 1 input channels) and pads with zeros as flax's
+SAME does; the transposed convs are flax's `ConvTranspose(padding="SAME")`,
+here `F.conv_transpose2d` with the kernel flipped (flax does not flip it).
+
+Both: layer norm is over (C, H, W) in float32; the 1x1 head ends in tanh
+and returns float32. Convs compute in the model's dtype, as flax's
+dtype=compute_dtype does.
 """
 
 from __future__ import annotations
@@ -19,9 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from matryodshka_tpu_torch.ops.conv import wrap_pad
+from matryodshka_tpu_torch.ops.conv import coord_column, with_coord, wrap_pad
 from matryodshka_tpu_torch.ops.layernorm import layer_norm_relu_plain
-from matryodshka_tpu_torch.ops.net import unet_plan
+from matryodshka_tpu_torch.ops.net import VARIANTS, kernel_cin, unet_plan
 
 
 class SpatialLayerNorm(nn.Module):
@@ -47,33 +56,61 @@ class ConvParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
 
+def _same_pads(n: int, k: int, stride: int):
+    """(lo, hi) of flax/XLA SAME padding for size n and effective kernel
+    size k: the odd pixel goes after."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
 class MSIUNet(nn.Module):
     """Blend-weight / alpha prediction net: [B, Cin, H, W] -> tanh
     [B, num_outputs, H, W] float32."""
 
     def __init__(self, num_inputs: int, num_outputs: int, ngf: int = 64,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, variant: str = "wrap"):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"variant {variant!r}; known: {VARIANTS}")
         self.dtype = dtype
+        self.variant = variant
         self.plan = unet_plan(ngf, num_inputs, num_outputs)
         for (name, kind, _, cins, cout, _, _, _) in self.plan:
             k = {"deconv": 4, "head": 1}.get(kind, 3)
-            self.add_module(name, ConvParams(sum(cins), cout, k))
+            self.add_module(name, ConvParams(
+                kernel_cin(kind, cins, variant), cout, k))
             if kind != "head":
                 self.add_module(name + "_ln", SpatialLayerNorm(cout))
 
     def _conv(self, x, name: str, stride: int = 1, rate: int = 1):
         layer = getattr(self, name)
-        y = F.conv2d(wrap_pad(x, rate, rate, rate, rate),
-                     layer.weight.to(x.dtype), stride=stride, dilation=rate)
+        if self.variant == "coord":
+            h, w = x.shape[-2:]
+            x = with_coord(x, coord_column(h, x.device))
+            top, bottom = _same_pads(h, 2 * rate + 1, stride)
+            left, right = _same_pads(w, 2 * rate + 1, stride)
+            x = F.pad(x, (left, right, top, bottom))
+        else:
+            x = wrap_pad(x, rate, rate, rate, rate)
+        y = F.conv2d(x, layer.weight.to(x.dtype), stride=stride,
+                     dilation=rate)
         y = y + layer.bias.to(x.dtype)[:, None, None]
         return torch.relu(getattr(self, name + "_ln")(y))
 
     def _deconv(self, x, name: str):
-        """4x4 stride-2 transposed conv (flax ConvTranspose, VALID, on the
-        2-wrap-padded input, cropped 5 per side) in subpixel form:
-        out[2i+da, 2j+db] = conv(xpad, k[da::2, db::2]) at (1+da+i, 1+db+j)."""
+        """4x4 stride-2 transposed conv. Wrap net: flax ConvTranspose,
+        VALID, on the 2-wrap-padded input, cropped 5 per side, in subpixel
+        form: out[2i+da, 2j+db] = conv(xpad, k[da::2, db::2]) at
+        (1+da+i, 1+db+j). Coord net: flax ConvTranspose, SAME, which pads
+        the 2x-dilated input by 2 on each side and does not flip the
+        kernel: out[2j+da] = sum_ka x[j+da+ka-1] k[da+2ka], the same as
+        F.conv_transpose2d with the kernel flipped and padding 1."""
         layer = getattr(self, name)
+        if self.variant == "coord":
+            wt = layer.weight.to(x.dtype).flip(2, 3).transpose(0, 1)
+            y = F.conv_transpose2d(x, wt, stride=2, padding=1)
+            y = y + layer.bias.to(x.dtype)[:, None, None]
+            return torch.relu(getattr(self, name + "_ln")(y))
         b, _, h, w = x.shape
         xp = wrap_pad(x, 2, 2, 2, 2)
         wt = layer.weight.to(x.dtype)

@@ -34,7 +34,7 @@ _I = ctypes.c_int
 #: c_void_p; each function returns its launch's cudaError_t.
 SIGNATURES = {
     "matry_sweep": [_P] * 8 + [_I] * 5 + [_P],
-    "matry_conv": [_P] * 4 + [_I] * 19 + [_P],
+    "matry_conv": [_P] * 5 + [_I] * 20 + [_P],
     "matry_layernorm": [_P] * 5 + [_I, _I, ctypes.c_longlong, _I,
                                    ctypes.c_float, _I, _I, _P],
     "matry_render": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],

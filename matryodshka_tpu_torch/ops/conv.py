@@ -1,29 +1,45 @@
-"""Wrap-padded convolution for the U-Net: weight packing, kernel wrapper
-and its plain version.
+"""Convolution for the U-Net: weight packing, kernel wrapper and its plain
+version.
 
 The kernel is `csrc/conv.cu` (the conv block of
-`matryodshka_tpu/ops/pallas_net.py:_build_kernel`); its source note gives
-the bound and the design. One call is one layer, in one of two forms:
+`matryodshka_tpu/ops/pallas_net.py:_build_kernel`, both variants); its
+source note gives the bound and the design. One call is one layer, in one
+of two forms:
 
-* npar=1: a KHxKW conv with stride and dilation; input rows outside
-  [0, H) read zero, input columns wrap mod W (`wrap_pad` of
-  `models/unet.py`), `pad` rows/columns on each side;
+* npar=1: a KHxKW conv with stride and dilation, `pad` = (lo, hi) rows and
+  columns before and after (an int means the same on both sides); input
+  rows outside [0, H) read zero;
 * npar=4: the 4x4 stride-2 transposed conv as four 2x2 parity convs
-  (`FusedDeconvCrop`): parity (da, db) pads (1 - da, 1 - db) before and
-  (da, db) after, and writes output pixels (2i + da, 2j + db).
+  (`FusedDeconvCrop`; the coord net's SAME `ConvTranspose` has the same
+  index map): parity (da, db) pads (1 - da, 1 - db) before and (da, db)
+  after, and writes output pixels (2i + da, 2j + db).
 
-Weights are packed [npar, KH*KW*Cin, Cout], k = (kh*KW + kw)*Cin + c.
+and in one of two horizontal paddings: hpad="wrap" wraps input columns mod
+W (`wrap_pad` of `models/unet.py`, the wrap net), hpad="zero" reads zero
+outside [0, W) (SAME padding, the coord net). The coord net also appends
+an |sin(lat)| channel to the input of every 3x3 conv and stride-2 down:
+`coord` is that channel's value per input row, [H] float32, and the kernel
+reads it as input channel Cin without a Cin+1-channel copy of x.
+
+Weights are packed [npar, KH*KW*Cin', Cout], k = (kh*KW + kw)*Cin' + c,
+Cin' = Cin + 1 with a coord channel (its weights last), else Cin.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from matryodshka_tpu_torch.ops import _build
 
-#: Launches of the conv kernel in this process.
+#: Launches of the conv kernel in this process (both paddings).
 launches = 0
+#: Of those, the launches in the coord net's mode (hpad="zero": its convs
+#: and downs, which read the coord channel, its deconvs and its head).
+coord_launches = 0
+
+HPADS = ("wrap", "zero")
 
 
 def pack_conv(weight, dtype):
@@ -46,6 +62,23 @@ def _unpack(wk, par: int, kh: int, kw: int):
     return wk[par].reshape(kh, kw, k // (kh * kw), cout).permute(3, 2, 0, 1)
 
 
+def coord_column(h: int, device=None) -> torch.Tensor:
+    """The coord channel's value per row, |sin(lat)| with lat =
+    linspace(-pi/2, pi/2, h) (`sph_coord_channel` of `models/unet.py`),
+    computed in float64 and stored as float32 [h]."""
+    lat = np.linspace(-np.pi / 2, np.pi / 2, h)
+    return torch.from_numpy(np.abs(np.sin(lat)).astype(np.float32)).to(
+        device)
+
+
+def with_coord(x, coord):
+    """x [B, C, H, W] with the coord channel (coord [H]) appended last, in
+    x's dtype."""
+    b, _, h, w = x.shape
+    col = coord.to(x.dtype)[None, None, :, None].expand(b, 1, h, w)
+    return torch.cat([x, col], dim=1)
+
+
 def wrap_pad(x, top: int, bottom: int, left: int, right: int):
     """Horizontal wrap padding by (left, right) columns and vertical zero
     padding by (top, bottom) rows of [..., H, W]."""
@@ -54,25 +87,42 @@ def wrap_pad(x, top: int, bottom: int, left: int, right: int):
     return F.pad(x, (0, 0, top, bottom))
 
 
+def pad2d(x, top: int, bottom: int, left: int, right: int,
+          hpad: str = "wrap"):
+    """wrap_pad, or zero padding on all four sides for hpad="zero"."""
+    if hpad == "wrap":
+        return wrap_pad(x, top, bottom, left, right)
+    return F.pad(x, (left, right, top, bottom))
+
+
+def pad_pair(pad):
+    """(lo, hi) of a pad argument: an int for both sides, or a pair."""
+    return (pad, pad) if isinstance(pad, int) else tuple(pad)
+
+
 def out_size(h: int, w: int, kh: int, kw: int, stride: int, dil: int,
-             pad: int, npar: int):
+             pad, npar: int):
     """(Ho, Wo) of the GEMM grid; the written tensor is (2Ho, 2Wo) for
-    npar=4."""
+    npar=4. pad: (lo, hi), or an int for both."""
     if npar == 4:
         return h, w
-    return ((h + 2 * pad - dil * (kh - 1) - 1) // stride + 1,
-            (w + 2 * pad - dil * (kw - 1) - 1) // stride + 1)
+    lo, hi = pad_pair(pad)
+    return ((h + lo + hi - dil * (kh - 1) - 1) // stride + 1,
+            (w + lo + hi - dil * (kw - 1) - 1) // stride + 1)
 
 
 def conv_plain(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
-               pad: int = 0, npar: int = 1, tanh: bool = False,
-               out_dtype=None):
+               pad=0, npar: int = 1, tanh: bool = False, out_dtype=None,
+               hpad: str = "wrap", coord=None):
     """Plain version of the kernel: f32 math on the given operands, one
     rounding to out_dtype (default x.dtype)."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     x32 = x.float()
+    if coord is not None:
+        x32 = with_coord(x32, coord.float())
     if npar == 1:
-        y = F.conv2d(wrap_pad(x32, pad, pad, pad, pad),
+        lo, hi = pad_pair(pad)
+        y = F.conv2d(pad2d(x32, lo, hi, lo, hi, hpad),
                      _unpack(wk, 0, kh, kw).float(), stride=stride,
                      dilation=dil)
     else:
@@ -81,7 +131,7 @@ def conv_plain(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
         for par in range(4):
             da, db = par >> 1, par & 1
             y[:, :, da::2, db::2] = F.conv2d(
-                wrap_pad(x32, 1 - da, da, 1 - db, db),
+                pad2d(x32, 1 - da, da, 1 - db, db, hpad),
                 _unpack(wk, par, 2, 2).float())
     y = y + bias.float()[None, :, None, None]
     if tanh:
@@ -90,41 +140,56 @@ def conv_plain(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
 
 
 def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
-         pad: int = 0, npar: int = 1, tanh: bool = False, out_dtype=None):
+         pad=0, npar: int = 1, tanh: bool = False, out_dtype=None,
+         hpad: str = "wrap", coord=None):
     """One conv layer: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. x [B, Cin, H, W]; wk from pack_conv / pack_deconv;
-    bias [Cout] float32."""
+    bias [Cout] float32; coord None or [H] float32 (hpad="zero" only)."""
     if x.device.type == "cpu":
         return conv_plain(x, wk, bias, kh, kw, stride, dil, pad, npar, tanh,
-                          out_dtype)
-    global launches
+                          out_dtype, hpad, coord)
+    global launches, coord_launches
     out_dtype = x.dtype if out_dtype is None else out_dtype
     b, cin, h, w = x.shape
     cout = wk.shape[2]
+    lo, hi = pad_pair(pad)
+    kcin = cin + (coord is not None)
     req = _build.require
     req(x.is_cuda, f"conv: unsupported device {x.device}")
     req(x.dtype in (torch.float32, torch.bfloat16) and x.is_contiguous(),
         f"conv: x must be contiguous float32/bfloat16, got {x.dtype}")
     req(wk.dtype == x.dtype and wk.is_contiguous() and wk.device == x.device
-        and tuple(wk.shape) == (npar, kh * kw * cin, cout),
+        and tuple(wk.shape) == (npar, kh * kw * kcin, cout),
         f"conv: packed weight {wk.dtype} {tuple(wk.shape)}")
     req(bias.dtype == torch.float32 and bias.is_contiguous()
         and bias.device == x.device and tuple(bias.shape) == (cout,),
         f"conv: bias {bias.dtype} {tuple(bias.shape)}")
     req(out_dtype in (torch.float32, torch.bfloat16),
         f"conv: out_dtype {out_dtype}")
+    req(hpad in HPADS, f"conv: hpad {hpad!r}; known: {HPADS}")
+    req(coord is None or (
+        hpad == "zero" and npar == 1 and coord.dtype == torch.float32
+        and coord.is_contiguous() and coord.device == x.device
+        and tuple(coord.shape) == (h,)),
+        "conv: coord must be float32 [H] on x's device, with hpad='zero' "
+        "and npar=1")
     req(npar == 1 or (npar == 4 and kh == 2 and kw == 2 and stride == 1
                       and dil == 1),
         "conv: npar=4 is the 2x2 parity form of the transposed conv")
-    ho, wo = out_size(h, w, kh, kw, stride, dil, pad, npar)
+    req(npar == 4 or hpad == "zero" or lo == hi,
+        "conv: wrap padding is symmetric")
+    ho, wo = out_size(h, w, kh, kw, stride, dil, (lo, hi), npar)
     oh, ow = (2 * ho, 2 * wo) if npar == 4 else (ho, wo)
     out = torch.empty((b, cout, oh, ow), dtype=out_dtype, device=x.device)
     err = _build.lib().matry_conv(
-        x.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        x.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+        None if coord is None else coord.data_ptr(), out.data_ptr(),
         b, cin, h, w, cout, ho, wo, kh, kw, stride, dil,
-        1 if npar == 4 else pad, 1 if npar == 4 else pad, npar, oh, ow,
+        1 if npar == 4 else lo, 1 if npar == 4 else lo, npar, oh, ow,
         int(tanh), int(x.dtype == torch.float32),
-        int(out_dtype == torch.float32), _build.stream_ptr(x.device))
+        int(out_dtype == torch.float32), int(hpad == "zero"),
+        _build.stream_ptr(x.device))
     _build.check(err, "matry_conv")
     launches += 1
+    coord_launches += hpad == "zero"
     return out

@@ -1,12 +1,18 @@
 """The MSI U-Net run stage by stage through the conv and layer-norm kernels.
 
 Counterpart of `matryodshka_tpu/ops/pallas_net.py` (`unet_plan`,
-`prepare_params`, `unet_forward`). On the TPU the whole net is one kernel
-because every custom-call boundary cost XLA its cross-layer pipelining; on
-the GPU each stage is one conv launch (`ops/conv.py`) and, except for the
-head, one layer-norm launch (`ops/layernorm.py`). Skip concats are a
-`torch.cat` of the two sources. Activations are [B, C, H, W] in the
-compute dtype; the head writes float32.
+`prepare_params`, `coord_operands`, `unet_forward`), for both variants of
+the net. On the TPU the whole net is one kernel because every custom-call
+boundary cost XLA its cross-layer pipelining; on the GPU each stage is one
+conv launch (`ops/conv.py`) and, except for the head, one layer-norm launch
+(`ops/layernorm.py`). Skip concats are a `torch.cat` of the two sources.
+Activations are [B, C, H, W] in the compute dtype; the head writes float32.
+
+The two variants share the topology and differ in each stage's padding
+(`conv_args`): the wrap net wraps columns horizontally; the coord net pads
+with zeros as flax's SAME does and reads an |sin(lat)| coord channel as
+the last input channel of every 3x3 conv and stride-2 down (its values per
+input row are built once, by `prepare`).
 """
 
 from __future__ import annotations
@@ -18,10 +24,13 @@ import torch
 from matryodshka_tpu_torch.ops import conv as conv_ops
 from matryodshka_tpu_torch.ops import layernorm as ln_ops
 
+VARIANTS = ("wrap", "coord")
+
 
 def unet_plan(ngf: int, cin0: int, num_outputs: int):
-    """The wrap-variant topology, one row per stage:
-    (name, kind, srcs, cin_each, cout, in_div, out_div, rate)."""
+    """The topology of both variants, one row per stage:
+    (name, kind, srcs, cin_each, cout, in_div, out_div, rate); cin_each
+    counts the sources' channels, without the coord channel."""
     g = ngf
     return [
         ("conv1_1", "conv", ["x"], [cin0], g, 1, 1, 1),
@@ -48,28 +57,61 @@ def unet_plan(ngf: int, cin0: int, num_outputs: int):
     ]
 
 
-def conv_args(kind: str, rate: int) -> Dict:
-    """Keyword arguments of ops.conv.conv for a stage kind."""
-    if kind == "conv":
-        return dict(kh=3, kw=3, stride=1, dil=rate, pad=rate)
-    if kind == "down":
-        return dict(kh=3, kw=3, stride=2, dil=1, pad=1)
-    if kind == "deconv":
+def has_coord(kind: str, variant: str) -> bool:
+    """Whether a stage reads the coord channel: the coord net's 3x3 convs
+    and stride-2 downs (`MSIUNet._conv` of `models/unet.py`)."""
+    return variant == "coord" and kind in ("conv", "down")
+
+
+def kernel_cin(kind: str, cins, variant: str) -> int:
+    """Input channels of a stage's weight."""
+    return sum(cins) + has_coord(kind, variant)
+
+
+def conv_args(kind: str, rate: int, variant: str = "wrap") -> Dict:
+    """Keyword arguments of ops.conv.conv for a stage kind (without the
+    coord vector, which depends on the input height). The coord net's pads
+    are flax's SAME on the even sizes the config guarantees: (rate, rate)
+    for a stride-1 conv, (0, 1) for a stride-2 down. The 1x1 head pads
+    nothing; the coord net runs it in the zero mode too, so that its 18
+    stages are the launches of one mode."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}; known: {VARIANTS}")
+    if kind == "head":
+        head = dict(kh=1, kw=1, tanh=True, out_dtype=torch.float32)
+        return head if variant == "wrap" else dict(head, hpad="zero")
+    if variant == "wrap":
+        if kind == "conv":
+            return dict(kh=3, kw=3, stride=1, dil=rate, pad=rate)
+        if kind == "down":
+            return dict(kh=3, kw=3, stride=2, dil=1, pad=1)
         return dict(kh=2, kw=2, npar=4)
-    return dict(kh=1, kw=1, tanh=True, out_dtype=torch.float32)
+    if kind == "conv":
+        return dict(kh=3, kw=3, stride=1, dil=rate, pad=(rate, rate),
+                    hpad="zero")
+    if kind == "down":
+        return dict(kh=3, kw=3, stride=2, dil=1, pad=(0, 1), hpad="zero")
+    return dict(kh=2, kw=2, npar=4, hpad="zero")
 
 
-def prepare(model, dtype) -> List[Dict]:
+def prepare(model, dtype, height: int = None) -> List[Dict]:
     """Kernel operands from an MSIUNet's own parameters: per stage the
-    packed weight (compute dtype), the bias and the LN gamma/beta (f32).
-    Call again after the model's parameters change."""
+    packed weight (compute dtype), the bias and the LN gamma/beta (f32),
+    and for the coord net's convs and downs the coord channel per input
+    row (float32, `conv.coord_column`), which needs the net's input
+    height. Call again after the model's parameters change."""
+    if model.variant == "coord" and height is None:
+        raise ValueError("prepare: the coord net needs the input height")
     stages = []
-    for (name, kind, srcs, _, _, _, _, rate) in model.plan:
+    for (name, kind, srcs, _, _, ind, _, rate) in model.plan:
         layer = getattr(model, name)
         pack = (conv_ops.pack_deconv if kind == "deconv"
                 else conv_ops.pack_conv)
-        st = {"name": name, "srcs": srcs,
-              "args": conv_args(kind, rate),
+        args = conv_args(kind, rate, model.variant)
+        if has_coord(kind, model.variant):
+            args["coord"] = conv_ops.coord_column(height // ind,
+                                                  layer.weight.device)
+        st = {"name": name, "srcs": srcs, "args": args,
               "w": pack(layer.weight.detach(), dtype),
               "b": layer.bias.detach().float().contiguous()}
         if kind != "head":

@@ -1,0 +1,137 @@
+"""Where a flagship frame's time goes on the card, from a torch.profiler
+trace.
+
+    python -m matryodshka_tpu_torch.trace [--coord_net]
+
+Runs entry.forward at the flagship configuration (640x320, 32 + 32 planes,
+32 shells, ngf 64, bf16, blend_psv; the wrap net, or the coord net with
+--coord_net) with seeded weights, and for each part -- the sweep stage,
+the net stage, the render stage and then the whole frame -- traces
+FRAMES calls after 2 warm-up under torch.profiler (CPU and CUDA
+activities). Per part it prints the host wall ms per frame (a synchronize
+ends the window), the device busy ms per frame (the union of the trace's
+kernel, memcpy and memset intervals), the idle share 1 - busy / wall, the
+device operations per frame, and the part's TOP largest kernels by
+device time. Every line carries the card's name and power limit. Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import warnings
+
+import torch
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+FRAMES = 10   # traced calls per part
+TOP = 4       # kernels listed per part
+
+
+def _card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_events(prof):
+    """The trace's device events: [(name, start us, duration us)]."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return [(e.get("name", ""), float(e["ts"]), float(e.get("dur", 0.0)))
+            for e in events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' intervals."""
+    total, end = 0.0, None
+    for _, ts, dur in sorted(events, key=lambda e: e[1]):
+        lo, hi = ts, ts + dur
+        if end is None or lo > end:
+            total += hi - lo
+            end = hi
+        elif hi > end:
+            total += hi - end
+            end = hi
+    return total
+
+
+def trace_part(fn):
+    """(host wall ms, device busy ms, idle share, device ops) per frame,
+    and device us by kernel name over the window."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(FRAMES):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / FRAMES
+    events = device_events(prof)
+    if not events:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy = busy_us(events) / 1e3 / FRAMES
+    by_name = collections.Counter()
+    for name, _, dur in events:
+        by_name[name] += dur
+    return wall, busy, 1.0 - busy / wall, len(events) / FRAMES, by_name
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--coord_net", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("trace: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    from matryodshka_tpu_torch import entry
+    from matryodshka_tpu_torch.models import msi as msi_lib
+
+    tag = f"[{_card()}]"
+    dev = torch.device("cuda", 0)
+    cfg = entry.flagship_cfg(coord_net=args.coord_net)
+    params = entry.make_params(cfg, seed=0, device=dev)
+    batch = entry.synthetic_batch(cfg, 0, dev)
+    rt = torch.eye(4, device=dev)[None]
+    vol = msi_lib.sweep_stage(cfg, batch, params.psv_depths)
+    pred = msi_lib.net_stage(params.stages, vol)
+    parts = {
+        "sweep": lambda: msi_lib.sweep_stage(cfg, batch, params.psv_depths),
+        "net": lambda: msi_lib.net_stage(params.stages, vol),
+        "render": lambda: msi_lib.render_stage(vol, pred, rt,
+                                               batch["tgt_pose"],
+                                               params.msi_depths),
+        "e2e": lambda: entry.forward(params, batch),
+    }
+    warnings.filterwarnings("ignore", message=".*Profiler clears events")
+    print(f"trace of entry.forward, {cfg.net_variant} net, "
+          f"{FRAMES} frames per part {tag}")
+    with torch.no_grad():
+        for part, fn in parts.items():
+            wall, busy, idle, ops, by_name = trace_part(fn)
+            print(f"{part:7s} host wall {wall:.3f} ms/frame, device busy "
+                  f"{busy:.3f} ms/frame, idle share {idle:.3f}, "
+                  f"{ops:.0f} device ops/frame {tag}")
+            for name, us in by_name.most_common(TOP):
+                print(f"    {us / 1e3 / FRAMES:8.3f} ms/frame "
+                      f"{name[:100]}")
+
+
+if __name__ == "__main__":
+    main()

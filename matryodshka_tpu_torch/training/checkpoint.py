@@ -5,8 +5,9 @@ The JAX package restores orbax checkpoints
 nor tensorstore is available where the port runs. So the port reads the
 flax parameter tree from a `.npz` whose keys are the `/`-joined tree paths
 (`params/conv1_1/kernel`, ...), with an optional scalar `step`, and hands
-it to `weights.from_flax`. Reading orbax and TF checkpoints waits for the
-checkpoint importer (ROADMAP Queue 1 item 10).
+it to `weights.from_flax`. `python -m matryodshka_tpu_torch.tf_import`
+writes such a file from a reference TF-v1 checkpoint; reading orbax
+checkpoints is not ported.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Parameters for the port's MSIUNet: the flax bridge and a seeded init.
 
-`from_flax` maps a flax MSIUNet (wrap variant) parameter tree, given as
+`from_flax` maps a flax MSIUNet parameter tree of either variant, given as
 numpy arrays, to the torch state_dict: conv kernels [KH, KW, Cin, Cout]
-(the 3x3 convs, the 4x4 transposed convs and the 1x1 `color_pred` head)
-become `weight` [Cout, Cin, KH, KW]; biases and the `*_ln` gamma/beta
-carry over. `seeded_init` draws a tree of flax's shapes with flax's
+(the 3x3 convs, the coord net's with Cin + 1 input channels, the 4x4
+transposed convs and the 1x1 `color_pred` head) become `weight`
+[Cout, Cin, KH, KW]; biases and the `*_ln` gamma/beta carry over.
+`seeded_init` draws a tree of flax's shapes for cfg's variant with flax's
 initializers (lecun_normal kernels, zero biases, unit gamma, zero beta)
 from a numpy seed, for machines without JAX.
 """
@@ -17,7 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from matryodshka_tpu_torch.ops.net import unet_plan
+from matryodshka_tpu_torch.ops.net import kernel_cin, unet_plan
 
 #: flax's truncated-normal stddev correction for truncation at +-2 sigma.
 _TRUNC_STD = 0.87962566103423978
@@ -56,13 +57,15 @@ def _lecun_normal(rng: np.random.RandomState, shape):
 
 def seeded_init(cfg, seed: int) -> Dict:
     """A flax-layout parameter tree {"params": {...}} of numpy arrays for
-    cfg's net, drawn from np.random.RandomState(seed)."""
+    cfg's net (its variant from cfg.coord_net), drawn from
+    np.random.RandomState(seed)."""
     rng = np.random.RandomState(seed)
     tree = {}
     for (name, kind, _, cins, cout, _, _, _) in unet_plan(
             cfg.ngf, cfg.num_net_inputs(), cfg.num_net_outputs()):
         k = {"deconv": 4, "head": 1}.get(kind, 3)
-        tree[name] = {"kernel": _lecun_normal(rng, (k, k, sum(cins), cout)),
+        cin = kernel_cin(kind, cins, cfg.net_variant)
+        tree[name] = {"kernel": _lecun_normal(rng, (k, k, cin, cout)),
                       "bias": np.zeros((cout,), np.float32)}
         if kind != "head":
             tree[name + "_ln"] = {"beta": np.zeros((cout,), np.float32),

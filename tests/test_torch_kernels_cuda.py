@@ -223,3 +223,103 @@ def test_forward_runs_every_kernel(cuda):
     assert torch.isfinite(out).all()
     err = (out - entry.forward_plain(params, b)).abs().max().item()
     assert err <= 2e-2, err
+
+
+def _coord_net(dev, ngf, cin, cout, seed):
+    rng = np.random.RandomState(seed)
+    net = MSIUNet(cin, cout, ngf, variant="coord").to(dev)
+    with torch.no_grad():
+        for prm in net.parameters():
+            prm.copy_(torch.from_numpy(
+                rng.randn(*prm.shape).astype(np.float32) * 0.2))
+    return net, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_coord_conv_kernel_matches_plain(cuda, dtype):
+    """Every stage of the coord plan at 32x64 (the coord channel, zero
+    padding at the edge columns, SAME downs, zero-mode parity deconvs),
+    with the tolerances of test_conv_kernel_matches_plain; each stage,
+    the head included, counts one coord-mode launch."""
+    net, rng = _coord_net(cuda, NGF, 2 * P * 3, 2 * P, 12)
+    for plan, st in zip(net.plan, net_ops.prepare(net, dtype, H)):
+        name, kind, _, cins, _, ind, outd, _ = plan
+        x = torch.from_numpy(rng.uniform(
+            -1, 1, (2, sum(cins), H // ind, W // ind)).astype(
+                np.float32)).to(cuda, dtype)
+        before = conv_ops.coord_launches
+        got = conv_ops.conv(x, st["w"], st["b"], **st["args"]).float()
+        assert conv_ops.coord_launches == before + 1, name
+        assert tuple(got.shape[2:]) == (H // outd, W // outd), name
+        want = conv_ops.conv_plain(x, st["w"], st["b"],
+                                   **st["args"]).float()
+        tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * \
+            want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+def test_coord_conv_kernel_edges_and_poles(cuda):
+    """On a constant input, zero padding shows only in the first and last
+    rows and columns and the coord channel weighs most at the pole rows:
+    the kernel's edge columns and pole rows against the plain version and
+    against each other's interior, f32."""
+    net, _ = _coord_net(cuda, NGF, 5, 3, 13)
+    st = net_ops.prepare(net, torch.float32, 24)[0]   # conv1_1, +coord
+    x = torch.ones((1, 5, 24, 40), device=cuda)
+    got = conv_ops.conv(x, st["w"], st["b"], **st["args"])
+    want = conv_ops.conv_plain(x, st["w"], st["b"], **st["args"])
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    inner = got[:, :, 1:-1, 1:-1]
+    assert (inner - inner[:, :, :, :1]).abs().max().item() <= 1e-5
+    assert (got[:, :, :, 0] - got[:, :, :, 1]).abs().max().item() > 1e-3
+    assert (got[:, :, 1] - got[:, :, 12]).abs().max().item() > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv1_1", "conv1_2", "conv4_1",
+                                  "conv8_1", "color_pred"])
+def test_coord_conv_kernel_flagship_shapes(cuda, name):
+    """Flagship stages of the coord net (ngf 64, 640x320, 32 + 32 planes,
+    bf16): conv1_1 reads 192 + 1 channels, the stride-2 SAME down writes
+    160x320 from 320x640, conv4_1 is rate 2, conv8_1 a deconv."""
+    cfg = entry.flagship_cfg(coord_net=True)
+    params = entry.make_params(cfg, seed=0, device=cuda)
+    i = [pl[0] for pl in params.net.plan].index(name)
+    _, kind, _, cins, _, ind, outd, _ = params.net.plan[i]
+    st = params.stages[i]
+    rng = np.random.RandomState(14)
+    x = torch.from_numpy(rng.uniform(
+        -1, 1, (1, sum(cins), 320 // ind, 640 // ind)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+    got = conv_ops.conv(x, st["w"], st["b"], **st["args"]).float()
+    assert tuple(got.shape[2:]) == (320 // outd, 640 // outd)
+    if kind in ("conv", "down"):
+        assert tuple(st["w"].shape) == (1, 9 * (sum(cins) + 1),
+                                        got.shape[1])
+    want = conv_ops.conv_plain(x, st["w"], st["b"], **st["args"]).float()
+    assert (got - want).abs().max().item() <= \
+        2.0 ** -7 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_forward_coord_runs_every_kernel(cuda):
+    """The small coord slice on the card goes through the sweep, the conv
+    kernel's coord mode, the layer norm and the render, and matches its
+    all-plain f32 twin to the bf16 bound of chip_smoke.py."""
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P, ngf=NGF, coord_net=True)
+    b = entry.synthetic_batch(cfg, 1, cuda)
+    params = entry.make_params(cfg, seed=2, device=cuda)
+    before = (sweep_ops.launches, conv_ops.coord_launches,
+              ln_ops.launches, render_ops.launches)
+    out = entry.forward(params, b)
+    torch.cuda.synchronize()
+    after = (sweep_ops.launches, conv_ops.coord_launches,
+             ln_ops.launches, render_ops.launches)
+    assert all(a > n for a, n in zip(after, before))
+    assert after[1] - before[1] == 18
+    assert torch.isfinite(out).all()
+    err = (out - entry.forward_plain(params, b)).abs().max().item()
+    assert err <= 2e-2, err
