@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's inference paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's inference and training paths once on an NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -6,7 +7,7 @@ Builds the port's CUDA kernels from matryodshka_tpu_torch/csrc and checks
 each kernel against its plain PyTorch version at the shapes its path gives
 it, all at the full width of the flagship configuration (640x320 ODS input,
 32 planes per eye, 32 shells, ngf 64, bf16) with seeded random weights.
-Then it drives four paths, each with every launch count set to 0 just
+Then it drives five paths, each with every launch count set to 0 just
 before it and read just after:
 
 1. entry.forward (blend_psv: sweep, U-Net, blend-fused render) on three
@@ -21,7 +22,12 @@ before it and read just after:
 4. the coord net (coord_net=True, the released checkpoints' architecture:
    the conv kernel in its zero-padding and coord-channel mode) through
    entry.forward on two requests and the test CLI once (blend_psv, image
-   and depth).
+   and depth);
+5. the trainer (training/loop.train with the default ODS train step: K1
+   sweep, the wrap net with its stride-1 convs through K7 forward, dgrad
+   and wgrad, the gather render, Adam) for 8 steps on one in-memory batch,
+   after K7's gates at its eight layer shapes; then the step in parts, and
+   one step's loss and gradients against the all-plain f32 route.
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
 and plain versions are timed with CUDA events, and beside each kernel the
@@ -40,13 +46,16 @@ card's name and power limit), then a JSON line of kernels, then the
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 #: Bound on |kernel path (bf16) - all-plain path (f32)| over a rendered
@@ -83,6 +92,30 @@ OPS_RENDER_DEPTH = 16
 #: squares, then normalize, scale, shift, ReLU).
 OPS_SWEEP = 9
 OPS_LAYERNORM = 7
+#: The training phase: steps through training/loop.train on one repeated
+#: batch, the first TRAIN_WARMUP untimed.
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 6
+#: One step from the same parameters, the kernel route (bf16 storage of the
+#: sweep and of every activation, K7) against the all-plain f32 route:
+#: the loss within TRAIN_LOSS_TOL relative, each parameter's gradient
+#: within relative L2 max(TRAIN_GRAD_TOL, TRAIN_GRAD_MARGIN x the all-plain
+#: bf16 route's). bf16 rounds each stored activation and each gradient by
+#: up to 2^-9 relative, and over 18 layers forward and back a gradient's
+#: relative error grows to several 1e-2 with no kernel of the port in the
+#: way: the plain bf16 route (PyTorch convs, no K1, no K7) sits 4-19% from
+#: f32 on some parameters at 128x64 (CPU rehearsal). So the gate asks the
+#: kernel route to be no farther from f32 than bf16 itself puts it, with
+#: margin; a wrong tap, adjoint or split gives O(1).
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_GRAD_MARGIN = 1.5
+#: The weight-gradient kernel against its plain version, relative L2 (see
+#: wrap_conv_kernels).
+WGRAD_TOL = 1e-3
+#: K7c's sums against its plain version's: |ds1| <= STATS_TOL * sum|y| and
+#: |ds2| <= STATS_TOL * s2 (see wrap_conv_kernels).
+STATS_TOL = 1e-5
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -142,6 +175,320 @@ def random_stack(rng, p: int, h: int, w: int, dev) -> torch.Tensor:
     return stack.to(torch.bfloat16)
 
 
+def wrap_conv_layers(ngf: int, cin0: int):
+    """(name, Cin, Cout, size divisor) of the net's stride-1, rate-1 3x3
+    convs, the layers the trainer runs through K7 (models/unet.py)."""
+    from matryodshka_tpu_torch.ops.net import unet_plan
+    return [(name, sum(cins), cout, ind)
+            for (name, kind, _, cins, cout, ind, _, rate)
+            in unet_plan(ngf, cin0, 1) if kind == "conv" and rate == 1]
+
+
+def training_batch(cfg):
+    """A training example as the loader gives it (numpy, batch 1), built in
+    memory from the synthetic fixture's texture (data/synthetic.py: ref,
+    src and tgt are longitude-rolled copies), identity eye poses, baseline
+    0.032 m."""
+    from matryodshka_tpu_torch.data.synthetic import erp_texture
+    tex = erp_texture(cfg.height, cfg.width, seed=0)
+
+    def img(k):
+        shift = int(round((k - 1) * cfg.width * 0.01))
+        return np.roll(tex, shift, axis=1)[None].copy()
+
+    eye = np.eye(4, dtype=np.float32)[None]
+    intr = np.eye(3, dtype=np.float32)[None]
+    intr[0, 0, 0] = 0.032
+    return {"ref_image": img(0), "src_image": img(1), "tgt_image": img(2),
+            "ref_pose": eye, "src_pose": eye, "ref_pose_inv": eye,
+            "tgt_pose": np.asarray([[0.03, 0.01, -0.02]], np.float32),
+            "intrinsics": intr}
+
+
+def wrap_conv_kernels(dev, h, w, gate, errs, tag):
+    """K7 at the eight layer shapes of the flagship trainer (bf16 inputs,
+    seeded weights): every form, the dgrad and the wgrad against their
+    plain versions, then the times of the forms each layer runs in a step
+    (K7c for >= 160 input channels, else K7b; dgrad, a K7a launch, for all
+    but conv1_1, whose input is the sweep; wgrad for all), their plain
+    versions and cuDNN bf16 on the same work. Returns per-step sums
+    {key: (ms, plain_ms, library_ms, bound)}."""
+    import torch.nn.functional as F
+
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    from matryodshka_tpu_torch.ops.conv import wrap_pad
+
+    rng = torch.Generator(device=dev).manual_seed(4321)
+    sums = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in (
+        "wrap_conv_k7a", "wrap_conv_k7b", "wrap_conv_k7c", "wrap_conv_wgrad")}
+
+    def add(key, kt, pt, lt, nb, ops):
+        s = sums[key]
+        for i, v in enumerate((kt, pt, lt, nb, ops)):
+            s[i] += v
+
+    for name, cin, cout, ind in wrap_conv_layers(64, 192):
+        hh, ww = h // ind, w // ind
+        # post-ReLU-like inputs, as the trainer feeds these layers: half
+        # zeros, so s1 is not a small difference of large sums
+        x = torch.relu(torch.rand((1, cin, hh, ww), generator=rng,
+                                  device=dev) * 2 - 1).to(torch.bfloat16)
+        wt = torch.randn((cout, cin, 3, 3), generator=rng, device=dev) * (
+            9 * cin) ** -0.5
+        bias = 0.1 * torch.randn(cout, generator=rng, device=dev)
+        gy = torch.randn((1, cout, hh, ww), generator=rng,
+                         device=dev).to(torch.bfloat16)
+        shape = f"{name} {cin}->{cout} {hh}x{ww}"
+        # Forward and dgrad: kernel and plain version read the same rounded
+        # operands and sum in f32 in other orders: f32 outputs to 1e-4 of
+        # their scale, bf16 outputs within one bf16 step (2^-7 of the
+        # scale), as the conv gates above.
+        want = wc.conv3x3_wrap_plain(x, wt, bias)
+        gate("wrap_conv_k7a", f"{shape} fwd", wc.conv3x3_wrap(x, wt, bias),
+             want, 1e-4 * want.abs().max().item())
+        want = wc.conv3x3_wrap_dma_plain(x, wt, bias)
+        gate("wrap_conv_k7b", shape, wc.conv3x3_wrap_dma(x, wt, bias), want,
+             2.0 ** -7 * want.float().abs().max().item())
+        y, s1, s2 = wc.conv3x3_ln_stats(x, wt, bias)
+        yp, p1, p2 = wc.conv3x3_ln_stats_plain(x, wt, bias)
+        gate("wrap_conv_k7c", shape, y, yp,
+             2.0 ** -7 * yp.float().abs().max().item())
+        # The sums: the f32 products of a y element sum in another order
+        # in the kernel (~sqrt(9 Cin) * 2^-24 of |y|), so about 1e-3 of
+        # the elements round one bf16 step (2^-8 |y|) the other way, with
+        # random signs: ~1e-7 of sum|y| and of s2 at 1e5-1e7 elements,
+        # and the f32 block partials add less. STATS_TOL = 1e-5 leaves
+        # 100x for that; one of the 400-1600 block partials of a sample
+        # dropped or counted twice moves s2 by >= 6e-4 of it.
+        d1, d2 = (s1 - p1).abs().item(), (s2 - p2).abs().item()
+        t1 = STATS_TOL * yp.double().abs().sum().item()
+        t2 = STATS_TOL * p2.item()
+        print(f"wrap_conv_k7c {shape} stats |ds1|/|s1| "
+              f"{d1 / abs(p1.item()):.3e} |ds1|/sum|y| "
+              f"{d1 / t1 * STATS_TOL:.3e} |ds2|/s2 {d2 / p2.item():.3e} "
+              f"(tol {STATS_TOL:.0e} of sum|y|, s2) "
+              f"{'ok' if d1 <= t1 and d2 <= t2 else 'FAIL'}")
+        check(d1 <= t1 and d2 <= t2, f"wrap_conv_k7c {shape} stats")
+        wadj = wc.adjoint(wt)
+        want = wc.conv3x3_wrap_plain(gy, wadj)
+        gate("wrap_conv_k7a", f"{shape} dgrad", wc.conv3x3_wrap(gy, wadj),
+             want, 1e-4 * want.abs().max().item())
+        # wgrad: sums of up to 204,800 products in f32, in two blockings;
+        # rounding errors grow like sqrt(K) * 2^-24 relative to the
+        # result's root-sum-square (~3e-5 at K = 204,800), while a wrong
+        # tap, row or lost split moves it by O(1): relative L2 <= 1e-3.
+        dw, db = wc.conv3x3_wrap_wgrad(gy, x)
+        dwp, dbp = wc.conv3x3_wrap_wgrad_plain(gy, x)
+        rw = ((dw - dwp).norm() / dwp.norm()).item()
+        rb = ((db - dbp).norm() / dbp.norm()).item()
+        err = max((dw - dwp).abs().max().item(), (db - dbp).abs().max().item())
+        errs_ok = rw <= WGRAD_TOL and rb <= WGRAD_TOL and bool(
+            torch.isfinite(dw).all())
+        print(f"wrap_conv_wgrad {shape} rel L2 dW {rw:.3e} db {rb:.3e} "
+              f"max_abs_err {err:.3e} (tol rel {WGRAD_TOL:.0e}) "
+              f"{'ok' if errs_ok else 'FAIL'}")
+        check(errs_ok, f"wrap_conv_wgrad {shape}")
+        errs["wrap_conv_wgrad"] = max(errs["wrap_conv_wgrad"], err)
+
+        # times of this layer's launches in a training step
+        flops = 2.0 * 9 * cin * cout * hh * ww
+        xp = wrap_pad(x, 1, 1, 1, 1)
+        wb, bb = wt.to(torch.bfloat16), bias.to(torch.bfloat16)
+        lib_fwd = time_ms(lambda: F.conv2d(xp, wb, bb))
+        if cin >= 160:
+            kt = time_ms(lambda: wc.conv3x3_ln_stats(x, wt, bias))
+            pt = time_ms(lambda: wc.conv3x3_ln_stats_plain(x, wt, bias))
+            add("wrap_conv_k7c", kt, pt, lib_fwd,
+                nbytes(x, wt, bias, y) + 16, flops)
+        else:
+            kt = time_ms(lambda: wc.conv3x3_wrap_dma(x, wt, bias))
+            pt = time_ms(lambda: wc.conv3x3_wrap_dma_plain(x, wt, bias))
+            add("wrap_conv_k7b", kt, pt, lib_fwd, nbytes(x, wt, bias, y),
+                flops)
+        line = (f"{name:8s} fwd ({'K7c' if cin >= 160 else 'K7b'}) kernel "
+                f"{kt:7.3f} ms ({flops / kt / 1e9:6.2f} TFLOP/s) plain "
+                f"{pt:7.3f} library bf16 {lib_fwd:7.3f}")
+        if name != "conv1_1":
+            dt = time_ms(lambda: wc.conv3x3_wrap(gy, wadj))
+            dpt = time_ms(lambda: wc.conv3x3_wrap_plain(gy, wadj))
+            dlt = time_ms(lambda: torch.nn.grad.conv2d_input(
+                xp.shape, wb, gy))
+            add("wrap_conv_k7a", dt, dpt, dlt,
+                nbytes(gy, wt) + 4 * x.numel(), flops)
+            line += (f" | dgrad kernel {dt:7.3f} plain {dpt:7.3f} library "
+                     f"{dlt:7.3f}")
+        gt = time_ms(lambda: wc.conv3x3_wrap_wgrad(gy, x))
+        gpt = time_ms(lambda: wc.conv3x3_wrap_wgrad_plain(gy, x))
+        glt = time_ms(lambda: torch.nn.grad.conv2d_weight(xp, wt.shape, gy))
+        add("wrap_conv_wgrad", gt, gpt, glt, nbytes(gy, x, dw, db),
+            flops + 2.0 * cout * hh * ww)
+        print(f"{line} | wgrad kernel {gt:7.3f} plain {gpt:7.3f} library "
+              f"{glt:7.3f} ms {tag}")
+    return {k: (v[0], v[1], v[2], bound(v[3], v[4], BF16_FLOPS))
+            for k, v in sums.items()}
+
+
+def training_path(dev, tag, reset_counts, read_counts):
+    """Path 5: the default ODS trainer through training/loop.train for
+    TRAIN_WARMUP + TRAIN_STEPS steps on one repeated in-memory batch at
+    the flagship configuration, the launch counts zeroed before and read
+    after; the step's median time, peak memory and losses; the step in
+    parts; one step's loss and gradients against the all-plain f32 route,
+    beside the all-plain bf16 route's. Returns each kernel's launches over
+    the steps."""
+    from matryodshka_tpu_torch import entry
+    from matryodshka_tpu_torch.data.loader import device_prefetch
+    from matryodshka_tpu_torch.models import msi as msi_lib
+    from matryodshka_tpu_torch.models.unet import MSIUNet
+    from matryodshka_tpu_torch.ops import sweep as sweep_ops
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    from matryodshka_tpu_torch.training import loop as loop_lib
+    from matryodshka_tpu_torch.training import state as state_lib
+    from matryodshka_tpu_torch.training import step as step_lib
+
+    k7_counts = {"wrap_conv_k7a": "k7a_launches",
+                 "wrap_conv_k7b": "k7b_launches",
+                 "wrap_conv_k7c": "k7c_launches",
+                 "wrap_conv_wgrad": "wgrad_launches"}
+    nsteps = TRAIN_WARMUP + TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as ckdir:
+        tcfg = entry.flagship_cfg(max_steps=nsteps, summary_freq=1,
+                                  save_latest_freq=nsteps,
+                                  checkpoint_dir=ckdir,
+                                  experiment_name="smoke")
+        tstate = state_lib.init_state(tcfg, 0, dev)
+        np_batch = training_batch(tcfg)
+        tbatch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+        step_fn = step_lib.make_train_step(tcfg, tstate.net)
+        step_events = []
+
+        def timed_step(state, b):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = step_fn(state, b)
+            e.record()
+            step_events.append((s, e))
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        reset_counts()
+        for attr in k7_counts.values():
+            setattr(wc, attr, 0)
+        # the batches reach the card as the CLI sends them: pinned copies,
+        # non_blocking, from device_prefetch's thread
+        batches = device_prefetch(itertools.repeat(np_batch), size=2,
+                                  device=dev)
+        tstate = loop_lib.train(tcfg, tstate, timed_step, batches)
+        batches.close()
+        torch.cuda.synchronize()
+        train_launches = read_counts()
+        train_launches.update({k: getattr(wc, a)
+                               for k, a in k7_counts.items()})
+        train_peak = torch.cuda.max_memory_allocated()
+        with open(f"{ckdir}/smoke/logs/metrics.jsonl") as fh:
+            losses = [json.loads(line)["total_loss"] for line in fh]
+    print(f"launches over {nsteps} training steps: {train_launches}")
+    check(tstate.step == nsteps and len(losses) == nsteps,
+          f"training ran {tstate.step} steps")
+    for k in ("sweep", *k7_counts):
+        check(train_launches[k] > 0, f"kernel {k} was not launched on the "
+                                     f"training path")
+    step_ms = statistics.median(s.elapsed_time(e)
+                                for s, e in step_events[TRAIN_WARMUP:])
+    print(f"train step {step_ms:.3f} ms (median of {TRAIN_STEPS} after "
+          f"{TRAIN_WARMUP} warm-up; 640x320, 32+32 planes, ngf 64, bf16, "
+          f"batch 1), peak device memory {train_peak / 2**30:.3f} GiB "
+          f"({(train_peak - mem0) / 2**30:.3f} GiB above the "
+          f"{mem0 / 2**30:.3f} GiB held before) {tag}")
+    print(f"train losses on one repeated batch: "
+          + " ".join(f"{v:.3f}" for v in losses))
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          "training losses are finite and fall")
+
+    # where a step's time goes: the same step in parts, CUDA events between
+    loss_fn = step_lib.make_loss_fn(tcfg, tstate.net)
+    parts = {"sweep": [], "net_forward": [], "assemble_render_loss": [],
+             "backward": [], "optimizer": []}
+    for i in range(nsteps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        vol_t = loss_fn.sweep(tbatch)
+        ev[1].record()
+        pred_t = tstate.net(vol_t)
+        ev[2].record()
+        loss_t, _ = loss_fn.tail(tbatch, vol_t, pred_t)
+        ev[3].record()
+        tstate.optimizer.zero_grad(set_to_none=True)
+        loss_t.backward()
+        ev[4].record()
+        tstate.optimizer.step()
+        ev[5].record()
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            for j, k in enumerate(parts):
+                parts[k].append(ev[j].elapsed_time(ev[j + 1]))
+    del vol_t, pred_t, loss_t
+    print("train step parts " + " ".join(
+        f"{k} {statistics.median(v):.3f}" for k, v in parts.items())
+          + f" ms (median of {TRAIN_STEPS}) {tag}")
+
+    # one step from the same parameters: the kernel route (bf16) against
+    # the all-plain f32 route, with the all-plain bf16 route (no kernel of
+    # the port) as the measure of what bf16 alone costs
+    def plain_net(dtype):
+        net_ = MSIUNet(tcfg.num_net_inputs(), tcfg.num_net_outputs(),
+                       tcfg.ngf, dtype=dtype,
+                       variant=tcfg.net_variant).to(dev)
+        net_.load_state_dict(tstate.net.state_dict())
+        return net_
+
+    def plain_sweep(dtype):
+        def sweep(c, b, d):
+            imgs, rowp = sweep_ops.sweep_inputs(
+                msi_lib.preprocess_image(b["ref_image"]),
+                msi_lib.preprocess_image(b["src_image"]), d, b["intrinsics"])
+            return sweep_ops.ods_sweep_plain(imgs, rowp, dtype)
+        return sweep
+
+    routes = {}
+    for key, net_, sweep in (
+            ("kernel", tstate.net, None),
+            ("plain_bf16", plain_net(torch.bfloat16),
+             plain_sweep(torch.bfloat16)),
+            ("plain", plain_net(torch.float32), plain_sweep(torch.float32))):
+        net_.zero_grad(set_to_none=True)
+        loss_r, _ = step_lib.make_loss_fn(tcfg, net_, sweep)(tbatch)
+        loss_r.backward()
+        routes[key] = (loss_r.item(), {n: p.grad.detach().float()
+                                       for n, p in net_.named_parameters()})
+        del loss_r, net_
+    lp, gp = routes["plain"]
+    rel = {}
+    for key in ("kernel", "plain_bf16"):
+        lk, gk = routes[key]
+        rel[key] = {n: ((gk[n] - gp[n]).norm() / gp[n].norm()).item()
+                    for n in gp}
+        worst = sorted(rel[key].items(), key=lambda kv: -kv[1])
+        print(f"train step {key} route vs all-plain f32, same parameters: "
+              f"loss {lk:.4f} vs {lp:.4f}, rel {abs(lk - lp) / abs(lp):.3e} "
+              f"(tol {TRAIN_LOSS_TOL:.0e}); gradient rel L2 median "
+              f"{statistics.median(rel[key].values()):.3e}, worst "
+              + ", ".join(f"{n} {v:.3e}" for n, v in worst[:4]))
+        check(abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp),
+              f"train loss, {key} vs plain f32 route")
+    bad = [n for n, v in rel["kernel"].items()
+           if v > max(TRAIN_GRAD_TOL, TRAIN_GRAD_MARGIN * rel["plain_bf16"][n])]
+    print(f"train gradients of the kernel route within max({TRAIN_GRAD_TOL:.0e},"
+          f" {TRAIN_GRAD_MARGIN} x the plain bf16 route's) of plain f32: "
+          f"{len(rel['kernel']) - len(bad)} of {len(rel['kernel'])} "
+          f"parameters {'ok' if not bad else 'FAIL ' + ', '.join(bad)}")
+    check(not bad, f"train gradients {bad}, kernel vs plain route")
+    return train_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU route here",
@@ -188,7 +535,9 @@ def main() -> None:
     h, w, p = cfg.height, cfg.width, cfg.num_msi_planes
     errs = {"sweep": 0.0, "conv": 0.0, "conv_coord": 0.0, "layernorm": 0.0,
             "render": 0.0, "render_depth": 0.0, "render_layers_k4": 0.0,
-            "render_layers_k5": 0.0, "render_layers_k6": 0.0}
+            "render_layers_k5": 0.0, "render_layers_k6": 0.0,
+            "wrap_conv_k7a": 0.0, "wrap_conv_k7b": 0.0,
+            "wrap_conv_k7c": 0.0, "wrap_conv_wgrad": 0.0}
 
     def gate(name, what, got, want, tol_abs):
         err = (got.float() - want.float()).abs().max().item()
@@ -197,6 +546,7 @@ def main() -> None:
               f"{tol_abs:.3e} {'ok' if err <= tol_abs and fin else 'FAIL'}")
         check(fin and err <= tol_abs, f"{name} {what}")
         errs[name] = max(errs[name], err)
+        return err
 
     # sweep: both eyes x 32 planes at 640x320, f32 and bf16 output.
     # f32: the same taps and weights, only FMA contraction differs (1e-5);
@@ -453,6 +803,11 @@ def main() -> None:
                                     f"coord net's test CLI path")
     gate_e2e(f"cli coord {cscheme} tgt_pos {cpos}", ccli_out,
              cli_test.infer_plain(ccfg, cparams, cb_cli))
+
+    # ---- path 5: training, the default ODS trainer -------------------------
+    k7_ms = wrap_conv_kernels(dev, h, w, gate, errs, tag)
+    train_launches = training_path(dev, tag, reset_counts, read_counts)
+    nsteps = TRAIN_WARMUP + TRAIN_STEPS
 
     # ---- times (CUDA events, 2 warm-up, median of 10) ----------------------
     b0 = batches[0]
@@ -731,14 +1086,39 @@ def main() -> None:
         "render_layers_k6": ("matryodshka_tpu_torch/csrc/render_layers.cu",
                              "matryodshka_tpu/ops/pallas_render.py:694"),
     }
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": sources[k][0],
-         "replaces": sources[k][1], "launches": launches[k],
-         "launches_per_frame": launches[k] / frames[k],
-         "max_abs_err": errs[k], "ms": kernel_ms[k], "plain_ms": plain_ms[k],
-         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": lib_ms[k]}
-        for k in sources]}))
+    rows = [{"name": k, "route": "cuda", "source": sources[k][0],
+             "replaces": sources[k][1], "launches": launches[k],
+             "launches_per_frame": launches[k] / frames[k],
+             "max_abs_err": errs[k], "ms": kernel_ms[k],
+             "plain_ms": plain_ms[k], "bound_ms": bounds[k][0],
+             "bound_by": bounds[k][1], "library_ms": lib_ms[k]}
+            for k in sources]
+    # K7: times per training step, summed over the layers each form runs
+    # (K7a: the seven dgrads; K7b: three forwards; K7c: five forwards and
+    # their sums; wgrad: eight)
+    k7_sources = {
+        "wrap_conv_k7a": ("matryodshka_tpu_torch/csrc/conv.cu",
+                          "matryodshka_tpu/ops/pallas_conv.py:56"),
+        "wrap_conv_k7b": ("matryodshka_tpu_torch/csrc/conv.cu",
+                          "matryodshka_tpu/ops/pallas_conv.py:159"),
+        "wrap_conv_k7c": ("matryodshka_tpu_torch/csrc/conv.cu",
+                          "matryodshka_tpu/ops/pallas_conv.py:272"),
+        "wrap_conv_wgrad": ("matryodshka_tpu_torch/csrc/conv_wgrad.cu",
+                            "matryodshka_tpu/ops/pallas_conv.py:56 (K7's "
+                            "weight gradient; the TPU kernels have no "
+                            "backward)"),
+    }
+    for k, (src, rep) in k7_sources.items():
+        kt, pt, lt, (bms, bby) = k7_ms[k]
+        print(f"kernel {k:16s} {kt:9.3f} ms  plain {pt:9.3f} ms  library "
+              f"{lt:9.3f} ms  bound {bms:.4f} ms ({bby}) per step, "
+              f"{train_launches[k] / nsteps:g} launches per step {tag}")
+        rows.append({"name": k, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": train_launches[k],
+                     "launches_per_step": train_launches[k] / nsteps,
+                     "max_abs_err": errs[k], "ms": kt, "plain_ms": pt,
+                     "bound_ms": bms, "bound_by": bby, "library_ms": lt})
+    print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
-"""The subset of `MatryConfig` that the ported inference paths read.
+"""The subset of `MatryConfig` that the ported inference and training
+paths read.
 
 Field names and defaults are those of `matryodshka_tpu/config.py`, so a
-configuration moves between the two packages by keyword, and the test CLI
-takes the same `--<field>` flags.
+configuration moves between the two packages by keyword, and the test and
+train CLIs take the same `--<field>` flags. `validate` refuses the values
+whose code is not ported yet, naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -19,18 +21,28 @@ COLOR_PREDS = ("blend_psv", "blend_bg", "blend_bg_psv", "alpha_only")
 #: Input types the port accepts. PP and REALESTATE_PP need the MPI render
 #: and the homography path (ROADMAP Queue 1 item 5).
 INPUT_TYPES = ("ODS",)
+LOSSES = ("pixel", "elpips")
 
 
 @dataclass(frozen=True)
 class MatryConfig:
-    # --- i/o (the test CLI) -----------------------------------------------
+    # --- i/o (the CLIs) ---------------------------------------------------
     cameras_glob: str = "glob/train/ods/*.txt"
     image_dir: str = "train_640x320"
     hres_image_dir: str = "train_4096x2048"
+    checkpoint_dir: str = "checkpoints"
     experiment_name: str = ""
     output_root: str = "./test"
     shuffle_seq_length: int = 3
     random_seed: int = 8964
+
+    # --- training hyper-parameters ------------------------------------------
+    learning_rate: float = 2e-4
+    beta1: float = 0.9
+    max_steps: int = 10_000_000
+    summary_freq: int = 50
+    save_latest_freq: int = 2000
+    continue_train: bool = False
 
     # --- image geometry -----------------------------------------------------
     height: int = 320
@@ -51,8 +63,27 @@ class MatryConfig:
     max_depth: float = 100.0
     num_psv_planes: int = 32
     num_msi_planes: int = 32
+    transform_inverse_reg: bool = False
+
+    # --- loss ---------------------------------------------------------------
+    which_loss: str = "pixel"           # pixel | elpips
+    spherical_attention: bool = False
+    wreg: bool = False
+    supervision: str = "tgt"            # '_'-joined: tgt, ref, src, hrestgt
+    rot_factor: float = 1.0
+    tr_factor: float = 1.0
+
+    # --- GCN variant ----------------------------------------------------------
+    gcn: bool = False
+
+    # --- numerics / parallelism -------------------------------------------------
     compute_dtype: str = "bfloat16"
+    remat_network: bool = False
     shard_shells: bool = False
+
+    @property
+    def supervise_tgt(self) -> bool:
+        return "tgt" in self.supervision
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:
@@ -95,7 +126,37 @@ class MatryConfig:
         if self.height % 8 or self.width % 8:
             raise ValueError("U-Net has 3 stride-2 stages; H and W must be "
                              "multiples of 8")
+        if self.which_loss not in LOSSES:
+            raise ValueError(f"which_loss {self.which_loss!r}; known: "
+                             f"{LOSSES}")
+        check_trainable(self)
         return self
+
+
+def check_trainable(cfg: MatryConfig) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for a training
+    option whose code is not ported yet."""
+    parts = cfg.supervision.split("_")
+    unported = [
+        (cfg.which_loss == "elpips", "which_loss=elpips: E-LPIPS is ROADMAP "
+         "Queue 1 item 7"),
+        (cfg.gcn, "gcn: the GCN is ROADMAP Queue 1 item 8"),
+        ("hrestgt" in parts, "supervision hrestgt: the high-res target "
+         "render in training is left of ROADMAP Queue 1 item 6"),
+        ("src" in parts or "ref" in parts, "supervision src/ref: the ODS "
+         "eye re-render (render_ods_view) is left of ROADMAP Queue 1 item "
+         "6"),
+        (cfg.transform_inverse_reg, "transform_inverse_reg is left of "
+         "ROADMAP Queue 1 item 6"),
+        (cfg.rot_factor != 1.0 or cfg.tr_factor != 1.0, "rot_factor and "
+         "tr_factor scale transform_inverse_reg's pose jitter, left of "
+         "ROADMAP Queue 1 item 6"),
+        (cfg.remat_network, "remat_network is left of ROADMAP Queue 1 item "
+         "6"),
+    ]
+    for bad, msg in unported:
+        if bad:
+            raise NotImplementedError(msg)
 
 
 def add_config_args(parser: argparse.ArgumentParser) -> None:

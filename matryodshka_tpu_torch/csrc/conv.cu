@@ -38,6 +38,17 @@
 //
 // Weights are packed [npar, K, Cout] with k = (kh*KW + kw)*Cin' + c
 // (ops/conv.py:pack_conv / pack_deconv).
+//
+// The same kernel is the per-layer 3x3 wrap conv of
+// matryodshka_tpu/ops/pallas_conv.py (K7: _conv_kernel, _conv_kernel_dma,
+// _conv_ln_kernel; ops/wrap_conv.py) in kWrap mode, stride 1, npar 1.
+// K7c's layer-norm statistics are the STATS epilogue: after the bias and
+// the rounding to the output type, each block sums y and y^2 of its
+// ROUNDED outputs in f32 (as _conv_ln_kernel:368-370 does) and writes one
+// (s1, s2) partial per (sample, block); stats_fold then sums each sample's
+// partials in a fixed order in f64. No atomics, so the sums are the same
+// on every run, and f64 keeps the layer norm's var = s2/n - mean^2 from
+// cancelling when mean^2 >> var.
 
 #include "common.cuh"
 
@@ -59,14 +70,15 @@ struct ConvArgs {
       out_h, out_w, act;
 };
 
-template <typename TI, typename TO, int MODE>
+template <typename TI, typename TO, int MODE, bool STATS>
 __global__ void __launch_bounds__(256)
     conv_kernel(const TI* __restrict__ x, const TI* __restrict__ w,
                 const float* __restrict__ bias,
                 const float* __restrict__ coord, TO* __restrict__ out,
-                ConvArgs a) {
+                float* __restrict__ partial, ConvArgs a) {
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
+  __shared__ float red[2][256 / 32];
 
   const int tid = threadIdx.x;
   const int z = blockIdx.z;
@@ -161,6 +173,7 @@ __global__ void __launch_bounds__(256)
   }
 
   const int ostr = a.npar == 4 ? 2 : 1;
+  float s1 = 0.f, s2 = 0.f;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
@@ -175,63 +188,153 @@ __global__ void __launch_bounds__(256)
       const int px = p - py * a.Wo;
       float v = acc[i][j] + bv;
       if (a.act == 1) v = tanhf(v);
-      om[(long long)(py * ostr + da) * a.out_w + px * ostr + db] =
-          matry::from_f32<TO>(v);
+      const TO q = matry::from_f32<TO>(v);
+      om[(long long)(py * ostr + da) * a.out_w + px * ostr + db] = q;
+      if (STATS) {
+        const float r = matry::to_f32(q);
+        s1 += r;
+        s2 += r * r;
+      }
+    }
+  }
+  if (STATS) {
+    // Block sum in a fixed order: butterfly within each warp, then the
+    // eight warp sums in order by thread 0.
+    for (int off = 16; off > 0; off >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    const int lane = tid & 31, warp = tid >> 5;
+    if (lane == 0) {
+      red[0][warp] = s1;
+      red[1][warp] = s2;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int i = 0; i < 256 / 32; ++i) {
+        t1 += red[0][i];
+        t2 += red[1][i];
+      }
+      float* pb = partial +
+                  (((long long)b * gridDim.y + blockIdx.y) * gridDim.x +
+                   blockIdx.x) * 2;
+      pb[0] = t1;
+      pb[1] = t2;
     }
   }
 }
 
-template <typename TI, typename TO, int MODE>
+// One block per sample: each thread sums a strided set of the sample's
+// nblk partials in f64, in order, then a fixed tree over the block.
+__global__ void __launch_bounds__(256)
+    stats_fold(const float* __restrict__ partial, double* __restrict__ stats,
+               int nblk) {
+  __shared__ double sh[2][256];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const float* pb = partial + (long long)b * nblk * 2;
+  double t1 = 0.0, t2 = 0.0;
+  for (int i = tid; i < nblk; i += 256) {
+    t1 += pb[2 * i];
+    t2 += pb[2 * i + 1];
+  }
+  sh[0][tid] = t1;
+  sh[1][tid] = t2;
+  __syncthreads();
+  for (int s = 128; s > 0; s >>= 1) {
+    if (tid < s) {
+      sh[0][tid] += sh[0][tid + s];
+      sh[1][tid] += sh[1][tid + s];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    stats[2 * b] = sh[0][0];
+    stats[2 * b + 1] = sh[1][0];
+  }
+}
+
+dim3 grid_of(const ConvArgs& a) {
+  return dim3((a.Ho * a.Wo + BN - 1) / BN, (a.Cout + BM - 1) / BM,
+              a.B * a.npar);
+}
+
+template <typename TI, typename TO, int MODE, bool STATS>
 void launch(const void* x, const void* w, const void* bias,
-            const void* coord, void* out, const ConvArgs& a,
-            cudaStream_t s) {
-  dim3 grid((a.Ho * a.Wo + BN - 1) / BN, (a.Cout + BM - 1) / BM,
-            a.B * a.npar);
-  conv_kernel<TI, TO, MODE><<<grid, 256, 0, s>>>(
+            const void* coord, void* out, void* partial, void* stats,
+            const ConvArgs& a, cudaStream_t s) {
+  const dim3 grid = grid_of(a);
+  conv_kernel<TI, TO, MODE, STATS><<<grid, 256, 0, s>>>(
       (const TI*)x, (const TI*)w, (const float*)bias, (const float*)coord,
-      (TO*)out, a);
+      (TO*)out, (float*)partial, a);
+  if (STATS)
+    stats_fold<<<a.B, 256, 0, s>>>((const float*)partial, (double*)stats,
+                                   grid.x * grid.y);
 }
 
 template <typename TI, typename TO>
 void launch_mode(const void* x, const void* w, const void* bias,
-                 const void* coord, void* out, const ConvArgs& a,
-                 int mode, cudaStream_t s) {
-  if (mode == kCoord)
-    launch<TI, TO, kCoord>(x, w, bias, coord, out, a, s);
+                 const void* coord, void* out, void* partial, void* stats,
+                 const ConvArgs& a, int mode, cudaStream_t s) {
+  if (partial)
+    launch<TI, TO, kWrap, true>(x, w, bias, coord, out, partial, stats, a,
+                                s);
+  else if (mode == kCoord)
+    launch<TI, TO, kCoord, false>(x, w, bias, coord, out, partial, stats, a,
+                                  s);
   else if (mode == kZero)
-    launch<TI, TO, kZero>(x, w, bias, coord, out, a, s);
+    launch<TI, TO, kZero, false>(x, w, bias, coord, out, partial, stats, a,
+                                 s);
   else
-    launch<TI, TO, kWrap>(x, w, bias, coord, out, a, s);
+    launch<TI, TO, kWrap, false>(x, w, bias, coord, out, partial, stats, a,
+                                 s);
 }
 
 }  // namespace
 
+// Blocks per sample of a stats launch (ho_wo output pixels, cout
+// channels): the length of each sample's row of partials.
+extern "C" int matry_conv_stats_blocks(int ho_wo, int cout) {
+  const dim3 g = grid_of(ConvArgs{1, 0, 0, 0, cout, ho_wo, 1, 0, 0, 0, 0, 0,
+                                  0, 1, 0, 0, 0});
+  return (int)(g.x * g.y);
+}
+
 // coord: null, or the coord channel's f32 value per input row [Hi] (then
 // zero_w must be set); zero_w: zero horizontal padding, else wrap.
+// partial/stats: null, or (wrap mode, npar 1 only) the STATS epilogue's
+// f32 scratch [B, matry_conv_stats_blocks(Ho*Wo, Cout), 2] and its f64
+// result [B, 2] = (sum y, sum y^2) per sample.
 extern "C" int matry_conv(const void* x, const void* w, const void* bias,
                           const void* coord, void* out, int B, int Cin,
                           int Hi, int Wi, int Cout, int Ho, int Wo, int KH,
                           int KW, int stride, int dil, int pad_h, int pad_w,
                           int npar, int out_h, int out_w, int act,
-                          int in_f32, int out_f32, int zero_w,
-                          void* stream) {
+                          int in_f32, int out_f32, int zero_w, void* partial,
+                          void* stats, void* stream) {
   const ConvArgs a{B,  Cin,    Hi,  Wi,    Cout,  Ho,    Wo,
                    KH, KW,     stride, dil, pad_h, pad_w, npar,
                    out_h, out_w, act};
   cudaStream_t s = (cudaStream_t)stream;
   if (coord && !zero_w) return (int)cudaErrorInvalidValue;
+  if ((partial != nullptr) != (stats != nullptr) ||
+      (partial && (zero_w || npar != 1)))
+    return (int)cudaErrorInvalidValue;
   const int mode = coord ? kCoord : (zero_w ? kZero : kWrap);
   if (in_f32) {
     if (out_f32)
-      launch_mode<float, float>(x, w, bias, coord, out, a, mode, s);
+      launch_mode<float, float>(x, w, bias, coord, out, partial, stats, a,
+                                mode, s);
     else
-      launch_mode<float, __nv_bfloat16>(x, w, bias, coord, out, a, mode, s);
+      launch_mode<float, __nv_bfloat16>(x, w, bias, coord, out, partial,
+                                        stats, a, mode, s);
   } else {
     if (out_f32)
-      launch_mode<__nv_bfloat16, float>(x, w, bias, coord, out, a, mode, s);
+      launch_mode<__nv_bfloat16, float>(x, w, bias, coord, out, partial,
+                                        stats, a, mode, s);
     else
-      launch_mode<__nv_bfloat16, __nv_bfloat16>(x, w, bias, coord, out, a,
-                                                mode, s);
+      launch_mode<__nv_bfloat16, __nv_bfloat16>(x, w, bias, coord, out,
+                                                partial, stats, a, mode, s);
   }
   return (int)cudaGetLastError();
 }

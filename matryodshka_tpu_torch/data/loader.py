@@ -1,10 +1,11 @@
 """Host-side loading of Replica ODS examples as numpy batches.
 
 The ODS part of `matryodshka_tpu/data/loader.py` (`OdsLoader`,
-`make_loader`): a thread pool decodes and resizes the JPEGs (PIL releases
-the GIL) and batches are numpy dicts, which the caller moves to its
-device. The PP and RealEstate loaders and the device prefetch (training)
-are not ported yet (ROADMAP Queue 1 items 5 and 6).
+`make_loader`, `device_prefetch`): a thread pool decodes and resizes the
+JPEGs (PIL releases the GIL) and batches are numpy dicts, which the caller
+moves to its device, or `device_prefetch` moves ahead of the step that
+needs them. The PP and RealEstate loaders are not ported yet (ROADMAP
+Queue 1 item 5).
 
 Batch dict contract (ODS; data_loader.py:124-185):
   ref_image/src_image/tgt_image: [B, H, W, 3] float32 in [0, 1]
@@ -19,10 +20,13 @@ Batch dict contract (ODS; data_loader.py:124-185):
 from __future__ import annotations
 
 import itertools
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 from matryodshka_tpu_torch.data import images as img_lib
 from matryodshka_tpu_torch.data import parsers
@@ -121,3 +125,78 @@ def make_loader(cfg, training: bool = True, **kwargs):
             f"input_type {cfg.input_type!r}: the PP and RealEstate loaders "
             f"are not ported (ROADMAP Queue 1 item 5)")
     return OdsLoader(cfg, training=training, **kwargs)
+
+
+def device_prefetch(batch_iter: Iterator[Dict], size: int = 2,
+                    device="cuda") -> Iterator[Dict]:
+    """Move batches to `device` ahead of their use (the tf.data prefetch
+    of the reference): a thread copies the next `size` batches while the
+    current step computes. On a CUDA device each numpy array is copied
+    into pinned host memory and sent with a non_blocking copy on a side
+    stream, so the copy overlaps the step's kernels; the consumer's stream
+    waits for the copy's event before the batch is handed over. On the CPU
+    the arrays are wrapped as tensors. Entries that are not numpy arrays
+    pass through. A loader error is raised in the consumer; closing the
+    iterator stops the thread."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if cuda else None
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    done = threading.Event()
+    end = object()
+
+    def to_device(batch):
+        out = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+               for k, v in batch.items()}
+        if not cuda:
+            return out, None
+        with torch.cuda.stream(side):
+            for k, v in out.items():
+                if torch.is_tensor(v):
+                    out[k] = v.pin_memory().to(device, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(side)
+        return out, copied
+
+    def hand_over(batch, copied):
+        """Make the consumer's stream wait for the copies, and tell the
+        allocator it uses the tensors the side stream allocated."""
+        if copied is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(copied)
+            for v in batch.values():
+                if torch.is_tensor(v):
+                    v.record_stream(stream)
+        return batch
+
+    def offer(item) -> bool:
+        while not done.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker():
+        try:
+            for batch in batch_iter:
+                if not offer(to_device(batch)):
+                    return
+            offer(end)
+        except Exception as err:  # handed to the consumer, raised there
+            offer(err)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield hand_over(*item)
+    finally:
+        done.set()
+        thread.join(timeout=60)

@@ -19,6 +19,11 @@ then
 
 The JAX prepared stack is W-flipped, row-padded and split from two pole-cap
 bands for the TPU ladder kernels; none of that is needed here.
+
+The trainer (`training/step.py`) runs infer_msi (msi.py:346-395) as the
+JAX train step calls it: the sweep kernel (`sweep_stage`), the trainer's
+MSIUNet (its stride-1 wrap convs through K7, with autograd), then
+`assemble_train` (assemble_rgba) and the gather render.
 """
 
 from __future__ import annotations
@@ -246,6 +251,22 @@ def infer_msi_prepared(cfg, stages, batch, psv_depths):
     """Sweep kernel -> net kernels -> assemble_outputs_planar."""
     vol = sweep_stage(cfg, batch, psv_depths)
     return assemble_outputs_planar(cfg, vol, net_stage(stages, vol))
+
+
+# ---------------------------------------------------------------------------
+# The training forward.
+# ---------------------------------------------------------------------------
+
+def assemble_train(cfg, vol, pred) -> Dict[str, torch.Tensor]:
+    """The differentiable tail of infer_msi as the JAX train step runs it
+    (msi.py:379-382): the sweep volume vol [B, 2*P*3, H, W] and the net's
+    prediction pred [B, K, H, W] -> assemble_rgba's dict (rgba_layers
+    [B, H, W, P, 4] in vol's dtype) plus 'psv' [B, H, W, 2*P*3]."""
+    net_input = vol.permute(0, 2, 3, 1)
+    outputs = assemble_rgba(cfg.which_color_pred, pred.permute(0, 2, 3, 1),
+                            net_input, cfg.num_msi_planes)
+    outputs["psv"] = net_input
+    return outputs
 
 
 def render_equirect_view_from_prepared(outputs, tgt_pose_rt, tgt_pos, radii,

@@ -20,6 +20,15 @@ here `F.conv_transpose2d` with the kernel flipped (flax does not flip it).
 Both: layer norm is over (C, H, W) in float32; the 1x1 head ends in tanh
 and returns float32. Convs compute in the model's dtype, as flax's
 dtype=compute_dtype does.
+
+wrap_conv_kernel=True (the trainer's net; flax's `use_pallas_conv=True`)
+sends the wrap net's stride-1, rate-1 3x3 convs through the wrap-conv
+kernel K7 (`ops/wrap_conv.py`, differentiable): with the layer-norm
+statistics (K7c) when the input has at least `stats_min_cin` channels (160,
+flax's gate: conv1_1, conv3_1, conv3_2, conv6_2 and conv6_3 at ngf 64),
+else without (K7b: conv2_1, conv7_2, conv8_2). stats_min_cin=0 sends every
+such conv through K7c, as flax's `pallas_interpret=True` does. The other
+layers, the layer norm and the ReLU stay PyTorch ops with autograd.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from matryodshka_tpu_torch.ops import wrap_conv
 from matryodshka_tpu_torch.ops.conv import coord_column, with_coord, wrap_pad
 from matryodshka_tpu_torch.ops.layernorm import layer_norm_relu_plain
 from matryodshka_tpu_torch.ops.net import VARIANTS, kernel_cin, unet_plan
@@ -42,9 +52,21 @@ class SpatialLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
         self.gamma = nn.Parameter(torch.ones(channels))
 
-    def forward(self, x):
-        return layer_norm_relu_plain(x, self.gamma, self.beta, self.eps,
-                                     relu=False)
+    def forward(self, x, stats=None):
+        """stats=(s1, s2, n), the per-sample sums of x and x^2 ([B], float64
+        from K7c) over its n values, replaces the reduction passes: mean =
+        s1/n and var = max(s2/n - mean^2, 0), formed in float64."""
+        if stats is None:
+            return layer_norm_relu_plain(x, self.gamma, self.beta, self.eps,
+                                         relu=False)
+        s1, s2, n = stats
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean.square(), min=0.0)
+        mean = mean.float()[:, None, None, None]
+        rstd = torch.rsqrt(var.float() + self.eps)[:, None, None, None]
+        y = ((x.float() - mean) * rstd * self.gamma[:, None, None]
+             + self.beta[:, None, None])
+        return y.to(x.dtype)
 
 
 class ConvParams(nn.Module):
@@ -68,12 +90,15 @@ class MSIUNet(nn.Module):
     [B, num_outputs, H, W] float32."""
 
     def __init__(self, num_inputs: int, num_outputs: int, ngf: int = 64,
-                 dtype=torch.bfloat16, variant: str = "wrap"):
+                 dtype=torch.bfloat16, variant: str = "wrap",
+                 wrap_conv_kernel: bool = False, stats_min_cin: int = 160):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"variant {variant!r}; known: {VARIANTS}")
         self.dtype = dtype
         self.variant = variant
+        self.wrap_conv_kernel = wrap_conv_kernel
+        self.stats_min_cin = stats_min_cin
         self.plan = unet_plan(ngf, num_inputs, num_outputs)
         for (name, kind, _, cins, cout, _, _, _) in self.plan:
             k = {"deconv": 4, "head": 1}.get(kind, 3)
@@ -84,6 +109,16 @@ class MSIUNet(nn.Module):
 
     def _conv(self, x, name: str, stride: int = 1, rate: int = 1):
         layer = getattr(self, name)
+        ln = getattr(self, name + "_ln")
+        if (self.wrap_conv_kernel and self.variant == "wrap" and stride == 1
+                and rate == 1):
+            if x.shape[1] >= self.stats_min_cin:
+                y, s1, s2 = wrap_conv.wrap_conv3x3(x, layer.weight,
+                                                   layer.bias, stats=True)
+                y = ln(y, stats=(s1, s2, y[0].numel()))
+            else:
+                y = ln(wrap_conv.wrap_conv3x3(x, layer.weight, layer.bias))
+            return torch.relu(y)
         if self.variant == "coord":
             h, w = x.shape[-2:]
             x = with_coord(x, coord_column(h, x.device))
@@ -95,7 +130,7 @@ class MSIUNet(nn.Module):
         y = F.conv2d(x, layer.weight.to(x.dtype), stride=stride,
                      dilation=rate)
         y = y + layer.bias.to(x.dtype)[:, None, None]
-        return torch.relu(getattr(self, name + "_ln")(y))
+        return torch.relu(ln(y))
 
     def _deconv(self, x, name: str):
         """4x4 stride-2 transposed conv. Wrap net: flax ConvTranspose,

@@ -187,7 +187,7 @@ def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
         b, cin, h, w, cout, ho, wo, kh, kw, stride, dil,
         1 if npar == 4 else lo, 1 if npar == 4 else lo, npar, oh, ow,
         int(tanh), int(x.dtype == torch.float32),
-        int(out_dtype == torch.float32), int(hpad == "zero"),
+        int(out_dtype == torch.float32), int(hpad == "zero"), None, None,
         _build.stream_ptr(x.device))
     _build.check(err, "matry_conv")
     launches += 1

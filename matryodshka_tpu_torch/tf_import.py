@@ -31,6 +31,7 @@ from typing import Dict
 import numpy as np
 
 from matryodshka_tpu_torch import tensor_bundle
+from matryodshka_tpu_torch.training.checkpoint import save_params
 
 CONV_LAYERS = ["conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3_1",
                "conv3_2", "conv3_3", "conv4_1", "conv4_2", "conv4_3",
@@ -95,16 +96,6 @@ def variant_of(params: Dict) -> str:
             == p["conv1_1"]["kernel"].shape[3] + 1 else "wrap")
 
 
-def save_npz(path: str, params: Dict, step: int = 0) -> None:
-    """Write params as the .npz that restore_params reads."""
-    flat = {f"params/{layer}/{leaf}": np.ascontiguousarray(value,
-                                                           np.float32)
-            for layer, leaves in params["params"].items()
-            for leaf, value in leaves.items()}
-    flat["step"] = np.asarray(step, np.int64)
-    np.savez(path, **flat)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__,
@@ -118,7 +109,7 @@ def main(argv=None):
     params = convert(load_tf_vars(args.src))
     n = sum(int(np.asarray(v).size) for layer in params["params"].values()
             for v in layer.values())
-    save_npz(args.out, params, args.step)
+    save_params(args.out, params, args.step)
     variant = variant_of(params)
     print(f"converted {n:,} parameters across {len(params['params'])} "
           f"modules ({variant} net) to {args.out} @ step {args.step}; run "

@@ -1,19 +1,20 @@
-"""Where a flagship frame's time goes on the card, from a torch.profiler
-trace.
+"""Where a flagship frame's or training step's time goes on the card,
+from a torch.profiler trace.
 
-    python -m matryodshka_tpu_torch.trace [--coord_net]
+    python -m matryodshka_tpu_torch.trace [--coord_net] [--train]
 
 Runs entry.forward at the flagship configuration (640x320, 32 + 32 planes,
 32 shells, ngf 64, bf16, blend_psv; the wrap net, or the coord net with
 --coord_net) with seeded weights, and for each part -- the sweep stage,
 the net stage, the render stage and then the whole frame -- traces
-FRAMES calls after 2 warm-up under torch.profiler (CPU and CUDA
-activities). Per part it prints the host wall ms per frame (a synchronize
-ends the window), the device busy ms per frame (the union of the trace's
-kernel, memcpy and memset intervals), the idle share 1 - busy / wall, the
-device operations per frame, and the part's TOP largest kernels by
-device time. Every line carries the card's name and power limit. Needs a CUDA
-device.
+CALLS calls after 2 warm-up under torch.profiler (CPU and CUDA
+activities). With --train it traces the default trainer's step instead
+(training/step.py's train step with Adam, batch 1, on a synthetic batch).
+Per part it prints the host wall ms per call (a synchronize ends the
+window), the device busy ms per call (the union of the trace's kernel,
+memcpy and memset intervals), the idle share 1 - busy / wall, the device
+operations per call, and the part's TOP largest kernels by device time.
+Every line carries the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ import warnings
 import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-FRAMES = 10   # traced calls per part
-TOP = 4       # kernels listed per part
+CALLS = 10    # traced calls per part
+TOP = 10      # kernels listed per part
 
 
 def _card() -> str:
@@ -70,7 +71,7 @@ def busy_us(events) -> float:
 
 
 def trace_part(fn):
-    """(host wall ms, device busy ms, idle share, device ops) per frame,
+    """(host wall ms, device busy ms, idle share, device ops) per call,
     and device us by kernel name over the window."""
     for _ in range(2):
         fn()
@@ -79,23 +80,24 @@ def trace_part(fn):
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(FRAMES):
+        for _ in range(CALLS):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / FRAMES
+        wall = (time.perf_counter() - t0) * 1e3 / CALLS
     events = device_events(prof)
     if not events:
         raise RuntimeError("the profiler recorded no device activity")
-    busy = busy_us(events) / 1e3 / FRAMES
+    busy = busy_us(events) / 1e3 / CALLS
     by_name = collections.Counter()
     for name, _, dur in events:
         by_name[name] += dur
-    return wall, busy, 1.0 - busy / wall, len(events) / FRAMES, by_name
+    return wall, busy, 1.0 - busy / wall, len(events) / CALLS, by_name
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--coord_net", action="store_true")
+    ap.add_argument("--train", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace: no CUDA device", file=sys.stderr)
@@ -106,30 +108,41 @@ def main(argv=None):
     tag = f"[{_card()}]"
     dev = torch.device("cuda", 0)
     cfg = entry.flagship_cfg(coord_net=args.coord_net)
-    params = entry.make_params(cfg, seed=0, device=dev)
     batch = entry.synthetic_batch(cfg, 0, dev)
-    rt = torch.eye(4, device=dev)[None]
-    vol = msi_lib.sweep_stage(cfg, batch, params.psv_depths)
-    pred = msi_lib.net_stage(params.stages, vol)
-    parts = {
-        "sweep": lambda: msi_lib.sweep_stage(cfg, batch, params.psv_depths),
-        "net": lambda: msi_lib.net_stage(params.stages, vol),
-        "render": lambda: msi_lib.render_stage(vol, pred, rt,
-                                               batch["tgt_pose"],
-                                               params.msi_depths),
-        "e2e": lambda: entry.forward(params, batch),
-    }
+    if args.train:
+        from matryodshka_tpu_torch.training import state as state_lib
+        from matryodshka_tpu_torch.training import step as step_lib
+        state = state_lib.init_state(cfg, 0, dev)
+        step_fn = step_lib.make_train_step(cfg, state.net)
+        what, unit = "the train step", "step"
+        parts = {"step": lambda: step_fn(state, batch)}
+    else:
+        params = entry.make_params(cfg, seed=0, device=dev)
+        rt = torch.eye(4, device=dev)[None]
+        with torch.no_grad():
+            vol = msi_lib.sweep_stage(cfg, batch, params.psv_depths)
+            pred = msi_lib.net_stage(params.stages, vol)
+        what, unit = "entry.forward", "frame"
+        parts = {
+            "sweep": lambda: msi_lib.sweep_stage(cfg, batch,
+                                                 params.psv_depths),
+            "net": lambda: msi_lib.net_stage(params.stages, vol),
+            "render": lambda: msi_lib.render_stage(vol, pred, rt,
+                                                   batch["tgt_pose"],
+                                                   params.msi_depths),
+            "e2e": lambda: entry.forward(params, batch),
+        }
     warnings.filterwarnings("ignore", message=".*Profiler clears events")
-    print(f"trace of entry.forward, {cfg.net_variant} net, "
-          f"{FRAMES} frames per part {tag}")
-    with torch.no_grad():
+    print(f"trace of {what}, {cfg.net_variant} net, {CALLS} calls per "
+          f"part {tag}")
+    with torch.set_grad_enabled(args.train):
         for part, fn in parts.items():
             wall, busy, idle, ops, by_name = trace_part(fn)
-            print(f"{part:7s} host wall {wall:.3f} ms/frame, device busy "
-                  f"{busy:.3f} ms/frame, idle share {idle:.3f}, "
-                  f"{ops:.0f} device ops/frame {tag}")
+            print(f"{part:7s} host wall {wall:.3f} ms/{unit}, device busy "
+                  f"{busy:.3f} ms/{unit}, idle share {idle:.3f}, "
+                  f"{ops:.0f} device ops/{unit} {tag}")
             for name, us in by_name.most_common(TOP):
-                print(f"    {us / 1e3 / FRAMES:8.3f} ms/frame "
+                print(f"    {us / 1e3 / CALLS:8.3f} ms/{unit} "
                       f"{name[:100]}")
 
 

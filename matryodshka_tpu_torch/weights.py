@@ -4,10 +4,11 @@
 numpy arrays, to the torch state_dict: conv kernels [KH, KW, Cin, Cout]
 (the 3x3 convs, the coord net's with Cin + 1 input channels, the 4x4
 transposed convs and the 1x1 `color_pred` head) become `weight`
-[Cout, Cin, KH, KW]; biases and the `*_ln` gamma/beta carry over.
-`seeded_init` draws a tree of flax's shapes for cfg's variant with flax's
-initializers (lecun_normal kernels, zero biases, unit gamma, zero beta)
-from a numpy seed, for machines without JAX.
+[Cout, Cin, KH, KW]; biases and the `*_ln` gamma/beta carry over; `to_flax`
+maps back (the trainer's checkpoints hold that tree). `seeded_init` draws
+a tree of flax's shapes for cfg's variant with flax's initializers
+(lecun_normal kernels, zero biases, unit gamma, zero beta) from a numpy
+seed, for machines without JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +41,25 @@ def from_flax(params) -> "OrderedDict[str, torch.Tensor]":
                 raise KeyError(f"from_flax: unmapped leaf {layer}/{leaf} "
                                f"{tuple(arr.shape)}")
     return out
+
+
+def to_flax(state_dict) -> Dict:
+    """The inverse of from_flax: a state_dict (`<layer>.weight` [Cout, Cin,
+    KH, KW], `<layer>.bias`, `<layer>.gamma`, `<layer>.beta`) -> the flax
+    tree {"params": {layer: {leaf: float32 numpy array}}}."""
+    tree: Dict = {}
+    for key, value in state_dict.items():
+        layer, leaf = key.rsplit(".", 1)
+        arr = value.detach().float().cpu().numpy()
+        if leaf == "weight" and arr.ndim == 4:
+            tree.setdefault(layer, {})["kernel"] = np.ascontiguousarray(
+                arr.transpose(2, 3, 1, 0))
+        elif leaf in ("bias", "gamma", "beta") and arr.ndim == 1:
+            tree.setdefault(layer, {})[leaf] = arr
+        else:
+            raise KeyError(f"to_flax: unmapped entry {key} "
+                           f"{tuple(arr.shape)}")
+    return {"params": tree}
 
 
 def _lecun_normal(rng: np.random.RandomState, shape):

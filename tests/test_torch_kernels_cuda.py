@@ -303,6 +303,158 @@ def test_coord_conv_kernel_flagship_shapes(cuda, name):
         2.0 ** -7 * want.abs().max().item()
 
 
+#: The trainer's stride-1 wrap convs at ngf 64 (name, Cin, Cout, size
+#: divisor of 320x640): K7c for >= 160 input channels, else K7b.
+K7_LAYERS = [(name, sum(cins), cout, ind) for (name, kind, _, cins, cout,
+                                                ind, _, rate)
+             in net_ops.unet_plan(64, 192, 1) if kind == "conv" and rate == 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", K7_LAYERS, ids=[lay[0] for lay in K7_LAYERS])
+def test_wrap_conv_kernels_match_plain(cuda, layer):
+    """K7 at the trainer's eight layer shapes (640x320 flagship, bf16
+    operands): forward K7a (f32 out, 1e-4 of the scale: f32 sums in another
+    order), K7b and K7c's y (one bf16 step, 2^-7 of the scale), K7c's sums
+    (1e-5 of sum|y| and of sum y^2, chip_smoke.py's STATS_TOL: ~1e-3 of
+    the elements round one bf16 step the other way, ~1e-7 in all, while
+    one of the 400-1600 block partials lost moves s2 by >= 6e-4), dgrad
+    (K7a on the adjoint weights) and wgrad (relative L2 1e-3: sums of up
+    to 204,800 products in two blockings); each wrapper counts one launch.
+    Inputs post-ReLU-like (half zeros), as the trainer feeds these layers,
+    so s1 is not a small difference of large sums."""
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    _, cin, cout, ind = layer
+    g = torch.Generator(device=cuda).manual_seed(cin * 1000 + ind)
+    h, w = 320 // ind, 640 // ind
+    x = torch.relu(torch.rand((1, cin, h, w), generator=g, device=cuda) * 2
+                   - 1).to(torch.bfloat16)
+    wt = torch.randn((cout, cin, 3, 3), generator=g, device=cuda) * (
+        9 * cin) ** -0.5
+    bias = 0.1 * torch.randn(cout, generator=g, device=cuda)
+    gy = torch.randn((1, cout, h, w), generator=g, device=cuda).to(
+        torch.bfloat16)
+
+    def scale(t):
+        return t.float().abs().max().item()
+
+    before = (wc.k7a_launches, wc.k7b_launches, wc.k7c_launches,
+              wc.wgrad_launches)
+    want = wc.conv3x3_wrap_plain(x, wt, bias)
+    got = wc.conv3x3_wrap(x, wt, bias)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-4 * scale(want)
+    want = wc.conv3x3_wrap_dma_plain(x, wt, bias)
+    got = wc.conv3x3_wrap_dma(x, wt, bias)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() <= \
+        2.0 ** -7 * scale(want)
+    y, s1, s2 = wc.conv3x3_ln_stats(x, wt, bias)
+    yp, p1, p2 = wc.conv3x3_ln_stats_plain(x, wt, bias)
+    assert (y.float() - yp.float()).abs().max().item() <= 2.0 ** -7 * scale(yp)
+    assert s1.dtype == s2.dtype == torch.float64
+    assert (s1 - p1).abs().item() <= 1e-5 * yp.double().abs().sum().item()
+    assert (s2 - p2).abs().item() <= 1e-5 * p2.item()
+    wadj = wc.adjoint(wt)
+    want = wc.conv3x3_wrap_plain(gy, wadj)
+    got = wc.conv3x3_wrap(gy, wadj)
+    assert (got - want).abs().max().item() <= 1e-4 * scale(want)
+    dw, db = wc.conv3x3_wrap_wgrad(gy, x)
+    dwp, dbp = wc.conv3x3_wrap_wgrad_plain(gy, x)
+    assert dw.shape == wt.shape and db.shape == (cout,)
+    assert ((dw - dwp).norm() / dwp.norm()).item() <= 1e-3
+    assert ((db - dbp).norm() / dbp.norm()).item() <= 1e-3
+    torch.cuda.synchronize()
+    assert (wc.k7a_launches, wc.k7b_launches, wc.k7c_launches,
+            wc.wgrad_launches) == (before[0] + 2, before[1] + 1,
+                                   before[2] + 1, before[3] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+def test_wrap_conv_function_matches_plain_autograd(cuda, stats):
+    """The autograd Function on the card in f32 (K7 forward, dgrad on the
+    adjoint weights, wgrad) against the same Function on the CPU (plain
+    versions), odd widths and a batch of 2 so the wgrad's pixel split
+    crosses samples: outputs and every gradient to 1e-4 of their scale."""
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    rng = np.random.RandomState(15)
+    x0 = rng.uniform(-1, 1, (2, 20, 24, 37)).astype(np.float32)
+    w0 = (rng.randn(12, 20, 3, 3) * 0.2).astype(np.float32)
+    b0 = rng.randn(12).astype(np.float32)
+    r0 = rng.randn(2, 12, 24, 37).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda):
+        x, w, b = (torch.from_numpy(a).to(dev).requires_grad_()
+                   for a in (x0, w0, b0))
+        r = torch.from_numpy(r0).to(dev)
+        if stats:
+            y, s1, s2 = wc.wrap_conv3x3(x, w, b, stats=True)
+            loss = (y * r).sum() + (s1 * 1e-3).sum() + (s2 * 1e-4).sum()
+        else:
+            y = wc.wrap_conv3x3(x, w, b)
+            loss = (y * r).sum()
+        loss.backward()
+        res[str(dev)] = [t.detach().cpu() for t in (y, x.grad, w.grad,
+                                                    b.grad)]
+    for got, want in zip(res[str(cuda)], res["cpu"]):
+        assert (got - want).abs().max().item() <= \
+            1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_train_step_kernel_route_matches_plain(cuda):
+    """One train step of the small default trainer on the card (K1, K7
+    forward, dgrad and wgrad, bf16) against the all-plain f32 route on the
+    card from the same parameters, chip_smoke.py's gate: loss within 1e-2
+    relative, each parameter's gradient within relative L2 max(5e-2, 1.5 x
+    the all-plain bf16 route's, which no kernel of the port touches);
+    every K7 kernel launched (ngf 64, so conv3_1's 256 input channels take
+    K7c)."""
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    from matryodshka_tpu_torch.training import state as state_lib
+    from matryodshka_tpu_torch.training import step as step_lib
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P)
+    b = entry.synthetic_batch(cfg, 4, cuda, tgt_pos=(0.03, 0.01, -0.02))
+    state = state_lib.init_state(cfg, 5, cuda)
+
+    def plain(dtype):
+        net = MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
+                      dtype=dtype).to(cuda)
+        net.load_state_dict(state.net.state_dict())
+
+        def sweep(c, bq, d):
+            images, rowp = sweep_ops.sweep_inputs(
+                msi_lib.preprocess_image(bq["ref_image"]),
+                msi_lib.preprocess_image(bq["src_image"]), d,
+                bq["intrinsics"])
+            return sweep_ops.ods_sweep_plain(images, rowp, dtype)
+        return net, sweep
+
+    before = (wc.k7a_launches, wc.k7b_launches, wc.k7c_launches,
+              wc.wgrad_launches, sweep_ops.launches)
+    out = {}
+    for key, (net, sweep) in (("kernel", (state.net, None)),
+                              ("plain_bf16", plain(torch.bfloat16)),
+                              ("plain", plain(torch.float32))):
+        loss, _ = step_lib.make_loss_fn(cfg, net, sweep)(b)
+        loss.backward()
+        out[key] = (loss.item(), {n: p.grad.float()
+                                  for n, p in net.named_parameters()})
+    torch.cuda.synchronize()
+    after = (wc.k7a_launches, wc.k7b_launches, wc.k7c_launches,
+             wc.wgrad_launches, sweep_ops.launches)
+    assert all(a > n for a, n in zip(after, before)), (before, after)
+    (lk, gk), (_, gb), (lp, gp) = (out[k] for k in ("kernel", "plain_bf16",
+                                                    "plain"))
+    assert math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
+    for n in gp:
+        rel = ((gk[n] - gp[n]).norm() / gp[n].norm()).item()
+        rel_bf16 = ((gb[n] - gp[n]).norm() / gp[n].norm()).item()
+        assert rel <= max(5e-2, 1.5 * rel_bf16), (n, rel, rel_bf16)
+
+
 @pytest.mark.cuda
 def test_forward_coord_runs_every_kernel(cuda):
     """The small coord slice on the card goes through the sweep, the conv
