@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's inference and training paths once on an NVIDIA
-GPU.
+"""Drive the PyTorch port's inference and training paths and its probe tool
+once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from matryodshka_tpu_torch/csrc and checks
 each kernel against its plain PyTorch version at the shapes its path gives
 it, all at the full width of the flagship configuration (640x320 ODS input,
 32 planes per eye, 32 shells, ngf 64, bf16) with seeded random weights.
-Then it drives five paths, each with every launch count set to 0 just
+Then it drives six paths, each with every launch count set to 0 just
 before it and read just after:
 
 1. entry.forward (blend_psv: sweep, U-Net, blend-fused render) on three
@@ -27,7 +27,11 @@ before it and read just after:
    sweep, the wrap net with its stride-1 convs through K7 forward, dgrad
    and wgrad, the gather render, Adam) for 8 steps on one in-memory batch,
    after K7's gates at its eight layer shapes; then the step in parts, and
-   one step's loss and gradients against the all-plain f32 route.
+   one step's loss and gradients against the all-plain f32 route;
+6. the lowering probes (`python -m matryodshka_tpu_torch.tools.probes`:
+   K8's atan2/sqrt, bf16 roll and run-time-shift roll, K9's left shift
+   through shared memory, on the JAX tools' inputs), then each probe kernel
+   against its plain version on those inputs and its time per launch.
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
 and plain versions are timed with CUDA events, and beside each kernel the
@@ -92,6 +96,10 @@ OPS_RENDER_DEPTH = 16
 #: squares, then normalize, scale, shift, ReLU).
 OPS_SWEEP = 9
 OPS_LAYERNORM = 7
+#: f32 operations per element of the trig probe (an estimate of CUDA's
+#: precise atan2f: range reduction, a division and a polynomial of about
+#: ten terms; sqrtf and the fma). Bytes bound it by far.
+OPS_TRIG = 30
 #: The training phase: steps through training/loop.train on one repeated
 #: batch, the first TRAIN_WARMUP untimed.
 TRAIN_WARMUP = 2
@@ -489,6 +497,111 @@ def training_path(dev, tag, reset_counts, read_counts):
     return train_launches
 
 
+def probe_path(dev, tag):
+    """Path 6: the lowering probes, `python -m
+    matryodshka_tpu_torch.tools.probes` as its main(), the launch counts
+    zeroed before and read after; then each probe kernel against its plain
+    version on the tool's inputs (bit-exact for the rolls and K9's shift,
+    TRIG_ULP for atan2/sqrt), and its times per launch (for several shifts,
+    the mean of each shift's median). Returns the kernels' rows."""
+    from matryodshka_tpu_torch.ops import probes
+    from matryodshka_tpu_torch.tools import probes as probes_tool
+
+    counters = {"trig": "trig_launches", "roll": "roll_launches",
+                "roll_bf16": "roll_bf16_launches",
+                "window_shift": "window_shift_launches"}
+    torch.cuda.synchronize()
+    for attr in counters.values():
+        setattr(probes, attr, 0)
+    check(probes_tool.main([]) == 0, "the probe tool")
+    torch.cuda.synchronize()
+    launches = {k: getattr(probes, a) for k, a in counters.items()}
+    print(f"launches of the probe tool: {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"probe kernel {k} was not launched by the probe tool")
+
+    def roll_lib(x, s):
+        return torch.roll(x, s, dims=-1)
+
+    def shift_lib(x, s):
+        return torch.roll(x, -s, dims=-1)
+
+    xt = torch.from_numpy(np.random.RandomState(0).randn(8, 128).astype(
+        np.float32)).to(dev)
+    xr = torch.arange(8 * 256, dtype=torch.float32, device=dev).reshape(8, 256)
+    xd = torch.from_numpy(np.random.RandomState(0).rand(
+        8, probes_tool.DYNROLL_W).astype(np.float32)).to(dev)
+    row = torch.from_numpy(np.random.RandomState(0).rand(
+        probes_tool.SHIFT_C, 1, probes_tool.SHIFT_W).astype(np.float32)).to(dev)
+    shared = ("matry_probe_roll in f32: K8b's f32 probe (one launch) and "
+              "K8c's two shifts count together")
+    # name, replaces, kernel, plain, library call, argument tuples, launches
+    # in the tool's run, f32 operations per launch
+    cases = [
+        ("probe_trig_k8a", "tools/r3_hw_session.py:61 (pallas_call :79)",
+         probes.trig, probes.trig_plain, None, [(xt,)], launches["trig"],
+         OPS_TRIG * xt.numel()),
+        ("probe_roll_k8b_f32", "tools/r4_hw_session.py:534 (pallas_call "
+         ":549), f32", probes.roll, probes.roll_plain, roll_lib, [(xr, 1)],
+         launches["roll"], 0),
+        ("probe_roll_k8b_bf16", "tools/r4_hw_session.py:534 (pallas_call "
+         ":549), bf16", probes.roll, probes.roll_plain, roll_lib,
+         [(xr.bfloat16(), 1)], launches["roll_bf16"], 0),
+        ("probe_roll_k8c", "tools/exp_dynroll.py:17 (pallas_call :33)",
+         probes.roll, probes.roll_plain, roll_lib,
+         [(xd, s) for s in probes_tool.DYNROLL_SHIFTS], launches["roll"], 0),
+        ("probe_window_shift_k9", "tests/test_pallas_sweep.py:70 (inner "
+         "kern, pallas_call :93)", probes.window_shift,
+         probes.window_shift_plain, shift_lib,
+         [(row, s) for s in probes_tool.SHIFTS], launches["window_shift"],
+         0),
+    ]
+    rows = []
+    for name, rep, kern, plain, lib, args, n, ops in cases:
+        err = 0.0
+        for a in args:
+            got, want = kern(*a), plain(*a)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            if kern is probes.trig:
+                ulp = probes.ulp_error(got, want)
+                x64 = a[0].double()
+                w64 = torch.atan2(x64, torch.sqrt(x64 * x64 + 1))
+                err64, perr64 = ((t.double() - w64).abs().max().item()
+                                 for t in (got, want))
+                print(f"{name} {tuple(a[0].shape)} max_abs_err {err:.3e} = "
+                      f"{ulp:g} ulp from the plain version (tol "
+                      f"{probes_tool.TRIG_ULP} ulp); from f64: kernel "
+                      f"{err64:.3e}, plain {perr64:.3e} "
+                      f"{'ok' if ulp <= probes_tool.TRIG_ULP else 'FAIL'}")
+                check(ulp <= probes_tool.TRIG_ULP, f"{name} ulp")
+            else:
+                check(torch.equal(got, want), f"{name} shift {a[1]} is not "
+                                              f"bit-exact")
+        if kern is not probes.trig:
+            print(f"{name} {tuple(args[0][0].shape)} "
+                  f"{str(args[0][0].dtype)[6:]} shifts "
+                  f"{[a[1] for a in args]}: bit-exact ok")
+        ms = [statistics.mean(time_ms(lambda f=f, a=a: f(*a)) for a in args)
+              if f is not None else None for f in (kern, plain, lib)]
+        bms, bby = bound(2 * nbytes(args[0][0]), ops, F32_FLOPS)
+        lib_txt = "null" if ms[2] is None else f"{ms[2]:.4f} ms"
+        print(f"kernel {name:22s} {ms[0]:.4f} ms  plain {ms[1]:.4f} ms  "
+              f"library {lib_txt}  bound {bms:.3e} ms ({bby}) per launch, "
+              f"{n} launches in the tool's run {tag}")
+        r = {"name": name, "route": "cuda",
+             "source": "matryodshka_tpu_torch/csrc/probes.cu",
+             "replaces": rep, "launches": n, "max_abs_err": err,
+             "ms": ms[0], "plain_ms": ms[1], "bound_ms": bms,
+             "bound_by": bby, "library_ms": ms[2]}
+        if lib is None:
+            r["library_note"] = ("no single PyTorch call: atan2 and sqrt "
+                                 "are two")
+        if name in ("probe_roll_k8b_f32", "probe_roll_k8c"):
+            r["launches_note"] = shared
+        rows.append(r)
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU route here",
@@ -809,6 +922,9 @@ def main() -> None:
     train_launches = training_path(dev, tag, reset_counts, read_counts)
     nsteps = TRAIN_WARMUP + TRAIN_STEPS
 
+    # ---- path 6: the lowering probes (K8, K9) ------------------------------
+    probe_rows = probe_path(dev, tag)
+
     # ---- times (CUDA events, 2 warm-up, median of 10) ----------------------
     b0 = batches[0]
     rt0 = torch.eye(4, device=dev)[None]
@@ -1118,6 +1234,7 @@ def main() -> None:
                      "launches_per_step": train_launches[k] / nsteps,
                      "max_abs_err": errs[k], "ms": kt, "plain_ms": pt,
                      "bound_ms": bms, "bound_by": bby, "library_ms": lt})
+    rows.extend(probe_rows)
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

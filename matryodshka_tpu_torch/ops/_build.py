@@ -42,6 +42,9 @@ SIGNATURES = {
                                    ctypes.c_float, _I, _I, _P],
     "matry_render": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
     "matry_render_layers": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
+    "matry_probe_trig": [_P, _P, ctypes.c_longlong, _P],
+    "matry_probe_roll": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    "matry_probe_window_shift": [_P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -475,3 +475,85 @@ def test_forward_coord_runs_every_kernel(cuda):
     assert torch.isfinite(out).all()
     err = (out - entry.forward_plain(params, b)).abs().max().item()
     assert err <= 2e-2, err
+
+
+#: The probe kernels' row shapes: the tools' own, then odd ones (W = 1, 33,
+#: 1000; row counts that fill no whole 256-thread block).
+PROBE_SHAPES = [(8, 256), (8, 640), (3, 1, 256), (5, 1), (257, 33),
+                (7, 1000)]
+
+
+def _probe_shifts(w):
+    return (-w - 1, -1, 0, 1, 5, 123, w, 2 * w + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(8, 128), (1,), (33,), (1000,), (3, 257)])
+def test_probe_trig_kernel_matches_plain(cuda, n):
+    """K8a: the kernel's precise atan2f and sqrtf against the plain version
+    on the card (the same atan2f; x*x + 1 rounded once there by fmaf,
+    twice here): within 2 ulp; x ~ N(0, 1) and some large |x|."""
+    from matryodshka_tpu_torch.ops import probes
+    rng = np.random.RandomState(16)
+    xn = (rng.randn(*n) * rng.choice([1.0, 1e3], size=n)).astype(np.float32)
+    x = torch.from_numpy(xn).to(cuda)
+    before = probes.trig_launches
+    got = probes.trig(x)
+    assert probes.trig_launches == before + 1
+    assert probes.ulp_error(got, probes.trig_plain(x)) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PROBE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PROBE_SHAPES])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_probe_roll_kernel_matches_plain(cuda, dtype, shape):
+    """K8b/K8c: the roll by a run-time shift, bit-exact against torch.roll
+    for shifts negative, 0, W and beyond; each call counts one launch of
+    its type."""
+    from matryodshka_tpu_torch.ops import probes
+    x = torch.from_numpy(np.random.RandomState(17).randn(*shape).astype(
+        np.float32)).to(cuda, dtype)
+    bf16 = dtype == torch.bfloat16
+    for s in _probe_shifts(shape[-1]):
+        before = (probes.roll_launches, probes.roll_bf16_launches)
+        got = probes.roll(x, s)
+        assert (probes.roll_launches, probes.roll_bf16_launches) == (
+            before[0] + (not bf16), before[1] + bf16)
+        assert got.dtype == dtype
+        assert torch.equal(got, probes.roll_plain(x, s)), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PROBE_SHAPES + [(2, 20000)],
+                         ids=["x".join(map(str, s))
+                              for s in PROBE_SHAPES + [(2, 20000)]])
+def test_probe_window_shift_kernel_matches_plain(cuda, shape):
+    """K9: the left shift through shared memory, bit-exact against
+    torch.roll(x, -s), at the tool's 20 shifts and the odd ones (20000
+    values a row: 160 KB of shared memory, above the 48 KB default)."""
+    from matryodshka_tpu_torch.ops import probes
+    w = shape[-1]
+    x = torch.from_numpy(np.random.RandomState(18).rand(*shape).astype(
+        np.float32)).to(cuda)
+    shifts = sorted(set(range(0, w, 13)) | set(_probe_shifts(w)))
+    before = probes.window_shift_launches
+    for s in shifts:
+        assert torch.equal(probes.window_shift(x, s),
+                           probes.window_shift_plain(x, s)), s
+    assert probes.window_shift_launches == before + len(shifts)
+
+
+@pytest.mark.cuda
+def test_probe_tool_launches_every_probe_kernel(cuda, capsys):
+    """python -m matryodshka_tpu_torch.tools.probes with no flag: the four
+    probes on the card, each through its kernel."""
+    from matryodshka_tpu_torch.ops import probes
+    from matryodshka_tpu_torch.tools import probes as probes_tool
+    names = ("trig_launches", "roll_launches", "roll_bf16_launches",
+             "window_shift_launches")
+    before = [getattr(probes, n) for n in names]
+    assert probes_tool.main([]) == 0
+    after = [getattr(probes, n) for n in names]
+    assert [a - b for a, b in zip(after, before)] == [1, 3, 1, 20]
+    assert "[shift] 20 shifts bit-exact" in capsys.readouterr().out
