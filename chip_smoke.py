@@ -3,9 +3,11 @@ once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from matryodshka_tpu_torch/csrc and checks
-each kernel against its plain PyTorch version at the shapes its path gives
-it, all at the full width of the flagship configuration (640x320 ODS input,
+Builds the port's CUDA kernels from matryodshka_tpu_torch/csrc, reports
+the conv kernel's instantiations (ptxas registers, stack and spills; the
+HMMA/HGMMA count of each one's SASS, which must be above 0 for the bf16
+tensor-core instantiations), and checks each kernel against its plain
+PyTorch version at the shapes its path gives it, all at the full width of the flagship configuration (640x320 ODS input,
 32 planes per eye, 32 shells, ngf 64, bf16) with seeded random weights.
 Then it drives six paths, each with every launch count set to 0 just
 before it and read just after:
@@ -34,7 +36,8 @@ before it and read just after:
    against its plain version on those inputs and its time per launch.
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
-and plain versions are timed with CUDA events, and beside each kernel the
+and plain versions are timed with CUDA events (the conv layers with their
+TFLOP/s and the tile each took), and beside each kernel the
 least time the card could take for its work (bound_ms: the larger of its
 bytes over the memory rate and its operations over the peak rate for
 their type, computed from this run's inputs) and, where one PyTorch call
@@ -145,6 +148,80 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def conv_build_report(so) -> None:
+    """The conv kernel's instantiations in the built library: ptxas's
+    registers and spills for each (from the build log, `-Xptxas -v`), and
+    the tensor-core instructions (HMMA, HGMMA) in each one's SASS
+    (`cuobjdump -sass`). Fails if a bf16 instantiation (conv_tc_kernel)
+    has none."""
+    import re
+    from pathlib import Path
+
+    from matryodshka_tpu_torch.ops import _build
+    bin_dir = Path(_build._nvcc()).parent
+    ptxas, cur = {}, None
+    for line in so.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if "conv_" in m.group(1) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            ptxas.setdefault(cur, {})["spill"] = tuple(map(int, m.groups()))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            ptxas.setdefault(cur, {})["regs"] = int(m.group(1))
+    sass = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    mma, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "conv_" in m.group(1) else None
+            if fn:
+                mma[fn] = 0
+        elif fn and re.search(r"\bHG?MMA\b", line):
+            mma[fn] += 1
+    names = sorted(set(ptxas) | set(mma))
+    try:
+        short = subprocess.run([str(bin_dir / "cu++filt")],
+                               input="\n".join(names), capture_output=True,
+                               text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        short = names
+    if len(short) != len(names):
+        short = names
+    missing = []
+    for name, nice in zip(names, short):
+        # conv.cu's kernels: an anonymous namespace mangles with its file's
+        # name, so the filter on "conv_" above also keeps conv_wgrad.cu's
+        if not re.search(r"conv_(tc|f32)_kernel", nice):
+            continue
+        nice = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "",
+                      nice)
+        nice = re.sub(r"\((?:[^()]|\([^()]*\))*\)$", "", nice)
+        info = ptxas.get(name, {})
+        spill = info.get("spill", ("?", "?", "?"))
+        print(f"conv kernel {nice}: {info.get('regs', '?')} registers, "
+              f"stack frame {spill[0]} B, spill stores {spill[1]} B, spill "
+              f"loads {spill[2]} B, "
+              f"{mma.get(name, 0)} HMMA/HGMMA in its SASS")
+        if "conv_tc_kernel" in name and mma.get(name, 0) == 0:
+            missing.append(nice)
+    n_tc = sum("conv_tc_kernel" in n for n in mma)
+    print(f"conv kernel: {n_tc} bf16 (tensor-core) instantiations, "
+          f"{sum(mma[n] for n in mma if 'conv_tc_kernel' in n)} HMMA/HGMMA "
+          f"in all; {'ok' if n_tc and not missing else 'FAIL'}")
+    check(n_tc > 0 and not missing,
+          f"conv kernel bf16 instantiations without tensor-core "
+          f"instructions: {missing or 'no conv_tc_kernel in the SASS'}")
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -224,6 +301,7 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
     import torch.nn.functional as F
 
     from matryodshka_tpu_torch.ops import wrap_conv as wc
+    from matryodshka_tpu_torch.ops.conv import tile_config as conv_tile
     from matryodshka_tpu_torch.ops.conv import wrap_pad
 
     rng = torch.Generator(device=dev).manual_seed(4321)
@@ -314,7 +392,8 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
             add("wrap_conv_k7b", kt, pt, lib_fwd, nbytes(x, wt, bias, y),
                 flops)
         line = (f"{name:8s} fwd ({'K7c' if cin >= 160 else 'K7b'}) kernel "
-                f"{kt:7.3f} ms ({flops / kt / 1e9:6.2f} TFLOP/s) plain "
+                f"{kt:7.3f} ms ({flops / kt / 1e9:6.2f} TFLOP/s, tile "
+                f"{conv_tile(1, 1, hh, ww, cout, x.dtype)}) plain "
                 f"{pt:7.3f} library bf16 {lib_fwd:7.3f}")
         if name != "conv1_1":
             dt = time_ms(lambda: wc.conv3x3_wrap(gy, wadj))
@@ -323,8 +402,9 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
                 xp.shape, wb, gy))
             add("wrap_conv_k7a", dt, dpt, dlt,
                 nbytes(gy, wt) + 4 * x.numel(), flops)
-            line += (f" | dgrad kernel {dt:7.3f} plain {dpt:7.3f} library "
-                     f"{dlt:7.3f}")
+            line += (f" | dgrad kernel {dt:7.3f} ({flops / dt / 1e9:6.2f} "
+                     f"TFLOP/s, tile {conv_tile(1, 1, hh, ww, cin, x.dtype)})"
+                     f" plain {dpt:7.3f} library {dlt:7.3f}")
         gt = time_ms(lambda: wc.conv3x3_wrap_wgrad(gy, x))
         gpt = time_ms(lambda: wc.conv3x3_wrap_wgrad_plain(gy, x))
         glt = time_ms(lambda: torch.nn.grad.conv2d_weight(xp, wt.shape, gy))
@@ -639,6 +719,7 @@ def main() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+    conv_build_report(so)
 
     # ---- flagship operands -------------------------------------------------
     cfg = entry.flagship_cfg()
@@ -1007,9 +1088,16 @@ def main() -> None:
             flops += f
             cbytes += nbytes(x, st["w"], st["b"], y) + (
                 nbytes(args["coord"]) if "coord" in args else 0)
+            npar = args.get("npar", 1)
+            grid = conv_ops.out_size(x.shape[2], x.shape[3], args["kh"],
+                                     args["kw"], args.get("stride", 1),
+                                     args.get("dil", 1), args.get("pad", 0),
+                                     npar)
+            tile = conv_ops.tile_config(x.shape[0], npar, *grid, cout,
+                                        x.dtype)
             line = (f"{key} {name:10s} kernel {kt:8.3f} ms "
-                    f"({f / kt / 1e9:6.2f} TFLOP/s) plain {pt:8.3f} ms "
-                    f"library bf16 {lt:7.3f} ms")
+                    f"({f / kt / 1e9:6.2f} TFLOP/s, tile {tile}) plain "
+                    f"{pt:8.3f} ms library bf16 {lt:7.3f} ms")
             kernel_ms[key] += kt
             plain_ms[key] += pt
             lib_ms[key] += lt

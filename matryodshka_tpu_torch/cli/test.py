@@ -22,8 +22,9 @@ through render_layers.cu. `--device cpu` runs each kernel's plain version.
 
 The net's weights come from `--params`, an .npz of the flax parameter tree
 (training/checkpoint.py; `python -m matryodshka_tpu_torch.tf_import` writes
-one from a reference TF checkpoint), or from
-weights.seeded_init(cfg, random_seed).
+one from a reference TF checkpoint), or, as in the JAX CLI, from the latest
+checkpoint under <checkpoint_dir>/<experiment_name> (the trainer's); with
+neither, main raises FileNotFoundError.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ from matryodshka_tpu_torch.ops import render as render_ops
 from matryodshka_tpu_torch.ops import render_layers as rl_ops
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
 from matryodshka_tpu_torch.ops.resample import resample_layers_uv
+from matryodshka_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                       restore_params)
 
 #: Outputs of the JAX CLI that the port does not render yet, with the
 #: ROADMAP item that ports them.
@@ -288,8 +291,9 @@ def main(argv=None):
                         default=DEFAULT_TEST_OUTPUTS)
     parser.add_argument("--num_runs", type=int, default=-1)
     parser.add_argument("--params", type=str, default="",
-                        help=".npz of the flax parameter tree; empty: "
-                             "weights.seeded_init(cfg, random_seed)")
+                        help=".npz of the flax parameter tree; empty: the "
+                             "latest checkpoint under "
+                             "<checkpoint_dir>/<experiment_name>")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
@@ -300,16 +304,14 @@ def main(argv=None):
                                   "render is ROADMAP Queue 1 item 9")
     device = torch.device(args.device)
 
-    tree, step = None, 0
     if args.params:
-        from matryodshka_tpu_torch.training.checkpoint import restore_params
         tree, step = restore_params(args.params)
         print(f"[test] restored {args.params} @ step {step}")
     else:
-        print(f"[test] no --params: seeded random weights "
-              f"(seed {cfg.random_seed})")
-    params = entry.make_params(cfg, flax_params=tree, seed=cfg.random_seed,
-                               device=device)
+        tree, step = CheckpointManager(os.path.join(
+            cfg.checkpoint_dir, cfg.experiment_name)).restore_params()
+        print(f"[test] restored checkpoint @ step {step}")
+    params = entry.make_params(cfg, flax_params=tree, device=device)
 
     out_root = os.path.join(cfg.output_root, cfg.experiment_name)
     os.makedirs(out_root, exist_ok=True)

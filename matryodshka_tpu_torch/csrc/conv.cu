@@ -2,10 +2,12 @@
 //
 // Replaces the conv block of matryodshka_tpu/ops/pallas_net.py:_build_kernel
 // (K2, both variants: the 3x3 convs, stride-2 downs, rate-2 dilated convs,
-// the three 4x4 stride-2 transposed convs and the 1x1 tanh head); the
-// layer norm is layernorm.cu. One launch is one layer: M = Cout,
-// N = output pixels, K = KH*KW*Cin', with the input patch gathered on the
-// fly.
+// the three 4x4 stride-2 transposed convs and the 1x1 tanh head) and the
+// three kernels of matryodshka_tpu/ops/pallas_conv.py (K7: _conv_kernel,
+// _conv_kernel_dma, _conv_ln_kernel; ops/wrap_conv.py), which are its wrap
+// mode at stride 1. The layer norm is layernorm.cu. One launch is one
+// layer: M = Cout, N = output pixels, K = KH*KW*Cin', with the input patch
+// gathered on the fly.
 //
 // Input taps: input row iy = oy*stride + kh*dil - pad_h is zero outside
 // [0, Hi) (vertical zero padding; the high side needs no argument, so a
@@ -17,48 +19,70 @@
 // kCoord adds the coord net's |sin(lat)| channel as input channel Cin
 // (Cin' = Cin + 1, its weights last in each tap): the patch loader reads
 // coord[iy], an f32 value per input row, where it would read channel Cin
-// of x, and zero where (iy, ix) falls in the padding, as the zero-padded
-// concatenated input would hold. No Cin+1-channel copy of x is made.
-// npar == 4 is the transposed 4x4/2 conv in its subpixel form
+// of x (rounded to bf16 on the bf16 path, as the bf16 net appends it), and
+// zero where (iy, ix) falls in the padding. No Cin+1-channel copy of x is
+// made. npar == 4 is the transposed 4x4/2 conv in its subpixel form
 // (models/unet.py FusedDeconvCrop; the coord net's SAME ConvTranspose has
 // the same index map, with zero padding): blockIdx.z carries the output
 // parity (da, db), each parity is a 2x2 conv with pads (pad_h - da,
-// pad_w - db), and the epilogue writes output pixel (2*oy + da, 2*ox + db),
-// so the interleave costs nothing.
+// pad_w - db), and the epilogue writes output pixel (2*oy + da, 2*ox + db).
 //
-// Bound: compute (301.2 GFLOP per 640x320 frame for the wrap net, 302.4
-// for the coord net). This first kernel runs on the CUDA cores in f32 FMA:
-// a 64 (Cout) x 128 (pixel) tile per block, K in steps of 16 staged in
-// shared memory, and a 4 x 8 register tile per thread, so each
-// shared-memory operand is reused 4-8 times. Operands are bf16 (or f32) in
-// device memory and f32 in shared memory; accumulation is f32; bias (and
-// tanh for the head) are applied in the epilogue before the single
-// rounding to the output type. The tensor cores (mma/wgmma) are the next
-// step for this kernel.
+// Bound: operations. 301.2 GFLOP per 640x320 frame for the wrap net (302.4
+// for the coord net), 0.3045 ms at the H100's 989 TFLOP/s in bf16; the
+// bytes (weights, activations) are a few percent of that time.
+//
+// bf16 operands (conv_tc_kernel) run on the tensor cores:
+//   1. mma.sync.m16n8k16 (bf16 in, f32 accumulate); each warp owns a
+//      32 (Cout) x 32 (pixel) tile, fragments loaded with ldmatrix.
+//   2. Operands stay bf16 in shared memory: the weight slab [BK][BM]
+//      (Cout contiguous, read with ldmatrix.trans) and the patch tile
+//      [BN][BK] (channels contiguous per pixel, read with plain ldmatrix,
+//      so each lane's row address is its own pixel's). Rows are padded by
+//      16 bytes so ldmatrix's eight rows fall in distinct banks.
+//   3. A ring of STAGES = 3 k-blocks in dynamic shared memory: the weight
+//      slab arrives by 16-byte cp.async STAGES - 1 blocks ahead; the patch
+//      of the block STAGES - 1 ahead is loaded into registers before the
+//      current block's mma and stored after it, so global latency hides
+//      behind the math. One __syncthreads per k-block.
+//   4. The gather works per k-block, not per element: a k-block is BK = 32
+//      channels of ONE tap (each tap's Cin' is cut into ceil(Cin'/32)
+//      blocks; the rows past Cin' read zero weights and zero patch), so a
+//      thread computes its pixel's (iy, ix), wrap and bounds once per
+//      k-block and then loads 16 channels at a stride of Hi*Wi, lanes on
+//      consecutive pixels, and stores them to shared memory as two 16-byte
+//      words. The k-blocks run tap-inner (all KH*KW taps of a channel
+//      chunk, then the next chunk), so the 9x re-read of a 3x3 conv's
+//      input hits the chunk's few KB of input rows in L1, not L2. The coord channel and ragged Cin' (193, 65, ...) take the
+//      checked form of the same loop; weights of a Cout that is not a
+//      multiple of 8 (the 67- and 99-channel heads) a masked scalar load.
+//   5. Two tiles, chosen per launch by shape (tc_bn): 64 x 128 (256
+//      threads) where that gives at least two blocks per SM, else 64 x 64
+//      (128 threads), which gives conv4_1-4_3 (512 -> 512 at 3,200 px) 400
+//      blocks. BM = 64 matches the four Cout = 64 layers at 204,800 px.
+// The epilogue adds the bias (and tanh for the head) in f32 and rounds
+// once to the output type.
+//
+// f32 operands (conv_f32_kernel, compute_dtype="float32") keep exact f32
+// FMA on the CUDA cores: a 64 x 128 tile per block, K in steps of 16
+// staged in shared memory, a 4 x 8 register tile per thread.
 //
 // Weights are packed [npar, K, Cout] with k = (kh*KW + kw)*Cin' + c
 // (ops/conv.py:pack_conv / pack_deconv).
 //
-// The same kernel is the per-layer 3x3 wrap conv of
-// matryodshka_tpu/ops/pallas_conv.py (K7: _conv_kernel, _conv_kernel_dma,
-// _conv_ln_kernel; ops/wrap_conv.py) in kWrap mode, stride 1, npar 1.
-// K7c's layer-norm statistics are the STATS epilogue: after the bias and
-// the rounding to the output type, each block sums y and y^2 of its
-// ROUNDED outputs in f32 (as _conv_ln_kernel:368-370 does) and writes one
-// (s1, s2) partial per (sample, block); stats_fold then sums each sample's
-// partials in a fixed order in f64. No atomics, so the sums are the same
-// on every run, and f64 keeps the layer norm's var = s2/n - mean^2 from
-// cancelling when mean^2 >> var.
+// K7c's layer-norm statistics are the STATS epilogue (wrap mode, npar 1):
+// after the bias and the rounding to the output type, each thread sums y
+// and y^2 of its ROUNDED outputs in f32 in a fixed order (as
+// _conv_ln_kernel:368-370 does), warps combine by butterfly and the warp
+// sums are added in order into one (s1, s2) partial per (sample, block);
+// stats_fold then sums each sample's partials in a fixed order in f64. No
+// atomics, so the sums are the same on every run, and f64 keeps the layer
+// norm's var = s2/n - mean^2 from cancelling when mean^2 >> var.
+
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int BM = 64;   // output channels per block
-constexpr int BN = 128;  // output pixels per block
-constexpr int BK = 16;   // reduction step
-constexpr int TM = 4;    // channels per thread
-constexpr int TN = 8;    // pixels per thread
 
 // Horizontal padding and input channels (see the note above).
 constexpr int kWrap = 0;   // columns wrap mod Wi
@@ -70,12 +94,348 @@ struct ConvArgs {
       out_h, out_w, act;
 };
 
-template <typename TI, typename TO, int MODE, bool STATS>
+// ---------------------------------------------------------------------------
+// The STATS epilogue's block sum, shared by both kernels: butterfly within
+// each warp, then the warp sums in order by thread 0, one partial per block.
+// ---------------------------------------------------------------------------
+template <int NT>
+__device__ __forceinline__ void block_stats(float s1, float s2,
+                                            float (*red)[NT / 32],
+                                            float* partial, int b) {
+  for (int off = 16; off > 0; off >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (lane == 0) {
+    red[0][warp] = s1;
+    red[1][warp] = s2;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int i = 0; i < NT / 32; ++i) {
+      t1 += red[0][i];
+      t2 += red[1][i];
+    }
+    float* pb = partial + (((long long)b * gridDim.y + blockIdx.y) *
+                               gridDim.x + blockIdx.x) * 2;
+    pb[0] = t1;
+    pb[1] = t2;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 operands: tensor cores.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BM = 64;        // output channels per block
+constexpr int BK = 32;        // channels of one tap per k-block
+constexpr int WM = 32;        // warp tile: channels
+constexpr int WN = 32;        // warp tile: pixels
+constexpr int STAGES = 3;     // k-blocks in the shared-memory ring
+constexpr int AST = BM + 8;   // weight slab row stride (elements), 144 B
+constexpr int BST = BK + 8;   // patch tile row stride (elements), 80 B
+
+template <int BN>
+struct Tile {
+  static constexpr int kThreads = (BM / WM) * (BN / WN) * 32;
+  static constexpr int kA = BK * AST;  // elements per stage
+  static constexpr int kB = BN * BST;
+  static constexpr int kSmem = STAGES * (kA + kB) * 2;  // bytes
+  // the patch loader: one pixel and 16 channels per thread
+  static_assert(kThreads == 2 * BN, "two 16-channel groups per pixel");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte asynchronous copy; src_bytes = 0 fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16(v));
+}
+
+// avec: the weight rows may be copied as 16-byte words (Cout % 8 == 0 and
+// w 16-byte aligned), else the masked scalar path.
+template <typename TO, int MODE, bool STATS, int BN>
+__global__ void __launch_bounds__(Tile<BN>::kThreads)
+    conv_tc_kernel(const unsigned short* __restrict__ x,
+                   const unsigned short* __restrict__ w,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ coord, TO* __restrict__ out,
+                   float* __restrict__ partial, ConvArgs a, int avec) {
+  using T = Tile<BN>;
+  constexpr int NT = T::kThreads;
+  extern __shared__ __align__(16) unsigned short smem[];
+  unsigned short* As = smem;                     // [STAGES][BK][AST]
+  unsigned short* Bs = smem + STAGES * T::kA;    // [STAGES][BN][BST]
+  __shared__ float red[2][NT / 32];
+
+  const int tid = threadIdx.x;
+  const int z = blockIdx.z;
+  const int b = z / a.npar;
+  const int par = z - b * a.npar;
+  const int da = par >> 1, db = par & 1;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int Ck = a.Cin + (MODE == kCoord);  // channels per tap in K
+  const int nchunk = (Ck + BK - 1) / BK;
+  const int nkb = a.KH * a.KW * nchunk;
+  const int npix = a.Ho * a.Wo;
+  const int HW = a.Hi * a.Wi;
+
+  // patch loader: pixel n0 + nl, channels cg*16 .. +16 of each k-block
+  const int nl = tid % BN;
+  const int cg = tid / BN;
+  const int pix = n0 + nl;
+  const bool pix_ok = pix < npix;
+  const int oy = pix_ok ? pix / a.Wo : 0;
+  const int ox = pix_ok ? pix - oy * a.Wo : 0;
+  const int iy0 = oy * a.stride - (a.pad_h - da);
+  const int ix0 = ox * a.stride - (a.pad_w - db);
+  const unsigned short* xb = x + (long long)b * a.Cin * HW;
+  const unsigned short* wp = w + (long long)par * a.KH * a.KW * Ck * a.Cout;
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp % (BM / WM)) * WM;
+  const int wn = (warp / (BM / WM)) * WN;
+
+  auto load_a = [&](int stage, int tap, int c0) {
+    unsigned short* dst = As + stage * T::kA;
+    for (int id = tid; id < BK * BM / 8; id += NT) {
+      const int kr = id >> 3, mc = (id & 7) * 8;
+      const int c = c0 + kr, m = m0 + mc;
+      const unsigned short* src = wp + (long long)(tap * Ck + c) * a.Cout + m;
+      if (avec) {
+        const bool ok = c < Ck && m < a.Cout;
+        cp_async16(dst + kr * AST + mc, ok ? src : w, ok);
+      } else {
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok0 = c < Ck && m + 2 * e < a.Cout;
+          const bool ok1 = c < Ck && m + 2 * e + 1 < a.Cout;
+          v[e] = (ok0 ? (uint32_t)src[2 * e] : 0u) |
+                 ((ok1 ? (uint32_t)src[2 * e + 1] : 0u) << 16);
+        }
+        *reinterpret_cast<uint4*>(dst + kr * AST + mc) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+
+  // v: the 16 channels as loaded; packed only in store_b, after the
+  // k-block's mma, so the loads stay in flight across the math
+  auto gather_b = [&](unsigned short* v, int tap, int c0) {
+    const int kh = tap / a.KW;
+    const int kw = tap - kh * a.KW;
+    const int iy = iy0 + kh * a.dil;
+    int ix = ix0 + kw * a.dil;
+    bool ok = pix_ok && iy >= 0 && iy < a.Hi;
+    if (MODE == kWrap)
+      ix = matry::wrap(ix, a.Wi);
+    else
+      ok = ok && ix >= 0 && ix < a.Wi;
+    const int cb = c0 + cg * 16;
+    if (ok && cb + 16 <= a.Cin) {
+      const unsigned short* src = xb + (long long)cb * HW + iy * a.Wi + ix;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) v[j] = src[(long long)j * HW];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = cb + j;
+        unsigned short q = 0;
+        if (ok && c < a.Cin)
+          q = xb[(long long)c * HW + iy * a.Wi + ix];
+        else if (MODE == kCoord && ok && c == a.Cin)
+          q = bf16_bits(coord[iy]);
+        v[j] = q;
+      }
+    }
+  };
+
+  auto store_b = [&](int stage, const unsigned short* v) {
+    uint32_t r[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      r[j] = (uint32_t)v[2 * j] | ((uint32_t)v[2 * j + 1] << 16);
+    uint4* dst = reinterpret_cast<uint4*>(Bs + stage * T::kB + nl * BST +
+                                          cg * 16);
+    dst[0] = make_uint4(r[0], r[1], r[2], r[3]);
+    dst[1] = make_uint4(r[4], r[5], r[6], r[7]);
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  auto compute = [&](int stage) {
+    const unsigned short* as = As + stage * T::kA;
+    const unsigned short* bs = Bs + stage * T::kB;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[2][4], bf[4][2];
+      const int q = lane >> 3, r = lane & 7;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldsm_x4_trans(af[mt], as + (kk + r + (q >> 1) * 8) * AST + wm +
+                                  mt * 16 + (q & 1) * 8);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        uint32_t t[4];
+        ldsm_x4(t, bs + (wn + nt * 16 + r + (q >> 1) * 8) * BST + kk +
+                       (q & 1) * 8);
+        bf[2 * nt][0] = t[0];
+        bf[2 * nt][1] = t[1];
+        bf[2 * nt + 1][0] = t[2];
+        bf[2 * nt + 1][1] = t[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+    }
+  };
+
+  // the ring: k-block j in stage j % STAGES. (ltap, lc0) is the next
+  // k-block to load; taps run inside channel chunks, so a chunk's input
+  // rows stay in L1 across its KH*KW taps.
+  const int taps = a.KH * a.KW;
+  int ltap = 0, lc0 = 0;
+  auto advance = [&]() {
+    if (++ltap == taps) {
+      ltap = 0;
+      lc0 += BK;
+    }
+  };
+  unsigned short breg[16];
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nkb) {
+      load_a(s, ltap, lc0);
+      gather_b(breg, ltap, lc0);
+      store_b(s, breg);
+      advance();
+    }
+    cp_async_commit();
+  }
+  for (int j = 0; j < nkb; ++j) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // block j visible; block j-1's stage free
+    const int ls = (j + STAGES - 1) % STAGES;
+    const bool more = j + STAGES - 1 < nkb;
+    if (more) {
+      load_a(ls, ltap, lc0);
+      gather_b(breg, ltap, lc0);
+    }
+    cp_async_commit();
+    compute(j % STAGES);
+    if (more) {
+      store_b(ls, breg);
+      advance();
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: C fragment rows are channels, columns pixels
+  const bool sub = a.npar == 4;
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + mt * 16 + (lane >> 2) + h * 8;
+      if (m >= a.Cout) continue;
+      const float bv = bias[m];
+      TO* om = out + ((long long)b * a.Cout + m) * a.out_h * a.out_w;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = n0 + wn + nt * 8 + (lane & 3) * 2 + e;
+          if (p >= npix) continue;
+          float v = acc[mt][nt][2 * h + e] + bv;
+          if (a.act == 1) v = tanhf(v);
+          const TO q = matry::from_f32<TO>(v);
+          long long o = p;
+          if (sub) {
+            const int py = p / a.Wo;
+            const int px = p - py * a.Wo;
+            o = (long long)(2 * py + da) * a.out_w + 2 * px + db;
+          }
+          om[o] = q;
+          if (STATS) {
+            const float rq = matry::to_f32(q);
+            s1 += rq;
+            s2 += rq * rq;
+          }
+        }
+    }
+  if (STATS) block_stats<NT>(s1, s2, red, partial, b);
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// f32 operands: exact f32 FMA on the CUDA cores.
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+constexpr int BM = 64;   // output channels per block
+constexpr int BN = 128;  // output pixels per block
+constexpr int BK = 16;   // reduction step
+constexpr int TM = 4;    // channels per thread
+constexpr int TN = 8;    // pixels per thread
+
+template <typename TO, int MODE, bool STATS>
 __global__ void __launch_bounds__(256)
-    conv_kernel(const TI* __restrict__ x, const TI* __restrict__ w,
-                const float* __restrict__ bias,
-                const float* __restrict__ coord, TO* __restrict__ out,
-                float* __restrict__ partial, ConvArgs a) {
+    conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ coord, TO* __restrict__ out,
+                    float* __restrict__ partial, ConvArgs a) {
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
   __shared__ float red[2][256 / 32];
@@ -100,12 +460,12 @@ __global__ void __launch_bounds__(256)
   const int ox = pix_ok ? pix - oy * a.Wo : 0;
   const int iy0 = oy * a.stride - (a.pad_h - da);
   const int ix0 = ox * a.stride - (a.pad_w - db);
-  const TI* xb = x + (long long)b * a.Cin * a.Hi * a.Wi;
+  const float* xb = x + (long long)b * a.Cin * a.Hi * a.Wi;
 
   // A (weight) loader: one output channel, 4 consecutive k rows.
   const int am = tid & (BM - 1);
   const int ak = (tid >> 6) * 4;
-  const TI* wp = w + (long long)par * K * a.Cout;
+  const float* wp = w + (long long)par * K * a.Cout;
 
   const int tx = tid & 15;  // pixel group: tx * TN
   const int ty = tid >> 4;  // channel group: ty * TM
@@ -120,9 +480,8 @@ __global__ void __launch_bounds__(256)
     for (int q = 0; q < 4; ++q) {
       const int k = k0 + ak + q;
       const int m = m0 + am;
-      As[ak + q][am] = (k < K && m < a.Cout)
-                           ? matry::to_f32(wp[(long long)k * a.Cout + m])
-                           : 0.f;
+      As[ak + q][am] =
+          (k < K && m < a.Cout) ? wp[(long long)k * a.Cout + m] : 0.f;
     }
     int k = k0 + bk;
     int tap = k / Ck;
@@ -137,14 +496,13 @@ __global__ void __launch_bounds__(256)
         if (iy >= 0 && iy < a.Hi) {
           if (MODE == kWrap) {
             const int ix = matry::wrap(ix0 + kw * a.dil, a.Wi);
-            v = matry::to_f32(xb[((long long)c * a.Hi + iy) * a.Wi + ix]);
+            v = xb[((long long)c * a.Hi + iy) * a.Wi + ix];
           } else {
             const int ix = ix0 + kw * a.dil;
             if (ix >= 0 && ix < a.Wi)
               v = (MODE == kCoord && c == a.Cin)
                       ? coord[iy]
-                      : matry::to_f32(
-                            xb[((long long)c * a.Hi + iy) * a.Wi + ix]);
+                      : xb[((long long)c * a.Hi + iy) * a.Wi + ix];
           }
         }
       }
@@ -197,33 +555,10 @@ __global__ void __launch_bounds__(256)
       }
     }
   }
-  if (STATS) {
-    // Block sum in a fixed order: butterfly within each warp, then the
-    // eight warp sums in order by thread 0.
-    for (int off = 16; off > 0; off >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-    }
-    const int lane = tid & 31, warp = tid >> 5;
-    if (lane == 0) {
-      red[0][warp] = s1;
-      red[1][warp] = s2;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float t1 = 0.f, t2 = 0.f;
-      for (int i = 0; i < 256 / 32; ++i) {
-        t1 += red[0][i];
-        t2 += red[1][i];
-      }
-      float* pb = partial +
-                  (((long long)b * gridDim.y + blockIdx.y) * gridDim.x +
-                   blockIdx.x) * 2;
-      pb[0] = t1;
-      pb[1] = t2;
-    }
-  }
+  if (STATS) block_stats<256>(s1, s2, red, partial, b);
 }
+
+}  // namespace f32
 
 // One block per sample: each thread sums a strided set of the sample's
 // nblk partials in f64, in order, then a fixed tree over the block.
@@ -254,57 +589,129 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-dim3 grid_of(const ConvArgs& a) {
-  return dim3((a.Ho * a.Wo + BN - 1) / BN, (a.Cout + BM - 1) / BM,
-              a.B * a.npar);
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0)
+      n = 132;
+  }
+  return n;
 }
 
-template <typename TI, typename TO, int MODE, bool STATS>
-void launch(const void* x, const void* w, const void* bias,
+// The tensor-core kernel's pixel tile: 128 where 64 x 128 tiles give at
+// least two blocks per SM, else 64.
+int tc_bn(int B, int npar, int npix, int Cout) {
+  const long long blocks =
+      (long long)cdiv(npix, 128) * cdiv(Cout, tc::BM) * B * npar;
+  return blocks >= 2LL * num_sms() ? 128 : 64;
+}
+
+void finish_stats(const ConvArgs& a, dim3 grid, void* partial, void* stats,
+                  cudaStream_t s) {
+  stats_fold<<<a.B, 256, 0, s>>>((const float*)partial, (double*)stats,
+                                 grid.x * grid.y);
+}
+
+template <typename TO, int MODE, bool STATS, int BN>
+void launch_tc_tile(const void* x, const void* w, const void* bias,
+                    const void* coord, void* out, void* partial, void* stats,
+                    const ConvArgs& a, cudaStream_t s) {
+  using T = tc::Tile<BN>;
+  auto kern = tc::conv_tc_kernel<TO, MODE, STATS, BN>;
+  static bool attr = false;  // once per instantiation
+  if (!attr) {
+    if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::kSmem) != cudaSuccess)
+      return;  // the error stays for cudaGetLastError
+    attr = true;
+  }
+  const dim3 grid(cdiv(a.Ho * a.Wo, BN), cdiv(a.Cout, tc::BM), a.B * a.npar);
+  const int avec = a.Cout % 8 == 0 && ((uintptr_t)w & 15) == 0;
+  kern<<<grid, T::kThreads, T::kSmem, s>>>(
+      (const unsigned short*)x, (const unsigned short*)w, (const float*)bias,
+      (const float*)coord, (TO*)out, (float*)partial, a, avec);
+  if (STATS) finish_stats(a, grid, partial, stats, s);
+}
+
+template <typename TO, int MODE, bool STATS>
+void launch_tc(const void* x, const void* w, const void* bias,
+               const void* coord, void* out, void* partial, void* stats,
+               const ConvArgs& a, cudaStream_t s) {
+  if (tc_bn(a.B, a.npar, a.Ho * a.Wo, a.Cout) == 128)
+    launch_tc_tile<TO, MODE, STATS, 128>(x, w, bias, coord, out, partial,
+                                         stats, a, s);
+  else
+    launch_tc_tile<TO, MODE, STATS, 64>(x, w, bias, coord, out, partial,
+                                        stats, a, s);
+}
+
+template <typename TO, int MODE, bool STATS>
+void launch_f32(const void* x, const void* w, const void* bias,
+                const void* coord, void* out, void* partial, void* stats,
+                const ConvArgs& a, cudaStream_t s) {
+  const dim3 grid(cdiv(a.Ho * a.Wo, f32::BN), cdiv(a.Cout, f32::BM),
+                  a.B * a.npar);
+  f32::conv_f32_kernel<TO, MODE, STATS><<<grid, 256, 0, s>>>(
+      (const float*)x, (const float*)w, (const float*)bias,
+      (const float*)coord, (TO*)out, (float*)partial, a);
+  if (STATS) finish_stats(a, grid, partial, stats, s);
+}
+
+template <typename TO, int MODE, bool STATS>
+void launch(bool in_f32, const void* x, const void* w, const void* bias,
             const void* coord, void* out, void* partial, void* stats,
             const ConvArgs& a, cudaStream_t s) {
-  const dim3 grid = grid_of(a);
-  conv_kernel<TI, TO, MODE, STATS><<<grid, 256, 0, s>>>(
-      (const TI*)x, (const TI*)w, (const float*)bias, (const float*)coord,
-      (TO*)out, (float*)partial, a);
-  if (STATS)
-    stats_fold<<<a.B, 256, 0, s>>>((const float*)partial, (double*)stats,
-                                   grid.x * grid.y);
+  if (in_f32)
+    launch_f32<TO, MODE, STATS>(x, w, bias, coord, out, partial, stats, a,
+                                s);
+  else
+    launch_tc<TO, MODE, STATS>(x, w, bias, coord, out, partial, stats, a, s);
 }
 
-template <typename TI, typename TO>
-void launch_mode(const void* x, const void* w, const void* bias,
+template <typename TO>
+void launch_mode(bool in_f32, const void* x, const void* w, const void* bias,
                  const void* coord, void* out, void* partial, void* stats,
                  const ConvArgs& a, int mode, cudaStream_t s) {
   if (partial)
-    launch<TI, TO, kWrap, true>(x, w, bias, coord, out, partial, stats, a,
-                                s);
+    launch<TO, kWrap, true>(in_f32, x, w, bias, coord, out, partial, stats,
+                            a, s);
   else if (mode == kCoord)
-    launch<TI, TO, kCoord, false>(x, w, bias, coord, out, partial, stats, a,
-                                  s);
+    launch<TO, kCoord, false>(in_f32, x, w, bias, coord, out, partial,
+                              stats, a, s);
   else if (mode == kZero)
-    launch<TI, TO, kZero, false>(x, w, bias, coord, out, partial, stats, a,
-                                 s);
+    launch<TO, kZero, false>(in_f32, x, w, bias, coord, out, partial, stats,
+                             a, s);
   else
-    launch<TI, TO, kWrap, false>(x, w, bias, coord, out, partial, stats, a,
-                                 s);
+    launch<TO, kWrap, false>(in_f32, x, w, bias, coord, out, partial, stats,
+                             a, s);
 }
 
 }  // namespace
 
-// Blocks per sample of a stats launch (ho_wo output pixels, cout
-// channels): the length of each sample's row of partials.
+// Length of each sample's row of partials that a stats launch may write
+// (ho_wo output pixels, cout channels): its block count under the smallest
+// pixel tile, at least the count of whichever tile the launch takes.
 extern "C" int matry_conv_stats_blocks(int ho_wo, int cout) {
-  const dim3 g = grid_of(ConvArgs{1, 0, 0, 0, cout, ho_wo, 1, 0, 0, 0, 0, 0,
-                                  0, 1, 0, 0, 0});
-  return (int)(g.x * g.y);
+  return cdiv(ho_wo, 64) * cdiv(cout, 64);
+}
+
+// The tile a bf16 launch takes, as BM * 1000 + BN (the f32 kernel has one
+// tile, 64 x 128).
+extern "C" int matry_conv_tile(int B, int npar, int ho_wo, int cout) {
+  return tc::BM * 1000 + tc_bn(B, npar, ho_wo, cout);
 }
 
 // coord: null, or the coord channel's f32 value per input row [Hi] (then
-// zero_w must be set); zero_w: zero horizontal padding, else wrap.
-// partial/stats: null, or (wrap mode, npar 1 only) the STATS epilogue's
-// f32 scratch [B, matry_conv_stats_blocks(Ho*Wo, Cout), 2] and its f64
-// result [B, 2] = (sum y, sum y^2) per sample.
+// zero_w must be set); zero_w: zero horizontal padding, else wrap. in_f32:
+// x and w are float32 (the f32 kernel), else bfloat16 (the tensor-core
+// kernel). partial/stats: null, or (wrap mode, npar 1 only) the STATS
+// epilogue's f32 scratch [B, matry_conv_stats_blocks(Ho*Wo, Cout), 2] and
+// its f64 result [B, 2] = (sum y, sum y^2) per sample.
 extern "C" int matry_conv(const void* x, const void* w, const void* bias,
                           const void* coord, void* out, int B, int Cin,
                           int Hi, int Wi, int Cout, int Ho, int Wo, int KH,
@@ -321,20 +728,11 @@ extern "C" int matry_conv(const void* x, const void* w, const void* bias,
       (partial && (zero_w || npar != 1)))
     return (int)cudaErrorInvalidValue;
   const int mode = coord ? kCoord : (zero_w ? kZero : kWrap);
-  if (in_f32) {
-    if (out_f32)
-      launch_mode<float, float>(x, w, bias, coord, out, partial, stats, a,
-                                mode, s);
-    else
-      launch_mode<float, __nv_bfloat16>(x, w, bias, coord, out, partial,
-                                        stats, a, mode, s);
-  } else {
-    if (out_f32)
-      launch_mode<__nv_bfloat16, float>(x, w, bias, coord, out, partial,
-                                        stats, a, mode, s);
-    else
-      launch_mode<__nv_bfloat16, __nv_bfloat16>(x, w, bias, coord, out,
-                                                partial, stats, a, mode, s);
-  }
+  if (out_f32)
+    launch_mode<float>(in_f32, x, w, bias, coord, out, partial, stats, a,
+                       mode, s);
+  else
+    launch_mode<__nv_bfloat16>(in_f32, x, w, bias, coord, out, partial,
+                               stats, a, mode, s);
   return (int)cudaGetLastError();
 }

@@ -36,8 +36,10 @@ from matryodshka_tpu_torch.data.records import OdsSequence
 class OdsLoader:
     """Replica ODS loader, in training order (shuffled, endless) or
     evaluation order (camera-file order, once). load_hres adds the
-    hres_* images at (hres_height, hres_width), as the reference's
-    hrestgt supervision does."""
+    hres_* images at (hres_height, hres_width), read from
+    cfg.hres_image_dir under image_dir's file names, as the
+    reference's separate hres_image does (its datasets.py OdsSequence; the
+    JAX loader stores the field and reads image_dir instead)."""
 
     def __init__(self, cfg, cameras_glob: Optional[str] = None,
                  image_dir: Optional[str] = None, training: bool = True,
@@ -73,8 +75,10 @@ class OdsLoader:
         }
         if self.load_hres:
             hres = list(pool.map(
-                lambda p: img_lib.load_and_resize(p, cfg.hres_height,
-                                                  cfg.hres_width), paths))
+                lambda iid: img_lib.load_and_resize(
+                    img_lib.ods_image_path(cfg.hres_image_dir, seq.scene_id,
+                                           iid),
+                    cfg.hres_height, cfg.hres_width), seq.image_ids))
             ex["hres_ref_image"], ex["hres_src_image"], \
                 ex["hres_tgt_image"] = hres
         return ex

@@ -139,6 +139,18 @@ def conv_plain(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
     return y.to(out_dtype)
 
 
+def tile_config(b: int, npar: int, ho: int, wo: int, cout: int,
+                dtype) -> str:
+    """The tile a CUDA launch of this shape takes (the GEMM grid Ho x Wo
+    per parity): for bfloat16 operands the tensor-core kernel's Cout x
+    pixel tile, which csrc/conv.cu chooses by the number of blocks it
+    gives; for float32 the f32 kernel's one tile."""
+    if dtype == torch.float32:
+        return "f32 FMA 64x128"
+    t = _build.lib().matry_conv_tile(b, npar, ho * wo, cout)
+    return f"mma.sync {t // 1000}x{t % 1000}"
+
+
 def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
          pad=0, npar: int = 1, tanh: bool = False, out_dtype=None,
          hpad: str = "wrap", coord=None):

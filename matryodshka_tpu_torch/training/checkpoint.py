@@ -95,13 +95,19 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, state, step: Optional[int] = None):
-        """Load a checkpoint (the latest by default) into state's net and
-        optimizer, in place; returns state."""
+    def restore_params(self, step: Optional[int] = None) -> Tuple[Dict, int]:
+        """(flax parameter tree, step) of a checkpoint (the latest by
+        default), without an optimizer: the test CLI's restore."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         tree, _ = restore_params(os.path.join(self._dir(step), PARAMS))
+        return tree, step
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load a checkpoint (the latest by default) into state's net and
+        optimizer, in place; returns state."""
+        tree, step = self.restore_params(step)
         state.net.load_state_dict(weights.from_flax(tree))
         device = next(state.net.parameters()).device
         saved = torch.load(os.path.join(self._dir(step), TRAIN_STATE),

@@ -119,8 +119,11 @@ def test_loader_matches_jax(tmp_path, training):
 
     glob_pat = synthetic.make_ods_fixture(str(tmp_path), num_scenes=2,
                                           height=32, width=64)
+    # the port reads the high-res pair from hres_image_dir, the JAX loader
+    # from image_dir: the same directory keeps the two like for like
     flags = dict(cameras_glob=glob_pat, image_dir=str(tmp_path / "images"),
-                 hres_height=64, hres_width=128)
+                 hres_image_dir=str(tmp_path / "images"), hres_height=64,
+                 hres_width=128)
     jcfg, tcfg = _cfgs(32, 64, **flags)
     if training:
         jl, tl = jloader.OdsLoader(jcfg), tloader.make_loader(tcfg)
@@ -178,6 +181,7 @@ def test_main_matches_jax_main(tmp_path):
     np.savez(tmp_path / "params.npz", **flat)
 
     flags = ["--image_dir", str(tmp_path / "fix" / "images"),
+             "--hres_image_dir", str(tmp_path / "fix" / "images"),
              "--cameras_glob", glob_pat, "--height", "64", "--width", "128",
              "--hres_height", "128", "--hres_width", "256",
              "--num_psv_planes", str(P), "--num_msi_planes", str(P),

@@ -314,6 +314,7 @@ def test_coord_cli_main_matches_jax_main(tmp_path):
     tf_import.main([prefix, str(tmp_path / "params.npz")])
 
     flags = ["--image_dir", str(tmp_path / "fix" / "images"),
+             "--hres_image_dir", str(tmp_path / "fix" / "images"),
              "--cameras_glob", glob_pat, "--height", "64", "--width", "128",
              "--hres_height", "128", "--hres_width", "256",
              "--num_psv_planes", str(P), "--num_msi_planes", str(P),

@@ -63,14 +63,41 @@ def test_sweep_kernel_matches_plain(cuda, dtype):
     assert (got - want).abs().max().item() <= tol
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_conv_kernel_matches_plain(cuda, dtype):
-    """Every stage of the plan on the same (rounded) operands: f32 differs
-    in accumulation order (1e-4 of the output scale); in bf16 both sides
-    round once and may land one bf16 step apart (2^-7 of the scale)."""
+#: Single conv layers at the edges of the kernel's tiles: (id, B, Cin, H,
+#: W, Cout, conv arguments; coord=True appends the coord channel). Heads of
+#: 67, 99 and 32 channels (Cout not a multiple of 8, or of the 64-channel
+#: tile); pixel counts that fill no whole tile (Wo = 80, 200); W = 5, so
+#: the wrap crosses every tile; Cin' = Cin + 1 (coord) and Cin = 96 (a
+#: k-block past Cin' in every tap); stride 2, dilation 2, the npar=4
+#: parity deconv in both paddings; B = 2; the conv4 shape (512 -> 512 at
+#: 40x80, the 64x64 tile) and a shape that takes the 64x128 tile.
+EDGE_CASES = [
+    ("head67", 1, 64, 8, 80, 67,
+     dict(kh=1, kw=1, tanh=True, out_dtype=torch.float32)),
+    ("head99", 1, 64, 8, 80, 99,
+     dict(kh=1, kw=1, tanh=True, out_dtype=torch.float32)),
+    ("head32_zero", 2, 64, 8, 80, 32,
+     dict(kh=1, kw=1, tanh=True, out_dtype=torch.float32, hpad="zero")),
+    ("wo80", 1, 64, 6, 80, 64, dict(kh=3, kw=3, pad=1)),
+    ("w5_wrap", 2, 32, 40, 5, 64, dict(kh=3, kw=3, pad=1)),
+    ("coord", 2, 64, 12, 24, 64,
+     dict(kh=3, kw=3, pad=(1, 1), hpad="zero", coord=True)),
+    ("coord_down", 1, 32, 12, 24, 64,
+     dict(kh=3, kw=3, stride=2, pad=(0, 1), hpad="zero", coord=True)),
+    ("down", 2, 64, 12, 24, 128, dict(kh=3, kw=3, stride=2, pad=1)),
+    ("dil2", 1, 96, 10, 20, 64, dict(kh=3, kw=3, dil=2, pad=2)),
+    ("deconv", 2, 96, 10, 20, 64, dict(kh=2, kw=2, npar=4)),
+    ("deconv_zero", 1, 64, 10, 20, 32, dict(kh=2, kw=2, npar=4, hpad="zero")),
+    ("conv4", 1, 512, 40, 80, 512, dict(kh=3, kw=3, dil=2, pad=2)),
+    ("tile128", 2, 32, 96, 200, 64, dict(kh=3, kw=3, pad=1)),
+]
+#: The tensor-core tile each of these must take (Cout x pixels).
+EDGE_TILES = {"conv4": "mma.sync 64x64", "tile128": "mma.sync 64x128"}
+
+
+def _conv_plan_case(dev, dtype):
     rng = np.random.RandomState(6)
-    net = MSIUNet(2 * P * 3, 2 * P, NGF).to(cuda)
+    net = MSIUNet(2 * P * 3, 2 * P, NGF).to(dev)
     with torch.no_grad():
         for prm in net.parameters():
             prm.copy_(torch.from_numpy(
@@ -79,13 +106,58 @@ def test_conv_kernel_matches_plain(cuda, dtype):
         _, _, _, cins, _, ind, _, _ = plan
         x = torch.from_numpy(rng.uniform(
             -1, 1, (2, sum(cins), H // ind, W // ind)).astype(
-                np.float32)).to(cuda, dtype)
-        got = conv_ops.conv(x, st["w"], st["b"], **st["args"]).float()
-        want = conv_ops.conv_plain(x, st["w"], st["b"],
-                                   **st["args"]).float()
-        tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * \
+                np.float32)).to(dev, dtype)
+        yield plan[0], x, st["w"], st["b"], st["args"]
+
+
+def _conv_edge_case(dev, dtype, case):
+    _, b, cin, h, w, cout, args = next(c for c in EDGE_CASES
+                                       if c[0] == case)
+    args = dict(args)
+    rng = np.random.RandomState(sum(map(ord, case)))
+    kcin = cin + bool(args.pop("coord", False))
+    if kcin > cin:
+        args["coord"] = conv_ops.coord_column(h, dev)
+    taps = (16 if args.get("npar") == 4 else args["kh"] * args["kw"])
+    wt = torch.from_numpy((rng.randn(cout, kcin, 4, 4) if taps == 16 else
+                           rng.randn(cout, kcin, args["kh"], args["kw"]))
+                          .astype(np.float32) * (taps * kcin) ** -0.5)
+    pack = conv_ops.pack_deconv if taps == 16 else conv_ops.pack_conv
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32) * 0.1)
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, cin, h, w)).astype(
+        np.float32)).to(dev, dtype)
+    yield case, x, pack(wt, dtype).to(dev), bias.to(dev), args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plan"] + [c[0] for c in EDGE_CASES])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_kernel_matches_plain(cuda, dtype, case):
+    """Every stage of the plan ("plan"), then single layers at the tile
+    edges (EDGE_CASES), on the same (rounded) operands. f32 runs the exact
+    f32 FMA kernel: it differs from the plain version in accumulation order
+    only (1e-4 of the output scale over the plan, 1e-5 on the single
+    layers, whose K is at most 4,608); in bf16 (tensor cores) both sides
+    round once and may land one bf16 step apart (2^-7 of the scale)."""
+    layers = (_conv_plan_case(cuda, dtype) if case == "plan"
+              else _conv_edge_case(cuda, dtype, case))
+    for name, x, wk, bias, args in layers:
+        got = conv_ops.conv(x, wk, bias, **args).float()
+        want = conv_ops.conv_plain(x, wk, bias, **args).float()
+        assert torch.isfinite(got).all(), name
+        rel = 1e-4 if case == "plan" else 1e-5
+        tol = (rel if dtype == torch.float32 else 2.0 ** -7) * \
             want.abs().max().item()
-        assert (got - want).abs().max().item() <= tol, plan[0]
+        assert (got - want).abs().max().item() <= tol, name
+        if case in EDGE_TILES and dtype == torch.bfloat16:
+            npar = args.get("npar", 1)
+            ho, wo = conv_ops.out_size(x.shape[2], x.shape[3], args["kh"],
+                                       args["kw"], args.get("stride", 1),
+                                       args.get("dil", 1),
+                                       args.get("pad", 0), npar)
+            assert conv_ops.tile_config(x.shape[0], npar, ho, wo,
+                                        wk.shape[2], dtype) == \
+                EDGE_TILES[case]
 
 
 @pytest.mark.cuda
@@ -318,7 +390,8 @@ def test_wrap_conv_kernels_match_plain(cuda, layer):
     order), K7b and K7c's y (one bf16 step, 2^-7 of the scale), K7c's sums
     (1e-5 of sum|y| and of sum y^2, chip_smoke.py's STATS_TOL: ~1e-3 of
     the elements round one bf16 step the other way, ~1e-7 in all, while
-    one of the 400-1600 block partials lost moves s2 by >= 6e-4), dgrad
+    one of the 400-1600 block partials lost moves s2 by >= 6e-4; two
+    launches give bit-identical sums), dgrad
     (K7a on the adjoint weights) and wgrad (relative L2 1e-3: sums of up
     to 204,800 products in two blockings); each wrapper counts one launch.
     Inputs post-ReLU-like (half zeros), as the trainer feeds these layers,
@@ -353,6 +426,10 @@ def test_wrap_conv_kernels_match_plain(cuda, layer):
     yp, p1, p2 = wc.conv3x3_ln_stats_plain(x, wt, bias)
     assert (y.float() - yp.float()).abs().max().item() <= 2.0 ** -7 * scale(yp)
     assert s1.dtype == s2.dtype == torch.float64
+    # no atomics: a second launch gives the same y and bit-identical sums
+    y2, s1b, s2b = wc.conv3x3_ln_stats(x, wt, bias)
+    assert torch.equal(y, y2) and torch.equal(s1, s1b) and \
+        torch.equal(s2, s2b)
     assert (s1 - p1).abs().item() <= 1e-5 * yp.double().abs().sum().item()
     assert (s2 - p2).abs().item() <= 1e-5 * p2.item()
     wadj = wc.adjoint(wt)
@@ -367,7 +444,7 @@ def test_wrap_conv_kernels_match_plain(cuda, layer):
     torch.cuda.synchronize()
     assert (wc.k7a_launches, wc.k7b_launches, wc.k7c_launches,
             wc.wgrad_launches) == (before[0] + 2, before[1] + 1,
-                                   before[2] + 1, before[3] + 1)
+                                   before[2] + 2, before[3] + 1)
 
 
 @pytest.mark.cuda

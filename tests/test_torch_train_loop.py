@@ -5,8 +5,12 @@ training CLI, on CPU.
   run cut at step 2 and resumed with `continue_train` against one run of 3
   steps: the same parameters and optimizer state, bit for bit;
 * `cli.train --device cpu` for 3 steps on the synthetic fixture, whose
-  checkpoint the port's test CLI then serves; `--device cuda` raises on a
-  machine without a card;
+  checkpoint the port's test CLI then serves, from `--params` and, as the
+  JAX CLI does, from the latest checkpoint when `--params` is absent (and
+  raises when there is none); `--device cuda` raises on a machine without
+  a card;
+* `OdsLoader(load_hres=True)` reading the high-res pair from
+  `hres_image_dir`;
 * `data.loader.device_prefetch` and `data.synthetic` against the JAX
   package's copy.
 """
@@ -157,6 +161,75 @@ def test_cli_train_cpu_then_test_cli_serves_it(tmp_path):
     assert len(dirs) == 1
     alphas = np.load(out / dirs[0] / "alphas.npy")
     assert alphas.shape == (1, 32, 64, 4) and np.isfinite(alphas).all()
+
+
+def test_test_cli_restores_latest_checkpoint(tmp_path):
+    """cli.train writes <ckpt>/t/3/; cli.test with the same flags and no
+    --params restores it (step.txt 3) and writes the same files, byte for
+    byte, as the run with --params <ckpt>/t/3/params.npz."""
+    from matryodshka_tpu_torch.cli import test as test_cli
+    from matryodshka_tpu_torch.cli import train as train_cli
+    glob_pat = synthetic.make_ods_fixture(str(tmp_path / "fix"),
+                                          num_scenes=1, height=32, width=64)
+    flags = ["--image_dir", str(tmp_path / "fix" / "images"),
+             "--cameras_glob", glob_pat, "--height", "32", "--width", "64",
+             "--num_psv_planes", "4", "--num_msi_planes", "4", "--ngf", "8",
+             "--experiment_name", "t", "--device", "cpu",
+             "--checkpoint_dir", str(tmp_path / "ckpt")]
+    train_cli.main(flags + ["--max_steps", "3", "--summary_freq", "3"])
+    params = tmp_path / "ckpt" / "t" / "3" / "params.npz"
+    for out, extra in (("latest", []), ("params", ["--params", str(params)])):
+        test_cli.main(flags + extra + ["--output_root", str(tmp_path / out),
+                                       "--num_runs", "1"])
+    got, want = tmp_path / "latest" / "t", tmp_path / "params" / "t"
+    assert (got / "step.txt").read_text() == "3"
+    names = sorted(os.path.relpath(os.path.join(d, f), want)
+                   for d, _, fs in os.walk(want) for f in fs)
+    assert any(n.endswith("alphas.npy") for n in names)
+    assert names == sorted(os.path.relpath(os.path.join(d, f), got)
+                           for d, _, fs in os.walk(got) for f in fs)
+    for name in names:
+        assert (got / name).read_bytes() == (want / name).read_bytes(), name
+
+
+def test_test_cli_without_checkpoint_raises(tmp_path):
+    """No --params and no checkpoint under <checkpoint_dir>/<experiment>:
+    FileNotFoundError, as the JAX CLI raises, before any output."""
+    from matryodshka_tpu_torch.cli import test as test_cli
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        test_cli.main(["--checkpoint_dir", str(tmp_path / "ckpt"),
+                       "--experiment_name", "t", "--device", "cpu",
+                       "--output_root", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+def test_loader_reads_hres_image_dir(tmp_path):
+    """load_hres=True reads the 4096x2048 pair's files (here 64x128) from
+    hres_image_dir under image_dir's names: a copy of the fixture with
+    inverted pixels comes back inverted, the low-res images do not."""
+    from matryodshka_tpu_torch.data import images as img_lib
+    from matryodshka_tpu_torch.data.loader import OdsLoader
+    glob_pat = synthetic.make_ods_fixture(str(tmp_path), num_scenes=1,
+                                          height=32, width=64)
+    lo, hi = tmp_path / "images", tmp_path / "hres"
+    hi.mkdir()
+    for f in os.listdir(lo):
+        px = np.round(255 * img_lib.load_and_resize(str(lo / f), 32, 64))
+        img_lib.write_image(str(hi / f), (255 - px).astype(np.uint8))
+    cfg = entry.flagship_cfg(**TINY, cameras_glob=glob_pat,
+                             image_dir=str(lo), hres_image_dir=str(hi),
+                             hres_height=64, hres_width=128)
+    batch = next(OdsLoader(cfg, training=False, load_hres=True).batches())
+    for k, iid in zip(("ref", "src", "tgt"), batch["image_ids"][0]):
+        name = f"{batch['scene_id'][0]}_pos{iid}.jpeg"
+        np.testing.assert_array_equal(
+            batch[f"hres_{k}_image"][0],
+            img_lib.load_and_resize(str(hi / name), 64, 128))
+        np.testing.assert_array_equal(
+            batch[f"{k}_image"][0],
+            img_lib.load_and_resize(str(lo / name), 32, 64))
+        from_lo = img_lib.load_and_resize(str(lo / name), 64, 128)
+        assert np.abs(batch[f"hres_{k}_image"][0] - from_lo).mean() > 0.1
 
 
 def test_cli_train_refuses_cuda_without_card(tmp_path):
