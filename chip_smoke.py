@@ -53,6 +53,7 @@ card's name and power limit), then a JSON line of kernels, then the
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -148,12 +149,20 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def conv_build_report(so) -> None:
-    """The conv kernel's instantiations in the built library: ptxas's
-    registers and spills for each (from the build log, `-Xptxas -v`), and
-    the tensor-core instructions (HMMA, HGMMA) in each one's SASS
-    (`cuobjdump -sass`). Fails if a bf16 instantiation (conv_tc_kernel)
-    has none."""
+#: Kernels the build report lists (demangled names), and those whose
+#: every instantiation must hold tensor-core instructions.
+REPORTED = r"conv_(tc|f32)_kernel|wgrad_(tc|f32)_kernel|wgrad_reduce|" \
+    r"stats_fold|ln_(onchip|stats|apply)\b"
+TENSOR_CORE = ("conv_tc_kernel", "wgrad_tc_kernel")
+
+
+def kernel_build_report(so) -> None:
+    """The conv, weight-gradient and layer-norm kernels' instantiations in
+    the built library: ptxas's registers and spills for each (from the
+    build log, `-Xptxas -v`), and the tensor-core instructions (HMMA,
+    HGMMA) in each one's SASS (`cuobjdump -sass`). Fails if a bf16
+    instantiation (conv_tc_kernel, wgrad_tc_kernel) has none, or if
+    wgrad_tc_kernel spills."""
     import re
     from pathlib import Path
 
@@ -161,9 +170,10 @@ def conv_build_report(so) -> None:
     bin_dir = Path(_build._nvcc()).parent
     ptxas, cur = {}, None
     for line in so.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
         if m:
-            cur = m.group(1) if "conv_" in m.group(1) else None
+            cur = m.group(1)
             continue
         if cur is None:
             continue
@@ -181,9 +191,8 @@ def conv_build_report(so) -> None:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if "conv_" in m.group(1) else None
-            if fn:
-                mma[fn] = 0
+            fn = m.group(1)
+            mma[fn] = 0
         elif fn and re.search(r"\bHG?MMA\b", line):
             mma[fn] += 1
     names = sorted(set(ptxas) | set(mma))
@@ -196,30 +205,33 @@ def conv_build_report(so) -> None:
         short = names
     if len(short) != len(names):
         short = names
-    missing = []
+    missing, spilled, n_tc = [], [], {k: 0 for k in TENSOR_CORE}
     for name, nice in zip(names, short):
-        # conv.cu's kernels: an anonymous namespace mangles with its file's
-        # name, so the filter on "conv_" above also keeps conv_wgrad.cu's
-        if not re.search(r"conv_(tc|f32)_kernel", nice):
+        if not re.search(REPORTED, nice):
             continue
         nice = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "",
                       nice)
         nice = re.sub(r"\((?:[^()]|\([^()]*\))*\)$", "", nice)
         info = ptxas.get(name, {})
         spill = info.get("spill", ("?", "?", "?"))
-        print(f"conv kernel {nice}: {info.get('regs', '?')} registers, "
+        print(f"kernel build {nice}: {info.get('regs', '?')} registers, "
               f"stack frame {spill[0]} B, spill stores {spill[1]} B, spill "
               f"loads {spill[2]} B, "
               f"{mma.get(name, 0)} HMMA/HGMMA in its SASS")
-        if "conv_tc_kernel" in name and mma.get(name, 0) == 0:
-            missing.append(nice)
-    n_tc = sum("conv_tc_kernel" in n for n in mma)
-    print(f"conv kernel: {n_tc} bf16 (tensor-core) instantiations, "
-          f"{sum(mma[n] for n in mma if 'conv_tc_kernel' in n)} HMMA/HGMMA "
-          f"in all; {'ok' if n_tc and not missing else 'FAIL'}")
-    check(n_tc > 0 and not missing,
-          f"conv kernel bf16 instantiations without tensor-core "
-          f"instructions: {missing or 'no conv_tc_kernel in the SASS'}")
+        for k in TENSOR_CORE:
+            if k in nice:
+                n_tc[k] += 1
+                if mma.get(name, 0) == 0:
+                    missing.append(nice)
+        if "wgrad_tc_kernel" in nice and spill[1:] != (0, 0):
+            spilled.append(nice)
+    for k, n in n_tc.items():
+        print(f"kernel build: {n} bf16 (tensor-core) instantiations of {k}; "
+              f"{'ok' if n and not missing else 'FAIL'}")
+    check(all(n_tc.values()) and not missing,
+          f"bf16 instantiations without tensor-core instructions: "
+          f"{missing or n_tc}")
+    check(not spilled, f"wgrad_tc_kernel spills: {spilled}")
 
 
 def check(ok: bool, what: str) -> None:
@@ -242,6 +254,50 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         events.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+#: The layer-norm kernel's device functions (csrc/layernorm.cu), as the
+#: profiler names them.
+LN_KERNELS = r"\bln_(onchip|stats|apply)\b"
+
+
+def device_ms(fns, kernels, pattern: str, calls: int = 10):
+    """Device ms per call of each of fns, from one torch.profiler trace of
+    `calls` rounds of every fn in turn after 2 warm-up rounds: the kernels'
+    own time, which CUDA events around a call shorter than its launch path
+    do not see. fn i launches kernels[i] kernels matching pattern per call;
+    on one stream they run in launch order, which assigns each to its fn.
+    Returns (per-fn ms, or None for every fn if the trace lost a launch;
+    total ms per round; launches per round)."""
+    import re
+    import warnings
+
+    from matryodshka_tpu_torch.trace import device_events
+    for _ in range(2):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*Profiler clears events")
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in device_events(prof)
+                         if re.search(pattern, e[0])), key=lambda e: e[1])
+    check(bool(events), f"the trace holds no kernel matching {pattern}")
+    total = sum(d for _, _, d in events) / 1e3 / calls
+    per_fn = None
+    if len(events) == calls * sum(kernels):
+        per_fn = [0.0] * len(fns)
+        durs = iter(d for _, _, d in events)
+        for _ in range(calls):
+            for i, k in enumerate(kernels):
+                per_fn[i] += sum(next(durs) for _ in range(k)) / 1e3 / calls
+    return per_fn, total, len(events) / calls
 
 
 def rot_y(deg: float, device) -> torch.Tensor:
@@ -370,10 +426,15 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
         err = max((dw - dwp).abs().max().item(), (db - dbp).abs().max().item())
         errs_ok = rw <= WGRAD_TOL and rb <= WGRAD_TOL and bool(
             torch.isfinite(dw).all())
+        # the split and the fold are fixed by the shape: bit-identical
+        dw2, db2 = wc.conv3x3_wrap_wgrad(gy, x)
+        same = bool(torch.equal(dw, dw2) and torch.equal(db, db2))
         print(f"wrap_conv_wgrad {shape} rel L2 dW {rw:.3e} db {rb:.3e} "
-              f"max_abs_err {err:.3e} (tol rel {WGRAD_TOL:.0e}) "
-              f"{'ok' if errs_ok else 'FAIL'}")
+              f"max_abs_err {err:.3e} (tol rel {WGRAD_TOL:.0e}); two "
+              f"launches {'bit-identical' if same else 'DIFFER'} "
+              f"{'ok' if errs_ok and same else 'FAIL'}")
         check(errs_ok, f"wrap_conv_wgrad {shape}")
+        check(same, f"wrap_conv_wgrad {shape}: two launches differ")
         errs["wrap_conv_wgrad"] = max(errs["wrap_conv_wgrad"], err)
 
         # times of this layer's launches in a training step
@@ -410,7 +471,11 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
         glt = time_ms(lambda: torch.nn.grad.conv2d_weight(xp, wt.shape, gy))
         add("wrap_conv_wgrad", gt, gpt, glt, nbytes(gy, x, dw, db),
             flops + 2.0 * cout * hh * ww)
-        print(f"{line} | wgrad kernel {gt:7.3f} plain {gpt:7.3f} library "
+        splits, chunk = wc.wgrad_tc_splits(1, hh, ww, cout, cin)
+        part_mb = splits * cout * (9 * cin + 1) * 4 / 1e6
+        print(f"{line} | wgrad kernel {gt:7.3f} ({flops / gt / 1e9:6.2f} "
+              f"TFLOP/s; {splits} splits of {chunk} k-blocks, f32 partials "
+              f"{part_mb:.1f} MB written and read) plain {gpt:7.3f} library "
               f"{glt:7.3f} ms {tag}")
     return {k: (v[0], v[1], v[2], bound(v[3], v[4], BF16_FLOPS))
             for k, v in sums.items()}
@@ -719,7 +784,7 @@ def main() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
-    conv_build_report(so)
+    kernel_build_report(so)
 
     # ---- flagship operands -------------------------------------------------
     cfg = entry.flagship_cfg()
@@ -773,14 +838,24 @@ def main() -> None:
         yp = conv_ops.conv_plain(x, st["w"], st["b"], **st["args"])
         gate("conv", f"{name} {kind} {tuple(x.shape[1:])}->{cout}", y, yp,
              2.0 ** -7 * yp.float().abs().max().item())
-        if name in ("conv1_1", "conv4_1"):
+        if "gamma" in st:
+            # the LN+ReLU on this stage's output, bf16 (as the net runs it)
+            # and f32: f64 partials against the plain version's two-pass
+            # f32 mean/variance, 1e-5 of the output scale in f32, one bf16
+            # step (2^-7 of it) in bf16; two launches bit-identical
             g = st["gamma"] * (1 + 0.1 * torch.randn(
                 cout, generator=rng, device=dev))
             bt = 0.1 * torch.randn(cout, generator=rng, device=dev)
-            zp = ln_ops.layer_norm_relu_plain(y, g, bt)
-            gate("layernorm", f"{name} {tuple(y.shape[1:])}",
-                 ln_ops.layer_norm_relu(y, g, bt), zp,
-                 2.0 ** -7 * zp.float().abs().max().item())
+            for yd, rel in ((y, 2.0 ** -7), (y.float(), 1e-5)):
+                form = ln_ops.plan_for(yd)
+                zp = ln_ops.layer_norm_relu_plain(yd, g, bt)
+                z = ln_ops.layer_norm_relu(yd, g, bt)
+                gate("layernorm", f"{name} {tuple(y.shape[1:])} "
+                     f"{str(yd.dtype)[6:]} {form[0]} ({form[1]} x "
+                     f"{form[2]})", z, zp, rel * zp.float().abs().max().item())
+                check(torch.equal(z, ln_ops.layer_norm_relu(yd, g, bt)),
+                      f"layernorm {name} {yd.dtype}: two launches differ")
+            del z, zp
 
     # the coord net's conv kernel mode: every stage of its plan at ngf 64,
     # on the wrap stages' inputs (same shapes), with the same tolerance.
@@ -1034,6 +1109,7 @@ def main() -> None:
           f"{1000.0 / cstage_ms['e2e']:.2f} frames/s (coord) {tag}")
 
     kernel_ms, plain_ms, lib_ms, bounds = {}, {}, {}, {}
+    device_only = {}  # key: (device ms, kernel launches) per frame, trace
     kernel_ms["sweep"] = time_ms(
         lambda: sweep_ops.ods_sweep(images, rowp, torch.bfloat16))
     plain_ms["sweep"] = time_ms(
@@ -1058,6 +1134,7 @@ def main() -> None:
         if with_ln:
             kernel_ms["layernorm"] = plain_ms["layernorm"] = 0.0
             ln_lib = {"group_norm": 0.0, "layer_norm": 0.0}
+            ln_calls = []  # (layer, form, the kernel call)
         flops = cbytes = ln_bytes = ln_elems = 0.0
         for plan, st in zip(prm.net.plan, prm.stages):
             name, kind, _, cins, cout, _, _, rate = plan
@@ -1121,7 +1198,11 @@ def main() -> None:
                 ln_lib["layer_norm"] += lnt
                 ln_bytes += 2 * nbytes(y) + nbytes(g, bt)
                 ln_elems += y.numel()
-                line += (f" | layernorm kernel {nt:7.3f} ms plain "
+                ln_calls.append((name, ln_ops.plan_for(y)[0],
+                                 functools.partial(ln_ops.layer_norm_relu,
+                                                   y, g, bt)))
+                line += (f" | layernorm ({ln_calls[-1][1]}) kernel "
+                         f"{nt:7.3f} ms plain "
                          f"{npt:7.3f} ms library group_norm {gnt:7.3f} ms "
                          f"layer_norm {lnt:7.3f} ms")
             print(line, tag)
@@ -1131,6 +1212,21 @@ def main() -> None:
                                         F32_FLOPS)
             call = min(ln_lib, key=ln_lib.get)
             lib_ms["layernorm"] = ln_lib[call]
+            # the 17 layers' kernels in one trace: the on-chip form is one
+            # kernel a call, the two-pass form two
+            per_layer, dev, nlaunch = device_ms(
+                [fn for _, _, fn in ln_calls],
+                [1 if form == "onchip" else 2 for _, form, _ in ln_calls],
+                LN_KERNELS)
+            for i, (name, form, _) in enumerate(ln_calls):
+                us = (f"{per_layer[i] * 1e3:8.3f} us" if per_layer
+                      else "not measured (the trace lost launches)")
+                print(f"layernorm {name:10s} form {form:8s} device {us} "
+                      f"(trace) {tag}")
+            device_only["layernorm"] = (dev, nlaunch)
+            print(f"net layernorm device time (trace) {dev:.4f} ms "
+                  f"per frame in {nlaunch:g} kernel launches; CUDA "
+                  f"events {kernel_ms['layernorm']:.4f} ms {tag}")
             print(f"net layernorm library: F.group_norm "
                   f"{ln_lib['group_norm']:.3f} ms, F.layer_norm "
                   f"{ln_lib['layer_norm']:.3f} ms; "
@@ -1297,6 +1393,10 @@ def main() -> None:
              "plain_ms": plain_ms[k], "bound_ms": bounds[k][0],
              "bound_by": bounds[k][1], "library_ms": lib_ms[k]}
             for k in sources]
+    for r in rows:
+        if r["name"] in device_only:
+            r["device_ms"], r["kernel_launches_per_frame"] = \
+                device_only[r["name"]]
     # K7: times per training step, summed over the layers each form runs
     # (K7a: the seven dgrads; K7b: three forwards; K7c: five forwards and
     # their sums; wgrad: eight)

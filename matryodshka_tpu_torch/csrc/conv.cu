@@ -33,7 +33,9 @@
 //
 // bf16 operands (conv_tc_kernel) run on the tensor cores:
 //   1. mma.sync.m16n8k16 (bf16 in, f32 accumulate); each warp owns a
-//      32 (Cout) x 32 (pixel) tile, fragments loaded with ldmatrix.
+//      32 (Cout) x 32 (pixel) tile, fragments loaded with ldmatrix (the
+//      cp.async / ldmatrix / mma helpers are mma.cuh's, shared with
+//      conv_wgrad.cu).
 //   2. Operands stay bf16 in shared memory: the weight slab [BK][BM]
 //      (Cout contiguous, read with ldmatrix.trans) and the patch tile
 //      [BN][BK] (channels contiguous per pixel, read with plain ldmatrix,
@@ -81,6 +83,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -130,6 +133,8 @@ __device__ __forceinline__ void block_stats(float s1, float s2,
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace matry::mma;
+
 constexpr int BM = 64;        // output channels per block
 constexpr int BK = 32;        // channels of one tap per k-block
 constexpr int WM = 32;        // warp tile: channels
@@ -147,50 +152,6 @@ struct Tile {
   // the patch loader: one pixel and 16 channels per thread
   static_assert(kThreads == 2 * BN, "two 16-channel groups per pixel");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte asynchronous copy; src_bytes = 0 fills the 16 bytes with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned short bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16(v));
-}
 
 // avec: the weight rows may be copied as 16-byte words (Cout % 8 == 0 and
 // w 16-byte aligned), else the masked scalar path.

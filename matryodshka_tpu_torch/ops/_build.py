@@ -40,8 +40,8 @@ SIGNATURES = {
     "matry_conv_stats_blocks": [_I, _I],
     "matry_conv_tile": [_I] * 4,
     "matry_conv_wgrad": [_P] * 5 + [_I] * 6 + [ctypes.c_longlong, _I, _P],
-    "matry_layernorm": [_P] * 5 + [_I, _I, ctypes.c_longlong, _I,
-                                   ctypes.c_float, _I, _I, _P],
+    "matry_layernorm": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _I, _I,
+                                             _P],
     "matry_render": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
     "matry_render_layers": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
     "matry_probe_trig": [_P, _P, ctypes.c_longlong, _P],

@@ -28,7 +28,8 @@ trainer runs XLA's convs) is hand-written too:
   weights W'[ci, co, kh, kw] = W[co, ci, 2 - kh, 2 - kw], exact for stride
   1 and rate 1 with wrap in W and zeros in H; skipped when the input needs
   no gradient (the first layer reads the sweep);
-* wgrad and the bias gradient: `csrc/conv_wgrad.cu`.
+* wgrad and the bias gradient: `csrc/conv_wgrad.cu` (tensor cores for
+  bfloat16 operands, exact float32 FMA for float32 ones).
 
 For K7c the incoming gradient first becomes gy + gs1 + 2 y gs2, in float32.
 Each kernel reads its operands in x's dtype (the gradient is rounded to it
@@ -56,10 +57,17 @@ k7c_launches = 0
 #: Launches of the weight-gradient kernel (csrc/conv_wgrad.cu).
 wgrad_launches = 0
 
-#: Blocks the weight-gradient kernel aims to have in flight (4 per SM of
-#: an H100) when it splits the pixel sum, and the fewest pixels per split.
+#: Blocks the float32 weight-gradient kernel aims to have in flight (4 per
+#: SM of an H100) when it splits the pixel sum, and the fewest pixels per
+#: split.
 _WGRAD_BLOCKS = 4 * 132
 _WGRAD_MIN_CHUNK = 256
+#: The bfloat16 (tensor-core) weight-gradient kernel's block tile: output
+#: channels, input channels (each with its nine taps), and pixels per
+#: k-block (a run of one image row); and the blocks it keeps within one
+#: wave (2 per SM of an H100, as its registers allow).
+WGRAD_TC_TILE = (64, 32, 32)
+_WGRAD_TC_BLOCKS = 2 * 132
 
 
 def _acc(x) -> torch.dtype:
@@ -197,15 +205,37 @@ def conv3x3_ln_stats(x, weight, bias):
 
 
 def wgrad_splits(k: int, cout: int, cin: int):
-    """(splits, chunk) of the weight-gradient kernel's pixel sum over k =
-    B*H*W: enough splits for about _WGRAD_BLOCKS blocks, chunks of at
-    least _WGRAD_MIN_CHUNK pixels (a multiple of 16). Fixed by the shape,
-    so the summation order is too."""
+    """(splits, chunk) of the float32 weight-gradient kernel's pixel sum
+    over k = B*H*W: enough splits for about _WGRAD_BLOCKS blocks, chunks of
+    at least _WGRAD_MIN_CHUNK pixels (a multiple of 16). Fixed by the
+    shape, so the summation order is too."""
     tiles = -(-(9 * cin + 1) // 128) * -(-cout // 64)
     splits = max(1, min(-(-_WGRAD_BLOCKS // tiles), k // _WGRAD_MIN_CHUNK))
     chunk = -(-k // splits)
     chunk = -(-chunk // 16) * 16
     return -(-k // chunk), chunk
+
+
+def wgrad_tc_kblocks(b: int, h: int, w: int) -> int:
+    """k-blocks of the bfloat16 weight-gradient kernel's pixel sum: each
+    image row (b, y) is cut into ceil(W / 32) runs of 32 pixels, the last
+    one masked past the row end."""
+    return b * h * -(-w // WGRAD_TC_TILE[2])
+
+
+def wgrad_tc_splits(b: int, h: int, w: int, cout: int, cin: int):
+    """(splits, chunk) of the bfloat16 weight-gradient kernel: split z sums
+    k-blocks [z*chunk, (z+1)*chunk) of wgrad_tc_kblocks(b, h, w), into its
+    own float32 partial [Cout, 9*Cin + 1]. As many splits as keep the
+    blocks (one per 64 x 32-channel tile and split) within one wave of
+    _WGRAD_TC_BLOCKS, which also bounds the partials (~19 MB at each
+    trainer layer). Fixed by the shape, so the summation order is too."""
+    bm, bc, _ = WGRAD_TC_TILE
+    kblocks = wgrad_tc_kblocks(b, h, w)
+    tiles = -(-cin // bc) * -(-cout // bm)
+    splits = max(1, min(_WGRAD_TC_BLOCKS // tiles, kblocks))
+    chunk = -(-kblocks // splits)
+    return -(-kblocks // chunk), chunk
 
 
 def conv3x3_wrap_wgrad(g, x):
@@ -225,7 +255,10 @@ def conv3x3_wrap_wgrad(g, x):
         and g.dim() == 4 and g.shape[0] == b and tuple(g.shape[2:]) == (h, w),
         f"conv3x3_wrap_wgrad: g {g.dtype} {tuple(g.shape)}")
     cout = g.shape[1]
-    splits, chunk = wgrad_splits(b * h * w, cout, cin)
+    if x.dtype == torch.float32:
+        splits, chunk = wgrad_splits(b * h * w, cout, cin)
+    else:
+        splits, chunk = wgrad_tc_splits(b, h, w, cout, cin)
     partial = torch.empty((splits, cout, 9 * cin + 1), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=x.device)

@@ -13,7 +13,8 @@ activities). With --train it traces the default trainer's step instead
 Per part it prints the host wall ms per call (a synchronize ends the
 window), the device busy ms per call (the union of the trace's kernel,
 memcpy and memset intervals), the idle share 1 - busy / wall, the device
-operations per call, and the part's TOP largest kernels by device time.
+operations per call, the part's TOP largest kernels by device time, and
+the device time and launches of each of the port's kernels.
 Every line carries the card's name and power limit. Needs a CUDA device.
 """
 
@@ -23,6 +24,7 @@ import argparse
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -34,6 +36,12 @@ import torch
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 CALLS = 10    # traced calls per part
 TOP = 10      # kernels listed per part
+#: The port's hand-written kernels (csrc/*.cu), summed per part by name
+#: whatever their template arguments.
+PORT_KERNELS = ("sweep_kernel", "conv_tc_kernel", "conv_f32_kernel",
+                "stats_fold", "ln_onchip", "ln_stats", "ln_apply",
+                "render_kernel", "render_layers_kernel", "wgrad_tc_kernel",
+                "wgrad_f32_kernel", "wgrad_reduce")
 
 
 def _card() -> str:
@@ -88,10 +96,25 @@ def trace_part(fn):
     if not events:
         raise RuntimeError("the profiler recorded no device activity")
     busy = busy_us(events) / 1e3 / CALLS
-    by_name = collections.Counter()
+    by_name, counts = collections.Counter(), collections.Counter()
     for name, _, dur in events:
         by_name[name] += dur
-    return wall, busy, 1.0 - busy / wall, len(events) / CALLS, by_name
+        counts[name] += 1
+    return (wall, busy, 1.0 - busy / wall, len(events) / CALLS, by_name,
+            counts)
+
+
+def port_kernels(by_name, counts):
+    """{kernel: (launches, device us)} over the window for each of
+    PORT_KERNELS that ran, summed over its instantiations."""
+    out = {}
+    for kern in PORT_KERNELS:
+        pat = re.compile(rf"\b{kern}\b")
+        hits = [n for n in by_name if pat.search(n)]
+        if hits:
+            out[kern] = (sum(counts[n] for n in hits),
+                         sum(by_name[n] for n in hits))
+    return out
 
 
 def main(argv=None):
@@ -137,13 +160,16 @@ def main(argv=None):
           f"part {tag}")
     with torch.set_grad_enabled(args.train):
         for part, fn in parts.items():
-            wall, busy, idle, ops, by_name = trace_part(fn)
+            wall, busy, idle, ops, by_name, counts = trace_part(fn)
             print(f"{part:7s} host wall {wall:.3f} ms/{unit}, device busy "
                   f"{busy:.3f} ms/{unit}, idle share {idle:.3f}, "
                   f"{ops:.0f} device ops/{unit} {tag}")
             for name, us in by_name.most_common(TOP):
                 print(f"    {us / 1e3 / CALLS:8.3f} ms/{unit} "
                       f"{name[:100]}")
+            for kern, (n, us) in port_kernels(by_name, counts).items():
+                print(f"    port kernel {kern}: {us / 1e3 / CALLS:.4f} "
+                      f"ms/{unit} in {n / CALLS:g} launches/{unit}")
 
 
 if __name__ == "__main__":

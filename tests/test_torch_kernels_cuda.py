@@ -160,22 +160,47 @@ def test_conv_kernel_matches_plain(cuda, dtype, case):
                 EDGE_TILES[case]
 
 
+#: Layer-norm shapes (B, C, H, W) and the form each takes on an H100: the
+#: original batch-2 case; one example on chip; odd sizes (not a whole
+#: number of 16-byte vectors: the scalar path) in both forms; conv1_1's
+#: output, on chip in bf16 and two-pass in f32 (too large for shared
+#: memory).
+LN_CASES = {
+    "batch2": ((2, 16, 24, 40), "two_pass", "two_pass"),
+    "onchip": ((1, 16, 24, 40), "onchip", "onchip"),
+    "odd_onchip": ((1, 3, 5, 7), "onchip", "onchip"),
+    "odd_batch3": ((3, 3, 5, 7), "two_pass", "two_pass"),
+    "conv1_1": ((1, 64, 320, 640), "onchip", "two_pass"),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LN_CASES))
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_layernorm_kernel_matches_plain(cuda, dtype):
+def test_layernorm_kernel_matches_plain(cuda, dtype, case):
     """f64 partial sums against a two-pass f32 mean/variance: 1e-5 of the
     output scale in f32; in bf16 both sides round once (one bf16 step,
-    2^-7 of the scale)."""
+    2^-7 of the scale). Each case takes the form the shape asks for, two
+    launches give bit-identical outputs, and each call counts one
+    launch."""
+    shape, form_bf16, form_f32 = LN_CASES[case]
     rng = np.random.RandomState(7)
-    x = torch.from_numpy((rng.randn(2, 16, 24, 40) * 2 + 0.5).astype(
+    x = torch.from_numpy((rng.randn(*shape) * 2 + 0.5).astype(
         np.float32)).to(cuda, dtype)
-    gamma = torch.from_numpy(rng.randn(16).astype(np.float32)).to(cuda)
-    beta = torch.from_numpy(rng.randn(16).astype(np.float32)).to(cuda)
-    got = ln_ops.layer_norm_relu(x, gamma, beta).float()
+    gamma = torch.from_numpy(rng.randn(shape[1]).astype(np.float32)).to(cuda)
+    beta = torch.from_numpy(rng.randn(shape[1]).astype(np.float32)).to(cuda)
+    assert ln_ops.plan_for(x)[0] == (form_f32 if dtype == torch.float32
+                                     else form_bf16)
+    before = ln_ops.launches
+    got = ln_ops.layer_norm_relu(x, gamma, beta)
+    again = ln_ops.layer_norm_relu(x, gamma, beta)
+    torch.cuda.synchronize()
+    assert ln_ops.launches == before + 2
+    assert torch.equal(got, again)
     want = ln_ops.layer_norm_relu_plain(x, gamma, beta).float()
     tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * \
         want.abs().max().item()
-    assert (got - want).abs().max().item() <= tol
+    assert (got.float() - want).abs().max().item() <= tol
 
 
 def _uv(dev, rot_deg, h=H, w=W):
@@ -393,7 +418,8 @@ def test_wrap_conv_kernels_match_plain(cuda, layer):
     one of the 400-1600 block partials lost moves s2 by >= 6e-4; two
     launches give bit-identical sums), dgrad
     (K7a on the adjoint weights) and wgrad (relative L2 1e-3: sums of up
-    to 204,800 products in two blockings); each wrapper counts one launch.
+    to 204,800 products in two blockings; bit-identical over two launches);
+    each wrapper counts one launch.
     Inputs post-ReLU-like (half zeros), as the trainer feeds these layers,
     so s1 is not a small difference of large sums."""
     from matryodshka_tpu_torch.ops import wrap_conv as wc
@@ -441,10 +467,54 @@ def test_wrap_conv_kernels_match_plain(cuda, layer):
     assert dw.shape == wt.shape and db.shape == (cout,)
     assert ((dw - dwp).norm() / dwp.norm()).item() <= 1e-3
     assert ((db - dbp).norm() / dbp.norm()).item() <= 1e-3
+    # fixed split and fold: a second launch gives bit-identical dW and db
+    dw2, db2 = wc.conv3x3_wrap_wgrad(gy, x)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
     torch.cuda.synchronize()
     assert (wc.k7a_launches, wc.k7b_launches, wc.k7c_launches,
             wc.wgrad_launches) == (before[0] + 2, before[1] + 1,
-                                   before[2] + 2, before[3] + 1)
+                                   before[2] + 2, before[3] + 2)
+
+
+#: Weight-gradient shapes (B, Cin, Cout, H, W) that fill no tile: odd
+#: channel counts, W = 40 (a k-block half past the row end), a pixel sum
+#: that splits unevenly (148 k-blocks in 50 splits of 3), W = 37 and W = 5
+#: (not a multiple of 8: the bf16 kernel's scalar loads; W = 5 wraps every
+#: tap onto the row).
+WGRAD_RAGGED = [(2, 13, 19, 6, 40), (2, 33, 65, 37, 40), (1, 7, 9, 5, 37),
+                (2, 5, 3, 4, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WGRAD_RAGGED,
+                         ids=["x".join(map(str, s)) for s in WGRAD_RAGGED])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wgrad_kernel_ragged_matches_plain(cuda, dtype, shape):
+    """The weight-gradient kernel (tensor cores in bf16, exact FMA in f32)
+    against its plain version: relative L2 1e-3 in bf16 (f32 sums of exact
+    bf16 products in another blocking), 1e-5 in f32; bit-identical over
+    two launches; one launch counted per call; one shape's bf16 plan
+    splits its k-blocks unevenly."""
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    b, cin, cout, h, w = shape
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy(rng.randn(b, cin, h, w).astype(np.float32)).to(
+        cuda, dtype)
+    g = torch.from_numpy(rng.randn(b, cout, h, w).astype(np.float32)).to(
+        cuda, dtype)
+    before = wc.wgrad_launches
+    dw, db = wc.conv3x3_wrap_wgrad(g, x)
+    dw2, db2 = wc.conv3x3_wrap_wgrad(g, x)
+    torch.cuda.synchronize()
+    assert wc.wgrad_launches == before + 2
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    dwp, dbp = wc.conv3x3_wrap_wgrad_plain(g, x)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    assert ((dw - dwp).norm() / dwp.norm()).item() <= tol
+    assert ((db - dbp).norm() / dbp.norm()).item() <= tol
+    if shape == (2, 33, 65, 37, 40):
+        splits, chunk = wc.wgrad_tc_splits(b, h, w, cout, cin)
+        assert splits * chunk > wc.wgrad_tc_kblocks(b, h, w)
 
 
 @pytest.mark.cuda

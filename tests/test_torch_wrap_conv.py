@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from matryodshka_tpu.ops import pallas_conv
 from matryodshka_tpu_torch.ops import wrap_conv as wc
 from matryodshka_tpu_torch.ops.conv import wrap_pad
+from matryodshka_tpu_torch.ops.net import unet_plan
 
 torch.set_num_threads(1)
 
@@ -188,6 +189,100 @@ def test_wgrad_split_plan():
         assert splits * chunk >= k > (splits - 1) * chunk
         assert splits == 1 or chunk >= 256
     assert wc.wgrad_splits(204800, 64, 192)[0] > 8
+
+
+#: The trainer's stride-1 wrap convs at the flagship shape (name, Cin,
+#: Cout, H, W): the weight-gradient kernel's eight shapes.
+TRAINER_WGRAD = [(name, sum(cins), cout, 320 // ind, 640 // ind)
+                 for (name, kind, _, cins, cout, ind, _, rate)
+                 in unet_plan(64, 192, 1) if kind == "conv" and rate == 1]
+
+
+def test_trainer_wgrad_shapes():
+    assert [s[0] for s in TRAINER_WGRAD] == [
+        "conv1_1", "conv2_1", "conv3_1", "conv3_2", "conv6_2", "conv6_3",
+        "conv7_2", "conv8_2"]
+
+
+@pytest.mark.parametrize("shape", TRAINER_WGRAD,
+                         ids=[s[0] for s in TRAINER_WGRAD])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_wgrad_tc_plan(shape, batch):
+    """The bfloat16 kernel's plan at the trainer's shapes: the k-blocks
+    (runs of 32 pixels of one image row) cover every pixel once, the
+    splits cover every k-block once, the 64 x 32-channel tiles cover every
+    (Cout, Cin) column, the grid stays within one wave of 2 blocks per SM,
+    the f32 partials stay under 24 MB, and the plan is a function of the
+    shape alone."""
+    _, cin, cout, h, w = shape
+    bm, bc, bk = wc.WGRAD_TC_TILE
+    splits, chunk = wc.wgrad_tc_splits(batch, h, w, cout, cin)
+    assert (splits, chunk) == wc.wgrad_tc_splits(batch, h, w, cout, cin)
+    nkb = wc.wgrad_tc_kblocks(batch, h, w)
+    kpr = -(-w // bk)
+    assert nkb == batch * h * kpr
+    assert splits * chunk >= nkb > (splits - 1) * chunk
+    kb = np.arange(nkb)
+    row, x0 = kb // kpr, (kb % kpr) * bk
+    count = np.zeros((batch * h, w), np.int64)
+    for d in range(bk):
+        ok = x0 + d < w
+        np.add.at(count, (row[ok], x0[ok] + d), 1)
+    assert (count == 1).all()
+    tiles = -(-cin // bc) * -(-cout // bm)
+    assert tiles * bc * bm >= cin * cout
+    assert tiles * splits <= 2 * 132
+    assert splits * cout * (9 * cin + 1) * 4 <= 24e6
+
+
+def _wgrad_tc_emulated(g, x):
+    """The bfloat16 kernel's algorithm in float64 on the CPU: per split, per
+    k-block (b, y, x0), the g run g[b, :, y, x0:x0+32] (zero past the row
+    end) times the nine tap views of the x halo tile (rows y-1..y+1, zero
+    outside [0, H); the run shifted by -1, 0, +1 pixel, wrapped), summed
+    into the split's partial; db from the same g runs; then the splits in
+    order."""
+    b, cin, h, w = x.shape
+    cout = g.shape[1]
+    bk = wc.WGRAD_TC_TILE[2]
+    kpr = -(-w // bk)
+    nkb = wc.wgrad_tc_kblocks(b, h, w)
+    splits, chunk = wc.wgrad_tc_splits(b, h, w, cout, cin)
+    xp = F.pad(x, (0, 0, 1, 1))
+    dw = torch.zeros(cout, cin, 3, 3, dtype=torch.float64)
+    db = torch.zeros(cout, dtype=torch.float64)
+    for z in range(splits):
+        pw = torch.zeros_like(dw)
+        pb = torch.zeros_like(db)
+        for k in range(z * chunk, min((z + 1) * chunk, nkb)):
+            r, xs = divmod(k, kpr)
+            bi, y = divmod(r, h)
+            cols = torch.arange(xs * bk, xs * bk + bk)
+            a = g[bi, :, y, cols % w] * (cols < w)
+            for kh in range(3):
+                for kw in range(3):
+                    pw[:, :, kh, kw] += a @ xp[bi, :, y + kh,
+                                               (cols + kw - 1) % w].T
+            pb += a.sum(dim=1)
+        dw += pw
+        db += pb
+    return dw, db
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 6, 40), (1, 3, 4, 3, 37),
+                                   (2, 33, 65, 5, 8), (1, 4, 3, 4, 1)])
+def test_wgrad_tc_algorithm_matches_plain(shape):
+    """The emulated tensor-core algorithm (k-blocks past the row end,
+    ragged W, W < 32, odd channel counts, several splits) against the
+    plain version, float64."""
+    b, cin, cout, h, w = shape
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy(rng.randn(b, cin, h, w))
+    g = torch.from_numpy(rng.randn(b, cout, h, w))
+    dw, db = _wgrad_tc_emulated(g, x)
+    dwp, dbp = wc.conv3x3_wrap_wgrad_plain(g, x)
+    torch.testing.assert_close(dw, dwp, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(db, dbp, rtol=1e-12, atol=1e-12)
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
