@@ -7,10 +7,17 @@ Builds the port's CUDA kernels from matryodshka_tpu_torch/csrc, reports
 the conv kernel's instantiations (ptxas registers, stack and spills; the
 HMMA/HGMMA count of each one's SASS, which must be above 0 for the bf16
 tensor-core instantiations), and checks each kernel against its plain
-PyTorch version at the shapes its path gives it, all at the full width of the flagship configuration (640x320 ODS input,
-32 planes per eye, 32 shells, ngf 64, bf16) with seeded random weights.
+PyTorch version at the shapes its path gives it, all at the full width
+of the flagship configuration (640x320 ODS input, 32 planes per eye, 32
+shells, ngf 64, bf16) with seeded random weights. The sweep (also at
+4096x2048) and the render, which make their own lookups, are checked in
+two halves: their projection, through its instrument entry, against the
+plain projection in float64 (the worst errors and the bound printed),
+and the kernel against its plain version fed the instrument's tables.
 Then it drives six paths, each with every launch count set to 0 just
-before it and read just after:
+before it and read just after (on the first, exactly one sweep and one
+render launch per frame, and one device operation per stage in a
+profiler trace):
 
 1. entry.forward (blend_psv: sweep, U-Net, blend-fused render) on three
    requests;
@@ -100,6 +107,13 @@ OPS_RENDER_DEPTH = 16
 #: squares, then normalize, scale, shift, ReLU).
 OPS_SWEEP = 9
 OPS_LAYERNORM = 7
+#: f32 operations of the lookups the sweep and render kernels project
+#: (estimates): one row's parameters, 16 probes of the ODS projection
+#: (~40 single-rounded operations, five divisions, two sqrtf, two atan2f,
+#: four sin/cos: ~160 each); one (pixel, shell) uv (~60 operations, two
+#: atan2f, two sqrtf).
+OPS_ROW_PARAM = 16 * 160
+OPS_SHELL_UV = 60 + 2 * 30 + 2 * 10
 #: f32 operations per element of the trig probe (an estimate of CUDA's
 #: precise atan2f: range reduction, a division and a polynomial of about
 #: ten terms; sqrtf and the fma). Bytes bound it by far.
@@ -314,6 +328,58 @@ def random_stack(rng, p: int, h: int, w: int, dev) -> torch.Tensor:
     stack = torch.rand((1, p, 4, h, w), generator=rng, device=dev) * 2 - 1
     stack[:, :, 3] = torch.sigmoid(3.0 * stack[:, :, 3])
     return stack.to(torch.bfloat16)
+
+
+def sweep_kernels(what, ref, src, depths, intr, gate):
+    """K1's gates on one pair of batch images ([1, H, W, 3] in [0, 1]):
+    1. the kernel's projection (sweep_ops.sweep_row_params, the
+       instrument) against row_params in float64: validity identical,
+       positions within the f32 noise bound (grids.lookup_error), printed
+       beside the plain float32 row_params' own distance from float64;
+    2. sweep_volume (one launch) in f32 and bf16 against ods_sweep_plain
+       fed the instrument's tables: the same taps and weights, each
+       operation rounded once in both (1e-5), and one bf16 rounding of
+       values in [-1, 1] (2^-8). The plain version runs a few planes at a
+       time, which keeps its gathers small at 4096x2048."""
+    from matryodshka_tpu_torch.geometry import grids
+    from matryodshka_tpu_torch.models import msi as msi_lib
+    from matryodshka_tpu_torch.ops import sweep as sweep_ops
+    _, h, w, _ = ref.shape
+    p = depths.shape[0]
+    rowp = sweep_ops.sweep_row_params(depths, intr, h, w)
+    ref64 = sweep_ops.dual_row_params(depths.double(), intr.double(), h, w)
+    same, err = sweep_ops.row_params_error(rowp, ref64, depths, h, w)
+    _, perr = sweep_ops.row_params_error(
+        sweep_ops.dual_row_params(depths, intr, h, w), ref64, depths, h, w)
+    ok = same and err["u"] <= 1.0 and err["v"] <= 1.0
+    print(f"sweep      row params {what}: validity "
+          f"{'identical' if same else 'DIFFERS'} to float64; worst "
+          f"|d(x0+fx)| {err['u_px']:.3e} px, |d(y0+fy)| {err['v_px']:.3e} "
+          f"px; of the noise bound u {err['u']:.3f} v {err['v']:.3f} "
+          f"(tol 1; plain f32 row_params {perr['u']:.3f}, {perr['v']:.3f}; "
+          f"the bound is max({grids.NOISE_PX:g}, {grids.NOISE_PX_PER_M:g} "
+          f"depth) px at 64x32, x{w // 64} in u and x{h // 32} in v here, "
+          f"u counted on the sphere) {'ok' if ok else 'FAIL'}")
+    check(ok, f"sweep row params {what} vs float64")
+    images, _ = sweep_ops.sweep_inputs(msi_lib.preprocess_image(ref),
+                                       msi_lib.preprocess_image(src),
+                                       depths[:1], intr)
+    step = max(1, (1 << 27) // (6 * h * w))
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -8)):
+        n = sweep_ops.launches
+        got = sweep_ops.sweep_volume(ref, src, depths, intr, dt)
+        check(sweep_ops.launches == n + 1, "sweep_volume is one launch")
+        got = got.view(1, 2, p, 3, h, w)
+        errs = []
+        for p0 in range(0, p, step):
+            part = {k: t[:, :, p0:p0 + step] for k, t in rowp.items()}
+            mine = got[:, :, p0:p0 + step].float()
+            check(bool(torch.isfinite(mine).all()), f"sweep {what} finite")
+            want = sweep_ops.ods_sweep_plain(images, part, torch.float32)
+            errs.append((mine - want.view_as(mine)).abs().max())
+        del got, mine, want
+        gate("sweep", f"2x{p} planes {what} -> {str(dt)[6:]}",
+             torch.stack(errs).max(), torch.zeros(()), tol)
 
 
 def wrap_conv_layers(ngf: int, cin0: int):
@@ -760,6 +826,7 @@ def main() -> None:
 
     from matryodshka_tpu_torch import entry
     from matryodshka_tpu_torch.cli import test as cli_test
+    from matryodshka_tpu_torch.geometry import grids
     from matryodshka_tpu_torch.geometry import render as render_lib
     from matryodshka_tpu_torch.models import msi as msi_lib
     from matryodshka_tpu_torch.ops import _build
@@ -769,6 +836,7 @@ def main() -> None:
     from matryodshka_tpu_torch.ops import render_layers as rl_ops
     from matryodshka_tpu_torch.ops import sweep as sweep_ops
     from matryodshka_tpu_torch.ops.resample import resample_layers_uv
+    from matryodshka_tpu_torch.trace import trace_part
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} {tag}")
@@ -807,18 +875,22 @@ def main() -> None:
         errs[name] = max(errs[name], err)
         return err
 
-    # sweep: both eyes x 32 planes at 640x320, f32 and bf16 output.
-    # f32: the same taps and weights, only FMA contraction differs (1e-5);
-    # bf16: one rounding of values in [-1, 1] (2^-8).
-    images, rowp = sweep_ops.sweep_inputs(
-        msi_lib.preprocess_image(batch["ref_image"]),
-        msi_lib.preprocess_image(batch["src_image"]), params.psv_depths,
-        batch["intrinsics"])
-    want = sweep_ops.ods_sweep_plain(images, rowp, torch.float32)
-    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -8)):
-        gate("sweep", f"2x32 planes {h}x{w} -> {str(dt)[6:]}",
-             sweep_ops.ods_sweep(images, rowp, dt), want, tol)
-    vol = sweep_ops.ods_sweep(images, rowp, torch.bfloat16)
+    # sweep: both eyes x 32 planes at 640x320, and at the re-render's
+    # 4096x2048 (column tiles), each in its two halves: the kernel's
+    # projection (its row-parameter instrument) against row_params in
+    # float64, then the kernel, one launch, against the plain version fed
+    # those row parameters (sweep_kernels).
+    hrng = torch.Generator(device=dev).manual_seed(77)
+    hres_images = [torch.rand((1, *HRES, 3), generator=hrng, device=dev)
+                   for _ in range(2)]
+    for what, ref_i, src_i in (
+            (f"{h}x{w}", batch["ref_image"], batch["src_image"]),
+            (f"{HRES[1]}x{HRES[0]}", *hres_images)):
+        sweep_kernels(what, ref_i, src_i, params.psv_depths,
+                      batch["intrinsics"], gate)
+    vol = sweep_ops.sweep_volume(batch["ref_image"], batch["src_image"],
+                                 params.psv_depths, batch["intrinsics"],
+                                 torch.bfloat16)
 
     # conv + layer norm: every stage of unet_plan at ngf 64 on bf16 inputs
     # of the stage's shape. Kernel and plain version see the same rounded
@@ -874,26 +946,49 @@ def main() -> None:
              f"{' +coord' if 'coord' in st['args'] else ''}", y, yp,
              2.0 ** -7 * yp.float().abs().max().item())
 
-    # render: translated and rotated target, bf16 volume, f32 prediction.
-    # The same f32 math in another order, plus early termination at
+    # render: translated and rotated target, bf16 volume, f32 prediction,
+    # in K3's two halves: the kernel's projection (its uv instrument)
+    # against intersect_sphere_uv in float64 (grids.lookup_error, printed
+    # beside the plain float32 tables' own distance), then the kernel, one
+    # launch, against the plain version fed those tables: the same taps,
+    # the composite's f32 math in another order, plus early termination at
     # T < 1e-6: 1e-5 on values in [-1, 1].
     pred = torch.tanh(1.5 * torch.randn((1, 2 * p, h, w), generator=rng,
                                         device=dev))
     stack = random_stack(rng, p, h, w, dev)
+    radii = params.msi_depths
     for what, rt, pos in (("translated (0.05, 0, 0)", torch.eye(4)[None],
                            (0.05, 0.0, 0.0)),
                           ("rotated 30 deg + (0.02, 0, 0)", rot_y(30, "cpu"),
                            (0.02, 0.0, 0.0))):
-        u, v = render_lib.uv_tables(
-            rt.to(dev), torch.tensor([pos], device=dev), params.msi_depths,
-            h, w)
-        gate("render", what, render_ops.render_blend(vol, pred, u, v),
-             render_ops.render_blend_plain(vol, pred, u, v), 1e-5)
-        # K3's depth mode: the same composite of the constant p/P.
-        gate("render_depth", what,
-             render_ops.render_blend(vol, pred, u, v, depth=True),
-             render_ops.render_blend_plain(vol, pred, u, v, depth=True),
-             1e-5)
+        rt, pos = rt.to(dev), torch.tensor([pos], device=dev)
+        u, v = render_ops.uv_project(rt, pos, radii, h, w)
+        u6, v6 = render_lib.uv_tables(rt.double(), pos.double(),
+                                      radii.double(), h, w)
+        scale = radii.double()[None, :, None, None]
+        err = grids.lookup_error(u, v, u6, v6, scale, h, w)
+        uf, vf = render_lib.uv_tables(rt, pos, radii, h, w)
+        perr = grids.lookup_error(uf, vf, u6, v6, scale, h, w)
+        ok = err["u"] <= 1.0 and err["v"] <= 1.0
+        print(f"render     uv {what}: worst |du| {err['u_px']:.3e} px, "
+              f"|dv| {err['v_px']:.3e} px from float64; of the noise bound "
+              f"u {err['u']:.3f} v {err['v']:.3f} (tol 1; plain f32 tables "
+              f"{perr['u']:.3f}, {perr['v']:.3f}; max({grids.NOISE_PX:g}, "
+              f"{grids.NOISE_PX_PER_M:g} radius) px at 64x32, x{w // 64} in "
+              f"u and x{h // 32} in v here, u counted on the sphere) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"render uv {what} vs float64")
+        for name, depth in (("render", False), ("render_depth", True)):
+            n = render_ops.launches + render_ops.depth_launches
+            got = render_ops.render_blend(vol, pred, rt, pos, radii,
+                                          depth=depth)
+            check(render_ops.launches + render_ops.depth_launches == n + 1,
+                  "render_blend is one launch")
+            # K3's depth mode: the same composite of the constant p/P.
+            gate(name, what, got,
+                 render_ops.render_blend_plain(vol, pred, u, v, depth=depth),
+                 1e-5)
+        u, v = uf, vf
         # K4 (back to front) and K6 (front to back, T < 1e-6) on a bf16
         # layer stack, colours in [-1, 1] and alphas in [0, 1], against the
         # shell-streamed plain composite: the same f32 samples composited
@@ -914,12 +1009,38 @@ def main() -> None:
     torch.cuda.synchronize()
     for m in mods.values():
         m.launches = 0
+    sweep_ops.row_params_launches = render_ops.uv_launches = 0
     outs = [entry.forward(params, b) for b in batches]
     torch.cuda.synchronize()
     launches = {k: m.launches for k, m in mods.items()}
-    print(f"launches over {len(batches)} requests: {launches}")
+    instruments = (sweep_ops.row_params_launches, render_ops.uv_launches)
+    print(f"launches over {len(batches)} requests: {launches}; instruments "
+          f"(row params, uv) {instruments}")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
+    check(launches["sweep"] == launches["render"] == len(batches)
+          and instruments == (0, 0),
+          "one sweep and one render launch per frame, no instrument")
+
+    # the stages' device operations per frame: one profiler trace each
+    # (trace.trace_part, 10 calls after 2 warm-up)
+    b0, rt0 = batches[0], torch.eye(4, device=dev)[None]
+    with torch.no_grad():
+        vq = msi_lib.sweep_stage(cfg, b0, params.psv_depths)
+        pq = msi_lib.net_stage(params.stages, vq)
+        for name, fn, want_ops in (
+                ("sweep", lambda: msi_lib.sweep_stage(cfg, b0,
+                                                      params.psv_depths), 1),
+                ("render", lambda: msi_lib.render_stage(
+                    vq, pq, rt0, b0["tgt_pose"], params.msi_depths), 1),
+                ("frame", lambda: entry.forward(params, b0), None)):
+            wall, busy, idle, ops, _, _ = trace_part(fn)
+            print(f"stage {name:6s} {ops:g} device ops/frame (trace: host "
+                  f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
+                  f"share {idle:.3f}) {tag}")
+            check(want_ops is None or ops == want_ops,
+                  f"the {name} stage is {want_ops} device operation")
+    del vq, pq
     for (seed, pos), b, out in zip(REQUESTS, batches, outs):
         check(tuple(out.shape) == (1, h, w, 3), f"output shape {out.shape}")
         check(bool(torch.isfinite(out).all()), "non-finite output")
@@ -1002,10 +1123,8 @@ def main() -> None:
     hh, hw = HRES
     _, c0, _, bq = cli[0]
     check((c0.hres_height, c0.hres_width) == HRES, "hres default shape")
-    hrng = torch.Generator(device=dev).manual_seed(77)
     eye = torch.eye(4, device=dev)[None]
-    hargs = (torch.rand((1, hh, hw, 3), generator=hrng, device=dev),
-             torch.rand((1, hh, hw, 3), generator=hrng, device=dev),
+    hargs = (*hres_images,
              cli_outs[0]["blend_weights"], cli_outs[0]["alphas"], eye, eye,
              eye, bq["intrinsics"], bq["tgt_pose"])
     hres_render = cli_test.build_hres_render_fn(c0)
@@ -1023,6 +1142,7 @@ def main() -> None:
     for k in ("sweep", "render_layers"):
         check(hres_launches[k] > 0, f"kernel {k} was not launched on the "
                                     f"high-res path")
+    check(hres_launches["sweep"] == 1, "the high-res sweep is one launch")
     rgb_p, depth_p = cli_test.hres_render_plain(
         c0, hargs[0], hargs[1], hargs[2], hargs[3], hargs[7], hargs[8])
     gate_e2e(f"hres {hw}x{hh}",
@@ -1082,8 +1202,6 @@ def main() -> None:
     probe_rows = probe_path(dev, tag)
 
     # ---- times (CUDA events, 2 warm-up, median of 10) ----------------------
-    b0 = batches[0]
-    rt0 = torch.eye(4, device=dev)[None]
 
     def stage_times(prm, bq):
         c = prm.cfg
@@ -1110,15 +1228,25 @@ def main() -> None:
 
     kernel_ms, plain_ms, lib_ms, bounds = {}, {}, {}, {}
     device_only = {}  # key: (device ms, kernel launches) per frame, trace
-    kernel_ms["sweep"] = time_ms(
-        lambda: sweep_ops.ods_sweep(images, rowp, torch.bfloat16))
-    plain_ms["sweep"] = time_ms(
-        lambda: sweep_ops.ods_sweep_plain(images, rowp, torch.bfloat16))
+    sweep_in = (b0["ref_image"], b0["src_image"], params.psv_depths,
+                b0["intrinsics"])
+
+    def sweep_kernel():
+        return sweep_ops.sweep_volume(*sweep_in, torch.bfloat16)
+
+    def sweep_plain():
+        images, rowp = sweep_ops.sweep_inputs(
+            msi_lib.preprocess_image(sweep_in[0]),
+            msi_lib.preprocess_image(sweep_in[1]), *sweep_in[2:])
+        return sweep_ops.ods_sweep_plain(images, rowp, torch.bfloat16)
+
+    kernel_ms["sweep"] = time_ms(sweep_kernel)
+    plain_ms["sweep"] = time_ms(sweep_plain)
     lib_ms["sweep"] = None
     out_elems = 2 * p * 3 * h * w
     bounds["sweep"] = bound(
-        nbytes(images, *rowp.values()) + 2 * out_elems,
-        OPS_SWEEP * out_elems, F32_FLOPS)
+        nbytes(*sweep_in) + 2 * out_elems,
+        OPS_SWEEP * out_elems + OPS_ROW_PARAM * 2 * p * h, F32_FLOPS)
 
     def time_net(prm, key):
         """Per stage: the conv kernel, its plain version and the library
@@ -1250,27 +1378,41 @@ def main() -> None:
                              (trans[:-1] >= render_ops.EPS).float()])
         return reached.mean().item()
 
-    u0, v0 = render_lib.uv_tables(rt0, b0["tgt_pose"], params.msi_depths,
-                                  h, w)
-    kernel_ms["render"] = time_ms(
-        lambda: render_ops.render_blend(vol0, pred0, u0, v0))
-    plain_ms["render"] = time_ms(
-        lambda: render_ops.render_blend_plain(vol0, pred0, u0, v0))
-    kernel_ms["render_depth"] = time_ms(
-        lambda: render_ops.render_blend(vol0, pred0, u0, v0, depth=True))
-    plain_ms["render_depth"] = time_ms(
-        lambda: render_ops.render_blend_plain(vol0, pred0, u0, v0,
-                                              depth=True), iters=5)
+    target0 = (rt0, b0["tgt_pose"], params.msi_depths)
+    u0, v0 = render_lib.uv_tables(*target0, h, w)
+    for name, depth in (("render", False), ("render_depth", True)):
+        kernel_ms[name] = time_ms(
+            lambda: render_ops.render_blend(vol0, pred0, *target0,
+                                            depth=depth))
+        plain_ms[name] = time_ms(
+            lambda: render_ops.render_blend_plain(
+                vol0, pred0, *render_lib.uv_tables(*target0, h, w),
+                depth=depth), iters=5)
     out3 = 3 * 4 * h * w
     frac = visited((pred0[0, p:] + 1.0) / 2.0, u0[0], v0[0])
+    # no tables: the visited samples' taps, the output and the pose
     bounds["render"] = bound(
-        frac * nbytes(vol0, pred0, u0, v0) + out3,
-        frac * OPS_RENDER_BLEND * p * h * w, F32_FLOPS)
+        frac * nbytes(vol0, pred0) + out3 + nbytes(*target0),
+        frac * (OPS_RENDER_BLEND + OPS_SHELL_UV) * p * h * w, F32_FLOPS)
     bounds["render_depth"] = bound(
-        frac * (nbytes(pred0) / 2 + nbytes(u0, v0)) + out3,
-        frac * OPS_RENDER_DEPTH * p * h * w, F32_FLOPS)
+        frac * nbytes(pred0) / 2 + out3 + nbytes(*target0),
+        frac * (OPS_RENDER_DEPTH + OPS_SHELL_UV) * p * h * w, F32_FLOPS)
     print(f"K3 front to back takes {frac:.4f} of the (pixel, shell) samples "
           f"on this request")
+    # K1's and K3's device time from a profiler trace of 10 calls each
+    # (CUDA events around one call time its launch path where that is the
+    # longer); the mean over the launches the trace kept
+    for k, fn, pat in (
+            ("sweep", sweep_kernel, r"\bsweep_kernel\b"),
+            ("render", functools.partial(render_ops.render_blend, vol0, pred0,
+                                         *target0), r"\brender_kernel\b"),
+            ("render_depth", functools.partial(
+                render_ops.render_blend, vol0, pred0, *target0, depth=True),
+             r"\brender_kernel\b")):
+        _, total, seen = device_ms([fn], [1], pat)
+        device_only[k] = (total / seen, 1)
+        how = f"{total / seen:.4f} ms per launch ({seen:g} of 1 kept a call)"
+        print(f"kernel {k} device time (trace) {how} {tag}")
     for name, ftb in (("render_layers_k4", False),
                       ("render_layers_k6", True)):
         kernel_ms[name] = time_ms(
@@ -1338,9 +1480,8 @@ def main() -> None:
     hb, ha = hargs[2], hargs[3]
     hms = {
         "sweep": time_ms(lambda: sweep_ops.sweep_volume(
-            msi_lib.preprocess_image(hargs[0]),
-            msi_lib.preprocess_image(hargs[1]), params.psv_depths,
-            bq["intrinsics"], out_dtype=torch.bfloat16), iters=3),
+            hargs[0], hargs[1], params.psv_depths, bq["intrinsics"],
+            out_dtype=torch.bfloat16), iters=3),
         "upsample": time_ms(lambda: msi_lib.upsample_align_corners_cf(
             torch.cat([hb, ha], dim=-1).permute(0, 3, 1, 2), hh, hw),
             iters=3),

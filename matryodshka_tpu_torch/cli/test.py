@@ -170,9 +170,8 @@ def build_hres_render_fn(cfg: MatryConfig):
         u_ba = msi_lib.upsample_align_corners_cf(
             torch.cat([blend_weights, alphas], dim=-1).permute(0, 3, 1, 2),
             hh, hw)
-        vol = sweep_ops.sweep_volume(msi_lib.preprocess_image(hres_ref),
-                                     msi_lib.preprocess_image(hres_src),
-                                     depths, intrinsics, out_dtype=dtype)
+        vol = sweep_ops.sweep_volume(hres_ref, hres_src, depths, intrinsics,
+                                     out_dtype=dtype)
         layers = msi_lib.assemble_hres_prepared(
             cfg.which_color_pred, u_ba[:, :p], u_ba[:, p:], vol, dtype=dtype)
         del u_ba, vol

@@ -26,6 +26,20 @@ def lat_long_grid(shape, device=None, dtype=torch.float32):
     return S, T
 
 
+_VECTORS = {}
+
+
+def lat_long_vectors(height: int, width: int, device):
+    """(lat [H], lon [W]) float32: lat_long_grid's two vectors, which the
+    sweep and render kernels read. Built once per (H, W, device) and
+    kept, so a frame spends no launches on them."""
+    key = (height, width, torch.device(device))
+    if key not in _VECTORS:
+        S, T = lat_long_grid((height, width), device=device)
+        _VECTORS[key] = (T[:, 0].contiguous(), S[0].contiguous())
+    return _VECTORS[key]
+
+
 def theta_phi_to_pixels_uv(theta, phi, width: int, height: int):
     """Angles -> fractional ERP pixel coordinates (u in [0, W-1] for theta in
     [-pi, pi], v in [0, H-1] for phi in [-pi/2, pi/2])."""
@@ -45,3 +59,37 @@ def spherical_ray_dirs(S, T):
     """Unit ray (cos S cos T, sin T, sin S cos T) in the RUB frame."""
     cos_t = torch.cos(T)
     return torch.cos(S) * cos_t, torch.sin(T), torch.sin(S) * cos_t
+
+
+#: The f32 noise bound of a lookup position (the sweep's row parameters,
+#: the render's per-shell uv), in pixels of a 64 x 32 grid:
+#: max(NOISE_PX, NOISE_PX_PER_M * depth or radius), the bound
+#: tests/test_torch_sweep.py holds f32 projections to at that size (the
+#: tangent quadratic's cancellation grows with the depth).
+NOISE_PX = 1e-4
+NOISE_PX_PER_M = 4e-5
+
+
+def lookup_error(u, v, u_ref, v_ref, scale_m, height: int, width: int):
+    """How far lookup positions (u, v) lie from a reference (u_ref, v_ref),
+    against the noise bound at H x W: the same angle as at 64 x 32, so
+    the bound is W/64 times the 64 x 32 one in u and H/32 times in v; a
+    u error counts times cos(latitude of v_ref), its length on the sphere
+    (u is singular at the poles, where a longitude step is no distance).
+    Distances are circular (mod W, mod H). scale_m broadcasts against the
+    positions: the depth or radius of each. Returns a dict of the worst u
+    and v errors in pixels ('u_px', 'v_px', unweighted) and as fractions
+    of the bound ('u', 'v')."""
+    def circ(a, b, n):
+        d = torch.remainder(a.double() - b.double(), n)
+        return torch.minimum(d, n - d)
+
+    v_ref = v_ref.double()
+    lat = (v_ref / (height - 1) * (PI - PI / height)
+           - (PI / 2 - PI / (2 * height)))
+    du, dv = circ(u, u_ref, width), circ(v, v_ref, height)
+    tol = torch.clamp(NOISE_PX_PER_M * torch.as_tensor(scale_m).double(),
+                      min=NOISE_PX)
+    return {"u_px": du.max().item(), "v_px": dv.max().item(),
+            "u": (du * torch.cos(lat).abs() / (tol * width / 64)).max().item(),
+            "v": (dv / (tol * height / 32)).max().item()}

@@ -36,7 +36,8 @@ def intersect_sphere_uv(pose, center, radii, width: int, height: int):
     radii [P]. Returns (u, v), each [P, height, width] float32 pixels.
     """
     center = center.reshape(-1)
-    S, T = lat_long_grid((height, width), device=radii.device)
+    S, T = lat_long_grid((height, width), device=radii.device,
+                         dtype=radii.dtype)
     rx, ry, rz = rotate_dirs(spherical_ray_dirs(S, T), pose)
     cx, cy, cz = apply_pose((center[2], center[1], center[0]), pose)
     x, y, z = sphere_intersections(

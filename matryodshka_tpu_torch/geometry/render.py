@@ -105,8 +105,9 @@ def render_equirect_view_fused_blend(vol, pred, tgt_pose, tgt_pos, radii,
     """The blend-fused render of a batch, straight from the sweep volume
     vol [B, 2*P*3, H, W] and the net prediction pred [B, 2P, H, W]:
     tgt_pose [B, 4, 4], tgt_pos [B, 3] -> [B, H, W, 3] float32. Any pose;
-    depth renders the depth proxy from the alphas."""
+    depth renders the depth proxy from the alphas. On the card one kernel
+    launch, which makes its own lookups (no uv_tables)."""
     # Imported here: ops.render takes over_composite from this module.
     from matryodshka_tpu_torch.ops import render as render_ops
-    u, v = uv_tables(tgt_pose, tgt_pos, radii, vol.shape[2], vol.shape[3])
-    return render_ops.render_blend(vol, pred.contiguous(), u, v, depth=depth)
+    return render_ops.render_blend(vol, pred.contiguous(), tgt_pose, tgt_pos,
+                                   radii, depth=depth)

@@ -217,9 +217,9 @@ def render_equirect_depth(rgba_layers, tgt_pose_rt, tgt_pos, radii):
 
 def sweep_stage(cfg, batch, psv_depths):
     """Stage 1: identity-pose dual-eye sweep of the batch's ODS pair -> net
-    input [B, 2*P*3, H, W] in the compute dtype."""
-    return sweep_ops.sweep_volume(preprocess_image(batch["ref_image"]),
-                                  preprocess_image(batch["src_image"]),
+    input [B, 2*P*3, H, W] in the compute dtype (the sweep preprocesses
+    the images; on the card one kernel launch)."""
+    return sweep_ops.sweep_volume(batch["ref_image"], batch["src_image"],
                                   psv_depths, batch["intrinsics"],
                                   out_dtype=cfg.torch_compute_dtype)
 

@@ -35,14 +35,18 @@ _I = ctypes.c_int
 #: matry_conv_stats_blocks, which returns a block count, and
 #: matry_conv_tile, a tile shape).
 SIGNATURES = {
-    "matry_sweep": [_P] * 8 + [_I] * 5 + [_P],
+    "matry_sweep": [_P] * 7 + [_I] * 5 + [_P],
+    "matry_sweep_row_params": [_P] * 10 + [_I] * 4 + [_P],
     "matry_conv": [_P] * 5 + [_I] * 20 + [_P] * 3,
     "matry_conv_stats_blocks": [_I, _I],
     "matry_conv_tile": [_I] * 4,
     "matry_conv_wgrad": [_P] * 5 + [_I] * 6 + [ctypes.c_longlong, _I, _P],
     "matry_layernorm": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _I, _I,
                                              _P],
-    "matry_render": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
+    "matry_render": [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong]
+    + [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P],
+    "matry_uv_project": [_P, ctypes.c_longlong, _P, ctypes.c_longlong]
+    + [_P] * 5 + [_I] * 4 + [_P],
     "matry_render_layers": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
     "matry_probe_trig": [_P, _P, ctypes.c_longlong, _P],
     "matry_probe_roll": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],

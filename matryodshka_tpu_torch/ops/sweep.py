@@ -1,11 +1,13 @@
-"""Identity-pose dual-eye ODS sweep: row parameters, kernel wrapper and its
-plain version.
+"""Identity-pose dual-eye ODS sweep: the kernel wrapper, its plain version
+(row parameters, then the taps) and the row-parameter instrument.
 
 Counterpart of `matryodshka_tpu/ops/pallas_sweep.py` (`_row_params`,
 `_ods_sweep_dual_stack`, `ods_sweep_identity_planar`). The kernel is
-`csrc/sweep.cu`, which replaces `pallas_sweep._sweep_kernel`; its source
-note gives the bound and the design. The output is the net's input,
-channels first and unflipped: [B, 2*P*3, H, W], channel (eye*P + p)*3 + c.
+`csrc/sweep.cu`, which replaces `pallas_sweep._sweep_kernel` and the row
+parameters beside it: it projects its own rows (`csrc/project.cuh`), so a
+sweep is one launch; its source note gives the bound and the design. The
+output is the net's input, channels first and unflipped:
+[B, 2*P*3, H, W], channel (eye*P + p)*3 + c.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ import torch
 from matryodshka_tpu_torch.geometry import cameras, grids
 from matryodshka_tpu_torch.ops import _build
 
-#: Launches of the sweep kernel in this process.
+#: Launches of the sweep kernel in this process, and of the row-parameter
+#: instrument (sweep_row_params).
 launches = 0
+row_params_launches = 0
 
 
 def _probe_columns(width: int):
@@ -37,9 +41,12 @@ def row_params(order: int, depths, intrinsics, height: int, width: int):
     noise"), and u0 = u(c) + c (mod W) holds at any column c. Validity is
     the analytic rho = depth * cos(lat) >= r. Returns int32 y0, y1, x0
     (vertical taps and the horizontal base: column j samples
-    x0 - j (mod W) and the next one), float32 fy, fx, and int32 valid.
+    x0 - j (mod W) and the next one), fy, fx in depths' dtype (float64
+    inputs give the float64 reference the kernel's projection is held
+    against), and int32 valid.
     """
-    S, T = grids.lat_long_grid((height, width), device=depths.device)
+    S, T = grids.lat_long_grid((height, width), device=depths.device,
+                               dtype=depths.dtype)
     cols = _probe_columns(width)
     pts = cameras.backproject_spherical(S[:, cols], T[:, cols], depths)
     uv = cameras.project_ods(pts, order, intrinsics, width, height)
@@ -59,9 +66,9 @@ def row_params(order: int, depths, intrinsics, height: int, width: int):
     y0 = torch.remainder(y0f.to(torch.int32), height)
     return {"y0": y0.to(torch.int32),
             "y1": torch.remainder(y0 + 1, height).to(torch.int32),
-            "fy": (v - y0f).float(),
+            "fy": v - y0f,
             "x0": torch.remainder(x0f.to(torch.int32), width).to(torch.int32),
-            "fx": (u0 - x0f).float(),
+            "fx": u0 - x0f,
             "valid": valid.to(torch.int32)}
 
 
@@ -104,43 +111,10 @@ def ods_sweep_plain(images, params, out_dtype=torch.float32):
     return out.reshape(b, 2 * p * c, h, w).to(out_dtype)
 
 
-def ods_sweep(images, params, out_dtype=torch.float32):
-    """The dual-eye sweep: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Shapes as ods_sweep_plain."""
-    if images.device.type == "cpu":
-        return ods_sweep_plain(images, params, out_dtype)
-    global launches
-    req = _build.require
-    req(images.is_cuda, f"ods_sweep: unsupported device {images.device}")
-    b, e, c, h, w = images.shape
-    p = params["y0"].shape[2]
-    req(e == 2 and c == 3, f"ods_sweep: images {tuple(images.shape)}")
-    req(images.dtype == torch.float32 and images.is_contiguous(),
-        "ods_sweep: images must be contiguous float32")
-    req(out_dtype in (torch.float32, torch.bfloat16),
-        f"ods_sweep: out_dtype {out_dtype}")
-    for name in ("y0", "y1", "x0", "fy", "fx", "valid"):
-        t = params[name]
-        want = torch.float32 if name in ("fy", "fx") else torch.int32
-        req(t.device == images.device and t.dtype == want
-            and t.is_contiguous() and tuple(t.shape) == (b, 2, p, h),
-            f"ods_sweep: param {name} {t.dtype} {tuple(t.shape)}")
-    out = torch.empty((b, 2 * p * c, h, w), dtype=out_dtype,
-                      device=images.device)
-    err = _build.lib().matry_sweep(
-        images.data_ptr(), params["y0"].data_ptr(), params["y1"].data_ptr(),
-        params["fy"].data_ptr(), params["x0"].data_ptr(),
-        params["fx"].data_ptr(), params["valid"].data_ptr(), out.data_ptr(),
-        b, p, h, w, int(out_dtype == torch.bfloat16),
-        _build.stream_ptr(images.device))
-    _build.check(err, "matry_sweep")
-    launches += 1
-    return out
-
-
 def sweep_inputs(ref_image, src_image, depths, intrinsics):
-    """The kernel's operands from preprocessed images ([B, H, W, 3] in
-    [-1, 1]): (images [B, 2, 3, H, W] float32, dual_row_params)."""
+    """The plain version's operands from preprocessed images
+    ([B, H, W, 3] in [-1, 1]): (images [B, 2, 3, H, W] float32,
+    dual_row_params)."""
     _, h, w, _ = ref_image.shape
     images = torch.stack([ref_image, src_image], dim=1)     # [B, 2, H, W, 3]
     images = images.permute(0, 1, 4, 2, 3).float().contiguous()
@@ -149,6 +123,103 @@ def sweep_inputs(ref_image, src_image, depths, intrinsics):
 
 def sweep_volume(ref_image, src_image, depths, intrinsics,
                  out_dtype=torch.float32):
-    """Both eyes' identity-pose sweeps -> the net input [B, 2*P*3, H, W]."""
-    images, params = sweep_inputs(ref_image, src_image, depths, intrinsics)
-    return ods_sweep(images, params, out_dtype)
+    """Both eyes' identity-pose sweeps of a batch -> the net input
+    [B, 2*P*3, H, W] in out_dtype.
+
+    ref_image, src_image: the batch's images [B, H, W, 3] float32 in
+    [0, 1], preprocessed (2x - 1) here; depths [P]; intrinsics [B, 3, 3]
+    (r = [b, 0, 0]). CPU tensors take the plain route (dual_row_params,
+    ods_sweep_plain); CUDA tensors one launch of the kernel, which computes
+    its own row parameters; any other device raises."""
+    if ref_image.device.type == "cpu":
+        images, params = sweep_inputs(_preprocess(ref_image),
+                                      _preprocess(src_image), depths,
+                                      intrinsics)
+        return ods_sweep_plain(images, params, out_dtype)
+    global launches
+    req = _build.require
+    dev = ref_image.device
+    req(ref_image.is_cuda, f"sweep_volume: unsupported device {dev}")
+    b, h, w, _ = ref_image.shape
+    p = depths.shape[0]
+    for name, t in (("ref_image", ref_image), ("src_image", src_image)):
+        req(t.device == dev and t.dtype == torch.float32
+            and t.is_contiguous() and tuple(t.shape) == (b, h, w, 3),
+            f"sweep_volume: {name} {t.dtype} {tuple(t.shape)} (contiguous "
+            f"float32 [B, H, W, 3])")
+    req(w % 8 == 0, f"sweep_volume: width {w} is not a multiple of 8")
+    _check_geometry("sweep_volume", depths, intrinsics, b, dev)
+    req(out_dtype in (torch.float32, torch.bfloat16),
+        f"sweep_volume: out_dtype {out_dtype}")
+    lat, lon = grids.lat_long_vectors(h, w, dev)
+    out = torch.empty((b, 2 * p * 3, h, w), dtype=out_dtype, device=dev)
+    err = _build.lib().matry_sweep(
+        ref_image.data_ptr(), src_image.data_ptr(), depths.data_ptr(),
+        intrinsics.data_ptr(), lat.data_ptr(), lon.data_ptr(),
+        out.data_ptr(), b, p, h, w, int(out_dtype == torch.bfloat16),
+        _build.stream_ptr(dev))
+    _build.check(err, "matry_sweep")
+    launches += 1
+    return out
+
+
+def sweep_row_params(depths, intrinsics, height: int, width: int):
+    """The row parameters the sweep kernel computes, as dual_row_params'
+    tables ([B, 2, P, H] each): an instrument that lets the projection
+    and the sweep be checked apart. CPU tensors: dual_row_params; CUDA
+    tensors: one launch of the kernel's own projection
+    (csrc/sweep.cu:matry_sweep_row_params)."""
+    if depths.device.type == "cpu":
+        return dual_row_params(depths, intrinsics, height, width)
+    global row_params_launches
+    dev = depths.device
+    _build.require(depths.is_cuda,
+                   f"sweep_row_params: unsupported device {dev}")
+    b, p = intrinsics.shape[0], depths.shape[0]
+    _check_geometry("sweep_row_params", depths, intrinsics, b, dev)
+    lat, lon = grids.lat_long_vectors(height, width, dev)
+    out = {n: torch.empty((b, 2, p, height),
+                          dtype=torch.float32 if n in ("fy", "fx")
+                          else torch.int32, device=dev)
+           for n in ("y0", "y1", "fy", "x0", "fx", "valid")}
+    err = _build.lib().matry_sweep_row_params(
+        depths.data_ptr(), intrinsics.data_ptr(), lat.data_ptr(),
+        lon.data_ptr(), *(t.data_ptr() for t in out.values()), b, p,
+        height, width, _build.stream_ptr(dev))
+    _build.check(err, "matry_sweep_row_params")
+    row_params_launches += 1
+    return out
+
+
+def _preprocess(image):
+    """models/msi.py:preprocess_image: [0, 1] -> [-1, 1]."""
+    return image * 2.0 - 1.0
+
+
+def _check_geometry(what, depths, intrinsics, b, dev):
+    req = _build.require
+    req(depths.device == dev and depths.dtype == torch.float32
+        and depths.dim() == 1 and depths.is_contiguous(),
+        f"{what}: depths {depths.dtype} {tuple(depths.shape)}")
+    req(intrinsics.device == dev and intrinsics.dtype == torch.float32
+        and intrinsics.is_contiguous()
+        and tuple(intrinsics.shape) == (b, 3, 3),
+        f"{what}: intrinsics {intrinsics.dtype} "
+        f"{tuple(intrinsics.shape)}")
+
+
+def row_params_error(got, ref, depths, height: int, width: int):
+    """How far row parameters `got` place the sweep's samples from `ref`
+    (dual_row_params-shaped dicts; ref is typically the float64
+    evaluation): (validity equal, grids.lookup_error over ref's valid
+    rows, u = x0 + fx, v = y0 + fy, each row at its plane's depth)."""
+    valid = ref["valid"] > 0
+    same = bool(torch.equal(got["valid"] > 0, valid))
+
+    def pos(d, i, f):
+        return (d[i].double() + d[f].double())[valid]
+
+    scale = depths.double()[None, None, :, None].expand(valid.shape)
+    return same, grids.lookup_error(
+        pos(got, "x0", "fx"), pos(got, "y0", "fy"), pos(ref, "x0", "fx"),
+        pos(ref, "y0", "fy"), scale.to(valid.device)[valid], height, width)

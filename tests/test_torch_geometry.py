@@ -184,3 +184,51 @@ def test_resample_layers_uv():
     ref = np.asarray(jres.resample_layers_uv(jnp.asarray(layers),
                                              jnp.asarray(u), jnp.asarray(v)))
     np.testing.assert_allclose(got, ref, rtol=0, atol=UNIT_TOL)
+
+
+def test_lat_long_vectors():
+    """The kernels' angle vectors are lat_long_grid's, bit for bit, and
+    are built once per shape."""
+    S, T = tgrids.lat_long_grid((H, W))
+    lat, lon = tgrids.lat_long_vectors(H, W, "cpu")
+    assert torch.equal(lat, T[:, 0]) and torch.equal(lon, S[0])
+    assert tgrids.lat_long_vectors(H, W, torch.device("cpu"))[0] is lat
+
+
+@pytest.mark.parametrize("kind", ["translated", "rotated", "both"])
+def test_intersect_sphere_uv_float64(kind):
+    """intersect_sphere_uv follows its inputs' dtype: the float32 tables
+    agree with the float64 ones within the f32 noise bound
+    (grids.lookup_error: max(1e-4, 4e-5 * radius) px at this 64 x 32
+    size, a u error counted on the sphere, as u is singular at the
+    poles), and float32 inputs still give float32 tables."""
+    pose = _pose(kind)
+    pos = np.array([0.05, 0.01, -0.02], np.float32)
+    radii = np.array([100.0, 10.0, 1.5, 1.0], np.float32)
+    u, v = tint.intersect_sphere_uv(_t(pose), _t(pos), _t(radii), W, H)
+    u6, v6 = tint.intersect_sphere_uv(_t(pose).double(), _t(pos).double(),
+                                      _t(radii).double(), W, H)
+    assert u.dtype == torch.float32 and u6.dtype == torch.float64
+    err = tgrids.lookup_error(u, v, u6, v6,
+                              _t(radii).double()[:, None, None], H, W)
+    assert err["u"] <= 1.0 and err["v"] <= 1.0, err
+    assert err["v_px"] <= tgrids.NOISE_PX, err
+
+
+def test_uv_noise_bound_at_flagship_size():
+    """The gate chip_smoke.py holds the render kernel's projection to, met
+    by the plain float32 tables at 640x320, 32 shells, for a translated
+    and a rotated target: at this size the bound is the 64 x 32 one
+    scaled by the pixels per radian (grids.lookup_error)."""
+    h, w = 320, 640
+    radii = torch.tensor(np.geomspace(100.0, 1.0, 32), dtype=torch.float32)
+    for kind, pos in (("translated", (0.05, 0.0, 0.0)),
+                      ("both", (0.02, 0.0, 0.0))):
+        pose = _t(_pose(kind))
+        pos = torch.tensor(pos)
+        u, v = tint.intersect_sphere_uv(pose, pos, radii, w, h)
+        u6, v6 = tint.intersect_sphere_uv(pose.double(), pos.double(),
+                                          radii.double(), w, h)
+        err = tgrids.lookup_error(u, v, u6, v6,
+                                  radii.double()[:, None, None], h, w)
+        assert err["u"] <= 1.0 and err["v"] <= 1.0, (kind, err)

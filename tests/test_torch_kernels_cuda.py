@@ -47,18 +47,57 @@ def _batch(dev, seed=0):
     return cfg, entry.synthetic_batch(cfg, seed, dev)
 
 
+#: Sweep shapes (H, W, planes): the small slice's, and a narrow 2048-row
+#: one whose width takes the kernel's column tiles (W > 1024: three tiles
+#: of 512, the last one partial; windows wrap around the seam).
+SWEEP_SHAPES = [(H, W, 4), (2048, 1280, 2)]
+
+
+def _sweep_case(dev, h, w, p, seed=0):
+    rng = np.random.RandomState(seed)
+    ref, src = (torch.from_numpy(rng.rand(1, h, w, 3).astype(np.float32))
+                .to(dev) for _ in range(2))
+    depths = torch.tensor([100.0, 5.0, 1.5, 1.0][:p], device=dev)
+    intr = torch.eye(3, device=dev)[None].clone()
+    intr[0, 0, 0] = 0.032
+    return ref, src, depths, intr
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+def test_sweep_row_params_match_float64(cuda, shape):
+    """The sweep kernel's projection (its row-parameter instrument)
+    against row_params in float64: validity identical, positions within
+    the f32 noise bound (grids.lookup_error)."""
+    h, w, p = shape
+    _, _, depths, intr = _sweep_case(cuda, h, w, p)
+    n = sweep_ops.row_params_launches
+    got = sweep_ops.sweep_row_params(depths, intr, h, w)
+    assert sweep_ops.row_params_launches == n + 1
+    ref = sweep_ops.dual_row_params(depths.double(), intr.double(), h, w)
+    same, err = sweep_ops.row_params_error(got, ref, depths, h, w)
+    assert same and err["u"] <= 1.0 and err["v"] <= 1.0, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_sweep_kernel_matches_plain(cuda, dtype):
-    """Identical taps and weights: f32 to 1e-5 (FMA contraction only),
-    bf16 to one rounding of values in [-1, 1] (2^-8)."""
-    cfg, b = _batch(cuda)
-    depths = torch.tensor([100.0, 5.0, 1.5, 1.0], device=cuda)
-    images, params = sweep_ops.sweep_inputs(
-        msi_lib.preprocess_image(b["ref_image"]),
-        msi_lib.preprocess_image(b["src_image"]), depths, b["intrinsics"])
-    got = sweep_ops.ods_sweep(images, params, dtype).float()
-    want = sweep_ops.ods_sweep_plain(images, params, torch.float32)
+def test_sweep_kernel_matches_plain(cuda, dtype, shape):
+    """The sweep kernel, one launch, against the plain version fed the
+    kernel's own row parameters: identical taps and weights, each
+    operation rounded once in both, so f32 to 1e-5 and bf16 to one
+    rounding of values in [-1, 1] (2^-8)."""
+    h, w, p = shape
+    ref, src, depths, intr = _sweep_case(cuda, h, w, p)
+    n = sweep_ops.launches
+    got = sweep_ops.sweep_volume(ref, src, depths, intr, dtype).float()
+    assert sweep_ops.launches == n + 1
+    images, _ = sweep_ops.sweep_inputs(msi_lib.preprocess_image(ref),
+                                       msi_lib.preprocess_image(src),
+                                       depths[:1], intr)
+    want = sweep_ops.ods_sweep_plain(
+        images, sweep_ops.sweep_row_params(depths, intr, h, w),
+        torch.float32)
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
     assert (got - want).abs().max().item() <= tol
 
@@ -203,14 +242,37 @@ def test_layernorm_kernel_matches_plain(cuda, dtype, case):
     assert (got.float() - want).abs().max().item() <= tol
 
 
-def _uv(dev, rot_deg, h=H, w=W):
+def _target(dev, rot_deg):
+    """(pose [1, 4, 4], position [1, 3], radii [P]) of a target rotated
+    about y and translated."""
     a = math.radians(rot_deg)
     rt = torch.eye(4, device=dev)[None]
     rt[0, 0, 0], rt[0, 0, 2] = math.cos(a), math.sin(a)
     rt[0, 2, 0], rt[0, 2, 2] = -math.sin(a), math.cos(a)
-    radii = torch.tensor([100.0, 5.0, 1.5, 1.0], device=dev)
-    return render_lib.uv_tables(rt, torch.tensor([[0.05, 0.0, 0.01]],
-                                                 device=dev), radii, h, w)
+    return (rt, torch.tensor([[0.05, 0.0, 0.01]], device=dev),
+            torch.tensor([100.0, 5.0, 1.5, 1.0], device=dev))
+
+
+def _uv(dev, rot_deg, h=H, w=W):
+    return render_lib.uv_tables(*_target(dev, rot_deg), h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rot_deg", [0.0, 40.0])
+def test_uv_project_matches_float64(cuda, rot_deg):
+    """The render kernel's projection (its uv instrument) against
+    intersect_sphere_uv in float64, wrap-aware, within the f32 noise
+    bound (grids.lookup_error)."""
+    from matryodshka_tpu_torch.geometry import grids
+    pose, pos, radii = _target(cuda, rot_deg)
+    n = render_ops.uv_launches
+    u, v = render_ops.uv_project(pose, pos, radii, H, W)
+    assert render_ops.uv_launches == n + 1
+    u6, v6 = render_lib.uv_tables(pose.double(), pos.double(),
+                                  radii.double(), H, W)
+    err = grids.lookup_error(u, v, u6, v6,
+                             radii.double()[None, :, None, None], H, W)
+    assert err["u"] <= 1.0 and err["v"] <= 1.0, err
 
 
 @pytest.mark.cuda
@@ -218,20 +280,23 @@ def _uv(dev, rot_deg, h=H, w=W):
 @pytest.mark.parametrize("rot_deg", [0.0, 40.0])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_render_kernel_matches_plain(cuda, rot_deg, dtype, depth):
-    """The same f32 math in another order, plus early termination at
-    T < 1e-6: 1e-5 on values in [-1, 1] (colour) and [0, 1) (depth)."""
+    """The render kernel, one launch, against the plain version fed the
+    kernel's own lookups (uv_project): the same taps, the composite's f32
+    math in another order, plus early termination at T < 1e-6: 1e-5 on
+    values in [-1, 1] (colour) and [0, 1) (depth)."""
     rng = np.random.RandomState(8)
     vol = torch.from_numpy(rng.uniform(-1, 1, (1, 6 * P, H, W)).astype(
         np.float32)).to(cuda, dtype)
     pred = torch.from_numpy(np.tanh(rng.randn(1, 2 * P, H, W) * 1.5).astype(
         np.float32)).to(cuda)
-    u, v = _uv(cuda, rot_deg)
+    target = _target(cuda, rot_deg)
     n = render_ops.depth_launches if depth else render_ops.launches
-    got = render_ops.render_blend(vol, pred, u, v, depth=depth)
-    want = render_ops.render_blend_plain(vol, pred, u, v, depth=depth)
-    assert (got - want).abs().max().item() <= 1e-5
+    got = render_ops.render_blend(vol, pred, *target, depth=depth)
     assert (render_ops.depth_launches if depth else render_ops.launches) \
         == n + 1
+    u, v = render_ops.uv_project(*target, H, W)
+    want = render_ops.render_blend_plain(vol, pred, u, v, depth=depth)
+    assert (got - want).abs().max().item() <= 1e-5
 
 
 @pytest.mark.cuda
@@ -304,6 +369,21 @@ def test_hres_render_matches_plain(cuda):
                                                 pos)
     assert (rgb - rgb_p).abs().max().item() <= 2e-2
     assert (depth - depth_p).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_forward_one_launch_per_stage(cuda):
+    """entry.forward's sweep stage is one K1 launch and its render stage
+    one K3 launch per frame, with no instrument launched."""
+    cfg, b = _batch(cuda, seed=3)
+    params = entry.make_params(cfg, seed=2, device=cuda)
+    counts = ((sweep_ops, "launches"), (sweep_ops, "row_params_launches"),
+              (render_ops, "launches"), (render_ops, "uv_launches"))
+    before = [getattr(m, c) for m, c in counts]
+    for _ in range(2):
+        entry.forward(params, b)
+    after = [getattr(m, c) for m, c in counts]
+    assert [a - n for a, n in zip(after, before)] == [2, 0, 2, 0]
 
 
 @pytest.mark.cuda

@@ -180,14 +180,23 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError):
         conv_ops.conv(x, torch.empty((1, 36, 4), device=meta),
                       torch.empty(4, device=meta), kh=3, kw=3, pad=1)
+    img = torch.empty((1, 8, 16, 3), device=meta)
+    depths = torch.ones(2, device=meta)
+    intr = torch.eye(3, device=meta)[None]
     with pytest.raises(ValueError):
-        sweep_ops.ods_sweep(torch.empty((1, 2, 3, 8, 16), device=meta), {})
+        sweep_ops.sweep_volume(img, img, depths, intr)
+    with pytest.raises(ValueError):
+        sweep_ops.sweep_row_params(depths, intr, 8, 16)
     vol = torch.empty((1, 12, 8, 16), device=meta)
+    pose = torch.eye(4, device=meta)[None]
+    pos = torch.zeros((1, 3), device=meta)
     with pytest.raises(ValueError):
-        render_ops.render_blend(vol, vol[:, :4], vol[:, :2], vol[:, :2])
+        render_ops.render_blend(vol, vol[:, :4], pose, pos, depths)
     with pytest.raises(ValueError):
-        render_ops.render_blend(vol, vol[:, :4], vol[:, :2], vol[:, :2],
+        render_ops.render_blend(vol, vol[:, :4], pose, pos, depths,
                                 depth=True)
+    with pytest.raises(ValueError):
+        render_ops.uv_project(pose, pos, depths, 8, 16)
     layers = torch.empty((1, 2, 4, 8, 16), device=meta)
     for ftb in (False, True):
         with pytest.raises(ValueError):

@@ -169,10 +169,11 @@ def test_blend_fused_depth_matches_jax(kind):
         caps["cap_bot"], jnp.asarray(pose[0]), jnp.asarray(pos[0]),
         jnp.asarray(RADII), H, cap, rb, cap_pad, vpad, depth=True,
         interpret=True))
-    u, v = trender.uv_tables(torch.from_numpy(pose), torch.from_numpy(pos),
-                             torch.from_numpy(RADII), H, W)
     got = render_ops.render_blend(torch.from_numpy(vol),
-                                  torch.from_numpy(pred), u, v,
+                                  torch.from_numpy(pred),
+                                  torch.from_numpy(pose),
+                                  torch.from_numpy(pos),
+                                  torch.from_numpy(RADII),
                                   depth=True)[0].numpy()
     assert got.shape == ref.shape == (H, W, 3)
     np.testing.assert_allclose(got, ref, rtol=0, atol=TOL)

@@ -58,6 +58,12 @@ def _pallas_params(depths, intr):
     return out
 
 
+def _raw(image):
+    """The batch image whose preprocessing (2x - 1, which sweep_volume
+    applies) gives `image` back to f32 rounding."""
+    return torch.from_numpy((image + 1.0) / 2.0)
+
+
 def _images(ref, src):
     return torch.from_numpy(np.stack([ref, src], 1)).permute(
         0, 1, 4, 2, 3).contiguous()
@@ -118,10 +124,10 @@ def test_sweep_volume_matches_pallas_k1():
     """With the port's own row parameters: their position noise (see
     test_row_params_match_pallas, <= 4e-3 px on the 100 m shell) times an
     image slope of at most 2 per pixel bounds the difference by 1e-2; the
-    mean stays at 1e-4."""
+    mean stays at 1e-4. sweep_volume takes the batch's [0, 1] images and
+    preprocesses them itself."""
     ref, src, depths, intr = _inputs(5)
-    vol = sweep_ops.sweep_volume(torch.from_numpy(ref),
-                                 torch.from_numpy(src),
+    vol = sweep_ops.sweep_volume(_raw(ref), _raw(src),
                                  torch.from_numpy(depths),
                                  torch.from_numpy(intr)).numpy()[0]
     err = np.abs(vol - _k1(ref, src, depths, intr))
@@ -139,8 +145,7 @@ def test_sweep_matches_gather_path(order):
     mean < 2e-4."""
     ref, src, depths, intr = _inputs(2, baseline=0.064)
     img = ref if order == 1 else src
-    vol = sweep_ops.sweep_volume(torch.from_numpy(ref),
-                                 torch.from_numpy(src),
+    vol = sweep_ops.sweep_volume(_raw(ref), _raw(src),
                                  torch.from_numpy(depths),
                                  torch.from_numpy(intr)).numpy()[0]
     eye = 0 if order == 1 else 1
@@ -175,3 +180,41 @@ def test_format_network_input_matches_jax():
     flip = err > 2e-3
     assert flip.mean() < 5e-3, flip.mean()
     assert err[~flip].mean() < 1e-4, err[~flip].mean()
+
+
+@pytest.mark.parametrize("order", [1, -1])
+def test_row_params_float64(order):
+    """row_params follows its inputs' dtype: float64 inputs give float64
+    fractions, and the float32 parameters agree with them as with K1's
+    (test_row_params_match_pallas): validity equal, positions within
+    max(1e-4, 4e-5 * depth) px circularly at this size."""
+    _, _, depths, intr = _inputs(0, baseline=0.064)
+    d, k = torch.from_numpy(depths), torch.from_numpy(intr[0])
+    got = sweep_ops.row_params(order, d, k, H, W)
+    ref = sweep_ops.row_params(order, d.double(), k.double(), H, W)
+    assert got["fy"].dtype == torch.float32
+    assert ref["fy"].dtype == ref["fx"].dtype == torch.float64
+    valid = ref["valid"].numpy() > 0
+    np.testing.assert_array_equal(got["valid"].numpy() > 0, valid)
+    tol = np.broadcast_to(np.maximum(1e-4, 4e-5 * depths)[:, None],
+                          valid.shape)[valid]
+    for i, f, n in (("y0", "fy", H), ("x0", "fx", W)):
+        e = np.abs((got[i].numpy() + got[f].numpy().astype(np.float64))
+                   - (ref[i].numpy() + ref[f].numpy())) % n
+        assert np.all(np.minimum(e, n - e)[valid] <= tol), i
+
+
+def test_row_params_noise_bound_at_flagship_size():
+    """The gate chip_smoke.py holds the sweep kernel's row parameters to,
+    met by the plain float32 ones at 640x320, 32 planes, both eyes:
+    validity equal to float64's, positions within the 64 x 32 bound
+    scaled by the pixels per radian (grids.lookup_error)."""
+    h, w = 320, 640
+    depths = torch.tensor(jsweep.inv_depths(1.0, 100.0, 32),
+                          dtype=torch.float32)
+    intr = torch.eye(3)[None].clone()
+    intr[0, 0, 0] = 0.032
+    got = sweep_ops.dual_row_params(depths, intr, h, w)
+    ref = sweep_ops.dual_row_params(depths.double(), intr.double(), h, w)
+    same, err = sweep_ops.row_params_error(got, ref, depths, h, w)
+    assert same and err["u"] <= 1.0 and err["v"] <= 1.0, err
