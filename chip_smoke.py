@@ -9,11 +9,14 @@ HMMA/HGMMA count of each one's SASS, which must be above 0 for the bf16
 tensor-core instantiations), and checks each kernel against its plain
 PyTorch version at the shapes its path gives it, all at the full width
 of the flagship configuration (640x320 ODS input, 32 planes per eye, 32
-shells, ngf 64, bf16) with seeded random weights. The sweep (also at
-4096x2048) and the render, which make their own lookups, are checked in
-two halves: their projection, through its instrument entry, against the
+shells, ngf 64, bf16) with seeded random weights. The sweep and the two
+renders (blend-fused and layer-stack), which make their own lookups, are
+checked in two halves, also at 4096x2048 (the sweep and the layer-stack
+render): their projection, through its instrument entry, against the
 plain projection in float64 (the worst errors and the bound printed),
-and the kernel against its plain version fed the instrument's tables.
+and the kernel against its plain version fed the instrument's tables,
+the layer-stack render in each output mode (image, depth, both in one
+launch), back to front and front to back, bf16 and f32 stacks.
 Then it drives six paths, each with every launch count set to 0 just
 before it and read just after (on the first, exactly one sweep and one
 render launch per frame, and one device operation per stage in a
@@ -24,10 +27,12 @@ profiler trace):
 2. the test CLI's build_infer_fn (matryodshka_tpu_torch/cli/test.py) once
    per colour scheme, each at its own target position: image and depth
    through the blend-fused render's colour and depth modes (blend_psv) or
-   the prepared assembly and the layer-stack render (the other three);
-   then once front to back (the ftb=True prepared render);
+   the prepared assembly and one layer-stack launch for both (the other
+   three); then once front to back (the ftb=True prepared render); no
+   lookup table (uv_tables) is built;
 3. the test CLI's 4096x2048 high-res re-render from the blend_psv
-   request's blend weights and alphas;
+   request's blend weights and alphas (one layer-stack launch, no
+   tables);
 4. the coord net (coord_net=True, the released checkpoints' architecture:
    the conv kernel in its zero-padding and coord-channel mode) through
    entry.forward on two requests and the test CLI once (blend_psv, image
@@ -40,11 +45,13 @@ profiler trace):
 6. the lowering probes (`python -m matryodshka_tpu_torch.tools.probes`:
    K8's atan2/sqrt, bf16 roll and run-time-shift roll, K9's left shift
    through shared memory, on the JAX tools' inputs), then each probe kernel
-   against its plain version on those inputs and its time per launch.
+   against its plain version on those inputs and its time per launch, by
+   CUDA events and by profiler device time, beside torch.roll's.
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
 and plain versions are timed with CUDA events (the conv layers with their
-TFLOP/s and the tile each took), and beside each kernel the
+TFLOP/s and the tile each took; the sweep, the renders, the layer norm
+and the probes also by profiler device time), and beside each kernel the
 least time the card could take for its work (bound_ms: the larger of its
 bytes over the memory rate and its operations over the peak rate for
 their type, computed from this run's inputs) and, where one PyTorch call
@@ -95,13 +102,16 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 #: f32 operations per sample of the render kernels (estimates from their
-#: inner loops): a blend-fused colour sample (4 taps x (6 volume values
-#: blended + 2 prediction values) with bilinear weights, and the
-#: composite); a layer-stack colour sample (4 taps x 4 channels); a depth
-#: sample (4 taps x 1 alpha). Memory bounds every render by far.
+#: inner loops), besides the projection (OPS_SHELL_UV): a blend-fused
+#: colour sample (4 taps x (6 volume values blended + 2 prediction
+#: values) with bilinear weights, and the composite); a layer-stack colour
+#: sample (4 taps x 4 channels); a depth sample (4 taps x 1 alpha); a
+#: layer-stack sample of image and depth together (the colour sample and
+#: the depth composite's few operations: the alpha taps are shared).
 OPS_RENDER_BLEND = 80
 OPS_RENDER_LAYERS = 40
 OPS_RENDER_DEPTH = 16
+OPS_RENDER_BOTH = OPS_RENDER_LAYERS + 4
 #: f32 operations per output element: the sweep (two vertical and one
 #: horizontal lerp, 3 ops each) and the layer norm (sum and sum of
 #: squares, then normalize, scale, shift, ReLU).
@@ -270,6 +280,8 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+#: Profiler traces taken of one window before device_ms gives up.
+TRACE_TRIES = 3
 #: The layer-norm kernel's device functions (csrc/layernorm.cu), as the
 #: profiler names them.
 LN_KERNELS = r"\bln_(onchip|stats|apply)\b"
@@ -282,7 +294,9 @@ def device_ms(fns, kernels, pattern: str, calls: int = 10):
     do not see. fn i launches kernels[i] kernels matching pattern per call;
     on one stream they run in launch order, which assigns each to its fn.
     Returns (per-fn ms, or None for every fn if the trace lost a launch;
-    total ms per round; launches per round)."""
+    total ms per round; launches per round). The profiler now and then
+    keeps no device event of a window; such a trace is taken again, up to
+    TRACE_TRIES times."""
     import re
     import warnings
 
@@ -293,16 +307,22 @@ def device_ms(fns, kernels, pattern: str, calls: int = 10):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", message=".*Profiler clears events")
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                for fn in fns:
-                    fn()
-            torch.cuda.synchronize()
-        events = sorted((e for e in device_events(prof)
-                         if re.search(pattern, e[0])), key=lambda e: e[1])
-    check(bool(events), f"the trace holds no kernel matching {pattern}")
+    for _ in range(TRACE_TRIES):
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore",
+                                    message=".*Profiler clears events")
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(calls):
+                    for fn in fns:
+                        fn()
+                torch.cuda.synchronize()
+            events = sorted((e for e in device_events(prof)
+                             if re.search(pattern, e[0])),
+                            key=lambda e: e[1])
+        if events:
+            break
+    check(bool(events), f"{TRACE_TRIES} traces hold no kernel matching "
+                        f"{pattern}")
     total = sum(d for _, _, d in events) / 1e3 / calls
     per_fn = None
     if len(events) == calls * sum(kernels):
@@ -380,6 +400,75 @@ def sweep_kernels(what, ref, src, depths, intr, gate):
         del got, mine, want
         gate("sweep", f"2x{p} planes {what} -> {str(dt)[6:]}",
              torch.stack(errs).max(), torch.zeros(()), tol)
+
+
+def uv_gate(what, rt, pos, radii, h, w, shells=None):
+    """The per-shell lookups the render kernels project (their uv
+    instrument, ops/render.py:uv_project) against intersect_sphere_uv in
+    float64 (grids.lookup_error), `shells` shells at a time (all by
+    default), printed beside the plain float32 tables' own distance; fails
+    beyond the noise bound."""
+    from matryodshka_tpu_torch.geometry import grids
+    from matryodshka_tpu_torch.geometry import render as render_lib
+    from matryodshka_tpu_torch.ops import render as render_ops
+    err, perr = {}, {}
+    step = shells or radii.shape[0]
+    for p0 in range(0, radii.shape[0], step):
+        r = radii[p0:p0 + step].contiguous()
+        u6, v6 = render_lib.uv_tables(rt.double(), pos.double(), r.double(),
+                                      h, w)
+        scale = r.double()[None, :, None, None]
+        for acc, (u, v) in ((err, render_ops.uv_project(rt, pos, r, h, w)),
+                            (perr, render_lib.uv_tables(rt, pos, r, h, w))):
+            for k, x in grids.lookup_error(u, v, u6, v6, scale, h,
+                                           w).items():
+                acc[k] = max(acc.get(k, 0.0), x)
+            del u, v
+        del u6, v6
+    ok = err["u"] <= 1.0 and err["v"] <= 1.0
+    print(f"render     uv {w}x{h} {what}: worst |du| {err['u_px']:.3e} px, "
+          f"|dv| {err['v_px']:.3e} px from float64; of the noise bound "
+          f"u {err['u']:.3f} v {err['v']:.3f} (tol 1; plain f32 tables "
+          f"{perr['u']:.3f}, {perr['v']:.3f}; max({grids.NOISE_PX:g}, "
+          f"{grids.NOISE_PX_PER_M:g} radius) px at 64x32, x{w // 64} in "
+          f"u and x{h // 32} in v here, u counted on the sphere) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"render uv {w}x{h} {what} vs float64")
+
+
+def layer_stack_gates(gate, name, what, stack, target, u, v, ftb):
+    """The layer-stack kernel's three output modes on one stack and target
+    (image, depth proxy, both in one launch), each one launch, against
+    render_layers_plain fed (u, v), the uv instrument's tables of the
+    target: the same taps, the composite's f32 math in another order, plus
+    early termination at T < 1e-6 when ftb: 1e-5 on values in [-1, 1]
+    (image) and [0, 1) (depth). Prints whether the both mode's outputs
+    equal the one-output modes' bit for bit."""
+    from matryodshka_tpu_torch.ops import render_layers as rl_ops
+    want = (rl_ops.render_layers_plain(stack, u, v),
+            rl_ops.render_layers_plain(stack, u, v, depth=True))
+    counters = ("launches", "ftb_launches", "both_launches")
+    got = {}
+    for mode in ("rgb", "depth", "both"):
+        before = [getattr(rl_ops, c) for c in counters]
+        if mode == "both":
+            got[mode] = rl_ops.render_layers_both(stack, *target, ftb=ftb)
+        else:
+            got[mode] = (rl_ops.render_layers(stack, *target, ftb=ftb,
+                                              depth=mode == "depth"),)
+        n = [getattr(rl_ops, c) - b for c, b in zip(counters, before)]
+        check(n == [int(not ftb), int(ftb), int(mode == "both")],
+              f"{name} {what} {mode}: one launch, counted {n}")
+    for mode, outs, wants in (("", got["rgb"], want[:1]),
+                              (" depth", got["depth"], want[1:]),
+                              (" both", got["both"], want)):
+        for i, (g, wnt) in enumerate(zip(outs, wants)):
+            part = f"{mode}{' (depth)' if mode == ' both' and i else ''}"
+            gate(name, f"{what}{part}", g, wnt, 1e-5)
+    same = (torch.equal(got["both"][0], got["rgb"][0])
+            and torch.equal(got["both"][1], got["depth"][0]))
+    print(f"{name:10s} {what} both mode vs the two one-output launches: "
+          f"{'bit-identical' if same else 'DIFFER (within the gates)'}")
 
 
 def wrap_conv_layers(ngf: int, cin0: int):
@@ -767,6 +856,9 @@ def probe_path(dev, tag):
          [(row, s) for s in probes_tool.SHIFTS], launches["window_shift"],
          0),
     ]
+    kernel_pattern = {probes.trig: r"\btrig_kernel\b",
+                      probes.roll: r"\broll_kernel\b",
+                      probes.window_shift: r"\bwindow_shift_kernel\b"}
     rows = []
     for name, rep, kern, plain, lib, args, n, ops in cases:
         err = 0.0
@@ -794,16 +886,27 @@ def probe_path(dev, tag):
                   f"{[a[1] for a in args]}: bit-exact ok")
         ms = [statistics.mean(time_ms(lambda f=f, a=a: f(*a)) for a in args)
               if f is not None else None for f in (kern, plain, lib)]
+        # device time (profiler): the kernel's mean per launch the trace
+        # kept, and per library call every device operation it makes, the
+        # mean over the shifts
+        _, total, seen = device_ms([functools.partial(kern, *a)
+                                    for a in args], [1] * len(args),
+                                   kernel_pattern[kern])
+        dms = [total / seen, None if lib is None else device_ms(
+            [functools.partial(lib, *a) for a in args], [1] * len(args),
+            r".")[1] / len(args)]
         bms, bby = bound(2 * nbytes(args[0][0]), ops, F32_FLOPS)
-        lib_txt = "null" if ms[2] is None else f"{ms[2]:.4f} ms"
-        print(f"kernel {name:22s} {ms[0]:.4f} ms  plain {ms[1]:.4f} ms  "
-              f"library {lib_txt}  bound {bms:.3e} ms ({bby}) per launch, "
-              f"{n} launches in the tool's run {tag}")
+        lib_txt = "null" if ms[2] is None else (
+            f"{ms[2]:.4f} ms (device {dms[1]:.4f})")
+        print(f"kernel {name:22s} {ms[0]:.4f} ms (device {dms[0]:.4f})  "
+              f"plain {ms[1]:.4f} ms  library {lib_txt}  bound {bms:.3e} "
+              f"ms ({bby}) per launch, {n} launches in the tool's run {tag}")
         r = {"name": name, "route": "cuda",
              "source": "matryodshka_tpu_torch/csrc/probes.cu",
              "replaces": rep, "launches": n, "max_abs_err": err,
              "ms": ms[0], "plain_ms": ms[1], "bound_ms": bms,
-             "bound_by": bby, "library_ms": ms[2]}
+             "bound_by": bby, "library_ms": ms[2], "device_ms": dms[0],
+             "library_device_ms": dms[1]}
         if lib is None:
             r["library_note"] = ("no single PyTorch call: atan2 and sqrt "
                                  "are two")
@@ -826,7 +929,6 @@ def main() -> None:
 
     from matryodshka_tpu_torch import entry
     from matryodshka_tpu_torch.cli import test as cli_test
-    from matryodshka_tpu_torch.geometry import grids
     from matryodshka_tpu_torch.geometry import render as render_lib
     from matryodshka_tpu_torch.models import msi as msi_lib
     from matryodshka_tpu_torch.ops import _build
@@ -962,22 +1064,8 @@ def main() -> None:
                           ("rotated 30 deg + (0.02, 0, 0)", rot_y(30, "cpu"),
                            (0.02, 0.0, 0.0))):
         rt, pos = rt.to(dev), torch.tensor([pos], device=dev)
+        uv_gate(what, rt, pos, radii, h, w)
         u, v = render_ops.uv_project(rt, pos, radii, h, w)
-        u6, v6 = render_lib.uv_tables(rt.double(), pos.double(),
-                                      radii.double(), h, w)
-        scale = radii.double()[None, :, None, None]
-        err = grids.lookup_error(u, v, u6, v6, scale, h, w)
-        uf, vf = render_lib.uv_tables(rt, pos, radii, h, w)
-        perr = grids.lookup_error(uf, vf, u6, v6, scale, h, w)
-        ok = err["u"] <= 1.0 and err["v"] <= 1.0
-        print(f"render     uv {what}: worst |du| {err['u_px']:.3e} px, "
-              f"|dv| {err['v_px']:.3e} px from float64; of the noise bound "
-              f"u {err['u']:.3f} v {err['v']:.3f} (tol 1; plain f32 tables "
-              f"{perr['u']:.3f}, {perr['v']:.3f}; max({grids.NOISE_PX:g}, "
-              f"{grids.NOISE_PX_PER_M:g} radius) px at 64x32, x{w // 64} in "
-              f"u and x{h // 32} in v here, u counted on the sphere) "
-              f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"render uv {what} vs float64")
         for name, depth in (("render", False), ("render_depth", True)):
             n = render_ops.launches + render_ops.depth_launches
             got = render_ops.render_blend(vol, pred, rt, pos, radii,
@@ -988,18 +1076,17 @@ def main() -> None:
             gate(name, what, got,
                  render_ops.render_blend_plain(vol, pred, u, v, depth=depth),
                  1e-5)
-        u, v = uf, vf
-        # K4 (back to front) and K6 (front to back, T < 1e-6) on a bf16
-        # layer stack, colours in [-1, 1] and alphas in [0, 1], against the
-        # shell-streamed plain composite: the same f32 samples composited
-        # in another order, 1e-5.
+        # K4 (back to front) and K6 (front to back, T < 1e-6), which make
+        # the same lookups, on the layer stack in bf16 and f32, colours in
+        # [-1, 1] and alphas in [0, 1]: every output mode against the
+        # shell-streamed plain composite fed the uv instrument's tables
+        # (layer_stack_gates).
+        target = (rt, pos, radii)
         for name, ftb in (("render_layers_k4", False),
                           ("render_layers_k6", True)):
-            for depth in (False, True):
-                gate(name, f"{what}{' depth' if depth else ''}",
-                     rl_ops.render_layers(stack, u, v, ftb=ftb, depth=depth),
-                     rl_ops.render_layers_plain(stack, u, v, depth=depth),
-                     1e-5)
+            for st in (stack, stack.float()):
+                layer_stack_gates(gate, name, f"{what} {str(st.dtype)[6:]}",
+                                  st, target, u, v, ftb)
 
     # ---- the slice: three requests through entry.forward -----------------
     mods = {"sweep": sweep_ops, "conv": conv_ops, "layernorm": ln_ops,
@@ -1063,7 +1150,8 @@ def main() -> None:
         for m in counted.values():
             m.launches = 0
         render_ops.depth_launches = 0
-        rl_ops.ftb_launches = 0
+        rl_ops.ftb_launches = rl_ops.both_launches = 0
+        render_lib.uv_builds = 0
         conv_ops.coord_launches = 0
 
     def read_counts():
@@ -1071,6 +1159,8 @@ def main() -> None:
         got = {k: m.launches for k, m in counted.items()}
         got["render_depth"] = render_ops.depth_launches
         got["render_layers_ftb"] = rl_ops.ftb_launches
+        got["render_layers_both"] = rl_ops.both_launches
+        got["uv_tables"] = render_lib.uv_builds
         got["conv_coord"] = conv_ops.coord_launches
         return got
 
@@ -1101,6 +1191,14 @@ def main() -> None:
               "render_layers"):
         check(cli_launches[k] > 0, f"kernel {k} was not launched on the "
                                    f"test CLI's low-res path")
+    # one render call per request, image and depth: blend_psv's is K3's two
+    # modes, each other scheme's one layer-stack launch; no lookup tables
+    stacks = len(cli) - 1
+    one_each = {"render": 1, "render_depth": 1, "render_layers": stacks,
+                "render_layers_both": stacks, "render_layers_ftb": 0,
+                "uv_tables": 0}
+    check(all(cli_launches[k] == n for k, n in one_each.items()),
+          f"the test CLI's render calls: want {one_each}")
     for (scheme, c, prm, b), o, (_, _, pos) in zip(cli, cli_outs,
                                                    CLI_REQUESTS):
         gate_e2e(f"cli {scheme:12s} tgt_pos {pos}", o,
@@ -1114,6 +1212,10 @@ def main() -> None:
     print(f"launches of the ftb=True request: {ftb_launches}")
     check(ftb_launches["render_layers_ftb"] > 0,
           "the front-to-back layer-stack kernel was not launched")
+    check(ftb_launches["render_layers_ftb"] == ftb_launches[
+        "render_layers_both"] == 1 and ftb_launches["render_layers"] ==
+        ftb_launches["uv_tables"] == 0,
+        "the ftb request: one layer-stack launch, no lookup tables")
     gate_e2e("cli blend_bg ftb", ftb_out, cli_test.infer_plain(c1, prm1, b1))
     ftb_diff = (ftb_out["output_image"] - cli_outs[1]["output_image"]).abs()
     print(f"ftb vs back-to-front output_image max |diff| "
@@ -1143,6 +1245,9 @@ def main() -> None:
         check(hres_launches[k] > 0, f"kernel {k} was not launched on the "
                                     f"high-res path")
     check(hres_launches["sweep"] == 1, "the high-res sweep is one launch")
+    check(hres_launches["render_layers"] == hres_launches[
+        "render_layers_both"] == 1 and hres_launches["uv_tables"] == 0,
+        "the high-res render: one layer-stack launch, no lookup tables")
     rgb_p, depth_p = cli_test.hres_render_plain(
         c0, hargs[0], hargs[1], hargs[2], hargs[3], hargs[7], hargs[8])
     gate_e2e(f"hres {hw}x{hh}",
@@ -1150,14 +1255,18 @@ def main() -> None:
              {"output_image": rgb_p, "output_depth": depth_p})
     del hres_rgb, hres_depth, rgb_p, depth_p
     # K5 at the shape the high-res path gives it: a bf16 stack of 32
-    # 4096x2048 shells, tables of the blend_psv request's pose.
+    # 4096x2048 shells, the blend_psv request's target, the PSV depths as
+    # radii; its projection against float64 (four shells at a time), then
+    # every output mode against the plain version fed the instrument's
+    # tables (layer_stack_gates).
     hstack = random_stack(rng, p, hh, hw, dev)
-    hu, hv = render_lib.uv_tables(eye, bq["tgt_pose"], params.psv_depths,
-                                  hh, hw)
-    for depth in (False, True):
-        gate("render_layers_k5", f"{hw}x{hh}{' depth' if depth else ''}",
-             rl_ops.render_layers(hstack, hu, hv, depth=depth),
-             rl_ops.render_layers_plain(hstack, hu, hv, depth=depth), 1e-5)
+    htarget = (eye, bq["tgt_pose"], params.psv_depths)
+    uv_gate(f"re-render target {tuple(bq['tgt_pose'][0].tolist())}",
+            *htarget, hh, hw, shells=4)
+    hu, hv = render_ops.uv_project(*htarget, hh, hw)
+    layer_stack_gates(gate, "render_layers_k5", f"{hw}x{hh} bf16", hstack,
+                      htarget, hu, hv, False)
+    del hu, hv
 
     # ---- path 4: the coord net through entry.forward and the test CLI ------
     cbatches = [entry.synthetic_batch(ccfg, seed, dev, tgt_pos=pos)
@@ -1413,26 +1522,54 @@ def main() -> None:
         device_only[k] = (total / seen, 1)
         how = f"{total / seen:.4f} ms per launch ({seen:g} of 1 kept a call)"
         print(f"kernel {k} device time (trace) {how} {tag}")
-    for name, ftb in (("render_layers_k4", False),
-                      ("render_layers_k6", True)):
-        kernel_ms[name] = time_ms(
-            lambda: rl_ops.render_layers(stack, u0, v0, ftb=ftb))
-        plain_ms[name] = time_ms(
-            lambda: rl_ops.render_layers_plain(stack, u0, v0), iters=5)
-        frac = visited(stack[0, :, 3].float(), u0[0], v0[0]) if ftb else 1.0
-        bounds[name] = bound(frac * nbytes(stack, u0, v0) + out3,
-                             frac * OPS_RENDER_LAYERS * p * h * w, F32_FLOPS)
+    # K4 and K6 (640x320, the gates' bf16 stack, the first request's
+    # target) and K5 (4096x2048, the re-render's target): the launch each
+    # path makes, image and depth in one, by CUDA events and by profiler
+    # device time, the device time of the two one-output launches beside
+    # it. The plain version builds the tables (uv_tables) and renders
+    # each output. Bounds count no tables: the stack once (its visited
+    # share front to back), both outputs, the target, and per visited
+    # sample the projection, the taps and the two composites.
+    for name, st, tgt, ftb in (
+            ("render_layers_k4", stack, target0, False),
+            ("render_layers_k6", stack, target0, True),
+            ("render_layers_k5", hstack, htarget, False)):
+        sh, sw = st.shape[3:]
+        big = sh > h
+        fns = [functools.partial(rl_ops.render_layers_both, st, *tgt,
+                                 ftb=ftb)] + [
+            functools.partial(rl_ops.render_layers, st, *tgt, ftb=ftb,
+                              depth=dp) for dp in (False, True)]
+        kernel_ms[name] = time_ms(fns[0], iters=5 if big else 10)
+
+        def plain(st=st, tgt=tgt, sh=sh, sw=sw):
+            uu, vv = render_lib.uv_tables(*tgt, sh, sw)
+            return (rl_ops.render_layers_plain(st, uu, vv),
+                    rl_ops.render_layers_plain(st, uu, vv, depth=True))
+
+        plain_ms[name] = time_ms(plain, iters=1 if big else 5,
+                                 warmup=1 if big else 2)
+        # one trace per mode: the mean over the launches each trace kept
+        dev_ms = []
+        for fn in fns:
+            _, total, seen = device_ms([fn], [1], r"\brender_layers_kernel\b",
+                                       calls=5 if big else 10)
+            dev_ms.append(total / seen)
+        device_only[name] = (dev_ms[0], 1)
+        how = (f"both {dev_ms[0]:.4f} ms per launch; image alone "
+               f"{dev_ms[1]:.4f}, depth alone {dev_ms[2]:.4f} (two launches "
+               f"{dev_ms[1] + dev_ms[2]:.4f})")
+        frac = 1.0
         if ftb:
+            frac = visited(st[0, :, 3].float(), u0[0], v0[0])
             print(f"K6 front to back takes {frac:.4f} of the (pixel, shell) "
                   f"samples on this stack")
-    kernel_ms["render_layers_k5"] = time_ms(
-        lambda: rl_ops.render_layers(hstack, hu, hv), iters=5)
-    plain_ms["render_layers_k5"] = time_ms(
-        lambda: rl_ops.render_layers_plain(hstack, hu, hv), iters=1,
-        warmup=1)
-    bounds["render_layers_k5"] = bound(
-        nbytes(hstack, hu, hv) + 3 * 4 * hh * hw,
-        OPS_RENDER_LAYERS * p * hh * hw, F32_FLOPS)
+        bounds[name] = bound(
+            frac * nbytes(st) + 2 * 3 * 4 * sh * sw + nbytes(*tgt),
+            frac * (OPS_RENDER_BOTH + OPS_SHELL_UV) * p * sh * sw, F32_FLOPS)
+        print(f"kernel {name} {sw}x{sh} device time (trace) {how}; CUDA "
+              f"events {kernel_ms[name]:.4f} ms; bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) {tag}")
     for k in ("render", "render_depth", "render_layers_k4",
               "render_layers_k5", "render_layers_k6"):
         lib_ms[k] = None
@@ -1456,11 +1593,8 @@ def main() -> None:
                            iters=5),
             "assemble": time_ms(lambda: msi_lib.assemble_outputs_planar(
                 c, vq, pq), iters=5),
-            "render": time_ms(
-                lambda: msi_lib.render_equirect_view_from_prepared(
-                    po, eye, b["tgt_pose"], prm.msi_depths), iters=5),
-            "depth": time_ms(
-                lambda: msi_lib.render_equirect_depth_from_prepared(
+            "render_depth": time_ms(
+                lambda: msi_lib.render_view_and_depth_from_prepared(
                     po, eye, b["tgt_pose"], prm.msi_depths), iters=5),
             "e2e": time_ms(lambda: infer(b), iters=5),
             "e2e_plain_f32": time_ms(lambda: cli_test.infer_plain(c, prm, b),
@@ -1469,6 +1603,9 @@ def main() -> None:
         print(f"cli {scheme:12s} " + " ".join(
             f"{k} {t:.3f}" for k, t in ms.items()) + f" ms {tag}")
     del vq, pq, po
+    finfer = cli_test.build_infer_fn(c1, prm1, "tgt_image", ftb=True)
+    fms = time_ms(lambda: finfer(b1), iters=5)
+    print(f"cli {cli[1][0]} ftb e2e {fms:.3f} ms {tag}")
     cinfer = cli_test.build_infer_fn(ccfg, cparams, "tgt_image")
     ce2e = time_ms(lambda: cinfer(cb_cli), iters=5)
     cplain = time_ms(lambda: cli_test.infer_plain(ccfg, cparams, cb_cli),
@@ -1476,22 +1613,29 @@ def main() -> None:
     print(f"cli coord {cscheme} e2e {ce2e:.3f} e2e_plain_f32 {cplain:.3f} "
           f"ms {tag}")
 
-    # the 4096x2048 re-render: stages and end to end (median of 3)
+    # the 4096x2048 re-render: stages (each on the previous one's output)
+    # and end to end (median of 3)
     hb, ha = hargs[2], hargs[3]
-    hms = {
-        "sweep": time_ms(lambda: sweep_ops.sweep_volume(
-            hargs[0], hargs[1], params.psv_depths, bq["intrinsics"],
-            out_dtype=torch.bfloat16), iters=3),
-        "upsample": time_ms(lambda: msi_lib.upsample_align_corners_cf(
-            torch.cat([hb, ha], dim=-1).permute(0, 3, 1, 2), hh, hw),
-            iters=3),
-        "uv_tables": time_ms(lambda: render_lib.uv_tables(
-            eye, bq["tgt_pose"], params.psv_depths, hh, hw), iters=3),
-        "e2e": time_ms(lambda: hres_render(*hargs), iters=3, warmup=1),
-    }
+    hs = {"sweep": lambda: sweep_ops.sweep_volume(
+        hargs[0], hargs[1], params.psv_depths, bq["intrinsics"],
+        out_dtype=torch.bfloat16)}
+    hs["upsample"] = lambda: msi_lib.upsample_align_corners_cf(
+        torch.cat([hb, ha], dim=-1).permute(0, 3, 1, 2), hh, hw)
+    hvol, hup = hs["sweep"](), hs["upsample"]()
+    hs["assemble"] = lambda: msi_lib.assemble_hres_prepared(
+        c0.which_color_pred, hup[:, :p], hup[:, p:], hvol,
+        dtype=torch.bfloat16)
+    hlayers = hs["assemble"]()
+    hs["render_depth"] = lambda: render_lib.render_equirect_view_prepared_both(
+        hlayers, eye, bq["tgt_pose"], params.psv_depths)
+    hms = {k: time_ms(fn, iters=3) for k, fn in hs.items()}
+    del hvol, hup, hlayers
+    hms["e2e"] = time_ms(lambda: hres_render(*hargs), iters=3, warmup=1)
     print(f"hres {hw}x{hh} " + " ".join(
         f"{k} {t:.3f}" for k, t in hms.items()) + f" ms (render kernel "
-          f"{kernel_ms['render_layers_k5']:.3f} ms per image) {tag}")
+          f"{kernel_ms['render_layers_k5']:.3f} ms for image and depth; "
+          f"uv_tables builds {hres_launches['uv_tables']}; peak "
+          f"{hres_peak / 2**30:.3f} GiB) {tag}")
 
     # launches on each kernel's path, and per frame (one request is one
     # frame; the re-render draws image and depth of one frame)

@@ -17,8 +17,10 @@ Every stage runs through the port's kernels on a CUDA device: the sweep
 net's with `--coord_net true`; layernorm.cu), then for blend_psv the
 blend-fused render (render.cu, colour and depth mode) and for the other
 schemes the prepared assembly and the layer-stack render
-(render_layers.cu); the high-res re-render sweeps at full size and draws
-through render_layers.cu. `--device cpu` runs each kernel's plain version.
+(render_layers.cu, one launch for image and depth, lookups made in the
+kernel); the high-res re-render sweeps at full size and draws through
+render_layers.cu the same way. `--device cpu` runs each kernel's plain
+version.
 
 The net's weights come from `--params`, an .npz of the flax parameter tree
 (training/checkpoint.py; `python -m matryodshka_tpu_torch.tf_import` writes
@@ -94,13 +96,11 @@ def build_infer_fn(cfg: MatryConfig, params: entry.Params,
         if "psv" in test_outputs:
             outs["psv"] = vol.permute(0, 2, 3, 1)
         if "tgt_image" in test_outputs:
-            eye = _eye(vol.shape[0], vol.device)
-            outs["output_image"] = msi_lib.deprocess_image(
-                msi_lib.render_equirect_view_from_prepared(
-                    pouts, eye, batch["tgt_pose"], params.msi_depths,
-                    ftb=ftb))
-            outs["output_depth"] = msi_lib.render_equirect_depth_from_prepared(
-                pouts, eye, batch["tgt_pose"], params.msi_depths, ftb=ftb)
+            img, depth = msi_lib.render_view_and_depth_from_prepared(
+                pouts, _eye(vol.shape[0], vol.device), batch["tgt_pose"],
+                params.msi_depths, ftb=ftb)
+            outs["output_image"] = msi_lib.deprocess_image(img)
+            outs["output_depth"] = depth
         return outs
 
     return infer
@@ -146,7 +146,8 @@ def build_hres_render_fn(cfg: MatryConfig):
     dual sweep at hres_height x hres_width (the sweep kernel has no VMEM
     bound, so no row chunks), the low-res blend weights and alphas
     upsampled (align corners), the high-res prepared assembly, and the
-    layer-stack render of colour and depth with the PSV depths as radii.
+    layer-stack render of colour and depth (on the card one launch for
+    both) with the PSV depths as radii.
 
     render(hres_ref, hres_src, blend_weights, alphas, ref_pose, src_pose,
     ref_pose_inv, intrinsics, tgt_pose) -> (rgb [B, Hh, Wh, 3] in [0, 1],
@@ -175,12 +176,9 @@ def build_hres_render_fn(cfg: MatryConfig):
         layers = msi_lib.assemble_hres_prepared(
             cfg.which_color_pred, u_ba[:, :p], u_ba[:, p:], vol, dtype=dtype)
         del u_ba, vol
-        eye = _eye(layers.shape[0], layers.device)
-        rgb = msi_lib.deprocess_image(render_lib.render_equirect_view_prepared(
-            layers, eye, tgt_pose, depths))
-        depth = render_lib.render_equirect_view_prepared(
-            layers, eye, tgt_pose, depths, depth=True)
-        return rgb, depth
+        rgb, depth = render_lib.render_equirect_view_prepared_both(
+            layers, _eye(layers.shape[0], layers.device), tgt_pose, depths)
+        return msi_lib.deprocess_image(rgb), depth
 
     return render
 

@@ -172,6 +172,29 @@ struct Ray {
   float rx, ry, rz, cx, cy, cz, b, bb, a4, inv_2a, cc;
 };
 
+// The target views of a render launch: pose [B, 4, 4] (row major, batch
+// stride pose_stride floats, 0 for one pose shared), pos [B, 3] (stride
+// pos_stride), the shell radii [P] and lat [H], lon [W] (lat_long_grid's
+// vectors).
+struct Geo {
+  const float* pose;
+  const float* pos;
+  const float* radii;
+  const float* lat;
+  const float* lon;
+  long long pose_stride, pos_stride;
+  int B, P, H, W;
+};
+
+inline Geo make_geo(const void* pose, long long pose_stride, const void* pos,
+                    long long pos_stride, const void* radii, const void* lat,
+                    const void* lon, int B, int P, int H, int W) {
+  return Geo{(const float*)pose, (const float*)pos, (const float*)radii,
+             (const float*)lat,  (const float*)lon, pose_stride,
+             pos_stride,         B,                 P,
+             H,                  W};
+}
+
 // pose: the 4x4 target pose (row major); pos: the target position (rig
 // frame, swizzled (z, y, x) into the MSI frame); lat, lon: the pixel's
 // grid angles.

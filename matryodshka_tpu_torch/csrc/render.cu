@@ -51,20 +51,10 @@ namespace {
 
 constexpr int TILE_X = 32, TILE_Y = 4;
 
-struct Geo {
-  const float* pose;
-  const float* pos;
-  const float* radii;
-  const float* lat;
-  const float* lon;
-  long long pose_stride, pos_stride;
-  int B, P, H, W;
-};
-
 template <typename TV, bool DEPTH>
 __global__ void __launch_bounds__(TILE_X* TILE_Y)
     render_kernel(const TV* __restrict__ vol, const float* __restrict__ pred,
-                  Geo g, float* __restrict__ out, float eps) {
+                  matry::Geo g, float* __restrict__ out, float eps) {
   const int j = blockIdx.x * TILE_X + threadIdx.x;
   const int i = blockIdx.y * TILE_Y + threadIdx.y;
   const int b = blockIdx.z;
@@ -141,7 +131,8 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y)
 }
 
 __global__ void __launch_bounds__(TILE_X* TILE_Y)
-    uv_project_kernel(Geo g, float* __restrict__ U, float* __restrict__ V) {
+    uv_project_kernel(matry::Geo g, float* __restrict__ U,
+                      float* __restrict__ V) {
   const int j = blockIdx.x * TILE_X + threadIdx.x;
   const int i = blockIdx.y * TILE_Y + threadIdx.y;
   const int b = blockIdx.z;
@@ -160,23 +151,14 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y)
   }
 }
 
-Geo make_geo(const void* pose, long long pose_stride, const void* pos,
-             long long pos_stride, const void* radii, const void* lat,
-             const void* lon, int B, int P, int H, int W) {
-  return Geo{(const float*)pose, (const float*)pos, (const float*)radii,
-             (const float*)lat,  (const float*)lon, pose_stride,
-             pos_stride,         B,                 P,
-             H,                  W};
-}
-
-dim3 tiles(const Geo& g) {
+dim3 tiles(const matry::Geo& g) {
   return dim3((unsigned)((g.W + TILE_X - 1) / TILE_X),
               (unsigned)((g.H + TILE_Y - 1) / TILE_Y), (unsigned)g.B);
 }
 
 template <typename TV>
-void launch(const void* vol, const void* pred, const Geo& g, void* out,
-            int depth, float eps, cudaStream_t s) {
+void launch(const void* vol, const void* pred, const matry::Geo& g,
+            void* out, int depth, float eps, cudaStream_t s) {
   const dim3 block(TILE_X, TILE_Y);
   if (depth)
     render_kernel<TV, true><<<tiles(g), block, 0, s>>>(
@@ -195,8 +177,8 @@ extern "C" int matry_render(const void* vol, const void* pred,
                             const void* lon, void* out, int B, int P, int H,
                             int W, int vol_bf16, int depth, float eps,
                             void* stream) {
-  const Geo g = make_geo(pose, pose_stride, pos, pos_stride, radii, lat, lon,
-                         B, P, H, W);
+  const matry::Geo g = matry::make_geo(pose, pose_stride, pos, pos_stride,
+                                       radii, lat, lon, B, P, H, W);
   cudaStream_t s = (cudaStream_t)stream;
   if (vol_bf16)
     launch<__nv_bfloat16>(vol, pred, g, out, depth, eps, s);
@@ -210,8 +192,8 @@ extern "C" int matry_uv_project(const void* pose, long long pose_stride,
                                 const void* radii, const void* lat,
                                 const void* lon, void* U, void* V, int B,
                                 int P, int H, int W, void* stream) {
-  const Geo g = make_geo(pose, pose_stride, pos, pos_stride, radii, lat, lon,
-                         B, P, H, W);
+  const matry::Geo g = matry::make_geo(pose, pose_stride, pos, pos_stride,
+                                       radii, lat, lon, B, P, H, W);
   uv_project_kernel<<<tiles(g), dim3(TILE_X, TILE_Y), 0,
                       (cudaStream_t)stream>>>(g, (float*)U, (float*)V);
   return (int)cudaGetLastError();

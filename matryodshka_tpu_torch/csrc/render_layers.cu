@@ -1,145 +1,247 @@
-// MSI render of one ERP view from a prepared layer stack, the whole frame.
+// MSI render of one ERP view from a prepared layer stack, the whole frame,
+// lookup coordinates included.
 //
 // Replaces three kernels of matryodshka_tpu/ops/pallas_render.py that
 // compute one function:
-//   K4 _render_kernel_tiled  back to front, 128-column tiles
-//                            (render_mid_prepared_cf, the schemes other
-//                            than blend_psv);
-//   K5 _render_kernel        back to front, full-width blocks, and the
-//                            row-chunked high-res render
-//                            (_ladder_render_chunk / render_mid_chunked);
-//   K6 _render_kernel_ftb    front to back with early ray termination
-//                            (render_mid_prepared_cf(ftb=True)).
+//   K4 _render_kernel_tiled (:295)  back to front, 128-column tiles
+//                                   (render_mid_prepared_cf, the schemes
+//                                   other than blend_psv);
+//   K5 _render_kernel (:132)        back to front, full-width blocks, and
+//                                   the row-chunked high-res render
+//                                   (_ladder_render_chunk /
+//                                   render_mid_chunked);
+//   K6 _render_kernel_ftb (:694)    front to back with early ray
+//                                   termination (render_mid_prepared_cf(
+//                                   ftb=True)).
 // K4 and K5 differ only in how they tile VMEM; a gather kernel has no VMEM
-// bound, so both are the FTB=false mode here, at any resolution. The pole
-// caps the TPU path renders with XLA gathers, and the gather fallback for
-// poses outside the ladder's bounds, are covered too: one launch renders
-// every row for any pose.
+// bound, so both are the FTB=false mode here, at any resolution. With them
+// go the per-shell uv fields the TPU path computes in XLA beside the
+// kernels, the pole caps it renders with XLA gathers, and the gather
+// fallback for poses outside the ladder's bounds: one launch renders every
+// row for any pose.
 //
-// Per target pixel (i, j) and shell p: read (u, v) = (U[p, i, j],
-// V[p, i, j]), bilinear-sample the shell's four planes at the four taps
-// (wrapping mod W and mod H), and over-composite, shell 0's alpha taken
-// as 1, in f32:
-//   FTB=false: p = 0 .. P-1,       out = rgb*a + out*(1 - a);
-//   FTB=true:  p = P-1 .. 0,       out += T*a*rgb, T *= 1 - a, and the
-//              ray stops once T < eps (1e-6, K6's FTB_EPS): every farther
-//              shell could change the output by at most T, as |rgb| <= 1.
-// DEPTH=true renders the depth proxy: rgb is the constant p/P (so shell 0
-// contributes 0) and only the alpha plane is read; the value goes to all
-// three output channels.
+// Per target pixel (i, j): its ray, rotated by the target pose, and the
+// target centre are formed once (project.cuh:target_ray). Per shell p:
+// intersect the ray with the shell and take its ERP pixel (u, v)
+// (project.cuh:shell_uv, the bits the uv instrument matry_uv_project
+// writes), bilinear-sample the shell's planes at the four taps (wrapping
+// mod W and mod H) and over-composite, shell 0's alpha taken as 1, in f32:
+//   FTB=false: p = 0 .. P-1,  out = c*a + out*(1 - a);
+//   FTB=true:  p = P-1 .. 0,  out += T*a*c, T *= 1 - a, and the ray stops
+//              once T < eps (1e-6, K6's FTB_EPS): every farther shell
+//              could change the output by at most T, as |c| <= 1.
+// The colour c is the shell's rgb; the depth proxy's c is the constant
+// p/P (so shell 0 contributes 0), which reads only the alpha plane. RGB
+// and DEPTH select the outputs: a launch that writes both composites the
+// two with the same alphas in one pass over the shells, so a caller that
+// wants image and depth pays the projection, the alpha taps and the loop
+// once. The depth value goes to all three channels of its output.
 //
-// Bound: memory and latency of the gathers (per pixel and shell: two table
-// reads and four taps of 4 layer values, 1 in depth mode). Design, as in
-// render.cu: one thread per target pixel, consecutive threads on
-// consecutive j so the u/v reads coalesce and the taps of a warp fall in
-// a few source rows that L1/L2 serve; the composite state stays in
-// registers. Plane offsets are 64-bit: at 4096x2048x32 the stack holds
-// 2^30 values.
+// Bound: at 4096x2048x32 in bf16 the stack is 2.15 GB (0.64 ms at
+// 3.35 TB/s), read about once (a source texel serves about one sample at
+// the stack's own resolution), and no table is read: the tables were 8 B
+// per sample, half the old kernel's bytes. Per (pixel, shell) the
+// projection is ~140 f32 operations (two atan2f, two sqrtf; ~130 SASS
+// instructions) and the taps and composites ~45, so operations bound the
+// kernel (~0.74 ms at 67 TFLOP/s). What holds it back: the instruction
+// throughput those take, and the 16 planar 2-byte gathers a colour sample
+// makes (tools/variants.py: the taps and composites alone take ~55% of
+// the time). Design: a block is a 32 x 4 pixel tile, a warp one row of 32
+// pixels, so a shell's taps of a warp fall in about two source rows that
+// L1 serves; the four taps' in-plane offsets are computed once a shell
+// for all planes; two shells a step, sampled before either is
+// composited, so one shell's projection overlaps the other's loads; the
+// ray's shell-independent terms, the composites and T stay in registers.
+// tools/variants.py times 128 x 1 rows and 32 x 8 tiles, one and four
+// shells a step, paired 4-byte tap loads (slower: lanes of odd x0
+// diverge), and the image and depth as two launches. Plane offsets are
+// 64-bit: at 4096x2048x32 the stack holds 2^30 values.
 //
 // Inputs: layers [B, P, 4, H, W] (bf16 or f32; channels r, g, b, alpha),
-// U, V [B, P, H, W] f32; output [B, H, W, 3] f32.
+// pose [B, 4, 4] f32 (batch stride pose_stride floats, 0 for one pose
+// shared), pos [B, 3] f32, radii [P] f32, lat [H] and lon [W]
+// (lat_long_grid's vectors); outputs rgb and depth [B, H, W, 3] f32, a
+// null pointer for an output not wanted.
 
-#include "common.cuh"
+#include "project.cuh"
 
 namespace {
 
-template <typename TL, bool FTB, bool DEPTH>
-__global__ void render_layers_kernel(const TL* __restrict__ layers,
-                                     const float* __restrict__ U,
-                                     const float* __restrict__ V,
-                                     float* __restrict__ out, int B, int P,
-                                     int H, int W, float eps) {
+constexpr int TILE_X = 32, TILE_Y = 4;
+constexpr int SHELLS = 2;
+
+// The bilinear sample of one plane at the four taps' in-plane offsets o
+// (y0 x0, y0 x1, y1 x0, y1 x1), with weights wt in the same order: each
+// tap's address is one wide multiply-add of its 32-bit offset, shared by
+// the four planes, to the plane's 64-bit base.
+template <typename TL>
+__device__ __forceinline__ float bilerp(const TL* __restrict__ plane,
+                                        const unsigned (&o)[4],
+                                        const float (&wt)[4]) {
+  float t[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) t[k] = matry::to_f32(plane[o[k]]);
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s = fmaf(wt[k], t[k], s);
+  return s;
+}
+
+// One shell's bilinear sample at the pixel's ray: alpha (1 on shell 0)
+// and, when RGB, the colour. lp: the shell's first plane.
+struct Sample {
+  float a, r, g, b;
+};
+
+template <typename TL, bool RGB>
+__device__ __forceinline__ Sample sample_shell(const TL* __restrict__ lp,
+                                               long long hw, int p,
+                                               const matry::Ray& q,
+                                               float radius,
+                                               const matry::PixelAffine& m,
+                                               int W, int H) {
+  float u, v;
+  matry::shell_uv(q, radius, m, u, v);
+  const float x0f = floorf(u), y0f = floorf(v);
+  const float fx = u - x0f, fy = v - y0f;
+  // u lies in [-0.5, W - 0.5] and v in [-0.5, H - 0.5] (the angles'
+  // ranges), so one step wraps the taps
+  int x0 = (int)x0f, y0 = (int)y0f;
+  x0 += x0 < 0 ? W : 0;
+  x0 -= x0 >= W ? W : 0;
+  y0 += y0 < 0 ? H : 0;
+  y0 -= y0 >= H ? H : 0;
+  const int x1 = x0 + 1 == W ? 0 : x0 + 1;
+  const int y1 = y0 + 1 == H ? 0 : y0 + 1;
+  const float wt[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx,
+                       fy * (1.f - fx), fy * fx};
+  const unsigned oy0 = (unsigned)(y0 * W), oy1 = (unsigned)(y1 * W);
+  const unsigned o[4] = {oy0 + x0, oy0 + x1, oy1 + x0, oy1 + x1};
+  Sample s;
+  s.a = p > 0 ? bilerp(lp + 3 * hw, o, wt) : 1.f;
+  s.r = s.g = s.b = 0.f;
+  if (RGB) {
+    s.r = bilerp(lp, o, wt);
+    s.g = bilerp(lp + hw, o, wt);
+    s.b = bilerp(lp + 2 * hw, o, wt);
+  }
+  return s;
+}
+
+template <typename TL, bool FTB, bool RGB, bool DEPTH>
+__global__ void __launch_bounds__(TILE_X* TILE_Y)
+    render_layers_kernel(const TL* __restrict__ layers, matry::Geo g,
+                         float* __restrict__ rgb_out,
+                         float* __restrict__ depth_out, float eps) {
+  const int j = blockIdx.x * TILE_X + threadIdx.x;
+  const int i = blockIdx.y * TILE_Y + threadIdx.y;
+  const int b = blockIdx.z;
+  const int P = g.P, H = g.H, W = g.W;
+  if (i >= H || j >= W) return;
   const long long hw = (long long)H * W;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * hw) return;
-  const long long b = idx / hw;
-  const long long pix = idx - b * hw;
-  const TL* lb = layers + b * P * 4 * hw;
-  const float* ub = U + b * P * hw + pix;
-  const float* vb = V + b * P * hw + pix;
+  const matry::PixelAffine m = matry::pixel_affine(W, H);
+  const matry::Ray q = matry::target_ray(g.pose + b * g.pose_stride,
+                                         g.pos + b * g.pos_stride, g.lat[i],
+                                         g.lon[j]);
+  const TL* lb = layers + (long long)b * P * 4 * hw;
   const float inv_p = 1.f / (float)P;
 
-  float r = 0.f, g = 0.f, bl = 0.f, T = 1.f;
-  for (int s = 0; s < P; ++s) {
-    const int p = FTB ? P - 1 - s : s;
-    const float u = ub[p * hw], v = vb[p * hw];
-    const float x0f = floorf(u), y0f = floorf(v);
-    const float fx = u - x0f, fy = v - y0f;
-    const int x0 = matry::wrap((int)x0f, W), y0 = matry::wrap((int)y0f, H);
-    const int x1 = x0 + 1 == W ? 0 : x0 + 1;
-    const int y1 = y0 + 1 == H ? 0 : y0 + 1;
-    const float wt[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx,
-                         fy * (1.f - fx), fy * fx};
-    const int off[4] = {y0 * W + x0, y0 * W + x1, y1 * W + x0, y1 * W + x1};
-    const TL* lp = lb + (long long)p * 4 * hw;
-    float sr = 0.f, sg = 0.f, sb = 0.f, sa = 0.f;
+  // SHELLS shells a step: their samples are taken before any of them is
+  // composited, so their projections and tap loads overlap (the front-to-
+  // back stop is still tested after each shell). The composites' FMAs are
+  // explicit, so every mode and variant rounds the same way.
+  float r = 0.f, gr = 0.f, bl = 0.f, d = 0.f, T = 1.f;
+  bool done = false;
+  for (int s0 = 0; s0 < P && !done; s0 += SHELLS) {
+    Sample sm[SHELLS];
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int o = off[t];
-      if (!DEPTH) {
-        sr += wt[t] * matry::to_f32(lp[o]);
-        sg += wt[t] * matry::to_f32(lp[hw + o]);
-        sb += wt[t] * matry::to_f32(lp[2 * hw + o]);
-      }
-      if (p > 0) sa += wt[t] * matry::to_f32(lp[3 * hw + o]);
+    for (int k = 0; k < SHELLS; ++k) {
+      const int s = min(s0 + k, P - 1);  // a ragged last step repeats
+      const int p = FTB ? P - 1 - s : s;
+      sm[k] = sample_shell<TL, RGB>(lb + p * 4 * hw, hw, p, q, g.radii[p],
+                                    m, W, H);
     }
-    if (DEPTH) sr = sg = sb = (float)p * inv_p;
-    if (p == 0) sa = 1.f;
-    if (FTB) {
-      const float ta = T * sa;
-      r += ta * sr;
-      g += ta * sg;
-      bl += ta * sb;
-      T *= 1.f - sa;
-      if (T < eps) break;
-    } else {
-      r = sr * sa + r * (1.f - sa);
-      g = sg * sa + g * (1.f - sa);
-      bl = sb * sa + bl * (1.f - sa);
+#pragma unroll
+    for (int k = 0; k < SHELLS; ++k) {
+      if (s0 + k >= P || done) break;
+      const int p = FTB ? P - 1 - (s0 + k) : s0 + k;
+      const float sa = sm[k].a, sd = (float)p * inv_p;
+      if (FTB) {
+        const float ta = __fmul_rn(T, sa);
+        if (RGB) {
+          r = fmaf(ta, sm[k].r, r);
+          gr = fmaf(ta, sm[k].g, gr);
+          bl = fmaf(ta, sm[k].b, bl);
+        }
+        if (DEPTH) d = fmaf(ta, sd, d);
+        T = __fmul_rn(T, 1.f - sa);
+        done = T < eps;
+      } else {
+        const float keep = 1.f - sa;
+        if (RGB) {
+          r = fmaf(sm[k].r, sa, __fmul_rn(r, keep));
+          gr = fmaf(sm[k].g, sa, __fmul_rn(gr, keep));
+          bl = fmaf(sm[k].b, sa, __fmul_rn(bl, keep));
+        }
+        if (DEPTH) d = fmaf(sd, sa, __fmul_rn(d, keep));
+      }
     }
   }
-  float* o = out + idx * 3;
-  o[0] = r;
-  o[1] = g;
-  o[2] = bl;
+  const long long o = ((long long)b * hw + (long long)i * W + j) * 3;
+  if (RGB) {
+    rgb_out[o] = r;
+    rgb_out[o + 1] = gr;
+    rgb_out[o + 2] = bl;
+  }
+  if (DEPTH) {
+    depth_out[o] = d;
+    depth_out[o + 1] = d;
+    depth_out[o + 2] = d;
+  }
 }
 
 template <typename TL, bool FTB>
-void launch(const void* layers, const void* U, const void* V, void* out,
-            int B, int P, int H, int W, int depth, float eps,
-            cudaStream_t s) {
-  const long long total = (long long)B * H * W;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  if (depth)
-    render_layers_kernel<TL, FTB, true><<<blocks, threads, 0, s>>>(
-        (const TL*)layers, (const float*)U, (const float*)V, (float*)out, B,
-        P, H, W, eps);
+void launch(const void* layers, const matry::Geo& g, void* rgb, void* depth,
+            float eps, cudaStream_t s) {
+  const dim3 grid((unsigned)((g.W + TILE_X - 1) / TILE_X),
+                  (unsigned)((g.H + TILE_Y - 1) / TILE_Y), (unsigned)g.B);
+  const dim3 block(TILE_X, TILE_Y);
+  const TL* l = (const TL*)layers;
+  float *c = (float*)rgb, *d = (float*)depth;
+  if (c && d)
+    render_layers_kernel<TL, FTB, true, true><<<grid, block, 0, s>>>(
+        l, g, c, d, eps);
+  else if (c)
+    render_layers_kernel<TL, FTB, true, false><<<grid, block, 0, s>>>(
+        l, g, c, d, eps);
   else
-    render_layers_kernel<TL, FTB, false><<<blocks, threads, 0, s>>>(
-        (const TL*)layers, (const float*)U, (const float*)V, (float*)out, B,
-        P, H, W, eps);
+    render_layers_kernel<TL, FTB, false, true><<<grid, block, 0, s>>>(
+        l, g, c, d, eps);
 }
 
 }  // namespace
 
-extern "C" int matry_render_layers(const void* layers, const void* U,
-                                   const void* V, void* out, int B, int P,
+extern "C" int matry_render_layers(const void* layers, const void* pose,
+                                   long long pose_stride, const void* pos,
+                                   long long pos_stride, const void* radii,
+                                   const void* lat, const void* lon,
+                                   void* rgb, void* depth, int B, int P,
                                    int H, int W, int layers_bf16, int ftb,
-                                   int depth, float eps, void* stream) {
+                                   float eps, void* stream) {
+  if (!rgb && !depth) return (int)cudaErrorInvalidValue;
+  const matry::Geo g = matry::make_geo(pose, pose_stride, pos, pos_stride,
+                                       radii, lat, lon, B, P, H, W);
   cudaStream_t s = (cudaStream_t)stream;
   if (layers_bf16) {
     if (ftb)
-      launch<__nv_bfloat16, true>(layers, U, V, out, B, P, H, W, depth, eps,
-                                  s);
+      launch<__nv_bfloat16, true>(layers, g, rgb, depth, eps, s);
     else
-      launch<__nv_bfloat16, false>(layers, U, V, out, B, P, H, W, depth,
-                                   eps, s);
+      launch<__nv_bfloat16, false>(layers, g, rgb, depth, eps, s);
   } else {
     if (ftb)
-      launch<float, true>(layers, U, V, out, B, P, H, W, depth, eps, s);
+      launch<float, true>(layers, g, rgb, depth, eps, s);
     else
-      launch<float, false>(layers, U, V, out, B, P, H, W, depth, eps, s);
+      launch<float, false>(layers, g, rgb, depth, eps, s);
   }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@ entries of the two kernel renders.
 
 Counterpart of `matryodshka_tpu/geometry/render.py` (`over_composite`,
 `over_composite_depth`, `render_equirect_view`, `render_equirect_depth`,
-`render_equirect_view_prepared`, `render_equirect_view_fused_blend`).
+`render_equirect_view_prepared`, `render_equirect_view_fused_blend`), and
+`uv_tables`, the per-shell lookup tables of the plain routes.
 Layer 0 is the farthest shell and its alpha is taken as 1.
 """
 
@@ -12,7 +13,6 @@ from __future__ import annotations
 import torch
 
 from matryodshka_tpu_torch.geometry import intersect
-from matryodshka_tpu_torch.ops import render_layers as rl_ops
 from matryodshka_tpu_torch.ops.resample import resample_layers
 
 
@@ -71,10 +71,16 @@ def render_equirect_depth(rgba_layers, tgt_pose, tgt_pos, radii):
 #: all 32 at once would make each 1 GiB); 640x320x32 is one slab.
 UV_SLAB = 1 << 24
 
+#: uv_tables builds in this process: the plain routes build them, the
+#: card's kernel routes do not (each kernel projects its own lookups).
+uv_builds = 0
+
 
 def uv_tables(tgt_pose, tgt_pos, radii, height: int, width: int):
     """Per-shell lookup tables of a batch of target views: tgt_pose
     [B, 4, 4], tgt_pos [B, 3] -> (u, v), each [B, P, H, W] float32."""
+    global uv_builds
+    uv_builds += 1
     b, p = tgt_pose.shape[0], radii.shape[0]
     u = torch.empty((b, p, height, width), dtype=torch.float32,
                     device=radii.device)
@@ -89,15 +95,30 @@ def uv_tables(tgt_pose, tgt_pos, radii, height: int, width: int):
     return u, v
 
 
+# The kernel entries below import their ops modules when called: those
+# modules take uv_tables (and ops.render over_composite) from this one.
+
 def render_equirect_view_prepared(layers, tgt_pose, tgt_pos, radii,
                                   ftb: bool = False, depth: bool = False):
     """The layer-stack render of a batch: layers [B, P, 4, H, W] (the
     prepared assembly's stack, models/msi.py), tgt_pose [B, 4, 4], tgt_pos
     [B, 3] -> [B, H, W, 3] float32, any pose. ftb composites front to back
-    with early termination; depth renders the depth proxy."""
-    u, v = uv_tables(tgt_pose, tgt_pos, radii, layers.shape[3],
-                     layers.shape[4])
-    return rl_ops.render_layers(layers, u, v, ftb=ftb, depth=depth)
+    with early termination; depth renders the depth proxy. On the card one
+    kernel launch, which makes its own lookups (no uv_tables)."""
+    from matryodshka_tpu_torch.ops import render_layers as rl_ops
+    return rl_ops.render_layers(layers, tgt_pose, tgt_pos, radii, ftb=ftb,
+                                depth=depth)
+
+
+def render_equirect_view_prepared_both(layers, tgt_pose, tgt_pos, radii,
+                                       ftb: bool = False):
+    """render_equirect_view_prepared's image and depth proxy together ->
+    (rgb, depth), each [B, H, W, 3] float32: on the card one kernel launch
+    that writes both; on the CPU one uv_tables build and the plain version
+    twice."""
+    from matryodshka_tpu_torch.ops import render_layers as rl_ops
+    return rl_ops.render_layers_both(layers, tgt_pose, tgt_pos, radii,
+                                     ftb=ftb)
 
 
 def render_equirect_view_fused_blend(vol, pred, tgt_pose, tgt_pos, radii,
@@ -107,7 +128,6 @@ def render_equirect_view_fused_blend(vol, pred, tgt_pose, tgt_pos, radii,
     tgt_pose [B, 4, 4], tgt_pos [B, 3] -> [B, H, W, 3] float32. Any pose;
     depth renders the depth proxy from the alphas. On the card one kernel
     launch, which makes its own lookups (no uv_tables)."""
-    # Imported here: ops.render takes over_composite from this module.
     from matryodshka_tpu_torch.ops import render as render_ops
     return render_ops.render_blend(vol, pred.contiguous(), tgt_pose, tgt_pos,
                                    radii, depth=depth)

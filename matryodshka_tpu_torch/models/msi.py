@@ -5,6 +5,7 @@ Counterpart of `matryodshka_tpu/models/msi.py`. The reference path
 (`infer_msi` + `render_equirect_view` / `render_equirect_depth`) sweeps by
 gather, runs the plain MSIUNet and assembles [B, H, W, P, 4] layers, in the
 JAX layouts. The kernel path (`infer_msi_prepared` ->
+`render_view_and_depth_from_prepared`, or one output at a time through
 `render_equirect_view_from_prepared` / `render_equirect_depth_from_prepared`)
 runs the sweep kernel, which writes the net input channels first, and the
 net (either variant: its stages carry their padding mode and coord
@@ -15,7 +16,8 @@ then
   straight from the sweep volume and the prediction (no layer stack);
 * the other schemes: the prepared assembly writes the layer stack
   [B, P, 4, H, W] (channels first, unflipped, unpadded, in the compute
-  dtype) and the layer-stack render kernel draws it.
+  dtype) and the layer-stack render kernel draws it, image and depth in
+  one launch.
 
 The JAX prepared stack is W-flipped, row-padded and split from two pole-cap
 bands for the TPU ladder kernels; none of that is needed here.
@@ -267,6 +269,20 @@ def assemble_train(cfg, vol, pred) -> Dict[str, torch.Tensor]:
                             net_input, cfg.num_msi_planes)
     outputs["psv"] = net_input
     return outputs
+
+
+def render_view_and_depth_from_prepared(outputs, tgt_pose_rt, tgt_pos,
+                                        radii, ftb: bool = False):
+    """Image and depth proxy of infer_msi_prepared's outputs -> (rgb,
+    depth), each [B, H, W, 3] float32: where there is a layer stack, one
+    launch of the layer-stack kernel writes both (front to back when ftb);
+    else the blend-fused kernel's colour and depth modes."""
+    if "layers" in outputs:
+        return render_lib.render_equirect_view_prepared_both(
+            outputs["layers"], tgt_pose_rt, tgt_pos, radii, ftb=ftb)
+    return tuple(render_lib.render_equirect_view_fused_blend(
+        outputs["vol"], outputs["pred"], tgt_pose_rt, tgt_pos, radii,
+        depth=depth) for depth in (False, True))
 
 
 def render_equirect_view_from_prepared(outputs, tgt_pose_rt, tgt_pos, radii,

@@ -47,7 +47,8 @@ SIGNATURES = {
     + [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P],
     "matry_uv_project": [_P, ctypes.c_longlong, _P, ctypes.c_longlong]
     + [_P] * 5 + [_I] * 4 + [_P],
-    "matry_render_layers": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
+    "matry_render_layers": [_P, _P, ctypes.c_longlong, _P, ctypes.c_longlong]
+    + [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
     "matry_probe_trig": [_P, _P, ctypes.c_longlong, _P],
     "matry_probe_roll": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
     "matry_probe_window_shift": [_P, _P, _I, _I, _I, _P],
@@ -154,3 +155,23 @@ def require(cond: bool, msg: str) -> None:
     """Argument check for a kernel wrapper (kept under python -O)."""
     if not cond:
         raise ValueError(msg)
+
+
+def geometry_args(what, tgt_pose, tgt_pos, radii, b, dev):
+    """The kernels' pose, position and radii arguments: (pose pointer,
+    pose batch stride, position pointer, position batch stride, radii
+    pointer). Each pose is read as a row-major 4x4, each position as 3
+    consecutive floats."""
+    require(tgt_pose.device == dev and tgt_pose.dtype == torch.float32
+            and tuple(tgt_pose.shape) == (b, 4, 4)
+            and tgt_pose.stride()[1:] == (4, 1),
+            f"{what}: tgt_pose {tgt_pose.dtype} {tuple(tgt_pose.shape)} "
+            f"strides {tgt_pose.stride()}")
+    require(tgt_pos.device == dev and tgt_pos.dtype == torch.float32
+            and tuple(tgt_pos.shape) == (b, 3) and tgt_pos.stride(1) == 1,
+            f"{what}: tgt_pos {tgt_pos.dtype} {tuple(tgt_pos.shape)}")
+    require(radii.device == dev and radii.dtype == torch.float32
+            and radii.dim() == 1 and radii.is_contiguous(),
+            f"{what}: radii {radii.dtype} {tuple(radii.shape)}")
+    return (tgt_pose.data_ptr(), tgt_pose.stride(0), tgt_pos.data_ptr(),
+            tgt_pos.stride(0), radii.data_ptr())

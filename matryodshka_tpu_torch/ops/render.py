@@ -83,7 +83,8 @@ def render_blend(vol, pred, tgt_pose, tgt_pos, radii, depth: bool = False):
         f"exactly 2P channels)")
     req(radii.shape == (p,), f"render_blend: radii {tuple(radii.shape)} for "
                              f"{p} shells")
-    geo = _geometry("render_blend", tgt_pose, tgt_pos, radii, b, dev)
+    geo = _build.geometry_args("render_blend", tgt_pose, tgt_pos, radii,
+                               b, dev)
     lat, lon = grids.lat_long_vectors(h, w, dev)
     out = torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
     err = _build.lib().matry_render(
@@ -100,9 +101,10 @@ def render_blend(vol, pred, tgt_pose, tgt_pos, radii, depth: bool = False):
 
 
 def uv_project(tgt_pose, tgt_pos, radii, height: int, width: int):
-    """The per-shell lookups the render kernel computes, as uv_tables'
-    (u, v), each [B, P, H, W] float32: an instrument that lets the
-    projection and the render be checked apart. CPU tensors: uv_tables;
+    """The per-shell lookups the render kernels compute (this module's and
+    ops/render_layers.py's, through the same csrc/project.cuh), as
+    uv_tables' (u, v), each [B, P, H, W] float32: an instrument that lets
+    the projection and each render be checked apart. CPU tensors: uv_tables;
     CUDA tensors: one launch of the kernel's own projection
     (csrc/render.cu:matry_uv_project)."""
     if radii.device.type == "cpu":
@@ -111,7 +113,8 @@ def uv_project(tgt_pose, tgt_pos, radii, height: int, width: int):
     dev = radii.device
     _build.require(radii.is_cuda, f"uv_project: unsupported device {dev}")
     b, p = tgt_pose.shape[0], radii.shape[0]
-    geo = _geometry("uv_project", tgt_pose, tgt_pos, radii, b, dev)
+    geo = _build.geometry_args("uv_project", tgt_pose, tgt_pos, radii, b,
+                               dev)
     lat, lon = grids.lat_long_vectors(height, width, dev)
     u = torch.empty((b, p, height, width), dtype=torch.float32, device=dev)
     v = torch.empty_like(u)
@@ -121,24 +124,3 @@ def uv_project(tgt_pose, tgt_pos, radii, height: int, width: int):
     _build.check(err, "matry_uv_project")
     uv_launches += 1
     return u, v
-
-
-def _geometry(what, tgt_pose, tgt_pos, radii, b, dev):
-    """The kernels' pose, position and radii arguments: (pose pointer,
-    pose batch stride, position pointer, position batch stride, radii
-    pointer). Each pose is read as a row-major 4x4, each position as 3
-    consecutive floats."""
-    req = _build.require
-    req(tgt_pose.device == dev and tgt_pose.dtype == torch.float32
-        and tuple(tgt_pose.shape) == (b, 4, 4)
-        and tgt_pose.stride()[1:] == (4, 1),
-        f"{what}: tgt_pose {tgt_pose.dtype} {tuple(tgt_pose.shape)} "
-        f"strides {tgt_pose.stride()}")
-    req(tgt_pos.device == dev and tgt_pos.dtype == torch.float32
-        and tuple(tgt_pos.shape) == (b, 3) and tgt_pos.stride(1) == 1,
-        f"{what}: tgt_pos {tgt_pos.dtype} {tuple(tgt_pos.shape)}")
-    req(radii.device == dev and radii.dtype == torch.float32
-        and radii.dim() == 1 and radii.is_contiguous(),
-        f"{what}: radii {radii.dtype} {tuple(radii.shape)}")
-    return (tgt_pose.data_ptr(), tgt_pose.stride(0), tgt_pos.data_ptr(),
-            tgt_pos.stride(0), radii.data_ptr())

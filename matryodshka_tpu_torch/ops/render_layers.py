@@ -4,17 +4,22 @@ version.
 The kernel is `csrc/render_layers.cu`, which replaces three kernels of
 `matryodshka_tpu/ops/pallas_render.py`: `_render_kernel_tiled` (K4) and
 `_render_kernel` (K5, also the high-res row chunks) as its back-to-front
-mode, `_render_kernel_ftb` (K6) as its front-to-back mode; its source note
-gives the bound and the design. Inputs are the layer stack
-[B, P, 4, H, W] (`models/msi.py:assemble_rgba_prepared` /
-`assemble_hres_prepared`) and per-shell lookup tables u, v [B, P, H, W];
-the output is the ERP view [B, H, W, 3] float32.
+mode, `_render_kernel_ftb` (K6) as its front-to-back mode. It projects each
+pixel's ray onto each shell it visits (`csrc/project.cuh`, the bits of the
+uv instrument `ops/render.py:uv_project`), so a render is one launch and
+builds no lookup tables; one launch writes the image, the depth proxy or
+both. Its source note gives the bound and the design. Inputs are the layer
+stack [B, P, 4, H, W] (`models/msi.py:assemble_rgba_prepared` /
+`assemble_hres_prepared`), the target poses [B, 4, 4], positions [B, 3]
+and the shell radii [P]; each output is an ERP view [B, H, W, 3] float32.
 """
 
 from __future__ import annotations
 
 import torch
 
+from matryodshka_tpu_torch.geometry import grids
+from matryodshka_tpu_torch.geometry.render import uv_tables
 from matryodshka_tpu_torch.ops import _build
 from matryodshka_tpu_torch.ops.resample import resample_layers_uv
 
@@ -22,16 +27,19 @@ from matryodshka_tpu_torch.ops.resample import resample_layers_uv
 EPS = 1e-6
 
 #: Launches of the kernel in this process: back to front (K4/K5) and
-#: front to back (K6).
+#: front to back (K6), whatever the outputs; and of those, the launches
+#: that wrote image and depth together (render_layers_both).
 launches = 0
 ftb_launches = 0
+both_launches = 0
 
 
 def render_layers_plain(layers, u, v, depth: bool = False):
-    """Plain version of the kernel: sample one shell at a time and
-    composite it in, nearest shell first (out += rgb*a*T, T *= 1 - a,
-    shell 0's alpha taken as 1; no early termination), as the JAX
-    package's shell-streamed high-res render does
+    """Plain version of the kernel, fed per-shell lookup tables u, v
+    [B, P, H, W] (uv_tables, or the kernel's own from uv_project): sample
+    one shell at a time and composite it in, nearest shell first
+    (out += rgb*a*T, T *= 1 - a, shell 0's alpha taken as 1; no early
+    termination), as the JAX package's shell-streamed high-res render does
     (geometry/render.py:gather_hres), so memory stays at one shell at any
     resolution. depth: rgb is p/P. Same result as over_composite
     (over_composite_depth) of all sampled shells."""
@@ -54,32 +62,62 @@ def render_layers_plain(layers, u, v, depth: bool = False):
     return torch.stack(outs)
 
 
-def render_layers(layers, u, v, ftb: bool = False, depth: bool = False):
-    """The render: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. ftb selects the front-to-back early-termination mode
-    (K6); depth renders the depth proxy."""
+def render_layers(layers, tgt_pose, tgt_pos, radii, ftb: bool = False,
+                  depth: bool = False):
+    """The render: CPU tensors take the plain route (uv_tables,
+    render_layers_plain); CUDA tensors one launch of the kernel; any other
+    device raises. tgt_pose [B, 4, 4] (a batch stride of 0, one pose for
+    the batch, is read as it is), tgt_pos [B, 3], radii [P]. ftb selects
+    the front-to-back early-termination mode (K6); depth renders the depth
+    proxy in place of the image."""
     if layers.device.type == "cpu":
+        u, v = uv_tables(tgt_pose, tgt_pos, radii, *layers.shape[3:])
         return render_layers_plain(layers, u, v, depth)
-    global launches, ftb_launches
+    rgb, dep = _launch(layers, tgt_pose, tgt_pos, radii, ftb, not depth,
+                       depth)
+    return dep if depth else rgb
+
+
+def render_layers_both(layers, tgt_pose, tgt_pos, radii, ftb: bool = False):
+    """(image, depth proxy), each [B, H, W, 3] float32: what render_layers
+    gives with depth=False and with depth=True. CPU tensors: one uv_tables
+    build and render_layers_plain twice; CUDA tensors: one launch that
+    composites both in one pass over the shells."""
+    if layers.device.type == "cpu":
+        u, v = uv_tables(tgt_pose, tgt_pos, radii, *layers.shape[3:])
+        return (render_layers_plain(layers, u, v),
+                render_layers_plain(layers, u, v, depth=True))
+    return _launch(layers, tgt_pose, tgt_pos, radii, ftb, True, True)
+
+
+def _launch(layers, tgt_pose, tgt_pos, radii, ftb, want_rgb, want_depth):
+    """One launch of the kernel -> (rgb or None, depth or None)."""
+    global launches, ftb_launches, both_launches
     b, p, c, h, w = layers.shape
+    dev = layers.device
     req = _build.require
-    req(layers.is_cuda, f"render_layers: unsupported device {layers.device}")
+    req(layers.is_cuda, f"render_layers: unsupported device {dev}")
     req(c == 4 and layers.dtype in (torch.float32, torch.bfloat16)
         and layers.is_contiguous(),
         f"render_layers: layers {layers.dtype} {tuple(layers.shape)}")
-    for name, t in (("u", u), ("v", v)):
-        req(t.dtype == torch.float32 and t.is_contiguous()
-            and t.device == layers.device and tuple(t.shape) == (b, p, h, w),
-            f"render_layers: {name} {t.dtype} {tuple(t.shape)}")
-    out = torch.empty((b, h, w, 3), dtype=torch.float32,
-                      device=layers.device)
+    req(radii.shape == (p,), f"render_layers: radii {tuple(radii.shape)} "
+                             f"for {p} shells")
+    geo = _build.geometry_args("render_layers", tgt_pose, tgt_pos, radii, b,
+                               dev)
+    lat, lon = grids.lat_long_vectors(h, w, dev)
+    rgb, dep = (torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
+                if want else None for want in (want_rgb, want_depth))
     err = _build.lib().matry_render_layers(
-        layers.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), b, p,
-        h, w, int(layers.dtype == torch.bfloat16), int(ftb), int(depth), EPS,
-        _build.stream_ptr(layers.device))
+        layers.data_ptr(), *geo, lat.data_ptr(), lon.data_ptr(),
+        None if rgb is None else rgb.data_ptr(),
+        None if dep is None else dep.data_ptr(), b, p, h, w,
+        int(layers.dtype == torch.bfloat16), int(ftb), EPS,
+        _build.stream_ptr(dev))
     _build.check(err, "matry_render_layers")
     if ftb:
         ftb_launches += 1
     else:
         launches += 1
-    return out
+    if want_rgb and want_depth:
+        both_launches += 1
+    return rgb, dep

@@ -2,13 +2,14 @@
 
     python -m matryodshka_tpu_torch.tools.variants
 
-Builds `csrc/sweep.cu` and `csrc/render.cu` once as they are and once per
-variant (a textual edit of a constant or a line, into
-`_build/variants/<name>/`, one `nvcc` each, all started together), loads
-each build with `ctypes` and times its C entry at the flagship shapes
-(640x320, 32 planes and shells, bf16 volume; the sweep also at 4096x2048)
-with CUDA events around 30 back-to-back launches after 5 warm-up, all
-inputs made from seeds. Each line carries the card's name and power
+Builds `csrc/sweep.cu`, `csrc/render.cu` and `csrc/render_layers.cu` once
+as they are and once per variant (a textual edit of a constant or a line,
+into `_build/variants/<name>/`, one `nvcc` each, all started together),
+loads each build with `ctypes` and times its C entry at the flagship
+shapes (640x320, 32 planes and shells, bf16 volume or stack; the sweep and
+the layer-stack render also at 4096x2048) with CUDA events around 30
+back-to-back launches (5 at 4096x2048) after 5 warm-up, all inputs made
+from seeds. Each line carries the card's name and power
 limit. The variants:
 
 - sweep: 4 rows x 8 planes and 2 x 16 per block (each with the staged
@@ -18,7 +19,12 @@ limit. The variants:
   reads of the taps;
 - render: 32 x 8 pixel tiles against the built 32 x 4; the taps and
   composite alone, the projection replaced by a fixed lookup, which splits
-  its time between the two halves.
+  its time between the two halves;
+- render_layers (640x320x32 and 4096x2048x32, bf16 stack; image and depth
+  in one launch, the same as two one-output launches, and front to back):
+  128 x 1 rows of pixels and 32 x 8 tiles against the built 32 x 4; a
+  row's two taps as one aligned 4-byte load where x0 is even; the taps
+  and composite alone, the projection replaced by a fixed lookup.
 
 A variant that computes something else says so ("part"); the others must
 equal the built kernel's output bit for bit, or the tool raises.
@@ -36,10 +42,37 @@ from matryodshka_tpu_torch import entry
 from matryodshka_tpu_torch.geometry import grids
 from matryodshka_tpu_torch.ops import _build
 from matryodshka_tpu_torch.ops import render as render_ops
+from matryodshka_tpu_torch.ops import render_layers as rl_ops
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
 
 _SYNC_END = "  __syncthreads();\n\n  const int ngroups"
 _TAP_READ = ("          col[t] = fmaf(q.fy, rb[c * stride + pos[t]] - a, a);")
+
+_TAP_LOADS = ("  for (int k = 0; k < 4; ++k) t[k] = "
+              "matry::to_f32(plane[o[k]]);\n")
+#: The layer-stack render's two taps of a row (x0, x0 + 1) as one 4-byte
+#: (bf16) or 8-byte (f32) load where that pair is aligned, i.e. x0 even
+#: in a row of even width; two loads elsewhere (odd x0, the wrap at W - 1).
+_PAIRED_TAPS = """  for (int k = 0; k < 4; k += 2) {
+    const TL* t0 = plane + o[k];
+    if (o[k + 1] == o[k] + 1 &&
+        !(reinterpret_cast<unsigned long long>(t0) & (2 * sizeof(TL) - 1))) {
+      if constexpr (sizeof(TL) == 2) {
+        const __nv_bfloat162 pr =
+            *reinterpret_cast<const __nv_bfloat162*>(t0);
+        t[k] = __low2float(pr);
+        t[k + 1] = __high2float(pr);
+      } else {
+        const float2 pr = *reinterpret_cast<const float2*>(t0);
+        t[k] = pr.x;
+        t[k + 1] = pr.y;
+      }
+    } else {
+      t[k] = matry::to_f32(t0[0]);
+      t[k + 1] = matry::to_f32(plane[o[k + 1]]);
+    }
+  }
+"""
 
 #: name -> (source, [(old, new)], part): part variants time a piece of the
 #: kernel and are not compared with it.
@@ -70,43 +103,76 @@ VARIANTS = {
     "render without projection": ("render.cu", [
         ("    matry::shell_uv(q, g.radii[p], m, u, v);\n",
          "    u = j + 0.37f * p;\n    v = i + 0.21f;\n")], True),
+    "render_layers": ("render_layers.cu", [], False),
+    "render_layers 1 shell a step": ("render_layers.cu", [
+        ("int SHELLS = 2;", "int SHELLS = 1;")], False),
+    "render_layers 4 shells a step": ("render_layers.cu", [
+        ("int SHELLS = 2;", "int SHELLS = 4;")], False),
+    "render_layers 12 blocks an SM": ("render_layers.cu", [
+        ("__launch_bounds__(TILE_X* TILE_Y)",
+         "__launch_bounds__(TILE_X* TILE_Y, 12)")], False),
+    "render_layers 128 x 1 rows": ("render_layers.cu", [
+        ("TILE_X = 32, TILE_Y = 4;", "TILE_X = 128, TILE_Y = 1;")], False),
+    "render_layers 32 x 8 tiles": ("render_layers.cu", [
+        ("TILE_X = 32, TILE_Y = 4;", "TILE_X = 32, TILE_Y = 8;")], False),
+    "render_layers paired taps": ("render_layers.cu", [
+        (_TAP_LOADS, _PAIRED_TAPS)], False),
+    "render_layers without projection": ("render_layers.cu", [
+        ("  matry::shell_uv(q, radius, m, u, v);\n",
+         "  u = blockIdx.x * TILE_X + threadIdx.x + 0.37f * p;\n"
+         "  v = blockIdx.y * TILE_Y + threadIdx.y + 0.21f;\n")], True),
 }
 
 
-def _build_all():
-    """{name: ctypes library} of every variant, built in parallel."""
+def _sources():
+    """[(name, variant source path)]: every variant's source written into
+    its directory; raises before any build if an edit does not apply."""
     root = _build.BUILD_DIR / "variants"
-    procs = []
+    out = []
     for name, (src, edits, _) in VARIANTS.items():
-        d = root / name.replace(" ", "_")
-        d.mkdir(parents=True, exist_ok=True)
-        for f in _build.CSRC.glob("*.cuh"):
-            (d / f.name).write_text(f.read_text())
         text = (_build.CSRC / src).read_text()
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f"variant {name!r}: {old!r} not in {src}")
             text = text.replace(old, new)
+        d = root / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        for f in _build.CSRC.glob("*.cuh"):
+            (d / f.name).write_text(f.read_text())
         (d / src).write_text(text)
-        so = d / "lib.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-               str(d / src)]
-        procs.append((name, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs = {}
-    for name, so, proc in procs:
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name!r} failed to build:\n"
-                               f"{out[-3000:]}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ("matry_sweep", "matry_render"):
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
-                getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+        out.append((name, d / src))
+    return out
+
+
+def _build_all():
+    """{name: ctypes library} of every variant, built in parallel."""
+    procs = []
+    try:
+        for name, src in _sources():
+            so = src.parent / "lib.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                   str(so), str(src)]
+            procs.append((name, so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        libs = {}
+        for name, so, proc in procs:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"variant {name!r} failed to build:\n"
+                                   f"{out[-3000:]}")
+            lib = ctypes.CDLL(str(so))
+            for fn in ("matry_sweep", "matry_render", "matry_render_layers"):
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+                    getattr(lib, fn).restype = ctypes.c_int
+            libs[name] = lib
+        return libs
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def _time_us(fn, iters: int = 30) -> float:
@@ -121,6 +187,51 @@ def _time_us(fn, iters: int = 30) -> float:
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) * 1e3 / iters
+
+
+def _stack(gen, p, h, w):
+    """A bf16 layer stack [1, P, 4, H, W]: colours uniform in [-1, 1],
+    alphas sigmoid(3 U(-1, 1))."""
+    stack = torch.rand((1, p, 4, h, w), generator=gen, device="cuda") * 2 - 1
+    stack[:, :, 3] = torch.sigmoid(3.0 * stack[:, :, 3])
+    return stack.to(torch.bfloat16)
+
+
+def _layer_stack_times(lib, stack, target, part):
+    """One variant of the layer-stack render on one stack: back to front,
+    image and depth in one launch against the two one-output launches,
+    and front to back in one launch; each output must equal the built
+    kernel's bit for bit unless the variant is a part. -> text."""
+    _, p, _, h, w = stack.shape
+    dev = stack.device
+    lat, lon = grids.lat_long_vectors(h, w, dev)
+    stream = _build.stream_ptr(dev)
+    iters = 30 if h <= 320 else 5
+    want = {ftb: rl_ops.render_layers_both(stack, *target, ftb=ftb)
+            for ftb in (False, True)}
+
+    def call(rgb, depth, ftb):
+        return lambda: _build.check(lib.matry_render_layers(
+            stack.data_ptr(), target[0].data_ptr(), 0, target[1].data_ptr(),
+            3, target[2].data_ptr(), lat.data_ptr(), lon.data_ptr(),
+            None if rgb is None else rgb.data_ptr(),
+            None if depth is None else depth.data_ptr(), 1, p, h, w, 1,
+            int(ftb), rl_ops.EPS, stream), "matry_render_layers")
+
+    out = {ftb: tuple(torch.empty_like(t) for t in want[ftb])
+           for ftb in (False, True)}
+    both = _time_us(call(*out[False], False), iters)
+    rgb_only = call(out[False][0], None, False)
+    depth_only = call(None, out[False][1], False)
+    two = _time_us(lambda: (rgb_only(), depth_only()), iters)
+    ftb = _time_us(call(*out[True], True), iters)
+    if not part:
+        for f in (False, True):
+            for got, ref in zip(out[f], want[f]):
+                if not torch.equal(got, ref):
+                    raise RuntimeError("a layer-stack variant differs")
+    return (f"{w}x{h}x{p} bf16 both {both:9.2f} us, rgb + depth launches "
+            f"{two:9.2f} us, ftb both {ftb:9.2f} us")
 
 
 def main(argv=None) -> int:
@@ -161,8 +272,15 @@ def main(argv=None) -> int:
     target = (torch.eye(4, device=dev)[None], batch["tgt_pose"],
               params.msi_depths)
     lat, lon = grids.lat_long_vectors(320, 640, dev)
+    stacks = [_stack(gen, p, h, w) for h, w in ((320, 640), (2048, 4096))]
     for name, (src, _, part) in VARIANTS.items():
         lib = libs[name]
+        if src == "render_layers.cu":
+            print(f"variant {name:28s} "
+                  + "; ".join(_layer_stack_times(lib, st, target, part)
+                              for st in stacks)
+                  + f"{' (part)' if part else ''} [{card}]")
+            continue
         if src == "sweep.cu":
             times = []
             for (r, s), want in zip(shapes, built):

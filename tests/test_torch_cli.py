@@ -2,9 +2,10 @@
 package's (matryodshka_tpu/cli/test.py), on CPU, where every kernel
 wrapper of the port runs its plain version:
 
-* build_infer_fn for the four colour schemes against the JAX
-  build_infer_fn (which on CPU takes its gather path: gather sweep, flax
-  net, assemble_rgba, gather render), same flax weights and images;
+* build_infer_fn for the four colour schemes, and with ftb=True for the
+  three that render a layer stack, against the JAX build_infer_fn (which
+  on CPU takes its gather path: gather sweep, flax net, assemble_rgba,
+  gather render), same flax weights and images;
 * the high-res re-render against build_hres_render_fn_fused(interpret=True)
   at 64x128 -> 128x256;
 * main() end to end on the synthetic fixture (matryodshka_tpu.data.
@@ -71,6 +72,27 @@ def test_infer_fn_matches_jax(scheme):
         np.testing.assert_allclose(got[k].float().numpy(),
                                    np.asarray(want[k]), rtol=0, atol=TOL,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("scheme", SCHEMES[1:])
+def test_infer_fn_ftb_matches_jax(scheme):
+    """build_infer_fn(ftb=True), whose layer-stack render gives image and
+    depth from one call (front to back with early termination on the
+    card; the plain composite here), against the JAX build_infer_fn, TOL
+    (module docstring)."""
+    jcfg, tcfg = _cfgs(32, 64, scheme)
+    state, model = state_lib.init_state(jcfg, jax.random.PRNGKey(1))
+    params = entry.make_params(
+        tcfg, flax_params=jax.tree.map(np.asarray, state.params))
+    batch = entry.synthetic_batch(tcfg, seed=2, tgt_pos=(-0.02, 0.01, 0.03))
+    got = tcli.build_infer_fn(tcfg, params, "tgt_image", ftb=True)(batch)
+    want = jcli.build_infer_fn(jcfg, model, "tgt_image", allow_fused=False)(
+        state.params, {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
+    assert sorted(got) == sorted(want) == ["output_depth", "output_image"]
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=0, atol=TOL, err_msg=k)
 
 
 def test_hres_render_matches_jax_fused():

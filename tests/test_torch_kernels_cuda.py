@@ -253,10 +253,6 @@ def _target(dev, rot_deg):
             torch.tensor([100.0, 5.0, 1.5, 1.0], device=dev))
 
 
-def _uv(dev, rot_deg, h=H, w=W):
-    return render_lib.uv_tables(*_target(dev, rot_deg), h, w)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("rot_deg", [0.0, 40.0])
 def test_uv_project_matches_float64(cuda, rot_deg):
@@ -299,29 +295,149 @@ def test_render_kernel_matches_plain(cuda, rot_deg, dtype, depth):
     assert (got - want).abs().max().item() <= 1e-5
 
 
+def _stack(dev, dtype, b, p, h, w, seed=9):
+    """A layer stack [B, P, 4, H, W]: colours uniform in [-1, 1], alphas
+    in (0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layers = torch.rand((b, p, 4, h, w), generator=gen, device=dev) * 2 - 1
+    layers[:, :, 3] = torch.sigmoid(3.0 * layers[:, :, 3])
+    return layers.to(dtype)
+
+
+def _layer_stack_modes(layers, target, ftb):
+    """{mode: (kernel outputs, launches counted)} of the colour, depth and
+    both modes, each one launch."""
+    out = {}
+    for mode in ("rgb", "depth", "both"):
+        before = (rl_ops.launches, rl_ops.ftb_launches, rl_ops.both_launches)
+        if mode == "both":
+            got = rl_ops.render_layers_both(layers, *target, ftb=ftb)
+        else:
+            got = (rl_ops.render_layers(layers, *target, ftb=ftb,
+                                        depth=mode == "depth"),)
+        after = (rl_ops.launches, rl_ops.ftb_launches, rl_ops.both_launches)
+        out[mode] = (got, tuple(a - n for a, n in zip(after, before)))
+    return out
+
+
+def _check_layer_stack_modes(layers, target, ftb, h, w):
+    """Every mode, one launch each, against render_layers_plain fed the
+    kernel's own lookups (uv_project): the same taps, the composite's f32
+    math in another order, plus early termination at T < 1e-6 when ftb:
+    1e-5 on values in [-1, 1] (colour) and [0, 1) (depth). Returns the
+    kernel's (rgb, depth) of the both mode."""
+    u, v = render_ops.uv_project(*target, h, w)
+    want = (rl_ops.render_layers_plain(layers, u, v),
+            rl_ops.render_layers_plain(layers, u, v, depth=True))
+    del u, v
+    got = _layer_stack_modes(layers, target, ftb)
+    one = (int(not ftb), int(ftb))
+    assert got["rgb"][1] == got["depth"][1] == (*one, 0)
+    assert got["both"][1] == (*one, 1)
+    for outs, wants in ((got["rgb"][0], want[:1]),
+                        (got["depth"][0], want[1:]),
+                        (got["both"][0], want)):
+        for g, wnt in zip(outs, wants):
+            assert g.shape == wnt.shape == (layers.shape[0], h, w, 3)
+            assert (g - wnt).abs().max().item() <= 1e-5
+    return got["both"][0]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("depth", [False, True])
 @pytest.mark.parametrize("ftb", [False, True])
 @pytest.mark.parametrize("rot_deg", [0.0, 40.0])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_render_layers_kernel_matches_plain(cuda, rot_deg, dtype, ftb,
-                                            depth):
-    """Back to front (K4/K5) and front to back with early termination at
-    T < 1e-6 (K6), colour and depth, against the shell-streamed plain
-    composite: the same f32 samples composited in another order, 1e-5 on
-    values in [-1, 1]."""
-    rng = np.random.RandomState(9)
-    layers = rng.uniform(-1, 1, (2, P, 4, H, W)).astype(np.float32)
-    layers[:, :, 3] = 1.0 / (1.0 + np.exp(-3.0 * layers[:, :, 3]))
-    layers = torch.from_numpy(layers).to(cuda, dtype)
-    u, v = _uv(cuda, rot_deg)
-    u, v = torch.cat([u, u]), torch.cat([v, v.flip(-1)])
-    before = (rl_ops.launches, rl_ops.ftb_launches)
-    got = rl_ops.render_layers(layers, u, v, ftb=ftb, depth=depth)
-    want = rl_ops.render_layers_plain(layers, u, v, depth=depth)
-    assert (got - want).abs().max().item() <= 1e-5
-    assert (rl_ops.launches, rl_ops.ftb_launches) == (
-        before[0] + (not ftb), before[1] + ftb)
+def test_render_layers_kernel_matches_plain(cuda, rot_deg, dtype, ftb):
+    """Back to front (K4/K5) and front to back (K6), colour, depth and
+    both, two targets in a batch, against the plain version fed the
+    kernel's own lookups (_check_layer_stack_modes)."""
+    layers = _stack(cuda, dtype, 2, P, H, W)
+    pose, pos, radii = _target(cuda, rot_deg)
+    target = (pose.expand(2, 4, 4), torch.cat([pos, -pos]), radii)
+    _check_layer_stack_modes(layers, target, ftb, H, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ftb", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_render_layers_kernel_flagship(cuda, dtype, ftb):
+    """The same at the flagship's 640x320 and 32 shells (1 m to 100 m),
+    rotated and translated target."""
+    from matryodshka_tpu_torch.geometry import sweep as sweep_lib
+    radii = torch.tensor(sweep_lib.inv_depths(1.0, 100.0, 32),
+                         dtype=torch.float32, device=cuda)
+    pose, pos, _ = _target(cuda, 30.0)
+    _check_layer_stack_modes(_stack(cuda, dtype, 1, 32, 320, 640),
+                             (pose, pos, radii), ftb, 320, 640)
+
+
+@pytest.mark.cuda
+def test_render_layers_kernel_hres(cuda):
+    """The high-res re-render's case: a bf16 stack of 32 4096x2048 shells
+    (2^30 values: 64-bit plane offsets), back to front, every mode."""
+    from matryodshka_tpu_torch.geometry import sweep as sweep_lib
+    radii = torch.tensor(sweep_lib.inv_depths(1.0, 100.0, 32),
+                         dtype=torch.float32, device=cuda)
+    pose, pos, _ = _target(cuda, 0.0)
+    rgb, depth = _check_layer_stack_modes(
+        _stack(cuda, torch.bfloat16, 1, 32, 2048, 4096), (pose, pos, radii),
+        False, 2048, 4096)
+    assert torch.isfinite(rgb).all() and torch.isfinite(depth).all()
+
+
+@pytest.mark.cuda
+def test_uv_project_hres_matches_float64(cuda):
+    """The kernels' projection at 4096x2048 and 32 shells against
+    intersect_sphere_uv in float64, four shells at a time, within the f32
+    noise bound (grids.lookup_error)."""
+    from matryodshka_tpu_torch.geometry import grids
+    from matryodshka_tpu_torch.geometry import sweep as sweep_lib
+    radii = torch.tensor(sweep_lib.inv_depths(1.0, 100.0, 32),
+                         dtype=torch.float32, device=cuda)
+    pose, pos, _ = _target(cuda, 30.0)
+    for p0 in range(0, 32, 4):
+        r = radii[p0:p0 + 4].contiguous()
+        u, v = render_ops.uv_project(pose, pos, r, 2048, 4096)
+        u6, v6 = render_lib.uv_tables(pose.double(), pos.double(),
+                                      r.double(), 2048, 4096)
+        err = grids.lookup_error(u, v, u6, v6,
+                                 r.double()[None, :, None, None], 2048, 4096)
+        assert err["u"] <= 1.0 and err["v"] <= 1.0, (p0, err)
+
+
+@pytest.mark.cuda
+def test_layer_stack_paths_build_no_tables(cuda):
+    """The CLI's layer-stack request (blend_bg), its ftb request and the
+    high-res re-render: one layer-stack launch per render call (image and
+    depth together) and no uv_tables build."""
+    from matryodshka_tpu_torch.cli import test as cli_test
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P, ngf=NGF,
+                             which_color_pred="blend_bg", hres_height=2 * H,
+                             hres_width=2 * W)
+    params = entry.make_params(cfg, seed=3, device=cuda)
+    b = entry.synthetic_batch(cfg, 2, cuda, tgt_pos=(0.03, -0.01, 0.02))
+    counts = ((rl_ops, "launches"), (rl_ops, "ftb_launches"),
+              (rl_ops, "both_launches"), (render_lib, "uv_builds"))
+    for ftb, want in ((False, [1, 0, 1, 0]), (True, [0, 1, 1, 0])):
+        before = [getattr(m, c) for m, c in counts]
+        cli_test.build_infer_fn(cfg, params, "tgt_image", ftb=ftb)(b)
+        assert [getattr(m, c) - n for (m, c), n in zip(counts, before)] \
+            == want
+    hcfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                              num_msi_planes=P, ngf=NGF, hres_height=2 * H,
+                              hres_width=2 * W)
+    rng = np.random.RandomState(11)
+    img = [torch.from_numpy(rng.rand(1, 2 * H, 2 * W, 3).astype(
+        np.float32)).to(cuda) for _ in range(2)]
+    bw, al = (torch.from_numpy(rng.rand(1, H, W, P).astype(np.float32)).to(
+        cuda) for _ in range(2))
+    eye = torch.eye(4, device=cuda)[None]
+    before = [getattr(m, c) for m, c in counts]
+    cli_test.build_hres_render_fn(hcfg)(*img, bw, al, eye, eye, eye,
+                                        b["intrinsics"], b["tgt_pose"])
+    assert [getattr(m, c) - n for (m, c), n in zip(counts, before)] == \
+        [1, 0, 1, 0]
 
 
 @pytest.mark.cuda

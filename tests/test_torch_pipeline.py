@@ -199,8 +199,12 @@ def test_wrappers_raise_off_cpu_and_cuda():
         render_ops.uv_project(pose, pos, depths, 8, 16)
     layers = torch.empty((1, 2, 4, 8, 16), device=meta)
     for ftb in (False, True):
+        for depth in (False, True):
+            with pytest.raises(ValueError):
+                rl_ops.render_layers(layers, pose, pos, depths, ftb=ftb,
+                                     depth=depth)
         with pytest.raises(ValueError):
-            rl_ops.render_layers(layers, vol[:, :2], vol[:, :2], ftb=ftb)
+            rl_ops.render_layers_both(layers, pose, pos, depths, ftb=ftb)
 
 
 def test_config_accepts_only_blend_psv():

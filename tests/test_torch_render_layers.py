@@ -4,14 +4,18 @@ held against these on the card by tests/test_torch_kernels_cuda.py).
 
 * over_composite_depth and the gather render_equirect_depth against
   geometry/render.py;
-* render_layers_plain (the plain version of csrc/render_layers.cu, K4/K5/
-  K6) on the port's prepared stack against the JAX package's
+* render_layers' CPU route (uv_tables + render_layers_plain, the plain
+  version of csrc/render_layers.cu, K4/K5/K6) on the port's prepared
+  stack against the JAX package's
   render_equirect_view_from_prepared / render_equirect_depth_from_prepared
   on its own prepared stack of the same prediction and volumes, with the
   ladder kernels in interpret mode (as tests/test_prepared_path.py runs
   them), for three schemes, with the back-to-front (K4) and the
   front-to-back (K6, pallas_render.DEFAULT_FTB) kernel, for a translated
-  target (the ladder) and a rotated one (the JAX gather fallback);
+  target (the ladder) and a rotated one (the JAX gather fallback); the
+  image-and-depth entry (render_view_and_depth_from_prepared, one
+  uv_tables build) against the same pair for both poses with ftb on and
+  off, and against the port's two one-output calls, bit for bit;
 * render_blend_plain(depth=True) (K3's depth mode) against the JAX
   render_equirect_view_fused_blend(depth=True) in interpret mode.
 
@@ -108,7 +112,7 @@ def test_plain_composite_equals_closed_form(depth):
         np.float32))
     v = torch.from_numpy(rng.uniform(-20, 40, (2, P, 16, 32)).astype(
         np.float32))
-    got = rl_ops.render_layers(layers, u, v, depth=depth)
+    got = rl_ops.render_layers_plain(layers, u, v, depth=depth)
     composite = (trender.over_composite_depth if depth
                  else trender.over_composite)
     from matryodshka_tpu_torch.ops.resample import resample_layers_uv
@@ -125,25 +129,76 @@ def test_plain_composite_equals_closed_form(depth):
                                     "alpha_only"])
 def test_layer_stack_render_matches_jax(scheme, kind, ftb, monkeypatch):
     monkeypatch.setattr(pallas_render, "DEFAULT_FTB", ftb)
-    pred, vol = _inputs(scheme, seed=3)
-    fgF, bgF = _flipped(vol)
-    cap_pad = jrender._cap_band_pad(H, W, pallas_render.CAP_ROWS)
-    jprep = jmsi.assemble_rgba_prepared(
-        scheme, jnp.asarray(pred[0].transpose(1, 2, 0)), fgF, bgF, P,
-        cap_pad=cap_pad)
-    jouts = {k: v[None] for k, v in jprep.items()}
-    touts = {"layers": tmsi.assemble_rgba_prepared(
-        scheme, torch.from_numpy(pred), torch.from_numpy(vol), P)}
-    pose, pos = _pose(kind)
-    jargs = (jnp.asarray(pose), jnp.asarray(pos), jnp.asarray(RADII), H)
-    targs = (torch.from_numpy(pose), torch.from_numpy(pos),
-             torch.from_numpy(RADII))
+    jouts, jargs, touts, targs = _layer_stack_case(scheme, kind)
     for fn in ("render_equirect_view_from_prepared",
                "render_equirect_depth_from_prepared"):
         ref = np.asarray(getattr(jmsi, fn)(jouts, *jargs, interpret=True))
         got = getattr(tmsi, fn)(touts, *targs, ftb=ftb).numpy()
         assert got.shape == ref.shape == (1, H, W, 3)
         np.testing.assert_allclose(got, ref, rtol=0, atol=TOL, err_msg=fn)
+
+
+def _layer_stack_case(scheme, kind):
+    """(JAX prepared outputs, JAX pose args, the port's prepared outputs,
+    the port's pose args) of one prediction and volume."""
+    pred, vol = _inputs(scheme, seed=3)
+    fgF, bgF = _flipped(vol)
+    cap_pad = jrender._cap_band_pad(H, W, pallas_render.CAP_ROWS)
+    jprep = jmsi.assemble_rgba_prepared(
+        scheme, jnp.asarray(pred[0].transpose(1, 2, 0)), fgF, bgF, P,
+        cap_pad=cap_pad)
+    pose, pos = _pose(kind)
+    return ({k: v[None] for k, v in jprep.items()},
+            (jnp.asarray(pose), jnp.asarray(pos), jnp.asarray(RADII), H),
+            {"layers": tmsi.assemble_rgba_prepared(
+                scheme, torch.from_numpy(pred), torch.from_numpy(vol), P)},
+            (torch.from_numpy(pose), torch.from_numpy(pos),
+             torch.from_numpy(RADII)))
+
+
+@pytest.mark.parametrize("ftb", [False, True])
+@pytest.mark.parametrize("kind", ["translated", "rotated"])
+def test_both_equals_two_calls(kind, ftb):
+    """The image-and-depth entry (models/msi.py over
+    ops/render_layers.render_layers_both) gives the image and the depth of
+    the two one-output calls bit for bit, on a random f32 and bf16 stack."""
+    rng = np.random.RandomState(5)
+    stack = rng.uniform(-1, 1, (2, P, 4, H, W)).astype(np.float32)
+    stack[:, :, 3] = 1.0 / (1.0 + np.exp(-3.0 * stack[:, :, 3]))
+    pose, pos = _pose(kind)
+    targs = (torch.from_numpy(pose).expand(2, 4, 4),
+             torch.from_numpy(np.concatenate([pos, -pos])),
+             torch.from_numpy(RADII))
+    for dtype in (torch.float32, torch.bfloat16):
+        outs = {"layers": torch.from_numpy(stack).to(dtype)}
+        n = trender.uv_builds
+        img, depth = tmsi.render_view_and_depth_from_prepared(
+            outs, *targs, ftb=ftb)
+        assert trender.uv_builds == n + 1
+        assert img.shape == depth.shape == (2, H, W, 3)
+        assert torch.equal(img, tmsi.render_equirect_view_from_prepared(
+            outs, *targs, ftb=ftb))
+        assert torch.equal(depth, tmsi.render_equirect_depth_from_prepared(
+            outs, *targs, ftb=ftb))
+
+
+@pytest.mark.parametrize("ftb", [False, True])
+@pytest.mark.parametrize("kind", ["translated", "rotated"])
+def test_layer_stack_both_matches_jax(kind, ftb, monkeypatch):
+    """The image-and-depth entry against the JAX package's
+    render_equirect_view_from_prepared and render_equirect_depth_from_
+    prepared (ladder kernels in interpret mode, K6 when ftb; the gather
+    fallback for the rotated pose) on its own prepared stack of the same
+    prediction and volume, blend_bg, within TOL (module docstring)."""
+    monkeypatch.setattr(pallas_render, "DEFAULT_FTB", ftb)
+    jouts, jargs, touts, targs = _layer_stack_case("blend_bg", kind)
+    got = tmsi.render_view_and_depth_from_prepared(touts, *targs, ftb=ftb)
+    for fn, g in zip(("render_equirect_view_from_prepared",
+                      "render_equirect_depth_from_prepared"), got):
+        ref = np.asarray(getattr(jmsi, fn)(jouts, *jargs, interpret=True))
+        assert g.shape == ref.shape == (1, H, W, 3)
+        np.testing.assert_allclose(g.numpy(), ref, rtol=0, atol=TOL,
+                                   err_msg=fn)
 
 
 @pytest.mark.parametrize("kind", ["translated", "rotated"])
