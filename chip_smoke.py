@@ -17,7 +17,7 @@ plain projection in float64 (the worst errors and the bound printed),
 and the kernel against its plain version fed the instrument's tables,
 the layer-stack render in each output mode (image, depth, both in one
 launch), back to front and front to back, bf16 and f32 stacks.
-Then it drives six paths, each with every launch count set to 0 just
+Then it drives eight paths, each with every launch count set to 0 just
 before it and read just after (on the first, exactly one sweep and one
 render launch per frame, and one device operation per stage in a
 profiler trace):
@@ -46,7 +46,18 @@ profiler trace):
    K8's atan2/sqrt, bf16 roll and run-time-shift roll, K9's left shift
    through shared memory, on the JAX tools' inputs), then each probe kernel
    against its plain version on those inputs and its time per launch, by
-   CUDA events and by profiler device time, beside torch.roll's.
+   CUDA events and by profiler device time, beside torch.roll's;
+7. the E-LPIPS trainer: the released recipe (which_loss=elpips, the coord
+   net, random E-LPIPS features) for 8 steps and the wrap net's recipe
+   for 3 (K1; K7 and wgrad on the wrap net), every metrics record stamped
+   elpips_calibrated: false; the E-LPIPS part of a step at each scale
+   level; the card's E-LPIPS distance and input gradient against the
+   CPU's at fixed draws; one step's gradients against the all-plain f32
+   route;
+8. the evaluator: the coord net's test CLI writes two examples and two
+   video frames (K1, K2c, K3), then cli/evaluate.main with E-LPIPS in reg
+   and video mode on the card and on the CPU, the two JSONs held to each
+   other, and its time per example.
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
 and plain versions are timed with CUDA events (the conv layers with their
@@ -67,6 +78,7 @@ card's name and power limit), then a JSON line of kernels, then the
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import json
@@ -152,6 +164,29 @@ WGRAD_TOL = 1e-3
 #: K7c's sums against its plain version's: |ds1| <= STATS_TOL * sum|y| and
 #: |ds2| <= STATS_TOL * s2 (see wrap_conv_kernels).
 STATS_TOL = 1e-5
+
+
+#: The K7 kernels' launch counters in ops/wrap_conv.py.
+K7_COUNTS = {"wrap_conv_k7a": "k7a_launches", "wrap_conv_k7b": "k7b_launches",
+             "wrap_conv_k7c": "k7c_launches",
+             "wrap_conv_wgrad": "wgrad_launches"}
+#: Path 7 (E-LPIPS), at fixed draws: the card's distance within
+#: ELPIPS_TOL relative and its input gradient within relative L2
+#: ELPIPS_GRAD_TOL of the CPU's. Both run float32 convs (TF32 off inside
+#: the metric) through ~20 layers in other summation orders: ~1e-6
+#: relative; a wrong tap, pool or mask gives O(1).
+ELPIPS_TOL = 1e-4
+ELPIPS_GRAD_TOL = 1e-3
+ELPIPS_LEVELS = (1, 2, 8)
+#: Steps of the wrap-net E-LPIPS recipe (launch counts only).
+ELPIPS_WRAP_STEPS = 3
+#: Path 8 (the evaluator): card against CPU, SSIM and the temporal diffs
+#: absolute, PSNR in dB, E-LPIPS relative. float32 filters and convs in
+#: other orders: SSIM ~1e-7, PSNR ~1e-6 dB.
+EVAL_SSIM_TOL = 1e-5
+EVAL_PSNR_TOL = 1e-4
+EVAL_ELPIPS_TOL = 1e-4
+EVAL_DIFF_TOL = 1e-6
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -332,6 +367,36 @@ def device_ms(fns, kernels, pattern: str, calls: int = 10):
             for i, k in enumerate(kernels):
                 per_fn[i] += sum(next(durs) for _ in range(k)) / 1e3 / calls
     return per_fn, total, len(events) / calls
+
+
+def trace_counted(fn, counters=None):
+    """trace.trace_part(fn), checked against the wrappers' launch counts
+    where counters is given (counters() sums the counts of the kernels fn
+    launches, each count one kernel). A trace that holds no device event,
+    or whose events of the port's kernels (trace.PORT_KERNELS) per call
+    differ from the launches counted per call over its window, missed part
+    of the window (the profiler now and then drops device events) and is
+    taken again, up to TRACE_TRIES times. Returns trace_part's tuple of the
+    first complete trace."""
+    from matryodshka_tpu_torch.trace import CALLS, port_kernels, trace_part
+    for i in range(TRACE_TRIES):
+        torch.cuda.synchronize()
+        before = counters() if counters else 0
+        try:
+            got = trace_part(fn)
+        except RuntimeError as e:     # no device event in the window
+            print(f"  trace {i + 1}/{TRACE_TRIES}: {e}; taken again")
+            continue
+        if counters is None:
+            return got
+        launched = (counters() - before) / (CALLS + 2)   # 2 warm-up calls
+        traced = sum(n for n, _ in port_kernels(*got[4:]).values()) / CALLS
+        if traced == launched:
+            return got
+        print(f"  trace {i + 1}/{TRACE_TRIES}: {traced:g} port kernel "
+              f"events per call against {launched:g} launches counted; "
+              f"taken again")
+    check(False, f"{TRACE_TRIES} traces lost device events")
 
 
 def rot_y(deg: float, device) -> torch.Tensor:
@@ -636,6 +701,60 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
             for k, v in sums.items()}
 
 
+def run_train_loop(tcfg, dev, reset_counts, read_counts, elpips, nsteps):
+    """tcfg's trainer through training/loop.train for nsteps steps on one
+    repeated in-memory batch, with E-LPIPS `elpips` (None for the pixel
+    loss) and the metrics records stamped with its calibration; the launch
+    counts (K7's too) zeroed before and read after. Returns (state,
+    launches, CUDA events per step, metrics records, peak bytes, bytes held
+    before)."""
+    from matryodshka_tpu_torch.data.loader import device_prefetch
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    from matryodshka_tpu_torch.training import loop as loop_lib
+    from matryodshka_tpu_torch.training import state as state_lib
+    from matryodshka_tpu_torch.training import step as step_lib
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        tcfg = dataclasses.replace(tcfg, max_steps=nsteps, summary_freq=1,
+                                   save_latest_freq=nsteps,
+                                   checkpoint_dir=ckdir,
+                                   experiment_name="run")
+        tstate = state_lib.init_state(tcfg, 0, dev)
+        np_batch = training_batch(tcfg)
+        step_fn = step_lib.make_train_step(tcfg, tstate.net, elpips=elpips)
+        events = []
+
+        def timed_step(state, b):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = step_fn(state, b)
+            e.record()
+            events.append((s, e))
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        reset_counts()
+        for attr in K7_COUNTS.values():
+            setattr(wc, attr, 0)
+        # the batches reach the card as the CLI sends them: pinned copies,
+        # non_blocking, from device_prefetch's thread
+        batches = device_prefetch(itertools.repeat(np_batch), size=2,
+                                  device=dev)
+        tstate = loop_lib.train(
+            tcfg, tstate, timed_step, batches, static_log_fields=None
+            if elpips is None else {"elpips_calibrated": elpips.calibrated})
+        batches.close()
+        launches = read_counts()
+        launches.update({k: getattr(wc, a) for k, a in K7_COUNTS.items()})
+        peak = torch.cuda.max_memory_allocated()
+        with open(f"{ckdir}/run/logs/metrics.jsonl") as fh:
+            records = [json.loads(line) for line in fh]
+    return tstate, launches, events, records, peak, mem0
+
+
 def training_path(dev, tag, reset_counts, read_counts):
     """Path 5: the default ODS trainer through training/loop.train for
     TRAIN_WARMUP + TRAIN_STEPS steps on one repeated in-memory batch at
@@ -645,63 +764,19 @@ def training_path(dev, tag, reset_counts, read_counts):
     beside the all-plain bf16 route's. Returns each kernel's launches over
     the steps."""
     from matryodshka_tpu_torch import entry
-    from matryodshka_tpu_torch.data.loader import device_prefetch
-    from matryodshka_tpu_torch.models import msi as msi_lib
-    from matryodshka_tpu_torch.models.unet import MSIUNet
-    from matryodshka_tpu_torch.ops import sweep as sweep_ops
-    from matryodshka_tpu_torch.ops import wrap_conv as wc
-    from matryodshka_tpu_torch.training import loop as loop_lib
-    from matryodshka_tpu_torch.training import state as state_lib
     from matryodshka_tpu_torch.training import step as step_lib
 
-    k7_counts = {"wrap_conv_k7a": "k7a_launches",
-                 "wrap_conv_k7b": "k7b_launches",
-                 "wrap_conv_k7c": "k7c_launches",
-                 "wrap_conv_wgrad": "wgrad_launches"}
     nsteps = TRAIN_WARMUP + TRAIN_STEPS
-    with tempfile.TemporaryDirectory() as ckdir:
-        tcfg = entry.flagship_cfg(max_steps=nsteps, summary_freq=1,
-                                  save_latest_freq=nsteps,
-                                  checkpoint_dir=ckdir,
-                                  experiment_name="smoke")
-        tstate = state_lib.init_state(tcfg, 0, dev)
-        np_batch = training_batch(tcfg)
-        tbatch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
-        step_fn = step_lib.make_train_step(tcfg, tstate.net)
-        step_events = []
-
-        def timed_step(state, b):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = step_fn(state, b)
-            e.record()
-            step_events.append((s, e))
-            return out
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mem0 = torch.cuda.memory_allocated()
-        reset_counts()
-        for attr in k7_counts.values():
-            setattr(wc, attr, 0)
-        # the batches reach the card as the CLI sends them: pinned copies,
-        # non_blocking, from device_prefetch's thread
-        batches = device_prefetch(itertools.repeat(np_batch), size=2,
-                                  device=dev)
-        tstate = loop_lib.train(tcfg, tstate, timed_step, batches)
-        batches.close()
-        torch.cuda.synchronize()
-        train_launches = read_counts()
-        train_launches.update({k: getattr(wc, a)
-                               for k, a in k7_counts.items()})
-        train_peak = torch.cuda.max_memory_allocated()
-        with open(f"{ckdir}/smoke/logs/metrics.jsonl") as fh:
-            losses = [json.loads(line)["total_loss"] for line in fh]
+    tcfg = entry.flagship_cfg()
+    tstate, train_launches, step_events, records, train_peak, mem0 = \
+        run_train_loop(tcfg, dev, reset_counts, read_counts, None, nsteps)
+    losses = [r["total_loss"] for r in records]
+    tbatch = {k: torch.from_numpy(v).to(dev)
+              for k, v in training_batch(tcfg).items()}
     print(f"launches over {nsteps} training steps: {train_launches}")
     check(tstate.step == nsteps and len(losses) == nsteps,
           f"training ran {tstate.step} steps")
-    for k in ("sweep", *k7_counts):
+    for k in ("sweep", *K7_COUNTS):
         check(train_launches[k] > 0, f"kernel {k} was not launched on the "
                                      f"training path")
     step_ms = statistics.median(s.elapsed_time(e)
@@ -743,14 +818,30 @@ def training_path(dev, tag, reset_counts, read_counts):
         f"{k} {statistics.median(v):.3f}" for k, v in parts.items())
           + f" ms (median of {TRAIN_STEPS}) {tag}")
 
-    # one step from the same parameters: the kernel route (bf16) against
-    # the all-plain f32 route, with the all-plain bf16 route (no kernel of
-    # the port) as the measure of what bf16 alone costs
+    route_gate("train step", tcfg, tstate.net, tbatch, dev)
+    return train_launches
+
+
+def route_gate(what, tcfg, net, tbatch, dev, elpips=None,
+               loss_tol=TRAIN_LOSS_TOL):
+    """One step from net's parameters: the kernel route (net as the
+    trainer runs it, bf16) against the all-plain f32 route, with the
+    all-plain bf16 route (no kernel of the port) as the measure of what
+    bf16 alone costs. The loss within loss_tol relative of plain f32 (None:
+    within max(TRAIN_LOSS_TOL, TRAIN_GRAD_MARGIN x the plain bf16 route's
+    distance)), each parameter's gradient within relative L2
+    max(TRAIN_GRAD_TOL, TRAIN_GRAD_MARGIN x the plain bf16 route's).
+    elpips: the routes' shared E-LPIPS (with one fixed draw)."""
+    from matryodshka_tpu_torch.models import msi as msi_lib
+    from matryodshka_tpu_torch.models.unet import MSIUNet
+    from matryodshka_tpu_torch.ops import sweep as sweep_ops
+    from matryodshka_tpu_torch.training import step as step_lib
+
     def plain_net(dtype):
         net_ = MSIUNet(tcfg.num_net_inputs(), tcfg.num_net_outputs(),
                        tcfg.ngf, dtype=dtype,
                        variant=tcfg.net_variant).to(dev)
-        net_.load_state_dict(tstate.net.state_dict())
+        net_.load_state_dict(net.state_dict())
         return net_
 
     def plain_sweep(dtype):
@@ -763,38 +854,306 @@ def training_path(dev, tag, reset_counts, read_counts):
 
     routes = {}
     for key, net_, sweep in (
-            ("kernel", tstate.net, None),
+            ("kernel", net, None),
             ("plain_bf16", plain_net(torch.bfloat16),
              plain_sweep(torch.bfloat16)),
             ("plain", plain_net(torch.float32), plain_sweep(torch.float32))):
         net_.zero_grad(set_to_none=True)
-        loss_r, _ = step_lib.make_loss_fn(tcfg, net_, sweep)(tbatch)
+        loss_r, _ = step_lib.make_loss_fn(tcfg, net_, sweep, elpips)(tbatch)
         loss_r.backward()
         routes[key] = (loss_r.item(), {n: p.grad.detach().float()
                                        for n, p in net_.named_parameters()})
         del loss_r, net_
     lp, gp = routes["plain"]
-    rel = {}
-    for key in ("kernel", "plain_bf16"):
+    rel, loss_rel = {}, {}
+    for key in ("plain_bf16", "kernel"):
         lk, gk = routes[key]
+        loss_rel[key] = abs(lk - lp) / abs(lp)
         rel[key] = {n: ((gk[n] - gp[n]).norm() / gp[n].norm()).item()
                     for n in gp}
         worst = sorted(rel[key].items(), key=lambda kv: -kv[1])
-        print(f"train step {key} route vs all-plain f32, same parameters: "
-              f"loss {lk:.4f} vs {lp:.4f}, rel {abs(lk - lp) / abs(lp):.3e} "
-              f"(tol {TRAIN_LOSS_TOL:.0e}); gradient rel L2 median "
+        tol = (loss_tol if loss_tol is not None else max(
+            TRAIN_LOSS_TOL, TRAIN_GRAD_MARGIN * loss_rel["plain_bf16"]))
+        print(f"{what} {key} route vs all-plain f32, same parameters: "
+              f"loss {lk:.4f} vs {lp:.4f}, rel {loss_rel[key]:.3e} "
+              f"(tol {tol:.0e}); gradient rel L2 median "
               f"{statistics.median(rel[key].values()):.3e}, worst "
               + ", ".join(f"{n} {v:.3e}" for n, v in worst[:4]))
-        check(abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp),
-              f"train loss, {key} vs plain f32 route")
+        check(loss_rel[key] <= tol, f"{what} loss, {key} vs plain f32 route")
     bad = [n for n, v in rel["kernel"].items()
            if v > max(TRAIN_GRAD_TOL, TRAIN_GRAD_MARGIN * rel["plain_bf16"][n])]
-    print(f"train gradients of the kernel route within max({TRAIN_GRAD_TOL:.0e},"
-          f" {TRAIN_GRAD_MARGIN} x the plain bf16 route's) of plain f32: "
-          f"{len(rel['kernel']) - len(bad)} of {len(rel['kernel'])} "
-          f"parameters {'ok' if not bad else 'FAIL ' + ', '.join(bad)}")
-    check(not bad, f"train gradients {bad}, kernel vs plain route")
-    return train_launches
+    print(f"{what} gradients of the kernel route within max("
+          f"{TRAIN_GRAD_TOL:.0e}, {TRAIN_GRAD_MARGIN} x the plain bf16 "
+          f"route's) of plain f32: {len(rel['kernel']) - len(bad)} of "
+          f"{len(rel['kernel'])} parameters "
+          f"{'ok' if not bad else 'FAIL ' + ', '.join(bad)}")
+    check(not bad, f"{what} gradients {bad}, kernel vs plain route")
+
+
+def elpips_training_path(dev, tag, reset_counts, read_counts):
+    """Path 7: the E-LPIPS trainer at the flagship shape. The released
+    recipe (scripts/train/ods-wotemp-elpips-coord.sh: which_loss=elpips,
+    the coord net, elpips_average_over 1, random features) for
+    TRAIN_WARMUP + TRAIN_STEPS steps, then the wrap recipe
+    (ods-wotemp-elpips-wocoord) for ELPIPS_WRAP_STEPS, each through
+    training/loop.train with the launch counts zeroed and read. Then the
+    E-LPIPS part of a step (forward and input gradient on the step's
+    render) at each scale level, both swaps; the card's distance and input
+    gradient against the CPU's at fixed draws (ELPIPS_LEVELS, both swaps);
+    one step's gradients against the all-plain f32 route (route_gate)."""
+    import warnings
+
+    from matryodshka_tpu_torch import entry
+    from matryodshka_tpu_torch.losses.elpips import api as elpips_api
+    from matryodshka_tpu_torch.models import msi as msi_lib
+    from matryodshka_tpu_torch.training import step as step_lib
+
+    nsteps = TRAIN_WARMUP + TRAIN_STEPS
+    tcfg = entry.flagship_cfg(which_loss="elpips", coord_net=True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="elpips: no weight_path")
+        metric = step_lib.build_elpips(tcfg, dev)
+        metric_cpu = step_lib.build_elpips(tcfg, "cpu")
+    check(not metric.calibrated, "E-LPIPS without weights is uncalibrated")
+    tstate, launches, events, records, peak, mem0 = run_train_loop(
+        tcfg, dev, reset_counts, read_counts, metric, nsteps)
+    print(f"launches over {nsteps} E-LPIPS training steps (coord net): "
+          f"{launches}")
+    check(tstate.step == nsteps and len(records) == nsteps,
+          f"E-LPIPS training ran {tstate.step} steps")
+    check(launches["sweep"] > 0, "kernel sweep was not launched on the "
+                                 "E-LPIPS training path")
+    check(all(r.get("elpips_calibrated") is False for r in records),
+          "every metrics record says elpips_calibrated: false")
+    losses = [r["total_loss"] for r in records]
+    check(all(math.isfinite(v) for v in losses), "E-LPIPS losses finite")
+    # the levels the steps drew: the step's generator feeds only the
+    # metric's draws, so a generator seeded alike replays them
+    g = torch.Generator().manual_seed(tcfg.random_seed)
+    levels = [(d.params.scale_level, d.params.swap_xy)
+              for d in (metric.draw(1, g) for _ in range(nsteps))]
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    step_med = statistics.median(step_ms[TRAIN_WARMUP:])
+    print(f"elpips train step {step_med:.3f} ms (median of {TRAIN_STEPS} "
+          f"after {TRAIN_WARMUP} warm-up; coord net, 640x320, 32+32 planes, "
+          f"ngf 64, bf16, batch 1), peak device memory "
+          f"{peak / 2**30:.3f} GiB ({(peak - mem0) / 2**30:.3f} GiB above "
+          f"the {mem0 / 2**30:.3f} GiB held before) {tag}")
+    print("elpips train steps (level, swap): ms " + " ".join(
+        f"({lv},{sw}):{t:.3f}" for (lv, sw), t in zip(levels, step_ms)))
+    print("elpips train losses: " + " ".join(f"{v:.4f}" for v in losses))
+
+    wcfg = entry.flagship_cfg(which_loss="elpips")
+    wstate, wl, _, wrecs, _, _ = run_train_loop(
+        wcfg, dev, reset_counts, read_counts, metric, ELPIPS_WRAP_STEPS)
+    print(f"launches over {ELPIPS_WRAP_STEPS} E-LPIPS training steps (wrap "
+          f"net): {wl}")
+    for k in ("sweep", *K7_COUNTS):
+        check(wl[k] > 0, f"kernel {k} was not launched on the wrap net's "
+                         f"E-LPIPS training path")
+    check(all(math.isfinite(r["total_loss"]) and r["elpips_calibrated"]
+              is False for r in wrecs), "wrap E-LPIPS records")
+    del wstate
+
+    # the metric's inputs as the step gives them: the [-1, 1] render of
+    # the trained net and the preprocessed target
+    tbatch = {k: torch.from_numpy(v).to(dev)
+              for k, v in training_batch(tcfg).items()}
+    loss_fn = step_lib.make_loss_fn(tcfg, tstate.net, elpips=metric)
+    with torch.no_grad():
+        vol = loss_fn.sweep(tbatch)
+        pred = loss_fn.render(vol, tstate.net(vol), tbatch)["output_image"]
+    tgt = msi_lib.preprocess_image(tbatch["tgt_image"])
+    del vol
+
+    # where the step's time goes, at one level-1 draw: the step in parts,
+    # CUDA events between
+    draw = metric.draw(1, torch.Generator().manual_seed(5), scale=1)
+    parts = {"sweep": [], "net_forward": [], "assemble_render": [],
+             "elpips": [], "backward": [], "optimizer": []}
+    for i in range(nsteps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        vol_t = loss_fn.sweep(tbatch)
+        ev[1].record()
+        pred_t = tstate.net(vol_t)
+        ev[2].record()
+        out_t = loss_fn.render(vol_t, pred_t, tbatch)["output_image"]
+        ev[3].record()
+        loss_t = torch.mean(metric(out_t, tgt, draws=[draw]))
+        ev[4].record()
+        tstate.optimizer.zero_grad(set_to_none=True)
+        loss_t.backward()
+        ev[5].record()
+        tstate.optimizer.step()
+        ev[6].record()
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            for j, k in enumerate(parts):
+                parts[k].append(ev[j].elapsed_time(ev[j + 1]))
+    del vol_t, pred_t, out_t, loss_t
+    print("elpips train step parts at level 1 " + " ".join(
+        f"{k} {statistics.median(v):.3f}" for k, v in parts.items())
+          + f" ms (median of {TRAIN_STEPS}) {tag}")
+
+    def fwd_bwd(m, p, t, draw):
+        x = p.detach().clone().requires_grad_(True)
+        d = m(x, t, draws=[draw])
+        d.mean().backward()
+        return d.item(), x.grad
+
+    gen = torch.Generator().manual_seed(7)
+    per_level = {}
+    for level in range(1, 9):
+        for swap in (False, True):
+            draw = metric.draw(1, gen, scale=level, swap=swap)
+            per_level[level, swap] = time_ms(
+                lambda: fwd_bwd(metric, pred, tgt, draw), iters=5)
+    probs = np.asarray(metric.config.scale_probabilities)
+    probs = probs / probs.sum()
+    expect = sum(p * (per_level[lv, False] + per_level[lv, True]) / 2
+                 for lv, p in zip(range(1, 9), probs))
+    print("elpips forward + input gradient per scale level, ms (swap off, "
+          "on; share of the step's median): " + "; ".join(
+              f"{lv}: {per_level[lv, False]:.3f}, {per_level[lv, True]:.3f} "
+              f"({(per_level[lv, False] + per_level[lv, True]) / 2 / step_med:.3f})"
+              for lv in range(1, 9))
+          + f"; expected under the 1/i^2 prior {expect:.3f} ms "
+            f"({expect / step_med:.3f} of the step) {tag}")
+
+    for level in ELPIPS_LEVELS:
+        for swap in (False, True):
+            draw = metric.draw(1, gen, scale=level, swap=swap)
+            dc, gc = fwd_bwd(metric_cpu, pred.cpu(), tgt.cpu(),
+                             elpips_api.Draw(draw.params, draw.seed))
+            dg, gg = fwd_bwd(metric, pred, tgt,
+                             elpips_api.Draw(draw.params, draw.seed))
+            rd = abs(dg - dc) / abs(dc)
+            rg = ((gg.cpu() - gc).norm() / gc.norm()).item()
+            ok = rd <= ELPIPS_TOL and rg <= ELPIPS_GRAD_TOL
+            print(f"elpips level {level} swap {swap:d} card vs CPU f32: "
+                  f"distance {dg:.6f} vs {dc:.6f} rel {rd:.3e} (tol "
+                  f"{ELPIPS_TOL:.0e}); input gradient rel L2 {rg:.3e} (tol "
+                  f"{ELPIPS_GRAD_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"elpips level {level} swap {swap}, card vs CPU")
+    del metric_cpu
+
+    # one step's gradients at one fixed draw (level 1, the likeliest),
+    # the same for the three routes
+    draw = metric.draw(1, gen, scale=1, swap=False)
+    route_gate("elpips train step", tcfg, tstate.net, tbatch, dev,
+               elpips=lambda p, t, g: metric(p, t, draws=[draw]),
+               loss_tol=None)
+    return launches, wl
+
+
+def evaluator_path(dev, tag, reset_counts, read_counts):
+    """Path 8: the evaluator. The coord net's test CLI (main, seeded
+    weights from --params, --test_outputs tgt_image) writes two examples
+    and then two consecutive video frames of a 640x320 synthetic fixture
+    to a temporary directory, the launch counts zeroed before and read
+    after; then cli/evaluate.main with --with_elpips --allow_uncalibrated
+    in reg and video mode, on the card and with --device cpu, the two
+    JSONs held to each other; then the card's ms per example."""
+    import warnings
+
+    from matryodshka_tpu_torch import entry, weights
+    from matryodshka_tpu_torch.cli import evaluate as cli_evaluate
+    from matryodshka_tpu_torch.cli import test as cli_test
+    from matryodshka_tpu_torch.data.synthetic import make_ods_fixture
+    from matryodshka_tpu_torch.losses.elpips import api as elpips_api
+    from matryodshka_tpu_torch.training.checkpoint import save_params
+
+    ccfg = entry.flagship_cfg(coord_net=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cams = make_ods_fixture(f"{tmp}/fix", num_scenes=1,
+                                height=ccfg.height, width=ccfg.width)
+        save_params(f"{tmp}/coord.npz", weights.seeded_init(ccfg, 0))
+        flags = ["--image_dir", f"{tmp}/fix/images", "--cameras_glob", cams,
+                 "--height", str(ccfg.height), "--width", str(ccfg.width),
+                 "--num_psv_planes", str(ccfg.num_psv_planes),
+                 "--num_msi_planes", str(ccfg.num_msi_planes),
+                 "--ngf", str(ccfg.ngf),
+                 "--coord_net", "true", "--params", f"{tmp}/coord.npz",
+                 "--output_root", f"{tmp}/out", "--experiment_name", "eval",
+                 "--test_outputs", "tgt_image", "--num_runs", "2",
+                 "--device", str(dev)]
+        reset_counts()
+        t0 = time.perf_counter()
+        cli_test.main(flags)
+        cli_test.main(flags + ["--test_type", "on_video"])
+        cli_wall = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"launches of the test CLI runs the evaluator reads: "
+              f"{launches}")
+        for k in ("sweep", "conv_coord", "layernorm", "render",
+                  "render_depth"):
+            check(launches[k] > 0, f"kernel {k} was not launched on the "
+                                   f"evaluator's test CLI path")
+        root = f"{tmp}/out/eval"
+        out, wall = {}, {}
+        for mode in ("reg", "video"):
+            for side, d in (("card", str(dev)), ("cpu", "cpu")):
+                t0 = time.perf_counter()
+                with warnings.catch_warnings():
+                    warnings.filterwarnings("ignore",
+                                            message="elpips: no weight_path")
+                    out[mode, side] = cli_evaluate.main([
+                        "--result_root", root, "--eval_type", mode,
+                        "--with_elpips", "--allow_uncalibrated", "--device",
+                        d, "--output_json", f"{tmp}/{mode}_{side}.json"])
+                wall[mode, side] = time.perf_counter() - t0
+        examples = cli_evaluate.collect_examples(root)
+        imgs = [(cli_evaluate._load(e["gt"]), cli_evaluate._load(e["out"]))
+                for e in examples]
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="elpips: no weight_path")
+            metric = elpips_api.Metric(elpips_api.elpips_vgg()).to(dev)
+    reg_c, reg_p = out["reg", "card"], out["reg", "cpu"]
+    vid_c, vid_p = out["video", "card"], out["video", "cpu"]
+    check(len(reg_c["per_example"]) == 4 and len(examples) == 4,
+          "two examples and two video frames, all four scored")
+    check(list(reg_c) == list(reg_p) and list(vid_c) == list(vid_p),
+          "the card's and the CPU's JSON keys")
+    check(reg_c["elpips_calibrated"] is False, "elpips_calibrated: false")
+    worst = {"ssim": 0.0, "psnr": 0.0, "elpips": 0.0}
+    for ec, ep in zip(reg_c["per_example"] + [reg_c],
+                      reg_p["per_example"] + [reg_p]):
+        for k in worst:
+            key = k if k in ec else f"avg_{k}"
+            check(math.isfinite(ec[key]), f"eval {key} finite")
+            err = abs(ec[key] - ep[key])
+            worst[k] = max(worst[k], err / abs(ep[key]) if k == "elpips"
+                           else err)
+    diff = max(abs(vid_c[k] - vid_p[k]) for k in (
+        "avg_rgb_diff", "sd_rgb_diff", "avg_depth_diff", "sd_depth_diff"))
+    ok = (worst["ssim"] <= EVAL_SSIM_TOL and worst["psnr"] <= EVAL_PSNR_TOL
+          and worst["elpips"] <= EVAL_ELPIPS_TOL and diff <= EVAL_DIFF_TOL)
+    print(f"evaluator card vs CPU over {len(examples)} examples and their "
+          f"means: SSIM {worst['ssim']:.3e} (tol {EVAL_SSIM_TOL:.0e}), PSNR "
+          f"{worst['psnr']:.3e} dB (tol {EVAL_PSNR_TOL:.0e}), E-LPIPS rel "
+          f"{worst['elpips']:.3e} (tol {EVAL_ELPIPS_TOL:.0e}); temporal "
+          f"diffs {diff:.3e} (tol {EVAL_DIFF_TOL:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "evaluator, card vs CPU")
+    print(f"evaluator reg: avg ssim {reg_c['avg_ssim']:.4f} psnr "
+          f"{reg_c['avg_psnr']:.3f} elpips {reg_c['avg_elpips']:.5f}; "
+          f"video: rgb diff {vid_c['avg_rgb_diff']:.5f} depth diff "
+          f"{vid_c['avg_depth_diff']:.5f}")
+    per_ex = [time_ms(lambda: cli_evaluate.evaluate_one(
+        gt, o, False, metric, dev), iters=5) for gt, o in imgs]
+    plain = [time_ms(lambda: cli_evaluate.evaluate_one(gt, o, False, None,
+                                                       dev), iters=5)
+             for gt, o in imgs]
+    print(f"evaluator ms per 640x320 example on the card (median of 5 "
+          f"each; SSIM, PSNR, E-LPIPS at the seed-0 draw, level "
+          f"{metric.draw(1, torch.Generator().manual_seed(0)).params.scale_level}): "
+          f"{statistics.median(per_ex):.3f} ({statistics.median(plain):.3f} "
+          f"without E-LPIPS); main's wall per example: reg card "
+          f"{wall['reg', 'card'] / 4 * 1e3:.1f}, CPU "
+          f"{wall['reg', 'cpu'] / 4 * 1e3:.1f}; the test CLI's two runs "
+          f"{cli_wall:.2f} s {tag}")
+    return launches
 
 
 def probe_path(dev, tag):
@@ -938,7 +1297,6 @@ def main() -> None:
     from matryodshka_tpu_torch.ops import render_layers as rl_ops
     from matryodshka_tpu_torch.ops import sweep as sweep_ops
     from matryodshka_tpu_torch.ops.resample import resample_layers_uv
-    from matryodshka_tpu_torch.trace import trace_part
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} {tag}")
@@ -1110,21 +1468,28 @@ def main() -> None:
           "one sweep and one render launch per frame, no instrument")
 
     # the stages' device operations per frame: one profiler trace each
-    # (trace.trace_part, 10 calls after 2 warm-up)
+    # (trace.trace_part, 10 calls after 2 warm-up; a sweep or render trace
+    # whose kernel events differ from the counted launches is taken again)
     b0, rt0 = batches[0], torch.eye(4, device=dev)[None]
     with torch.no_grad():
         vq = msi_lib.sweep_stage(cfg, b0, params.psv_depths)
         pq = msi_lib.net_stage(params.stages, vq)
-        for name, fn, want_ops in (
+        for name, fn, want_ops, mod in (
                 ("sweep", lambda: msi_lib.sweep_stage(cfg, b0,
-                                                      params.psv_depths), 1),
+                                                      params.psv_depths), 1,
+                 sweep_ops),
                 ("render", lambda: msi_lib.render_stage(
-                    vq, pq, rt0, b0["tgt_pose"], params.msi_depths), 1),
-                ("frame", lambda: entry.forward(params, b0), None)):
-            wall, busy, idle, ops, _, _ = trace_part(fn)
+                    vq, pq, rt0, b0["tgt_pose"], params.msi_depths), 1,
+                 render_ops),
+                ("frame", lambda: entry.forward(params, b0), None, None)):
+            wall, busy, idle, ops, by_name, counts = trace_counted(
+                fn, mod and (lambda m=mod: m.launches))
             print(f"stage {name:6s} {ops:g} device ops/frame (trace: host "
                   f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
                   f"share {idle:.3f}) {tag}")
+            if want_ops is not None and ops != want_ops:
+                for op, n in counts.most_common():
+                    print(f"  {n} x {op[:100]} ({by_name[op]:.1f} us)")
             check(want_ops is None or ops == want_ops,
                   f"the {name} stage is {want_ops} device operation")
     del vq, pq
@@ -1708,6 +2073,14 @@ def main() -> None:
                      "max_abs_err": errs[k], "ms": kt, "plain_ms": pt,
                      "bound_ms": bms, "bound_by": bby, "library_ms": lt})
     rows.extend(probe_rows)
+
+    # ---- path 7: the E-LPIPS trainer (released recipe, then the wrap net) --
+    # (after the profiler traces above: no trace follows these paths)
+    elpips_training_path(dev, tag, reset_counts, read_counts)
+
+    # ---- path 8: the evaluator on the coord net's test CLI outputs ---------
+    evaluator_path(dev, tag, reset_counts, read_counts)
+
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

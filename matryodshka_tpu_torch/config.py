@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 
@@ -76,6 +77,17 @@ class MatryConfig:
     # --- GCN variant ----------------------------------------------------------
     gcn: bool = False
 
+    # --- elpips ---------------------------------------------------------------
+    elpips_weight_path: Optional[str] = field(default=None, metadata={
+        "help": "npz with the E-LPIPS conv ('net/...', HWIO) and linear "
+                "('lin/...') weights; without one the features are random "
+                "and every metrics record says elpips_calibrated: false"})
+    elpips_average_over: int = 1
+    elpips_host_scale: bool = field(default=False, metadata={
+        "help": "parsed for the JAX package's flags and ignored: the "
+                "port's E-LPIPS draws (scale, swap) on the host at every "
+                "step and evaluates that level alone"})
+
     # --- numerics / parallelism -------------------------------------------------
     compute_dtype: str = "bfloat16"
     remat_network: bool = False
@@ -129,6 +141,8 @@ class MatryConfig:
         if self.which_loss not in LOSSES:
             raise ValueError(f"which_loss {self.which_loss!r}; known: "
                              f"{LOSSES}")
+        if self.elpips_average_over < 1:
+            raise ValueError("elpips_average_over must be at least 1")
         check_trainable(self)
         return self
 
@@ -138,8 +152,6 @@ def check_trainable(cfg: MatryConfig) -> None:
     option whose code is not ported yet."""
     parts = cfg.supervision.split("_")
     unported = [
-        (cfg.which_loss == "elpips", "which_loss=elpips: E-LPIPS is ROADMAP "
-         "Queue 1 item 7"),
         (cfg.gcn, "gcn: the GCN is ROADMAP Queue 1 item 8"),
         ("hrestgt" in parts, "supervision hrestgt: the high-res target "
          "render in training is left of ROADMAP Queue 1 item 6"),
@@ -162,13 +174,15 @@ def check_trainable(cfg: MatryConfig) -> None:
 def add_config_args(parser: argparse.ArgumentParser) -> None:
     """Register one --flag per MatryConfig field."""
     for f in dataclasses.fields(MatryConfig):
+        help_ = f.metadata.get("help")
         if isinstance(f.default, bool):
             parser.add_argument(
                 "--" + f.name, metavar="BOOL", default=f.default,
-                type=lambda s: s.lower() in ("1", "true", "yes"))
+                type=lambda s: s.lower() in ("1", "true", "yes"), help=help_)
         else:
-            parser.add_argument("--" + f.name, type=type(f.default),
-                                default=f.default)
+            parser.add_argument(
+                "--" + f.name, default=f.default, help=help_,
+                type=str if f.default is None else type(f.default))
 
 
 def config_from_args(args: argparse.Namespace) -> MatryConfig:

@@ -11,7 +11,8 @@ s is a directory `<directory>/<s>/` holding
   the file that `restore_params` and the test CLI's `--params` read
   (`python -m matryodshka_tpu_torch.tf_import` writes the same layout from
   a reference TF-v1 checkpoint);
-* `train_state.pt`: the step and the optimizer's state (`torch.save`).
+* `train_state.pt`: the step, the optimizer's state and the state of the
+  loss's generator (`torch.save`).
 """
 
 from __future__ import annotations
@@ -84,7 +85,8 @@ class CheckpointManager:
         save_params(os.path.join(tmp, PARAMS),
                     weights.to_flax(state.net.state_dict()), step)
         torch.save({"step": step,
-                    "optimizer": state.optimizer.state_dict()},
+                    "optimizer": state.optimizer.state_dict(),
+                    "generator": state.generator.get_state()},
                    os.path.join(tmp, TRAIN_STATE))
         shutil.rmtree(self._dir(step), ignore_errors=True)
         os.replace(tmp, self._dir(step))
@@ -105,13 +107,14 @@ class CheckpointManager:
         return tree, step
 
     def restore(self, state, step: Optional[int] = None):
-        """Load a checkpoint (the latest by default) into state's net and
-        optimizer, in place; returns state."""
+        """Load a checkpoint (the latest by default) into state's net,
+        optimizer and generator, in place; returns state."""
         tree, step = self.restore_params(step)
         state.net.load_state_dict(weights.from_flax(tree))
         device = next(state.net.parameters()).device
         saved = torch.load(os.path.join(self._dir(step), TRAIN_STATE),
                            map_location=device, weights_only=True)
         state.optimizer.load_state_dict(saved["optimizer"])
+        state.generator.set_state(saved["generator"].cpu())
         state.step = int(saved["step"])
         return state

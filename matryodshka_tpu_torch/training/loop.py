@@ -28,13 +28,18 @@ from matryodshka_tpu_torch.training.state import param_count
 class SummaryWriter:
     """Scalars to JSONL + images to PNG under a log dir."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, static_fields: Optional[Dict] = None):
         self.log_dir = log_dir
+        # Stamped into every scalar record: {"elpips_calibrated": false}
+        # when the perceptual loss runs on random conv features, so no
+        # metrics.jsonl carries a random-feature score unmarked.
+        self.static_fields = dict(static_fields or {})
         os.makedirs(log_dir, exist_ok=True)
         self._fh = open(os.path.join(log_dir, "metrics.jsonl"), "a")
 
     def scalars(self, step: int, metrics: Dict[str, float]) -> None:
         rec = {"step": step}
+        rec.update(self.static_fields)
         rec.update({k: float(v) for k, v in metrics.items()})
         self._fh.write(json.dumps(rec) + "\n")
         self._fh.flush()
@@ -48,7 +53,8 @@ class SummaryWriter:
 
 def train(cfg, state, train_step: Callable, batches: Iterator[Dict],
           image_summary_fn: Optional[Callable] = None,
-          steps_per_call: int = 1):
+          steps_per_call: int = 1,
+          static_log_fields: Optional[Dict] = None):
     """Run the training loop until cfg.max_steps; returns the state.
 
     Args:
@@ -58,13 +64,15 @@ def train(cfg, state, train_step: Callable, batches: Iterator[Dict],
         entries such as scene ids are dropped before the step).
       image_summary_fn: optional (state, batch) -> {name: HxWxC array},
         called every summary_freq steps.
+      static_log_fields: fields written into every metrics record.
     """
     if steps_per_call != 1:
         raise NotImplementedError("steps_per_call > 1: chained steps per "
                                   "call are ROADMAP Queue 1 item 9")
     ckpt_dir = os.path.join(cfg.checkpoint_dir, cfg.experiment_name)
     manager = CheckpointManager(ckpt_dir, max_to_keep=10)
-    writer = SummaryWriter(os.path.join(ckpt_dir, "logs"))
+    writer = SummaryWriter(os.path.join(ckpt_dir, "logs"),
+                           static_log_fields)
     try:
         if cfg.continue_train:
             latest = manager.latest_step()

@@ -23,6 +23,9 @@ class TrainState:
     step: int
     net: MSIUNet
     optimizer: torch.optim.Optimizer
+    #: The CPU generator the loss's random draws (E-LPIPS's ensemble) come
+    #: from, advanced by every step and checkpointed with the optimizer.
+    generator: torch.Generator
 
 
 def build_model(cfg) -> MSIUNet:
@@ -42,11 +45,14 @@ def build_optimizer(cfg, net) -> torch.optim.Adam:
 
 def init_state(cfg, seed: int, device="cuda") -> TrainState:
     """Step 0, the net with weights.seeded_init(cfg, seed) on device (the
-    card unless the caller asks for the CPU), and a fresh optimizer."""
+    card unless the caller asks for the CPU), a fresh optimizer, and the
+    loss's generator seeded with cfg.random_seed."""
     net = build_model(cfg)
     net.load_state_dict(weights.from_flax(weights.seeded_init(cfg, seed)))
     net = net.to(device).train()
-    return TrainState(step=0, net=net, optimizer=build_optimizer(cfg, net))
+    return TrainState(step=0, net=net, optimizer=build_optimizer(cfg, net),
+                      generator=torch.Generator().manual_seed(
+                          cfg.random_seed))
 
 
 def param_count(net) -> int:

@@ -8,7 +8,8 @@ transposed convs and the 1x1 `color_pred` head) become `weight`
 maps back (the trainer's checkpoints hold that tree). `seeded_init` draws
 a tree of flax's shapes for cfg's variant with flax's initializers
 (lecun_normal kernels, zero biases, unit gamma, zero beta) from a numpy
-seed, for machines without JAX.
+seed, for machines without JAX. `elpips_from_jax` maps the JAX package's
+E-LPIPS feature weights (HWIO) to the port's (OIHW).
 """
 
 from __future__ import annotations
@@ -91,3 +92,19 @@ def seeded_init(cfg, seed: int) -> Dict:
             tree[name + "_ln"] = {"beta": np.zeros((cout,), np.float32),
                                   "gamma": np.ones((cout,), np.float32)}
     return {"params": tree}
+
+
+def elpips_from_jax(net_w) -> Dict[str, torch.Tensor]:
+    """The JAX package's E-LPIPS feature weights {'<torch_idx>.weight':
+    [KH, KW, Cin, Cout], '<torch_idx>.bias': [Cout]} (numpy) -> the port's
+    {'<torch_idx>.weight': [Cout, Cin, KH, KW], ...} float32 tensors."""
+    out = {}
+    for key, value in net_w.items():
+        arr = torch.from_numpy(np.array(value, dtype=np.float32))
+        if arr.ndim == 4:
+            arr = arr.permute(3, 2, 0, 1).contiguous()
+        elif arr.ndim != 1:
+            raise KeyError(f"elpips_from_jax: unmapped {key} "
+                           f"{tuple(arr.shape)}")
+        out[key] = arr
+    return out

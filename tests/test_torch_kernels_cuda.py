@@ -11,14 +11,18 @@ PyTorch is installed:
 chip_smoke.py checks the same pairs at the flagship shapes.
 """
 
+import copy
 import math
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
 from matryodshka_tpu_torch import entry
+from matryodshka_tpu_torch.evaluation import metrics as eval_metrics
 from matryodshka_tpu_torch.geometry import render as render_lib
+from matryodshka_tpu_torch.losses.elpips import api as elpips_api
 from matryodshka_tpu_torch.models import msi as msi_lib
 from matryodshka_tpu_torch.models.unet import MSIUNet
 from matryodshka_tpu_torch.ops import conv as conv_ops
@@ -900,3 +904,62 @@ def test_probe_tool_launches_every_probe_kernel(cuda, capsys):
     after = [getattr(probes, n) for n in names]
     assert [a - b for a, b in zip(after, before)] == [1, 3, 1, 20]
     assert "[shift] 20 shifts bit-exact" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# E-LPIPS and the evaluator's metrics: no kernel of the port (cuDNN convs
+# in float32); the card against the CPU.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1, 2, 8])
+@pytest.mark.parametrize("swap", [False, True])
+def test_elpips_card_matches_cpu(cuda, scale, swap):
+    """At one draw (its dropout masks hash to the same bits on both
+    devices): the distance within 1e-4 relative and the input gradient
+    within relative L2 1e-3 of the CPU's (chip_smoke.py path 7's gates),
+    with TF32 allowed globally: the metric keeps its own convs, forward
+    and backward, in float32 and leaves the global flag as it was."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        metric = elpips_api.Metric(elpips_api.elpips_vgg(batch_size=1))
+    card = copy.deepcopy(metric).to(cuda)
+    rng = np.random.RandomState(scale)
+    pred, tgt = (torch.from_numpy(rng.uniform(-1, 1, (1, 128, 256, 3))
+                                  .astype(np.float32)) for _ in range(2))
+    draw = metric.draw(1, torch.Generator().manual_seed(scale), scale=scale,
+                       swap=swap)
+    out = {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for dev, m in (("cpu", metric), (cuda, card)):
+            x = pred.to(dev, copy=True).requires_grad_(True)
+            d = m(x, tgt.to(dev), draws=[elpips_api.Draw(draw.params,
+                                                         draw.seed)])
+            d.sum().backward()
+            out[str(dev)] = (d.item(), x.grad.cpu())
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    (dc, gc), (dg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(dg - dc) <= 1e-4 * abs(dc), (dg, dc)
+    rel = ((gg - gc).norm() / gc.norm()).item()
+    assert rel <= 1e-3 and math.isfinite(rel), rel
+
+
+@pytest.mark.cuda
+def test_eval_metrics_card_match_cpu(cuda):
+    """SSIM within 1e-5, PSNR within 1e-4 dB, the temporal diff within
+    1e-6 (chip_smoke.py path 8's gates) on a 320x640 image pair."""
+    rng = np.random.RandomState(0)
+    a = rng.rand(320, 640, 3).astype(np.float32)
+    b = np.clip(a + 0.05 * rng.randn(320, 640, 3), 0, 1).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ca, cb = ta.to(cuda), tb.to(cuda)
+    assert abs(float(eval_metrics.ssim(ca, cb))
+               - float(eval_metrics.ssim(ta, tb))) <= 1e-5
+    assert abs(float(eval_metrics.psnr(ca, cb))
+               - float(eval_metrics.psnr(ta, tb))) <= 1e-4
+    assert abs(float(eval_metrics.temporal_diff(ca, cb))
+               - float(eval_metrics.temporal_diff(ta, tb))) <= 1e-6

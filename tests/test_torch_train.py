@@ -254,7 +254,7 @@ def test_losses_match_jax():
         0.5 * float(np.sum((p - t) ** 2)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(which_loss="elpips"), dict(gcn=True),
+@pytest.mark.parametrize("kw", [dict(supervision="ref"), dict(gcn=True),
                                 dict(supervision="hrestgt"),
                                 dict(supervision="tgt_src_ref"),
                                 dict(transform_inverse_reg=True),
