@@ -52,14 +52,6 @@ from matryodshka_tpu_torch.ops.resample import resample_layers_uv
 from matryodshka_tpu_torch.training.checkpoint import (CheckpointManager,
                                                        restore_params)
 
-#: Outputs of the JAX CLI that the port does not render yet, with the
-#: ROADMAP item that ports them.
-NOT_PORTED = {
-    "psp": "render_perspective_view (ROADMAP Queue 1 item 5)",
-    "src_output_image": "render_ods_view (ROADMAP Queue 1 item 5)",
-    "ref_output_image": "render_ods_view (ROADMAP Queue 1 item 5)",
-}
-
 DEFAULT_TEST_OUTPUTS = ("rgba_layers_src_image_ref_image_tgt_image_"
                         "blend_weights_alphas")
 
@@ -72,12 +64,16 @@ def build_infer_fn(cfg: MatryConfig, params: entry.Params,
                    test_outputs: str, ftb: bool = False):
     """infer(batch) -> dict of the requested outputs, each [B, ...] on the
     batch's device: output_image ([0, 1]) and output_depth (tgt_image),
-    rgba_layers, blend_weights, alphas, psv. The target view is the ERP
-    view at batch['tgt_pose']; ftb renders the layer stack front to back
-    with early termination (schemes other than blend_psv)."""
-    for key, what in NOT_PORTED.items():
-        if key in test_outputs:
-            raise NotImplementedError(f"test output {key!r} needs {what}")
+    rgba_layers, blend_weights, alphas, psv, output_psp0..3 (psp: the four
+    270 x 480 perspective windows, yaw 0, 90, 180, 270 degrees),
+    output_src and output_ref (src_output_image, ref_output_image: the
+    ODS eyes re-rendered), the last three in [0, 1]. The target view is
+    the ERP view at batch['tgt_pose']; ftb renders the layer stack front
+    to back with early termination (schemes other than blend_psv). The
+    perspective and ODS-eye re-renders gather from the rgba_layers
+    assembled from the kernel route's volume and prediction: the JAX
+    package has no TPU kernel for them either (it gathers in XLA)."""
+    rerenders = ("psp", "src_output_image", "ref_output_image")
 
     @torch.no_grad()
     def infer(batch):
@@ -85,14 +81,16 @@ def build_infer_fn(cfg: MatryConfig, params: entry.Params,
                                            params.psv_depths)
         vol, pred = pouts["vol"], pouts["pred"]
         outs = {}
-        if any(k in test_outputs
-               for k in ("rgba_layers", "blend_weights", "alphas")):
+        if any(k in test_outputs for k in
+               ("rgba_layers", "blend_weights", "alphas", *rerenders)):
             asm = msi_lib.assemble_rgba(
                 cfg.which_color_pred, pred.permute(0, 2, 3, 1),
                 vol.permute(0, 2, 3, 1), cfg.num_msi_planes)
             for k in ("rgba_layers", "blend_weights", "alphas"):
                 if k in asm and k in test_outputs:
                     outs[k] = asm[k]
+            outs.update(rerender(cfg, asm["rgba_layers"], batch,
+                                 params.msi_depths, test_outputs))
         if "psv" in test_outputs:
             outs["psv"] = vol.permute(0, 2, 3, 1)
         if "tgt_image" in test_outputs:
@@ -104,6 +102,28 @@ def build_infer_fn(cfg: MatryConfig, params: entry.Params,
         return outs
 
     return infer
+
+
+def rerender(cfg: MatryConfig, rgba_layers, batch, msi_depths,
+             test_outputs: str):
+    """The test CLI's perspective and ODS-eye re-renders of rgba_layers
+    [B, H, W, P, 4] (JAX cli/test.py:120-136), those that test_outputs
+    asks for: {output_psp0..3, output_src, output_ref}, [0, 1]."""
+    outs = {}
+    if "psp" in test_outputs:
+        for win in range(4):
+            outs[f"output_psp{win}"] = msi_lib.deprocess_image(
+                msi_lib.render_perspective_view(
+                    rgba_layers, batch["tgt_pose"], msi_depths,
+                    viewing_window=win))
+    eye = _eye(rgba_layers.shape[0], rgba_layers.device)
+    for key, name, order in (("src_output_image", "output_src", -1),
+                             ("ref_output_image", "output_ref", 1)):
+        if key in test_outputs:
+            outs[name] = msi_lib.deprocess_image(msi_lib.render_ods_view(
+                rgba_layers, order, eye, batch["tgt_pose"], msi_depths,
+                batch["intrinsics"]))
+    return outs
 
 
 @torch.no_grad()
@@ -238,6 +258,15 @@ def save_outputs(cfg: MatryConfig, out_dir: str, dirname: str, batch, outs,
         if key in test_outputs:
             write_image(f"{out_dir}/{key}_{dirname}.png",
                         batch[key][0] * 255.0)
+    if "psp" in test_outputs:
+        for win in range(4):
+            write_image(f"{out_dir}/output_ptgt{win}_{dirname}.png",
+                        outs[f"output_psp{win}"][0] * 255.0)
+    for key, name in (("src_output_image", "src"),
+                      ("ref_output_image", "ref")):
+        if key in test_outputs:
+            write_image(f"{out_dir}/output_{name}_{dirname}.png",
+                        outs[f"output_{name}"][0] * 255.0)
     if "psv" in outs:
         psv = outs["psv"][0]
         for j in range(cfg.num_psv_planes):
@@ -296,9 +325,11 @@ def main(argv=None):
     cfg = config_from_args(args)
     if cfg.batch_size != 1:
         raise ValueError("batch_size must be 1 when testing")
-    if cfg.shard_shells:
-        raise NotImplementedError("shard_shells: the shell-sharded high-res "
-                                  "render is ROADMAP Queue 1 item 9")
+    if cfg.shard_shells and torch.cuda.device_count() > 1:
+        raise NotImplementedError("shard_shells over several cards: the "
+                                  "shell-sharded high-res render is ROADMAP "
+                                  "Queue 1 item 9")
+    # On one device the JAX CLI ignores shard_shells (cli/test.py:452).
     device = torch.device(args.device)
 
     if args.params:

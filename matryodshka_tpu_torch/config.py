@@ -53,6 +53,7 @@ class MatryConfig:
     batch_size: int = 1
 
     # --- model --------------------------------------------------------------
+    operation: str = "train"            # train | export
     input_type: str = "ODS"
     which_color_pred: str = "blend_psv"
     #: The U-Net variant: False is the wrap net (ERP wrap padding), True
@@ -92,6 +93,9 @@ class MatryConfig:
     compute_dtype: str = "bfloat16"
     remat_network: bool = False
     shard_shells: bool = False
+
+    # --- export -------------------------------------------------------------
+    net_only: bool = False
 
     @property
     def supervise_tgt(self) -> bool:
@@ -155,14 +159,8 @@ def check_trainable(cfg: MatryConfig) -> None:
         (cfg.gcn, "gcn: the GCN is ROADMAP Queue 1 item 8"),
         ("hrestgt" in parts, "supervision hrestgt: the high-res target "
          "render in training is left of ROADMAP Queue 1 item 6"),
-        ("src" in parts or "ref" in parts, "supervision src/ref: the ODS "
-         "eye re-render (render_ods_view) is left of ROADMAP Queue 1 item "
-         "6"),
-        (cfg.transform_inverse_reg, "transform_inverse_reg is left of "
-         "ROADMAP Queue 1 item 6"),
-        (cfg.rot_factor != 1.0 or cfg.tr_factor != 1.0, "rot_factor and "
-         "tr_factor scale transform_inverse_reg's pose jitter, left of "
-         "ROADMAP Queue 1 item 6"),
+        ("src" in parts or "ref" in parts, "supervision src/ref: the "
+         "trainer's ODS eye re-render terms are ROADMAP Queue 1 item 6.2"),
         (cfg.remat_network, "remat_network is left of ROADMAP Queue 1 item "
          "6"),
     ]

@@ -38,11 +38,12 @@ def flagship_cfg(**kw) -> MatryConfig:
     return MatryConfig(**base).validate()
 
 
-def synthetic_batch(cfg: MatryConfig, seed: int = 0, device="cpu",
+def synthetic_batch(cfg: MatryConfig, seed: int = 0, device="cuda",
                     tgt_pos=(0.05, 0.0, 0.0)) -> Dict[str, torch.Tensor]:
     """Random ODS pair + target, drawn from np.random.RandomState(seed) in
     the same order as the JAX package's synthetic batch (ref, src, tgt
-    images), so one seed gives both packages the same images."""
+    images), so one seed gives both packages the same images; on device
+    (the card unless the caller asks for the CPU)."""
     rng = np.random.RandomState(seed)
     b, h, w = cfg.batch_size, cfg.height, cfg.width
     eye = torch.eye(4, device=device).expand(b, 4, 4).contiguous()
@@ -73,10 +74,10 @@ class Params:
 
 
 def make_params(cfg: MatryConfig, flax_params=None, seed: int = 0,
-                device="cpu") -> Params:
+                device="cuda") -> Params:
     """Net of cfg's variant (cfg.coord_net) from a flax parameter tree
     (numpy leaves), or from weights.seeded_init(cfg, seed) when none is
-    given."""
+    given, on device (the card unless the caller asks for the CPU)."""
     tree = weights.seeded_init(cfg, seed) if flax_params is None \
         else flax_params
     net = MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,

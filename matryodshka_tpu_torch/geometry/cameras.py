@@ -88,3 +88,41 @@ def project_spherical(points, width: int, height: int):
     theta = -torch.atan2(z, x)
     phi = torch.atan2(y, torch.sqrt(x * x + z * z))
     return theta_phi_to_pixels(theta, phi, width, height)
+
+
+# ---------------------------------------------------------------------------
+# Poses.
+# ---------------------------------------------------------------------------
+
+def rotation_from_euler(angles):
+    """3x3 rotation from XYZ Euler angles [ax, ay, az]: R = Rz @ Ry @ Rx
+    (JAX cameras.py:198-208, tfg's from_euler), in angles' dtype."""
+    c, s = torch.cos(angles), torch.sin(angles)
+    one, zero = torch.ones_like(c[0]), torch.zeros_like(c[0])
+
+    def mat(rows):
+        return torch.stack([torch.stack(r) for r in rows])
+
+    rx = mat([[one, zero, zero], [zero, c[0], -s[0]], [zero, s[0], c[0]]])
+    ry = mat([[c[1], zero, s[1]], [zero, one, zero], [-s[1], zero, c[1]]])
+    rz = mat([[c[2], -s[2], zero], [s[2], c[2], zero], [zero, zero, one]])
+    return rz @ ry @ rx
+
+
+def random_jitter_pose(generator=None, rot_factor: float = 1.0,
+                       tr_factor: float = 1.0, angle_range=(-0.03, 0.03),
+                       offset_range=(-0.01, 0.01), device="cpu"):
+    """The transform-inverse regularizer's jitter (JAX cameras.py:211-228,
+    spherical.py:21-40): a 4x4 float32 pose, its XYZ Euler angles uniform
+    in angle_range * rot_factor rad and its translation uniform in
+    offset_range * tr_factor. Draws from `generator` (a CPU
+    torch.Generator; the global one when None): the three angles first,
+    then the three offsets."""
+    lo_a, hi_a = angle_range[0] * rot_factor, angle_range[1] * rot_factor
+    lo_t, hi_t = offset_range[0] * tr_factor, offset_range[1] * tr_factor
+    angles = torch.rand(3, generator=generator) * (hi_a - lo_a) + lo_a
+    tr = torch.rand(3, generator=generator) * (hi_t - lo_t) + lo_t
+    pose = torch.eye(4)
+    pose[:3, :3] = rotation_from_euler(angles)
+    pose[:3, 3] = tr
+    return pose.to(device)

@@ -26,6 +26,18 @@ def lat_long_grid(shape, device=None, dtype=torch.float32):
     return S, T
 
 
+def uv_grid(shape, device=None, dtype=torch.float32):
+    """(U, V): [H, W] normalized (-1, 1) coordinates with half-pixel
+    offsets, U varying along W and V along H (JAX grids.py:45)."""
+    h, w = shape
+    u = torch.linspace(-1.0 + 1.0 / w, 1.0 - 1.0 / w, w, device=device,
+                       dtype=dtype)
+    v = torch.linspace(-1.0 + 1.0 / h, 1.0 - 1.0 / h, h, device=device,
+                       dtype=dtype)
+    V, U = torch.meshgrid(v, u, indexing="ij")
+    return U, V
+
+
 _VECTORS = {}
 
 

@@ -3,6 +3,7 @@ entries of the two kernel renders.
 
 Counterpart of `matryodshka_tpu/geometry/render.py` (`over_composite`,
 `over_composite_depth`, `render_equirect_view`, `render_equirect_depth`,
+`render_ods_view`, `render_perspective_view`,
 `render_equirect_view_prepared`, `render_equirect_view_fused_blend`), and
 `uv_tables`, the per-shell lookup tables of the plain routes.
 Layer 0 is the farthest shell and its alpha is taken as 1.
@@ -12,7 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from matryodshka_tpu_torch.geometry import intersect
+import math
+
+from matryodshka_tpu_torch.geometry import cameras, intersect
 from matryodshka_tpu_torch.ops.resample import resample_layers
 
 
@@ -63,6 +66,48 @@ def render_equirect_depth(rgba_layers, tgt_pose, tgt_pos, radii):
     uv = intersect.intersect_sphere(tgt_pose, tgt_pos, radii, w, h)
     proj = resample_layers(rgba_layers.permute(2, 0, 1, 3), uv)
     return over_composite_depth(proj.permute(1, 2, 0, 3))
+
+
+def render_at(rgba_layers, uv):
+    """Gather each shell of [H, W, P, 4] at its field uv [P, h, w, 2] and
+    composite back to front -> [h, w, 3] float32."""
+    proj = resample_layers(rgba_layers.permute(2, 0, 1, 3), uv)
+    return over_composite(proj.permute(1, 2, 0, 3))
+
+
+def render_ods_view(rgba_layers, order: int, pose, tgt_pos, radii,
+                    intrinsics):
+    """Re-render an ODS eye from the MSI (JAX render.py:411,
+    msi.py:502-525): rgba_layers [H, W, P, 4], order +1 (left) / -1
+    (right), pose [4, 4] (the jitter pose; identity when not jittering),
+    radii [P], intrinsics [3, 3] -> [H, W, 3] float32; tgt_pos is not read
+    (intersect_ods). No TPU kernel exists for it: the gather, as in the
+    JAX package."""
+    h, w = rgba_layers.shape[0], rgba_layers.shape[1]
+    return render_at(rgba_layers, intersect.intersect_ods(
+        pose, tgt_pos, order, intrinsics, radii, w, h))
+
+
+def perspective_window_pose(viewing_window: int, device=None):
+    """The perspective crop's pose: a yaw of viewing_window * 90 degrees
+    (projector.py:79-85), float32 [4, 4]."""
+    pose = torch.eye(4, device=device)
+    pose[:3, :3] = cameras.rotation_from_euler(torch.tensor(
+        [0.0, viewing_window * math.pi / 2.0, 0.0], device=device))
+    return pose
+
+
+def render_perspective_view(rgba_layers, tgt_pos, radii,
+                            viewing_window: int = 3, psp_height: int = 320,
+                            psp_width: int = 640):
+    """Perspective crop render (JAX render.py:424, msi.py:475-500):
+    rgba_layers [H, W, P, 4], tgt_pos [3] -> [psp_height, psp_width, 3]
+    float32, the window yawed by viewing_window * 90 degrees (window 3 is
+    the central view). The gather, as in the JAX package."""
+    h, w = rgba_layers.shape[0], rgba_layers.shape[1]
+    pose = perspective_window_pose(viewing_window, rgba_layers.device)
+    return render_at(rgba_layers, intersect.intersect_perspective(
+        pose, tgt_pos, radii, w, h, psp_width, psp_height))
 
 
 #: Elements of one [shells, H, W] slab of the uv computation: the tables

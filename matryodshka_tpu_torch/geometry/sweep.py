@@ -47,10 +47,23 @@ def ods_sphere_sweep(image, order: int, depths, pose, intrinsics):
     return torch.stack(vols)
 
 
+#: format_network_input calls in this process (the gather sweeps; the
+#: trainer's jittered forward makes one a step).
+gather_sweeps = 0
+
+
 def format_network_input(ref_image, src_image, ref_pose, src_pose,
-                         ref_pose_inv, depths, intrinsics):
+                         ref_pose_inv, depths, intrinsics,
+                         jitter_pose_inv=None):
     """Double ODS sweep: ref eye (order +1) then src eye (order -1), each
-    with sweep pose pose @ ref_pose_inv. Returns [B, H, W, 2*P*3]."""
+    with sweep pose pose @ ref_pose_inv, or pose @ ref_pose_inv @
+    jitter_pose_inv [B, 4, 4] for the transform-inverse regularizer's
+    jittered forward (JAX sweep.py:143-145). Returns [B, H, W, 2*P*3]."""
+    global gather_sweeps
+    gather_sweeps += 1
+    if jitter_pose_inv is not None:
+        ref_pose_inv = torch.einsum("bij,bjk->bik", ref_pose_inv,
+                                    jitter_pose_inv)
     vols = []
     for img, pose, order in ((ref_image, ref_pose, 1),
                              (src_image, src_pose, -1)):

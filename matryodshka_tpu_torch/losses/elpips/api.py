@@ -24,6 +24,7 @@ compile workarounds that have nothing to do here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 import os
@@ -154,9 +155,17 @@ def load_weights(weight_path: Optional[str], metric: str):
         "elpips: no weight_path given — using packaged calibrated linear "
         "weights but DETERMINISTIC RANDOM conv features; the metric is "
         "runnable but not the calibrated perceptual distance.")
-    net = (networks.random_vgg_weights(0) if metric in ("vgg", "vgg_ensemble")
-           else networks.random_squeeze_weights(0))
+    net = _random_features(metric in ("vgg", "vgg_ensemble"))
     return elpips_from_jax(net), packaged_lin_weights(metric), False
+
+
+@functools.lru_cache(maxsize=None)
+def _random_features(vgg: bool):
+    """The JAX package's random conv features (VGG16 or SqueezeNet, from
+    PRNGKey(0)), drawn once per process: the VGG16 draw takes seconds.
+    elpips_from_jax copies them, so no caller shares the arrays."""
+    return (networks.random_vgg_weights() if vgg
+            else networks.random_squeeze_weights())
 
 
 _M32 = 0xFFFFFFFF

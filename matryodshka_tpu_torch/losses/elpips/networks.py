@@ -32,6 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from matryodshka_tpu_torch.losses.elpips import threefry
+
+_F = np.float32
 Images = Tuple[torch.Tensor, ...]
 #: dropout(like) -> the mask shared by every image of the tuple at one
 #: conv input, shaped like `like` (the tuple's first image).
@@ -62,39 +65,45 @@ SQUEEZE_FULL_MAXPOOL_CHANNELS = [3, 64, 128, 128, 256, 256, 384, 384,
                                  512, 512]
 
 
-def random_vgg_weights(seed: int = 0) -> Dict[str, np.ndarray]:
+def random_vgg_weights(key=None) -> Dict[str, np.ndarray]:
     """Deterministic random VGG16 weights (He init), HWIO numpy arrays
-    under the torchvision indices, drawn from np.random.RandomState(seed).
+    under the torchvision indices: the JAX package's draw, bit for bit
+    (`threefry.normal`), from the key chain that starts at `key` (JAX's
+    PRNGKey(0) by default) with one split per conv, in the same order.
 
     The trained weights are not redistributable from this repo; this
     fallback keeps the full compute path runnable (NOT a calibrated
     perceptual metric)."""
-    rng = np.random.RandomState(seed)
+    key = threefry.prng_key(0) if key is None else key
     w = {}
     for idx, cin, cout in VGG16_CONVS:
-        std = np.sqrt(2.0 / (3 * 3 * cin))
-        w[f"{idx}.weight"] = (rng.standard_normal((3, 3, cin, cout))
-                              * std).astype(np.float32)
+        key, k1 = threefry.split(key)
+        std = _F(np.sqrt(2.0 / (3 * 3 * cin)))
+        w[f"{idx}.weight"] = threefry.normal(k1, (3, 3, cin, cout)) * std
         w[f"{idx}.bias"] = np.zeros((cout,), np.float32)
     return w
 
 
-def random_squeeze_weights(seed: int = 0) -> Dict[str, np.ndarray]:
-    """SqueezeNet 1.1's counterpart of random_vgg_weights."""
-    rng = np.random.RandomState(seed)
+def random_squeeze_weights(key=None) -> Dict[str, np.ndarray]:
+    """SqueezeNet 1.1's counterpart of random_vgg_weights: one split for
+    the first conv, then one per squeeze / expand1x1 / expand3x3 conv of
+    each fire module."""
+    key = threefry.prng_key(0) if key is None else key
     w = {}
 
-    def add(name, shape):
-        std = np.sqrt(2.0 / max(int(np.prod(shape[:-1])), 1))
-        w[name + ".weight"] = (rng.standard_normal(shape)
-                               * std).astype(np.float32)
+    def add(name, shape, k):
+        std = _F(np.sqrt(2.0 / max(int(np.prod(shape[:-1])), 1)))
+        w[name + ".weight"] = threefry.normal(k, shape) * std
         w[name + ".bias"] = np.zeros((shape[-1],), np.float32)
 
-    add("0", (3, 3, 3, 64))
+    key, k = threefry.split(key)
+    add("0", (3, 3, 3, 64), k)
     for idx, cin, s, e1, e3 in SQUEEZE_FIRE:
-        add(f"{idx}.squeeze", (1, 1, cin, s))
-        add(f"{idx}.expand1x1", (1, 1, s, e1))
-        add(f"{idx}.expand3x3", (3, 3, s, e3))
+        for name, shape in ((f"{idx}.squeeze", (1, 1, cin, s)),
+                            (f"{idx}.expand1x1", (1, 1, s, e1)),
+                            (f"{idx}.expand3x3", (3, 3, s, e3))):
+            key, k = threefry.split(key)
+            add(name, shape, k)
     return w
 
 

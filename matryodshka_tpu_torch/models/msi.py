@@ -213,17 +213,54 @@ def render_equirect_depth(rgba_layers, tgt_pose_rt, tgt_pos, radii):
         for i in range(rgba_layers.shape[0])])
 
 
+def render_ods_view(rgba_layers, order: int, pose, tgt_pos, radii,
+                    intrinsics):
+    """ODS eye re-render of a batch (JAX msi.py:779): [B, H, W, P, 4],
+    pose [B, 4, 4], intrinsics [B, 3, 3] -> [B, H, W, 3]. As in the JAX
+    function, tgt_pos is not read: the rays start on the viewing
+    circle."""
+    return torch.stack([
+        render_lib.render_ods_view(rgba_layers[i], order, pose[i], None,
+                                   radii, intrinsics[i])
+        for i in range(rgba_layers.shape[0])])
+
+
+def render_perspective_view(rgba_layers, tgt_pos, radii,
+                            viewing_window: int = 3, psp_height: int = 270,
+                            psp_width: int = 480):
+    """Perspective crop render of a batch (JAX msi.py:788; the test CLI's
+    270 x 480 window, unlike geometry/render.py's 320 x 640 default):
+    [B, H, W, P, 4], tgt_pos [B, 3] -> [B, psp_height, psp_width, 3]."""
+    return torch.stack([
+        render_lib.render_perspective_view(rgba_layers[i], tgt_pos[i], radii,
+                                           viewing_window, psp_height,
+                                           psp_width)
+        for i in range(rgba_layers.shape[0])])
+
+
 # ---------------------------------------------------------------------------
 # The kernel path.
 # ---------------------------------------------------------------------------
 
-def sweep_stage(cfg, batch, psv_depths):
-    """Stage 1: identity-pose dual-eye sweep of the batch's ODS pair -> net
-    input [B, 2*P*3, H, W] in the compute dtype (the sweep preprocesses
-    the images; on the card one kernel launch)."""
-    return sweep_ops.sweep_volume(batch["ref_image"], batch["src_image"],
-                                  psv_depths, batch["intrinsics"],
-                                  out_dtype=cfg.torch_compute_dtype)
+def sweep_stage(cfg, batch, psv_depths, jitter_pose_inv=None):
+    """Stage 1: the dual-eye sweep of the batch's ODS pair -> net input
+    [B, 2*P*3, H, W] in the compute dtype. Without jitter the
+    identity-pose sweep (it preprocesses the images; on the card one
+    kernel launch, which reads no pose). With the transform-inverse
+    regularizer's jitter_pose_inv [B, 4, 4] the general-pose gather sweep
+    at ref_pose_inv @ jitter_pose_inv, as the JAX package takes its
+    kernel only without jitter (JAX sweep.py:150-151); the argument picks
+    the route, so the kernel never sees a jittered batch."""
+    if jitter_pose_inv is None:
+        return sweep_ops.sweep_volume(batch["ref_image"], batch["src_image"],
+                                      psv_depths, batch["intrinsics"],
+                                      out_dtype=cfg.torch_compute_dtype)
+    vol = sweep_lib.format_network_input(
+        preprocess_image(batch["ref_image"]),
+        preprocess_image(batch["src_image"]), batch["ref_pose"],
+        batch["src_pose"], batch["ref_pose_inv"], psv_depths,
+        batch["intrinsics"], jitter_pose_inv=jitter_pose_inv)
+    return vol.permute(0, 3, 1, 2).to(cfg.torch_compute_dtype).contiguous()
 
 
 def net_stage(stages, vol):

@@ -183,3 +183,15 @@ class MSIUNet(nn.Module):
         pred = F.conv2d(cnv8_2, head.weight.to(dt)) + head.bias.to(dt)[
             :, None, None]
         return torch.tanh(pred).float()
+
+
+def atlas_pack(pred, height: int, width: int, channels: int = 64):
+    """Pack the net's output channels into an 8 x (C/8) image atlas (JAX
+    unet.py:373-388, the reference's export-time msi_output tiling,
+    nets.py:370-385): pred [1, H, W, >= channels] (NHWC) -> [1, 8H,
+    (channels/8) W], channel 8r + c at tile (r, c). blend_psv keeps 64
+    channels ([1, 8H, 8W]), alpha_only 32 ([1, 8H, 4W])."""
+    cols = channels // 8
+    x = pred[..., :channels].permute(0, 3, 1, 2)
+    x = x.reshape(1, 8, cols, height, width).permute(0, 1, 3, 2, 4)
+    return x.reshape(1, 8 * height, cols * width)

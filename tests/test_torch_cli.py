@@ -8,10 +8,13 @@ wrapper of the port runs its plain version:
   gather render), same flax weights and images;
 * the high-res re-render against build_hres_render_fn_fused(interpret=True)
   at 64x128 -> 128x256;
+* the perspective and ODS-eye re-renders (psp, src_output_image,
+  ref_output_image) against the JAX build_infer_fn;
 * main() end to end on the synthetic fixture (matryodshka_tpu.data.
-  synthetic.make_ods_fixture), low-res and then high_res, against the JAX
-  main() on an orbax checkpoint of the same parameters: the same files,
-  with the same contents up to the bounds below.
+  synthetic.make_ods_fixture), low-res and then high_res, and with the
+  re-renders, against the JAX main() on an orbax checkpoint of the same
+  parameters: the same files, with the same contents up to the bounds
+  below; --shard_shells true on one device changes no file.
 
 Shells span 2 m to 20 m: beyond that the JAX gather sweep parks single
 far-shell pixels on f32 noise (ROADMAP Queue 3, park-flip noise), which
@@ -60,8 +63,9 @@ def test_infer_fn_matches_jax(scheme):
     jcfg, tcfg = _cfgs(32, 64, scheme)
     state, model = state_lib.init_state(jcfg, jax.random.PRNGKey(0))
     params = entry.make_params(
-        tcfg, flax_params=jax.tree.map(np.asarray, state.params))
-    batch = entry.synthetic_batch(tcfg, seed=1, tgt_pos=(0.03, -0.01, 0.02))
+        tcfg, flax_params=jax.tree.map(np.asarray, state.params), device="cpu")
+    batch = entry.synthetic_batch(tcfg, seed=1, device="cpu",
+                                  tgt_pos=(0.03, -0.01, 0.02))
     outputs = "tgt_image_blend_weights_alphas_rgba_layers"
     got = tcli.build_infer_fn(tcfg, params, outputs)(batch)
     want = jcli.build_infer_fn(jcfg, model, outputs, allow_fused=False)(
@@ -74,6 +78,32 @@ def test_infer_fn_matches_jax(scheme):
                                    err_msg=k)
 
 
+@pytest.mark.parametrize("scheme", ["blend_psv", "blend_bg"])
+def test_infer_fn_rerenders_match_jax(scheme):
+    """psp (the four 270 x 480 perspective windows at 32 x 64 input),
+    src_output_image and ref_output_image against the JAX CLI's, TOL
+    (module docstring)."""
+    jcfg, tcfg = _cfgs(32, 64, scheme)
+    state, model = state_lib.init_state(jcfg, jax.random.PRNGKey(2))
+    params = entry.make_params(
+        tcfg, flax_params=jax.tree.map(np.asarray, state.params), device="cpu")
+    batch = entry.synthetic_batch(tcfg, seed=3, device="cpu",
+                                  tgt_pos=(0.02, 0.01, -0.03))
+    outputs = "psp_src_output_image_ref_output_image"
+    got = tcli.build_infer_fn(tcfg, params, outputs)(batch)
+    want = jcli.build_infer_fn(jcfg, model, outputs, allow_fused=False)(
+        state.params, {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
+    assert sorted(got) == sorted(want) == sorted(
+        [f"output_psp{i}" for i in range(4)] + ["output_ref", "output_src"])
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=0, atol=TOL, err_msg=k)
+    assert got["output_psp0"].shape == (1, 270, 480, 3)
+    assert got["output_src"].shape == (1, 32, 64, 3)
+    assert float((got["output_src"] - got["output_ref"]).abs().max()) > 1e-3
+
+
 @pytest.mark.parametrize("scheme", SCHEMES[1:])
 def test_infer_fn_ftb_matches_jax(scheme):
     """build_infer_fn(ftb=True), whose layer-stack render gives image and
@@ -83,8 +113,9 @@ def test_infer_fn_ftb_matches_jax(scheme):
     jcfg, tcfg = _cfgs(32, 64, scheme)
     state, model = state_lib.init_state(jcfg, jax.random.PRNGKey(1))
     params = entry.make_params(
-        tcfg, flax_params=jax.tree.map(np.asarray, state.params))
-    batch = entry.synthetic_batch(tcfg, seed=2, tgt_pos=(-0.02, 0.01, 0.03))
+        tcfg, flax_params=jax.tree.map(np.asarray, state.params), device="cpu")
+    batch = entry.synthetic_batch(tcfg, seed=2, device="cpu",
+                                  tgt_pos=(-0.02, 0.01, 0.03))
     got = tcli.build_infer_fn(tcfg, params, "tgt_image", ftb=True)(batch)
     want = jcli.build_infer_fn(jcfg, model, "tgt_image", allow_fused=False)(
         state.params, {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
@@ -236,3 +267,53 @@ def test_main_matches_jax_main(tmp_path):
             assert (troot / name).read_text() == (jroot / name).read_text()
     tree, step = restore_params(str(tmp_path / "params.npz"))
     assert step == int(state.step) and "conv1_1" in tree["params"]
+
+
+def test_main_rerenders_and_shard_shells_match_jax(tmp_path):
+    """Both CLIs over one fixture example with psp, src_output_image and
+    ref_output_image among --test_outputs: the same files (output_ptgt0-3,
+    output_src, output_ref), each PNG within test_main_matches_jax_main's
+    bound. --shard_shells true on one device writes the same files, byte
+    for byte, as without it (the JAX CLI ignores it there)."""
+    from matryodshka_tpu.data import synthetic
+    from matryodshka_tpu.training.checkpoint import CheckpointManager
+    from PIL import Image
+
+    glob_pat = synthetic.make_ods_fixture(str(tmp_path / "fix"),
+                                          num_scenes=1, height=32, width=64)
+    jcfg, _ = _cfgs(32, 64)
+    state, _ = state_lib.init_state(jcfg, jax.random.PRNGKey(3))
+    CheckpointManager(str(tmp_path / "ckpt" / "t")).save(state)
+    flat = {"step": np.asarray(int(state.step))}
+    for layer, leaves in state.params["params"].items():
+        for leaf, v in leaves.items():
+            flat[f"params/{layer}/{leaf}"] = np.asarray(v)
+    np.savez(tmp_path / "params.npz", **flat)
+    outputs = "tgt_image_psp_src_output_image_ref_output_image"
+    flags = ["--image_dir", str(tmp_path / "fix" / "images"),
+             "--cameras_glob", glob_pat, "--height", "32", "--width", "64",
+             "--num_psv_planes", str(P), "--num_msi_planes", str(P),
+             "--ngf", str(NGF), "--compute_dtype", "float32",
+             "--min_depth", "2", "--max_depth", "20",
+             "--experiment_name", "t", "--num_runs", "1",
+             "--checkpoint_dir", str(tmp_path / "ckpt"),
+             "--test_outputs", outputs]
+    jcli.main(flags + ["--output_root", str(tmp_path / "jax")])
+    for name, extra in (("torch", []), ("shard", ["--shard_shells", "true"])):
+        tcli.main(flags + ["--output_root", str(tmp_path / name),
+                           "--params", str(tmp_path / "params.npz"),
+                           "--device", "cpu"] + extra)
+    jroot, troot, sroot = (tmp_path / n / "t" for n in
+                           ("jax", "torch", "shard"))
+    names = _files(jroot)
+    assert names == _files(troot) == _files(sroot)
+    for part in ("output_ptgt0_", "output_ptgt3_", "output_src_",
+                 "output_ref_"):
+        assert any(part in n for n in names), part
+    for name in names:
+        assert (troot / name).read_bytes() == (sroot / name).read_bytes()
+        if name.endswith(".png"):
+            a = np.asarray(Image.open(troot / name), np.int32)
+            b = np.asarray(Image.open(jroot / name), np.int32)
+            diff = np.abs(a - b)
+            assert diff.max() <= 2 and diff.mean() < 0.1, (name, diff.max())

@@ -228,8 +228,8 @@ def _slice_setup(max_depth):
                               compute_dtype="float32", max_depth=max_depth,
                               coord_net=True)
     params = entry.make_params(
-        tcfg, flax_params=jax.tree.map(np.asarray, state.params))
-    batch = entry.synthetic_batch(tcfg, seed=0)
+        tcfg, flax_params=jax.tree.map(np.asarray, state.params), device="cpu")
+    batch = entry.synthetic_batch(tcfg, seed=0, device="cpu")
     return jcfg, state, model, params, batch
 
 
@@ -274,8 +274,9 @@ def test_coord_forward_matches_forward_plain():
     cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
                              num_msi_planes=P, ngf=NGF,
                              compute_dtype="float32", coord_net=True)
-    params = entry.make_params(cfg, seed=3)
-    batch = entry.synthetic_batch(cfg, seed=4, tgt_pos=(0.03, -0.01, 0.02))
+    params = entry.make_params(cfg, seed=3, device="cpu")
+    batch = entry.synthetic_batch(cfg, seed=4, device="cpu",
+                                  tgt_pos=(0.03, -0.01, 0.02))
     before = conv_ops.coord_launches
     got = entry.forward(params, batch)
     assert conv_ops.coord_launches == before      # CPU: no kernel launch

@@ -963,3 +963,132 @@ def test_eval_metrics_card_match_cpu(cuda):
                - float(eval_metrics.psnr(ta, tb))) <= 1e-4
     assert abs(float(eval_metrics.temporal_diff(ca, cb))
                - float(eval_metrics.temporal_diff(ta, tb))) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_reg_train_step_kernel_route_matches_plain(cuda):
+    """One train step with the transform-inverse regularizer (K1 for the
+    unjittered forward, the gather sweep for the jittered one, K7 in both
+    forwards and the backward) on the card against the all-plain f32
+    route from the same parameters at one fixed jitter pose: the gate of
+    test_train_step_kernel_route_matches_plain; K1 launched once, the
+    gather sweep once, each K7 form twice as often as without the
+    regularizer."""
+    from matryodshka_tpu_torch.geometry import cameras
+    from matryodshka_tpu_torch.geometry import sweep as sweep_lib
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    from matryodshka_tpu_torch.training import state as state_lib
+    from matryodshka_tpu_torch.training import step as step_lib
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P, transform_inverse_reg=True)
+    b = entry.synthetic_batch(cfg, 4, cuda, tgt_pos=(0.03, 0.01, -0.02))
+    state = state_lib.init_state(cfg, 5, cuda)
+    pose = cameras.random_jitter_pose(torch.Generator().manual_seed(2),
+                                      device=cuda)
+
+    def plain(dtype):
+        net = MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
+                      dtype=dtype).to(cuda)
+        net.load_state_dict(state.net.state_dict())
+
+        def sweep(c, bq, d):
+            images, rowp = sweep_ops.sweep_inputs(
+                msi_lib.preprocess_image(bq["ref_image"]),
+                msi_lib.preprocess_image(bq["src_image"]), d,
+                bq["intrinsics"])
+            return sweep_ops.ods_sweep_plain(images, rowp, dtype)
+        return net, sweep
+
+    def counts():
+        torch.cuda.synchronize()
+        return (sweep_ops.launches, sweep_lib.gather_sweeps,
+                wc.k7a_launches, wc.k7b_launches, wc.k7c_launches,
+                wc.wgrad_launches)
+
+    before = counts()
+    base_cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                                  num_msi_planes=P)
+    step_lib.make_loss_fn(base_cfg, state.net)(b)[0].backward()
+    base = [a - n for a, n in zip(counts(), before)]
+    assert base[:2] == [1, 0] and min(base[2:]) > 0, base
+    out = {}
+    for key, (net, sweep) in (("kernel", (state.net, None)),
+                              ("plain_bf16", plain(torch.bfloat16)),
+                              ("plain", plain(torch.float32))):
+        net.zero_grad(set_to_none=True)
+        before = counts()
+        loss, aux = step_lib.make_loss_fn(cfg, net, sweep)(b, jitter_pose=pose)
+        loss.backward()
+        if key == "kernel":
+            got = [a - n for a, n in zip(counts(), before)]
+            assert got == [1, 1] + [2 * n for n in base[2:]], (got, base)
+        out[key] = (loss.item(), {n: p.grad.float()
+                                  for n, p in net.named_parameters()})
+        assert float(aux["enforcement_loss"]) > 0
+    (lk, gk), (_, gb), (lp, gp) = (out[k] for k in ("kernel", "plain_bf16",
+                                                    "plain"))
+    assert math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
+    for n in gp:
+        rel = ((gk[n] - gp[n]).norm() / gp[n].norm()).item()
+        rel_bf16 = ((gb[n] - gp[n]).norm() / gp[n].norm()).item()
+        assert rel <= max(5e-2, 1.5 * rel_bf16), (n, rel, rel_bf16)
+
+
+@pytest.mark.cuda
+def test_rerenders_card_match_cpu(cuda):
+    """The test CLI's perspective windows and ODS-eye re-renders (gathers,
+    no kernel of the port) on the card against the same function on the
+    CPU from the same bf16 rgba_layers: within 1e-4 on [0, 1] images
+    (float32 lookups whose transcendentals differ by an ulp between the
+    two devices, times the layers' slopes)."""
+    from matryodshka_tpu_torch.cli import test as cli_test
+    cfg, b = _batch(cuda, 3)
+    params = entry.make_params(cfg, seed=1, device=cuda)
+    outputs = "rgba_layers_psp_src_output_image_ref_output_image"
+    got = cli_test.build_infer_fn(cfg, params, outputs)(b)
+    cpu_b = {k: v.cpu() for k, v in b.items()}
+    want = cli_test.rerender(cfg, got["rgba_layers"].cpu(), cpu_b,
+                             params.msi_depths.cpu(), outputs)
+    assert sorted(want) == sorted(k for k in got if k != "rgba_layers")
+    for k, v in want.items():
+        assert torch.isfinite(got[k]).all()
+        err = (got[k].cpu() - v).abs().max().item()
+        assert err <= 1e-4, (k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_export_round_trip_on_the_card(cuda, tmp_path, dtype):
+    """cli/export.main (coord net, net only, --platform cuda) writes a
+    program that torch.export.load runs on the card within 1e-6 of the
+    eager plain net's atlas in both dtypes (the same operations; cuDNN
+    may pick another algorithm for the loaded graph),
+    and within 2e-2 of the atlas of the kernel route's prediction
+    (ops/net.unet_forward, the conv kernel's coord mode)."""
+    from matryodshka_tpu_torch import weights
+    from matryodshka_tpu_torch.cli import export as export_cli
+    from matryodshka_tpu_torch.models.unet import atlas_pack
+    flags = ["--height", str(H), "--width", str(W), "--num_psv_planes",
+             str(P), "--num_msi_planes", str(P), "--ngf", str(NGF),
+             "--compute_dtype", dtype, "--coord_net", "true", "--net_only",
+             "true", "--export_dir", str(tmp_path), "--checkpoint_dir",
+             str(tmp_path / "none")]
+    with pytest.warns(UserWarning, match="no checkpoint"):
+        path = export_cli.main(flags)
+    cfg = export_cli.config_from_args(export_cli.build_parser().parse_args(
+        flags))
+    x = torch.rand(1, H, W, cfg.num_net_inputs(), device=cuda)
+    tree = weights.seeded_init(cfg, 0)
+    with torch.no_grad():
+        got = torch.export.load(path).module()(x)
+        want = export_cli.build_net_only_fn(cfg, tree, cuda)(x)
+        assert (got - want).abs().max().item() <= 1e-6
+        params = entry.make_params(cfg, flax_params=tree, device=cuda)
+        before = conv_ops.coord_launches
+        pred = net_ops.unet_forward(params.stages, x.permute(0, 3, 1, 2).to(
+            cfg.torch_compute_dtype).contiguous())
+        torch.cuda.synchronize()
+        assert conv_ops.coord_launches - before == 18
+        kern = atlas_pack(pred.permute(0, 2, 3, 1), H, W,
+                          min(64, cfg.num_net_outputs()))
+    assert (got - kern).abs().max().item() <= 2e-2

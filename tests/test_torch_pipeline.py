@@ -52,8 +52,8 @@ def _setup(h, w, max_depth):
                               num_msi_planes=P, ngf=NGF,
                               compute_dtype="float32", max_depth=max_depth)
     params = entry.make_params(
-        tcfg, flax_params=jax.tree.map(np.asarray, state.params))
-    batch = entry.synthetic_batch(tcfg, seed=0)
+        tcfg, flax_params=jax.tree.map(np.asarray, state.params), device="cpu")
+    batch = entry.synthetic_batch(tcfg, seed=0, device="cpu")
     jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
     depths = jnp.asarray(jsweep.inv_depths(1.0, max_depth, P))
     return jcfg, state, model, params, batch, jbatch, depths
@@ -143,8 +143,9 @@ def test_forward_matches_forward_plain(kind):
     cfg = entry.flagship_cfg(height=32, width=64, num_psv_planes=P,
                              num_msi_planes=P, ngf=NGF,
                              compute_dtype="float32")
-    params = entry.make_params(cfg, seed=3)
-    batch = entry.synthetic_batch(cfg, seed=4, tgt_pos=(0.03, -0.01, 0.02))
+    params = entry.make_params(cfg, seed=3, device="cpu")
+    batch = entry.synthetic_batch(cfg, seed=4, device="cpu",
+                                  tgt_pos=(0.03, -0.01, 0.02))
     rt = torch.eye(4)[None]
     if kind == "rotated":
         a = 0.6

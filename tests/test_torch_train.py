@@ -257,8 +257,10 @@ def test_losses_match_jax():
 @pytest.mark.parametrize("kw", [dict(supervision="ref"), dict(gcn=True),
                                 dict(supervision="hrestgt"),
                                 dict(supervision="tgt_src_ref"),
-                                dict(transform_inverse_reg=True),
-                                dict(rot_factor=0.5), dict(tr_factor=2.0),
+                                dict(supervision="src"),
+                                dict(transform_inverse_reg=True,
+                                     supervision="tgt_src"),
+                                dict(supervision="tgt_hrestgt"),
                                 dict(remat_network=True)])
 def test_unported_training_options_raise(kw):
     """validate() and the loss refuse what the port cannot train yet,

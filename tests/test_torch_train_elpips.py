@@ -12,8 +12,7 @@
   largest magnitude from a float64 evaluation of the same loss there (the
   port's float32 gradients within 1.5e-6 of it).
 * Every flag of the repo's ODS E-LPIPS train recipes and of its eval
-  recipes parses in the port's CLIs; the recipes without
-  transform_inverse_reg validate.
+  recipes parses in the port's CLIs, and the train recipes validate.
 * `cli.train --which_loss elpips --device cpu` on the synthetic fixture:
   every metrics record says elpips_calibrated: false.
 * `continue_train` resumes the loss's generator: a run cut at step 2 and
@@ -151,20 +150,16 @@ def _recipe_flags(path):
                                     "ods-wotemp-elpips-wocoord",
                                     "ods-temp-elpips-coord"])
 def test_train_recipe_flags_parse(recipe):
-    """Every flag parses; the recipes without transform_inverse_reg give
-    a valid E-LPIPS config, ods-temp's names the ROADMAP item that brings
-    transform_inverse_reg."""
+    """Every flag parses and gives a valid E-LPIPS config; ods-temp's
+    turns on transform_inverse_reg."""
     args = cli_train.build_parser().parse_args(
         _recipe_flags(f"{REPO}/scripts/train/{recipe}.sh"))
     assert args.which_loss == "elpips"
     assert args.elpips_weight_path == "elpips_vgg.npz"
     assert args.coord_net == recipe.endswith("-coord")
-    if "wotemp" in recipe:
-        cfg = config_from_args(args)
-        assert cfg.max_steps == 140000 and cfg.experiment_name == recipe
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            config_from_args(args)
+    cfg = config_from_args(args)
+    assert cfg.max_steps == 140000 and cfg.experiment_name == recipe
+    assert cfg.transform_inverse_reg == ("wotemp" not in recipe)
 
 
 @pytest.mark.parametrize("recipe", ["ods-wotemp-elpips-coord-reg",
@@ -218,7 +213,7 @@ def _run(tmp_path, max_steps, continue_train=False):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         step = tstep.make_train_step(cfg, state.net)
-    batches = itertools.repeat(entry.synthetic_batch(cfg, 0))
+    batches = itertools.repeat(entry.synthetic_batch(cfg, 0, "cpu"))
     return loop_lib.train(cfg, state, step, batches,
                           static_log_fields={"elpips_calibrated": False})
 

@@ -45,7 +45,7 @@ def _run(tmp_path, max_steps, continue_train=False, save_latest_freq=1):
                              experiment_name="run",
                              continue_train=continue_train)
     state = state_lib.init_state(cfg, 0, "cpu")
-    batches = itertools.repeat(entry.synthetic_batch(cfg, 0))
+    batches = itertools.repeat(entry.synthetic_batch(cfg, 0, "cpu"))
     return loop_lib.train(cfg, state, make_train_step(cfg, state.net),
                           batches)
 
