@@ -17,7 +17,7 @@ plain projection in float64 (the worst errors and the bound printed),
 and the kernel against its plain version fed the instrument's tables,
 the layer-stack render in each output mode (image, depth, both in one
 launch), back to front and front to back, bf16 and f32 stacks.
-Then it drives eleven paths, each with every launch count set to 0 just
+Then it drives twelve paths, each with every launch count set to 0 just
 before it and read just after (on the first, exactly one sweep and one
 render launch per frame, and one device operation per stage in a
 profiler trace):
@@ -71,7 +71,18 @@ profiler trace):
 11. the net-only export (cli/export.py, --coord_net true --net_only true
    --platform cuda, bf16 and f32) and the port's consumer tool, which
    loads the .pt2 in a subprocess importing neither package; the loaded
-   program against the eager plain net and against the kernel route.
+   program against the eager plain net and against the kernel route;
+12. the PP and RealEstate recipes (scripts/train/pp-wotemp-elpips-coord.sh,
+   realestate-wotemp-elpips-coord.sh: coord net, E-LPIPS on random
+   features) on the port's fixtures written at 640x320: cli/train.py for
+   6 steps each (the gather sweeps, the coord net's PyTorch convs), the
+   step in parts; the wrap net's PP pixel step for 3 (K7 at path 5's count
+   a step); one test-CLI request each (the gather sweep, 18 conv launches
+   in the coord mode and 17 layer-norm launches, the assembly, the MPI
+   render), its view against the all-plain f32 route and its first conv
+   (Cin' 193 and 196) against its plain version, its stages timed; then
+   cli/evaluate.py on the two outputs.
+Each path's wall and the whole run's are printed.
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
 and plain versions are timed with CUDA events (the conv layers with their
@@ -211,6 +222,13 @@ REG_WRAP_STEPS = 3
 #: differ by an ulp: ~3e-5 px at 640 wide, ~1e-4 on these random layers,
 #: so they are held to float64 within the noise bound instead.)
 RERENDER_TOL = 1e-5
+#: Path 12 (the PP and RealEstate recipes): steps of each recipe through
+#: the train CLI, of the wrap net's PP pixel step (launch counts), and the
+#: RealEstate fixture's frames, (10 - 1) * 10 + 1: the training loader
+#: admits a clip that fits 10 frames at its largest stride, 10.
+MPI_STEPS = 6
+MPI_WRAP_STEPS = 3
+MPI_RE_FRAMES = 91
 #: Path 11: the loaded export against the eager plain net on the card
 #: (bf16, bit-equal measured; float32 at tests/test_torch_net.py's f32
 #: bound for two evaluations of the net: the exported graph's f32 convs
@@ -733,13 +751,14 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
             for k, v in sums.items()}
 
 
-def run_train_loop(tcfg, dev, reset_counts, read_counts, elpips, nsteps):
+def run_train_loop(tcfg, dev, reset_counts, read_counts, elpips, nsteps,
+                   np_batches=None):
     """tcfg's trainer through training/loop.train for nsteps steps on one
-    repeated in-memory batch, with E-LPIPS `elpips` (None for the pixel
-    loss) and the metrics records stamped with its calibration; the launch
-    counts (K7's too) zeroed before and read after. Returns (state,
-    launches, CUDA events per step, metrics records, peak bytes, bytes held
-    before)."""
+    repeated in-memory batch (or the numpy batches np_batches gives), with
+    E-LPIPS `elpips` (None for the pixel loss) and the metrics records
+    stamped with its calibration; the launch counts (K7's too) zeroed
+    before and read after. Returns (state, launches, CUDA events per step,
+    metrics records, peak bytes, bytes held before)."""
     from matryodshka_tpu_torch.data.loader import device_prefetch
     from matryodshka_tpu_torch.ops import wrap_conv as wc
     from matryodshka_tpu_torch.training import loop as loop_lib
@@ -752,7 +771,8 @@ def run_train_loop(tcfg, dev, reset_counts, read_counts, elpips, nsteps):
                                    checkpoint_dir=ckdir,
                                    experiment_name="run")
         tstate = state_lib.init_state(tcfg, 0, dev)
-        np_batch = training_batch(tcfg)
+        if np_batches is None:
+            np_batches = itertools.repeat(training_batch(tcfg))
         step_fn = step_lib.make_train_step(tcfg, tstate.net, elpips=elpips)
         events = []
 
@@ -773,8 +793,7 @@ def run_train_loop(tcfg, dev, reset_counts, read_counts, elpips, nsteps):
             setattr(wc, attr, 0)
         # the batches reach the card as the CLI sends them: pinned copies,
         # non_blocking, from device_prefetch's thread
-        batches = device_prefetch(itertools.repeat(np_batch), size=2,
-                                  device=dev)
+        batches = device_prefetch(np_batches, size=2, device=dev)
         tstate = loop_lib.train(
             tcfg, tstate, timed_step, batches, static_log_fields=None
             if elpips is None else {"elpips_calibrated": elpips.calibrated})
@@ -1554,6 +1573,284 @@ def evaluator_path(dev, tag, reset_counts, read_counts):
     return launches
 
 
+def recipe_flags(name: str):
+    """The flags scripts/train/<name>.sh passes ("$@" left out), without
+    its --elpips_weight_path (the calibrated weights are not in the
+    repository: E-LPIPS runs on its random features, as in path 7)."""
+    import shlex
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "train", f"{name}.sh")
+    with open(path) as fh:
+        text = fh.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if ln.startswith("python "))
+    flags = [t for t in shlex.split(line)[2:] if t != "$@"]
+    i = flags.index("--elpips_weight_path")
+    return flags[:i] + flags[i + 2:]
+
+
+def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
+    """Path 12: the PP and RealEstate recipes at the flagship width
+    (640x320, 32 + 32 planes, 32 MSI planes, ngf 64, bf16, batch 1) on the
+    port's synthetic fixtures written under a temporary directory (the
+    RealEstate clip MPI_RE_FRAMES frames long, as its training loader's
+    admission rule asks). For each recipe (scripts/train/pp-wotemp-elpips-
+    coord.sh, realestate-wotemp-elpips-coord.sh: coord net, E-LPIPS on
+    random features) cli/train.main for MPI_STEPS steps, the launch counts
+    zeroed before and read after (the gather sweep once a step and once
+    for the image summary; K1 never: it reads no pose; the coord net
+    trains through PyTorch convs, as the JAX trainer's XLA convs); then
+    the step in parts at one level-1 draw, TRAIN_WARMUP + MPI_STEPS times
+    on the loader's first batch. Then the wrap net's PP pixel step through
+    training/loop.train on the loader's batches for MPI_WRAP_STEPS steps,
+    K7a/b/c and wgrad at path 5's count a step (k7_per_step). Then one
+    test-CLI request of each recipe's checkpoint (cli/test.main): 18 conv
+    launches (all in the coord mode) and 17 layer-norm launches, no sweep
+    or render kernel; the request's view against the all-plain f32 route
+    (E2E_TOL) and its first conv (Cin' 193, 196) against its plain
+    version (one bf16 step); its ms. Then cli/evaluate.main (E-LPIPS on
+    random features) on the two requests' outputs."""
+    import warnings
+
+    from matryodshka_tpu_torch import entry
+    from matryodshka_tpu_torch.cli import evaluate as cli_evaluate
+    from matryodshka_tpu_torch.cli import test as cli_test
+    from matryodshka_tpu_torch.cli import train as cli_train
+    from matryodshka_tpu_torch.config import config_from_args
+    from matryodshka_tpu_torch.data import synthetic
+    from matryodshka_tpu_torch.data.loader import make_loader
+    from matryodshka_tpu_torch.models import msi as msi_lib
+    from matryodshka_tpu_torch.ops import conv as conv_ops
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    from matryodshka_tpu_torch.training import state as state_lib
+    from matryodshka_tpu_torch.training import step as step_lib
+    from matryodshka_tpu_torch.training.checkpoint import restore_params
+
+    fcfg = entry.flagship_cfg()
+    h, w = fcfg.height, fcfg.width
+    nsteps = TRAIN_WARMUP + MPI_STEPS
+    recipes = {"PP": "pp-wotemp-elpips-coord",
+               "REALESTATE_PP": "realestate-wotemp-elpips-coord"}
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="elpips: no weight_path")
+        t0 = time.perf_counter()
+        globs = {
+            "PP": synthetic.make_perspective_fixture(
+                f"{tmp}/pp", height=h, width=w),
+            "REALESTATE_PP": synthetic.make_realestate_fixture(
+                f"{tmp}/re", frames=MPI_RE_FRAMES, height=h, width=w)}
+        print(f"path 12 fixtures written in {time.perf_counter() - t0:.2f} "
+              f"s (PP: 2 scenes x 3 images; RealEstate: 1 clip x "
+              f"{MPI_RE_FRAMES} frames; {w}x{h})")
+        data = {k: ["--cameras_glob", g, "--image_dir",
+                    os.path.join(os.path.dirname(os.path.dirname(g)),
+                                 "images"),
+                    "--checkpoint_dir", f"{tmp}/ckpt"]
+                for k, g in globs.items()}
+        outs = {}
+        for input_type, recipe in recipes.items():
+            flags = recipe_flags(recipe) + data[input_type]
+            cfg = config_from_args(cli_train.build_parser().parse_args(flags))
+            check(cfg.input_type == input_type and cfg.coord_net
+                  and cfg.which_loss == "elpips"
+                  and (cfg.height, cfg.width, cfg.ngf) == (h, w, fcfg.ngf),
+                  f"{recipe}'s flags")
+
+            # the recipe through the train CLI
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            reset_counts()
+            t0 = time.perf_counter()
+            cli_train.main(flags + ["--max_steps", str(MPI_STEPS),
+                                    "--summary_freq", str(MPI_STEPS),
+                                    "--save_latest_freq", str(MPI_STEPS)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            with open(f"{tmp}/ckpt/{recipe}/logs/metrics.jsonl") as fh:
+                records = [json.loads(line) for line in fh]
+            print(f"{recipe}: launches over {MPI_STEPS} train CLI steps: "
+                  f"{launches}")
+            check(launches["sweep"] == 0, f"{recipe}: K1 never (posed input)")
+            check(launches["gather_sweep"] == MPI_STEPS + 1,
+                  f"{recipe}: one gather sweep a step and one for the "
+                  f"image summary")
+            check(len(records) == 1 and records[0]["step"] == MPI_STEPS
+                  and math.isfinite(records[0]["total_loss"])
+                  and records[0]["elpips_calibrated"] is False,
+                  f"{recipe}: metrics record {records}")
+            check(os.path.exists(f"{tmp}/ckpt/{recipe}/{MPI_STEPS}/"
+                                 f"params.npz"), f"{recipe}: checkpoint")
+            print(f"{recipe} train CLI: {MPI_STEPS} steps in {wall:.2f} s "
+                  f"(E-LPIPS features, checkpoint and image summary "
+                  f"included; sec_per_step "
+                  f"{records[0]['sec_per_step'] * 1e3:.1f} ms, host), "
+                  f"loss {records[0]['total_loss']:.5f}, peak device "
+                  f"memory {peak / 2**30:.3f} GiB "
+                  f"({(peak - mem0) / 2**30:.3f} above the "
+                  f"{mem0 / 2**30:.3f} held before) {tag}")
+
+            # the step in parts, CUDA events between, at one level-1 draw
+            np_batch = next(make_loader(cfg, training=True).batches())
+            tbatch = {k: torch.from_numpy(v).to(dev)
+                      for k, v in np_batch.items()
+                      if isinstance(v, np.ndarray)}
+            tstate = state_lib.init_state(cfg, 0, dev)
+            metric = step_lib.build_elpips(cfg, dev)
+            loss_fn = step_lib.make_loss_fn(cfg, tstate.net, elpips=metric)
+            draw = metric.draw(1, torch.Generator().manual_seed(5), scale=1)
+            tgt = msi_lib.preprocess_image(tbatch["tgt_image"])
+            net = tstate.net
+            steps = [
+                ("sweep", lambda t: loss_fn.sweep(tbatch)),
+                ("net_forward", lambda t: net(t["sweep"])),
+                ("assemble_mpi_render", lambda t: loss_fn.render(
+                    t["sweep"], t["net_forward"], tbatch)["output_image"]),
+                ("elpips", lambda t: torch.mean(metric(
+                    t["assemble_mpi_render"], tgt, draws=[draw]))),
+                ("backward", lambda t: t["elpips"].backward()),
+                ("adam", lambda t: tstate.optimizer.step())]
+            parts = {k: [] for k, _ in steps}
+            for i in range(nsteps):
+                tstate.optimizer.zero_grad(set_to_none=True)
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(len(steps) + 1)]
+                vals = {}
+                ev[0].record()
+                for j, (k, fn) in enumerate(steps):
+                    vals[k] = fn(vals)
+                    ev[j + 1].record()
+                torch.cuda.synchronize()
+                check(math.isfinite(vals["elpips"].item()),
+                      f"{recipe} step loss")
+                if i >= TRAIN_WARMUP:
+                    for j, k in enumerate(parts):
+                        parts[k].append(ev[j].elapsed_time(ev[j + 1]))
+                del vals
+            sums = [sum(v[i] for v in parts.values())
+                    for i in range(MPI_STEPS)]
+            print(f"{recipe} train step {statistics.median(sums):.3f} ms "
+                  f"(sum of its parts, median of {MPI_STEPS} after "
+                  f"{TRAIN_WARMUP} warm-up; coord net, E-LPIPS level 1, "
+                  f"640x320, 32+32 planes, ngf 64, bf16, batch 1); parts "
+                  + " ".join(f"{k} {statistics.median(v):.3f}"
+                             for k, v in parts.items()) + f" ms {tag}")
+            del tstate, loss_fn, net, metric
+
+            # one test-CLI request of the recipe's checkpoint
+            out_root = f"{tmp}/out"
+            reset_counts()
+            t0 = time.perf_counter()
+            cli_test.main(flags + ["--output_root", out_root,
+                                   "--num_runs", "1", "--test_outputs",
+                                   "tgt_image_blend_weights_alphas"])
+            torch.cuda.synchronize()
+            cli_wall = time.perf_counter() - t0
+            rl = read_counts()
+            print(f"{recipe} test CLI request launches: {rl}")
+            check(rl["conv"] == 18 and rl["conv_coord"] == 18
+                  and rl["layernorm"] == 17,
+                  f"{recipe}: 18 conv (coord mode) and 17 layer-norm "
+                  f"launches per request")
+            check(rl["sweep"] == 0 and rl["render"] == 0
+                  and rl["render_layers"] == 0 and rl["gather_sweep"] == 1,
+                  f"{recipe}: the gather sweep, no sweep or render kernel")
+            outs[input_type] = f"{out_root}/{recipe}"
+
+            tree, _ = restore_params(f"{tmp}/ckpt/{recipe}/{MPI_STEPS}/"
+                                     f"params.npz")
+            params = entry.make_params(cfg, flax_params=tree, device=dev)
+            ebatch = {k: torch.from_numpy(v).to(dev) for k, v in
+                      next(make_loader(cfg, training=False).batches()).items()
+                      if isinstance(v, np.ndarray)}
+            infer = cli_test.build_infer_fn(cfg, params, "tgt_image")
+            got = infer(ebatch)["output_image"]
+            want = cli_test.infer_plain(cfg, params, ebatch)["output_image"]
+            check(tuple(got.shape) == (1, h, w, 3)
+                  and bool(torch.isfinite(got).all()),
+                  f"{recipe} request output {tuple(got.shape)}")
+            err = 2 * (got - want).abs()
+            print(f"{recipe} request output_image: |bf16 kernels - f32 "
+                  f"plain| max {err.max().item():.3e} mean "
+                  f"{err.mean().item():.3e} on [-1, 1] (gate {E2E_TOL:.0e})")
+            check(err.max().item() <= E2E_TOL,
+                  f"{recipe} request vs all-plain f32 route")
+            vol = msi_lib.sweep_stage(cfg, ebatch, params.psv_depths)
+            st = params.stages[0]
+            c = conv_ops.conv(vol, st["w"], st["b"], **st["args"]).float()
+            cp = conv_ops.conv_plain(vol, st["w"], st["b"],
+                                     **st["args"]).float()
+            cerr = (c - cp).abs().max().item()
+            ctol = 2.0 ** -7 * cp.abs().max().item()
+            print(f"{recipe} first conv (Cin {vol.shape[1]} + the coord "
+                  f"channel = Cin' {st['w'].shape[1] // 9}, bf16) vs plain: "
+                  f"max_abs_err {cerr:.3e} tol {ctol:.3e} "
+                  f"{'ok' if cerr <= ctol else 'FAIL'}")
+            check(st["w"].shape[1] == 9 * (cfg.num_net_inputs() + 1)
+                  and cerr <= ctol, f"{recipe} first conv vs plain")
+            req_ms = time_ms(lambda: infer(ebatch), iters=5)
+            with torch.no_grad():
+                pred = msi_lib.net_stage(params.stages, vol)
+                rgba = msi_lib.assemble_train(cfg, vol, pred)["rgba_layers"]
+                rel = msi_lib.mpi_view_pose(ebatch)
+                stages = {
+                    "sweep": lambda: msi_lib.sweep_stage(
+                        cfg, ebatch, params.psv_depths),
+                    "net": lambda: msi_lib.net_stage(params.stages, vol),
+                    "assemble": lambda: msi_lib.assemble_train(cfg, vol,
+                                                               pred),
+                    "mpi_render": lambda: msi_lib.render_mpi_view(
+                        rgba, rel, params.msi_depths, ebatch["intrinsics"])}
+                stage_ms = {k: time_ms(fn, iters=5)
+                            for k, fn in stages.items()}
+            print(f"{recipe} request {req_ms:.3f} ms (median of 5); stages "
+                  + " ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+                  + f" ms; test CLI main {cli_wall:.2f} s (params restored, "
+                    f"one example written) {tag}")
+            del params, vol, c, cp, pred, rgba
+
+        # the wrap net's PP pixel step: K7 at path 5's count a step
+        wcfg = dataclasses.replace(config_from_args(
+            cli_train.build_parser().parse_args(
+                recipe_flags(recipes["PP"]) + data["PP"])),
+            coord_net=False, which_loss="pixel")
+        wl_state, wl, wevents, wrecs, wpeak, wmem0 = run_train_loop(
+            wcfg, dev, reset_counts, read_counts, None, MPI_WRAP_STEPS,
+            np_batches=make_loader(wcfg, training=True).batches())
+        print(f"launches over {MPI_WRAP_STEPS} PP wrap-net pixel steps: {wl}")
+        for k in K7_COUNTS:
+            want_n = k7_per_step[k] * MPI_WRAP_STEPS
+            check(wl[k] == want_n, f"{k}: {wl[k]} launches in "
+                                   f"{MPI_WRAP_STEPS} PP wrap steps, want "
+                                   f"{want_n} (path 5's a step)")
+        check(wl["sweep"] == 0 and wl["gather_sweep"] == MPI_WRAP_STEPS,
+              "PP wrap steps: the gather sweep once a step, K1 never")
+        check(all(math.isfinite(r["total_loss"]) for r in wrecs),
+              "PP wrap records")
+        print("PP wrap-net pixel steps ms " + " ".join(
+            f"{s_.elapsed_time(e_):.3f}" for s_, e_ in wevents)
+              + f", peak {wpeak / 2**30:.3f} GiB "
+                f"({(wpeak - wmem0) / 2**30:.3f} above the held) {tag}")
+        del wl_state
+
+        # the evaluator on the two requests' outputs
+        for input_type, root in outs.items():
+            t0 = time.perf_counter()
+            table = cli_evaluate.main(["--result_root", root, "--with_elpips",
+                                       "--allow_uncalibrated", "--device",
+                                       str(dev)])
+            check(len(table["per_example"]) == 1
+                  and all(math.isfinite(table[f"avg_{k}"])
+                          for k in ("ssim", "psnr", "elpips")),
+                  f"{input_type} evaluator scores {table}")
+            print(f"{input_type} evaluator: ssim {table['avg_ssim']:.4f} "
+                  f"psnr {table['avg_psnr']:.3f} elpips "
+                  f"{table['avg_elpips']:.5f} in "
+                  f"{time.perf_counter() - t0:.2f} s {tag}")
+    return wl
+
+
 def probe_path(dev, tag):
     """Path 6: the lowering probes, `python -m
     matryodshka_tpu_torch.tools.probes` as its main(), the launch counts
@@ -1678,6 +1975,16 @@ def main() -> None:
         print("chip_smoke: no CUDA device; the port has no CPU route here",
               file=sys.stderr)
         sys.exit(2)
+    t_run = time.perf_counter()
+    walls, since = {}, [t_run]
+
+    def lap(name):
+        """Print and keep the wall of the part that ends here."""
+        now = time.perf_counter()
+        walls[name] = now - since[0]
+        since[0] = now
+        print(f"{name} wall {walls[name]:.1f} s")
+
     card = nvidia_smi_line()
     tag = f"[{card}]"
     dev = torch.device("cuda", 0)
@@ -1845,6 +2152,8 @@ def main() -> None:
                 layer_stack_gates(gate, name, f"{what} {str(st.dtype)[6:]}",
                                   st, target, u, v, ftb)
 
+    lap("build and kernel gates")
+
     # ---- the slice: three requests through entry.forward -----------------
     mods = {"sweep": sweep_ops, "conv": conv_ops, "layernorm": ln_ops,
             "render": render_ops}
@@ -1904,6 +2213,8 @@ def main() -> None:
               f"(gate {E2E_TOL:.0e}); vs f32 reference semantics max "
               f"{err_ref.max().item():.3e} mean {err_ref.mean().item():.3e}")
         check(err.max().item() <= E2E_TOL, "slice vs all-plain f32 path")
+
+    lap("path 1")
 
     # ---- path 2: the test CLI, one request per colour scheme ---------------
     counted = {"sweep": sweep_ops, "conv": conv_ops, "layernorm": ln_ops,
@@ -1987,6 +2298,8 @@ def main() -> None:
     print(f"ftb vs back-to-front output_image max |diff| "
           f"{ftb_diff.max().item():.3e}")
 
+    lap("path 2")
+
     # ---- path 3: the 4096x2048 re-render from the blend_psv request -------
     hh, hw = HRES
     _, c0, _, bq = cli[0]
@@ -2034,6 +2347,8 @@ def main() -> None:
                       htarget, hu, hv, False)
     del hu, hv
 
+    lap("path 3")
+
     # ---- path 4: the coord net through entry.forward and the test CLI ------
     cbatches = [entry.synthetic_batch(ccfg, seed, dev, tgt_pos=pos)
                 for seed, pos in REQUESTS[:2]]
@@ -2068,13 +2383,19 @@ def main() -> None:
     gate_e2e(f"cli coord {cscheme} tgt_pos {cpos}", ccli_out,
              cli_test.infer_plain(ccfg, cparams, cb_cli))
 
+    lap("path 4")
+
     # ---- path 5: training, the default ODS trainer -------------------------
     k7_ms = wrap_conv_kernels(dev, h, w, gate, errs, tag)
     train_launches = training_path(dev, tag, reset_counts, read_counts)
     nsteps = TRAIN_WARMUP + TRAIN_STEPS
 
+    lap("path 5")
+
     # ---- path 6: the lowering probes (K8, K9) ------------------------------
     probe_rows = probe_path(dev, tag)
+
+    lap("path 6")
 
     # ---- times (CUDA events, 2 warm-up, median of 10) ----------------------
 
@@ -2475,22 +2796,40 @@ def main() -> None:
                      "bound_ms": bms, "bound_by": bby, "library_ms": lt})
     rows.extend(probe_rows)
 
+    lap("times and traces")
+
     # ---- path 7: the E-LPIPS trainer (released recipe, then the wrap net) --
     # (after the profiler traces above: no trace follows these paths)
     elpips_training_path(dev, tag, reset_counts, read_counts)
 
+    lap("path 7")
+
     # ---- path 8: the evaluator on the coord net's test CLI outputs ---------
     evaluator_path(dev, tag, reset_counts, read_counts)
+
+    lap("path 8")
 
     # ---- path 9: the ods-temp recipe (transform-inverse regularizer) -------
     reg_training_path(dev, tag, reset_counts, read_counts,
                       {k: train_launches[k] // nsteps for k in K7_COUNTS})
 
+    lap("path 9")
+
     # ---- path 10: the test CLI's perspective and ODS-eye re-renders --------
     rerender_path(dev, tag, reset_counts, read_counts)
 
+    lap("path 10")
+
     # ---- path 11: the net-only export and its consumer ---------------------
     export_path(dev, tag, reset_counts, read_counts)
+    lap("path 11")
+
+    # ---- path 12: the PP and RealEstate recipes ----------------------------
+    mpi_path(dev, tag, reset_counts, read_counts,
+             {k: train_launches[k] // nsteps for k in K7_COUNTS})
+    lap("path 12")
+    print("walls, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"; the whole run {time.perf_counter() - t_run:.1f} {tag}")
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())

@@ -1,9 +1,9 @@
-"""Inference entry point (the reference's test.py), ODS input.
+"""Inference entry point (the reference's test.py).
 
     python -m matryodshka_tpu_torch.cli.test --image_dir DIR \
         --cameras_glob 'CAMS/*.txt' [--params net.npz] [--coord_net true] \
-        [--device cuda] [--test_type high_res] [--test_outputs ...] \
-        [--num_runs N]
+        [--input_type ODS|PP|REALESTATE_PP] [--device cuda] \
+        [--test_type high_res] [--test_outputs ...] [--num_runs N]
 
 Counterpart of `matryodshka_tpu/cli/test.py`. Runs batch-1 inference over
 the camera files, renders the requested outputs and writes PNGs plus
@@ -21,6 +21,14 @@ schemes the prepared assembly and the layer-stack render
 kernel); the high-res re-render sweeps at full size and draws through
 render_layers.cu the same way. `--device cpu` runs each kernel's plain
 version.
+
+PP and REALESTATE_PP input (the non-spherical branch of JAX
+cli/test.py:137-147): the gather sweep (perspective or homography plane
+sweep; the JAX package has no TPU kernel for it), the net through the same
+conv and layer-norm kernels, the assembly, and the MPI render of the target
+view at tgt_pose @ ref_pose_inv (homography warps, plain PyTorch), written
+as output_tgt_*; there is no depth output, and psp, src_output_image,
+ref_output_image and high_res are ODS outputs, as in the JAX CLI.
 
 The net's weights come from `--params`, an .npz of the flax parameter tree
 (training/checkpoint.py; `python -m matryodshka_tpu_torch.tf_import` writes
@@ -74,6 +82,11 @@ def build_infer_fn(cfg: MatryConfig, params: entry.Params,
     assembled from the kernel route's volume and prediction: the JAX
     package has no TPU kernel for them either (it gathers in XLA)."""
     rerenders = ("psp", "src_output_image", "ref_output_image")
+    if cfg.input_type != "ODS":
+        if any(k in test_outputs for k in rerenders):
+            raise ValueError(f"{rerenders} re-render an ODS MSI; input_type "
+                             f"{cfg.input_type} makes an MPI")
+        return _build_mpi_infer_fn(cfg, params, test_outputs)
 
     @torch.no_grad()
     def infer(batch):
@@ -99,6 +112,29 @@ def build_infer_fn(cfg: MatryConfig, params: entry.Params,
                 params.msi_depths, ftb=ftb)
             outs["output_image"] = msi_lib.deprocess_image(img)
             outs["output_depth"] = depth
+        return outs
+
+    return infer
+
+
+def _build_mpi_infer_fn(cfg: MatryConfig, params: entry.Params,
+                        test_outputs: str):
+    """build_infer_fn for PP and REALESTATE_PP input (JAX
+    cli/test.py:137-147): msi_lib.infer_mpi, the gather sweep, the net
+    through the conv and layer-norm kernels, the assembly and the MPI
+    render at tgt_pose @ ref_pose_inv -> output_image ([0, 1]; no depth
+    output, as in the JAX CLI), rgba_layers, blend_weights, alphas, psv."""
+
+    @torch.no_grad()
+    def infer(batch):
+        asm = msi_lib.infer_mpi(cfg, params.stages, batch, params.psv_depths,
+                                params.msi_depths)
+        outs = {k: asm[k] for k in ("rgba_layers", "blend_weights",
+                                    "alphas", "psv")
+                if k in asm and k in test_outputs}
+        if "tgt_image" in test_outputs:
+            outs["output_image"] = msi_lib.deprocess_image(
+                asm["output_image"])
         return outs
 
     return infer
@@ -131,7 +167,16 @@ def infer_plain(cfg: MatryConfig, params: entry.Params, batch):
     """build_infer_fn's output_image and output_depth with every kernel
     replaced by its plain version, in float32: ods_sweep_plain, the plain
     MSIUNet, then render_blend_plain (blend_psv) or the prepared assembly
-    and render_layers_plain."""
+    and render_layers_plain. For PP and REALESTATE_PP, output_image of
+    msi_lib.infer_msi (the gather sweep and the plain MSIUNet) and the MPI
+    render."""
+    if cfg.input_type != "ODS":
+        asm = msi_lib.infer_msi(params.net, cfg, batch, params.psv_depths,
+                                dtype=torch.float32)
+        return {"output_image": msi_lib.deprocess_image(
+            msi_lib.render_mpi_view(asm["rgba_layers"],
+                                    msi_lib.mpi_view_pose(batch),
+                                    params.msi_depths, batch["intrinsics"]))}
     images, rowp = sweep_ops.sweep_inputs(
         msi_lib.preprocess_image(batch["ref_image"]),
         msi_lib.preprocess_image(batch["src_image"]), params.psv_depths,
@@ -174,12 +219,12 @@ def build_hres_render_fn(cfg: MatryConfig):
     depth [B, Hh, Wh, 3]). As in the fused JAX path, the ODS loader's
     identity ref/src poses are assumed, not read. blend_psv only, as that
     path; the JAX shell scan for the other schemes is not ported (ROADMAP
-    Queue 1 item 5)."""
+    Queue 1 item 5b)."""
     if cfg.which_color_pred != "blend_psv":
         raise NotImplementedError(
             f"high_res with which_color_pred {cfg.which_color_pred!r}: only "
             f"blend_psv is ported (the JAX shell scan for the other schemes "
-            f"is ROADMAP Queue 1 item 5)")
+            f"is ROADMAP Queue 1 item 5b)")
     hh, hw, p = cfg.hres_height, cfg.hres_width, cfg.num_psv_planes
     dtype = cfg.torch_compute_dtype
 
@@ -252,8 +297,9 @@ def save_outputs(cfg: MatryConfig, out_dir: str, dirname: str, batch, outs,
                     batch["tgt_image"][0] * 255.0)
         write_image(f"{out_dir}/output_tgt_{dirname}.png",
                     outs["output_image"][0] * 255.0)
-        write_image(f"{out_dir}/output_depth_{dirname}.png",
-                    outs["output_depth"][0] * 255.0)
+        if "output_depth" in outs:
+            write_image(f"{out_dir}/output_depth_{dirname}.png",
+                        outs["output_depth"][0] * 255.0)
     for key in ("src_image", "ref_image"):
         if key in test_outputs:
             write_image(f"{out_dir}/{key}_{dirname}.png",
@@ -362,6 +408,9 @@ def main(argv=None):
                          args.test_outputs)
 
     if "high_res" in args.test_type:
+        if cfg.input_type != "ODS":
+            raise ValueError("high_res re-renders an ODS MSI (JAX "
+                             "cli/test.py:447)")
         loader = OdsLoader(cfg, training=False, load_hres=True)
         render = build_hres_render_fn(cfg)
         for run, batch in enumerate(loader.batches()):

@@ -1,9 +1,11 @@
 """Training entry point (the reference's train.py, flags included).
 
 Counterpart of `matryodshka_tpu/cli/train.py` for the ODS trainer with
-tgt supervision (pixel or E-LPIPS loss, optional spherical attention and
-weight regularization, either net). Example, on the synthetic fixture
-(`python -m matryodshka_tpu_torch.data.synthetic /tmp/fix`):
+tgt supervision and the PP and RealEstate10K trainers (`--input_type PP`
+or `REALESTATE_PP`: the MPI render of the target view; pixel or E-LPIPS
+loss, optional spherical attention, weight regularization and the
+transform-inverse regularizer, either net). Example, on the synthetic
+fixture (`python -m matryodshka_tpu_torch.data.synthetic /tmp/fix`):
 
   python -m matryodshka_tpu_torch.cli.train --device cpu \
       --image_dir /tmp/fix/images --cameras_glob '/tmp/fix/cams/*.txt' \
@@ -14,6 +16,13 @@ The released recipe (scripts/train/ods-wotemp-elpips-coord.sh) adds
 `--which_loss elpips --coord_net true [--elpips_weight_path W.npz]`;
 without weights E-LPIPS runs on random conv features, and every record of
 metrics.jsonl carries `"elpips_calibrated": false`.
+
+The PP and RealEstate recipes (scripts/train/pp-wotemp-elpips-coord.sh,
+realestate-wotemp-elpips-coord.sh) run as they are, their data paths
+aside; `data/synthetic.make_perspective_fixture` and
+`make_realestate_fixture` write fixtures for them (the module's
+`--realestate --frames 91`: the training loader admits clips of at least
+91 frames).
 
 `--device` is `cuda` by default; without a card that raises rather than
 running on the CPU. The checkpoint's `<checkpoint_dir>/<experiment_name>/

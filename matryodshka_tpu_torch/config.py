@@ -19,9 +19,11 @@ import torch
 #: Colour-prediction schemes (the reference's scheme table,
 #: matryodshka/msi.py:108-118).
 COLOR_PREDS = ("blend_psv", "blend_bg", "blend_bg_psv", "alpha_only")
-#: Input types the port accepts. PP and REALESTATE_PP need the MPI render
-#: and the homography path (ROADMAP Queue 1 item 5).
-INPUT_TYPES = ("ODS",)
+#: Input types: ODS stereo pairs (sphere sweep, MSI render), Replica
+#: perspective pairs (PP: perspective plane sweep, MPI render) and
+#: RealEstate10K clips (REALESTATE_PP: the ref image and homography plane
+#: sweeps, MPI render).
+INPUT_TYPES = ("ODS", "PP", "REALESTATE_PP")
 LOSSES = ("pixel", "elpips")
 
 
@@ -120,7 +122,10 @@ class MatryConfig:
                 "alpha_only": p}[self.which_color_pred]
 
     def num_net_inputs(self) -> int:
-        """Channels of the double sphere-sweep volume (ODS input)."""
+        """Channels of the net input: the double sweep volume, after the
+        ref image's 3 channels for REALESTATE_PP (msi.py:1024-1059)."""
+        if self.input_type == "REALESTATE_PP":
+            return 3 + 2 * self.num_psv_planes * 3
         return 2 * self.num_psv_planes * 3
 
     def validate(self) -> "MatryConfig":
@@ -129,10 +134,8 @@ class MatryConfig:
                 f"which_color_pred {self.which_color_pred!r}; known: "
                 f"{COLOR_PREDS}")
         if self.input_type not in INPUT_TYPES:
-            raise ValueError(
-                f"input_type {self.input_type!r} is not ported (PP and "
-                f"REALESTATE_PP wait for the MPI render and the homography "
-                f"path, ROADMAP Queue 1 item 5); supported: {INPUT_TYPES}")
+            raise ValueError(f"input_type {self.input_type!r}; known: "
+                             f"{INPUT_TYPES}")
         if self.num_msi_planes != self.num_psv_planes:
             raise ValueError("the port's renders pair shell p with sweep "
                              "plane p: num_msi_planes must equal "
@@ -153,14 +156,17 @@ class MatryConfig:
 
 def check_trainable(cfg: MatryConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a training
-    option whose code is not ported yet."""
+    option whose code is not ported yet. The src/ref terms are ODS eye
+    re-renders: the PP and RealEstate trainers never reach them (JAX
+    step.py:163-182), so they raise for ODS input only."""
     parts = cfg.supervision.split("_")
     unported = [
         (cfg.gcn, "gcn: the GCN is ROADMAP Queue 1 item 8"),
         ("hrestgt" in parts, "supervision hrestgt: the high-res target "
          "render in training is left of ROADMAP Queue 1 item 6"),
-        ("src" in parts or "ref" in parts, "supervision src/ref: the "
-         "trainer's ODS eye re-render terms are ROADMAP Queue 1 item 6.2"),
+        (cfg.input_type == "ODS" and ("src" in parts or "ref" in parts),
+         "supervision src/ref: the trainer's ODS eye re-render terms are "
+         "ROADMAP Queue 1 item 6.2"),
         (cfg.remat_network, "remat_network is left of ROADMAP Queue 1 item "
          "6"),
     ]

@@ -22,6 +22,7 @@ import torch
 
 from matryodshka_tpu_torch import weights
 from matryodshka_tpu_torch.config import MatryConfig
+from matryodshka_tpu_torch.geometry.cameras import interpolate_pose
 from matryodshka_tpu_torch.geometry import render as render_lib
 from matryodshka_tpu_torch.geometry import sweep as sweep_lib
 from matryodshka_tpu_torch.models import msi as msi_lib
@@ -43,7 +44,9 @@ def synthetic_batch(cfg: MatryConfig, seed: int = 0, device="cuda",
     """Random ODS pair + target, drawn from np.random.RandomState(seed) in
     the same order as the JAX package's synthetic batch (ref, src, tgt
     images), so one seed gives both packages the same images; on device
-    (the card unless the caller asks for the CPU)."""
+    (the card unless the caller asks for the CPU). For PP and
+    REALESTATE_PP input the same images with a batch of that type's poses
+    (mpi_poses) in place of the ODS ones."""
     rng = np.random.RandomState(seed)
     b, h, w = cfg.batch_size, cfg.height, cfg.width
     eye = torch.eye(4, device=device).expand(b, 4, 4).contiguous()
@@ -54,13 +57,51 @@ def synthetic_batch(cfg: MatryConfig, seed: int = 0, device="cuda",
         return torch.from_numpy(
             rng.rand(b, h, w, 3).astype(np.float32)).to(device)
 
+    images = {"ref_image": img(), "src_image": img(), "tgt_image": img()}
+    if cfg.input_type != "ODS":
+        return {**images, **{k: torch.from_numpy(v).to(device) for k, v in
+                             mpi_poses(cfg).items()}}
     return {
-        "ref_image": img(), "src_image": img(), "tgt_image": img(),
-        "ref_pose": eye, "src_pose": eye, "ref_pose_inv": eye,
+        **images, "ref_pose": eye, "src_pose": eye, "ref_pose_inv": eye,
         "tgt_pose": torch.tensor([tgt_pos], dtype=torch.float32,
                                  device=device).expand(b, 3).contiguous(),
         "intrinsics": torch.from_numpy(intr).to(device),
     }
+
+
+def mpi_poses(cfg: MatryConfig) -> Dict[str, np.ndarray]:
+    """The pose fields of a PP or RealEstate batch as the loaders give them
+    (numpy, batch cfg.batch_size): PP the synthetic fixture's line (src
+    0.1 m and tgt 0.05 m to the left of ref, the reference frame their
+    slerp midpoint, K with fx = cx = W/2, fy = cy = H/2); RealEstate a
+    clip's frames 0, 3 and 2 of the synthetic fixture (0.02 m a frame
+    along x) with its normalized intrinsics (0.9, 1.2, 0.5, 0.5) and the
+    reference frame ref_pose."""
+    b, h, w = cfg.batch_size, cfg.height, cfg.width
+
+    def poses(*xs):
+        out = []
+        for x in xs:
+            p = np.tile(np.eye(4, dtype=np.float32)[None], (b, 1, 1))
+            p[:, 0, 3] = x
+            out.append(p)
+        return out
+
+    if cfg.input_type == "PP":
+        ref, src, tgt = poses(0.0, -0.1, -0.05)
+        k = np.asarray([[w / 2, 0, w / 2], [0, h / 2, h / 2], [0, 0, 1]],
+                       np.float32)
+        interp = interpolate_pose(torch.from_numpy(ref[0]),
+                                  torch.from_numpy(src[0])).numpy()
+        ref_inv = np.tile(np.linalg.inv(interp)[None], (b, 1, 1))
+    else:
+        ref, src, tgt = poses(0.0, -0.06, -0.04)
+        k = np.asarray([[0.9 * w, 0, 0.5 * w], [0, 1.2 * h, 0.5 * h],
+                        [0, 0, 1]], np.float32)
+        ref_inv = np.linalg.inv(ref)
+    return {"ref_pose": ref, "src_pose": src, "tgt_pose": tgt,
+            "ref_pose_inv": ref_inv,
+            "intrinsics": np.tile(k[None], (b, 1, 1))}
 
 
 @dataclass

@@ -1,7 +1,9 @@
-"""Backprojection, pose application and ODS / spherical projection.
+"""Backprojection, pose application, ODS / spherical / pinhole
+projection, the regularizer's jitter pose, and quaternion pose
+interpolation.
 
-Counterpart of `matryodshka_tpu/geometry/cameras.py`; every function works
-on tensors of any common shape (typically [P, H, W]).
+Counterpart of `matryodshka_tpu/geometry/cameras.py`; the point functions
+work on tensors of any common shape (typically [P, H, W]).
 """
 
 from __future__ import annotations
@@ -126,3 +128,113 @@ def random_jitter_pose(generator=None, rot_factor: float = 1.0,
     pose[:3, :3] = rotation_from_euler(angles)
     pose[:3, 3] = tr
     return pose.to(device)
+
+
+# ---------------------------------------------------------------------------
+# Planar and cylindrical cameras (the PP / RealEstate path).
+# ---------------------------------------------------------------------------
+
+def backproject_planar(S, T, depths, intrinsics):
+    """Points on fronto-parallel planes at depth depths[p] through the
+    normalized UV grid (S, T) [H, W] (grids.uv_grid); intrinsics [3, 3]
+    (fx, fy, cx, cy). Returns (x, y, z), each [P, H, W]."""
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    d = depths[:, None, None]
+    return (d * (S * cx / fx)[None], d * (T * cy / fy)[None],
+            d * torch.ones_like(S)[None])
+
+
+def backproject_cylindrical(S, T, depths, intrinsics):
+    """Points on cylinders of radius depths[p] through (theta, y) grid
+    (S, T) [H, W]; intrinsics [3, 3] (fy, cy). Returns (x, y, z), each
+    [P, H, W]."""
+    fy, cy = intrinsics[1, 1], intrinsics[1, 2]
+    d = depths[:, None, None]
+    return (d * torch.cos(S)[None], d * (T * cy / fy)[None],
+            d * torch.sin(S)[None])
+
+
+def project_perspective(points, intrinsics, pose=None):
+    """Pinhole projection (K @ pose) of (x, y, z) -> [..., 2] pixel
+    coordinates (u / w, v / w); K [3, 3] embedded in a zero 4x4 as the
+    reference does (projector.py:145-147), pose [4, 4] (identity when
+    None)."""
+    x, y, z = points
+    k4 = torch.zeros((4, 4), dtype=x.dtype, device=x.device)
+    k4[:3, :3] = intrinsics
+    m = k4 if pose is None else k4 @ pose
+    u = m[0, 0] * x + m[0, 1] * y + m[0, 2] * z + m[0, 3]
+    v = m[1, 0] * x + m[1, 1] * y + m[1, 2] * z + m[1, 3]
+    w = m[2, 0] * x + m[2, 1] * y + m[2, 2] * z + m[2, 3]
+    return torch.stack([u / w, v / w], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Quaternions and pose interpolation (matryodshka/utils.py:55-74).
+# ---------------------------------------------------------------------------
+
+def quaternion_from_rotation(R):
+    """Unit quaternion (x, y, z, w) [4] of a 3x3 rotation: Shepperd's
+    method, the candidate formula with the largest pivot
+    (1 + tr, 1 + R00 - R11 - R22, ...)."""
+    tr = R[0, 0] + R[1, 1] + R[2, 2]
+    piv = torch.stack([1.0 + tr, 1.0 + R[0, 0] - R[1, 1] - R[2, 2],
+                       1.0 - R[0, 0] + R[1, 1] - R[2, 2],
+                       1.0 - R[0, 0] - R[1, 1] + R[2, 2]])
+    case = int(torch.argmax(piv))
+    s = torch.sqrt(torch.clamp(piv[case], min=1e-12)) * 2.0
+    if case == 0:
+        q = [(R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
+             (R[1, 0] - R[0, 1]) / s, 0.25 * s]
+    elif case == 1:
+        q = [0.25 * s, (R[0, 1] + R[1, 0]) / s, (R[0, 2] + R[2, 0]) / s,
+             (R[2, 1] - R[1, 2]) / s]
+    elif case == 2:
+        q = [(R[0, 1] + R[1, 0]) / s, 0.25 * s, (R[1, 2] + R[2, 1]) / s,
+             (R[0, 2] - R[2, 0]) / s]
+    else:
+        q = [(R[0, 2] + R[2, 0]) / s, (R[1, 2] + R[2, 1]) / s, 0.25 * s,
+             (R[1, 0] - R[0, 1]) / s]
+    q = torch.stack(q)
+    return q / torch.linalg.norm(q)
+
+
+def rotation_from_quaternion(q):
+    """3x3 rotation of a unit quaternion (x, y, z, w)."""
+    x, y, z, w = q[0], q[1], q[2], q[3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                     2 * (x * z + y * w)]),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - x * w)]),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                     1 - 2 * (x * x + y * y)])])
+
+
+def slerp(q0, q1, t: float):
+    """Spherical linear interpolation of two unit quaternions along the
+    shorter arc; a lerp where sin(theta) <= 1e-6 (nearly parallel)."""
+    dot = torch.sum(q0 * q1)
+    if dot < 0:
+        q1, dot = -q1, -dot
+    theta = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    if sin_theta > 1e-6:
+        w0 = torch.sin((1 - t) * theta) / sin_theta
+        w1 = torch.sin(t * theta) / sin_theta
+    else:
+        w0, w1 = 1.0 - t, t
+    q = w0 * q0 + w1 * q1
+    return q / torch.linalg.norm(q)
+
+
+def interpolate_pose(ref_pose, src_pose, t: float = 0.5):
+    """The pose at t between two [4, 4] poses: the rotations slerped, the
+    translations lerped (the PP path's reference frame)."""
+    q = slerp(quaternion_from_rotation(ref_pose[:3, :3]),
+              quaternion_from_rotation(src_pose[:3, :3]), t)
+    out = torch.eye(4, dtype=ref_pose.dtype, device=ref_pose.device)
+    out[:3, :3] = rotation_from_quaternion(q)
+    out[:3, 3] = (1 - t) * ref_pose[:3, 3] + t * src_pose[:3, 3]
+    return out

@@ -26,6 +26,13 @@ The trainer (`training/step.py`) runs infer_msi (msi.py:346-395) as the
 JAX train step calls it: the sweep kernel (`sweep_stage`), the trainer's
 MSIUNet (its stride-1 wrap convs through K7, with autograd), then
 `assemble_train` (assemble_rgba) and the gather render.
+
+PP and REALESTATE_PP input make an MPI, not an MSI: `sweep_stage` takes
+the perspective or homography plane sweep by gather (the JAX package has
+no TPU kernel for either), the net runs as for ODS (the conv kernel reads
+the 192 or 195 input channels), the layers are assemble_rgba's, and the
+view is `render_mpi_view` (homography warps and the over-composite,
+plain PyTorch: no TPU kernel either); `infer_mpi` is the test CLI's route.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from matryodshka_tpu_torch.geometry import homography
 from matryodshka_tpu_torch.geometry import render as render_lib
 from matryodshka_tpu_torch.geometry import sweep as sweep_lib
 from matryodshka_tpu_torch.ops import net as net_ops
@@ -71,7 +79,9 @@ def upsample_align_corners(img, out_h: int, out_w: int):
 
 def assemble_rgba(which_color_pred: str, msi_pred, net_input,
                   num_planes: int) -> Dict[str, torch.Tensor]:
-    """msi_pred [B, H, W, K] tanh + net_input [B, H, W, 2*P*3] ->
+    """msi_pred [B, H, W, K] tanh + net_input [B, H, W, >= 2*P*3] (fg =
+    channels [0, 3P), bg = [3P, 6P), the JAX slices also for the
+    195-channel REALESTATE_PP input, msi.py:97, 103) ->
     {'rgba_layers' [B, H, W, P, 4] (net_input's dtype), 'alphas' and the
     scheme's intermediates: 'blend_weights' (all but alpha_only), 'bg_rgb'
     (blend_bg: the raw tanh of the last 3 channels), 'bg_blend_weights'
@@ -110,10 +120,13 @@ def assemble_rgba(which_color_pred: str, msi_pred, net_input,
 def _shell_rgb(which_color_pred: str, vol, num_planes: int, blend,
                bg_blend=None, bg_rgb=None):
     """Shell colours [B, P, 3, H, W] float32 from the sweep volume
-    vol [B, 2*P*3, H, W] (ref eye = fg, src eye = bg) and the scheme's
+    vol [B, >= 2*P*3, H, W] (its channels [0, 3P) are fg, [3P, 6P) bg:
+    the ref and src eyes, or for REALESTATE_PP the ref image and the first
+    P-1 ref planes, then the rest, as JAX assemble_rgba reads them) and
+    the scheme's
     weights [B, P, H, W] in [0, 1]; bg_rgb [B, 3, H, W]."""
     b, _, h, w = vol.shape
-    v6 = vol.reshape(b, 2, num_planes, 3, h, w)
+    v6 = vol[:, :2 * num_planes * 3].reshape(b, 2, num_planes, 3, h, w)
     fg = v6[:, 0].to(torch.float32, copy=True)
     if which_color_pred == "alpha_only":
         return fg
@@ -179,15 +192,30 @@ def assemble_hres_prepared(which_color_pred: str, u_blend, u_alphas, vol,
 # The reference path (gather sweep, plain MSIUNet, gather render).
 # ---------------------------------------------------------------------------
 
+def format_input(cfg, batch, psv_depths, jitter_pose_inv=None):
+    """The net input of the batch by gather, in the JAX layout
+    [B, H, W, C] float32, as JAX infer_msi routes it (msi.py:365-375): the
+    double ODS sphere sweep or the double perspective plane sweep (PP),
+    C = 2*P*3; for REALESTATE_PP the ref image and the two homography
+    plane sweeps, C = 3 + 2*P*3. jitter_pose_inv [B, 4, 4]: the
+    regularizer's jittered forward."""
+    ref = preprocess_image(batch["ref_image"])
+    src = preprocess_image(batch["src_image"])
+    if cfg.input_type == "REALESTATE_PP":
+        return sweep_lib.format_realestate_network_input(
+            ref, src, batch["ref_pose"], batch["src_pose"], psv_depths,
+            batch["intrinsics"], jitter_pose_inv=jitter_pose_inv)
+    return sweep_lib.format_network_input(
+        ref, src, batch["ref_pose"], batch["src_pose"], batch["ref_pose_inv"],
+        psv_depths, batch["intrinsics"], input_type=cfg.input_type,
+        jitter_pose_inv=jitter_pose_inv)
+
+
 def infer_msi(net, cfg, batch, psv_depths, dtype=None):
-    """Reference path: gather sweep + plain MSIUNet + assembly. dtype
-    overrides the net's compute dtype. Returns the assemble_rgba dict plus
-    'psv' (the net input [B, H, W, 2*P*3])."""
-    net_input = sweep_lib.format_network_input(
-        preprocess_image(batch["ref_image"]),
-        preprocess_image(batch["src_image"]), batch["ref_pose"],
-        batch["src_pose"], batch["ref_pose_inv"], psv_depths,
-        batch["intrinsics"])
+    """Reference path: gather sweep (format_input) + plain MSIUNet +
+    assembly. dtype overrides the net's compute dtype. Returns the
+    assemble_rgba dict plus 'psv' (the net input [B, H, W, C])."""
+    net_input = format_input(cfg, batch, psv_depths)
     msi_pred = net(net_input.permute(0, 3, 1, 2), dtype=dtype)
     outputs = assemble_rgba(cfg.which_color_pred, msi_pred.permute(0, 2, 3, 1),
                             net_input, cfg.num_msi_planes)
@@ -225,6 +253,25 @@ def render_ods_view(rgba_layers, order: int, pose, tgt_pos, radii,
         for i in range(rgba_layers.shape[0])])
 
 
+def mpi_view_pose(batch, jitter_pose_inv=None):
+    """The PP / RealEstate target view's pose relative to the layers'
+    frame: tgt_pose @ ref_pose_inv [@ jitter_pose_inv], [B, 4, 4] (JAX
+    step.py:166-167, 175-178)."""
+    rel = batch["ref_pose_inv"]
+    if jitter_pose_inv is not None:
+        rel = torch.einsum("bij,bjk->bik", rel, jitter_pose_inv)
+    return torch.einsum("bij,bjk->bik", batch["tgt_pose"], rel)
+
+
+def render_mpi_view(rgba_layers, tgt_pose, radii, intrinsics):
+    """Perspective MPI render of a batch (JAX msi.py:803, msi.py:527-548):
+    rgba_layers [B, H, W, P, 4], tgt_pose [B, 4, 4] (relative),
+    intrinsics [B, 3, 3] -> [B, H, W, 3] float32; plane p at radii[p]. The
+    batch's B x P homography warps are one gather."""
+    return homography.mpi_render_view(rgba_layers, tgt_pose, radii,
+                                      intrinsics)
+
+
 def render_perspective_view(rgba_layers, tgt_pos, radii,
                             viewing_window: int = 3, psp_height: int = 270,
                             psp_width: int = 480):
@@ -243,23 +290,21 @@ def render_perspective_view(rgba_layers, tgt_pos, radii,
 # ---------------------------------------------------------------------------
 
 def sweep_stage(cfg, batch, psv_depths, jitter_pose_inv=None):
-    """Stage 1: the dual-eye sweep of the batch's ODS pair -> net input
-    [B, 2*P*3, H, W] in the compute dtype. Without jitter the
-    identity-pose sweep (it preprocesses the images; on the card one
-    kernel launch, which reads no pose). With the transform-inverse
-    regularizer's jitter_pose_inv [B, 4, 4] the general-pose gather sweep
-    at ref_pose_inv @ jitter_pose_inv, as the JAX package takes its
-    kernel only without jitter (JAX sweep.py:150-151); the argument picks
-    the route, so the kernel never sees a jittered batch."""
-    if jitter_pose_inv is None:
+    """Stage 1: the net input [B, C, H, W] in the compute dtype. For ODS
+    input without jitter the identity-pose sweep of the batch's pair (it
+    preprocesses the images; on the card one kernel launch, which reads no
+    pose). Otherwise the gather route of format_input: for ODS with the
+    transform-inverse regularizer's jitter_pose_inv [B, 4, 4] the
+    general-pose sphere sweep at ref_pose_inv @ jitter_pose_inv, as the JAX
+    package takes its kernel only without jitter (JAX sweep.py:150-151);
+    for PP the perspective plane sweep and for REALESTATE_PP the ref image
+    and the homography plane sweeps (no TPU kernel exists for either). The
+    arguments pick the route, so the kernel never sees a posed batch."""
+    if cfg.input_type == "ODS" and jitter_pose_inv is None:
         return sweep_ops.sweep_volume(batch["ref_image"], batch["src_image"],
                                       psv_depths, batch["intrinsics"],
                                       out_dtype=cfg.torch_compute_dtype)
-    vol = sweep_lib.format_network_input(
-        preprocess_image(batch["ref_image"]),
-        preprocess_image(batch["src_image"]), batch["ref_pose"],
-        batch["src_pose"], batch["ref_pose_inv"], psv_depths,
-        batch["intrinsics"], jitter_pose_inv=jitter_pose_inv)
+    vol = format_input(cfg, batch, psv_depths, jitter_pose_inv)
     return vol.permute(0, 3, 1, 2).to(cfg.torch_compute_dtype).contiguous()
 
 
@@ -284,6 +329,23 @@ def assemble_outputs_planar(cfg, vol, pred) -> Dict[str, torch.Tensor]:
             cfg.which_color_pred, pred, vol, cfg.num_msi_planes,
             cfg.torch_compute_dtype)
     return out
+
+
+def infer_mpi(cfg, stages, batch, psv_depths, msi_depths):
+    """The PP / RealEstate kernel route (the non-spherical branch of JAX
+    cli/test.py:137-147): sweep_stage (the gather sweep), net_stage (the
+    conv and layer-norm kernels), assemble_rgba in the compute dtype, and
+    the MPI render at mpi_view_pose. Returns assemble_rgba's dict plus
+    'psv' ([B, H, W, C]) and 'output_image' ([B, H, W, 3] in [-1, 1])."""
+    vol = sweep_stage(cfg, batch, psv_depths)
+    if vol.shape[2] != cfg.height:
+        raise ValueError(f"net input height {vol.shape[2]}: the prepared "
+                         f"coord column is for {cfg.height} rows")
+    outs = assemble_train(cfg, vol, net_stage(stages, vol))
+    outs["output_image"] = render_mpi_view(
+        outs["rgba_layers"], mpi_view_pose(batch), msi_depths,
+        batch["intrinsics"])
+    return outs
 
 
 def infer_msi_prepared(cfg, stages, batch, psv_depths):

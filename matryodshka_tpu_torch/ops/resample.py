@@ -1,10 +1,12 @@
-"""Bilinear resampling with wrap-around on both axes.
+"""Bilinear resampling, with wrap-around or zeros outside the image.
 
 Counterpart of `matryodshka_tpu/ops/resample.py` (`bilinear_wrap_resample`,
-`resample_layers_uv`). Taps wrap mod W horizontally and mod H vertically
-(the reference's `tf.mod` on both axes); weights are applied in float32.
-This is the plain reference that the sweep and render kernels are held
-against.
+`resample_layers_uv`, `bilinear_zero_resample`, `resample_stack`). In the
+wrap form taps wrap mod W horizontally and mod H vertically (the
+reference's `tf.mod` on both axes); it is the plain reference that the
+sweep and render kernels are held against. In the zero form (the
+homography path's `tf.contrib.resampler`) each tap counts only inside
+[0, W-1] x [0, H-1]. Weights are applied in float32.
 """
 
 from __future__ import annotations
@@ -59,3 +61,43 @@ def resample_layers_uv(layers, u, v):
 def resample_layers(layers, coords):
     """As resample_layers_uv with coords [P, ..., 2]."""
     return resample_layers_uv(layers, coords[..., 0], coords[..., 1])
+
+
+def bilinear_zero_resample(image, coords):
+    """Bilinear sample whose taps outside [0, W-1] x [0, H-1] contribute
+    zero (tf.contrib.resampler, geometry/sampling.py:32-54). image
+    [*L, H, W, C], coords [*L, *S, 2] (x, y) pixels, where the leading
+    dims L (none, or e.g. a batch and a plane axis) pair each image with
+    its own coordinates -> [*L, *S, C] float32, in one gather."""
+    *lead, h, w, c = image.shape
+    n = 1
+    for d in lead:
+        n *= d
+    flat = image.reshape(n * h * w, c).float()
+    x = coords[..., 0].float()
+    y = coords[..., 1].float()
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = x - x0f
+    fy = y - y0f
+    x0 = x0f.long()
+    y0 = y0f.long()
+    base = (torch.arange(n, device=image.device) * (h * w)).reshape(
+        *lead, *([1] * (x.dim() - len(lead))))
+
+    def tap(yi, xi, wgt):
+        inside = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        idx = (base + torch.clamp(yi, 0, h - 1) * w
+               + torch.clamp(xi, 0, w - 1))
+        return (wgt * inside)[..., None] * flat[idx]
+
+    return (tap(y0, x0, (1 - fy) * (1 - fx)) + tap(y0, x0 + 1, (1 - fy) * fx)
+            + tap(y0 + 1, x0, fy * (1 - fx)) + tap(y0 + 1, x0 + 1, fy * fx))
+
+
+def resample_stack(image, coords, wrap: bool = True):
+    """One image [H, W, C] sampled at a coordinate stack [P, H', W', 2]
+    -> [P, H', W', C] float32, with wrap-around or zeros outside."""
+    if wrap:
+        return bilinear_wrap_resample(image, coords)
+    return bilinear_zero_resample(image, coords)

@@ -1,15 +1,19 @@
 """The training step: forward, synthesis, loss, Adam update.
 
 Counterpart of `matryodshka_tpu/training/step.py` for the ODS trainer with
-target supervision (MSI.build_train_graph, matryodshka/msi.py:550-733):
+target supervision and the PP / RealEstate trainers (MSI.build_train_graph,
+matryodshka/msi.py:550-733):
 
-  supervision 'tgt':     render at the tgt offset, weight 1;
+  supervision 'tgt':     render at the tgt offset, weight 1 (ODS); for PP
+      and REALESTATE_PP always the MPI render at tgt_pose @ ref_pose_inv
+      (JAX step.py:163-171);
   transform_inverse_reg: a second forward of the batch at a random jitter
       pose through the same net (the gather sweep at ref_pose_inv @
-      jitter_pose_inv); its MSI rendered at the jitter pose, and
+      jitter_pose_inv); its MSI rendered at the jitter pose (its MPI at
+      tgt_pose @ ref_pose_inv @ jitter_pose_inv), and
       total += 10 * enforcement, enforcement = d(that render, the
       unjittered render), the gradient flowing through both renders
-      (JAX step.py:98-110, 145-152);
+      (JAX step.py:98-110, 145-152, 172-182);
   wreg:                  + 0.001 * sum_v l2(v)  (msi.py:721-725).
 
 The distance is the pixel loss, 0.5*sum(sq) (losses/basic.py), or with
@@ -62,7 +66,8 @@ class TrainLoss:
 
     sweep: (cfg, batch, psv_depths) -> [B, 2*P*3, H, W] in the compute
     dtype, for the unjittered forward; models/msi.py:sweep_stage (the K1
-    kernel) by default. The jittered forward always takes sweep_stage's
+    kernel for ODS, the gather sweeps for PP and REALESTATE_PP) by
+    default. The jittered forward always takes sweep_stage's
     gather route. elpips: (pred, target, generator) -> [B] distances, for
     which_loss=elpips; build_elpips(cfg, ...) by default."""
 
@@ -87,6 +92,9 @@ class TrainLoss:
         self.sph_w = (spherical_weights(cfg.height, cfg.width,
                                         device=device)[None, :, :, None]
                       if cfg.spherical_attention else None)
+        #: The target term: ODS with tgt supervision; PP and RealEstate
+        #: always (JAX step.py:163-171 has no supervision switch there).
+        self.supervised = cfg.supervise_tgt or cfg.input_type != "ODS"
 
     def sweep(self, batch):
         return self._sweep(self.cfg, batch, self.psv_depths)
@@ -99,7 +107,8 @@ class TrainLoss:
 
     def sweep_jitter(self, batch, jitter_pose):
         """The jittered forward's net input: the gather sweep at
-        ref_pose_inv @ inverse(jitter_pose)."""
+        ref_pose_inv @ inverse(jitter_pose) (for REALESTATE_PP
+        inverse(ref_pose) @ inverse(jitter_pose))."""
         b = batch["ref_image"].shape[0]
         inv = torch.linalg.inv(jitter_pose).expand(b, 4, 4)
         return msi_lib.sweep_stage(self.cfg, batch, self.psv_depths,
@@ -114,26 +123,43 @@ class TrainLoss:
             pred, target = pred * self.sph_w, target * self.sph_w
         return torch.mean(self.elpips(pred, target, generator))
 
-    def _render(self, vol, pred, batch, pose, keys):
+    def view(self, rgba, batch, jitter_pose=None):
+        """The supervised view of layers rgba [B, H, W, P, 4]: for ODS the
+        ERP render at the tgt offset (under jitter_pose [4, 4], the
+        regularizer's); for PP / REALESTATE_PP the MPI render at
+        tgt_pose @ ref_pose_inv [@ inverse(jitter_pose)] (JAX
+        step.py:163-182)."""
+        b = rgba.shape[0]
+        if self.cfg.input_type == "ODS":
+            pose = torch.eye(4, device=rgba.device) if jitter_pose is None \
+                else jitter_pose
+            return msi_lib.render_equirect_view(
+                rgba, pose.expand(b, 4, 4), batch["tgt_pose"],
+                self.msi_depths)
+        inv = None if jitter_pose is None else \
+            torch.linalg.inv(jitter_pose).expand(b, 4, 4)
+        return msi_lib.render_mpi_view(
+            rgba, msi_lib.mpi_view_pose(batch, inv), self.msi_depths,
+            batch["intrinsics"])
+
+    def _render(self, vol, pred, batch, jitter_pose, keys):
         """{keys[0]: the assembled layers, keys[1]: with tgt supervision
-        their render at the tgt offset under pose [4, 4]}."""
+        their view}."""
         rgba = msi_lib.assemble_train(self.cfg, vol, pred)["rgba_layers"]
         out = {keys[0]: rgba}
-        if self.cfg.supervise_tgt:
-            out[keys[1]] = msi_lib.render_equirect_view(
-                rgba, pose.expand(rgba.shape[0], 4, 4), batch["tgt_pose"],
-                self.msi_depths)
+        if self.supervised:
+            out[keys[1]] = self.view(rgba, batch, jitter_pose)
         return out
 
     def render(self, vol, pred, batch) -> Dict:
-        """Assembly, then with tgt supervision the render at the tgt
-        offset: {rgba_layers, output_image ([-1, 1])}."""
-        return self._render(vol, pred, batch, torch.eye(4, device=vol.device),
+        """Assembly, then with tgt supervision the target view:
+        {rgba_layers, output_image ([-1, 1])}."""
+        return self._render(vol, pred, batch, None,
                             ("rgba_layers", "output_image"))
 
     def render_jitter(self, vol_j, pred_j, batch, jitter_pose) -> Dict:
         """The jittered forward's assembly and, with tgt supervision, its
-        render at the jitter pose: {rgba_layers_jitter,
+        view under the jitter pose: {rgba_layers_jitter,
         jitter_output_image}."""
         return self._render(vol_j, pred_j, batch, jitter_pose,
                             ("rgba_layers_jitter", "jitter_output_image"))
@@ -146,7 +172,7 @@ class TrainLoss:
             aux.update(self.render_jitter(jitter[1], jitter[2], batch,
                                           jitter[0]))
         total = torch.zeros((), device=vol.device)
-        if cfg.supervise_tgt:
+        if self.supervised:
             rec = self.distance(aux["output_image"], msi_lib.preprocess_image(
                 batch["tgt_image"]), generator)
             aux["reconstruction_loss"] = rec

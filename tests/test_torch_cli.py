@@ -14,7 +14,10 @@ wrapper of the port runs its plain version:
   synthetic.make_ods_fixture), low-res and then high_res, and with the
   re-renders, against the JAX main() on an orbax checkpoint of the same
   parameters: the same files, with the same contents up to the bounds
-  below; --shard_shells true on one device changes no file.
+  below; --shard_shells true on one device changes no file;
+* the PP and REALESTATE_PP recipes' train -> test -> eval lifecycle
+  through the port's CLIs (the port's MPI route itself is held to the JAX
+  package in tests/test_torch_pp_train.py).
 
 Shells span 2 m to 20 m: beyond that the JAX gather sweep parks single
 far-shell pixels on f32 noise (ROADMAP Queue 3, park-flip noise), which
@@ -25,6 +28,7 @@ tests/test_torch_pipeline.py sets at 20 m) on renders in [-1, 1] (halved
 by deprocess_image) and on the net's outputs in [0, 1].
 """
 
+import functools
 import os
 
 import jax
@@ -38,6 +42,7 @@ from matryodshka_tpu.config import MatryConfig as JaxConfig
 from matryodshka_tpu.training import state as state_lib
 from matryodshka_tpu_torch import entry
 from matryodshka_tpu_torch.cli import test as tcli
+from matryodshka_tpu_torch.data import synthetic as mpi_synthetic
 from matryodshka_tpu_torch.training.checkpoint import restore_params
 
 torch.set_num_threads(1)
@@ -317,3 +322,59 @@ def test_main_rerenders_and_shard_shells_match_jax(tmp_path):
             b = np.asarray(Image.open(jroot / name), np.int32)
             diff = np.abs(a - b)
             assert diff.max() <= 2 and diff.mean() < 0.1, (name, diff.max())
+
+
+#: The PP and RealEstate recipes (scripts/train/*.sh) and the fixture each
+#: runs on here: the RealEstate training loader needs (10-1)*10+1 = 91
+#: frames a clip.
+MPI_RECIPES = {
+    "PP": ("pp-wotemp-elpips-coord", functools.partial(
+        mpi_synthetic.make_perspective_fixture, height=32, width=64)),
+    "REALESTATE_PP": ("realestate-wotemp-elpips-coord", functools.partial(
+        mpi_synthetic.make_realestate_fixture, frames=91, height=32,
+        width=64))}
+
+
+@pytest.mark.parametrize("input_type", list(MPI_RECIPES))
+def test_mpi_recipe_lifecycle(tmp_path, input_type):
+    """The PP / RealEstate recipe's flags (its data paths and the absent
+    E-LPIPS weights replaced; tiny sizes appended) through the port's
+    train CLI for 2 steps, then its test CLI and its evaluator on the
+    checkpoint (JAX tests/test_cli_integration.py:79's lifecycle): the
+    output_tgt images, the blend weights, no depth output, finite scores
+    (every CLI on the CPU)."""
+    from test_torch_train_elpips import _recipe_flags
+
+    from matryodshka_tpu_torch.cli import evaluate as tevaluate
+    from matryodshka_tpu_torch.cli import train as ttrain
+    recipe, make = MPI_RECIPES[input_type]
+    flags = _recipe_flags(os.path.join(os.path.dirname(__file__), "..",
+                                       "scripts", "train", f"{recipe}.sh"))
+    args = ttrain.build_parser().parse_args(flags)
+    assert (args.input_type, args.which_loss, args.coord_net) == (
+        input_type, "elpips", True)
+    i = flags.index("--elpips_weight_path")
+    del flags[i:i + 2]
+    glob_pat = make(str(tmp_path / "fix"))
+    flags += ["--cameras_glob", glob_pat,
+              "--image_dir", str(tmp_path / "fix" / "images"),
+              "--checkpoint_dir", str(tmp_path / "ckpt"),
+              "--height", "32", "--width", "64",
+              "--num_psv_planes", str(P), "--num_msi_planes", str(P),
+              "--ngf", str(NGF), "--device", "cpu"]
+    ttrain.main(flags + ["--max_steps", "2", "--summary_freq", "1",
+                         "--save_latest_freq", "100"])
+    assert (tmp_path / "ckpt" / recipe / "2" / "params.npz").exists()
+    out = tmp_path / "out"
+    tcli.main(flags + ["--output_root", str(out), "--num_runs", "2",
+                       "--test_outputs", "tgt_image_blend_weights_alphas"])
+    root = out / recipe
+    dirs = sorted(d for d in root.iterdir() if d.is_dir())
+    assert len(dirs) == (2 if input_type == "PP" else 1)
+    files = os.listdir(dirs[0])
+    assert f"output_tgt_{dirs[0].name}.png" in files
+    assert "blend_weights.npy" in files and "alphas.npy" in files
+    assert not any(f.startswith("output_depth_") for f in files)
+    table = tevaluate.main(["--result_root", str(root), "--device", "cpu"])
+    assert len(table["per_example"]) == len(dirs)
+    assert np.isfinite(table["avg_psnr"]) and np.isfinite(table["avg_ssim"])

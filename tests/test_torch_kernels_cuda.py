@@ -111,7 +111,9 @@ def test_sweep_kernel_matches_plain(cuda, dtype, shape):
 #: 67, 99 and 32 channels (Cout not a multiple of 8, or of the 64-channel
 #: tile); pixel counts that fill no whole tile (Wo = 80, 200); W = 5, so
 #: the wrap crosses every tile; Cin' = Cin + 1 (coord) and Cin = 96 (a
-#: k-block past Cin' in every tap); stride 2, dilation 2, the npar=4
+#: k-block past Cin' in every tap); Cin = 195, the RealEstate net's first
+#: layer (a ragged 16-channel group, with and without the coord channel:
+#: Cin' = 196); stride 2, dilation 2, the npar=4
 #: parity deconv in both paddings; B = 2; the conv4 shape (512 -> 512 at
 #: 40x80, the 64x64 tile) and a shape that takes the 64x128 tile.
 EDGE_CASES = [
@@ -133,6 +135,9 @@ EDGE_CASES = [
     ("deconv_zero", 1, 64, 10, 20, 32, dict(kh=2, kw=2, npar=4, hpad="zero")),
     ("conv4", 1, 512, 40, 80, 512, dict(kh=3, kw=3, dil=2, pad=2)),
     ("tile128", 2, 32, 96, 200, 64, dict(kh=3, kw=3, pad=1)),
+    ("cin195_wrap", 1, 195, 12, 24, 64, dict(kh=3, kw=3, pad=1)),
+    ("cin195_coord", 2, 195, 12, 24, 64,
+     dict(kh=3, kw=3, pad=(1, 1), hpad="zero", coord=True)),
 ]
 #: The tensor-core tile each of these must take (Cout x pixels).
 EDGE_TILES = {"conv4": "mma.sync 64x64", "tile128": "mma.sync 64x128"}
@@ -598,6 +603,53 @@ def test_coord_conv_kernel_flagship_shapes(cuda, name):
     want = conv_ops.conv_plain(x, st["w"], st["b"], **st["args"]).float()
     assert (got - want).abs().max().item() <= \
         2.0 ** -7 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_type,cin", [("PP", 192),
+                                            ("REALESTATE_PP", 195)])
+def test_coord_conv_first_layer_mpi_inputs(cuda, input_type, cin):
+    """The coord net's first conv at the PP and RealEstate recipes' input
+    widths (Cin' = 193 and 196 with the coord channel; 640x320, ngf 64,
+    bf16) against its plain version, within one bf16 step of the scale."""
+    cfg = entry.flagship_cfg(coord_net=True, input_type=input_type)
+    params = entry.make_params(cfg, seed=0, device=cuda)
+    st = params.stages[0]
+    assert tuple(st["w"].shape) == (1, 9 * (cin + 1), 64)
+    rng = np.random.RandomState(15)
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, cin, 320, 640)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    got = conv_ops.conv(x, st["w"], st["b"], **st["args"]).float()
+    want = conv_ops.conv_plain(x, st["w"], st["b"], **st["args"]).float()
+    assert (got - want).abs().max().item() <= \
+        2.0 ** -7 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_type", ["PP", "REALESTATE_PP"])
+@pytest.mark.parametrize("coord", [False, True])
+def test_infer_mpi_runs_the_net_kernels(cuda, input_type, coord):
+    """The test CLI's MPI route (msi.infer_mpi) on the card at a small
+    size: one conv launch per stage (18) and one layer-norm launch per
+    stage but the head (17), no sweep or render kernel launch; its view
+    within chip_smoke.py's bf16 bound of the all-plain f32 route."""
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P, ngf=NGF, coord_net=coord,
+                             input_type=input_type)
+    b = entry.synthetic_batch(cfg, 3, cuda)
+    params = entry.make_params(cfg, seed=4, device=cuda)
+    before = (conv_ops.launches, ln_ops.launches, sweep_ops.launches,
+              render_ops.launches, rl_ops.launches)
+    out = msi_lib.infer_mpi(cfg, params.stages, b, params.psv_depths,
+                            params.msi_depths)["output_image"]
+    torch.cuda.synchronize()
+    after = (conv_ops.launches, ln_ops.launches, sweep_ops.launches,
+             render_ops.launches, rl_ops.launches)
+    assert [a - n for a, n in zip(after, before)] == [18, 17, 0, 0, 0]
+    assert out.shape == (1, H, W, 3) and torch.isfinite(out).all()
+    from matryodshka_tpu_torch.cli.test import infer_plain
+    want = infer_plain(cfg, params, b)["output_image"] * 2 - 1
+    assert (out - want).abs().max().item() <= 2e-2
 
 
 #: The trainer's stride-1 wrap convs at ngf 64 (name, Cin, Cout, size

@@ -210,14 +210,18 @@ def test_wrappers_raise_off_cpu_and_cuda():
 
 def test_config_accepts_only_blend_psv():
     """All four colour schemes of the JAX package are accepted, with its
-    head widths; an unknown scheme, an unported input type and unequal
-    plane counts are rejected."""
+    head widths; the three input types with their net input widths (PP
+    192, REALESTATE_PP 3 + 192, JAX config.py:152-157); an unknown scheme,
+    an unknown input type and unequal plane counts are rejected."""
     widths = {"blend_psv": 64, "blend_bg": 67, "blend_bg_psv": 99,
               "alpha_only": 32}
     for scheme, k in widths.items():
         cfg = entry.flagship_cfg(which_color_pred=scheme)
         assert cfg.num_net_outputs() == k and cfg.num_net_inputs() == 192
+    for input_type, cin in (("PP", 192), ("REALESTATE_PP", 195)):
+        assert entry.flagship_cfg(
+            input_type=input_type).num_net_inputs() == cin
     for bad in (dict(which_color_pred="blend_nothing"),
-                dict(input_type="PP"), dict(num_msi_planes=16)):
+                dict(input_type="CYLINDER"), dict(num_msi_planes=16)):
         with pytest.raises(ValueError):
             entry.flagship_cfg(**bad)
