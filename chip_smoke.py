@@ -17,7 +17,7 @@ plain projection in float64 (the worst errors and the bound printed),
 and the kernel against its plain version fed the instrument's tables,
 the layer-stack render in each output mode (image, depth, both in one
 launch), back to front and front to back, bf16 and f32 stacks.
-Then it drives twelve paths, each with every launch count set to 0 just
+Then it drives thirteen paths, each with every launch count set to 0 just
 before it and read just after (on the first, exactly one sweep and one
 render launch per frame, and one device operation per stage in a
 profiler trace):
@@ -81,7 +81,21 @@ profiler trace):
    in the coord mode and 17 layer-norm launches, the assembly, the MPI
    render), its view against the all-plain f32 route and its first conv
    (Cin' 193 and 196) against its plain version, its stages timed; then
-   cli/evaluate.py on the two outputs.
+   cli/evaluate.py on the two outputs;
+13. the rest of the trainer's options: the released recipe with src and
+   ref supervision through cli/train.py, without and with the
+   transform-inverse regularizer (one step against the all-plain f32
+   route at a fixed draw and pose); the wrap net's pixel step with the
+   4096x2048 target (hrestgt: K1 twice a step, once at 4096x2048; K7 at
+   path 5's count; the step in parts and its peak memory; one step
+   against the all-plain f32 route) and the coord net's E-LPIPS hrestgt
+   step at a level-1 draw; remat_network on path 5's step (K7b and K7c
+   twice path 5's count, the gradients against the step without it, the
+   peak lower); bfloat16 parameters and Adam moments; the train CLI's
+   --dry_run, --dry_run_inference (K1, the net's kernels, one layer-stack
+   render for image and depth) and --profile_steps; use_pallas false (a
+   test-CLI request and a train step with no kernel launch, against the
+   default route).
 Each path's wall and the whole run's are printed.
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
@@ -237,6 +251,19 @@ MPI_RE_FRAMES = 91
 #: loaded program (1.9e-6 measured in float32, bf16 bit-equal).
 EXPORT_TOL = {"bfloat16": 1e-6, "float32": 5e-5}
 CONSUMER_TOL = 1e-5
+#: Path 13 (the rest of the trainer's options): steps of each train-CLI
+#: run, of the hrestgt and bf16-parameter runs, and the timed repetitions
+#: (the first a warm-up) of the step parts, the E-LPIPS hrestgt step and
+#: the remat comparison.
+OPT_CLI_STEPS = 6
+OPT_STEPS = 3
+OPT_REPS = 3
+#: Path 13, use_pallas false against the default route: the share of
+#: view values beyond E2E_TOL. The two routes' sweeps park different
+#: far-shell pixels (the gather by the sign of an f32 discriminant that is
+#: cancellation noise there, K1 by the analytic validity): under 1% of
+#: pixels (PARITY.md), each a local error of up to a shell's colour.
+PARK_SHARE = 1e-2
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -1851,6 +1878,471 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
     return wl
 
 
+def hres_training_batch(cfg):
+    """training_batch(cfg) with the high-res pair and target: the same
+    texture at hres_height x hres_width, rolled alike."""
+    from matryodshka_tpu_torch.data.synthetic import erp_texture
+    batch = training_batch(cfg)
+    tex = erp_texture(cfg.hres_height, cfg.hres_width, seed=0)
+    for k, name in enumerate(("ref", "src", "tgt")):
+        shift = int(round((k - 1) * cfg.hres_width * 0.01))
+        batch[f"hres_{name}_image"] = np.roll(tex, shift, axis=1)[None].copy()
+    return batch
+
+
+def timed_parts(steps, reps, before=None):
+    """Run steps, a list of (name, fn(values so far) -> value), reps times
+    with CUDA events between (before() first each time, untimed). Returns
+    the medians of the reps after the first, the peak device memory above
+    what was held before the first rep, and the last rep's 0-d values as
+    floats."""
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    parts = {k: [] for k, _ in steps}
+    for i in range(reps):
+        if before is not None:
+            before()
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(steps) + 1)]
+        vals = {}
+        ev[0].record()
+        for j, (k, fn) in enumerate(steps):
+            vals[k] = fn(vals)
+            ev[j + 1].record()
+        torch.cuda.synchronize()
+        if i > 0:
+            for j, k in enumerate(parts):
+                parts[k].append(ev[j].elapsed_time(ev[j + 1]))
+        last = {k: v.item() for k, v in vals.items()
+                if torch.is_tensor(v) and v.dim() == 0}
+        del vals
+    peak = torch.cuda.max_memory_allocated() - mem0
+    return {k: statistics.median(v) for k, v in parts.items()}, peak, last
+
+
+def options_path(dev, tag, reset_counts, read_counts, k7_per_step):
+    """Path 13: the trainer's remaining options at the flagship width
+    (640x320, 32 + 32 planes, ngf 64, bf16; high res 4096x2048), on an
+    ODS fixture written at 640x320 under a temporary directory:
+    (a) the released recipe's flags (coord net, E-LPIPS on random
+        features) with --supervision tgt_src_ref through cli/train.main
+        for OPT_CLI_STEPS steps, then with --transform_inverse_reg true;
+        each through training/loop.train on one in-memory batch for the
+        step's time and peak; one step against the all-plain f32 route at
+        a fixed draw (and pose);
+    (b) the wrap net's pixel step with --supervision tgt_hrestgt for
+        OPT_STEPS steps: K1 twice a step (640x320 and 4096x2048), K7 at
+        path 5's count; the step's time, peak and parts; one step against
+        the all-plain f32 route; then the coord net's E-LPIPS hrestgt step
+        at a level-1 draw (the largest images the metric sees): its time
+        and peak;
+    (c) remat_network on path 5's step: K7b/K7c twice path 5's count,
+        dgrad and wgrad as often; the gradients against the step without
+        it (bit-equal, or within what two runs of that step differ by);
+        the time and the peak of both;
+    (d) param_dtype bfloat16 for OPT_STEPS steps: parameters and Adam's
+        moments bfloat16, losses finite;
+    (e) cli/train.main --dry_run (tgt_hrestgt), --dry_run_inference on
+        (a)'s checkpoint and --profile_steps 2,3: the files, the launches
+        of the inference dump (K1, 18 coord-mode convs, 17 layer norms,
+        one layer-stack render for image and depth), a trace with device
+        events;
+    (f) use_pallas false: one test-CLI request and one train step with
+        every kernel count at 0; the view within E2E_TOL of its all-plain
+        f32 twin and, but for the far shell's park flips (PARK_SHARE), of
+        the default route's; the loss within TRAIN_LOSS_TOL of the default
+        route's."""
+    import warnings
+
+    from matryodshka_tpu_torch import entry
+    from matryodshka_tpu_torch.cli import test as cli_test
+    from matryodshka_tpu_torch.cli import train as cli_train
+    from matryodshka_tpu_torch.config import config_from_args
+    from matryodshka_tpu_torch.data import synthetic
+    from matryodshka_tpu_torch.geometry import cameras
+    from matryodshka_tpu_torch.losses.elpips import api as elpips_api
+    from matryodshka_tpu_torch.models import msi as msi_lib
+    from matryodshka_tpu_torch.ops import sweep as sweep_ops
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    from matryodshka_tpu_torch.training import state as state_lib
+    from matryodshka_tpu_torch.training import step as step_lib
+
+    fcfg = entry.flagship_cfg()
+    h, w = fcfg.height, fcfg.width
+    nsteps = TRAIN_WARMUP + TRAIN_STEPS
+    kernels = ("sweep", "conv", "layernorm", "render", "render_layers",
+               "render_depth", "render_layers_ftb", "render_layers_both",
+               "conv_coord", *K7_COUNTS)
+
+    def zero_all():
+        reset_counts()
+        for a in K7_COUNTS.values():
+            setattr(wc, a, 0)
+
+    def all_counts():
+        got = read_counts()
+        got.update({k: getattr(wc, a) for k, a in K7_COUNTS.items()})
+        return got
+
+    def dev_batch(np_batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()
+                if isinstance(v, np.ndarray)}
+
+    def step_line(what, events, peak, mem0, extra=""):
+        ms = [s.elapsed_time(e) for s, e in events]
+        med = statistics.median(ms[1:]) if len(ms) > 2 else ms[-1]
+        print(f"{what} step {med:.3f} ms (median after the first; steps "
+              + " ".join(f"{t:.1f}" for t in ms) + f" ms{extra}), peak "
+              f"{peak / 2**30:.3f} GiB ({(peak - mem0) / 2**30:.3f} above "
+              f"the {mem0 / 2**30:.3f} held) {tag}")
+        return med
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="elpips: no weight_path")
+        glob_pat = synthetic.make_ods_fixture(f"{tmp}/fix", num_scenes=2,
+                                              height=h, width=w)
+        data = ["--cameras_glob", glob_pat, "--image_dir", f"{tmp}/fix/images",
+                "--hres_image_dir", f"{tmp}/fix/images", "--checkpoint_dir",
+                f"{tmp}/ckpt"]
+        tbatch = dev_batch(training_batch(fcfg))
+
+        # ---- (a) the released recipe with src/ref supervision ----------
+        for reg in (False, True):
+            name = "srcref-reg" if reg else "srcref"
+            flags = (recipe_flags("ods-wotemp-elpips-coord") + data
+                     + ["--supervision", "tgt_src_ref",
+                        "--transform_inverse_reg", str(reg).lower(),
+                        "--experiment_name", name])
+            cfg = config_from_args(cli_train.build_parser().parse_args(flags))
+            check(cfg.coord_net and cfg.which_loss == "elpips"
+                  and cfg.supervise_src and cfg.supervise_ref
+                  and cfg.transform_inverse_reg == reg, f"{name} flags")
+            zero_all()
+            t0 = time.perf_counter()
+            cli_train.main(flags + ["--max_steps", str(OPT_CLI_STEPS),
+                                    "--summary_freq", "1",
+                                    "--save_latest_freq",
+                                    str(OPT_CLI_STEPS)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = all_counts()
+            with open(f"{tmp}/ckpt/{name}/logs/metrics.jsonl") as fh:
+                recs = [json.loads(line) for line in fh]
+            print(f"{name}: launches over {OPT_CLI_STEPS} train CLI steps "
+                  f"(and {OPT_CLI_STEPS} image summaries): {got}")
+            check(len(recs) == OPT_CLI_STEPS and all(
+                math.isfinite(r["total_loss"]) and r["elpips_calibrated"]
+                is False for r in recs), f"{name} records")
+            check(got["sweep"] == 2 * OPT_CLI_STEPS
+                  and got["gather_sweep"] == OPT_CLI_STEPS * reg,
+                  f"{name}: K1 once a step and once a summary, a gather "
+                  f"sweep a step with the regularizer")
+            print(f"{name} train CLI: {OPT_CLI_STEPS} steps in {wall:.2f} s "
+                  f"(E-LPIPS features, summaries and checkpoint included) "
+                  f"{tag}")
+            metric = step_lib.build_elpips(cfg, dev)
+            tstate, _, events, recs, peak, mem0 = run_train_loop(
+                cfg, dev, reset_counts, read_counts, metric, nsteps)
+            check(all(math.isfinite(r["total_loss"]) for r in recs),
+                  f"{name} losses finite")
+            step_line(f"{name} train", events[TRAIN_WARMUP - 1:], peak, mem0,
+                      "; coord net, E-LPIPS, tgt_src_ref"
+                      + (", transform_inverse_reg" if reg else ""))
+            draw = metric.draw(1, torch.Generator().manual_seed(5), scale=1)
+            pose = cameras.random_jitter_pose(
+                torch.Generator().manual_seed(9), device=dev) if reg else None
+            route_gate(f"{name} train step", cfg, tstate.net, tbatch, dev,
+                       elpips=lambda p, t, g: metric(p, t, draws=[draw]),
+                       loss_tol=None, jitter_pose=pose)
+            del tstate, metric
+        torch.cuda.empty_cache()
+
+        # ---- (b) the high-res target ------------------------------------
+        hcfg = entry.flagship_cfg(supervision="tgt_hrestgt")
+        np_hb = hres_training_batch(hcfg)
+        tstate, got, events, recs, peak, mem0 = run_train_loop(
+            hcfg, dev, reset_counts, read_counts, None, OPT_STEPS,
+            np_batches=itertools.repeat(np_hb))
+        got.update({k: getattr(wc, a) for k, a in K7_COUNTS.items()})
+        print(f"launches over {OPT_STEPS} hrestgt steps (wrap net, pixel "
+              f"loss): {got}")
+        check(got["sweep"] == 2 * OPT_STEPS, "hrestgt: K1 twice a step")
+        for k in K7_COUNTS:
+            check(got[k] == k7_per_step[k] * OPT_STEPS,
+                  f"hrestgt: {k} {got[k]} launches, want path 5's "
+                  f"{k7_per_step[k]} a step")
+        check(all(math.isfinite(r["total_loss"]) for r in recs),
+              "hrestgt losses finite")
+        step_line("hrestgt train", events, peak, mem0,
+                  f"; wrap net, pixel loss, {hcfg.hres_width}x"
+                  f"{hcfg.hres_height} target")
+        hb = dev_batch(np_hb)
+        shapes = []
+        real = sweep_ops.sweep_volume
+
+        def spy(ref, *a, **k):
+            shapes.append(tuple(ref.shape[1:3]))
+            return real(ref, *a, **k)
+
+        loss_fn = step_lib.make_loss_fn(hcfg, tstate.net)
+        sweep_ops.sweep_volume = spy
+        try:
+            loss_fn(hb)[0].backward()
+        finally:
+            sweep_ops.sweep_volume = real
+        check(shapes == [(h, w), (hcfg.hres_height, hcfg.hres_width)],
+              f"hrestgt: K1 at {shapes}")
+        eye = torch.eye(4, device=dev)[None]
+        hres_tgt = msi_lib.preprocess_image(hb["hres_tgt_image"])
+        tgt = msi_lib.preprocess_image(hb["tgt_image"])
+        net = tstate.net
+        steps = [
+            ("sweep", lambda t: loss_fn.sweep(hb)),
+            ("net_forward", lambda t: net(t["sweep"])),
+            ("assemble_render", lambda t: loss_fn.render(
+                t["sweep"], t["net_forward"], hb)),
+            ("hres_sweep", lambda t: loss_fn.sweep_hres(hb)),
+            ("hres_upsample_assemble", lambda t: msi_lib.assemble_hres_rgba(
+                hcfg.which_color_pred, t["assemble_render"],
+                t["hres_sweep"], hcfg.num_msi_planes)),
+            ("hres_render", lambda t: msi_lib.render_equirect_view(
+                t["hres_upsample_assemble"], eye, hb["tgt_pose"],
+                loss_fn.msi_depths)),
+            ("losses", lambda t: loss_fn.distance(
+                t["assemble_render"]["output_image"], tgt)
+                + loss_fn.distance(t["hres_render"], hres_tgt)),
+            ("backward", lambda t: t["losses"].backward()),
+            ("adam", lambda t: tstate.optimizer.step())]
+        med, ppeak, _ = timed_parts(
+            steps, OPT_REPS,
+            lambda: tstate.optimizer.zero_grad(set_to_none=True))
+        print("hrestgt train step parts " + " ".join(
+            f"{k} {v:.3f}" for k, v in med.items())
+              + f" ms (sum {sum(med.values()):.3f}; median of "
+                f"{OPT_REPS - 1}), peak {ppeak / 2**30:.3f} GiB above the "
+                f"held {tag}")
+        del loss_fn
+        route_gate("hrestgt train step", hcfg, tstate.net, hb, dev)
+        del tstate
+        torch.cuda.empty_cache()
+
+        ecfg = entry.flagship_cfg(supervision="tgt_hrestgt",
+                                  which_loss="elpips", coord_net=True)
+        estate = state_lib.init_state(ecfg, 0, dev)
+        metric = step_lib.build_elpips(ecfg, dev)
+        draw = metric.draw(1, torch.Generator().manual_seed(5), scale=1)
+        # a fresh Draw of the same transforms and mask seed for each term:
+        # a Draw keeps the masks of the first images it saw, and the two
+        # terms' images differ in size
+        eloss = step_lib.make_loss_fn(
+            ecfg, estate.net, elpips=lambda p, t, g: metric(
+                p, t, draws=[elpips_api.Draw(draw.params, draw.seed)]))
+        med, epeak, last = timed_parts(
+            [("loss", lambda t: eloss(hb)[0]),
+             ("backward", lambda t: t["loss"].backward()),
+             ("adam", lambda t: estate.optimizer.step())], OPT_REPS,
+            lambda: estate.optimizer.zero_grad(set_to_none=True))
+        check(math.isfinite(last["loss"]), "E-LPIPS hrestgt loss finite")
+        print(f"elpips hrestgt train step at a level-1 draw (coord net, "
+              f"{ecfg.hres_width}x{ecfg.hres_height} target): "
+              + " ".join(f"{k} {v:.3f}" for k, v in med.items())
+              + f" ms (sum {sum(med.values()):.3f}), peak "
+                f"{epeak / 2**30:.3f} GiB above the held {tag}")
+        del estate, metric, eloss, hb
+        torch.cuda.empty_cache()
+
+        # ---- (c) remat_network on path 5's step -------------------------
+        rstate = state_lib.init_state(fcfg, 0, dev)
+        rcfg = dataclasses.replace(fcfg, remat_network=True)
+        runs = {}
+        for key, cfg in (("plain", fcfg), ("plain_again", fcfg),
+                         ("remat", rcfg)):
+            loss_fn = step_lib.make_loss_fn(cfg, rstate.net)
+            counts = []
+
+            def before(c=counts):
+                rstate.net.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                c.append({k: getattr(wc, a) for k, a in K7_COUNTS.items()})
+
+            med, rpeak, _ = timed_parts(
+                [("forward", lambda t, f=loss_fn: f(tbatch)[0]),
+                 ("backward", lambda t: t["forward"].backward())],
+                OPT_REPS, before)
+            torch.cuda.synchronize()
+            per = {k: getattr(wc, a) - counts[-1][k]
+                   for k, a in K7_COUNTS.items()}
+            runs[key] = (med, rpeak, per, {
+                n: p.grad.detach().clone()
+                for n, p in rstate.net.named_parameters()})
+        (pm, ppk, pper, g0), (_, _, _, g1), (rm, rpk, rper, gr) = (
+            runs[k] for k in ("plain", "plain_again", "remat"))
+        print(f"remat: K7 launches a step {rper} (without remat {pper})")
+        for k in K7_COUNTS:
+            want = k7_per_step[k] * (2 if k in ("wrap_conv_k7b",
+                                                "wrap_conv_k7c") else 1)
+            check(rper[k] == want and pper[k] == k7_per_step[k],
+                  f"remat: {k} {rper[k]} a step, want {want}")
+        noise = {n: (g1[n] - g0[n]).abs().max().item() for n in g0}
+        diff = {n: (gr[n] - g0[n]).abs().max().item() for n in g0}
+        bad = [n for n in g0 if diff[n] > 2 * noise[n]]
+        print(f"remat gradients vs the step without it: max |diff| "
+              f"{max(diff.values()):.3e} (two runs without remat differ by "
+              f"{max(noise.values()):.3e}; "
+              f"{sum(v == 0 for v in diff.values())} of {len(diff)} "
+              f"parameters bit-equal) "
+              f"{'ok' if not bad else 'FAIL ' + ', '.join(bad)}")
+        check(not bad, f"remat gradients {bad}")
+        print(f"remat step: forward {rm['forward']:.3f} backward "
+              f"{rm['backward']:.3f} ms, peak {rpk / 2**30:.3f} GiB above "
+              f"the held; without remat forward {pm['forward']:.3f} "
+              f"backward {pm['backward']:.3f} ms, peak "
+              f"{ppk / 2**30:.3f} GiB {tag}")
+        check(rpk < ppk, "remat: the peak is lower")
+        del rstate, runs, g0, g1, gr
+        torch.cuda.empty_cache()
+
+        # ---- (d) bfloat16 parameters ------------------------------------
+        bcfg = entry.flagship_cfg(param_dtype="bfloat16")
+        bstate, got, events, recs, peak, mem0 = run_train_loop(
+            bcfg, dev, reset_counts, read_counts, None, OPT_STEPS)
+        moments = [t for st in bstate.optimizer.state.values()
+                   for t in (st["exp_avg"], st["exp_avg_sq"])]
+        check(all(p.dtype == torch.bfloat16
+                  for p in bstate.net.parameters())
+              and len(moments) == 2 * len(list(bstate.net.parameters()))
+              and all(t.dtype == torch.bfloat16 for t in moments),
+              "param_dtype bfloat16: parameters and Adam moments")
+        check(all(math.isfinite(r["total_loss"]) for r in recs),
+              "bfloat16-parameter losses finite")
+        step_line("bf16-parameter train", events, peak, mem0,
+                  "; wrap net, pixel loss; losses " + " ".join(
+                      f"{r['total_loss']:.2f}" for r in recs))
+        del bstate, moments
+
+        # ---- (e) dry runs and the profiler window -----------------------
+        os.chdir(tmp)
+        try:
+            zero_all()
+            cli_train.main(data + ["--experiment_name", "dry",
+                                   "--supervision", "tgt_hrestgt",
+                                   "--dry_run"])
+            got = all_counts()
+            files = set(os.listdir(f"{tmp}/dryrun/dry"))
+            want = ({f"{p}{n}.png" for p in ("", "hres_")
+                     for n in ("tgt", "src", "ref")}
+                    | {f"formatInput_{i}.png"
+                       for i in range(2 * fcfg.num_psv_planes)})
+            check(files == want and got["sweep"] == 1,
+                  f"--dry_run: {len(files)} files, {got['sweep']} K1")
+            a_flags = (recipe_flags("ods-wotemp-elpips-coord") + data
+                       + ["--supervision", "tgt_src_ref",
+                          "--experiment_name", "srcref"])
+            zero_all()
+            cli_train.main(a_flags + ["--dry_run_inference"])
+            got = all_counts()
+            files = set(os.listdir(f"{tmp}/dryrun/srcref"))
+            want_inf = (want - {f"hres_{n}.png" for n in ("tgt", "src",
+                                                         "ref")}
+                        | {f"msi_{k}_{i:02d}.png" for k in ("alpha", "rgb")
+                           for i in range(fcfg.num_msi_planes)}
+                        | {"tgt_rendered.png", "depth_rendered.png"})
+            print(f"--dry_run_inference launches: {got}")
+            check(files == want_inf, f"--dry_run_inference files "
+                                     f"{sorted(files ^ want_inf)[:6]}")
+            check(got["sweep"] == 1 and got["conv"] == 18
+                  and got["conv_coord"] == 18 and got["layernorm"] == 17
+                  and got["render_layers"] == 1
+                  and got["render_layers_both"] == 1,
+                  "--dry_run_inference: K1, 18 coord convs, 17 layer "
+                  "norms, one layer-stack render for image and depth")
+        finally:
+            os.chdir(cwd)
+        cli_train.main(data + ["--experiment_name", "prof", "--max_steps",
+                               "3", "--summary_freq", "3",
+                               "--profile_steps", "2,3"])
+        trace = f"{tmp}/ckpt/prof/profile/trace_2_3.json"
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+        dev_events = [e for e in events if e.get("cat") == "kernel"]
+        print(f"--profile_steps 2,3: {trace.rsplit('/', 1)[1]}, "
+              f"{len(events)} events, {len(dev_events)} device kernels")
+        check(len(dev_events) > 0, "--profile_steps trace has device "
+                                   "kernels")
+
+        # ---- (f) use_pallas false ---------------------------------------
+        ucfg = dataclasses.replace(fcfg, use_pallas=False)
+        batch = entry.synthetic_batch(fcfg, 0, dev,
+                                      tgt_pos=(0.03, 0.01, -0.02))
+        outs, params = {}, None
+        for key, cfg in (("default", fcfg), ("use_pallas_false", ucfg)):
+            params = entry.make_params(cfg, seed=0, device=dev)
+            infer = cli_test.build_infer_fn(cfg, params, "tgt_image")
+            zero_all()
+            t_ms = time_ms(lambda: infer(batch), iters=3, warmup=1)
+            zero_all()
+            outs[key] = infer(batch)
+            got = all_counts()
+            print(f"test CLI request, {key} route: {t_ms:.3f} ms; "
+                  f"launches {got} {tag}")
+        check(all(got[k] == 0 for k in kernels) and got["gather_sweep"] == 1,
+              "use_pallas false request: no kernel, one gather sweep")
+        # its all-plain f32 twin: the gather sweep, the plain net and the
+        # gather renders in float32
+        with torch.no_grad():
+            asm = msi_lib.infer_msi(params.net, ucfg, batch,
+                                    params.psv_depths, dtype=torch.float32)
+            eye = torch.eye(4, device=dev)[None]
+            twin = {"output_image": msi_lib.deprocess_image(
+                msi_lib.render_equirect_view(
+                    asm["rgba_layers"], eye, batch["tgt_pose"],
+                    params.msi_depths)),
+                "output_depth": msi_lib.render_equirect_depth(
+                    asm["rgba_layers"], eye, batch["tgt_pose"],
+                    params.msi_depths)}
+        del asm, params
+        for k in ("output_image", "output_depth"):
+            got = outs["use_pallas_false"][k]
+            err = (got - twin[k]).abs()
+            print(f"use_pallas false {k} vs its all-plain f32 twin: max "
+                  f"{err.max().item():.3e} mean {err.mean().item():.3e} "
+                  f"(gate {E2E_TOL:.0e})")
+            check(err.max().item() <= E2E_TOL, f"use_pallas false {k}")
+            # against the default route the far shell parks other pixels:
+            # the gather takes the f32 discriminant's sign, K1 the
+            # analytic validity (ROADMAP Queue 3, park-flip noise)
+            err = (got - outs["default"][k]).abs()
+            share = (err > E2E_TOL).float().mean().item()
+            print(f"use_pallas false {k} vs the default route: max "
+                  f"{err.max().item():.3e} mean {err.mean().item():.3e}, "
+                  f"{share:.2e} of the values beyond {E2E_TOL:.0e} (gate "
+                  f"{PARK_SHARE:.0e})")
+            check(share <= PARK_SHARE, f"use_pallas false {k} vs default")
+        losses = {}
+        for key, cfg in (("default", fcfg), ("use_pallas_false", ucfg)):
+            st = state_lib.init_state(cfg, 0, dev)
+            step_fn = step_lib.make_train_step(cfg, st.net)
+            zero_all()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            st, m = step_fn(st, tbatch)
+            ev[1].record()
+            got = all_counts()
+            losses[key] = float(m["total_loss"])
+            print(f"train step, {key} route: "
+                  f"{ev[0].elapsed_time(ev[1]):.3f} ms (first step), loss "
+                  f"{losses[key]:.4f}; launches {got} {tag}")
+        check(all(got[k] == 0 for k in kernels) and got["gather_sweep"] == 1,
+              "use_pallas false train step: no kernel, one gather sweep")
+        rel = abs(losses["use_pallas_false"] - losses["default"]) / abs(
+            losses["default"])
+        print(f"use_pallas false train loss vs the default route: rel "
+              f"{rel:.3e} (gate {TRAIN_LOSS_TOL:.0e})")
+        check(rel <= TRAIN_LOSS_TOL, "use_pallas false train loss")
+
+
 def probe_path(dev, tag):
     """Path 6: the lowering probes, `python -m
     matryodshka_tpu_torch.tools.probes` as its main(), the launch counts
@@ -2828,6 +3320,11 @@ def main() -> None:
     mpi_path(dev, tag, reset_counts, read_counts,
              {k: train_launches[k] // nsteps for k in K7_COUNTS})
     lap("path 12")
+
+    # ---- path 13: the rest of the trainer's options ------------------------
+    options_path(dev, tag, reset_counts, read_counts,
+                 {k: train_launches[k] // nsteps for k in K7_COUNTS})
+    lap("path 13")
     print("walls, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; the whole run {time.perf_counter() - t_run:.1f} {tag}")
 

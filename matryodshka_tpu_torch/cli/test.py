@@ -20,7 +20,10 @@ schemes the prepared assembly and the layer-stack render
 (render_layers.cu, one launch for image and depth, lookups made in the
 kernel); the high-res re-render sweeps at full size and draws through
 render_layers.cu the same way. `--device cpu` runs each kernel's plain
-version.
+version. `--use_pallas false` takes the JAX CLI's routes without Pallas
+and none of the port's kernels: the gather sweep, the plain net in the
+compute dtype and the gather renders, and for high_res the shell-streamed
+gather (hres_render_plain at the batch's poses).
 
 PP and REALESTATE_PP input (the non-spherical branch of JAX
 cli/test.py:137-147): the gather sweep (perspective or homography plane
@@ -86,6 +89,9 @@ def build_infer_fn(cfg: MatryConfig, params: entry.Params,
         if any(k in test_outputs for k in rerenders):
             raise ValueError(f"{rerenders} re-render an ODS MSI; input_type "
                              f"{cfg.input_type} makes an MPI")
+    if not cfg.use_pallas:
+        return _build_gather_infer_fn(cfg, params, test_outputs)
+    if cfg.input_type != "ODS":
         return _build_mpi_infer_fn(cfg, params, test_outputs)
 
     @torch.no_grad()
@@ -135,6 +141,42 @@ def _build_mpi_infer_fn(cfg: MatryConfig, params: entry.Params,
         if "tgt_image" in test_outputs:
             outs["output_image"] = msi_lib.deprocess_image(
                 asm["output_image"])
+        return outs
+
+    return infer
+
+
+def _build_gather_infer_fn(cfg: MatryConfig, params: entry.Params,
+                           test_outputs: str):
+    """build_infer_fn with use_pallas false, the JAX CLI's route without
+    Pallas (cli/test.py:95-116): msi_lib.infer_msi (the gather sweep and
+    the plain MSIUNet in the compute dtype), then for ODS the gather
+    renders of the target view and its depth and the re-renders, for PP
+    and REALESTATE_PP the MPI render. None of the port's kernels runs."""
+
+    @torch.no_grad()
+    def infer(batch):
+        asm = msi_lib.infer_msi(params.net, cfg, batch, params.psv_depths)
+        rgba = asm["rgba_layers"]
+        outs = {k: asm[k] for k in ("rgba_layers", "blend_weights",
+                                    "alphas", "psv")
+                if k in asm and k in test_outputs}
+        if cfg.input_type != "ODS":
+            if "tgt_image" in test_outputs:
+                outs["output_image"] = msi_lib.deprocess_image(
+                    msi_lib.render_mpi_view(rgba, msi_lib.mpi_view_pose(batch),
+                                            params.msi_depths,
+                                            batch["intrinsics"]))
+            return outs
+        if "tgt_image" in test_outputs:
+            eye = _eye(rgba.shape[0], rgba.device)
+            outs["output_image"] = msi_lib.deprocess_image(
+                msi_lib.render_equirect_view(rgba, eye, batch["tgt_pose"],
+                                             params.msi_depths))
+            outs["output_depth"] = msi_lib.render_equirect_depth(
+                rgba, eye, batch["tgt_pose"], params.msi_depths)
+        outs.update(rerender(cfg, rgba, batch, params.msi_depths,
+                             test_outputs))
         return outs
 
     return infer
@@ -219,7 +261,8 @@ def build_hres_render_fn(cfg: MatryConfig):
     depth [B, Hh, Wh, 3]). As in the fused JAX path, the ODS loader's
     identity ref/src poses are assumed, not read. blend_psv only, as that
     path; the JAX shell scan for the other schemes is not ported (ROADMAP
-    Queue 1 item 5b)."""
+    Queue 1 item 5b). With use_pallas false, hres_render_plain with the
+    gather sweep (the JAX CLI's shell scan, cli/test.py:232-334)."""
     if cfg.which_color_pred != "blend_psv":
         raise NotImplementedError(
             f"high_res with which_color_pred {cfg.which_color_pred!r}: only "
@@ -227,6 +270,14 @@ def build_hres_render_fn(cfg: MatryConfig):
             f"is ROADMAP Queue 1 item 5b)")
     hh, hw, p = cfg.hres_height, cfg.hres_width, cfg.num_psv_planes
     dtype = cfg.torch_compute_dtype
+    if not cfg.use_pallas:
+        def render_gather(hres_ref, hres_src, blend_weights, alphas,
+                          ref_pose, src_pose, ref_pose_inv, intrinsics,
+                          tgt_pose):
+            return hres_render_plain(
+                cfg, hres_ref, hres_src, blend_weights, alphas, intrinsics,
+                tgt_pose, poses=(ref_pose, src_pose, ref_pose_inv))
+        return render_gather
 
     @torch.no_grad()
     def render(hres_ref, hres_src, blend_weights, alphas, ref_pose,
@@ -250,13 +301,16 @@ def build_hres_render_fn(cfg: MatryConfig):
 
 @torch.no_grad()
 def hres_render_plain(cfg: MatryConfig, hres_ref, hres_src, blend_weights,
-                      alphas, intrinsics, tgt_pose):
+                      alphas, intrinsics, tgt_pose, poses=None):
     """build_hres_render_fn's (rgb, depth) from the plain versions in
     float32, streamed one shell at a time as the JAX shell scan does
     (cli/test.py:232-334), so memory stays at one high-res shell: per
     shell the plain sweep of both eyes, the blend with the upsampled
     weights, a gather of the shell at its lookup table, and a
-    nearest-first composite."""
+    nearest-first composite. poses=(ref_pose, src_pose, ref_pose_inv):
+    the sweep is the gather sweep at those poses (format_network_input,
+    as the JAX scan sweeps), else the identity-pose sweep's plain
+    version."""
     hh, hw, p = cfg.hres_height, cfg.hres_width, cfg.num_psv_planes
     b = hres_ref.shape[0]
     dev = hres_ref.device
@@ -269,8 +323,12 @@ def hres_render_plain(cfg: MatryConfig, hres_ref, hres_src, blend_weights,
     trans = torch.ones((b, hh, hw, 1), device=dev)
     for s in range(p - 1, -1, -1):
         d = depths[s:s + 1]
-        images, rowp = sweep_ops.sweep_inputs(ref, src, d, intrinsics)
-        vol = sweep_ops.ods_sweep_plain(images, rowp, torch.float32)
+        if poses is None:
+            images, rowp = sweep_ops.sweep_inputs(ref, src, d, intrinsics)
+            vol = sweep_ops.ods_sweep_plain(images, rowp, torch.float32)
+        else:
+            vol = sweep_lib.format_network_input(
+                ref, src, *poses, d, intrinsics).permute(0, 3, 1, 2)
         wa = msi_lib.upsample_align_corners_cf(
             torch.stack([blend_weights[..., s], alphas[..., s]], dim=1),
             hh, hw)

@@ -24,22 +24,45 @@ aside; `data/synthetic.make_perspective_fixture` and
 `--realestate --frames 91`: the training loader admits clips of at least
 91 frames).
 
+Every option of the JAX trainer but the GCN and data parallelism:
+`--supervision` with `src`, `ref` and `hrestgt` (the last reads the
+4096x2048 images from `--hres_image_dir`; a fixture's `--image_dir` does,
+the loader resizes), `--remat_network`, `--param_dtype bfloat16`,
+`--use_pallas false` (none of the port's kernels runs), and:
+
+  --profile_steps a,b   torch.profiler over steps a..b, the Chrome trace
+                        under <checkpoint_dir>/<experiment_name>/profile/;
+  --dry_run             no training: the first batch's tgt/src/ref images
+                        (hres_* too under hrestgt) and every plane of its
+                        sweep volume (formatInput_<i>.png) under
+                        dryrun/<experiment_name>/ (JAX cli/train.py:128-192);
+  --dry_run_inference   also restores the latest checkpoint and writes its
+                        layers (msi_alpha_XX.png, msi_rgb_XX.png) and, for
+                        ODS, the target view and depth (tgt_rendered.png,
+                        depth_rendered.png).
+
 `--device` is `cuda` by default; without a card that raises rather than
 running on the CPU. The checkpoint's `<checkpoint_dir>/<experiment_name>/
-<step>/params.npz` is what the test CLI's `--params` reads. `--dry_run`,
-`--dry_run_inference` and `--profile_steps` are not ported (ROADMAP Queue
-1 item 6), nor `--steps_per_call > 1` (item 9).
+<step>/params.npz` is what the test CLI's `--params` reads.
+`--steps_per_call > 1` is not ported (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
+import numpy as np
 import torch
 
+from matryodshka_tpu_torch import entry
 from matryodshka_tpu_torch.config import add_config_args, config_from_args
+from matryodshka_tpu_torch.data.images import write_image
 from matryodshka_tpu_torch.data.loader import device_prefetch, make_loader
+from matryodshka_tpu_torch.geometry import render as render_lib
+from matryodshka_tpu_torch.geometry import sweep as sweep_lib
 from matryodshka_tpu_torch.models import msi as msi_lib
+from matryodshka_tpu_torch.training.checkpoint import CheckpointManager
 from matryodshka_tpu_torch.training import loop as loop_lib
 from matryodshka_tpu_torch.training import state as state_lib
 from matryodshka_tpu_torch.training.step import build_elpips, \
@@ -57,9 +80,10 @@ def make_image_summary_fn(cfg, net, elpips=None):
     def fn(state, batch):
         vol = loss_fn.sweep(batch)
         aux = loss_fn.render(vol, state.net(vol), batch)
+        view = aux["output_image"] if "output_image" in aux else \
+            loss_fn.view(aux["rgba_layers"], batch)
         rgba = aux["rgba_layers"][0].float()
-        imgs = {"output_image": msi_lib.deprocess_image(
-            aux["output_image"][0])}
+        imgs = {"output_image": msi_lib.deprocess_image(view[0])}
         for i in (0, rgba.shape[2] // 2, rgba.shape[2] - 1):
             imgs[f"rgb_layer_{i}"] = msi_lib.deprocess_image(rgba[:, :, i, :3])
             imgs[f"alpha_layer_{i}"] = rgba[:, :, i, 3:]
@@ -67,6 +91,82 @@ def make_image_summary_fn(cfg, net, elpips=None):
         return {k: v.float().cpu().numpy() for k, v in imgs.items()}
 
     return fn
+
+
+def _png(path, img):
+    """Write a [0, 255]-scaled image tensor (H x W or H x W x C)."""
+    write_image(path, img.float().cpu().numpy())
+
+
+@torch.no_grad()
+def run_dry_run(cfg, loader, with_inference: bool, device,
+                dryrun_dir=None):
+    """Sanity-check dumps (JAX cli/train.py:run_dry_run; the reference's
+    msi.py:776-967) of the loader's first batch under dryrun_dir
+    (dryrun/<experiment_name> by default): tgt.png, src.png, ref.png
+    (hres_*.png too under hrestgt) and formatInput_<i>.png, the 2P planes
+    of its sweep volume (sweep_stage: K1 on the card); with_inference
+    also restores the latest checkpoint under <checkpoint_dir>/
+    <experiment_name> and writes the net's layers, msi_alpha_XX.png and
+    msi_rgb_XX.png, and for ODS input the target view and its depth
+    proxy, tgt_rendered.png and depth_rendered.png. On the card the net
+    runs through its kernels (ops/net.py) and the view and depth through
+    one layer-stack render launch; with use_pallas false the gather
+    sweep, the plain net and the gather renders."""
+    dryrun_dir = dryrun_dir or os.path.join("dryrun", cfg.experiment_name)
+    os.makedirs(dryrun_dir, exist_ok=True)
+    np_batch = next(loader.batches())
+    batch = {k: torch.from_numpy(v).to(device) for k, v in np_batch.items()
+             if isinstance(v, np.ndarray)}
+    for name in ("tgt", "src", "ref"):
+        _png(f"{dryrun_dir}/{name}.png", batch[f"{name}_image"][0] * 255.0)
+        if cfg.supervise_hrestgt:
+            _png(f"{dryrun_dir}/hres_{name}.png",
+                 batch[f"hres_{name}_image"][0] * 255.0)
+
+    psv_depths, msi_depths = (torch.tensor(
+        sweep_lib.inv_depths(cfg.min_depth, cfg.max_depth, n),
+        dtype=torch.float32, device=device)
+        for n in (cfg.num_psv_planes, cfg.num_msi_planes))
+    vol = msi_lib.sweep_stage(cfg, batch, psv_depths)
+    psv = vol[0].float()
+    for i in range(2 * cfg.num_psv_planes):
+        _png(f"{dryrun_dir}/formatInput_{i}.png",
+             (psv[i * 3:(i + 1) * 3].permute(1, 2, 0) + 1) / 2 * 255)
+
+    if with_inference:
+        tree, step = CheckpointManager(os.path.join(
+            cfg.checkpoint_dir, cfg.experiment_name)).restore_params()
+        print(f"[dry_run] restored checkpoint @ step {step}")
+        params = entry.make_params(cfg, flax_params=tree, device=device)
+        pred = (msi_lib.net_stage(params.stages, vol) if cfg.use_pallas
+                else params.net(vol))
+        rgba = msi_lib.assemble_rgba(
+            cfg.which_color_pred, pred.permute(0, 2, 3, 1),
+            vol.permute(0, 2, 3, 1), cfg.num_msi_planes)["rgba_layers"]
+        layers = rgba[0].float()
+        for i in range(cfg.num_msi_planes):
+            _png(f"{dryrun_dir}/msi_alpha_{i:02d}.png",
+                 layers[:, :, i, 3] * 255.0)
+            _png(f"{dryrun_dir}/msi_rgb_{i:02d}.png",
+                 (layers[:, :, i, :3] + 1) / 2 * 255.0)
+        if cfg.input_type == "ODS":
+            eye = torch.eye(4, device=device).expand(vol.shape[0], 4, 4)
+            if cfg.use_pallas:
+                stack = msi_lib.assemble_rgba_prepared(
+                    cfg.which_color_pred, pred, vol, cfg.num_msi_planes,
+                    cfg.torch_compute_dtype)
+                img, depth = render_lib.render_equirect_view_prepared_both(
+                    stack, eye, batch["tgt_pose"], msi_depths)
+            else:
+                img = msi_lib.render_equirect_view(
+                    rgba, eye, batch["tgt_pose"], msi_depths)
+                depth = msi_lib.render_equirect_depth(
+                    rgba, eye, batch["tgt_pose"], msi_depths)
+            _png(f"{dryrun_dir}/tgt_rendered.png",
+                 msi_lib.deprocess_image(img[0]) * 255.0)
+            _png(f"{dryrun_dir}/depth_rendered.png", depth[0] * 255.0)
+    print(f"[dry_run] wrote sanity dumps to {dryrun_dir}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,7 +177,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--dry_run", action="store_true")
     parser.add_argument("--dry_run_inference", action="store_true")
-    parser.add_argument("--profile_steps", type=str, default=None)
+    parser.add_argument("--profile_steps", type=str, default=None,
+                        help="'start,stop' step window for torch.profiler")
     parser.add_argument("--steps_per_call", type=int, default=1)
     return parser
 
@@ -85,10 +186,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    if args.dry_run or args.dry_run_inference or args.profile_steps:
-        raise NotImplementedError("--dry_run, --dry_run_inference and "
-                                  "--profile_steps are left of ROADMAP "
-                                  "Queue 1 item 6")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device here (pass "
@@ -96,6 +193,13 @@ def main(argv=None):
 
     loader = make_loader(cfg, training=True)
     print(f"[train] {len(loader.sequences)} sequences on {device}")
+    if args.dry_run or args.dry_run_inference:
+        run_dry_run(cfg, loader, args.dry_run_inference, device)
+        return
+    profile_steps = None
+    if args.profile_steps:
+        a, b = args.profile_steps.split(",")
+        profile_steps = (int(a), int(b))
     state = state_lib.init_state(cfg, cfg.random_seed, device)
     elpips, static_log_fields = None, None
     if cfg.which_loss == "elpips":
@@ -113,6 +217,7 @@ def main(argv=None):
                    device_prefetch(loader.batches(), size=2, device=device),
                    image_summary_fn=make_image_summary_fn(cfg, state.net,
                                                           elpips),
+                   profile_steps=profile_steps,
                    steps_per_call=args.steps_per_call,
                    static_log_fields=static_log_fields)
 

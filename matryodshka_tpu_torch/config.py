@@ -4,7 +4,8 @@ paths read.
 Field names and defaults are those of `matryodshka_tpu/config.py`, so a
 configuration moves between the two packages by keyword, and the test and
 train CLIs take the same `--<field>` flags. `validate` refuses the values
-whose code is not ported yet, naming the ROADMAP item that brings it.
+whose code is not ported yet, naming the ROADMAP item that brings it, and
+the combinations that the JAX trainer cannot run either, naming why.
 """
 
 from __future__ import annotations
@@ -79,6 +80,8 @@ class MatryConfig:
 
     # --- GCN variant ----------------------------------------------------------
     gcn: bool = False
+    subdiv: int = 7
+    mesh_dir: str = "glob/train/gcn"
 
     # --- elpips ---------------------------------------------------------------
     elpips_weight_path: Optional[str] = field(default=None, metadata={
@@ -93,19 +96,47 @@ class MatryConfig:
 
     # --- numerics / parallelism -------------------------------------------------
     compute_dtype: str = "bfloat16"
+    #: The trainer's parameter dtype, and so its Adam moments' (JAX
+    #: training/state.py:35).
+    param_dtype: str = "float32"
+    #: False takes the routes the JAX package takes without Pallas: the
+    #: gather sweep and PyTorch convs in the trainer, the gather sweep,
+    #: the plain net and the gather renders in the test CLI; none of the
+    #: port's kernels runs.
+    use_pallas: bool = True
+    #: Recompute the U-Net's activations in the backward pass
+    #: (torch.utils.checkpoint; JAX step.py:76-81).
     remat_network: bool = False
+    num_data_shards: int = 1
     shard_shells: bool = False
 
     # --- export -------------------------------------------------------------
     net_only: bool = False
+    smoothed: bool = False
 
     @property
     def supervise_tgt(self) -> bool:
         return "tgt" in self.supervision
 
     @property
+    def supervise_hrestgt(self) -> bool:
+        return "hrestgt" in self.supervision
+
+    @property
+    def supervise_src(self) -> bool:
+        return "src" in self.supervision
+
+    @property
+    def supervise_ref(self) -> bool:
+        return "ref" in self.supervision
+
+    @property
     def torch_compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+    @property
+    def torch_param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
 
     @property
     def net_variant(self) -> str:
@@ -140,8 +171,10 @@ class MatryConfig:
             raise ValueError("the port's renders pair shell p with sweep "
                              "plane p: num_msi_planes must equal "
                              "num_psv_planes")
-        if self.compute_dtype not in ("bfloat16", "float32"):
-            raise ValueError(f"compute_dtype {self.compute_dtype!r}")
+        for name in ("compute_dtype", "param_dtype"):
+            if getattr(self, name) not in ("bfloat16", "float32"):
+                raise ValueError(f"{name} {getattr(self, name)!r}; known: "
+                                 f"bfloat16, float32")
         if self.height % 8 or self.width % 8:
             raise ValueError("U-Net has 3 stride-2 stages; H and W must be "
                              "multiples of 8")
@@ -150,29 +183,33 @@ class MatryConfig:
                              f"{LOSSES}")
         if self.elpips_average_over < 1:
             raise ValueError("elpips_average_over must be at least 1")
+        if self.supervise_hrestgt and self.spherical_attention:
+            raise ValueError(
+                "spherical_attention with hrestgt supervision: the JAX train "
+                "step forms the latitude map at (height, width) "
+                "(step.py:58-59) and multiplies the (hres_height, "
+                "hres_width) render by it (step.py:130-134), which does not "
+                "broadcast; the JAX package has no high-res latitude map")
+        if self.supervise_hrestgt and self.input_type != "ODS":
+            raise ValueError(
+                f"hrestgt supervision with input_type {self.input_type}: "
+                f"the high-res target is an ODS render (JAX step.py:130), "
+                f"and the PP and RealEstate loaders read no high-res images")
+        if self.num_data_shards > 1:
+            raise NotImplementedError("num_data_shards > 1: data-parallel "
+                                      "training is ROADMAP Queue 1 item 9")
+        if self.smoothed:
+            raise NotImplementedError("smoothed: the upsample-and-conv "
+                                      "deconv is ROADMAP Queue 1 item 3")
         check_trainable(self)
         return self
 
 
 def check_trainable(cfg: MatryConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a training
-    option whose code is not ported yet. The src/ref terms are ODS eye
-    re-renders: the PP and RealEstate trainers never reach them (JAX
-    step.py:163-182), so they raise for ODS input only."""
-    parts = cfg.supervision.split("_")
-    unported = [
-        (cfg.gcn, "gcn: the GCN is ROADMAP Queue 1 item 8"),
-        ("hrestgt" in parts, "supervision hrestgt: the high-res target "
-         "render in training is left of ROADMAP Queue 1 item 6"),
-        (cfg.input_type == "ODS" and ("src" in parts or "ref" in parts),
-         "supervision src/ref: the trainer's ODS eye re-render terms are "
-         "ROADMAP Queue 1 item 6.2"),
-        (cfg.remat_network, "remat_network is left of ROADMAP Queue 1 item "
-         "6"),
-    ]
-    for bad, msg in unported:
-        if bad:
-            raise NotImplementedError(msg)
+    option whose code is not ported yet: the GCN."""
+    if cfg.gcn:
+        raise NotImplementedError("gcn: the GCN is ROADMAP Queue 1 item 8")
 
 
 def add_config_args(parser: argparse.ArgumentParser) -> None:

@@ -336,12 +336,14 @@ def make_loader(cfg, training: bool = True, **kwargs):
     """Loader factory keyed on cfg.input_type (the reference's per-type
     data_loader dispatch, test.py:51 / train.py:104-115). RealEstate clips
     use length-10 windows (reference loader.py:361), whatever
-    shuffle_seq_length says for the ODS groups."""
+    shuffle_seq_length says for the ODS groups. The ODS loader reads the
+    high-res images when cfg supervises hrestgt (JAX data/loader.py:51)."""
     if cfg.input_type == "REALESTATE_PP":
         kwargs.setdefault("shuffle_seq_length", 10)
         return RealEstateLoader(cfg, training=training, **kwargs)
     if cfg.input_type == "PP":
         return ReplicaPerspectiveLoader(cfg, training=training, **kwargs)
+    kwargs.setdefault("load_hres", cfg.supervise_hrestgt)
     return OdsLoader(cfg, training=training, **kwargs)
 
 

@@ -290,17 +290,20 @@ def render_perspective_view(rgba_layers, tgt_pos, radii,
 # ---------------------------------------------------------------------------
 
 def sweep_stage(cfg, batch, psv_depths, jitter_pose_inv=None):
-    """Stage 1: the net input [B, C, H, W] in the compute dtype. For ODS
-    input without jitter the identity-pose sweep of the batch's pair (it
-    preprocesses the images; on the card one kernel launch, which reads no
-    pose). Otherwise the gather route of format_input: for ODS with the
-    transform-inverse regularizer's jitter_pose_inv [B, 4, 4] the
-    general-pose sphere sweep at ref_pose_inv @ jitter_pose_inv, as the JAX
-    package takes its kernel only without jitter (JAX sweep.py:150-151);
-    for PP the perspective plane sweep and for REALESTATE_PP the ref image
-    and the homography plane sweeps (no TPU kernel exists for either). The
-    arguments pick the route, so the kernel never sees a posed batch."""
-    if cfg.input_type == "ODS" and jitter_pose_inv is None:
+    """Stage 1: the net input [B, C, H, W] in the compute dtype, at the
+    size of the batch's images. For ODS input without jitter the
+    identity-pose sweep of the batch's pair (it preprocesses the images;
+    on the card one kernel launch, which reads no pose). Otherwise the
+    gather route of format_input: for ODS with the transform-inverse
+    regularizer's jitter_pose_inv [B, 4, 4] the general-pose sphere sweep
+    at ref_pose_inv @ jitter_pose_inv, as the JAX package takes its kernel
+    only without jitter (JAX sweep.py:150-151); for PP the perspective
+    plane sweep and for REALESTATE_PP the ref image and the homography
+    plane sweeps (no TPU kernel exists for either); with cfg.use_pallas
+    false the gather always (JAX sweep.py:150). The arguments pick the
+    route, so the kernel never sees a posed batch."""
+    if (cfg.input_type == "ODS" and jitter_pose_inv is None
+            and cfg.use_pallas):
         return sweep_ops.sweep_volume(batch["ref_image"], batch["src_image"],
                                       psv_depths, batch["intrinsics"],
                                       out_dtype=cfg.torch_compute_dtype)
@@ -357,6 +360,41 @@ def infer_msi_prepared(cfg, stages, batch, psv_depths):
 # ---------------------------------------------------------------------------
 # The training forward.
 # ---------------------------------------------------------------------------
+
+def assemble_hres_rgba(which_color_pred: str, outputs, vol,
+                       num_planes: int):
+    """Counterpart of assemble_hres_rgba (JAX msi.py:312-339, the
+    reference's msi.py:149-165, 196-212): the low-res blend weights and
+    alphas of assemble_rgba's outputs ([B, h, w, P]) upsampled bilinearly
+    with aligned corners to the high-res sweep volume vol [B, 2*P*3, Hh, Ww]
+    (sweep_stage's planar layout, in the compute dtype) and applied to it:
+    blend_psv blends the ref eye's planes (fg) with the src eye's (bg),
+    blend_bg fg with the upsampled background colour, and alpha_only and
+    blend_bg_psv take fg as it is (as the JAX function does: its
+    blend_bg_psv does not blend). -> [B, Hh, Ww, P, 4] float32, the JAX
+    layout, as a view of a planar [B, P, 4, Hh, Ww] tensor. Differentiable
+    in the outputs. The volume is read through views of its planes and
+    promoted to float32 only inside the products: no float32 copy of its
+    2*P*3 channels is made."""
+    b, _, hh, ww = vol.shape
+    p = num_planes
+
+    def up(x):
+        return upsample_align_corners_cf(x.permute(0, 3, 1, 2), hh, ww)
+
+    fg = vol[:, :p * 3].reshape(b, p, 3, hh, ww)
+    if which_color_pred == "blend_psv":
+        wgt = up(outputs["blend_weights"])[:, :, None]
+        bg = vol[:, p * 3:2 * p * 3].reshape(b, p, 3, hh, ww)
+        rgb = wgt * fg + (1.0 - wgt) * bg
+    elif which_color_pred == "blend_bg":
+        wgt = up(outputs["blend_weights"])[:, :, None]
+        rgb = wgt * fg + (1.0 - wgt) * up(outputs["bg_rgb"])[:, None]
+    else:
+        rgb = fg.float()
+    rgba = torch.cat([rgb, up(outputs["alphas"])[:, :, None]], dim=2)
+    return rgba.permute(0, 3, 4, 1, 2)
+
 
 def assemble_train(cfg, vol, pred) -> Dict[str, torch.Tensor]:
     """The differentiable tail of infer_msi as the JAX train step runs it

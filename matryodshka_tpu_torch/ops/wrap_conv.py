@@ -16,7 +16,8 @@ whose input columns wrap mod W and whose rows outside [0, H) read zero
   sum y^2) over the ROUNDED y, float64 [B], for `SpatialLayerNorm(stats=)`.
 
 Layout is the port's: x [B, Cin, H, W], weight [Cout, Cin, 3, 3] (the
-parameter, float32), bias [Cout] float32. There is no lane padding:
+parameter, float32 or bfloat16), bias [Cout] (float32 or bfloat16; the
+kernel adds it in float32). There is no lane padding:
 `cin_pad` / `cout_pad` are TPU artefacts. The kernels are `csrc/conv.cu`
 in its wrap mode (the STATS epilogue for K7c) and, for the weight
 gradient, `csrc/conv_wgrad.cu`; their source notes give the bounds.
@@ -139,10 +140,10 @@ def _check(x, weight, bias, name):
     cout = weight.shape[0]
     if bias is None:
         bias = torch.zeros(cout, dtype=torch.float32, device=x.device)
-    req(bias.dtype == torch.float32 and bias.is_contiguous()
+    req(bias.dtype in (torch.float32, torch.bfloat16)
         and bias.device == x.device and tuple(bias.shape) == (cout,),
         f"{name}: bias {bias.dtype} {tuple(bias.shape)}")
-    return bias
+    return bias.float().contiguous()
 
 
 def _launch(x, weight, bias, out_dtype, stats: bool, name: str):
@@ -293,9 +294,12 @@ class WrapConv3x3Fn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gs1=None, gs2=None):
-        x, weight = ctx.saved_tensors[:2]
+        # saved_tensors once: under torch.utils.checkpoint each read
+        # unpacks (recomputes) the saved tensors
+        saved = ctx.saved_tensors
+        x, weight = saved[:2]
         if ctx.stats:
-            y = ctx.saved_tensors[2]
+            y = saved[2]
             acc = _acc(x)
             g = (gy.to(acc) + gs1.to(acc)[:, None, None, None]
                  + 2.0 * y.to(acc) * gs2.to(acc)[:, None, None, None])
@@ -312,5 +316,7 @@ class WrapConv3x3Fn(torch.autograd.Function):
 
 
 def wrap_conv3x3(x, weight, bias, stats: bool = False):
-    """Differentiable K7: y (K7b), or (y, s1, s2) (K7c) with stats=True."""
+    """Differentiable K7: y (K7b), or (y, s1, s2) (K7c) with stats=True.
+    The parameters may be float32 or bfloat16 (param_dtype); their
+    gradients come back in their dtypes."""
     return WrapConv3x3Fn.apply(x, weight, bias, stats)

@@ -5,9 +5,10 @@ msi.py:971-1022): per-step timing logged every summary_freq steps,
 a checkpoint every save_latest_freq (max_to_keep=10), resume from the
 latest with continue_train. Observability is a metrics JSONL (scalars,
 with the JAX package's keys and `sec_per_step`) plus, when the caller
-gives an image summary function, PNG dumps every summary_freq steps.
-Chaining several steps per call (`steps_per_call > 1`) and the profiler
-window are not ported (ROADMAP Queue 1 items 9 and 6).
+gives an image summary function, PNG dumps every summary_freq steps, and
+a `torch.profiler` trace of a window of steps (`profile_steps`, the JAX
+loop's jax.profiler window, loop.py:114-127). Chaining several steps per
+call (`steps_per_call > 1`) is not ported (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +24,38 @@ import torch
 from matryodshka_tpu_torch.data.images import write_image
 from matryodshka_tpu_torch.training.checkpoint import CheckpointManager
 from matryodshka_tpu_torch.training.state import param_count
+
+
+class StepProfiler:
+    """torch.profiler over steps [start, stop] (both included): started
+    before step `start`, stopped after step `stop` once the device has
+    finished it; the trace is written as Chrome trace JSON to
+    <log_dir>/trace_<start>_<stop>.json. Device activity is recorded when
+    the net is on a CUDA device."""
+
+    def __init__(self, log_dir: str, start: int, stop: int, cuda: bool):
+        self.path = os.path.join(log_dir, f"trace_{start}_{stop}.json")
+        self.start, self.stop = start, stop
+        self.activities = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            self.activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = None
+
+    def before(self, step: int) -> None:
+        if step == self.start:
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            self.prof = torch.profiler.profile(activities=self.activities)
+            self.prof.__enter__()
+
+    def after(self, step: int) -> None:
+        if step == self.stop and self.prof is not None:
+            if torch.profiler.ProfilerActivity.CUDA in self.activities:
+                torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+            self.prof.export_chrome_trace(self.path)
+            print(f"[train] profile of steps {self.start}-{self.stop} "
+                  f"written to {self.path}")
+            self.prof = None
 
 
 class SummaryWriter:
@@ -53,6 +86,7 @@ class SummaryWriter:
 
 def train(cfg, state, train_step: Callable, batches: Iterator[Dict],
           image_summary_fn: Optional[Callable] = None,
+          profile_steps: Optional[Tuple[int, int]] = None,
           steps_per_call: int = 1,
           static_log_fields: Optional[Dict] = None):
     """Run the training loop until cfg.max_steps; returns the state.
@@ -64,6 +98,9 @@ def train(cfg, state, train_step: Callable, batches: Iterator[Dict],
         entries such as scene ids are dropped before the step).
       image_summary_fn: optional (state, batch) -> {name: HxWxC array},
         called every summary_freq steps.
+      profile_steps: optional (start, stop) step numbers of a
+        torch.profiler trace written under <checkpoint_dir>/
+        <experiment_name>/profile/ (StepProfiler).
       static_log_fields: fields written into every metrics record.
     """
     if steps_per_call != 1:
@@ -83,12 +120,21 @@ def train(cfg, state, train_step: Callable, batches: Iterator[Dict],
                 print("[train] no checkpoint to resume from; starting fresh")
 
         print(f"[train] parameter count: {param_count(state.net):,}")
+        profiler = None
+        if profile_steps is not None:
+            profiler = StepProfiler(
+                os.path.join(ckpt_dir, "profile"), *profile_steps,
+                cuda=next(state.net.parameters()).is_cuda)
         t0 = time.time()
         for step_i, batch in enumerate(batches, start=state.step + 1):
             if step_i > cfg.max_steps:
                 break
             arrays = {k: v for k, v in batch.items() if torch.is_tensor(v)}
+            if profiler is not None:
+                profiler.before(step_i)
             state, metrics = train_step(state, arrays)
+            if profiler is not None:
+                profiler.after(step_i)
 
             if step_i % cfg.summary_freq == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}

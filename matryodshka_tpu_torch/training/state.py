@@ -5,7 +5,11 @@ Counterpart of `matryodshka_tpu/training/state.py`. The JAX trainer builds
 its net with `use_pallas_conv=False`, because on the TPU one custom-call
 boundary breaks XLA's cross-layer scheduling (`ops/pallas_conv.py:13-37`);
 the card has no such penalty, so the port's trainer runs the stride-1 wrap
-convs through the hand-written K7 kernels (`MSIUNet(wrap_conv_kernel=True)`).
+convs through the hand-written K7 kernels (`MSIUNet(wrap_conv_kernel=True)`),
+unless cfg.use_pallas is false (then PyTorch's convs, as the JAX trainer's
+XLA convs). The net's parameters, and so Adam's moments, are in
+cfg.param_dtype (JAX training/state.py:35); the seeded float32 tree is cast
+to it when it is loaded.
 """
 
 from __future__ import annotations
@@ -29,11 +33,12 @@ class TrainState:
 
 
 def build_model(cfg) -> MSIUNet:
-    """The trainer's net: cfg's variant, compute dtype and head, float32
-    parameters, the wrap net's stride-1 convs through K7."""
+    """The trainer's net: cfg's variant, compute dtype and head, parameters
+    in cfg.param_dtype, the wrap net's stride-1 convs through K7 when
+    cfg.use_pallas."""
     return MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
                    dtype=cfg.torch_compute_dtype, variant=cfg.net_variant,
-                   wrap_conv_kernel=True)
+                   wrap_conv_kernel=cfg.use_pallas).to(cfg.torch_param_dtype)
 
 
 def build_optimizer(cfg, net) -> torch.optim.Adam:
@@ -44,9 +49,10 @@ def build_optimizer(cfg, net) -> torch.optim.Adam:
 
 
 def init_state(cfg, seed: int, device="cuda") -> TrainState:
-    """Step 0, the net with weights.seeded_init(cfg, seed) on device (the
-    card unless the caller asks for the CPU), a fresh optimizer, and the
-    loss's generator seeded with cfg.random_seed."""
+    """Step 0, the net with weights.seeded_init(cfg, seed) (cast to
+    cfg.param_dtype) on device (the card unless the caller asks for the
+    CPU), a fresh optimizer, and the loss's generator seeded with
+    cfg.random_seed."""
     net = build_model(cfg)
     net.load_state_dict(weights.from_flax(weights.seeded_init(cfg, seed)))
     net = net.to(device).train()

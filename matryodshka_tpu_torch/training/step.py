@@ -1,33 +1,55 @@
 """The training step: forward, synthesis, loss, Adam update.
 
-Counterpart of `matryodshka_tpu/training/step.py` for the ODS trainer with
-target supervision and the PP / RealEstate trainers (MSI.build_train_graph,
-matryodshka/msi.py:550-733):
+Counterpart of `matryodshka_tpu/training/step.py` (MSI.build_train_graph,
+matryodshka/msi.py:550-733), every option of its single-device trainer but
+the GCN:
 
   supervision 'tgt':     render at the tgt offset, weight 1 (ODS); for PP
       and REALESTATE_PP always the MPI render at tgt_pose @ ref_pose_inv
       (JAX step.py:163-171);
+  supervision 'hrestgt': the high-res layers (models/msi.py:
+      assemble_hres_rgba: the low-res blend weights and alphas upsampled
+      onto the sweep of the batch's hres_ref_image / hres_src_image)
+      rendered at the tgt offset against hres_tgt_image, weight 1 (ODS;
+      JAX step.py:130-134);
+  supervision 'src'/'ref': the ODS eyes re-rendered from the layers
+      (render_ods_view, order -1 / +1) against src_image / ref_image,
+      weight 1e-4, or 1 with transform_inverse_reg (JAX step.py:135-143);
   transform_inverse_reg: a second forward of the batch at a random jitter
       pose through the same net (the gather sweep at ref_pose_inv @
       jitter_pose_inv); its MSI rendered at the jitter pose (its MPI at
       tgt_pose @ ref_pose_inv @ jitter_pose_inv), and
       total += 10 * enforcement, enforcement = d(that render, the
       unjittered render), the gradient flowing through both renders
-      (JAX step.py:98-110, 145-152, 172-182);
-  wreg:                  + 0.001 * sum_v l2(v)  (msi.py:721-725).
+      (JAX step.py:98-110, 145-152, 172-182); with src/ref supervision
+      also the eyes re-rendered at the jitter pose, weight 1. As in the
+      JAX step (step.py:153-162) those jittered eye renders read the
+      UNJITTERED layers, not the jittered forward's;
+  wreg:                  + 0.001 * sum_v l2(v)  (msi.py:721-725);
+  remat_network:         the net's forward under torch.utils.checkpoint
+      (non-reentrant), in both forwards of the regularizer: its
+      activations are recomputed in the backward (JAX step.py:76-81).
 
 The distance is the pixel loss, 0.5*sum(sq) (losses/basic.py), or with
 which_loss=elpips the batch mean of E-LPIPS (losses/elpips) between the
 [-1, 1] render and the preprocessed target; the metric applies its own
 2x - 1 on top, as the JAX trainer's does (api.py:205). Spherical
 attention multiplies both images by the latitude map before the
-distance. The step's random draws come from its CPU generator
+distance.
+
+The step's random draws come from its CPU generator
 (TrainState.generator, seeded from cfg.random_seed and checkpointed), in
-this order: the jitter pose (three angles, then three offsets), then
-E-LPIPS's ensembles (the reconstruction term's, then the enforcement
-term's). The src/ref supervisions, hrestgt, the GCN and remat_network
-raise NotImplementedError naming their ROADMAP item
-(config.check_trainable).
+this order:
+  1. the jitter pose (three angles, then three offsets), with
+     transform_inverse_reg;
+  2. E-LPIPS's ensembles (cfg.elpips_average_over draws each), one set
+     per distinct key of the JAX step (step.py:74-75), in its key order,
+     for the terms the configuration has: tgt (rng_l1; the target term of
+     PP and RealEstate too), hrestgt (rng_l2), src (rng_l3), ref (rng_l4),
+     enforcement (rng_l5);
+  3. none more: the jittered eye terms reuse the src and ref terms' keys
+     in the JAX step, so here they reuse those very draws (the transforms
+     and the dropout masks).
 """
 
 from __future__ import annotations
@@ -35,13 +57,17 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from matryodshka_tpu_torch.config import check_trainable
 from matryodshka_tpu_torch.geometry import cameras
 from matryodshka_tpu_torch.geometry import sweep as sweep_lib
 from matryodshka_tpu_torch.losses.basic import l2_loss, spherical_weights
 from matryodshka_tpu_torch.losses.elpips import api as elpips_api
 from matryodshka_tpu_torch.models import msi as msi_lib
+
+#: The E-LPIPS keys of the JAX step's terms, in its key order
+#: (step.py:74-75).
+TERM_KEYS = ("tgt", "hrestgt", "src", "ref", "enforcement")
 
 
 def build_elpips(cfg, device) -> elpips_api.Metric:
@@ -56,24 +82,32 @@ def build_elpips(cfg, device) -> elpips_api.Metric:
 class TrainLoss:
     """loss(batch, generator, jitter_pose) -> (total_loss, aux dict),
     differentiable in the net's parameters, in parts that can be run (and
-    timed) one by one: `sweep(batch)` -> the net input, `net(vol)` -> the
-    prediction, `render(vol, pred, batch)` -> assembly and the tgt render,
-    and with transform_inverse_reg `draw_jitter(generator)` -> the jitter
-    pose, `sweep_jitter(batch, pose)` -> the jittered net input and
+    timed) one by one: `sweep(batch)` -> the net input, `net_forward(vol)`
+    -> the prediction (under remat_network recomputed in the backward),
+    `render(vol, pred, batch)` -> assembly and the tgt render, with
+    hrestgt supervision `sweep_hres(batch)` -> the high-res volume and
+    `render_hres(vol_h, outputs, batch)` -> its layers' render, and with
+    transform_inverse_reg `draw_jitter(generator)` -> the jitter pose,
+    `sweep_jitter(batch, pose)` -> the jittered net input and
     `render_jitter(vol_j, pred_j, batch, pose)` -> its assembly and render
-    at the pose; `tail(batch, vol, pred, generator, jitter)` renders and
-    adds the losses (jitter: (pose, vol_j, pred_j)).
+    at the pose; `tail(batch, vol, pred, generator, jitter, vol_h)`
+    renders and adds the losses (jitter: (pose, vol_j, pred_j)).
 
-    sweep: (cfg, batch, psv_depths) -> [B, 2*P*3, H, W] in the compute
-    dtype, for the unjittered forward; models/msi.py:sweep_stage (the K1
-    kernel for ODS, the gather sweeps for PP and REALESTATE_PP) by
-    default. The jittered forward always takes sweep_stage's
-    gather route. elpips: (pred, target, generator) -> [B] distances, for
-    which_loss=elpips; build_elpips(cfg, ...) by default."""
+    sweep: (cfg, batch, psv_depths) -> [B, C, H, W] in the compute dtype at
+    the size of the batch's images, for the unjittered forward and the
+    high-res volume (given the batch with its high-res pair as
+    ref_image / src_image);
+    models/msi.py:sweep_stage (the K1 kernel for ODS, the gather sweeps
+    for PP and REALESTATE_PP and with use_pallas false) by default. The
+    jittered forward always takes sweep_stage's gather route. elpips: a
+    losses/elpips Metric, which the loss gives each term's draws (module
+    docstring), or any (pred, target, generator) -> [B] distances, called
+    once per term in the JAX step's order and given the generator to draw
+    from; build_elpips(cfg, ...) by default for which_loss=elpips."""
 
     def __init__(self, cfg, net, sweep: Optional[Callable] = None,
                  elpips: Optional[Callable] = None):
-        check_trainable(cfg)
+        cfg.validate()
         self.cfg = cfg
         self.net = net
         self._sweep = sweep or msi_lib.sweep_stage
@@ -92,12 +126,36 @@ class TrainLoss:
         self.sph_w = (spherical_weights(cfg.height, cfg.width,
                                         device=device)[None, :, :, None]
                       if cfg.spherical_attention else None)
+        ods = cfg.input_type == "ODS"
         #: The target term: ODS with tgt supervision; PP and RealEstate
         #: always (JAX step.py:163-171 has no supervision switch there).
-        self.supervised = cfg.supervise_tgt or cfg.input_type != "ODS"
+        self.supervised = cfg.supervise_tgt or not ods
+        #: The terms this configuration has, in TERM_KEYS order.
+        self.terms = [k for k, on in zip(TERM_KEYS, (
+            self.supervised, ods and cfg.supervise_hrestgt,
+            ods and cfg.supervise_src, ods and cfg.supervise_ref,
+            cfg.transform_inverse_reg and self.supervised)) if on]
 
     def sweep(self, batch):
         return self._sweep(self.cfg, batch, self.psv_depths)
+
+    def sweep_hres(self, batch):
+        """The high-res volume [B, 2*P*3, hres_height, hres_width] of the
+        batch's hres_ref_image / hres_src_image, through the same sweep (on
+        the card K1 at the high-res size), with the batch's poses and
+        low-res intrinsics, as JAX infer_msi(with_hres=True) sweeps
+        (msi.py:384-390; for ODS intrinsics[0, 0] is the viewing circle's
+        radius, which does not depend on the resolution)."""
+        hres = dict(batch, ref_image=batch["hres_ref_image"],
+                    src_image=batch["hres_src_image"])
+        return self._sweep(self.cfg, hres, self.psv_depths)
+
+    def net_forward(self, vol):
+        """The net's prediction of vol; with remat_network its activations
+        are not kept but recomputed in the backward."""
+        if self.cfg.remat_network:
+            return checkpoint(self.net, vol, use_reentrant=False)
+        return self.net(vol)
 
     def draw_jitter(self, generator=None) -> torch.Tensor:
         """The regularizer's jitter pose [4, 4] on the net's device."""
@@ -114,14 +172,30 @@ class TrainLoss:
         return msi_lib.sweep_stage(self.cfg, batch, self.psv_depths,
                                    jitter_pose_inv=inv)
 
-    def distance(self, pred, target, generator=None) -> torch.Tensor:
+    def draw_terms(self, batch_size: int, generator=None) -> Dict:
+        """{term: what distance() needs for it}: for a Metric, each term's
+        cfg.elpips_average_over draws from generator, in TERM_KEYS order;
+        for another E-LPIPS callable, the generator; for the pixel loss
+        None."""
+        if self.cfg.which_loss != "elpips":
+            return {k: None for k in self.terms}
+        if not isinstance(self.elpips, elpips_api.Metric):
+            return {k: generator for k in self.terms}
+        g = torch.default_generator if generator is None else generator
+        return {k: [self.elpips.draw(batch_size, g)
+                    for _ in range(self.cfg.elpips_average_over)]
+                for k in self.terms}
+
+    def distance(self, pred, target, term=None) -> torch.Tensor:
         """The configured distance of two [B, H, W, 3] images (JAX
-        step.py:60-69)."""
+        step.py:60-69); term: draw_terms' entry of the term."""
         if self.cfg.which_loss != "elpips":
             return l2_loss(pred, target, self.sph_w)
         if self.sph_w is not None:
             pred, target = pred * self.sph_w, target * self.sph_w
-        return torch.mean(self.elpips(pred, target, generator))
+        if isinstance(self.elpips, elpips_api.Metric):
+            return torch.mean(self.elpips(pred, target, draws=term))
+        return torch.mean(self.elpips(pred, target, term))
 
     def view(self, rgba, batch, jitter_pose=None):
         """The supervised view of layers rgba [B, H, W, P, 4]: for ODS the
@@ -142,46 +216,100 @@ class TrainLoss:
             rgba, msi_lib.mpi_view_pose(batch, inv), self.msi_depths,
             batch["intrinsics"])
 
+    def eye_view(self, rgba, batch, order: int, jitter_pose=None):
+        """The ODS eye (order -1: src, +1: ref) re-rendered from layers
+        rgba [B, H, W, P, 4] at the identity or at jitter_pose (JAX
+        step.py:137-143, 153-162)."""
+        b = rgba.shape[0]
+        pose = torch.eye(4, device=rgba.device) if jitter_pose is None \
+            else jitter_pose
+        return msi_lib.render_ods_view(rgba, order, pose.expand(b, 4, 4),
+                                       batch["tgt_pose"], self.msi_depths,
+                                       batch["intrinsics"])
+
     def _render(self, vol, pred, batch, jitter_pose, keys):
-        """{keys[0]: the assembled layers, keys[1]: with tgt supervision
-        their view}."""
-        rgba = msi_lib.assemble_train(self.cfg, vol, pred)["rgba_layers"]
-        out = {keys[0]: rgba}
+        """assemble_train's dict with the layers under keys[0], and with
+        the target term their view under keys[1]."""
+        out = msi_lib.assemble_train(self.cfg, vol, pred)
+        out[keys[0]] = out.pop("rgba_layers")
         if self.supervised:
-            out[keys[1]] = self.view(rgba, batch, jitter_pose)
+            out[keys[1]] = self.view(out[keys[0]], batch, jitter_pose)
         return out
 
     def render(self, vol, pred, batch) -> Dict:
-        """Assembly, then with tgt supervision the target view:
-        {rgba_layers, output_image ([-1, 1])}."""
+        """Assembly, then with the target term the target view:
+        {rgba_layers, output_image ([-1, 1]), and assemble_rgba's blend
+        weights and alphas}."""
         return self._render(vol, pred, batch, None,
                             ("rgba_layers", "output_image"))
 
     def render_jitter(self, vol_j, pred_j, batch, jitter_pose) -> Dict:
-        """The jittered forward's assembly and, with tgt supervision, its
+        """The jittered forward's assembly and, with the target term, its
         view under the jitter pose: {rgba_layers_jitter,
         jitter_output_image}."""
-        return self._render(vol_j, pred_j, batch, jitter_pose,
-                            ("rgba_layers_jitter", "jitter_output_image"))
+        out = self._render(vol_j, pred_j, batch, jitter_pose,
+                           ("rgba_layers_jitter", "jitter_output_image"))
+        return {k: out[k] for k in ("rgba_layers_jitter",
+                                    "jitter_output_image") if k in out}
 
-    def tail(self, batch, vol, pred, generator=None, jitter=None
-             ) -> Tuple[torch.Tensor, Dict]:
+    def render_hres(self, vol_h, outputs, batch):
+        """The high-res layers (assemble_hres_rgba of the low-res
+        assembly's blend weights and alphas onto vol_h) rendered at the
+        tgt offset -> [B, hres_height, hres_width, 3] in [-1, 1] (JAX
+        step.py:131-133). The gather render, with autograd, as the JAX
+        step's."""
+        rgba = msi_lib.assemble_hres_rgba(self.cfg.which_color_pred,
+                                          outputs, vol_h,
+                                          self.cfg.num_msi_planes)
+        b = rgba.shape[0]
+        return msi_lib.render_equirect_view(
+            rgba, torch.eye(4, device=rgba.device).expand(b, 4, 4),
+            batch["tgt_pose"], self.msi_depths)
+
+    def tail(self, batch, vol, pred, generator=None, jitter=None,
+             vol_h=None) -> Tuple[torch.Tensor, Dict]:
+        """The losses of the forward's outputs, in the JAX step's order
+        (step.py:123-182); vol_h: sweep_hres(batch), with hrestgt
+        supervision."""
         cfg = self.cfg
-        aux: Dict = self.render(vol, pred, batch)
+        out = self.render(vol, pred, batch)
+        rgba = out["rgba_layers"]
+        aux: Dict = {k: out[k] for k in ("rgba_layers", "output_image")
+                     if k in out}
+        pose = None
         if jitter is not None:
-            aux.update(self.render_jitter(jitter[1], jitter[2], batch,
-                                          jitter[0]))
+            pose = jitter[0]
+            aux.update(self.render_jitter(jitter[1], jitter[2], batch, pose))
+        terms = self.draw_terms(rgba.shape[0], generator)
         total = torch.zeros((), device=vol.device)
         if self.supervised:
             rec = self.distance(aux["output_image"], msi_lib.preprocess_image(
-                batch["tgt_image"]), generator)
+                batch["tgt_image"]), terms["tgt"])
             aux["reconstruction_loss"] = rec
             total = total + rec
-            if jitter is not None:
+        if "hrestgt" in terms:
+            total = total + self.distance(
+                self.render_hres(vol_h, out, batch),
+                msi_lib.preprocess_image(batch["hres_tgt_image"]),
+                terms["hrestgt"])
+        eyes = [(k, order, msi_lib.preprocess_image(batch[k + "_image"]))
+                for k, order in (("src", -1), ("ref", 1)) if k in terms]
+        src_w = 1.0 if cfg.transform_inverse_reg else 1e-4
+        for k, order, target in eyes:
+            total = total + src_w * self.distance(
+                self.eye_view(rgba, batch, order), target, terms[k])
+        if jitter is not None:
+            if "enforcement" in terms:
                 enf = self.distance(aux["jitter_output_image"],
-                                    aux["output_image"], generator)
+                                    aux["output_image"], terms["enforcement"])
                 aux["enforcement_loss"] = enf
                 total = total + 10.0 * enf
+            for k, order, target in eyes:
+                # the unjittered layers at the jitter pose, the unjittered
+                # term's draws (JAX step.py:153-162: rgba, rng_l3 / rng_l4)
+                total = total + self.distance(
+                    self.eye_view(rgba, batch, order, pose), target,
+                    terms[k])
         if cfg.wreg:
             wsum = 0.5 * sum(torch.sum(torch.square(p))
                              for p in self.net.parameters())
@@ -195,14 +323,15 @@ class TrainLoss:
         """jitter_pose [4, 4] replays a regularizer pose; without one the
         pose is drawn from generator."""
         vol = self.sweep(batch)
-        pred = self.net(vol)
+        pred = self.net_forward(vol)
         jitter = None
         if self.cfg.transform_inverse_reg:
             pose = self.draw_jitter(generator) if jitter_pose is None \
                 else jitter_pose.to(vol.device)
             vol_j = self.sweep_jitter(batch, pose)
-            jitter = (pose, vol_j, self.net(vol_j))
-        return self.tail(batch, vol, pred, generator, jitter)
+            jitter = (pose, vol_j, self.net_forward(vol_j))
+        vol_h = self.sweep_hres(batch) if "hrestgt" in self.terms else None
+        return self.tail(batch, vol, pred, generator, jitter, vol_h)
 
 
 def make_loss_fn(cfg, net, sweep: Optional[Callable] = None,

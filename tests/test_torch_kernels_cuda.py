@@ -1086,6 +1086,106 @@ def test_reg_train_step_kernel_route_matches_plain(cuda):
         assert rel <= max(5e-2, 1.5 * rel_bf16), (n, rel, rel_bf16)
 
 
+def _k7_counts():
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    torch.cuda.synchronize()
+    return (sweep_ops.launches, wc.k7a_launches, wc.k7b_launches,
+            wc.k7c_launches, wc.wgrad_launches)
+
+
+def _step_grads(cfg, net, b, sweep=None):
+    """(loss, {name: gradient}, launches (K1, K7a, K7b, K7c, wgrad)) of one
+    loss and backward of cfg's trainer."""
+    from matryodshka_tpu_torch.training import step as step_lib
+    net.zero_grad(set_to_none=True)
+    before = _k7_counts()
+    loss, _ = step_lib.make_loss_fn(cfg, net, sweep)(b)
+    loss.backward()
+    got = [a - n for a, n in zip(_k7_counts(), before)]
+    return loss.item(), {n: p.grad.detach().clone()
+                         for n, p in net.named_parameters()}, got
+
+
+@pytest.mark.cuda
+def test_remat_train_step_reruns_the_k7_forward(cuda):
+    """remat_network on the card (ngf 64, so K7b and K7c both run): the
+    K7b and K7c forwards launch twice as often as without it (the net's
+    forward recomputed in the backward), dgrad (K7a) and wgrad as often;
+    the loss and every gradient equal the step without it, within what
+    two runs of that step differ by (bit-equal where the card's
+    algorithms are deterministic)."""
+    import dataclasses
+
+    from matryodshka_tpu_torch.training import state as state_lib
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P)
+    b = entry.synthetic_batch(cfg, 4, cuda, tgt_pos=(0.03, 0.01, -0.02))
+    state = state_lib.init_state(cfg, 5, cuda)
+    l0, g0, n0 = _step_grads(cfg, state.net, b)
+    l1, g1, _ = _step_grads(cfg, state.net, b)
+    rcfg = dataclasses.replace(cfg, remat_network=True)
+    lr, gr, nr = _step_grads(rcfg, state.net, b)
+    assert nr[0] == n0[0] == 1 and nr[1] == n0[1] and nr[4] == n0[4]
+    assert nr[2] == 2 * n0[2] > 0 and nr[3] == 2 * n0[3] > 0, (n0, nr)
+    assert abs(lr - l0) <= abs(l1 - l0)
+    for n in g0:
+        noise = (g1[n] - g0[n]).abs().max().item()
+        assert (gr[n] - g0[n]).abs().max().item() <= 2 * noise, n
+
+
+@pytest.mark.cuda
+def test_hrestgt_train_step_sweeps_twice(cuda):
+    """tgt_hrestgt on the card (32x64, 128x256 high res): K1 launched twice
+    a step, the second time at the high-res size; the loss and gradients
+    of the kernel route against the all-plain f32 route's (the plain
+    identity-pose sweep at both sizes, the plain net), the gate of
+    test_train_step_kernel_route_matches_plain."""
+    from matryodshka_tpu_torch.training import state as state_lib
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P, supervision="tgt_hrestgt",
+                             hres_height=128, hres_width=256)
+    b = entry.synthetic_batch(cfg, 4, cuda, tgt_pos=(0.03, 0.01, -0.02))
+    g = torch.Generator().manual_seed(6)
+    for k in ("ref", "src", "tgt"):
+        b[f"hres_{k}_image"] = torch.rand((1, 128, 256, 3),
+                                          generator=g).to(cuda)
+    state = state_lib.init_state(cfg, 5, cuda)
+    shapes = []
+    real = sweep_ops.sweep_volume
+
+    def spy(ref, *a, **k):
+        shapes.append(tuple(ref.shape[1:3]))
+        return real(ref, *a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sweep_ops, "sweep_volume", spy)
+        lk, gk, nk = _step_grads(cfg, state.net, b)
+    assert shapes == [(H, W), (128, 256)] and nk[0] == 2, (shapes, nk)
+
+    def plain(dtype):
+        net = MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
+                      dtype=dtype).to(cuda)
+        net.load_state_dict(state.net.state_dict())
+
+        def sweep(c, bq, d):
+            images, rowp = sweep_ops.sweep_inputs(
+                msi_lib.preprocess_image(bq["ref_image"]),
+                msi_lib.preprocess_image(bq["src_image"]), d,
+                bq["intrinsics"])
+            return sweep_ops.ods_sweep_plain(images, rowp, dtype)
+        return net, sweep
+
+    net_b, sweep_b = plain(torch.bfloat16)
+    _, gb, _ = _step_grads(cfg, net_b, b, sweep_b)
+    net_p, sweep_p = plain(torch.float32)
+    lp, gp, _ = _step_grads(cfg, net_p, b, sweep_p)
+    assert math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
+    for n in gp:
+        rel = ((gk[n].float() - gp[n]).norm() / gp[n].norm()).item()
+        rel_bf16 = ((gb[n].float() - gp[n]).norm() / gp[n].norm()).item()
+        assert rel <= max(5e-2, 1.5 * rel_bf16), (n, rel, rel_bf16)
+
+
 @pytest.mark.cuda
 def test_rerenders_card_match_cpu(cuda):
     """The test CLI's perspective windows and ODS-eye re-renders (gathers,

@@ -220,7 +220,8 @@ def test_train_step_routes_and_counts():
     """The PP train step sweeps by gather (one format_network_input per
     forward, two with the regularizer) and never calls the identity-pose
     sweep kernel's wrapper; supervision src/ref is not reached for PP and
-    validates, as in the JAX trainer, while it raises for ODS."""
+    validates, as in the JAX trainer, and for ODS validates too (its eye
+    re-render terms)."""
     from matryodshka_tpu_torch.geometry import sweep as tsweep
     from matryodshka_tpu_torch.ops import sweep as sweep_ops
     from matryodshka_tpu_torch.training import state as tstate
@@ -233,5 +234,5 @@ def test_train_step_routes_and_counts():
                                                           before[1])
     assert np.isfinite(float(m["enforcement_loss"]))
     MatryConfig(**TINY, input_type="PP", supervision="tgt_src").validate()
-    with pytest.raises(NotImplementedError):
-        MatryConfig(**TINY, supervision="tgt_src").validate()
+    cfg = MatryConfig(**TINY, supervision="tgt_src").validate()
+    assert cfg.supervise_src and not cfg.supervise_ref

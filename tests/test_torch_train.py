@@ -254,21 +254,23 @@ def test_losses_match_jax():
         0.5 * float(np.sum((p - t) ** 2)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(supervision="ref"), dict(gcn=True),
-                                dict(supervision="hrestgt"),
-                                dict(supervision="tgt_src_ref"),
-                                dict(supervision="src"),
-                                dict(transform_inverse_reg=True,
-                                     supervision="tgt_src"),
-                                dict(supervision="tgt_hrestgt"),
-                                dict(remat_network=True)])
-def test_unported_training_options_raise(kw):
+@pytest.mark.parametrize("kw, exc, match", [
+    (dict(gcn=True), NotImplementedError, "ROADMAP Queue 1 item 8"),
+    (dict(supervision="tgt_hrestgt", spherical_attention=True), ValueError,
+     r"step\.py:58-59.*does not broadcast"),
+    (dict(supervision="tgt_hrestgt", input_type="PP"), ValueError,
+     "high-res target is an ODS render"),
+    (dict(num_data_shards=2), NotImplementedError, "ROADMAP Queue 1 item 9"),
+    (dict(smoothed=True), NotImplementedError, "ROADMAP Queue 1 item 3")])
+def test_unported_training_options_raise(kw, exc, match):
     """validate() and the loss refuse what the port cannot train yet,
-    naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    naming the ROADMAP item, and the combinations the JAX trainer cannot
+    run either, naming why (spherical attention's low-res latitude map on
+    the high-res render; a high-res target of perspective input)."""
+    with pytest.raises(exc, match=match):
         MatryConfig(**TINY, **kw).validate()
     net = tstate.build_model(MatryConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match=match):
         tstep.make_loss_fn(MatryConfig(**TINY, **kw), net)
 
 
