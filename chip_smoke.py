@@ -17,7 +17,7 @@ plain projection in float64 (the worst errors and the bound printed),
 and the kernel against its plain version fed the instrument's tables,
 the layer-stack render in each output mode (image, depth, both in one
 launch), back to front and front to back, bf16 and f32 stacks.
-Then it drives thirteen paths, each with every launch count set to 0 just
+Then it drives fourteen paths, each with every launch count set to 0 just
 before it and read just after (on the first, exactly one sweep and one
 render launch per frame, and one device operation per stage in a
 profiler trace):
@@ -95,7 +95,18 @@ profiler trace):
    --dry_run, --dry_run_inference (K1, the net's kernels, one layer-stack
    render for image and depth) and --profile_steps; use_pallas false (a
    test-CLI request and a train step with no kernel launch, against the
-   default route).
+   default route);
+14. the full-pipeline export (cli/export.py --net_only false, coord net,
+   float32 and bfloat16, and bfloat16 with --with_preprocess and a seeded
+   remap): K1 once a call through the registered op matry::sweep_volume,
+   each program against its eager function and the test CLI's kernel
+   route, the consumer tool in subprocesses; the smoothed net through
+   entry.forward, wrap and coord (18 conv and 17 layer-norm launches, the
+   upsampling stages in the conv kernel's folded form, gated and timed
+   beside the transposed form's), and its trainer for 3 steps (K7 at path
+   5's count, one step against the all-plain routes); the 4096x2048
+   re-render of blend_bg, blend_bg_psv and alpha_only (one sweep and one
+   layer-stack launch each) against the plain composite.
 Each path's wall and the whole run's are printed.
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
@@ -264,6 +275,11 @@ OPT_REPS = 3
 #: cancellation noise there, K1 by the analytic validity): under 1% of
 #: pixels (PARITY.md), each a local error of up to a shell's colour.
 PARK_SHARE = 1e-2
+#: Path 14: steps of the smoothed wrap net's trainer (the first a warm-up),
+#: and the upsampling stages of the U-Net, whose kernel times path 14
+#: compares between the smoothed and the transposed form.
+SMOOTH_STEPS = 3
+UP_STAGES = ("conv6_1", "conv7_1", "conv8_1")
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -919,8 +935,8 @@ def route_gate(what, tcfg, net, tbatch, dev, elpips=None,
 
     def plain_net(dtype):
         net_ = MSIUNet(tcfg.num_net_inputs(), tcfg.num_net_outputs(),
-                       tcfg.ngf, dtype=dtype,
-                       variant=tcfg.net_variant).to(dev)
+                       tcfg.ngf, dtype=dtype, variant=tcfg.net_variant,
+                       smoothed=tcfg.smoothed).to(dev)
         net_.load_state_dict(net.state_dict())
         return net_
 
@@ -2343,6 +2359,288 @@ def options_path(dev, tag, reset_counts, read_counts, k7_per_step):
         check(rel <= TRAIN_LOSS_TOL, "use_pallas false train loss")
 
 
+def export_full_path(dev, tag, reset_counts, read_counts):
+    """Path 14a: cli/export.main --net_only false --platform cuda, coord
+    net, float32 and bfloat16, and bfloat16 again with --with_preprocess
+    and a seeded remap field (an ERP warp jittered by up to half a pixel)
+    for both eyes, into a temporary directory. The three consumer-tool
+    runs (subprocesses, as scripts, each importing only the op's module)
+    run side by side. Per program: K1 once a call (the registered op
+    matry::sweep_volume); within EXPORT_TOL of the eager function (the
+    same operations; cuDNN may pick other f32 algorithms in the loaded
+    graph, as path 11 measured); in bf16 the test CLI's kernel-route
+    rgba_layers on the same (processed) images held to the float32
+    function within max(E2E_TOL, TRAIN_GRAD_MARGIN x the bf16 program's
+    distance from it), path 11's rule (two bf16 routes' errors from
+    float32 add, so they are not held to each other); the export's
+    seconds, the artifact's bytes, the program's and the eager function's
+    ms a call (CUDA events, median of 10)."""
+    import warnings
+
+    from matryodshka_tpu_torch import entry, weights
+    from matryodshka_tpu_torch.cli import export as export_cli
+    from matryodshka_tpu_torch.cli import test as cli_test
+
+    consumer = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "matryodshka_tpu_torch", "tools",
+                            "consume_export.py")
+    base = entry.flagship_cfg()
+    h, w, p = base.height, base.width, base.num_msi_planes
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.RandomState(14)
+        y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+        field = np.stack([x, y], -1) + rng.uniform(
+            -0.5, 0.5, (h, w, 2)).astype(np.float32)
+        remap = os.path.join(d, "remap.npy")
+        np.save(remap, field)
+        runs = [("full_float32", "float32", []),
+                ("full_bfloat16", "bfloat16", []),
+                ("preprocess_bfloat16", "bfloat16",
+                 ["--with_preprocess", "--remap_ref", remap,
+                  "--remap_src", remap])]
+        paths, procs, results = {}, {}, {}
+        for name, dtype, extra in runs:
+            flags = ["--height", str(h), "--width", str(w),
+                     "--num_psv_planes", str(p), "--num_msi_planes", str(p),
+                     "--ngf", str(base.ngf), "--coord_net", "true",
+                     "--net_only", "false", "--platform", "cuda",
+                     "--compute_dtype", dtype, "--export_dir", d,
+                     "--export_name", name,
+                     "--checkpoint_dir", os.path.join(d, "none")] + extra
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message=".*no checkpoint")
+                paths[name] = export_cli.main(flags)
+            secs = time.perf_counter() - t0
+            size = os.path.getsize(paths[name])
+            procs[name] = subprocess.Popen(
+                [sys.executable, consumer, paths[name], "--device", "cuda",
+                 "--out", os.path.join(d, f"out_{name}.npy")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=d, env=dict(os.environ, PYTHONPATH=""))
+            args = export_cli.build_parser().parse_args(flags)
+            cfg = export_cli.config_from_args(args)
+            tree = weights.seeded_init(cfg, 0)
+            b = entry.synthetic_batch(cfg, 14, dev)
+            cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+            if args.with_preprocess:
+                inputs = [(b[k][0] * 255.0).to(torch.uint8).reshape(-1)
+                          for k in ("ref_image", "src_image")]
+                eager = export_cli.build_preprocessed_fn(cfg, tree, args, dev)
+                eager32 = export_cli.build_preprocessed_fn(cfg32, tree, args,
+                                                           dev)
+                with torch.no_grad():
+                    b = dict(b, ref_image=eager.proc_ref(inputs[0])[None],
+                             src_image=eager.proc_src(inputs[1])[None])
+            else:
+                inputs = [b[k].contiguous() for k in (
+                    "ref_image", "src_image", "ref_pose", "src_pose",
+                    "ref_pose_inv", "intrinsics")]
+                eager = export_cli.build_full_fn(cfg, tree, dev)
+                eager32 = export_cli.build_full_fn(cfg32, tree, dev)
+            program = torch.export.load(paths[name]).module()
+            with torch.no_grad():
+                reset_counts()
+                got = program(*inputs)
+                launches = read_counts()
+                want = eager(*inputs)
+                want32 = eager32(*inputs)
+            err = (got.float() - want.float()).abs().max().item()
+            print(f"export {name}: launches of one call of the loaded "
+                  f"program {launches}; vs the eager function max abs "
+                  f"{err:.3e} (tol {EXPORT_TOL[dtype]:.0e}), bit-equal "
+                  f"{bool(torch.equal(got, want))}; shape "
+                  f"{tuple(got.shape)} {str(got.dtype)[6:]}")
+            check(launches["sweep"] == 1 and launches["conv"] == 0,
+                  f"export {name}: K1 once a call, no conv kernel")
+            check(tuple(got.shape) == (1, h, w, p, 4)
+                  and got.dtype == cfg.torch_compute_dtype
+                  and bool(torch.isfinite(got.float()).all())
+                  and err <= EXPORT_TOL[dtype], f"export {name} round trip")
+            if dtype == "bfloat16":
+                params = entry.make_params(cfg, flax_params=tree, device=dev)
+                reset_counts()
+                kern = cli_test.build_infer_fn(cfg, params, "rgba_layers")(
+                    b)["rgba_layers"].float()
+                kl = read_counts()
+                check(kl["sweep"] == 1 and kl["conv_coord"] == 18,
+                      f"export {name}: the kernel route's K1 and 18 coord "
+                      f"convs")
+                berr = (got.float() - want32.float()).abs().max().item()
+                kerr = (kern - want32.float()).abs().max().item()
+                tol = max(E2E_TOL, TRAIN_GRAD_MARGIN * berr)
+                print(f"export {name}: the test CLI's kernel-route "
+                      f"rgba_layers (K1, K2c) vs the f32 function max abs "
+                      f"{kerr:.3e}, the bf16 program vs it {berr:.3e} (gate "
+                      f"max({E2E_TOL:.0e}, {TRAIN_GRAD_MARGIN} x that) = "
+                      f"{tol:.3e}); kernel route vs the bf16 program "
+                      f"{(kern - got.float()).abs().max().item():.3e}")
+                check(kerr <= tol, f"export {name} vs the kernel route")
+                del params, kern
+            with torch.no_grad():
+                prog_ms = time_ms(lambda: program(*inputs))
+                eager_ms = time_ms(lambda: eager(*inputs))
+            results[name] = got.float()
+            print(f"export {name} (coord net, full pipeline, {w}x{h}, {p}+{p} "
+                  f"planes, ngf {base.ngf}): export {secs:.2f} s, artifact {size} "
+                  f"bytes; loaded program {prog_ms:.3f} ms per call, eager "
+                  f"function {eager_ms:.3f} ms (CUDA events, median of 10) "
+                  f"{tag}")
+            del program, eager, eager32, got, want, want32
+        for name, proc in procs.items():
+            out, errs = proc.communicate(timeout=600)
+            print(out.strip())
+            check(proc.returncode == 0, f"consumer tool on {name}: "
+                                        f"{errs[-2000:]}")
+            imported = out.split("imported: ")[-1]
+            check("registered ['matry::sweep_volume'] from "
+                  "matryodshka_tpu_torch.ops.sweep" in out
+                  and "'jax'" not in imported
+                  and "'matryodshka_tpu'" not in imported,
+                  f"the consumer of {name} imported the op's module only")
+
+
+def smoothed_path(dev, tag, reset_counts, read_counts, k7_per_step, gate):
+    """Path 14b-c: the smoothed net (nearest 2x and a 4x4 conv in place of
+    each transposed conv). (b) entry.forward, wrap and coord net, one
+    request each: 18 conv launches (the three upsampling stages in the
+    conv kernel's folded parity form) and 17 layer-norm launches, the
+    view within E2E_TOL of the all-plain f32 route, the frame's ms; the
+    three upsampling stages' conv kernel against its plain version (gate)
+    and their kernel ms beside the transposed net's same stages on the
+    same inputs. (c) The smoothed wrap net's trainer for SMOOTH_STEPS
+    steps: K7 at path 5's count a step (the upsampling convs are PyTorch
+    ops with autograd, as the JAX trainer's are XLA convs), the step's ms,
+    and one step's loss and gradients against the all-plain routes
+    (route_gate)."""
+    from matryodshka_tpu_torch import entry
+    from matryodshka_tpu_torch.ops import conv as conv_ops
+
+    rng = torch.Generator(device=dev).manual_seed(1414)
+    for coord in (False, True):
+        net = "coord" if coord else "wrap"
+        scfg = entry.flagship_cfg(smoothed=True, coord_net=coord)
+        sparams = entry.make_params(scfg, seed=0, device=dev)
+        tparams = entry.make_params(entry.flagship_cfg(coord_net=coord),
+                                    seed=0, device=dev)
+        sb = entry.synthetic_batch(scfg, 21, dev, tgt_pos=(0.03, 0.01, -0.02))
+        reset_counts()
+        out = entry.forward(sparams, sb)
+        got = read_counts()
+        print(f"launches of the smoothed {net} net's entry.forward: {got}")
+        check(got["sweep"] == got["render"] == 1 and got["conv"] == 18
+              and got["layernorm"] == 17
+              and got["conv_coord"] == (18 if coord else 0),
+              f"smoothed {net}: one sweep, 18 conv, 17 LN, one render")
+        err = (out - entry.forward_plain(sparams, sb)).abs()
+        print(f"smoothed {net} request: |bf16 kernels - f32 plain| max "
+              f"{err.max().item():.3e} mean {err.mean().item():.3e} (gate "
+              f"{E2E_TOL:.0e})")
+        check(bool(torch.isfinite(out).all())
+              and err.max().item() <= E2E_TOL, f"smoothed {net} vs plain")
+        frame_ms = time_ms(lambda: entry.forward(sparams, sb))
+        line = []
+        for plan, st, tt in zip(sparams.net.plan, sparams.stages,
+                                tparams.stages):
+            name, _, _, cins, _, ind, _, _ = plan
+            if name not in UP_STAGES:
+                continue
+            cin = sum(cins)
+            x = (torch.rand((1, cin, scfg.height // ind, scfg.width // ind),
+                            generator=rng, device=dev) * 2 - 1).to(
+                                torch.bfloat16)
+            y = conv_ops.conv(x, st["w"], st["b"], **st["args"])
+            yp = conv_ops.conv_plain(x, st["w"], st["b"], **st["args"])
+            gate("conv_coord" if coord else "conv",
+                 f"{name} smoothed {tuple(x.shape[1:])}", y, yp,
+                 2.0 ** -7 * yp.float().abs().max().item())
+            sm = time_ms(lambda: conv_ops.conv(x, st["w"], st["b"],
+                                               **st["args"]))
+            tm = time_ms(lambda: conv_ops.conv(x, tt["w"], tt["b"],
+                                               **tt["args"]))
+            # GFLOP: the four parities' 9 + 6 + 6 + 4 folded taps, against
+            # the transposed form's 4 x 4, per input pixel
+            gf = 2.0 * cin * st["w"].shape[2] * x.shape[2] * x.shape[3] / 1e9
+            line.append(f"{name} {sm:.3f} ({25 * gf:.2f} GFLOP, "
+                        f"{25 * gf / sm:.1f} TFLOP/s) vs transposed {tm:.3f} "
+                        f"({16 * gf:.2f} GFLOP, {16 * gf / tm:.1f} TFLOP/s)")
+        print(f"smoothed {net} frame {frame_ms:.3f} ms (entry.forward, CUDA "
+              f"events, median of 10); upsampling stages, conv kernel ms: "
+              + "; ".join(line) + f" {tag}")
+        del sparams, tparams
+
+    tcfg = entry.flagship_cfg(smoothed=True)
+    tstate, launches, events, records, peak, mem0 = run_train_loop(
+        tcfg, dev, reset_counts, read_counts, None, SMOOTH_STEPS)
+    print(f"launches over {SMOOTH_STEPS} smoothed wrap-net training steps: "
+          f"{launches}")
+    for k in K7_COUNTS:
+        check(launches[k] == k7_per_step[k] * SMOOTH_STEPS,
+              f"smoothed trainer: {k} {launches[k]}, path 5's "
+              f"{k7_per_step[k]} a step")
+    check(launches["sweep"] == SMOOTH_STEPS, "smoothed trainer: K1 a step")
+    losses = [r["total_loss"] for r in records]
+    check(len(losses) == SMOOTH_STEPS
+          and all(math.isfinite(v) for v in losses),
+          "smoothed trainer: finite losses")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    print(f"smoothed train step {statistics.median(step_ms[1:]):.3f} ms "
+          f"(median of {SMOOTH_STEPS - 1} after 1 warm-up; wrap net, pixel "
+          f"loss, 640x320, 32+32 planes, ngf 64, bf16, batch 1), peak "
+          f"{(peak - mem0) / 2**30:.3f} GiB above the held {tag}")
+    tbatch = {k: torch.from_numpy(v).to(dev)
+              for k, v in training_batch(tcfg).items()}
+    route_gate("smoothed train step", tcfg, tstate.net, tbatch, dev)
+
+
+def hres_schemes_path(dev, tag, cli, cli_outs, hres_images, reset_counts,
+                      read_counts, gate_e2e):
+    """Path 14d: the test CLI's 4096x2048 re-render for blend_bg,
+    blend_bg_psv and alpha_only from path 2's requests of those schemes
+    (their saved outputs: alphas, blend_weights where the scheme's rule
+    blends, bg_rgb for blend_bg), each with its colour rule
+    (cli/test.py:HRES_ASSEMBLY): one K1 launch at 4096x2048 and one K5
+    launch for image and depth, no uv_tables; image and depth against
+    hres_render_plain (path 3's gates); ms (median of 3) and peak
+    memory."""
+    from matryodshka_tpu_torch.cli import test as cli_test
+
+    eye = torch.eye(4, device=dev)[None]
+    for (scheme, c, _, b), o in zip(cli, cli_outs):
+        if scheme == "blend_psv":
+            continue
+        low = {k: o[k] for k in cli_test.hres_inputs(scheme)}
+        args = (*hres_images, low.get("blend_weights"), low["alphas"], eye,
+                eye, eye, b["intrinsics"], b["tgt_pose"])
+        render = cli_test.build_hres_render_fn(c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        reset_counts()
+        rgb, depth = render(*args, bg_rgb=low.get("bg_rgb"))
+        got = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"launches of the {scheme} 4096x2048 re-render (reads "
+              f"{sorted(low)}): {got}")
+        check(got["sweep"] == got["render_layers"] == got[
+            "render_layers_both"] == 1 and got["uv_tables"] == 0
+              and got["conv"] == 0,
+              f"hres {scheme}: one K1 and one K5 launch, no lookup tables")
+        rgb_p, depth_p = cli_test.hres_render_plain(
+            c, hres_images[0], hres_images[1], low.get("blend_weights"),
+            low["alphas"], b["intrinsics"], b["tgt_pose"],
+            bg_rgb=low.get("bg_rgb"))
+        gate_e2e(f"hres {scheme} 4096x2048",
+                 {"output_image": rgb, "output_depth": depth},
+                 {"output_image": rgb_p, "output_depth": depth_p})
+        del rgb, depth, rgb_p, depth_p
+        ms = time_ms(lambda: render(*args, bg_rgb=low.get("bg_rgb")),
+                     iters=3, warmup=1)
+        print(f"hres {scheme} 4096x2048 e2e {ms:.3f} ms (median of 3); "
+              f"peak {peak / 2**30:.3f} GiB ({(peak - mem0) / 2**30:.3f} "
+              f"GiB above the {mem0 / 2**30:.3f} GiB held before) {tag}")
+
+
 def probe_path(dev, tag):
     """Path 6: the lowering probes, `python -m
     matryodshka_tpu_torch.tools.probes` as its main(), the launch counts
@@ -2750,7 +3048,7 @@ def main() -> None:
         c = entry.flagship_cfg(which_color_pred=scheme)
         cli.append((scheme, c, entry.make_params(c, seed=0, device=dev),
                     entry.synthetic_batch(c, seed, dev, tgt_pos=pos)))
-    cli_outputs = "tgt_image_blend_weights_alphas"
+    cli_outputs = "tgt_image_blend_weights_alphas_bg_rgb"
     reset_counts()
     cli_outs = [cli_test.build_infer_fn(c, prm, cli_outputs)(b)
                 for _, c, prm, b in cli]
@@ -3325,6 +3623,14 @@ def main() -> None:
     options_path(dev, tag, reset_counts, read_counts,
                  {k: train_launches[k] // nsteps for k in K7_COUNTS})
     lap("path 13")
+
+    # ---- path 14: full export, smoothed net, high res for every scheme ----
+    export_full_path(dev, tag, reset_counts, read_counts)
+    smoothed_path(dev, tag, reset_counts, read_counts,
+                  {k: train_launches[k] // nsteps for k in K7_COUNTS}, gate)
+    hres_schemes_path(dev, tag, cli, cli_outs, hres_images, reset_counts,
+                      read_counts, gate_e2e)
+    lap("path 14")
     print("walls, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; the whole run {time.perf_counter() - t_run:.1f} {tag}")
 

@@ -8,9 +8,18 @@
 Counterpart of `matryodshka_tpu/cli/test.py`. Runs batch-1 inference over
 the camera files, renders the requested outputs and writes PNGs plus
 blend_weights.npy / alphas.npy per example, under the JAX CLI's file names
-(test.py:87-281). `--test_type high_res` then re-renders every example at
-hres_height x hres_width (4096x2048 by default) from its saved blend
-weights and alphas and the high-res image pair (test.py:284-394).
+(test.py:87-281), and for blend_bg also bg_rgb.npy (the predicted
+background colour). `--test_type high_res` then re-renders every example
+at hres_height x hres_width (4096x2048 by default) from its saved weights
+and the high-res image pair (test.py:284-394), for every colour scheme,
+with the colour rule of JAX `assemble_hres_rgba` (models/msi.py:312-339,
+the rule the hrestgt trainer supervises with; `HRES_ASSEMBLY`): blend_psv
+blends the ref eye's shells with the src eye's, blend_bg with the
+upsampled background colour, and alpha_only and blend_bg_psv take the ref
+eye's shells as they are. (The JAX CLI's shell scan blends with the src
+eye for every scheme, cli/test.py:262-266, and fails for alpha_only,
+which saves no blend_weights.npy; the port does not follow it there,
+ROADMAP Queue 3.)
 
 Every stage runs through the port's kernels on a CUDA device: the sweep
 (csrc/sweep.cu), the U-Net (conv.cu in the wrap net's mode, or in the coord
@@ -18,8 +27,9 @@ net's with `--coord_net true`; layernorm.cu), then for blend_psv the
 blend-fused render (render.cu, colour and depth mode) and for the other
 schemes the prepared assembly and the layer-stack render
 (render_layers.cu, one launch for image and depth, lookups made in the
-kernel); the high-res re-render sweeps at full size and draws through
-render_layers.cu the same way. `--device cpu` runs each kernel's plain
+kernel); the high-res re-render of every scheme sweeps at full size (one
+sweep launch) and draws through render_layers.cu the same way (one
+launch). `--device cpu` runs each kernel's plain
 version. `--use_pallas false` takes the JAX CLI's routes without Pallas
 and none of the port's kernels: the gather sweep, the plain net in the
 compute dtype and the gather renders, and for high_res the shell-streamed
@@ -75,7 +85,9 @@ def build_infer_fn(cfg: MatryConfig, params: entry.Params,
                    test_outputs: str, ftb: bool = False):
     """infer(batch) -> dict of the requested outputs, each [B, ...] on the
     batch's device: output_image ([0, 1]) and output_depth (tgt_image),
-    rgba_layers, blend_weights, alphas, psv, output_psp0..3 (psp: the four
+    rgba_layers, blend_weights, bg_rgb (blend_bg's predicted background
+    colour [B, H, W, 3], the high-res re-render's third input), alphas,
+    psv, output_psp0..3 (psp: the four
     270 x 480 perspective windows, yaw 0, 90, 180, 270 degrees),
     output_src and output_ref (src_output_image, ref_output_image: the
     ODS eyes re-rendered), the last three in [0, 1]. The target view is
@@ -105,9 +117,7 @@ def build_infer_fn(cfg: MatryConfig, params: entry.Params,
             asm = msi_lib.assemble_rgba(
                 cfg.which_color_pred, pred.permute(0, 2, 3, 1),
                 vol.permute(0, 2, 3, 1), cfg.num_msi_planes)
-            for k in ("rgba_layers", "blend_weights", "alphas"):
-                if k in asm and k in test_outputs:
-                    outs[k] = asm[k]
+            outs.update(_assembly_outputs(asm, test_outputs))
             outs.update(rerender(cfg, asm["rgba_layers"], batch,
                                  params.msi_depths, test_outputs))
         if "psv" in test_outputs:
@@ -135,9 +145,7 @@ def _build_mpi_infer_fn(cfg: MatryConfig, params: entry.Params,
     def infer(batch):
         asm = msi_lib.infer_mpi(cfg, params.stages, batch, params.psv_depths,
                                 params.msi_depths)
-        outs = {k: asm[k] for k in ("rgba_layers", "blend_weights",
-                                    "alphas", "psv")
-                if k in asm and k in test_outputs}
+        outs = _assembly_outputs(asm, test_outputs)
         if "tgt_image" in test_outputs:
             outs["output_image"] = msi_lib.deprocess_image(
                 asm["output_image"])
@@ -158,9 +166,7 @@ def _build_gather_infer_fn(cfg: MatryConfig, params: entry.Params,
     def infer(batch):
         asm = msi_lib.infer_msi(params.net, cfg, batch, params.psv_depths)
         rgba = asm["rgba_layers"]
-        outs = {k: asm[k] for k in ("rgba_layers", "blend_weights",
-                                    "alphas", "psv")
-                if k in asm and k in test_outputs}
+        outs = _assembly_outputs(asm, test_outputs)
         if cfg.input_type != "ODS":
             if "tgt_image" in test_outputs:
                 outs["output_image"] = msi_lib.deprocess_image(
@@ -180,6 +186,14 @@ def _build_gather_infer_fn(cfg: MatryConfig, params: entry.Params,
         return outs
 
     return infer
+
+
+def _assembly_outputs(asm, test_outputs: str):
+    """The assembly's outputs that test_outputs asks for, where the scheme
+    has them: rgba_layers, blend_weights, bg_rgb, alphas, psv."""
+    return {k: asm[k] for k in ("rgba_layers", "blend_weights", "bg_rgb",
+                                "alphas", "psv")
+            if k in asm and k in test_outputs}
 
 
 def rerender(cfg: MatryConfig, rgba_layers, batch, msi_depths,
@@ -247,51 +261,72 @@ def _psv_depths(cfg: MatryConfig, device):
                         dtype=torch.float32, device=device)
 
 
+#: The high-res re-render's colour rule per scheme, as the scheme that
+#: assemble_hres_prepared is called with (JAX models/msi.py:312-339
+#: assemble_hres_rgba): blend_psv blends the ref eye's shells (fg) with the
+#: src eye's, blend_bg fg with the upsampled background colour, and
+#: alpha_only and blend_bg_psv take fg as it is.
+HRES_ASSEMBLY = {"blend_psv": "blend_psv", "blend_bg": "blend_bg",
+                 "blend_bg_psv": "alpha_only", "alpha_only": "alpha_only"}
+
+
+def hres_inputs(which_color_pred: str):
+    """The saved low-res outputs the high-res re-render of a scheme reads:
+    alphas always, blend_weights where it blends, bg_rgb for blend_bg."""
+    assembly = HRES_ASSEMBLY[which_color_pred]
+    return (("alphas",)
+            + (("blend_weights",) if assembly != "alpha_only" else ())
+            + (("bg_rgb",) if assembly == "blend_bg" else ()))
+
+
 def build_hres_render_fn(cfg: MatryConfig):
     """High-res re-render with the semantics of the JAX
-    build_hres_render_fn_fused (cli/test.py:178-229): the identity-pose
-    dual sweep at hres_height x hres_width (the sweep kernel has no VMEM
-    bound, so no row chunks), the low-res blend weights and alphas
+    build_hres_render_fn_fused (cli/test.py:178-229) and, per scheme, the
+    colour rule of HRES_ASSEMBLY: the identity-pose dual sweep at
+    hres_height x hres_width (the sweep kernel has no VMEM bound, so no
+    row chunks), the low-res blend weights, alphas and background colour
     upsampled (align corners), the high-res prepared assembly, and the
     layer-stack render of colour and depth (on the card one launch for
     both) with the PSV depths as radii.
 
     render(hres_ref, hres_src, blend_weights, alphas, ref_pose, src_pose,
-    ref_pose_inv, intrinsics, tgt_pose) -> (rgb [B, Hh, Wh, 3] in [0, 1],
-    depth [B, Hh, Wh, 3]). As in the fused JAX path, the ODS loader's
-    identity ref/src poses are assumed, not read. blend_psv only, as that
-    path; the JAX shell scan for the other schemes is not ported (ROADMAP
-    Queue 1 item 5b). With use_pallas false, hres_render_plain with the
+    ref_pose_inv, intrinsics, tgt_pose, bg_rgb=None) -> (rgb [B, Hh, Wh, 3]
+    in [0, 1], depth [B, Hh, Wh, 3]); blend_weights and alphas [B, h, w,
+    P], bg_rgb [B, h, w, 3]; blend_weights may be None where the scheme's
+    rule does not blend (hres_inputs), bg_rgb is read for blend_bg only.
+    As in the fused JAX path, the ODS loader's identity ref/src poses are
+    assumed, not read. With use_pallas false, hres_render_plain with the
     gather sweep (the JAX CLI's shell scan, cli/test.py:232-334)."""
-    if cfg.which_color_pred != "blend_psv":
-        raise NotImplementedError(
-            f"high_res with which_color_pred {cfg.which_color_pred!r}: only "
-            f"blend_psv is ported (the JAX shell scan for the other schemes "
-            f"is ROADMAP Queue 1 item 5b)")
     hh, hw, p = cfg.hres_height, cfg.hres_width, cfg.num_psv_planes
     dtype = cfg.torch_compute_dtype
+    assembly = HRES_ASSEMBLY[cfg.which_color_pred]
     if not cfg.use_pallas:
         def render_gather(hres_ref, hres_src, blend_weights, alphas,
                           ref_pose, src_pose, ref_pose_inv, intrinsics,
-                          tgt_pose):
+                          tgt_pose, bg_rgb=None):
             return hres_render_plain(
                 cfg, hres_ref, hres_src, blend_weights, alphas, intrinsics,
-                tgt_pose, poses=(ref_pose, src_pose, ref_pose_inv))
+                tgt_pose, poses=(ref_pose, src_pose, ref_pose_inv),
+                bg_rgb=bg_rgb)
         return render_gather
 
     @torch.no_grad()
     def render(hres_ref, hres_src, blend_weights, alphas, ref_pose,
-               src_pose, ref_pose_inv, intrinsics, tgt_pose):
+               src_pose, ref_pose_inv, intrinsics, tgt_pose, bg_rgb=None):
         del ref_pose, src_pose, ref_pose_inv
         depths = _psv_depths(cfg, hres_ref.device)
-        u_ba = msi_lib.upsample_align_corners_cf(
-            torch.cat([blend_weights, alphas], dim=-1).permute(0, 3, 1, 2),
-            hh, hw)
+        low = {"alphas": alphas, "blend_weights": blend_weights,
+               "bg_rgb": bg_rgb}
+        up = msi_lib.upsample_align_corners_cf(torch.cat(
+            [low[k] for k in hres_inputs(cfg.which_color_pred)],
+            dim=-1).permute(0, 3, 1, 2), hh, hw)
+        u_blend = up[:, p:2 * p] if assembly != "alpha_only" else None
+        u_bg = up[:, 2 * p:] if assembly == "blend_bg" else None
         vol = sweep_ops.sweep_volume(hres_ref, hres_src, depths, intrinsics,
                                      out_dtype=dtype)
         layers = msi_lib.assemble_hres_prepared(
-            cfg.which_color_pred, u_ba[:, :p], u_ba[:, p:], vol, dtype=dtype)
-        del u_ba, vol
+            assembly, u_blend, up[:, :p], vol, u_bg_rgb=u_bg, dtype=dtype)
+        del up, u_blend, u_bg, vol
         rgb, depth = render_lib.render_equirect_view_prepared_both(
             layers, _eye(layers.shape[0], layers.device), tgt_pose, depths)
         return msi_lib.deprocess_image(rgb), depth
@@ -301,12 +336,13 @@ def build_hres_render_fn(cfg: MatryConfig):
 
 @torch.no_grad()
 def hres_render_plain(cfg: MatryConfig, hres_ref, hres_src, blend_weights,
-                      alphas, intrinsics, tgt_pose, poses=None):
+                      alphas, intrinsics, tgt_pose, poses=None, bg_rgb=None):
     """build_hres_render_fn's (rgb, depth) from the plain versions in
     float32, streamed one shell at a time as the JAX shell scan does
-    (cli/test.py:232-334), so memory stays at one high-res shell: per
-    shell the plain sweep of both eyes, the blend with the upsampled
-    weights, a gather of the shell at its lookup table, and a
+    (cli/test.py:232-334), so memory stays at one high-res shell (and for
+    blend_bg the upsampled background colour): per shell the plain sweep
+    of both eyes, the scheme's colour rule (HRES_ASSEMBLY) with the
+    upsampled weights, a gather of the shell at its lookup table, and a
     nearest-first composite. poses=(ref_pose, src_pose, ref_pose_inv):
     the sweep is the gather sweep at those poses (format_network_input,
     as the JAX scan sweeps), else the identity-pose sweep's plain
@@ -315,6 +351,10 @@ def hres_render_plain(cfg: MatryConfig, hres_ref, hres_src, blend_weights,
     b = hres_ref.shape[0]
     dev = hres_ref.device
     depths = _psv_depths(cfg, dev)
+    assembly = HRES_ASSEMBLY[cfg.which_color_pred]
+    u_bg = (msi_lib.upsample_align_corners_cf(bg_rgb.permute(0, 3, 1, 2),
+                                              hh, hw)
+            if assembly == "blend_bg" else None)
     ref = msi_lib.preprocess_image(hres_ref)
     src = msi_lib.preprocess_image(hres_src)
     eye = _eye(b, dev)
@@ -329,11 +369,13 @@ def hres_render_plain(cfg: MatryConfig, hres_ref, hres_src, blend_weights,
         else:
             vol = sweep_lib.format_network_input(
                 ref, src, *poses, d, intrinsics).permute(0, 3, 1, 2)
-        wa = msi_lib.upsample_align_corners_cf(
-            torch.stack([blend_weights[..., s], alphas[..., s]], dim=1),
-            hh, hw)
+        low = [alphas[..., s]] + ([blend_weights[..., s]]
+                                  if assembly != "alpha_only" else [])
+        wa = msi_lib.upsample_align_corners_cf(torch.stack(low, dim=1), hh,
+                                               hw)
         layer = msi_lib.assemble_hres_prepared(
-            "blend_psv", wa[:, :1], wa[:, 1:], vol, dtype=torch.float32)
+            assembly, wa[:, 1:] if assembly != "alpha_only" else None,
+            wa[:, :1], vol, u_bg_rgb=u_bg, dtype=torch.float32)
         u, v = render_lib.uv_tables(eye, tgt_pose, d, hh, hw)
         for i in range(b):
             img = resample_layers_uv(
@@ -383,6 +425,8 @@ def save_outputs(cfg: MatryConfig, out_dir: str, dirname: str, batch, outs,
                         outs["blend_weights"][0, :, :, i] * 255.0)
     if "alphas" in outs:
         np.save(f"{out_dir}/alphas.npy", outs["alphas"])
+    if "bg_rgb" in outs:
+        np.save(f"{out_dir}/bg_rgb.npy", outs["bg_rgb"])
     if "rgba_layers" in outs:
         rgba = outs["rgba_layers"][0]
         for i in range(cfg.num_msi_planes):
@@ -451,9 +495,13 @@ def main(argv=None):
         fh.write(str(step))
 
     video = "on_video" in args.test_type
+    outputs = args.test_outputs
+    if cfg.which_color_pred == "blend_bg" and "blend_weights" in outputs:
+        # blend_bg's high-res re-render also reads its background colour
+        outputs += "_bg_rgb"
     if "high_res_only" not in args.test_type:
         loader = make_loader(cfg, training=False)
-        infer = build_infer_fn(cfg, params, args.test_outputs)
+        infer = build_infer_fn(cfg, params, outputs)
         for run, batch in enumerate(loader.batches()):
             if 0 <= args.num_runs <= run:
                 break
@@ -462,8 +510,7 @@ def main(argv=None):
             dirname = example_dirname(batch, video, args.prefix)
             out_dir = os.path.join(out_root, dirname)
             print(f"[test] saving to {out_dir}")
-            save_outputs(cfg, out_dir, dirname, batch, outs,
-                         args.test_outputs)
+            save_outputs(cfg, out_dir, dirname, batch, outs, outputs)
 
     if "high_res" in args.test_type:
         if cfg.input_type != "ODS":
@@ -477,14 +524,14 @@ def main(argv=None):
             dirname = example_dirname(batch, video, args.prefix)
             out_dir = os.path.join(out_root, dirname)
             t = _to_device(batch, device)
-            bw = torch.from_numpy(np.load(
-                os.path.join(out_dir, "blend_weights.npy"))).to(device)
-            al = torch.from_numpy(np.load(
-                os.path.join(out_dir, "alphas.npy"))).to(device)
-            rgb, depth = render(t["hres_ref_image"], t["hres_src_image"], bw,
-                                al, t["ref_pose"], t["src_pose"],
+            low = {k: torch.from_numpy(np.load(os.path.join(
+                out_dir, f"{k}.npy"))).to(device)
+                for k in hres_inputs(cfg.which_color_pred)}
+            rgb, depth = render(t["hres_ref_image"], t["hres_src_image"],
+                                low.get("blend_weights"), low["alphas"],
+                                t["ref_pose"], t["src_pose"],
                                 t["ref_pose_inv"], t["intrinsics"],
-                                t["tgt_pose"])
+                                t["tgt_pose"], bg_rgb=low.get("bg_rgb"))
             print(f"[test] saving hres render to {out_dir}")
             write_image(f"{out_dir}/output_hrestgt_{dirname}.png",
                         _to_numpy(rgb[0]) * 255.0)

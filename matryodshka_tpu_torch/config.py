@@ -112,6 +112,8 @@ class MatryConfig:
 
     # --- export -------------------------------------------------------------
     net_only: bool = False
+    #: Nearest 2x upsampling and a 4x4 conv in place of each transposed
+    #: conv (models/unet.py; JAX training/state.py:30 passes it).
     smoothed: bool = False
 
     @property
@@ -198,9 +200,6 @@ class MatryConfig:
         if self.num_data_shards > 1:
             raise NotImplementedError("num_data_shards > 1: data-parallel "
                                       "training is ROADMAP Queue 1 item 9")
-        if self.smoothed:
-            raise NotImplementedError("smoothed: the upsample-and-conv "
-                                      "deconv is ROADMAP Queue 1 item 3")
         check_trainable(self)
         return self
 

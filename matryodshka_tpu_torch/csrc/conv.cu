@@ -26,10 +26,21 @@
 // the same index map, with zero padding): blockIdx.z carries the output
 // parity (da, db), each parity is a 2x2 conv with pads (pad_h - da,
 // pad_w - db), and the epilogue writes output pixel (2*oy + da, 2*ox + db).
+// npar == 4 with KH == KW == 3 is the smoothed net's upsampling conv
+// (nearest 2x, then a 4x4 conv padded (1, 2); JAX models/unet.py:306-322)
+// folded onto the un-upsampled input: parity d of an axis reads input
+// offsets -1..1 with the 4x4 taps summed as {t0}, {t1, t2}, {t3} (d = 0) or
+// offsets 0..1 as {t0, t1}, {t2, t3} (d = 1), so parity (da, db) is a
+// (3 - da) x (3 - db) conv with the same pads (pad_h - da, pad_w - db) and
+// the same output map: 25 taps for the four parities where the upsampled
+// form has 64 (par_taps; ops/conv.py:pack_smoothed folds the weights, each
+// parity's block padded to 9 taps).
 //
 // Bound: operations. 301.2 GFLOP per 640x320 frame for the wrap net (302.4
 // for the coord net), 0.3045 ms at the H100's 989 TFLOP/s in bf16; the
-// bytes (weights, activations) are a few percent of that time.
+// bytes (weights, activations) are a few percent of that time. A smoothed
+// net's folded upsampling stages run 125.8 GFLOP where the transposed
+// ones run 80.5: 346.5 GFLOP a frame (347.7 coord).
 //
 // bf16 operands (conv_tc_kernel) run on the tensor cores:
 //   1. mma.sync.m16n8k16 (bf16 in, f32 accumulate); each warp owns a
@@ -69,7 +80,7 @@
 // staged in shared memory, a 4 x 8 register tile per thread.
 //
 // Weights are packed [npar, K, Cout] with k = (kh*KW + kw)*Cin' + c
-// (ops/conv.py:pack_conv / pack_deconv).
+// (ops/conv.py:pack_conv / pack_deconv / pack_smoothed).
 //
 // K7c's layer-norm statistics are the STATS epilogue (wrap mode, npar 1):
 // after the bias and the rounding to the output type, each thread sums y
@@ -91,6 +102,13 @@ namespace {
 constexpr int kWrap = 0;   // columns wrap mod Wi
 constexpr int kZero = 1;   // columns outside [0, Wi) read zero
 constexpr int kCoord = 2;  // kZero plus the coord channel as channel Cin
+
+// Taps along one axis of parity d's conv (d = da or db) in npar == 4 mode:
+// the transposed conv's 2 (k == 2), the smoothed deconv's folded 3 - d
+// (k == 3); k otherwise.
+__host__ __device__ __forceinline__ int par_taps(int k, int npar, int d) {
+  return npar == 4 && k == 3 ? k - d : k;
+}
 
 struct ConvArgs {
   int B, Cin, Hi, Wi, Cout, Ho, Wo, KH, KW, stride, dil, pad_h, pad_w, npar,
@@ -149,6 +167,11 @@ struct Tile {
   static constexpr int kA = BK * AST;  // elements per stage
   static constexpr int kB = BN * BST;
   static constexpr int kSmem = STAGES * (kA + kB) * 2;  // bytes
+  // Blocks a SM must hold: three of the 64 x 128 tile (at most 85
+  // registers a thread). Left to itself the compiler gives some
+  // instantiations 98 registers, which leaves two blocks a SM; which ones
+  // shifts with unrelated edits of the kernel.
+  static constexpr int kMinBlocks = BN == 128 ? 3 : 1;
   // the patch loader: one pixel and 16 channels per thread
   static_assert(kThreads == 2 * BN, "two 16-channel groups per pixel");
 };
@@ -156,7 +179,7 @@ struct Tile {
 // avec: the weight rows may be copied as 16-byte words (Cout % 8 == 0 and
 // w 16-byte aligned), else the masked scalar path.
 template <typename TO, int MODE, bool STATS, int BN>
-__global__ void __launch_bounds__(Tile<BN>::kThreads)
+__global__ void __launch_bounds__(Tile<BN>::kThreads, Tile<BN>::kMinBlocks)
     conv_tc_kernel(const unsigned short* __restrict__ x,
                    const unsigned short* __restrict__ w,
                    const float* __restrict__ bias,
@@ -177,8 +200,9 @@ __global__ void __launch_bounds__(Tile<BN>::kThreads)
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const int Ck = a.Cin + (MODE == kCoord);  // channels per tap in K
+  const int KH = par_taps(a.KH, a.npar, da), KW = par_taps(a.KW, a.npar, db);
   const int nchunk = (Ck + BK - 1) / BK;
-  const int nkb = a.KH * a.KW * nchunk;
+  const int nkb = KH * KW * nchunk;
   const int npix = a.Ho * a.Wo;
   const int HW = a.Hi * a.Wi;
 
@@ -225,8 +249,8 @@ __global__ void __launch_bounds__(Tile<BN>::kThreads)
   // v: the 16 channels as loaded; packed only in store_b, after the
   // k-block's mma, so the loads stay in flight across the math
   auto gather_b = [&](unsigned short* v, int tap, int c0) {
-    const int kh = tap / a.KW;
-    const int kw = tap - kh * a.KW;
+    const int kh = tap / KW;
+    const int kw = tap - kh * KW;
     const int iy = iy0 + kh * a.dil;
     int ix = ix0 + kw * a.dil;
     bool ok = pix_ok && iy >= 0 && iy < a.Hi;
@@ -304,7 +328,7 @@ __global__ void __launch_bounds__(Tile<BN>::kThreads)
   // the ring: k-block j in stage j % STAGES. (ltap, lc0) is the next
   // k-block to load; taps run inside channel chunks, so a chunk's input
   // rows stay in L1 across its KH*KW taps.
-  const int taps = a.KH * a.KW;
+  const int taps = KH * KW;
   int ltap = 0, lc0 = 0;
   auto advance = [&]() {
     if (++ltap == taps) {
@@ -409,7 +433,8 @@ __global__ void __launch_bounds__(256)
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const int Ck = a.Cin + (MODE == kCoord);  // channels per tap in K
-  const int K = a.KH * a.KW * Ck;
+  const int KW = par_taps(a.KW, a.npar, db);
+  const int K = par_taps(a.KH, a.npar, da) * KW * Ck;
   const int npix = a.Ho * a.Wo;
 
   // B (input patch) loader: one pixel column, 8 consecutive k rows.
@@ -426,7 +451,7 @@ __global__ void __launch_bounds__(256)
   // A (weight) loader: one output channel, 4 consecutive k rows.
   const int am = tid & (BM - 1);
   const int ak = (tid >> 6) * 4;
-  const float* wp = w + (long long)par * K * a.Cout;
+  const float* wp = w + (long long)par * a.KH * a.KW * Ck * a.Cout;
 
   const int tx = tid & 15;  // pixel group: tx * TN
   const int ty = tid >> 4;  // channel group: ty * TM
@@ -451,8 +476,8 @@ __global__ void __launch_bounds__(256)
     for (int q = 0; q < 8; ++q) {
       float v = 0.f;
       if (k < K && pix_ok) {
-        const int kh = tap / a.KW;
-        const int kw = tap - kh * a.KW;
+        const int kh = tap / KW;
+        const int kw = tap - kh * KW;
         const int iy = iy0 + kh * a.dil;
         if (iy >= 0 && iy < a.Hi) {
           if (MODE == kWrap) {

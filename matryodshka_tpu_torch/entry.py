@@ -116,13 +116,15 @@ class Params:
 
 def make_params(cfg: MatryConfig, flax_params=None, seed: int = 0,
                 device="cuda") -> Params:
-    """Net of cfg's variant (cfg.coord_net) from a flax parameter tree
-    (numpy leaves), or from weights.seeded_init(cfg, seed) when none is
-    given, on device (the card unless the caller asks for the CPU)."""
+    """Net of cfg's variant (cfg.coord_net, cfg.smoothed) from a flax
+    parameter tree (numpy leaves), or from weights.seeded_init(cfg, seed)
+    when none is given, on device (the card unless the caller asks for the
+    CPU)."""
     tree = weights.seeded_init(cfg, seed) if flax_params is None \
         else flax_params
     net = MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
-                  dtype=cfg.torch_compute_dtype, variant=cfg.net_variant)
+                  dtype=cfg.torch_compute_dtype, variant=cfg.net_variant,
+                  smoothed=cfg.smoothed)
     net.load_state_dict(weights.from_flax(tree))
     net = net.to(device).eval()
 

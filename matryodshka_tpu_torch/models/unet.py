@@ -17,6 +17,13 @@ and stride-2 down sees its input with an |sin(lat)| channel appended last
 SAME does; the transposed convs are flax's `ConvTranspose(padding="SAME")`,
 here `F.conv_transpose2d` with the kernel flipped (flax does not flip it).
 
+smoothed=True (flax's `smoothed`, the checkerboard-free option,
+nets.py:186-203): each transposed conv becomes nearest-neighbour 2x
+upsampling and a 4x4 conv padded (1, 2) on both axes, the wrap net
+wrapping the columns (one on the left, two on the right) and zero-padding
+the rows, the coord net zero-padding both, with no coord channel. The
+weights keep the [Cout, Cin, 4, 4] shape.
+
 Both: layer norm is over (C, H, W) in float32; the 1x1 head ends in tanh
 and returns float32. Convs compute in the model's dtype, as flax's
 dtype=compute_dtype does.
@@ -91,12 +98,14 @@ class MSIUNet(nn.Module):
 
     def __init__(self, num_inputs: int, num_outputs: int, ngf: int = 64,
                  dtype=torch.bfloat16, variant: str = "wrap",
-                 wrap_conv_kernel: bool = False, stats_min_cin: int = 160):
+                 wrap_conv_kernel: bool = False, stats_min_cin: int = 160,
+                 smoothed: bool = False):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"variant {variant!r}; known: {VARIANTS}")
         self.dtype = dtype
         self.variant = variant
+        self.smoothed = smoothed
         self.wrap_conv_kernel = wrap_conv_kernel
         self.stats_min_cin = stats_min_cin
         self.plan = unet_plan(ngf, num_inputs, num_outputs)
@@ -139,8 +148,16 @@ class MSIUNet(nn.Module):
         (1+da+i, 1+db+j). Coord net: flax ConvTranspose, SAME, which pads
         the 2x-dilated input by 2 on each side and does not flip the
         kernel: out[2j+da] = sum_ka x[j+da+ka-1] k[da+2ka], the same as
-        F.conv_transpose2d with the kernel flipped and padding 1."""
+        F.conv_transpose2d with the kernel flipped and padding 1. Smoothed:
+        the upsampling conv of JAX models/unet.py:306-322."""
         layer = getattr(self, name)
+        if self.smoothed:
+            x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+            x = (F.pad(x, (1, 2, 1, 2)) if self.variant == "coord"
+                 else wrap_pad(x, 1, 2, 1, 2))
+            y = F.conv2d(x, layer.weight.to(x.dtype))
+            y = y + layer.bias.to(x.dtype)[:, None, None]
+            return torch.relu(getattr(self, name + "_ln")(y))
         if self.variant == "coord":
             wt = layer.weight.to(x.dtype).flip(2, 3).transpose(0, 1)
             y = F.conv_transpose2d(x, wt, stride=2, padding=1)

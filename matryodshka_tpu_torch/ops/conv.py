@@ -12,7 +12,12 @@ of two forms:
 * npar=4: the 4x4 stride-2 transposed conv as four 2x2 parity convs
   (`FusedDeconvCrop`; the coord net's SAME `ConvTranspose` has the same
   index map): parity (da, db) pads (1 - da, 1 - db) before and (da, db)
-  after, and writes output pixels (2i + da, 2j + db).
+  after, and writes output pixels (2i + da, 2j + db);
+* npar=4 with kh = kw = 3: the smoothed net's upsampling conv (nearest 2x,
+  then a 4x4 conv padded (1, 2)) folded onto the un-upsampled input:
+  parity (da, db) is a (3 - da) x (3 - db) conv padded (1 - da, 1 - db)
+  before and 1 after, whose taps are sums of the 4x4 taps
+  (`pack_smoothed`), with the same output map.
 
 and in one of two horizontal paddings: hpad="wrap" wraps input columns mod
 W (`wrap_pad` of `models/unet.py`, the wrap net), hpad="zero" reads zero
@@ -22,7 +27,9 @@ an |sin(lat)| channel to the input of every 3x3 conv and stride-2 down:
 reads it as input channel Cin without a Cin+1-channel copy of x.
 
 Weights are packed [npar, KH*KW*Cin', Cout], k = (kh*KW + kw)*Cin' + c,
-Cin' = Cin + 1 with a coord channel (its weights last), else Cin.
+Cin' = Cin + 1 with a coord channel (its weights last), else Cin; a
+smoothed parity's (3 - da) x (3 - db) taps fill the first rows of its
+9-tap block.
 """
 
 from __future__ import annotations
@@ -49,17 +56,60 @@ def pack_conv(weight, dtype):
         dtype).contiguous()
 
 
-def pack_deconv(weight, dtype):
+def pack_deconv(weight, dtype, *, smoothed: bool, name: str = "deconv"):
     """Transposed-conv kernel [Cout, Cin, 4, 4] -> the four 2x2 parity
     kernels [4, 4*Cin, Cout]; parity da*2 + db takes taps
-    weight[..., da + 2*ka, db + 2*kb]."""
+    weight[..., da + 2*ka, db + 2*kb]. smoothed says whether the weights
+    are a smoothed net's: its 4x4 upsampling conv has the same shape, but
+    read as a transposed conv it would compute something else, so the
+    packer refuses it (pack_smoothed packs it)."""
+    if smoothed:
+        raise ValueError(f"pack_deconv: {name} belongs to a smoothed net, "
+                         f"whose 4x4 weights are an upsampling conv's, not "
+                         f"a transposed conv's; pack it with pack_smoothed")
     return torch.cat([pack_conv(weight[:, :, da::2, db::2], dtype)
                       for da in (0, 1) for db in (0, 1)]).contiguous()
 
 
-def _unpack(wk, par: int, kh: int, kw: int):
-    k, cout = wk.shape[1:]
-    return wk[par].reshape(kh, kw, k // (kh * kw), cout).permute(3, 2, 0, 1)
+#: The 4x4 taps each of a folded parity's taps sums, per axis: parity 0
+#: reads input offsets -1, 0, 1, parity 1 offsets 0, 1.
+FOLD_TAPS = (((0,), (1, 2), (3,)), ((0, 1), (2, 3)))
+
+
+def fold_smoothed(weight, da: int, db: int):
+    """Parity (da, db) of the smoothed upsampling conv [Cout, Cin, 4, 4]
+    as a conv on the un-upsampled input: [Cout, Cin, 3 - da, 3 - db],
+    summed in float32."""
+    w = weight.float()
+    rows = torch.stack([w[:, :, list(t)].sum(2) for t in FOLD_TAPS[da]], 2)
+    return torch.stack([rows[..., list(t)].sum(-1) for t in FOLD_TAPS[db]],
+                       -1)
+
+
+def pack_smoothed(weight, dtype):
+    """The smoothed net's upsampling conv [Cout, Cin, 4, 4] -> the four
+    folded parity kernels [4, 9*Cin, Cout]: parity da*2 + db packs
+    fold_smoothed(weight, da, db) in its first (3 - da)(3 - db)*Cin rows
+    and zeros after."""
+    cin, cout = weight.shape[1], weight.shape[0]
+    out = torch.zeros((4, 9 * cin, cout), dtype=dtype, device=weight.device)
+    for da in (0, 1):
+        for db in (0, 1):
+            wk = pack_conv(fold_smoothed(weight, da, db), dtype)[0]
+            out[da * 2 + db, :wk.shape[0]] = wk
+    return out
+
+
+def _unpack(wk, par: int, kh: int, kw: int, cin: int):
+    cout = wk.shape[2]
+    return wk[par, :kh * kw * cin].reshape(kh, kw, cin, cout).permute(
+        3, 2, 0, 1)
+
+
+def par_taps(k: int, npar: int, d: int) -> int:
+    """Taps along an axis of parity d's conv (csrc/conv.cu:par_taps): the
+    smoothed form's 3 - d where npar == 4 and k == 3, else k."""
+    return k - d if npar == 4 and k == 3 else k
 
 
 def coord_column(h: int, device=None) -> torch.Tensor:
@@ -120,19 +170,21 @@ def conv_plain(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
     x32 = x.float()
     if coord is not None:
         x32 = with_coord(x32, coord.float())
+    cin = wk.shape[1] // (kh * kw)
     if npar == 1:
         lo, hi = pad_pair(pad)
         y = F.conv2d(pad2d(x32, lo, hi, lo, hi, hpad),
-                     _unpack(wk, 0, kh, kw).float(), stride=stride,
+                     _unpack(wk, 0, kh, kw, cin).float(), stride=stride,
                      dilation=dil)
     else:
         b, _, h, w = x.shape
         y = x32.new_empty((b, wk.shape[2], 2 * h, 2 * w))
         for par in range(4):
             da, db = par >> 1, par & 1
+            ph, pw = par_taps(kh, npar, da), par_taps(kw, npar, db)
             y[:, :, da::2, db::2] = F.conv2d(
-                pad2d(x32, 1 - da, da, 1 - db, db, hpad),
-                _unpack(wk, par, 2, 2).float())
+                pad2d(x32, 1 - da, ph - 2 + da, 1 - db, pw - 2 + db, hpad),
+                _unpack(wk, par, ph, pw, cin).float())
     y = y + bias.float()[None, :, None, None]
     if tanh:
         y = torch.tanh(y)
@@ -155,7 +207,8 @@ def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
          pad=0, npar: int = 1, tanh: bool = False, out_dtype=None,
          hpad: str = "wrap", coord=None):
     """One conv layer: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. x [B, Cin, H, W]; wk from pack_conv / pack_deconv;
+    for CPU tensors. x [B, Cin, H, W]; wk from pack_conv / pack_deconv /
+    pack_smoothed;
     bias [Cout] float32; coord None or [H] float32 (hpad="zero" only)."""
     if x.device.type == "cpu":
         return conv_plain(x, wk, bias, kh, kw, stride, dil, pad, npar, tanh,
@@ -185,9 +238,10 @@ def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
         and tuple(coord.shape) == (h,)),
         "conv: coord must be float32 [H] on x's device, with hpad='zero' "
         "and npar=1")
-    req(npar == 1 or (npar == 4 and kh == 2 and kw == 2 and stride == 1
-                      and dil == 1),
-        "conv: npar=4 is the 2x2 parity form of the transposed conv")
+    req(npar == 1 or (npar == 4 and kh == kw and kh in (2, 3)
+                      and stride == 1 and dil == 1),
+        "conv: npar=4 is the 2x2 parity form of the transposed conv or the "
+        "3x3 folded form of the smoothed one")
     req(npar == 4 or hpad == "zero" or lo == hi,
         "conv: wrap padding is symmetric")
     ho, wo = out_size(h, w, kh, kw, stride, dil, (lo, hi), npar)

@@ -12,7 +12,10 @@ The two variants share the topology and differ in each stage's padding
 (`conv_args`): the wrap net wraps columns horizontally; the coord net pads
 with zeros as flax's SAME does and reads an |sin(lat)| coord channel as
 the last input channel of every 3x3 conv and stride-2 down (its values per
-input row are built once, by `prepare`).
+input row are built once, by `prepare`). A smoothed net (`smoothed=True`:
+nearest 2x upsampling and a 4x4 conv in place of each transposed conv)
+runs its three upsampling stages in the conv kernel's folded parity form
+(`ops/conv.py:pack_smoothed`), so its 18 stages are conv launches too.
 """
 
 from __future__ import annotations
@@ -68,30 +71,46 @@ def kernel_cin(kind: str, cins, variant: str) -> int:
     return sum(cins) + has_coord(kind, variant)
 
 
-def conv_args(kind: str, rate: int, variant: str = "wrap") -> Dict:
+def conv_args(kind: str, rate: int, variant: str = "wrap",
+              smoothed: bool = False) -> Dict:
     """Keyword arguments of ops.conv.conv for a stage kind (without the
     coord vector, which depends on the input height). The coord net's pads
     are flax's SAME on the even sizes the config guarantees: (rate, rate)
     for a stride-1 conv, (0, 1) for a stride-2 down. The 1x1 head pads
     nothing; the coord net runs it in the zero mode too, so that its 18
-    stages are the launches of one mode."""
+    stages are the launches of one mode. A deconv is the transposed conv's
+    2x2 parity form, or with smoothed the folded 3x3 parity form of the
+    upsampling conv (the wrap net wraps its columns and zero-pads its
+    rows, the coord net zero-pads both, with no coord channel, as JAX
+    models/unet.py:306-322 pads the upsampled input)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r}; known: {VARIANTS}")
     if kind == "head":
         head = dict(kh=1, kw=1, tanh=True, out_dtype=torch.float32)
         return head if variant == "wrap" else dict(head, hpad="zero")
+    if kind == "deconv":
+        k = 3 if smoothed else 2
+        deconv = dict(kh=k, kw=k, npar=4)
+        return deconv if variant == "wrap" else dict(deconv, hpad="zero")
     if variant == "wrap":
         if kind == "conv":
             return dict(kh=3, kw=3, stride=1, dil=rate, pad=rate)
-        if kind == "down":
-            return dict(kh=3, kw=3, stride=2, dil=1, pad=1)
-        return dict(kh=2, kw=2, npar=4)
+        return dict(kh=3, kw=3, stride=2, dil=1, pad=1)
     if kind == "conv":
         return dict(kh=3, kw=3, stride=1, dil=rate, pad=(rate, rate),
                     hpad="zero")
-    if kind == "down":
-        return dict(kh=3, kw=3, stride=2, dil=1, pad=(0, 1), hpad="zero")
-    return dict(kh=2, kw=2, npar=4, hpad="zero")
+    return dict(kh=3, kw=3, stride=2, dil=1, pad=(0, 1), hpad="zero")
+
+
+def pack_stage(model, name: str, kind: str, dtype):
+    """A stage's packed weight: the transposed conv's parity kernels, a
+    smoothed net's folded ones, or a plain conv's."""
+    weight = getattr(model, name).weight.detach()
+    if kind != "deconv":
+        return conv_ops.pack_conv(weight, dtype)
+    if model.smoothed:
+        return conv_ops.pack_smoothed(weight, dtype)
+    return conv_ops.pack_deconv(weight, dtype, smoothed=False, name=name)
 
 
 def prepare(model, dtype, height: int = None) -> List[Dict]:
@@ -105,14 +124,12 @@ def prepare(model, dtype, height: int = None) -> List[Dict]:
     stages = []
     for (name, kind, srcs, _, _, ind, _, rate) in model.plan:
         layer = getattr(model, name)
-        pack = (conv_ops.pack_deconv if kind == "deconv"
-                else conv_ops.pack_conv)
-        args = conv_args(kind, rate, model.variant)
+        args = conv_args(kind, rate, model.variant, model.smoothed)
         if has_coord(kind, model.variant):
             args["coord"] = conv_ops.coord_column(height // ind,
                                                   layer.weight.device)
         st = {"name": name, "srcs": srcs, "args": args,
-              "w": pack(layer.weight.detach(), dtype),
+              "w": pack_stage(model, name, kind, dtype),
               "b": layer.bias.detach().float().contiguous()}
         if kind != "head":
             ln = getattr(model, name + "_ln")

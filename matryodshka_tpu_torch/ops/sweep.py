@@ -8,6 +8,12 @@ parameters beside it: it projects its own rows (`csrc/project.cuh`), so a
 sweep is one launch; its source note gives the bound and the design. The
 output is the net's input, channels first and unflipped:
 [B, 2*P*3, H, W], channel (eye*P + p)*3 + c.
+
+`sweep_volume` is also the registered custom op `matry::sweep_volume`
+(`torch.ops.matry.sweep_volume`, with a fake kernel for `torch.export`),
+so that a program exported with `torch.export` can carry K1
+(`cli/export.py`, the full pipeline). Loading such a program needs the op
+registered in the loading process, which importing this module does.
 """
 
 from __future__ import annotations
@@ -161,6 +167,29 @@ def sweep_volume(ref_image, src_image, depths, intrinsics,
     _build.check(err, "matry_sweep")
     launches += 1
     return out
+
+
+#: The custom op that carries sweep_volume into exported programs, and
+#: the module that registers it (what an exported program's meta.json
+#: names).
+OP_NAME = "matry::sweep_volume"
+OP_MODULE = __name__
+
+
+@torch.library.custom_op(OP_NAME, mutates_args=())
+def sweep_volume_op(ref_image: torch.Tensor, src_image: torch.Tensor,
+                    depths: torch.Tensor, intrinsics: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """sweep_volume as a registered op: the kernel's one launch for CUDA
+    tensors (counted in `launches`), the plain version for CPU ones."""
+    return sweep_volume(ref_image, src_image, depths, intrinsics, out_dtype)
+
+
+@sweep_volume_op.register_fake
+def _sweep_volume_fake(ref_image, src_image, depths, intrinsics, out_dtype):
+    b, h, w, _ = ref_image.shape
+    return ref_image.new_empty((b, 2 * depths.shape[0] * 3, h, w),
+                               dtype=out_dtype)
 
 
 def sweep_row_params(depths, intrinsics, height: int, width: int):

@@ -33,12 +33,13 @@ class TrainState:
 
 
 def build_model(cfg) -> MSIUNet:
-    """The trainer's net: cfg's variant, compute dtype and head, parameters
-    in cfg.param_dtype, the wrap net's stride-1 convs through K7 when
-    cfg.use_pallas."""
+    """The trainer's net: cfg's variant, upsampling (cfg.smoothed), compute
+    dtype and head, parameters in cfg.param_dtype, the wrap net's stride-1
+    convs through K7 when cfg.use_pallas."""
     return MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
                    dtype=cfg.torch_compute_dtype, variant=cfg.net_variant,
-                   wrap_conv_kernel=cfg.use_pallas).to(cfg.torch_param_dtype)
+                   wrap_conv_kernel=cfg.use_pallas,
+                   smoothed=cfg.smoothed).to(cfg.torch_param_dtype)
 
 
 def build_optimizer(cfg, net) -> torch.optim.Adam:

@@ -7,7 +7,8 @@ wrapper of the port runs its plain version:
   on CPU takes its gather path: gather sweep, flax net, assemble_rgba,
   gather render), same flax weights and images;
 * the high-res re-render against build_hres_render_fn_fused(interpret=True)
-  at 64x128 -> 128x256;
+  at 64x128 -> 128x256 (blend_psv; the other schemes'
+  re-render is tests/test_torch_hres_schemes.py);
 * the perspective and ODS-eye re-renders (psp, src_output_image,
   ref_output_image) against the JAX build_infer_fn;
 * main() end to end on the synthetic fixture (matryodshka_tpu.data.
@@ -158,12 +159,6 @@ def test_hres_render_matches_jax_fused():
         assert g.shape == wnt.shape == (1, 128, 256, 3)
         np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=0,
                                    atol=1e-3)
-
-
-def test_hres_render_rejects_other_schemes():
-    _, tcfg = _cfgs(32, 64, "blend_bg")
-    with pytest.raises(NotImplementedError):
-        tcli.build_hres_render_fn(tcfg)
 
 
 @pytest.mark.parametrize("training", [False, True])

@@ -121,7 +121,8 @@ def test_coord_deconv_stage_matches_flax():
                                             "bias": jnp.asarray(b)}},
                                 jnp.asarray(x)))
     wt = torch.from_numpy(k).permute(3, 2, 0, 1)
-    got = conv_ops.conv(_nchw(x), conv_ops.pack_deconv(wt, torch.float32),
+    got = conv_ops.conv(_nchw(x), conv_ops.pack_deconv(wt, torch.float32,
+                                                       smoothed=False),
                         torch.from_numpy(b),
                         **net_ops.conv_args("deconv", 1, "coord"))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,

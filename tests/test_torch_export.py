@@ -12,8 +12,9 @@ against the JAX package's (matryodshka_tpu/cli/export.py), on CPU.
   `clip_params_to_fp16` against JAX's.
 * `main`: meta.json's keys and values against the JAX CLI's (both at
   --platform cpu); the artifact run by the port's consumer tool in a
-  subprocess as a script, importing neither package; the raise for
-  `--net_only false` and `--with_preprocess`; the card default.
+  subprocess as a script, importing neither package; the card default.
+
+The full pipeline and --with_preprocess are tests/test_torch_export_full.py.
 """
 
 import json
@@ -158,14 +159,6 @@ def test_main_meta_and_consumer(tmp_path):
     with torch.no_grad():
         want = torch.export.load(path).module()(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(np.load(out), want)
-
-
-@pytest.mark.parametrize("extra", [["--net_only", "false"],
-                                   ["--with_preprocess"]])
-def test_unported_exports_raise(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="10b"):
-        texport.main(FLAGS + ["--platform", "cpu", "--export_dir",
-                              str(tmp_path)] + extra)
 
 
 def test_export_defaults_to_the_card(tmp_path):

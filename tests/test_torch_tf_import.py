@@ -167,7 +167,7 @@ def test_same_deconv_convention():
     sd = weights.from_flax(tf_import.convert(tf_vars))
     got = conv_ops.conv(torch.from_numpy(x).permute(0, 3, 1, 2),
                         conv_ops.pack_deconv(sd["conv6_1.weight"],
-                                             torch.float32),
+                                             torch.float32, smoothed=False),
                         sd["conv6_1.bias"],
                         **net_ops.conv_args("deconv", 1, "coord"))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,

@@ -7,7 +7,8 @@
   `jax.grad` of the flax MSIUNet with XLA convs.
 * The train step's loss and every parameter gradient against
   `jax.value_and_grad(make_loss_fn(...))` for the default config,
-  spherical attention + wreg, alpha_only and the coord net, on
+  spherical attention + wreg, alpha_only, the coord net and the smoothed
+  net (both variants; JAX training/state.py:30 passes smoothed), on
   tests/test_train_smoke.py's tiny config and batch; then parameters after
   Adam steps against JAX's train step.
 
@@ -44,7 +45,9 @@ TINY = dict(height=32, width=64, num_psv_planes=4, num_msi_planes=4,
 CONFIGS = {"default": {},
            "spherical_wreg": dict(spherical_attention=True, wreg=True),
            "alpha_only": dict(which_color_pred="alpha_only"),
-           "coord_net": dict(coord_net=True)}
+           "coord_net": dict(coord_net=True),
+           "smoothed": dict(smoothed=True),
+           "smoothed_coord": dict(smoothed=True, coord_net=True)}
 
 
 def _numpy_batch(seed=0):
@@ -260,8 +263,7 @@ def test_losses_match_jax():
      r"step\.py:58-59.*does not broadcast"),
     (dict(supervision="tgt_hrestgt", input_type="PP"), ValueError,
      "high-res target is an ODS render"),
-    (dict(num_data_shards=2), NotImplementedError, "ROADMAP Queue 1 item 9"),
-    (dict(smoothed=True), NotImplementedError, "ROADMAP Queue 1 item 3")])
+    (dict(num_data_shards=2), NotImplementedError, "ROADMAP Queue 1 item 9")])
 def test_unported_training_options_raise(kw, exc, match):
     """validate() and the loss refuse what the port cannot train yet,
     naming the ROADMAP item, and the combinations the JAX trainer cannot
