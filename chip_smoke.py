@@ -17,7 +17,7 @@ plain projection in float64 (the worst errors and the bound printed),
 and the kernel against its plain version fed the instrument's tables,
 the layer-stack render in each output mode (image, depth, both in one
 launch), back to front and front to back, bf16 and f32 stacks.
-Then it drives fourteen paths, each with every launch count set to 0 just
+Then it drives fifteen paths, each with every launch count set to 0 just
 before it and read just after (on the first, exactly one sweep and one
 render launch per frame, and one device operation per stage in a
 profiler trace):
@@ -106,7 +106,23 @@ profiler trace):
    beside the transposed form's), and its trainer for 3 steps (K7 at path
    5's count, one step against the all-plain routes); the 4096x2048
    re-render of blend_bg, blend_bg_psv and alpha_only (one sweep and one
-   layer-stack launch each) against the plain composite.
+   layer-stack launch each) against the plain composite;
+15. the GCN (--gcn true, icosphere subdiv 7: 163,842 vertices; its mesh
+   generated unless cached, in a subprocess beside the kernels' build and
+   finished before the first timed path, then loaded):
+   the test CLI's request for blend_psv and blend_bg (one K1 launch, then
+   K3's two modes or the prepared assembly and one layer-stack launch;
+   each view and depth against the all-plain f32 route; the vertex sweep,
+   the GCN forward and every stage timed) and the GCN trainer for 5 steps
+   (K1 once a step; its parts and peak; one step against the all-plain
+   f32 route); a one-rank NCCL process group through
+   parallel/dp.make_dp_train_step and steps_per_call=3 on the default
+   trainer, each against the single-device step; the 4096x2048 re-render
+   in 4 shell blocks on the one card (per block one K1 launch over its
+   planes and one launch of the layer-stack render's partial mode, then
+   combine_partials) against the unsharded K5 render, and the partial mode
+   against its plain version (partial_composite) at one block's shapes,
+   bf16 and f32.
 Each path's wall and the whole run's are printed.
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
@@ -128,6 +144,7 @@ card's name and power limit), then a JSON line of kernels, then the
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import functools
 import itertools
@@ -280,6 +297,27 @@ PARK_SHARE = 1e-2
 #: compares between the smoothed and the transposed form.
 SMOOTH_STEPS = 3
 UP_STAGES = ("conv6_1", "conv7_1", "conv8_1")
+#: Path 15: the GCN at the reference's default icosphere subdivision (V =
+#: 163,842), its trainer's steps through training/loop.train (the first a
+#: warm-up), the data-parallel steps of the one-rank NCCL group (the
+#: chained call's steps_per_call), the high-res re-render's shell blocks
+#: on the one card, and the shells of the block the partial mode is gated
+#: on alone.
+GCN_SUBDIV = 7
+GCN_STEPS = 5
+DP_STEPS = 3
+SHELL_BLOCKS = 4
+BLOCK_SHELLS = 8
+#: Path 15c: the one-rank data-parallel step against the single-device
+#: step on the same batch from the same parameters: the same kernels on
+#: the same inputs (the loss's forward is deterministic; the gather
+#: render's backward adds with atomics): loss within DP_LOSS_TOL relative,
+#: each gradient within relative L2 DP_GRAD_TOL; the chained call's losses
+#: against three single steps' within DP_CHAIN_TOL relative (from the
+#: second step the parameters differ by those atomics' noise).
+DP_LOSS_TOL = 1e-5
+DP_GRAD_TOL = 1e-3
+DP_CHAIN_TOL = 1e-3
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -816,7 +854,8 @@ def run_train_loop(tcfg, dev, reset_counts, read_counts, elpips, nsteps,
         tstate = state_lib.init_state(tcfg, 0, dev)
         if np_batches is None:
             np_batches = itertools.repeat(training_batch(tcfg))
-        step_fn = step_lib.make_train_step(tcfg, tstate.net, elpips=elpips)
+        step_fn = step_lib.make_train_step(tcfg, tstate.net, elpips=elpips,
+                                           gcn_inputs=tstate.gcn_inputs)
         events = []
 
         def timed_step(state, b):
@@ -2641,6 +2680,376 @@ def hres_schemes_path(dev, tag, cli, cli_outs, hres_images, reset_counts,
               f"GiB above the {mem0 / 2**30:.3f} GiB held before) {tag}")
 
 
+def start_mesh_generation(cfg):
+    """Start generating the GCN's mesh cache (geometry/icosphere.py at
+    cfg.subdiv for cfg's grid, numpy on the host: minutes of CPU at subdiv
+    7) in a subprocess, so it overlaps the kernels' build; None when
+    cfg.mesh_dir holds it already. The subprocess prints its wall time;
+    finish_mesh_generation waits for it."""
+    path = os.path.join(cfg.mesh_dir, f"sphere{cfg.subdiv}_{cfg.height}x"
+                                      f"{cfg.width}.npz")
+    if os.path.exists(path):
+        return None
+    code = ("import time; t = time.perf_counter(); "
+            "from matryodshka_tpu_torch.geometry import icosphere; "
+            f"icosphere.load_mesh_input({cfg.subdiv}, {cfg.height}, "
+            f"{cfg.width}, {cfg.mesh_dir!r}); "
+            "print(f'{time.perf_counter() - t:.1f}')")
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    # stopped at exit if a check ends the run first
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_mesh_generation(proc, cfg, tag, since: float) -> None:
+    """Wait for start_mesh_generation's subprocess (if any), so that no
+    timed path shares the host's cores with it; print its wall time and
+    how long the run waited for it after the build (since: the clock when
+    the build ended)."""
+    if proc is None:
+        return
+    out = proc.communicate(timeout=900)[0]
+    check(proc.returncode == 0, f"mesh generation failed: {out}")
+    print(f"gcn mesh subdiv {cfg.subdiv} {cfg.width}x{cfg.height} generated "
+          f"in {out.strip()} s (a subprocess beside the kernels' build, into "
+          f"{cfg.mesh_dir}); the run waited {time.perf_counter() - since:.1f}"
+          f" s for it after the build {tag}")
+
+
+def gcn_path(dev, tag, reset_counts, read_counts, gate_e2e):
+    """Path 15a-b: the GCN (--gcn true) at full width, subdiv GCN_SUBDIV.
+    (a) The test CLI's request for blend_psv (image and depth through K3's
+    two modes) and blend_bg (the prepared assembly and one layer-stack
+    launch for both): one K1 launch each, no conv or layer-norm launch, no
+    lookup tables; each view and depth within E2E_TOL of the all-plain f32
+    route (infer_plain); the request's stages and the GCN forward timed.
+    (b) The GCN trainer through training/loop.train for GCN_STEPS steps on
+    one in-memory batch (K1 once a step), the step's median, peak memory
+    and parts, and one step's loss and gradients against the all-plain
+    f32 route (the plain sweep in place of K1; the GCN is float32 in both,
+    as the JAX GCN is). Returns the launches of (a) and (b)."""
+    from matryodshka_tpu_torch import entry
+    from matryodshka_tpu_torch.cli import test as cli_test
+    from matryodshka_tpu_torch.models import gcn as gcn_lib
+    from matryodshka_tpu_torch.models import msi as msi_lib
+    from matryodshka_tpu_torch.ops import sweep as sweep_ops
+    from matryodshka_tpu_torch.training import step as step_lib
+
+    gcfg = entry.flagship_cfg(gcn=True, subdiv=GCN_SUBDIV)
+    launches = {}
+    for scheme, seed, pos in CLI_REQUESTS[:2]:
+        c = dataclasses.replace(gcfg, which_color_pred=scheme)
+        t0 = time.perf_counter()
+        prm = entry.make_params(c, seed=0, device=dev)
+        load_s = time.perf_counter() - t0
+        coords, p2v = prm.gcn_inputs
+        print(f"gcn {scheme}: mesh loaded from the cache and the GCN built "
+              f"in {load_s:.2f} s: V {coords.shape[0]}, edges "
+              f"{prm.net.supports[1].rows.numel()}, "
+              f"{sum(q.numel() for q in prm.net.parameters())} parameters")
+        b = entry.synthetic_batch(c, seed, dev, tgt_pos=pos)
+        infer = cli_test.build_infer_fn(c, prm, "tgt_image")
+        reset_counts()
+        got = infer(b)
+        n = read_counts()
+        launches[scheme] = n
+        print(f"launches of the gcn {scheme} test CLI request: {n}")
+        want = ({"render": 1, "render_depth": 1, "render_layers": 0}
+                if scheme == "blend_psv" else
+                {"render": 0, "render_layers": 1, "render_layers_both": 1})
+        check(n["sweep"] == 1 and n["conv"] == n["layernorm"] == 0
+              and n["uv_tables"] == 0
+              and all(n[k] == v for k, v in want.items()),
+              f"gcn {scheme}: one K1 and one render launch per output set")
+        gate_e2e(f"gcn cli {scheme} tgt_pos {pos}", got,
+                 cli_test.infer_plain(c, prm, b))
+        with torch.no_grad():
+            x = msi_lib.gcn_vertex_input(b, prm.psv_depths, coords)
+            y = prm.net(x)
+            pred = gcn_lib.mesh_to_equirect(y, p2v).permute(0, 3, 1, 2)
+            vol = sweep_ops.sweep_volume(b["ref_image"], b["src_image"],
+                                         prm.psv_depths, b["intrinsics"])
+            po = msi_lib.assemble_outputs_planar(msi_lib.gcn_cfg(c), vol,
+                                                 pred.contiguous())
+            eye = torch.eye(4, device=dev)[None]
+            ms = {
+                "sweep_k1": time_ms(lambda: sweep_ops.sweep_volume(
+                    b["ref_image"], b["src_image"], prm.psv_depths,
+                    b["intrinsics"])),
+                "vertex_sweep": time_ms(lambda: msi_lib.gcn_vertex_input(
+                    b, prm.psv_depths, coords)),
+                "gcn_forward": time_ms(lambda: prm.net(x)),
+                "mesh_to_equirect": time_ms(
+                    lambda: gcn_lib.mesh_to_equirect(y, p2v)),
+                "assemble": time_ms(lambda: msi_lib.assemble_outputs_planar(
+                    msi_lib.gcn_cfg(c), vol, pred.contiguous())),
+                "render_depth": time_ms(
+                    lambda: msi_lib.render_view_and_depth_from_prepared(
+                        po, eye, b["tgt_pose"], prm.msi_depths)),
+                "e2e": time_ms(lambda: infer(b), iters=5),
+                "e2e_plain_f32": time_ms(
+                    lambda: cli_test.infer_plain(c, prm, b), iters=3),
+            }
+        print(f"gcn cli {scheme:9s} " + " ".join(
+            f"{k} {t:.3f}" for k, t in ms.items()) + f" ms {tag}")
+        del x, y, pred, vol, po
+
+    # (b) the GCN trainer
+    tstate, tl, step_events, records, peak, mem0 = run_train_loop(
+        gcfg, dev, reset_counts, read_counts, None, GCN_STEPS)
+    launches["train"] = tl
+    losses = [r["total_loss"] for r in records]
+    print(f"launches over {GCN_STEPS} gcn training steps: {tl}")
+    check(tstate.step == GCN_STEPS and tl["sweep"] == GCN_STEPS
+          and tl["conv"] == 0 and tl["wrap_conv_k7c"] == 0,
+          "gcn trainer: one K1 launch a step, no conv kernel")
+    check(all(math.isfinite(v) for v in losses), "gcn losses are finite")
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in step_events[1:])
+    print(f"gcn train step {step_ms:.3f} ms (median of {GCN_STEPS - 1} after "
+          f"1 warm-up; 640x320, 32+32 planes, subdiv {GCN_SUBDIV}, ngf 64, "
+          f"f32 GCN, batch 1), peak device memory {peak / 2**30:.3f} GiB "
+          f"({(peak - mem0) / 2**30:.3f} GiB above the {mem0 / 2**30:.3f} "
+          f"GiB held before) {tag}")
+    print("gcn train losses on one repeated batch: "
+          + " ".join(f"{v:.3f}" for v in losses))
+    tb = {k: torch.from_numpy(v).to(dev)
+          for k, v in training_batch(gcfg).items()}
+    coords, p2v = tstate.gcn_inputs
+    loss_fn = step_lib.make_loss_fn(gcfg, tstate.net,
+                                    gcn_inputs=tstate.gcn_inputs)
+    opt = tstate.optimizer
+    parts, ppeak, _ = timed_parts([
+        ("sweep", lambda v: loss_fn.sweep(tb)),
+        ("vertex_sweep", lambda v: msi_lib.gcn_vertex_input(
+            tb, loss_fn.psv_depths, coords)),
+        ("gcn_forward", lambda v: tstate.net(v["vertex_sweep"])),
+        ("mesh_to_equirect", lambda v: gcn_lib.mesh_to_equirect(
+            v["gcn_forward"], p2v).permute(0, 3, 1, 2)),
+        ("assemble_render_loss", lambda v: loss_fn.tail(
+            tb, v["sweep"], v["mesh_to_equirect"])[0]),
+        ("backward", lambda v: v["assemble_render_loss"].backward()),
+        ("optimizer", lambda v: opt.step())], GCN_STEPS,
+        before=lambda: opt.zero_grad(set_to_none=True))
+    print("gcn train step parts " + " ".join(
+        f"{k} {t:.3f}" for k, t in parts.items())
+          + f" ms (median of {GCN_STEPS - 1}); peak "
+            f"{ppeak / 2**30:.3f} GiB above the held {tag}")
+
+    def plain_sweep(c, b, d):
+        imgs, rowp = sweep_ops.sweep_inputs(
+            msi_lib.preprocess_image(b["ref_image"]),
+            msi_lib.preprocess_image(b["src_image"]), d, b["intrinsics"])
+        return sweep_ops.ods_sweep_plain(imgs, rowp, torch.float32)
+
+    routes = {}
+    for key, sweep in (("kernel", None), ("plain", plain_sweep)):
+        tstate.net.zero_grad(set_to_none=True)
+        loss_r, _ = step_lib.make_loss_fn(
+            gcfg, tstate.net, sweep, gcn_inputs=tstate.gcn_inputs)(tb)
+        loss_r.backward()
+        routes[key] = (loss_r.item(), {n: q.grad.detach().clone()
+                                       for n, q in
+                                       tstate.net.named_parameters()})
+    (lk, gk), (lp, gp) = routes["kernel"], routes["plain"]
+    rel = {n: ((gk[n] - gp[n]).norm() / gp[n].norm()).item() for n in gp}
+    worst = max(rel.values())
+    print(f"gcn train step kernel route vs all-plain f32: loss {lk:.4f} vs "
+          f"{lp:.4f}, rel {abs(lk - lp) / abs(lp):.3e} (tol "
+          f"{TRAIN_LOSS_TOL:.0e}); gradients rel L2 median "
+          f"{statistics.median(rel.values()):.3e}, worst {worst:.3e} (tol "
+          f"{TRAIN_GRAD_TOL:.0e}) over {len(rel)} parameters")
+    check(abs(lk - lp) / abs(lp) <= TRAIN_LOSS_TOL and worst
+          <= TRAIN_GRAD_TOL, "gcn step, kernel vs all-plain f32 route")
+    return launches
+
+
+def dp_path(dev, tag, reset_counts, read_counts):
+    """Path 15c: a one-rank NCCL process group (parallel/mesh.init, a file
+    store): dp.make_dp_train_step on the default ODS trainer (K1, K7, the
+    gradients all-reduced) against the single-device step from the same
+    parameters on the same batch, then the chained call
+    (make_dp_train_multi_step, steps_per_call=DP_STEPS) against DP_STEPS
+    single steps; launch counts and times beside the single step's."""
+    import torch.distributed as dist
+
+    from matryodshka_tpu_torch import entry
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    from matryodshka_tpu_torch.parallel import dp, mesh
+    from matryodshka_tpu_torch.training import state as state_lib
+    from matryodshka_tpu_torch.training import step as step_lib
+
+    tcfg = entry.flagship_cfg()
+    batches = []
+    for i in range(DP_STEPS):
+        nb = training_batch(tcfg)
+        nb["tgt_pose"] = nb["tgt_pose"] * (1.0 + 0.1 * i)
+        batches.append({k: torch.from_numpy(v).to(dev)
+                        for k, v in nb.items()})
+    # the single steps, built outside a process group: make_train_step
+    # built in one is data-parallel
+    s_pl = state_lib.init_state(tcfg, 0, dev)
+    step_pl = step_lib.make_train_step(tcfg, s_pl.net)
+    s_s = state_lib.init_state(tcfg, 0, dev)
+    single = step_lib.make_train_step(tcfg, s_s.net)
+    with tempfile.TemporaryDirectory() as store:
+        mesh.init(0, 1, f"file://{store}/store", dev)
+        try:
+            check(dist.get_backend() == "nccl", "the group's backend is NCCL")
+            s_dp = state_lib.init_state(tcfg, 0, dev)
+            step_dp = dp.make_dp_train_step(tcfg, s_dp.net)
+            reset_counts()
+            for attr in K7_COUNTS.values():
+                setattr(wc, attr, 0)
+            s_dp, m_dp = step_dp(s_dp, batches[0])
+            n = read_counts()
+            n.update({k: getattr(wc, a) for k, a in K7_COUNTS.items()})
+            print(f"launches of one data-parallel step (one NCCL rank): {n}")
+            check(n["sweep"] == 1 and n["wrap_conv_k7c"] > 0,
+                  "dp step: one K1 launch and the K7 kernels")
+            s_pl, m_pl = step_pl(s_pl, batches[0])
+            ld, lp = m_dp["total_loss"].item(), m_pl["total_loss"].item()
+            grel = {nm: ((a.grad - b.grad).norm() / b.grad.norm()).item()
+                    for (nm, a), b in zip(s_dp.net.named_parameters(),
+                                          s_pl.net.parameters())}
+            worst = max(grel.values())
+            print(f"dp step vs single step: loss {ld:.4f} vs {lp:.4f} rel "
+                  f"{abs(ld - lp) / abs(lp):.3e} (tol {DP_LOSS_TOL:.0e}); "
+                  f"grad_norm {m_dp['grad_norm'].item():.4f} vs "
+                  f"{m_pl['grad_norm'].item():.4f}; gradients rel L2 worst "
+                  f"{worst:.3e} (tol {DP_GRAD_TOL:.0e})")
+            check(abs(ld - lp) / abs(lp) <= DP_LOSS_TOL
+                  and worst <= DP_GRAD_TOL, "dp step vs single step")
+            dp_ms = time_ms(lambda: step_dp(s_dp, batches[0]), iters=6)
+            pl_ms = time_ms(lambda: step_pl(s_pl, batches[0]), iters=6)
+            print(f"dp step (one NCCL rank) {dp_ms:.3f} ms, single step "
+                  f"{pl_ms:.3f} ms (median of 6 after 2 warm-up) {tag}")
+
+            s_m = state_lib.init_state(tcfg, 0, dev)
+            multi = dp.make_dp_train_multi_step(tcfg, s_m.net,
+                                                steps_per_call=DP_STEPS)
+            reset_counts()
+            s_m, mm = multi(s_m, dp.stack_batches(batches))
+            n = read_counts()
+            seq = []
+            for b in batches:
+                s_s, m = single(s_s, b)
+                seq.append(m["total_loss"].item())
+            chain = mm["total_loss"].tolist()
+            rels = [abs(a - b) / abs(b) for a, b in zip(chain, seq)]
+            fmt = " ".join
+            print(f"steps_per_call={DP_STEPS}: K1 launches {n['sweep']}, "
+                  f"losses {fmt(f'{v:.4f}' for v in chain)} vs {DP_STEPS} "
+                  f"single steps {fmt(f'{v:.4f}' for v in seq)}, rel worst "
+                  f"{max(rels):.3e} (tol {DP_CHAIN_TOL:.0e})")
+            check(s_m.step == s_s.step == DP_STEPS
+                  and n["sweep"] == DP_STEPS and max(rels) <= DP_CHAIN_TOL,
+                  "chained steps vs single steps")
+            stacked = dp.stack_batches(batches)
+            c_ms = time_ms(lambda: multi(s_m, stacked), iters=3, warmup=1)
+            print(f"chained call of {DP_STEPS} steps {c_ms:.3f} ms "
+                  f"({c_ms / DP_STEPS:.3f} ms a step) {tag}")
+        finally:
+            dist.destroy_process_group()
+
+
+def sharded_hres_path(dev, tag, cfg, hargs, depths, rng, reset_counts,
+                      read_counts, gate, gate_e2e, k5_ms):
+    """Path 15d: the test CLI's 4096x2048 re-render (path 3's request) in
+    SHELL_BLOCKS contiguous shell blocks on the one card
+    (build_hres_render_fn(shards=SHELL_BLOCKS): per block one K1 launch
+    over its planes, the prepared assembly and one partial-mode launch;
+    then combine_partials), against the unsharded render (one K5 launch)
+    within 1e-5 and the all-plain f32 re-render within E2E_TOL; then the
+    partial mode on one block's shapes (BLOCK_SHELLS shells at 4096x2048,
+    bf16 and f32 stacks, the first block, with global shell 0, and an
+    inner one) against its plain version (partial_composite) fed the
+    kernel's lookups, 1e-5; its time, bound and plain time. Returns the
+    partial mode's row of the kernels line."""
+    from matryodshka_tpu_torch.cli import test as cli_test
+    from matryodshka_tpu_torch.geometry import render as render_lib
+    from matryodshka_tpu_torch.ops import render as render_ops
+    from matryodshka_tpu_torch.ops import render_layers as rl_ops
+
+    hh, hw = cfg.hres_height, cfg.hres_width
+    p = cfg.num_psv_planes
+    sharded = cli_test.build_hres_render_fn(cfg, shards=SHELL_BLOCKS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rgb, depth = sharded(*hargs)
+    n = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"launches of the {hw}x{hh} re-render in {SHELL_BLOCKS} shell "
+          f"blocks: {n}")
+    check(n["sweep"] == SHELL_BLOCKS
+          and n["render_layers_partial"] == SHELL_BLOCKS
+          and n["render_layers"] == 0 and n["uv_tables"] == 0,
+          "sharded re-render: one K1 and one partial-mode launch a block")
+    whole = cli_test.build_hres_render_fn(cfg)(*hargs)
+    gate("render_layers_partial", f"{SHELL_BLOCKS} blocks vs K5", rgb,
+         whole[0], 1e-5)
+    gate("render_layers_partial", f"{SHELL_BLOCKS} blocks vs K5 (depth)",
+         depth, whole[1], 1e-5)
+    err = max((rgb - whole[0]).abs().max().item(),
+              (depth - whole[1]).abs().max().item())
+    rgb_p, depth_p = cli_test.hres_render_plain(
+        cfg, hargs[0], hargs[1], hargs[2], hargs[3], hargs[7], hargs[8])
+    gate_e2e(f"hres {hw}x{hh} in {SHELL_BLOCKS} shell blocks",
+             {"output_image": rgb, "output_depth": depth},
+             {"output_image": rgb_p, "output_depth": depth_p})
+    del rgb, depth, whole, rgb_p, depth_p
+    eye = torch.eye(4, device=dev)[None]
+    tgt = hargs[8]
+    for dtype, p0 in ((torch.bfloat16, 0), (torch.bfloat16, BLOCK_SHELLS),
+                      (torch.float32, BLOCK_SHELLS)):
+        stack = random_stack(rng, BLOCK_SHELLS, hh, hw, dev).to(dtype)
+        radii = depths[p0:p0 + BLOCK_SHELLS].contiguous()
+        u, v = render_ops.uv_project(eye, tgt, radii, hh, hw)
+        want = rl_ops.render_layers_partial_plain(stack, u, v, p0, p)
+        del u, v
+        got = rl_ops.render_layers_partial(stack, eye, tgt, radii, p0, p)
+        for name, g, wnt in zip(("", " (depth)", " (T)"), got, want):
+            gate("render_layers_partial", f"{hw}x{hh}x{BLOCK_SHELLS} "
+                 f"{str(dtype)[6:]} p0 {p0}{name}", g, wnt, 1e-5)
+            err = max(err, (g - wnt).abs().max().item())
+        del want, got
+    fn = functools.partial(rl_ops.render_layers_partial, stack.to(
+        torch.bfloat16), eye, tgt, radii, BLOCK_SHELLS, p)
+    del stack
+    st = fn.args[0]
+    # CUDA events, as K5's k5_ms: the launch takes ~0.9 ms, far longer
+    # than its launch path
+    k_ms = time_ms(fn, iters=5)
+
+    def plain():
+        uu, vv = render_lib.uv_tables(eye, tgt, radii, hh, hw)
+        return rl_ops.render_layers_partial_plain(st, uu, vv, BLOCK_SHELLS, p)
+
+    p_ms = time_ms(plain, iters=1, warmup=1)
+    bnd = bound(nbytes(st) + (3 + 3 + 1) * 4 * hh * hw + nbytes(eye, tgt,
+                                                                radii),
+                (OPS_RENDER_BOTH + 1 + OPS_SHELL_UV) * BLOCK_SHELLS * hh * hw,
+                F32_FLOPS)
+    print(f"kernel render_layers_partial {hw}x{hh}x{BLOCK_SHELLS} bf16 "
+          f"{k_ms:.4f} ms per launch (CUDA events); {SHELL_BLOCKS} blocks "
+          f"{SHELL_BLOCKS * k_ms:.4f} ms against K5's {k5_ms:.4f} ms (CUDA "
+          f"events) for all {p} shells; plain {p_ms:.3f} ms; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}) {tag}")
+    e_sh = time_ms(lambda: sharded(*hargs), iters=3, warmup=1)
+    print(f"hres {hw}x{hh} in {SHELL_BLOCKS} shell blocks e2e {e_sh:.3f} ms "
+          f"(median of 3); peak {peak / 2**30:.3f} GiB {tag}")
+    return {"name": "render_layers_partial", "route": "cuda",
+            "source": "matryodshka_tpu_torch/csrc/render_layers.cu",
+            "replaces": "matryodshka_tpu/ops/pallas_render.py:132",
+            "launches": n["render_layers_partial"],
+            "launches_per_frame": n["render_layers_partial"],
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+
 def probe_path(dev, tag):
     """Path 6: the lowering probes, `python -m
     matryodshka_tpu_torch.tools.probes` as its main(), the launch counts
@@ -2796,6 +3205,9 @@ def main() -> None:
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} {tag}")
+    # path 15's mesh, generated beside the build unless cached
+    mesh_cfg = entry.flagship_cfg(gcn=True, subdiv=GCN_SUBDIV)
+    mesh_proc = start_mesh_generation(mesh_cfg)
 
     # ---- build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2809,6 +3221,8 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
     kernel_build_report(so)
+    finish_mesh_generation(mesh_proc, mesh_cfg, tag, time.perf_counter())
+    lap("build and path 15's mesh")
 
     # ---- flagship operands -------------------------------------------------
     cfg = entry.flagship_cfg()
@@ -2820,7 +3234,8 @@ def main() -> None:
             "render": 0.0, "render_depth": 0.0, "render_layers_k4": 0.0,
             "render_layers_k5": 0.0, "render_layers_k6": 0.0,
             "wrap_conv_k7a": 0.0, "wrap_conv_k7b": 0.0,
-            "wrap_conv_k7c": 0.0, "wrap_conv_wgrad": 0.0}
+            "wrap_conv_k7c": 0.0, "wrap_conv_wgrad": 0.0,
+            "render_layers_partial": 0.0}
 
     def gate(name, what, got, want, tol_abs):
         err = (got.float() - want.float()).abs().max().item()
@@ -2942,7 +3357,7 @@ def main() -> None:
                 layer_stack_gates(gate, name, f"{what} {str(st.dtype)[6:]}",
                                   st, target, u, v, ftb)
 
-    lap("build and kernel gates")
+    lap("kernel gates")
 
     # ---- the slice: three requests through entry.forward -----------------
     mods = {"sweep": sweep_ops, "conv": conv_ops, "layernorm": ln_ops,
@@ -3019,6 +3434,7 @@ def main() -> None:
         render_lib.uv_builds = 0
         conv_ops.coord_launches = 0
         sweep_lib.gather_sweeps = 0
+        rl_ops.partial_launches = 0
 
     def read_counts():
         torch.cuda.synchronize()
@@ -3029,6 +3445,7 @@ def main() -> None:
         got["uv_tables"] = render_lib.uv_builds
         got["conv_coord"] = conv_ops.coord_launches
         got["gather_sweep"] = sweep_lib.gather_sweeps
+        got["render_layers_partial"] = rl_ops.partial_launches
         return got
 
     def gate_e2e(what, got, want):
@@ -3631,6 +4048,23 @@ def main() -> None:
     hres_schemes_path(dev, tag, cli, cli_outs, hres_images, reset_counts,
                       read_counts, gate_e2e)
     lap("path 14")
+
+    # ---- path 15: the GCN, data parallelism, the sharded re-render -------
+    gcn_launches = gcn_path(dev, tag, reset_counts, read_counts, gate_e2e)
+    rows.append(sharded_hres_path(
+        dev, tag, c0, hargs, params.psv_depths, rng, reset_counts,
+        read_counts, gate, gate_e2e, kernel_ms["render_layers_k5"]))
+    dp_path(dev, tag, reset_counts, read_counts)
+    for r in rows:
+        if r["name"] in ("sweep", "render", "render_depth",
+                         "render_layers_k4"):
+            key = {"render_layers_k4": "render_layers"}.get(r["name"],
+                                                            r["name"])
+            r["launches_gcn_requests"] = sum(
+                gcn_launches[k][key] for k in ("blend_psv", "blend_bg"))
+        if r["name"] == "sweep":
+            r["launches_gcn_train"] = gcn_launches["train"]["sweep"]
+    lap("path 15")
     print("walls, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; the whole run {time.perf_counter() - t_run:.1f} {tag}")
 

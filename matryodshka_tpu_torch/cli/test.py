@@ -43,6 +43,21 @@ view at tgt_pose @ ref_pose_inv (homography warps, plain PyTorch), written
 as output_tgt_*; there is no depth output, and psp, src_output_image,
 ref_output_image and high_res are ODS outputs, as in the JAX CLI.
 
+The GCN (`--gcn true --subdiv S --mesh_dir DIR`, JAX cli/test.py:57-70):
+the per-vertex sweep and the GCN (plain PyTorch: the JAX package runs
+them in XLA), mesh_to_equirect, then the sweep kernel for the pixel-grid
+volume and the same renders as the U-Net's (render.cu for blend_psv, the
+prepared assembly and render_layers.cu for the other schemes), in
+float32 as JAX infer_gcn_msi assembles.
+
+`--shard_shells true` in a process group (the CLI started as ranks by
+`torchrun --nproc_per_node N`; NCCL, one card a rank, or gloo with
+`--device cpu`): rank 0 writes the low-res outputs, then every rank
+sweeps, assembles and renders its contiguous block of the high-res
+shells (the layer-stack kernel's partial mode), the partials are
+all_gathered and combined, and rank 0 writes the view. In one process
+the flag is ignored, as the JAX CLI ignores it on one device.
+
 The net's weights come from `--params`, an .npz of the flax parameter tree
 (training/checkpoint.py; `python -m matryodshka_tpu_torch.tf_import` writes
 one from a reference TF checkpoint), or, as in the JAX CLI, from the latest
@@ -57,6 +72,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from matryodshka_tpu_torch import entry
 from matryodshka_tpu_torch.config import (MatryConfig, add_config_args,
@@ -70,6 +86,7 @@ from matryodshka_tpu_torch.ops import render as render_ops
 from matryodshka_tpu_torch.ops import render_layers as rl_ops
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
 from matryodshka_tpu_torch.ops.resample import resample_layers_uv
+from matryodshka_tpu_torch.parallel import mesh, sharded_render
 from matryodshka_tpu_torch.training.checkpoint import (CheckpointManager,
                                                        restore_params)
 
@@ -108,8 +125,13 @@ def build_infer_fn(cfg: MatryConfig, params: entry.Params,
 
     @torch.no_grad()
     def infer(batch):
-        pouts = msi_lib.infer_msi_prepared(cfg, params.stages, batch,
-                                           params.psv_depths)
+        if cfg.gcn:
+            pouts = msi_lib.infer_gcn_prepared(cfg, params.net, batch,
+                                               params.psv_depths,
+                                               *params.gcn_inputs)
+        else:
+            pouts = msi_lib.infer_msi_prepared(cfg, params.stages, batch,
+                                               params.psv_depths)
         vol, pred = pouts["vol"], pouts["pred"]
         outs = {}
         if any(k in test_outputs for k in
@@ -164,7 +186,7 @@ def _build_gather_infer_fn(cfg: MatryConfig, params: entry.Params,
 
     @torch.no_grad()
     def infer(batch):
-        asm = msi_lib.infer_msi(params.net, cfg, batch, params.psv_depths)
+        asm = _reference_assembly(cfg, params, batch)
         rgba = asm["rgba_layers"]
         outs = _assembly_outputs(asm, test_outputs)
         if cfg.input_type != "ODS":
@@ -186,6 +208,17 @@ def _build_gather_infer_fn(cfg: MatryConfig, params: entry.Params,
         return outs
 
     return infer
+
+
+def _reference_assembly(cfg: MatryConfig, params: entry.Params, batch,
+                        dtype=None):
+    """The reference path's assembly: msi_lib.infer_gcn_msi with cfg.gcn,
+    else msi_lib.infer_msi (dtype overriding the net's compute dtype)."""
+    if cfg.gcn:
+        return msi_lib.infer_gcn_msi(params.net, cfg, batch,
+                                     params.psv_depths, *params.gcn_inputs)
+    return msi_lib.infer_msi(params.net, cfg, batch, params.psv_depths,
+                             dtype=dtype)
 
 
 def _assembly_outputs(asm, test_outputs: str):
@@ -222,13 +255,12 @@ def rerender(cfg: MatryConfig, rgba_layers, batch, msi_depths,
 def infer_plain(cfg: MatryConfig, params: entry.Params, batch):
     """build_infer_fn's output_image and output_depth with every kernel
     replaced by its plain version, in float32: ods_sweep_plain, the plain
-    MSIUNet, then render_blend_plain (blend_psv) or the prepared assembly
-    and render_layers_plain. For PP and REALESTATE_PP, output_image of
-    msi_lib.infer_msi (the gather sweep and the plain MSIUNet) and the MPI
-    render."""
+    MSIUNet (or gcn_predict), then render_blend_plain (blend_psv) or the
+    prepared assembly and render_layers_plain. For PP and REALESTATE_PP,
+    output_image of msi_lib.infer_msi (the gather sweep and the plain
+    MSIUNet) and the MPI render."""
     if cfg.input_type != "ODS":
-        asm = msi_lib.infer_msi(params.net, cfg, batch, params.psv_depths,
-                                dtype=torch.float32)
+        asm = _reference_assembly(cfg, params, batch, dtype=torch.float32)
         return {"output_image": msi_lib.deprocess_image(
             msi_lib.render_mpi_view(asm["rgba_layers"],
                                     msi_lib.mpi_view_pose(batch),
@@ -238,7 +270,11 @@ def infer_plain(cfg: MatryConfig, params: entry.Params, batch):
         msi_lib.preprocess_image(batch["src_image"]), params.psv_depths,
         batch["intrinsics"])
     vol = sweep_ops.ods_sweep_plain(images, rowp, torch.float32)
-    pred = params.net(vol, dtype=torch.float32)
+    if cfg.gcn:
+        pred = msi_lib.gcn_predict(params.net, batch, params.psv_depths,
+                                   *params.gcn_inputs)
+    else:
+        pred = params.net(vol, dtype=torch.float32)
     u, v = render_lib.uv_tables(_eye(vol.shape[0], vol.device),
                                 batch["tgt_pose"], params.msi_depths,
                                 cfg.height, cfg.width)
@@ -279,7 +315,7 @@ def hres_inputs(which_color_pred: str):
             + (("bg_rgb",) if assembly == "blend_bg" else ()))
 
 
-def build_hres_render_fn(cfg: MatryConfig):
+def build_hres_render_fn(cfg: MatryConfig, shards: int = 1):
     """High-res re-render with the semantics of the JAX
     build_hres_render_fn_fused (cli/test.py:178-229) and, per scheme, the
     colour rule of HRES_ASSEMBLY: the identity-pose dual sweep at
@@ -288,6 +324,16 @@ def build_hres_render_fn(cfg: MatryConfig):
     upsampled (align corners), the high-res prepared assembly, and the
     layer-stack render of colour and depth (on the card one launch for
     both) with the PSV depths as radii.
+
+    shards > 1: the shells split into that many contiguous back-to-front
+    blocks (JAX build_hres_render_fn with a 'shell' mesh, cli/test.py:
+    241-330; parallel/sharded_render.py): each block is swept (one sweep
+    launch over its planes), assembled and rendered by the layer-stack
+    kernel's partial mode (one launch: partial colour, depth and
+    transmittance), and the blocks' partials are combined
+    (combine_partials). In a process group of `shards` ranks each rank
+    renders its own block and the partials are all_gathered, so every
+    rank returns the view; in one process it renders every block in turn.
 
     render(hres_ref, hres_src, blend_weights, alphas, ref_pose, src_pose,
     ref_pose_inv, intrinsics, tgt_pose, bg_rgb=None) -> (rgb [B, Hh, Wh, 3]
@@ -309,6 +355,10 @@ def build_hres_render_fn(cfg: MatryConfig):
                 tgt_pose, poses=(ref_pose, src_pose, ref_pose_inv),
                 bg_rgb=bg_rgb)
         return render_gather
+    blocks = sharded_render.shell_blocks(p, shards)
+    rank, world = mesh.rank_and_size()
+    if world > 1 and world != shards:
+        raise ValueError(f"{shards} shell blocks over {world} ranks")
 
     @torch.no_grad()
     def render(hres_ref, hres_src, blend_weights, alphas, ref_pose,
@@ -320,16 +370,37 @@ def build_hres_render_fn(cfg: MatryConfig):
         up = msi_lib.upsample_align_corners_cf(torch.cat(
             [low[k] for k in hres_inputs(cfg.which_color_pred)],
             dim=-1).permute(0, 3, 1, 2), hh, hw)
-        u_blend = up[:, p:2 * p] if assembly != "alpha_only" else None
         u_bg = up[:, 2 * p:] if assembly == "blend_bg" else None
-        vol = sweep_ops.sweep_volume(hres_ref, hres_src, depths, intrinsics,
-                                     out_dtype=dtype)
-        layers = msi_lib.assemble_hres_prepared(
-            assembly, u_blend, up[:, :p], vol, u_bg_rgb=u_bg, dtype=dtype)
-        del up, u_blend, u_bg, vol
-        rgb, depth = render_lib.render_equirect_view_prepared_both(
-            layers, _eye(layers.shape[0], layers.device), tgt_pose, depths)
-        return msi_lib.deprocess_image(rgb), depth
+        eye = _eye(hres_ref.shape[0], hres_ref.device)
+
+        def block(p0, p1):
+            """The prepared layer stack of shells p0 .. p1-1 [B, p1-p0, 4,
+            Hh, Wh]: their sweep (one launch) and assembly."""
+            vol = sweep_ops.sweep_volume(hres_ref, hres_src, depths[p0:p1],
+                                         intrinsics, out_dtype=dtype)
+            u_blend = (up[:, p + p0:p + p1] if assembly != "alpha_only"
+                       else None)
+            return msi_lib.assemble_hres_prepared(
+                assembly, u_blend, up[:, p0:p1], vol, u_bg_rgb=u_bg,
+                dtype=dtype)
+
+        if shards == 1:
+            layers = block(0, p)
+            del up, u_bg
+            rgb, depth = render_lib.render_equirect_view_prepared_both(
+                layers, eye, tgt_pose, depths)
+            return msi_lib.deprocess_image(rgb), depth
+        mine = [blocks[rank]] if world > 1 else blocks
+        parts = [rl_ops.render_layers_partial(block(p0, p1), eye, tgt_pose,
+                                              depths[p0:p1], p0, p)
+                 for p0, p1 in mine]
+        del up, u_bg
+        if world > 1:
+            c, d, t = sharded_render.gather_partials(parts[0])
+        else:
+            c, d, t = (torch.stack(x) for x in zip(*parts))
+        return (msi_lib.deprocess_image(sharded_render.combine_partials(c, t)),
+                sharded_render.combine_partials(d, t))
 
     return render
 
@@ -473,12 +544,16 @@ def main(argv=None):
     cfg = config_from_args(args)
     if cfg.batch_size != 1:
         raise ValueError("batch_size must be 1 when testing")
-    if cfg.shard_shells and torch.cuda.device_count() > 1:
-        raise NotImplementedError("shard_shells over several cards: the "
-                                  "shell-sharded high-res render is ROADMAP "
-                                  "Queue 1 item 9")
-    # On one device the JAX CLI ignores shard_shells (cli/test.py:452).
     device = torch.device(args.device)
+    rank, world = 0, 1
+    if cfg.shard_shells:
+        # started as ranks (torchrun): the high-res shells split over
+        # them; in one process the JAX CLI's one-device case, ignored
+        # (cli/test.py:452)
+        rank_device = mesh.init_from_env(device.type)
+        if rank_device is not None:
+            device = rank_device
+            rank, world = mesh.rank_and_size()
 
     if args.params:
         tree, step = restore_params(args.params)
@@ -490,16 +565,17 @@ def main(argv=None):
     params = entry.make_params(cfg, flax_params=tree, device=device)
 
     out_root = os.path.join(cfg.output_root, cfg.experiment_name)
-    os.makedirs(out_root, exist_ok=True)
-    with open(os.path.join(out_root, "step.txt"), "w") as fh:
-        fh.write(str(step))
+    if rank == 0:
+        os.makedirs(out_root, exist_ok=True)
+        with open(os.path.join(out_root, "step.txt"), "w") as fh:
+            fh.write(str(step))
 
     video = "on_video" in args.test_type
     outputs = args.test_outputs
     if cfg.which_color_pred == "blend_bg" and "blend_weights" in outputs:
         # blend_bg's high-res re-render also reads its background colour
         outputs += "_bg_rgb"
-    if "high_res_only" not in args.test_type:
+    if "high_res_only" not in args.test_type and rank == 0:
         loader = make_loader(cfg, training=False)
         infer = build_infer_fn(cfg, params, outputs)
         for run, batch in enumerate(loader.batches()):
@@ -516,8 +592,13 @@ def main(argv=None):
         if cfg.input_type != "ODS":
             raise ValueError("high_res re-renders an ODS MSI (JAX "
                              "cli/test.py:447)")
+        if world > 1:
+            dist.barrier()      # rank 0's low-res outputs are written
+            if rank == 0:
+                print(f"[test] sharding {cfg.num_psv_planes} shells over "
+                      f"{world} ranks")
         loader = OdsLoader(cfg, training=False, load_hres=True)
-        render = build_hres_render_fn(cfg)
+        render = build_hres_render_fn(cfg, shards=world)
         for run, batch in enumerate(loader.batches()):
             if 0 <= args.num_runs <= run:
                 break
@@ -532,6 +613,8 @@ def main(argv=None):
                                 t["ref_pose"], t["src_pose"],
                                 t["ref_pose_inv"], t["intrinsics"],
                                 t["tgt_pose"], bg_rgb=low.get("bg_rgb"))
+            if rank:
+                continue
             print(f"[test] saving hres render to {out_dir}")
             write_image(f"{out_dir}/output_hrestgt_{dirname}.png",
                         _to_numpy(rgb[0]) * 255.0)

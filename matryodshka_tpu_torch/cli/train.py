@@ -24,7 +24,12 @@ aside; `data/synthetic.make_perspective_fixture` and
 `--realestate --frames 91`: the training loader admits clips of at least
 91 frames).
 
-Every option of the JAX trainer but the GCN and data parallelism:
+Every option of the JAX trainer: `--gcn true` (the GCN head on an
+icosphere of `--subdiv` subdivisions, its mesh generated into, or read
+from, `--mesh_dir`), `--num_data_shards K` (K data-parallel ranks, the
+gradients summed over ranks; started here as K processes, gloo on the
+CPU and NCCL on cards, one card a rank, or joined from `torchrun`'s
+environment), `--steps_per_call K`,
 `--supervision` with `src`, `ref` and `hrestgt` (the last reads the
 4096x2048 images from `--hres_image_dir`; a fixture's `--image_dir` does,
 the loader resizes), `--remat_network`, `--param_dtype bfloat16`,
@@ -44,13 +49,14 @@ the loader resizes), `--remat_network`, `--param_dtype bfloat16`,
 `--device` is `cuda` by default; without a card that raises rather than
 running on the CPU. The checkpoint's `<checkpoint_dir>/<experiment_name>/
 <step>/params.npz` is what the test CLI's `--params` reads.
-`--steps_per_call > 1` is not ported (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -62,6 +68,7 @@ from matryodshka_tpu_torch.data.loader import device_prefetch, make_loader
 from matryodshka_tpu_torch.geometry import render as render_lib
 from matryodshka_tpu_torch.geometry import sweep as sweep_lib
 from matryodshka_tpu_torch.models import msi as msi_lib
+from matryodshka_tpu_torch.parallel import dp, mesh
 from matryodshka_tpu_torch.training.checkpoint import CheckpointManager
 from matryodshka_tpu_torch.training import loop as loop_lib
 from matryodshka_tpu_torch.training import state as state_lib
@@ -179,18 +186,51 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dry_run_inference", action="store_true")
     parser.add_argument("--profile_steps", type=str, default=None,
                         help="'start,stop' step window for torch.profiler")
-    parser.add_argument("--steps_per_call", type=int, default=1)
+    parser.add_argument("--steps_per_call", type=int, default=1,
+                        help="K train steps a call on K stacked batches "
+                             "(a loop of single steps; the same result as "
+                             "K calls)")
     return parser
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device here (pass "
                            "--device cpu to train on the CPU)")
+    dry = args.dry_run or args.dry_run_inference
+    if cfg.num_data_shards > 1 and not dry:
+        rank_device = mesh.init_from_env(device.type)
+        if rank_device is None:
+            # not started as a rank: start num_data_shards of them here
+            with tempfile.TemporaryDirectory() as d:
+                mesh.run_ranks(_train_rank, cfg.num_data_shards,
+                               os.path.join(d, "store"), device.type,
+                               args=(argv,), timeout=None)
+            return
+        _, world = mesh.rank_and_size()
+        if world != cfg.num_data_shards:
+            raise ValueError(f"num_data_shards {cfg.num_data_shards} in a "
+                             f"process group of {world} ranks")
+        device = rank_device
+    run(cfg, args, device)
 
+
+def _train_rank(rank, world, argv):
+    """One data-parallel rank of main (parallel/mesh.run_ranks)."""
+    args = build_parser().parse_args(argv)
+    run(config_from_args(args), args,
+        mesh.rank_device(torch.device(args.device).type, rank))
+
+
+def run(cfg, args, device):
+    """Train cfg on device: the single-device step, or in a process group
+    of cfg.num_data_shards ranks this rank's data-parallel step on its
+    shard of each global batch (training/step.make_train_step); with
+    --steps_per_call K > 1 K steps a call (training/loop.train)."""
     loader = make_loader(cfg, training=True)
     print(f"[train] {len(loader.sequences)} sequences on {device}")
     if args.dry_run or args.dry_run_inference:
@@ -212,13 +252,22 @@ def main(argv=None):
                   "features (no elpips_weight_path) — loss values are "
                   "not the calibrated perceptual distance; metrics "
                   "records carry elpips_calibrated=false")
-    step_fn = make_train_step(cfg, state.net, elpips=elpips)
+    rank, world = mesh.rank_and_size()
+    k = max(1, args.steps_per_call)
+    step_fn = make_train_step(cfg, state.net, elpips=elpips,
+                              gcn_inputs=state.gcn_inputs)
+    if world > 1 or k > 1:
+        print(f"[train] {k} step(s) a call, data-parallel over {world} "
+              f"rank(s)")
+    batches = (dp.shard_batch(b, rank, world) for b in loader.batches())
+    # as the JAX trainer, no image summaries for the GCN
+    image_fn = None if cfg.gcn else make_image_summary_fn(cfg, state.net,
+                                                          elpips)
     loop_lib.train(cfg, state, step_fn,
-                   device_prefetch(loader.batches(), size=2, device=device),
-                   image_summary_fn=make_image_summary_fn(cfg, state.net,
-                                                          elpips),
+                   device_prefetch(batches, size=2, device=device),
+                   image_summary_fn=image_fn,
                    profile_steps=profile_steps,
-                   steps_per_call=args.steps_per_call,
+                   steps_per_call=k,
                    static_log_fields=static_log_fields)
 
 

@@ -79,6 +79,8 @@ class MatryConfig:
     tr_factor: float = 1.0
 
     # --- GCN variant ----------------------------------------------------------
+    #: The GCN head on an icosphere of subdiv subdivisions (models/gcn.py)
+    #: in place of the U-Net; its mesh is cached under mesh_dir.
     gcn: bool = False
     subdiv: int = 7
     mesh_dir: str = "glob/train/gcn"
@@ -92,7 +94,8 @@ class MatryConfig:
     elpips_host_scale: bool = field(default=False, metadata={
         "help": "parsed for the JAX package's flags and ignored: the "
                 "port's E-LPIPS draws (scale, swap) on the host at every "
-                "step and evaluates that level alone"})
+                "step, each of the chained steps of --steps_per_call "
+                "included, and evaluates that level alone"})
 
     # --- numerics / parallelism -------------------------------------------------
     compute_dtype: str = "bfloat16"
@@ -107,7 +110,13 @@ class MatryConfig:
     #: Recompute the U-Net's activations in the backward pass
     #: (torch.utils.checkpoint; JAX step.py:76-81).
     remat_network: bool = False
+    #: Data-parallel ranks of the trainer (parallel/dp.py: one process a
+    #: rank, the gradients summed over ranks); batch_size is the global
+    #: batch and must divide evenly across them.
     num_data_shards: int = 1
+    #: The test CLI's high-res re-render split into contiguous shell
+    #: blocks over the ranks of a process group (parallel/sharded_render.py);
+    #: ignored in a single process, as the JAX CLI ignores it on one device.
     shard_shells: bool = False
 
     # --- export -------------------------------------------------------------
@@ -197,18 +206,33 @@ class MatryConfig:
                 f"hrestgt supervision with input_type {self.input_type}: "
                 f"the high-res target is an ODS render (JAX step.py:130), "
                 f"and the PP and RealEstate loaders read no high-res images")
-        if self.num_data_shards > 1:
-            raise NotImplementedError("num_data_shards > 1: data-parallel "
-                                      "training is ROADMAP Queue 1 item 9")
-        check_trainable(self)
+        if self.num_data_shards < 1 or self.batch_size % self.num_data_shards:
+            raise ValueError(
+                f"batch_size {self.batch_size} must divide evenly across "
+                f"num_data_shards {self.num_data_shards} data shards (JAX "
+                f"cli/train.py:253-254)")
+        if self.gcn:
+            check_gcn(self)
         return self
 
 
-def check_trainable(cfg: MatryConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a training
-    option whose code is not ported yet: the GCN."""
-    if cfg.gcn:
-        raise NotImplementedError("gcn: the GCN is ROADMAP Queue 1 item 8")
+def check_gcn(cfg: MatryConfig) -> None:
+    """Raise ValueError for what the GCN cannot train, as the JAX package
+    cannot either: the transform-inverse regularizer (JAX step.py:84-87:
+    the reference jitters only the CNN path), the high-res target (JAX
+    infer_gcn_msi makes no high-res layers) and input other than ODS (the
+    GCN's vertex sweep projects ODS eyes)."""
+    if cfg.transform_inverse_reg:
+        raise ValueError("gcn with transform_inverse_reg: the GCN path does "
+                         "not support the transform-inverse regularizer "
+                         "(JAX training/step.py:84-87; the reference "
+                         "jitters only the CNN path)")
+    if cfg.supervise_hrestgt:
+        raise ValueError("gcn with hrestgt supervision: JAX infer_gcn_msi "
+                         "makes no high-res layers")
+    if cfg.input_type != "ODS":
+        raise ValueError(f"gcn with input_type {cfg.input_type}: the GCN's "
+                         f"vertex sweep projects ODS eyes")
 
 
 def add_config_args(parser: argparse.ArgumentParser) -> None:

@@ -62,6 +62,18 @@
 // shared), pos [B, 3] f32, radii [P] f32, lat [H] and lon [W]
 // (lat_long_grid's vectors); outputs rgb and depth [B, H, W, 3] f32, a
 // null pointer for an output not wanted.
+//
+// The partial mode (matry_render_layers_partial; PARTIAL=true, back to
+// front, both outputs) renders one contiguous block of shells of a larger
+// stack, for the shell-sharded high-res render
+// (parallel/sharded_render.py): the stack's P shells are global shells
+// p0 .. p0+P-1 of p_total, so the depth value is (p0 + p) / p_total and
+// the alpha is taken as 1 only for global shell 0; beside the partial
+// colour and depth it writes the block's transmittance T = prod(1 - a)
+// [B, H, W]. combine_partials then composites the blocks' partials: the
+// over operator's associativity (JAX parallel/sharded_render.py). With
+// p0 = 0 and p_total = P the partial colour and depth are the full
+// render's, bit for bit.
 
 #include "project.cuh"
 
@@ -128,11 +140,12 @@ __device__ __forceinline__ Sample sample_shell(const TL* __restrict__ lp,
   return s;
 }
 
-template <typename TL, bool FTB, bool RGB, bool DEPTH>
+template <typename TL, bool FTB, bool RGB, bool DEPTH, bool PARTIAL>
 __global__ void __launch_bounds__(TILE_X* TILE_Y)
     render_layers_kernel(const TL* __restrict__ layers, matry::Geo g,
                          float* __restrict__ rgb_out,
-                         float* __restrict__ depth_out, float eps) {
+                         float* __restrict__ depth_out, float eps, int p0,
+                         int p_total, float* __restrict__ t_out) {
   const int j = blockIdx.x * TILE_X + threadIdx.x;
   const int i = blockIdx.y * TILE_Y + threadIdx.y;
   const int b = blockIdx.z;
@@ -144,7 +157,7 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y)
                                          g.pos + b * g.pos_stride, g.lat[i],
                                          g.lon[j]);
   const TL* lb = layers + (long long)b * P * 4 * hw;
-  const float inv_p = 1.f / (float)P;
+  const float inv_p = 1.f / (float)p_total;
 
   // SHELLS shells a step: their samples are taken before any of them is
   // composited, so their projections and tap loads overlap (the front-to-
@@ -158,14 +171,14 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y)
     for (int k = 0; k < SHELLS; ++k) {
       const int s = min(s0 + k, P - 1);  // a ragged last step repeats
       const int p = FTB ? P - 1 - s : s;
-      sm[k] = sample_shell<TL, RGB>(lb + p * 4 * hw, hw, p, q, g.radii[p],
-                                    m, W, H);
+      sm[k] = sample_shell<TL, RGB>(lb + p * 4 * hw, hw, p0 + p, q,
+                                    g.radii[p], m, W, H);
     }
 #pragma unroll
     for (int k = 0; k < SHELLS; ++k) {
       if (s0 + k >= P || done) break;
       const int p = FTB ? P - 1 - (s0 + k) : s0 + k;
-      const float sa = sm[k].a, sd = (float)p * inv_p;
+      const float sa = sm[k].a, sd = (float)(p0 + p) * inv_p;
       if (FTB) {
         const float ta = __fmul_rn(T, sa);
         if (RGB) {
@@ -184,6 +197,7 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y)
           bl = fmaf(sm[k].b, sa, __fmul_rn(bl, keep));
         }
         if (DEPTH) d = fmaf(sd, sa, __fmul_rn(d, keep));
+        if (PARTIAL) T = __fmul_rn(T, keep);
       }
     }
   }
@@ -198,25 +212,29 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y)
     depth_out[o + 1] = d;
     depth_out[o + 2] = d;
   }
+  if (PARTIAL) t_out[(long long)b * hw + (long long)i * W + j] = T;
+}
+
+dim3 grid_of(const matry::Geo& g) {
+  return dim3((unsigned)((g.W + TILE_X - 1) / TILE_X),
+              (unsigned)((g.H + TILE_Y - 1) / TILE_Y), (unsigned)g.B);
 }
 
 template <typename TL, bool FTB>
 void launch(const void* layers, const matry::Geo& g, void* rgb, void* depth,
             float eps, cudaStream_t s) {
-  const dim3 grid((unsigned)((g.W + TILE_X - 1) / TILE_X),
-                  (unsigned)((g.H + TILE_Y - 1) / TILE_Y), (unsigned)g.B);
-  const dim3 block(TILE_X, TILE_Y);
+  const dim3 grid = grid_of(g), block(TILE_X, TILE_Y);
   const TL* l = (const TL*)layers;
   float *c = (float*)rgb, *d = (float*)depth;
   if (c && d)
-    render_layers_kernel<TL, FTB, true, true><<<grid, block, 0, s>>>(
-        l, g, c, d, eps);
+    render_layers_kernel<TL, FTB, true, true, false><<<grid, block, 0, s>>>(
+        l, g, c, d, eps, 0, g.P, nullptr);
   else if (c)
-    render_layers_kernel<TL, FTB, true, false><<<grid, block, 0, s>>>(
-        l, g, c, d, eps);
+    render_layers_kernel<TL, FTB, true, false, false><<<grid, block, 0, s>>>(
+        l, g, c, d, eps, 0, g.P, nullptr);
   else
-    render_layers_kernel<TL, FTB, false, true><<<grid, block, 0, s>>>(
-        l, g, c, d, eps);
+    render_layers_kernel<TL, FTB, false, true, false><<<grid, block, 0, s>>>(
+        l, g, c, d, eps, 0, g.P, nullptr);
 }
 
 }  // namespace
@@ -243,5 +261,28 @@ extern "C" int matry_render_layers(const void* layers, const void* pose,
     else
       launch<float, false>(layers, g, rgb, depth, eps, s);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int matry_render_layers_partial(
+    const void* layers, const void* pose, long long pose_stride,
+    const void* pos, long long pos_stride, const void* radii, const void* lat,
+    const void* lon, void* rgb, void* depth, void* trans, int B, int P,
+    int H, int W, int p0, int p_total, int layers_bf16, void* stream) {
+  if (!rgb || !depth || !trans || p0 < 0 || p0 + P > p_total)
+    return (int)cudaErrorInvalidValue;
+  const matry::Geo g = matry::make_geo(pose, pose_stride, pos, pos_stride,
+                                       radii, lat, lon, B, P, H, W);
+  const dim3 grid = grid_of(g), block(TILE_X, TILE_Y);
+  cudaStream_t s = (cudaStream_t)stream;
+  float *c = (float*)rgb, *d = (float*)depth, *t = (float*)trans;
+  if (layers_bf16)
+    render_layers_kernel<__nv_bfloat16, false, true, true, true>
+        <<<grid, block, 0, s>>>((const __nv_bfloat16*)layers, g, c, d, 0.f,
+                                p0, p_total, t);
+  else
+    render_layers_kernel<float, false, true, true, true>
+        <<<grid, block, 0, s>>>((const float*)layers, g, c, d, 0.f, p0,
+                                p_total, t);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 """Image IO: decode + area resize, and PNG writing.
 
-Copy of `matryodshka_tpu/data/images.py` without its native-runtime decode
-path (`data/native.py` is not carried over yet): PIL's BOX filter computes
-the fractional box average of the reference's tf.image.resize_area
-(datasets.py:507-519). PIL is imported inside the functions that need it,
-so the package imports where PIL is not installed.
+Copy of `matryodshka_tpu/data/images.py`: JPEGs decode through the native
+runtime (data/native.py) where it builds, as in the JAX package, else
+through PIL, whose BOX filter computes the fractional box average of the
+reference's tf.image.resize_area (datasets.py:507-519). PIL is imported
+inside the functions that need it, so the package imports where PIL is
+not installed.
 """
 
 from __future__ import annotations
@@ -14,9 +15,20 @@ import os
 import numpy as np
 
 
-def load_and_resize(path: str, height: int, width: int) -> np.ndarray:
+def load_and_resize(path: str, height: int, width: int,
+                    prefer_native: bool = True) -> np.ndarray:
     """Decode an image file and area-resize to (height, width).
-    Returns float32 [H, W, 3] in [0, 1]."""
+
+    JPEGs go through the native runtime (data/native.py) when it is
+    available, else, and for other files or a file it cannot decode,
+    through PIL. Returns float32 [H, W, 3] in [0, 1]."""
+    if prefer_native and path.lower().endswith((".jpg", ".jpeg")):
+        from matryodshka_tpu_torch.data import native
+        if native.native_available():
+            try:
+                return native.decode_resize(path, height, width)
+            except IOError:
+                pass  # PIL for odd files, as the JAX package does
     from PIL import Image
     with Image.open(path) as im:
         im = im.convert("RGB")

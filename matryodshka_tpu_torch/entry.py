@@ -10,12 +10,15 @@ reference-semantics path (general-pose gather sweep, plain MSIUNet,
 assembled layers, gather render) in float32. The ref and src poses of an
 ODS batch are identity (the ODS loaders fix them so), which the sweep
 kernel relies on; the target pose and position are free.
+`dryrun_multichip(n)` runs one data-parallel train step over n ranks.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +33,9 @@ from matryodshka_tpu_torch.models.unet import MSIUNet
 from matryodshka_tpu_torch.ops import net as net_ops
 from matryodshka_tpu_torch.ops import render as render_ops
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
+from matryodshka_tpu_torch.parallel import dp
+from matryodshka_tpu_torch.parallel.mesh import rank_device, run_ranks
+from matryodshka_tpu_torch.training.state import build_gcn, init_state
 
 
 def flagship_cfg(**kw) -> MatryConfig:
@@ -108,31 +114,39 @@ def mpi_poses(cfg: MatryConfig) -> Dict[str, np.ndarray]:
 class Params:
     """What a forward needs besides the batch."""
     cfg: MatryConfig
-    net: MSIUNet
+    #: the U-Net, or the GCN (cfg.gcn)
+    net: torch.nn.Module
     stages: List[Dict]           # kernel operands (ops.net.prepare)
     psv_depths: torch.Tensor
     msi_depths: torch.Tensor
+    #: the GCN's mesh (coords [V, 3], p2v [W, H, 3, 2]) with cfg.gcn
+    gcn_inputs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def make_params(cfg: MatryConfig, flax_params=None, seed: int = 0,
                 device="cuda") -> Params:
-    """Net of cfg's variant (cfg.coord_net, cfg.smoothed) from a flax
-    parameter tree (numpy leaves), or from weights.seeded_init(cfg, seed)
-    when none is given, on device (the card unless the caller asks for the
-    CPU)."""
+    """Net of cfg's variant (cfg.coord_net, cfg.smoothed; the GCN and its
+    mesh with cfg.gcn, which has no kernel stages) from a flax parameter
+    tree (numpy leaves), or from weights.seeded_init(cfg, seed) when none
+    is given, on device (the card unless the caller asks for the CPU)."""
     tree = weights.seeded_init(cfg, seed) if flax_params is None \
         else flax_params
-    net = MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
-                  dtype=cfg.torch_compute_dtype, variant=cfg.net_variant,
-                  smoothed=cfg.smoothed)
-    net.load_state_dict(weights.from_flax(tree))
-    net = net.to(device).eval()
 
     def depths(n):
         return torch.tensor(sweep_lib.inv_depths(cfg.min_depth,
                                                  cfg.max_depth, n),
                             dtype=torch.float32, device=device)
 
+    if cfg.gcn:
+        net, coords, p2v = build_gcn(cfg, device)
+        net.load_state_dict(weights.gcn_from_flax(tree))
+        return Params(cfg, net.eval(), [], depths(cfg.num_psv_planes),
+                      depths(cfg.num_msi_planes), (coords, p2v))
+    net = MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
+                  dtype=cfg.torch_compute_dtype, variant=cfg.net_variant,
+                  smoothed=cfg.smoothed)
+    net.load_state_dict(weights.from_flax(tree))
+    net = net.to(device).eval()
     return Params(cfg, net,
                   net_ops.prepare(net, cfg.torch_compute_dtype, cfg.height),
                   depths(cfg.num_psv_planes), depths(cfg.num_msi_planes))
@@ -189,3 +203,34 @@ def entry(device="cuda", seed: int = 0):
     cfg = flagship_cfg()
     return forward, (make_params(cfg, seed=seed, device=device),
                      synthetic_batch(cfg, seed, device))
+
+
+def dryrun_multichip(n: int) -> None:
+    """The port's counterpart of __graft_entry__.dryrun_multichip: one
+    full data-parallel train step (parallel/dp.py) over n ranks on tiny
+    shapes, with the transform-inverse regularizer, tgt_src_ref
+    supervision and the weight regularizer; each rank asserts a finite
+    loss and step 1. n NCCL ranks, one a card, where n cards exist, else
+    n gloo ranks on the CPU."""
+    device_type = "cuda" if torch.cuda.device_count() >= n else "cpu"
+    with tempfile.TemporaryDirectory() as d:
+        run_ranks(_dryrun_rank, n, os.path.join(d, "store"), device_type,
+                  args=(device_type,))
+
+
+def _dryrun_rank(rank: int, world: int, device_type: str) -> None:
+    device = rank_device(device_type, rank)
+    cfg = flagship_cfg(height=32, width=64, num_psv_planes=4,
+                       num_msi_planes=4, ngf=8, batch_size=max(world, 2),
+                       compute_dtype="float32", transform_inverse_reg=True,
+                       supervision="tgt_src_ref", wreg=True,
+                       num_data_shards=world)
+    state = init_state(cfg, 0, device)
+    step = dp.make_dp_train_step(cfg, state.net)
+    batch = dp.shard_batch(synthetic_batch(cfg, 0, device), rank, world)
+    state, metrics = step(state, batch)
+    loss = float(metrics["total_loss"])
+    assert np.isfinite(loss), loss
+    assert state.step == 1, state.step
+    print(f"[dryrun_multichip] rank {rank} of {world} ({device}): loss "
+          f"{loss:.6f}, step {state.step}")

@@ -43,7 +43,8 @@ def rotate_dirs(dirs, pose):
             R[2, 0] * x + R[2, 1] * y + R[2, 2] * z)
 
 
-def project_ods(points, order: int, intrinsics, width: int, height: int):
+def project_ods(points, order: int, intrinsics, width: int, height: int,
+                negate_y: bool = False):
     """Project points into an ODS eye image: [..., 2] pixel coordinates.
 
     Finds the tangent ray of the viewing circle of radius
@@ -51,9 +52,13 @@ def project_ods(points, order: int, intrinsics, width: int, height: int):
     -1 (right), solving the tangency quadratic with x and z swapped where
     |z| > |x|. A point with no tangent ray (disc < 0) is parked at pixel
     (1, 1); a NaN latitude becomes 1 and latitudes are clamped to
-    [-pi/2, pi/2], as in the reference.
+    [-pi/2, pi/2], as in the reference. negate_y: the reference negates y
+    when the points arrive as one packed tensor (spherical.py:172-175), as
+    the GCN's vertex sweep gives them (JAX cameras.py:109-133).
     """
     x, y, z = points
+    if negate_y:
+        y = -y
     r = intrinsics[0, 0]
     f = r * r - (x * x + z * z)
     z_larger_x = torch.abs(z) > torch.abs(x)

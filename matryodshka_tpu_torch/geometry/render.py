@@ -37,6 +37,16 @@ def over_composite(rgba):
     return torch.sum(rgb * eff_alpha * _transmittance(alpha), dim=-2)
 
 
+def partial_composite(rgba):
+    """One block of shells' partial over-composite
+    (parallel/sharded_render.py): rgba [..., P_local, 4] back to front ->
+    (C [..., 3], every local alpha applied; T [..., 1] = prod(1 - a))."""
+    rgb = rgba[..., :3]
+    alpha = rgba[..., 3:]
+    c = torch.sum(rgb * alpha * _transmittance(alpha), dim=-2)
+    return c, torch.prod(1.0 - alpha, dim=-2)
+
+
 def over_composite_depth(rgba):
     """Depth-proxy composite of [..., P, 4] layers -> [..., 3]: layer i
     carries the value i/P, layer 0 contributes 0 (projector.py:225-244);

@@ -1,6 +1,7 @@
 """Sweep volumes by gather: the ODS sphere sweep (the general-pose
-reference path), the perspective plane sweep of the PP input and the
-RealEstate input's homography plane sweeps.
+reference path), the GCN's sweep at icosphere vertices, the perspective
+plane sweep of the PP input and the RealEstate input's homography plane
+sweeps.
 
 Counterpart of `matryodshka_tpu/geometry/sweep.py`. Channel layout: a
 sweep of a 3-channel image over P planes is [B, H, W, P*3] with plane-major
@@ -20,7 +21,8 @@ import torch
 
 from matryodshka_tpu_torch.geometry import cameras, grids, homography
 from matryodshka_tpu_torch.ops.resample import (bilinear_wrap_resample,
-                                                resample_layers)
+                                                resample_layers,
+                                                resample_stack)
 
 
 def inv_depths(start_depth: float, end_depth: float, num_depths: int):
@@ -77,6 +79,26 @@ def perspective_plane_sweep(image, depths, pose, intrinsics):
     vols = [bilinear_wrap_resample(image[i], perspective_sweep_coords(
         h, w, depths, pose[i], intrinsics[i])) for i in range(b)]
     return torch.stack(vols).permute(0, 2, 3, 1, 4).reshape(b, h, w, p * c)
+
+
+def gcn_sphere_sweep(image, order: int, depths, coords, intrinsics):
+    """The sphere sweep sampled at icosphere vertices (JAX sweep.py:99-130,
+    projector.py:172-207): image [B, H, W, C], depths [P], coords [V, 3]
+    unit vertex positions, intrinsics [B, 3, 3] -> [B, V, P*C] float32,
+    plane-major per vertex. As in the JAX function the vertices are not
+    moved by the eye's pose (its project_ods does not read the pose), and
+    y is negated as the reference does for packed vertex tensors."""
+    b, h, w, c = image.shape
+    p = depths.shape[0]
+    pts = depths[:, None, None] * coords.T[None]              # [P, 3, V]
+    vols = []
+    for i in range(b):
+        uv = cameras.project_ods((pts[:, 0, :, None], pts[:, 1, :, None],
+                                  pts[:, 2, :, None]), order, intrinsics[i],
+                                 w, h, negate_y=True)         # [P, V, 1, 2]
+        vol = resample_stack(image[i], uv, wrap=True)         # [P, V, 1, C]
+        vols.append(vol[:, :, 0, :].permute(1, 0, 2).reshape(-1, p * c))
+    return torch.stack(vols)
 
 
 #: format_network_input and format_realestate_network_input calls in this

@@ -33,10 +33,18 @@ no TPU kernel for either), the net runs as for ODS (the conv kernel reads
 the 192 or 195 input channels), the layers are assemble_rgba's, and the
 view is `render_mpi_view` (homography warps and the over-composite,
 plain PyTorch: no TPU kernel either); `infer_mpi` is the test CLI's route.
+
+The GCN variant (`infer_gcn_msi`, the reference path; `infer_gcn_prepared`,
+the kernel route) predicts on icosphere vertices from a per-vertex sweep
+(plain PyTorch: the JAX package runs the GCN in XLA), scatters the
+prediction onto the pixel grid (`models/gcn.mesh_to_equirect`) and
+assembles it against the pixel-grid sweep volume, which on the card is
+one K1 launch; the renders are the U-Net's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -45,6 +53,7 @@ import torch.nn.functional as F
 from matryodshka_tpu_torch.geometry import homography
 from matryodshka_tpu_torch.geometry import render as render_lib
 from matryodshka_tpu_torch.geometry import sweep as sweep_lib
+from matryodshka_tpu_torch.models import gcn as gcn_lib
 from matryodshka_tpu_torch.ops import net as net_ops
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
 
@@ -355,6 +364,67 @@ def infer_msi_prepared(cfg, stages, batch, psv_depths):
     """Sweep kernel -> net kernels -> assemble_outputs_planar."""
     vol = sweep_stage(cfg, batch, psv_depths)
     return assemble_outputs_planar(cfg, vol, net_stage(stages, vol))
+
+
+# ---------------------------------------------------------------------------
+# The GCN variant.
+# ---------------------------------------------------------------------------
+
+def gcn_cfg(cfg):
+    """cfg for the GCN's assembly: float32 throughout, as JAX
+    infer_gcn_msi sweeps and assembles in float32 (the GCN replaces the
+    U-Net, whose compute dtype compute_dtype is)."""
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+def gcn_vertex_input(batch, psv_depths, coords):
+    """The GCN's input [V, 2*P*3]: the per-vertex double sweep of the
+    batch's first example (JAX msi.py:687-727, batch size 1). The eye
+    orders are the pixel path's reversed, ref -1 and src +1
+    (format_gcn_network_input, reference msi.py:1087)."""
+    ref = preprocess_image(batch["ref_image"])
+    src = preprocess_image(batch["src_image"])
+    vols = [sweep_lib.gcn_sphere_sweep(img, order, psv_depths, coords,
+                                       batch["intrinsics"])
+            for img, order in ((ref, -1), (src, 1))]
+    return torch.cat(vols, dim=-1)[0]
+
+
+def gcn_predict(gcn, batch, psv_depths, coords, p2v, apply=None):
+    """The GCN's prediction on the pixel grid, channels first [B, K, H, W]
+    float32: the vertex sweep, the GCN (through apply(gcn, x) when given,
+    the trainer's remat), mesh_to_equirect. The GCN sees the first
+    example only, as in JAX, whose [1, H, W, K] prediction broadcasts
+    over the batch in the assembly; here it is expanded to B."""
+    x = gcn_vertex_input(batch, psv_depths, coords)
+    mesh_pred = gcn(x) if apply is None else apply(gcn, x)
+    pred = gcn_lib.mesh_to_equirect(mesh_pred, p2v).permute(0, 3, 1, 2)
+    return pred.expand(batch["ref_image"].shape[0], -1, -1, -1)
+
+
+def infer_gcn_msi(gcn, cfg, batch, psv_depths, coords, p2v):
+    """Reference path of the GCN variant (JAX msi.py:687-727): the vertex
+    sweep, the GCN, mesh_to_equirect, and assemble_rgba against the
+    pixel-grid PSV by gather (format_input), in float32. Returns
+    assemble_rgba's dict plus 'psv'."""
+    pred = gcn_predict(gcn, batch, psv_depths, coords, p2v)
+    net_input = format_input(cfg, batch, psv_depths)
+    outputs = assemble_rgba(cfg.which_color_pred, pred.permute(0, 2, 3, 1),
+                            net_input, cfg.num_msi_planes)
+    outputs["psv"] = net_input
+    return outputs
+
+
+def infer_gcn_prepared(cfg, gcn, batch, psv_depths, coords, p2v):
+    """The GCN's kernel route: sweep_stage in float32 (on the card one K1
+    launch) for the pixel-grid PSV, gcn_predict, then
+    assemble_outputs_planar in float32, which
+    render_view_and_depth_from_prepared draws with K3 (blend_psv) or the
+    layer-stack kernel (the other schemes)."""
+    gc = gcn_cfg(cfg)
+    vol = sweep_stage(gc, batch, psv_depths)
+    pred = gcn_predict(gcn, batch, psv_depths, coords, p2v).contiguous()
+    return assemble_outputs_planar(gc, vol, pred)
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,9 @@ SIGNATURES = {
     + [_P] * 5 + [_I] * 4 + [_P],
     "matry_render_layers": [_P, _P, ctypes.c_longlong, _P, ctypes.c_longlong]
     + [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
+    "matry_render_layers_partial": [_P, _P, ctypes.c_longlong, _P,
+                                    ctypes.c_longlong] + [_P] * 6
+    + [_I] * 7 + [_P],
     "matry_probe_trig": [_P, _P, ctypes.c_longlong, _P],
     "matry_probe_roll": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
     "matry_probe_window_shift": [_P, _P, _I, _I, _I, _P],

@@ -8,10 +8,13 @@ mode, `_render_kernel_ftb` (K6) as its front-to-back mode. It projects each
 pixel's ray onto each shell it visits (`csrc/project.cuh`, the bits of the
 uv instrument `ops/render.py:uv_project`), so a render is one launch and
 builds no lookup tables; one launch writes the image, the depth proxy or
-both. Its source note gives the bound and the design. Inputs are the layer
-stack [B, P, 4, H, W] (`models/msi.py:assemble_rgba_prepared` /
-`assemble_hres_prepared`), the target poses [B, 4, 4], positions [B, 3]
-and the shell radii [P]; each output is an ERP view [B, H, W, 3] float32.
+both. Its partial mode (`render_layers_partial`) renders one block of a
+shell-sharded stack and also writes the block's transmittance
+(parallel/sharded_render.py). Its source note gives the bound and the
+design. Inputs are the layer stack [B, P, 4, H, W]
+(`models/msi.py:assemble_rgba_prepared` / `assemble_hres_prepared`), the
+target poses [B, 4, 4], positions [B, 3] and the shell radii [P]; each
+output is an ERP view [B, H, W, 3] float32.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from matryodshka_tpu_torch.geometry import grids
-from matryodshka_tpu_torch.geometry.render import uv_tables
+from matryodshka_tpu_torch.geometry.render import partial_composite, \
+    uv_tables
 from matryodshka_tpu_torch.ops import _build
 from matryodshka_tpu_torch.ops.resample import resample_layers_uv
 
@@ -28,10 +32,12 @@ EPS = 1e-6
 
 #: Launches of the kernel in this process: back to front (K4/K5) and
 #: front to back (K6), whatever the outputs; and of those, the launches
-#: that wrote image and depth together (render_layers_both).
+#: that wrote image and depth together (render_layers_both); and of the
+#: partial mode (render_layers_partial), counted apart from these.
 launches = 0
 ftb_launches = 0
 both_launches = 0
+partial_launches = 0
 
 
 def render_layers_plain(layers, u, v, depth: bool = False):
@@ -88,6 +94,65 @@ def render_layers_both(layers, tgt_pose, tgt_pos, radii, ftb: bool = False):
         return (render_layers_plain(layers, u, v),
                 render_layers_plain(layers, u, v, depth=True))
     return _launch(layers, tgt_pose, tgt_pos, radii, ftb, True, True)
+
+
+def render_layers_partial_plain(layers, u, v, p0: int, p_total: int):
+    """Plain version of the partial mode, fed the block's lookup tables u,
+    v [B, P, H, W]: gather every shell of the block and composite it with
+    geometry/render.partial_composite, global shell 0's alpha taken as 1,
+    colour and depth (p0 + p) / p_total -> (rgb, depth, trans): [B, H, W,
+    3], [B, H, W, 3], [B, H, W, 1] float32."""
+    b, p, _, h, w = layers.shape
+    proj = torch.stack([resample_layers_uv(
+        layers[i].permute(0, 2, 3, 1), u[i], v[i]) for i in range(b)])
+    proj = proj.permute(0, 2, 3, 1, 4)                       # [B, H, W, P, 4]
+    alpha = proj[..., 3:]
+    if p0 == 0:
+        alpha = torch.cat([torch.ones_like(alpha[..., :1, :]),
+                           alpha[..., 1:, :]], dim=-2)
+    rgb, trans = partial_composite(torch.cat([proj[..., :3], alpha], -1))
+    vals = ((p0 + torch.arange(p, device=layers.device)) / p_total).to(
+        alpha.dtype)[:, None].expand(p, 3)
+    depth, _ = partial_composite(torch.cat(
+        [vals.expand(*alpha.shape[:-1], 3), alpha], -1))
+    return rgb, depth, trans
+
+
+def render_layers_partial(layers, tgt_pose, tgt_pos, radii, p0: int,
+                          p_total: int):
+    """The partial mode: layers [B, P, 4, H, W] are global shells p0 ..
+    p0+P-1 of p_total, radii [P] theirs -> (rgb, depth, trans) as
+    render_layers_partial_plain returns them. CPU tensors take the plain
+    route (uv_tables, render_layers_partial_plain); CUDA tensors one launch
+    of the kernel's partial mode; any other device raises."""
+    global partial_launches
+    b, p, c, h, w = layers.shape
+    if layers.device.type == "cpu":
+        u, v = uv_tables(tgt_pose, tgt_pos, radii, h, w)
+        return render_layers_partial_plain(layers, u, v, p0, p_total)
+    dev = layers.device
+    req = _build.require
+    req(layers.is_cuda, f"render_layers_partial: unsupported device {dev}")
+    req(c == 4 and layers.dtype in (torch.float32, torch.bfloat16)
+        and layers.is_contiguous(),
+        f"render_layers_partial: layers {layers.dtype} "
+        f"{tuple(layers.shape)}")
+    req(radii.shape == (p,) and 0 <= p0 and p0 + p <= p_total,
+        f"render_layers_partial: radii {tuple(radii.shape)}, shells "
+        f"{p0}..{p0 + p - 1} of {p_total}")
+    geo = _build.geometry_args("render_layers_partial", tgt_pose, tgt_pos,
+                               radii, b, dev)
+    lat, lon = grids.lat_long_vectors(h, w, dev)
+    rgb, dep = (torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
+                for _ in range(2))
+    trans = torch.empty((b, h, w, 1), dtype=torch.float32, device=dev)
+    err = _build.lib().matry_render_layers_partial(
+        layers.data_ptr(), *geo, lat.data_ptr(), lon.data_ptr(),
+        rgb.data_ptr(), dep.data_ptr(), trans.data_ptr(), b, p, h, w, p0,
+        p_total, int(layers.dtype == torch.bfloat16), _build.stream_ptr(dev))
+    _build.check(err, "matry_render_layers_partial")
+    partial_launches += 1
+    return rgb, dep, trans
 
 
 def _launch(layers, tgt_pose, tgt_pos, radii, ftb, want_rgb, want_depth):

@@ -6,8 +6,10 @@ msi.py:983-1002). The JAX package writes orbax checkpoints; neither orbax
 nor tensorstore is available where the port runs. So a checkpoint of step
 s is a directory `<directory>/<s>/` holding
 
-* `params.npz`: the flax parameter tree (`weights.to_flax`), keys the
-  `/`-joined tree paths (`params/conv1_1/kernel`, ...) and a scalar `step`,
+* `params.npz`: the flax parameter tree (`weights.net_to_flax`: the
+  U-Net's or the GCN's), keys the `/`-joined tree paths
+  (`params/conv1_1/kernel`, `params/conv1_1/weights_0`, ...) and a scalar
+  `step`,
   the file that `restore_params` and the test CLI's `--params` read
   (`python -m matryodshka_tpu_torch.tf_import` writes the same layout from
   a reference TF-v1 checkpoint);
@@ -83,7 +85,7 @@ class CheckpointManager:
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         save_params(os.path.join(tmp, PARAMS),
-                    weights.to_flax(state.net.state_dict()), step)
+                    weights.net_to_flax(state.net), step)
         torch.save({"step": step,
                     "optimizer": state.optimizer.state_dict(),
                     "generator": state.generator.get_state()},
@@ -110,7 +112,7 @@ class CheckpointManager:
         """Load a checkpoint (the latest by default) into state's net,
         optimizer and generator, in place; returns state."""
         tree, step = self.restore_params(step)
-        state.net.load_state_dict(weights.from_flax(tree))
+        state.net.load_state_dict(weights.net_from_flax(state.net, tree))
         device = next(state.net.parameters()).device
         saved = torch.load(os.path.join(self._dir(step), TRAIN_STATE),
                            map_location=device, weights_only=True)

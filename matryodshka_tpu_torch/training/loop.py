@@ -7,8 +7,9 @@ latest with continue_train. Observability is a metrics JSONL (scalars,
 with the JAX package's keys and `sec_per_step`) plus, when the caller
 gives an image summary function, PNG dumps every summary_freq steps, and
 a `torch.profiler` trace of a window of steps (`profile_steps`, the JAX
-loop's jax.profiler window, loop.py:114-127). Chaining several steps per
-call (`steps_per_call > 1`) is not ported (ROADMAP Queue 1 item 9).
+loop's jax.profiler window, loop.py:114-127). `steps_per_call > 1` takes
+K batches a call and runs K steps on them (JAX loop.py:149-204), a plain
+loop of single steps on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from matryodshka_tpu_torch.data.images import write_image
 from matryodshka_tpu_torch.training.checkpoint import CheckpointManager
@@ -93,7 +95,8 @@ def train(cfg, state, train_step: Callable, batches: Iterator[Dict],
 
     Args:
       train_step: (state, batch) -> (state, metrics of 0-d tensors), from
-        training/step.py:make_train_step.
+        training/step.py:make_train_step (data-parallel when built in a
+        process group).
       batches: iterator of batch dicts on the net's device (tensors; other
         entries such as scene ids are dropped before the step).
       image_summary_fn: optional (state, batch) -> {name: HxWxC array},
@@ -101,15 +104,22 @@ def train(cfg, state, train_step: Callable, batches: Iterator[Dict],
       profile_steps: optional (start, stop) step numbers of a
         torch.profiler trace written under <checkpoint_dir>/
         <experiment_name>/profile/ (StepProfiler).
+      steps_per_call: K steps a call, train_step on each of the call's K
+        batches in turn. Summaries fire for every step of a call that
+        hits summary_freq (that step's metrics), checkpoints at the end
+        of a call whose steps crossed save_latest_freq; training stops at
+        the last full call <= max_steps (JAX loop.py:149-204).
       static_log_fields: fields written into every metrics record.
+
+    In a process group (parallel/mesh.py) only rank 0 writes summaries,
+    images and checkpoints.
     """
-    if steps_per_call != 1:
-        raise NotImplementedError("steps_per_call > 1: chained steps per "
-                                  "call are ROADMAP Queue 1 item 9")
+    primary = not dist.is_initialized() or dist.get_rank() == 0
     ckpt_dir = os.path.join(cfg.checkpoint_dir, cfg.experiment_name)
     manager = CheckpointManager(ckpt_dir, max_to_keep=10)
     writer = SummaryWriter(os.path.join(ckpt_dir, "logs"),
-                           static_log_fields)
+                           static_log_fields) if primary else None
+    k = max(1, int(steps_per_call))
     try:
         if cfg.continue_train:
             latest = manager.latest_step()
@@ -121,37 +131,59 @@ def train(cfg, state, train_step: Callable, batches: Iterator[Dict],
 
         print(f"[train] parameter count: {param_count(state.net):,}")
         profiler = None
-        if profile_steps is not None:
+        if profile_steps is not None and primary:
             profiler = StepProfiler(
                 os.path.join(ckpt_dir, "profile"), *profile_steps,
                 cuda=next(state.net.parameters()).is_cuda)
-        t0 = time.time()
-        for step_i, batch in enumerate(batches, start=state.step + 1):
-            if step_i > cfg.max_steps:
+        t0, last_logged = time.time(), state.step
+        it = iter(batches)
+        while state.step + k <= cfg.max_steps:
+            window = []
+            for batch in it:
+                window.append({kk: v for kk, v in batch.items()
+                               if torch.is_tensor(v)})
+                if len(window) == k:
+                    break
+            if len(window) < k:
+                if k > 1 and window:
+                    print(f"[train] data iterator exhausted mid-call @ "
+                          f"{state.step}; stopping")
                 break
-            arrays = {k: v for k, v in batch.items() if torch.is_tensor(v)}
+            first = state.step + 1
+            steps = range(first, first + k)
             if profiler is not None:
-                profiler.before(step_i)
-            state, metrics = train_step(state, arrays)
+                for s in steps:
+                    profiler.before(s)
+            rows = []
+            for b in window:
+                state, metrics = train_step(state, b)
+                rows.append(metrics)
             if profiler is not None:
-                profiler.after(step_i)
+                for s in steps:
+                    profiler.after(s)
 
-            if step_i % cfg.summary_freq == 0:
-                metrics = {k: float(v) for k, v in metrics.items()}
-                dt = (time.time() - t0) / cfg.summary_freq
-                t0 = time.time()
-                writer.scalars(step_i, {**metrics, "sec_per_step": dt})
-                print(f"[step {step_i:8d}] loss={metrics['total_loss']:.5f} "
-                      f"{dt:.4f}s/it")
+            logged = [(s, row) for s, row in zip(steps, rows)
+                      if s % cfg.summary_freq == 0]
+            if logged and primary:
+                dt = (time.time() - t0) / (state.step - last_logged)
+                t0, last_logged = time.time(), state.step
+                for s, row in logged:
+                    row = {kk: float(v) for kk, v in row.items()}
+                    writer.scalars(s, {**row, "sec_per_step": dt})
+                    print(f"[step {s:8d}] loss={row['total_loss']:.5f} "
+                          f"{dt:.4f}s/it")
                 if image_summary_fn is not None:
-                    for name, img in image_summary_fn(state, arrays).items():
-                        writer.image(step_i, name, np.asarray(img))
+                    for name, img in image_summary_fn(state,
+                                                      window[-1]).items():
+                        writer.image(state.step, name, np.asarray(img))
 
-            if step_i % cfg.save_latest_freq == 0:
+            if primary and any(s % cfg.save_latest_freq == 0 for s in steps):
                 manager.save(state)
-                print(f"[train] saved checkpoint @ {step_i}")
+                print(f"[train] saved checkpoint @ {state.step}")
 
-        manager.save(state)
+        if primary:
+            manager.save(state)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state

@@ -1,8 +1,7 @@
 """The training step: forward, synthesis, loss, Adam update.
 
 Counterpart of `matryodshka_tpu/training/step.py` (MSI.build_train_graph,
-matryodshka/msi.py:550-733), every option of its single-device trainer but
-the GCN:
+matryodshka/msi.py:550-733), every option of its trainer:
 
   supervision 'tgt':     render at the tgt offset, weight 1 (ODS); for PP
       and REALESTATE_PP always the MPI render at tgt_pose @ ref_pose_inv
@@ -28,7 +27,28 @@ the GCN:
   wreg:                  + 0.001 * sum_v l2(v)  (msi.py:721-725);
   remat_network:         the net's forward under torch.utils.checkpoint
       (non-reentrant), in both forwards of the regularizer: its
-      activations are recomputed in the backward (JAX step.py:76-81).
+      activations are recomputed in the backward (JAX step.py:76-81);
+  gcn:                   the GCN in place of the U-Net (JAX step.py:82-90,
+      msi.py:687-727): its prediction from the per-vertex sweep
+      (models/msi.gcn_predict, with autograd), scattered onto the pixel
+      grid and assembled against the float32 sweep volume (sweep_stage:
+      K1 on the card; it needs no gradient); then the same render and
+      terms. Not with transform_inverse_reg or hrestgt (config.check_gcn).
+
+Data parallelism: in a process group (parallel/mesh.py) make_train_step
+runs this loss on the rank's shard of the global batch (parallel/dp.py:
+shard_batch) with n_shards = the rank count, and one all-reduce SUMS the
+gradients and the scalar metrics over the ranks before the replicated
+Adam update, as the JAX package psums them under shard_map (JAX
+dp.py:73-76), not DDP's mean: the mean-type terms, E-LPIPS's batch mean
+and the weight regularizer, are divided by n_shards here, so the sum
+reproduces the global batch's loss; the sum-type pixel loss (0.5 * sum
+of squares) rides the sum unscaled. The ranks start from rank 0's
+parameters and apply the same update, so they stay equal. With more
+than one rank each draws from its own generator seeded from (seed, step,
+rank) (rank_generator), so the ranks' E-LPIPS ensembles and jitter poses
+differ, as the JAX step folds the shard index into its key (JAX
+dp.py:70-71).
 
 The distance is the pixel loss, 0.5*sum(sq) (losses/basic.py), or with
 which_loss=elpips the batch mean of E-LPIPS (losses/elpips) between the
@@ -38,8 +58,8 @@ attention multiplies both images by the latitude map before the
 distance.
 
 The step's random draws come from its CPU generator
-(TrainState.generator, seeded from cfg.random_seed and checkpointed), in
-this order:
+(TrainState.generator, seeded from cfg.random_seed and checkpointed; a
+rank's rank_generator with more than one rank), in this order:
   1. the jitter pose (three angles, then three offsets), with
      transform_inverse_reg;
   2. E-LPIPS's ensembles (cfg.elpips_average_over draws each), one set
@@ -56,7 +76,9 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from matryodshka_tpu_torch.geometry import cameras
@@ -106,11 +128,20 @@ class TrainLoss:
     from; build_elpips(cfg, ...) by default for which_loss=elpips."""
 
     def __init__(self, cfg, net, sweep: Optional[Callable] = None,
-                 elpips: Optional[Callable] = None):
+                 elpips: Optional[Callable] = None, gcn_inputs=None,
+                 n_shards: int = 1):
         cfg.validate()
+        if cfg.gcn and gcn_inputs is None:
+            raise ValueError("cfg.gcn needs gcn_inputs, the mesh's (coords, "
+                             "p2v) (training/state.build_gcn)")
         self.cfg = cfg
         self.net = net
+        self.gcn_inputs = gcn_inputs
+        self.n_shards = n_shards
         self._sweep = sweep or msi_lib.sweep_stage
+        #: the config the sweep volume is made with: the GCN assembles in
+        #: float32 (models/msi.gcn_cfg)
+        self._sweep_cfg = msi_lib.gcn_cfg(cfg) if cfg.gcn else cfg
         device = next(net.parameters()).device
         if cfg.which_loss == "elpips" and elpips is None:
             elpips = build_elpips(cfg, device)
@@ -137,7 +168,7 @@ class TrainLoss:
             cfg.transform_inverse_reg and self.supervised)) if on]
 
     def sweep(self, batch):
-        return self._sweep(self.cfg, batch, self.psv_depths)
+        return self._sweep(self._sweep_cfg, batch, self.psv_depths)
 
     def sweep_hres(self, batch):
         """The high-res volume [B, 2*P*3, hres_height, hres_width] of the
@@ -150,12 +181,22 @@ class TrainLoss:
                     src_image=batch["hres_src_image"])
         return self._sweep(self.cfg, hres, self.psv_depths)
 
-    def net_forward(self, vol):
-        """The net's prediction of vol; with remat_network its activations
-        are not kept but recomputed in the backward."""
+    def net_forward(self, x):
+        """The net's output for its input x (the U-Net's prediction of the
+        volume, the GCN's of the vertex sweep); with remat_network its
+        activations are not kept but recomputed in the backward."""
         if self.cfg.remat_network:
-            return checkpoint(self.net, vol, use_reentrant=False)
-        return self.net(vol)
+            return checkpoint(self.net, x, use_reentrant=False)
+        return self.net(x)
+
+    def predict(self, batch, vol):
+        """The prediction [B, K, H, W]: the U-Net's of vol, or the GCN's of
+        the batch (models/msi.gcn_predict through net_forward)."""
+        if self.cfg.gcn:
+            return msi_lib.gcn_predict(
+                self.net, batch, self.psv_depths, *self.gcn_inputs,
+                apply=lambda _, x: self.net_forward(x))
+        return self.net_forward(vol)
 
     def draw_jitter(self, generator=None) -> torch.Tensor:
         """The regularizer's jitter pose [4, 4] on the net's device."""
@@ -194,8 +235,11 @@ class TrainLoss:
         if self.sph_w is not None:
             pred, target = pred * self.sph_w, target * self.sph_w
         if isinstance(self.elpips, elpips_api.Metric):
-            return torch.mean(self.elpips(pred, target, draws=term))
-        return torch.mean(self.elpips(pred, target, term))
+            d = self.elpips(pred, target, draws=term)
+        else:
+            d = self.elpips(pred, target, term)
+        # a batch mean: the global batch's is the sum over ranks of / K
+        return torch.mean(d) / self.n_shards
 
     def view(self, rgba, batch, jitter_pose=None):
         """The supervised view of layers rgba [B, H, W, P, 4]: for ODS the
@@ -311,8 +355,9 @@ class TrainLoss:
                     self.eye_view(rgba, batch, order, pose), target,
                     terms[k])
         if cfg.wreg:
+            # batch-independent: the sum over ranks of / K is itself
             wsum = 0.5 * sum(torch.sum(torch.square(p))
-                             for p in self.net.parameters())
+                             for p in self.net.parameters()) / self.n_shards
             aux["weight_reg_loss"] = 0.001 * wsum
             total = total + 0.001 * wsum
         aux["total_loss"] = total
@@ -323,7 +368,7 @@ class TrainLoss:
         """jitter_pose [4, 4] replays a regularizer pose; without one the
         pose is drawn from generator."""
         vol = self.sweep(batch)
-        pred = self.net_forward(vol)
+        pred = self.predict(batch, vol)
         jitter = None
         if self.cfg.transform_inverse_reg:
             pose = self.draw_jitter(generator) if jitter_pose is None \
@@ -335,9 +380,12 @@ class TrainLoss:
 
 
 def make_loss_fn(cfg, net, sweep: Optional[Callable] = None,
-                 elpips: Optional[Callable] = None) -> TrainLoss:
-    """The loss of cfg's trainer for net; see TrainLoss."""
-    return TrainLoss(cfg, net, sweep, elpips)
+                 elpips: Optional[Callable] = None, gcn_inputs=None,
+                 n_shards: int = 1) -> TrainLoss:
+    """The loss of cfg's trainer for net; see TrainLoss. gcn_inputs: the
+    mesh's (coords, p2v) with cfg.gcn; n_shards: the data-parallel ranks
+    the loss runs under (module docstring)."""
+    return TrainLoss(cfg, net, sweep, elpips, gcn_inputs, n_shards)
 
 
 def scalar_metrics(aux: Dict) -> Dict[str, torch.Tensor]:
@@ -352,22 +400,63 @@ def grad_norm(params) -> torch.Tensor:
                         if p.grad is not None]).norm()
 
 
+def rank_generator(seed: int, step: int, rank: int) -> torch.Generator:
+    """The CPU generator of a rank's draws at a step: seeded from (seed,
+    step, rank), so it needs no state of its own in a checkpoint."""
+    key = np.random.SeedSequence([seed, step, rank]).generate_state(2)
+    return torch.Generator().manual_seed(int(key[0]) << 32 | int(key[1]))
+
+
+def _sum_over_ranks(params, metrics: Dict, group=None) -> Dict:
+    """All-reduce (SUM) the parameters' gradients in place, as one flat
+    buffer, and the scalar metrics; returns the summed metrics."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    keys = sorted(metrics)
+    vals = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(vals, op=dist.ReduceOp.SUM, group=group)
+    return dict(zip(keys, vals))
+
+
 def make_train_step(cfg, net, sweep: Optional[Callable] = None,
-                    elpips: Optional[Callable] = None) -> Callable:
+                    elpips: Optional[Callable] = None,
+                    gcn_inputs=None, group=None) -> Callable:
     """train_step(state, batch) -> (state, metrics): one Adam step of
     state.optimizer on the loss of `net` (state.net), E-LPIPS drawing from
     state.generator (the jitter pose too); metrics are 0-d tensors
     (total_loss, reconstruction_loss, enforcement_loss with
     transform_inverse_reg, weight_reg_loss with wreg, grad_norm), read by
-    the caller when it needs them."""
-    loss_fn = make_loss_fn(cfg, net, sweep, elpips)
+    the caller when it needs them. gcn_inputs: TrainState.gcn_inputs with
+    cfg.gcn.
+
+    Built in a process group (group, or the default one), the step is
+    data-parallel (module docstring): batch is this rank's shard, and the
+    gradients and metrics are summed over the ranks (grad_norm is the
+    summed gradient's). In a group of one rank that sum is the identity."""
+    in_group = dist.is_initialized()
+    rank, world = ((dist.get_rank(group), dist.get_world_size(group))
+                   if in_group else (0, 1))
+    if world > 1:
+        for p in net.parameters():
+            dist.broadcast(p.data, src=0, group=group)
+    loss_fn = make_loss_fn(cfg, net, sweep, elpips, gcn_inputs,
+                           n_shards=world)
     params = list(net.parameters())
 
     def train_step(state, batch):
+        gen = state.generator if world == 1 else rank_generator(
+            cfg.random_seed, state.step, rank)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(batch, state.generator)
+        loss, aux = loss_fn(batch, gen)
         loss.backward()
         metrics = scalar_metrics(aux)
+        if in_group:
+            metrics = _sum_over_ranks(params, metrics, group)
         metrics["grad_norm"] = grad_norm(params)
         state.optimizer.step()
         state.step += 1

@@ -1,4 +1,4 @@
-"""Parameters for the port's MSIUNet: the flax bridge and a seeded init.
+"""Parameters for the port's nets: the flax bridges and a seeded init.
 
 `from_flax` maps a flax MSIUNet parameter tree of either variant, given as
 numpy arrays, to the torch state_dict: conv kernels [KH, KW, Cin, Cout]
@@ -8,7 +8,10 @@ transposed convs and the 1x1 `color_pred` head) become `weight`
 maps back (the trainer's checkpoints hold that tree). `seeded_init` draws
 a tree of flax's shapes for cfg's variant with flax's initializers
 (lecun_normal kernels, zero biases, unit gamma, zero beta) from a numpy
-seed, for machines without JAX. `elpips_from_jax` maps the JAX package's
+seed, for machines without JAX. `gcn_from_flax` / `gcn_to_flax` bridge
+the GCN's tree (`conv1_1/weights_0`, ...), unchanged values both ways;
+`net_to_flax` / `net_from_flax` pick the bridge of a net's family.
+`elpips_from_jax` maps the JAX package's
 E-LPIPS feature weights (HWIO) to the port's (OIHW).
 """
 
@@ -20,7 +23,12 @@ from typing import Dict
 import numpy as np
 import torch
 
+from matryodshka_tpu_torch.models.gcn import GCNNet, glorot_range, \
+    layer_shapes
 from matryodshka_tpu_torch.ops.net import kernel_cin, unet_plan
+
+#: Supports of the GCN (icosphere.support_matrices: identity, adjacency).
+GCN_SUPPORTS = 2
 
 #: flax's truncated-normal stddev correction for truncation at +-2 sigma.
 _TRUNC_STD = 0.87962566103423978
@@ -76,11 +84,55 @@ def _lecun_normal(rng: np.random.RandomState, shape):
     return (z * std).astype(np.float32)
 
 
+def gcn_from_flax(params) -> "OrderedDict[str, torch.Tensor]":
+    """A flax GCNNet tree ({"params": {layer: {"weights_<i>": [in, out],
+    "bias": [out]}}} or the inner dict) -> the port GCNNet's state_dict.
+    The values are copied unchanged: both keep flax's uncentred weights
+    (models/gcn.py). Raises on any leaf it does not map."""
+    tree = params["params"] if "params" in params else params
+    out = OrderedDict()
+    for layer, leaves in tree.items():
+        for leaf, value in leaves.items():
+            arr = torch.from_numpy(np.array(value, dtype=np.float32))
+            if not ((leaf.startswith("weights_") and arr.ndim == 2)
+                    or (leaf == "bias" and arr.ndim == 1)):
+                raise KeyError(f"gcn_from_flax: unmapped leaf {layer}/{leaf} "
+                               f"{tuple(arr.shape)}")
+            out[f"{layer}.{leaf}"] = arr
+    return out
+
+
+def gcn_to_flax(state_dict) -> Dict:
+    """The inverse of gcn_from_flax: a GCNNet state_dict -> {"params":
+    {layer: {leaf: float32 numpy array}}}, bit for bit."""
+    tree: Dict = {}
+    for key, value in state_dict.items():
+        layer, leaf = key.rsplit(".", 1)
+        tree.setdefault(layer, {})[leaf] = \
+            value.detach().float().cpu().numpy()
+    return {"params": tree}
+
+
+def net_to_flax(net) -> Dict:
+    """The flax tree of a trainer's net: a GCNNet's (gcn_to_flax) or an
+    MSIUNet's (to_flax)."""
+    bridge = gcn_to_flax if isinstance(net, GCNNet) else to_flax
+    return bridge(net.state_dict())
+
+
+def net_from_flax(net, tree) -> "OrderedDict[str, torch.Tensor]":
+    """The state_dict of a flax tree for net's family (gcn_from_flax or
+    from_flax)."""
+    return (gcn_from_flax if isinstance(net, GCNNet) else from_flax)(tree)
+
+
 def seeded_init(cfg, seed: int) -> Dict:
     """A flax-layout parameter tree {"params": {...}} of numpy arrays for
-    cfg's net (its variant from cfg.coord_net), drawn from
-    np.random.RandomState(seed)."""
+    cfg's net (the GCN with cfg.gcn, else the U-Net of cfg.coord_net's
+    variant), drawn from np.random.RandomState(seed)."""
     rng = np.random.RandomState(seed)
+    if cfg.gcn:
+        return _seeded_gcn(rng, cfg)
     tree = {}
     for (name, kind, _, cins, cout, _, _, _) in unet_plan(
             cfg.ngf, cfg.num_net_inputs(), cfg.num_net_outputs()):
@@ -91,6 +143,20 @@ def seeded_init(cfg, seed: int) -> Dict:
         if kind != "head":
             tree[name + "_ln"] = {"beta": np.zeros((cout,), np.float32),
                                   "gamma": np.ones((cout,), np.float32)}
+    return {"params": tree}
+
+
+def _seeded_gcn(rng: np.random.RandomState, cfg) -> Dict:
+    """flax GraphConv's initializers: each weights_<i> uniform in [0, 2r)
+    (stored uncentred, models/gcn.py), zero biases."""
+    tree = {}
+    for name, cin, cout in layer_shapes(cfg.num_net_inputs(),
+                                        cfg.num_net_outputs(), cfg.ngf):
+        r = glorot_range(cin, cout)
+        tree[name] = {f"weights_{i}": (rng.random_sample((cin, cout))
+                                       * (2 * r)).astype(np.float32)
+                      for i in range(GCN_SUPPORTS)}
+        tree[name]["bias"] = np.zeros((cout,), np.float32)
     return {"params": tree}
 
 

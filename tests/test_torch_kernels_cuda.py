@@ -1399,3 +1399,97 @@ def test_export_round_trip_on_the_card(cuda, tmp_path, dtype):
         spread = (got - want32).abs().max().item()
         err = (kern - want32).abs().max().item()
         assert err <= max(2e-2, 1.5 * spread), (err, spread)
+
+
+# ---------------------------------------------------------------------------
+# The layer-stack render's partial mode, the shell-sharded high-res render
+# and the GCN's kernel route.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+@pytest.mark.parametrize("rot_deg", [0.0, 40.0])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_render_layers_partial_matches_plain(cuda, dtype, rot_deg, blocks):
+    """The partial mode per block of 8 shells, one launch each, against
+    render_layers_partial_plain fed the kernel's own lookups (1e-5, the
+    render-layer gates); the blocks' partials combined against the full
+    back-to-front render, and one block bit for bit the full render."""
+    from matryodshka_tpu_torch.parallel import sharded_render
+    p = 8
+    layers = _stack(cuda, dtype, 2, p, H, W)
+    pose, pos, _ = _target(cuda, rot_deg)
+    radii = torch.linspace(20.0, 1.0, p, device=cuda)
+    target = (pose.expand(2, 4, 4), torch.cat([pos, -pos]), radii)
+    parts = []
+    for p0, p1 in sharded_render.shell_blocks(p, blocks):
+        blk = layers[:, p0:p1].contiguous()
+        before = rl_ops.partial_launches
+        got = rl_ops.render_layers_partial(blk, *target[:2], radii[p0:p1],
+                                           p0, p)
+        assert rl_ops.partial_launches == before + 1
+        u, v = render_ops.uv_project(*target[:2], radii[p0:p1], H, W)
+        want = rl_ops.render_layers_partial_plain(blk, u, v, p0, p)
+        for g, wnt in zip(got, want):
+            assert g.shape == wnt.shape
+            assert (g - wnt).abs().max().item() <= 1e-5
+        parts.append(got)
+    c, d, t = (torch.stack(x) for x in zip(*parts))
+    full = rl_ops.render_layers_both(layers, *target)
+    for g, wnt in ((sharded_render.combine_partials(c, t), full[0]),
+                   (sharded_render.combine_partials(d, t), full[1])):
+        assert (g - wnt).abs().max().item() <= 1e-5
+    if blocks == 1:
+        assert torch.equal(parts[0][0], full[0])
+        assert torch.equal(parts[0][1], full[1])
+
+
+@pytest.mark.cuda
+def test_hres_render_shell_blocks_match_unsharded(cuda):
+    """The test CLI's high-res re-render in 4 shell blocks in one process
+    (4 sweep and 4 partial-mode launches) against the unsharded render."""
+    from matryodshka_tpu_torch.cli import test as cli_test
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=8,
+                             num_msi_planes=8, ngf=NGF, hres_height=2 * H,
+                             hres_width=2 * W, min_depth=2.0, max_depth=20.0)
+    rng = np.random.RandomState(11)
+
+    def t(*shape):
+        return torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+
+    eye = torch.eye(4, device=cuda)[None]
+    intr = torch.eye(3, device=cuda)[None].clone()
+    intr[0, 0, 0] = 0.032
+    args = (t(1, 2 * H, 2 * W, 3), t(1, 2 * H, 2 * W, 3), t(1, H, W, 8),
+            t(1, H, W, 8), eye, eye, eye, intr,
+            torch.tensor([[0.02, 0.01, -0.015]], device=cuda))
+    whole = cli_test.build_hres_render_fn(cfg)(*args)
+    sweeps, parts = sweep_ops.launches, rl_ops.partial_launches
+    blocks = cli_test.build_hres_render_fn(cfg, shards=4)(*args)
+    assert sweep_ops.launches - sweeps == 4
+    assert rl_ops.partial_launches - parts == 4
+    for g, wnt in zip(blocks, whole):
+        assert (g - wnt).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["blend_psv", "blend_bg"])
+def test_gcn_infer_fn_matches_plain(cuda, scheme, tmp_path):
+    """cli.test.build_infer_fn with gcn=True on the card (K1, then K3 for
+    blend_psv or the prepared assembly and one layer-stack launch) against
+    its all-plain twin, image and depth, and its launches."""
+    from matryodshka_tpu_torch.cli import test as cli_test
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P, ngf=NGF, gcn=True, subdiv=2,
+                             mesh_dir=str(tmp_path), which_color_pred=scheme)
+    params = entry.make_params(cfg, seed=3, device=cuda)
+    b = entry.synthetic_batch(cfg, 2, cuda, tgt_pos=(0.03, -0.01, 0.02))
+    counts = (sweep_ops.launches, render_ops.launches, rl_ops.launches)
+    got = cli_test.build_infer_fn(cfg, params, "tgt_image")(b)
+    torch.cuda.synchronize()
+    d = [a - n for a, n in zip((sweep_ops.launches, render_ops.launches,
+                                rl_ops.launches), counts)]
+    assert d == ([1, 1, 0] if scheme == "blend_psv" else [1, 0, 1])
+    want = cli_test.infer_plain(cfg, params, b)
+    for k in ("output_image", "output_depth"):
+        assert (got[k] - want[k]).abs().max().item() <= 1e-4, k

@@ -6,11 +6,11 @@
   batches at one seed, in training order (every augmentation drawn from
   np.random.RandomState(cfg.random_seed) in the JAX call order) and in
   evaluation order: images exactly, poses and intrinsics to 1e-6 (the PP
-  midpoint is the port's own slerp, in float32), names equal. The JAX
-  loaders decode through PIL here, as the port does: their native
-  decoder (data/native.py, runtime/matryio.cc, not carried over: ROADMAP
-  item 11) resizes by its own area filter, so it is switched off for
-  these comparisons.
+  midpoint is the port's own slerp, in float32), names equal. Both
+  packages' loaders decode through PIL here: the native decoder
+  (data/native.py, runtime/matryio.cc; tests/test_torch_native.py holds
+  the port's copy to the JAX package's) resizes by its own area filter,
+  so it is switched off in both for these comparisons.
 * The contract checks of JAX tests/test_data.py:86-215 on the port: the
   RealEstate parser and batch contract, the admission rule, the
   subsequence operations, the perspective loader's midpoint; the loader
@@ -32,6 +32,7 @@ from matryodshka_tpu.data import native as jnative
 from matryodshka_tpu.data import synthetic as jsynth
 from matryodshka_tpu_torch.config import MatryConfig
 from matryodshka_tpu_torch.data import loader as tloader
+from matryodshka_tpu_torch.data import native as tnative
 from matryodshka_tpu_torch.data import parsers
 from matryodshka_tpu_torch.data import synthetic as tsynth
 
@@ -99,8 +100,9 @@ def _assert_batches_equal(got, want):
 
 @pytest.fixture
 def jax_pil(monkeypatch):
-    """The JAX loaders on their PIL decode path (the port's)."""
+    """Both packages' loaders on their PIL decode path."""
     monkeypatch.setattr(jnative, "native_available", lambda: False)
+    monkeypatch.setattr(tnative, "native_available", lambda: False)
 
 
 @pytest.mark.parametrize("training", [True, False])

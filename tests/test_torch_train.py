@@ -258,17 +258,20 @@ def test_losses_match_jax():
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    (dict(gcn=True), NotImplementedError, "ROADMAP Queue 1 item 8"),
+    (dict(gcn=True, transform_inverse_reg=True), ValueError,
+     r"gcn with transform_inverse_reg.*step\.py:84-87"),
     (dict(supervision="tgt_hrestgt", spherical_attention=True), ValueError,
      r"step\.py:58-59.*does not broadcast"),
     (dict(supervision="tgt_hrestgt", input_type="PP"), ValueError,
      "high-res target is an ODS render"),
-    (dict(num_data_shards=2), NotImplementedError, "ROADMAP Queue 1 item 9")])
+    (dict(num_data_shards=2), ValueError,
+     "batch_size 1 must divide evenly across num_data_shards 2")])
 def test_unported_training_options_raise(kw, exc, match):
-    """validate() and the loss refuse what the port cannot train yet,
-    naming the ROADMAP item, and the combinations the JAX trainer cannot
-    run either, naming why (spherical attention's low-res latitude map on
-    the high-res render; a high-res target of perspective input)."""
+    """validate() and the loss refuse the combinations the JAX trainer
+    cannot run either, naming why (the GCN with the transform-inverse
+    regularizer; spherical attention's low-res latitude map on the
+    high-res render; a high-res target of perspective input; a batch that
+    does not split evenly across the data shards)."""
     with pytest.raises(exc, match=match):
         MatryConfig(**TINY, **kw).validate()
     net = tstate.build_model(MatryConfig(**TINY))

@@ -8,7 +8,7 @@ training CLI, on CPU.
   checkpoint the port's test CLI then serves, from `--params` and, as the
   JAX CLI does, from the latest checkpoint when `--params` is absent (and
   raises when there is none); `--device cuda` raises on a machine without
-  a card;
+  a card; four chained steps a call (`steps_per_call`);
 * `OdsLoader(load_hres=True)` reading the high-res pair from
   `hres_image_dir`;
 * `data.loader.device_prefetch` and `data.synthetic` against the JAX
@@ -238,6 +238,16 @@ def test_cli_train_refuses_cuda_without_card(tmp_path):
         pytest.skip("a card is present: --device cuda would train on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--checkpoint_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        loop_lib.train(entry.flagship_cfg(**TINY), None, None, [],
-                       steps_per_call=4)
+    # steps_per_call=4: the four steps in one call, each logged, the
+    # checkpoint at the call's end
+    cfg = entry.flagship_cfg(**TINY, max_steps=4, save_latest_freq=4,
+                             checkpoint_dir=str(tmp_path),
+                             experiment_name="spc")
+    state = state_lib.init_state(cfg, 0, "cpu")
+    step = make_train_step(cfg, state.net)
+    state = loop_lib.train(cfg, state, step, itertools.repeat(
+        entry.synthetic_batch(cfg, 0, "cpu")), steps_per_call=4)
+    assert state.step == 4
+    assert CheckpointManager(str(tmp_path / "spc")).steps() == [4]
+    recs = (tmp_path / "spc" / "logs" / "metrics.jsonl").read_text()
+    assert [json.loads(r)["step"] for r in recs.splitlines()] == [1, 2, 3, 4]

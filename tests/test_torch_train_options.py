@@ -42,6 +42,7 @@ from matryodshka_tpu.models import msi as jmsi
 from matryodshka_tpu.training import state as jstate
 from matryodshka_tpu.training import step as jstep
 from matryodshka_tpu_torch import entry, weights
+from matryodshka_tpu_torch.data import native as tnative
 from matryodshka_tpu_torch.cli import test as tcli
 from matryodshka_tpu_torch.cli import train as cli_train
 from matryodshka_tpu_torch.config import COLOR_PREDS, MatryConfig
@@ -535,6 +536,7 @@ def test_dry_run_matches_jax(tmp_path, monkeypatch, inference):
     from matryodshka_tpu.training.checkpoint import \
         CheckpointManager as JaxManager
     monkeypatch.setattr(jnative, "native_available", lambda: False)
+    monkeypatch.setattr(tnative, "native_available", lambda: False)
     glob_pat = _fixture(tmp_path)
     flags = _flags(tmp_path, glob_pat, "d") + ["--supervision",
                                                "tgt_hrestgt"]
