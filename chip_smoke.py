@@ -98,9 +98,12 @@ profiler trace):
    default route);
 14. the full-pipeline export (cli/export.py --net_only false, coord net,
    float32 and bfloat16, and bfloat16 with --with_preprocess and a seeded
-   remap): K1 once a call through the registered op matry::sweep_volume,
-   each program against its eager function and the test CLI's kernel
-   route, the consumer tool in subprocesses; the smoothed net through
+   remap): the op matry::sweep_volume of the C++ op library
+   (csrc/sweep_op.cpp, built beside the kernels) bit-equal to
+   sweep_volume at full width, K1 once a call through it, each program
+   against its eager function and the test CLI's kernel route, the
+   consumer tool in subprocesses that load the op library and no module
+   and count K1 once a call in a profiler trace; the smoothed net through
    entry.forward, wrap and coord (18 conv and 17 layer-norm launches, the
    upsampling stages in the conv kernel's folded form, gated and timed
    beside the transposed form's), and its trainer for 3 steps (K7 at path
@@ -145,6 +148,7 @@ card's name and power limit), then a JSON line of kernels, then the
 from __future__ import annotations
 
 import atexit
+import concurrent.futures
 import dataclasses
 import functools
 import itertools
@@ -451,6 +455,16 @@ TRACE_TRIES = 3
 #: The layer-norm kernel's device functions (csrc/layernorm.cu), as the
 #: profiler names them.
 LN_KERNELS = r"\bln_(onchip|stats|apply)\b"
+#: Cycles of the spin kernel (torch.cuda._sleep, "spin_kernel", ~10 ms)
+#: that opens and closes each device_ms window, outside the calls it
+#: counts. Without the spins the layer norm's per-layer traces kept 169 of
+#: their 170 launches in every run of this script, while a fresh process
+#: keeps all 170: the profiler drops a device event at an edge of a
+#: window (one whose timestamp falls outside the window it recorded on the
+#: host), so the window's first and last kernels are spins, and its
+#: counted launches lie well inside it.
+SPIN_CYCLES = 20_000_000
+SPIN_KERNEL = "spin_kernel"
 
 
 def device_ms(fns, kernels, pattern: str, calls: int = 10):
@@ -459,10 +473,12 @@ def device_ms(fns, kernels, pattern: str, calls: int = 10):
     own time, which CUDA events around a call shorter than its launch path
     do not see. fn i launches kernels[i] kernels matching pattern per call;
     on one stream they run in launch order, which assigns each to its fn.
-    Returns (per-fn ms, or None for every fn if the trace lost a launch;
-    total ms per round; launches per round). The profiler now and then
-    keeps no device event of a window; such a trace is taken again, up to
-    TRACE_TRIES times."""
+    The window opens and closes with a spin kernel (SPIN_CYCLES), which
+    no pattern counts. Returns
+    (per-fn ms, or None for every fn if the trace lost a launch; total ms
+    per round; launches per round). A trace that keeps another number of
+    launches than the window made (none, now and then) is taken again, up
+    to TRACE_TRIES times."""
     import re
     import warnings
 
@@ -470,28 +486,35 @@ def device_ms(fns, kernels, pattern: str, calls: int = 10):
     for _ in range(2):
         for fn in fns:
             fn()
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(TRACE_TRIES):
+    want = calls * sum(kernels)
+    for i in range(TRACE_TRIES):
+        torch.cuda.synchronize()
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore",
                                     message=".*Profiler clears events")
             with torch.profiler.profile(activities=acts) as prof:
+                torch.cuda._sleep(SPIN_CYCLES)
                 for _ in range(calls):
                     for fn in fns:
                         fn()
+                torch.cuda._sleep(SPIN_CYCLES)
                 torch.cuda.synchronize()
-            events = sorted((e for e in device_events(prof)
-                             if re.search(pattern, e[0])),
-                            key=lambda e: e[1])
-        if events:
+            traced = device_events(prof)
+        spins = sum(SPIN_KERNEL in e[0] for e in traced)
+        events = sorted((e for e in traced if SPIN_KERNEL not in e[0]
+                         and re.search(pattern, e[0])), key=lambda e: e[1])
+        if len(events) == want:
             break
+        print(f"  device_ms trace {i + 1}/{TRACE_TRIES}: {len(events)} of "
+              f"{want} launches matching {pattern}, {spins} of 2 spins; "
+              f"taken again")
     check(bool(events), f"{TRACE_TRIES} traces hold no kernel matching "
                         f"{pattern}")
     total = sum(d for _, _, d in events) / 1e3 / calls
     per_fn = None
-    if len(events) == calls * sum(kernels):
+    if len(events) == want:
         per_fn = [0.0] * len(fns)
         durs = iter(d for _, _, d in events)
         for _ in range(calls):
@@ -2402,10 +2425,17 @@ def export_full_path(dev, tag, reset_counts, read_counts):
     """Path 14a: cli/export.main --net_only false --platform cuda, coord
     net, float32 and bfloat16, and bfloat16 again with --with_preprocess
     and a seeded remap field (an ERP warp jittered by up to half a pixel)
-    for both eyes, into a temporary directory. The three consumer-tool
-    runs (subprocesses, as scripts, each importing only the op's module)
-    run side by side. Per program: K1 once a call (the registered op
-    matry::sweep_volume); within EXPORT_TOL of the eager function (the
+    for both eyes, into a temporary directory. First the op itself: the
+    op library's matry::sweep_volume on the flagship batch equals
+    sweep_ops.sweep_volume bit for bit, float32 and bfloat16, one launch
+    each. The three consumer-tool runs (subprocesses, as scripts, with
+    PYTHONPATH="", each loading the op library copied beside its program
+    and no module) run side by side, each with --count_kernels: per call
+    K1's kernel once and no other kernel of the port, read from the
+    consumer's printout, and no module of either package or JAX imported.
+    Per program in this process: K1 once a call (the op library's count;
+    no launch of the Python wrappers); within EXPORT_TOL of the eager
+    function (the
     same operations; cuDNN may pick other f32 algorithms in the loaded
     graph, as path 11 measured); in bf16 the test CLI's kernel-route
     rgba_layers on the same (processed) images held to the float32
@@ -2416,14 +2446,38 @@ def export_full_path(dev, tag, reset_counts, read_counts):
     ms a call (CUDA events, median of 10)."""
     import warnings
 
+    import re
+
     from matryodshka_tpu_torch import entry, weights
     from matryodshka_tpu_torch.cli import export as export_cli
     from matryodshka_tpu_torch.cli import test as cli_test
+    from matryodshka_tpu_torch.geometry.sweep import inv_depths
+    from matryodshka_tpu_torch.ops import sweep as sweep_ops
+    from matryodshka_tpu_torch.trace import PORT_KERNELS
+
+    base = entry.flagship_cfg()
+    b0 = entry.synthetic_batch(base, 14, dev)
+    depths = torch.tensor(inv_depths(base.min_depth, base.max_depth,
+                                     base.num_psv_planes), device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        sweep_in = (b0["ref_image"], b0["src_image"], depths,
+                    b0["intrinsics"])
+        n = sweep_ops.op_launches()
+        got = sweep_ops.sweep_volume_op(*sweep_in, dt)
+        torch.cuda.synchronize()
+        check(sweep_ops.op_launches() == n + 1,
+              "the op library's sweep_volume is one launch")
+        want = sweep_ops.sweep_volume(*sweep_in, dt)
+        same = bool(torch.equal(got, want))
+        print(f"op library matry::sweep_volume {str(dt)[6:]} "
+              f"{tuple(got.shape)}: bit-equal to sweep_volume {same}")
+        check(same, f"the op library's sweep_volume ({dt}) against "
+                    f"sweep_volume")
+    del b0, got, want, sweep_in
 
     consumer = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "matryodshka_tpu_torch", "tools",
                             "consume_export.py")
-    base = entry.flagship_cfg()
     h, w, p = base.height, base.width, base.num_msi_planes
     with tempfile.TemporaryDirectory() as d:
         rng = np.random.RandomState(14)
@@ -2454,9 +2508,11 @@ def export_full_path(dev, tag, reset_counts, read_counts):
             size = os.path.getsize(paths[name])
             procs[name] = subprocess.Popen(
                 [sys.executable, consumer, paths[name], "--device", "cuda",
-                 "--out", os.path.join(d, f"out_{name}.npy")],
+                 "--out", os.path.join(d, f"out_{name}.npy"),
+                 "--count_kernels"],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                cwd=d, env=dict(os.environ, PYTHONPATH=""))
+                cwd=d, env=dict(os.environ, PYTHONPATH="",
+                                PYTHONFAULTHANDLER="1"))
             args = export_cli.build_parser().parse_args(flags)
             cfg = export_cli.config_from_args(args)
             tree = weights.seeded_init(cfg, 0)
@@ -2480,8 +2536,10 @@ def export_full_path(dev, tag, reset_counts, read_counts):
             program = torch.export.load(paths[name]).module()
             with torch.no_grad():
                 reset_counts()
+                n = sweep_ops.op_launches()
                 got = program(*inputs)
                 launches = read_counts()
+                launches["sweep_op"] = sweep_ops.op_launches() - n
                 want = eager(*inputs)
                 want32 = eager32(*inputs)
             err = (got.float() - want.float()).abs().max().item()
@@ -2490,8 +2548,10 @@ def export_full_path(dev, tag, reset_counts, read_counts):
                   f"{err:.3e} (tol {EXPORT_TOL[dtype]:.0e}), bit-equal "
                   f"{bool(torch.equal(got, want))}; shape "
                   f"{tuple(got.shape)} {str(got.dtype)[6:]}")
-            check(launches["sweep"] == 1 and launches["conv"] == 0,
-                  f"export {name}: K1 once a call, no conv kernel")
+            check(launches["sweep_op"] == 1 and launches["sweep"] == 0
+                  and launches["conv"] == 0,
+                  f"export {name}: K1 once a call through the op library, "
+                  f"no conv kernel")
             check(tuple(got.shape) == (1, h, w, p, 4)
                   and got.dtype == cfg.torch_compute_dtype
                   and bool(torch.isfinite(got.float()).all())
@@ -2529,14 +2589,27 @@ def export_full_path(dev, tag, reset_counts, read_counts):
         for name, proc in procs.items():
             out, errs = proc.communicate(timeout=600)
             print(out.strip())
-            check(proc.returncode == 0, f"consumer tool on {name}: "
-                                        f"{errs[-2000:]}")
-            imported = out.split("imported: ")[-1]
-            check("registered ['matry::sweep_volume'] from "
-                  "matryodshka_tpu_torch.ops.sweep" in out
-                  and "'jax'" not in imported
-                  and "'matryodshka_tpu'" not in imported,
-                  f"the consumer of {name} imported the op's module only")
+            check(proc.returncode == 0, f"consumer tool on {name}: exit "
+                                        f"{proc.returncode}; {errs[-2000:]}")
+            imported = out.split("imported: ")[-1].strip()
+            check("loaded op library libmatry_ops-" in out
+                  and imported == "[]",
+                  f"the consumer of {name} loaded the op library and "
+                  f"imported no module: {imported}")
+            counts = json.loads(out.split("device kernels of one call: ")[1]
+                                .splitlines()[0])
+            k1 = sum(n for k, n in counts.items()
+                     if re.search(r"\bsweep_kernel\b", k))
+            port = {k: n for k, n in counts.items()
+                    if re.search(r"\b(" + "|".join(PORT_KERNELS) + r")\b",
+                                 k) and not re.search(r"\bsweep_kernel\b",
+                                                      k)}
+            print(f"consumer {name}: {sum(counts.values())} device kernels "
+                  f"in one call, K1's {k1}, other kernels of the port "
+                  f"{port or 'none'}")
+            check(k1 == 1 and not port,
+                  f"the consumer of {name}: K1 once a call, no other kernel "
+                  f"of the port")
 
 
 def smoothed_path(dev, tag, reset_counts, read_counts, k7_per_step, gate):
@@ -3210,11 +3283,20 @@ def main() -> None:
     mesh_proc = start_mesh_generation(mesh_cfg)
 
     # ---- build -----------------------------------------------------------
+    # the op library (csrc/sweep_op.cpp with K1: nvcc and g++) in a thread
+    # beside the kernel library's nvcc processes
     t0 = time.perf_counter()
-    so = _build.build()
-    _build.lib()
-    print(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s: "
-          f"{so.name}")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        op_build = pool.submit(
+            lambda: (_build.op_library(), time.perf_counter() - t0))
+        so = _build.build()
+        _build.lib()
+        print(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s: "
+              f"{so.name}")
+        op_so, op_secs = op_build.result()
+    sweep_ops.load_op_library()
+    print(f"op library built/loaded in {op_secs:.2f} s beside the kernels: "
+          f"{op_so.name} {tag}")
     log = so.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():

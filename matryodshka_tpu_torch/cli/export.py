@@ -29,17 +29,17 @@ interface, config):
   of 16), with the fixed flag poses (`pose_from_flag`) and the ODS
   intrinsics baked in.
 
-A program that runs no custom op loads without this package:
+Every program loads without this package:
 `matryodshka_tpu_torch/tools/consume_export.py` reads it importing
 neither package. The full pipeline's sweep is K1 (csrc/sweep.cu), which
-enters the program as the registered custom op `matry::sweep_volume`
-(`ops/sweep.py`): on the card one launch a call, on the CPU its plain
-version. Such a program's meta.json adds `custom_ops` (the ops it
-carries) and `op_module` (the module that registers them), and the
-process that loads it must import that module first (consume_export.py
-does so, and only then). A loader without Python (a `TORCH_LIBRARY`
-registration of the kernels in a library linked against libtorch) is not
-written yet (ROADMAP Queue 1 item 10b). The sweep is the identity-pose
+enters the program as the custom op `matry::sweep_volume`, registered in
+C++ (csrc/sweep_op.cpp) in the op library `ops/_build.op_library()`
+builds: on the card one launch a call, on the CPU its plain version. main
+copies that library beside the `.pt2`, and the program's meta.json adds
+`custom_ops` (the ops it carries) and `op_library` (the library's file
+name, relative to the `.pt2`'s directory): the process that loads the
+program loads that library first (`torch.ops.load_library`), and needs
+no module of the port. The sweep is the identity-pose
 ODS sweep, as the JAX package's Pallas route runs it (JAX
 sweep.py:147-158): the full program accepts the JAX interface's poses and
 does not read them, and `--with_preprocess` refuses flag poses whose
@@ -63,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import warnings
 
 import numpy as np
@@ -75,6 +76,7 @@ from matryodshka_tpu_torch.config import (MatryConfig, add_config_args,
 from matryodshka_tpu_torch.geometry.sweep import inv_depths
 from matryodshka_tpu_torch.models import msi as msi_lib
 from matryodshka_tpu_torch.models.unet import MSIUNet, atlas_pack
+from matryodshka_tpu_torch.ops import _build
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
 from matryodshka_tpu_torch.ops.resample import bilinear_zero_resample
 from matryodshka_tpu_torch.training.checkpoint import CheckpointManager
@@ -141,7 +143,7 @@ class FullPipeline(nn.Module):
     def forward(self, ref_image, src_image, ref_pose, src_pose,
                 ref_pose_inv, intrinsics):
         del ref_pose, src_pose, ref_pose_inv
-        vol = torch.ops.matry.sweep_volume(
+        vol = sweep_ops.sweep_volume_op(
             ref_image.contiguous(), src_image.contiguous(), self.psv_depths,
             intrinsics.contiguous(), self.out_dtype)
         pred = self.net(vol)
@@ -396,8 +398,14 @@ def main(argv=None):
                        "which_color_pred": cfg.which_color_pred,
                        "coord_net": cfg.coord_net}}
     if not cfg.net_only:
-        meta.update(custom_ops=[sweep_ops.OP_NAME],
-                    op_module=sweep_ops.OP_MODULE)
+        library = _build.op_library()
+        # a new file renamed into place: a process that has a library of
+        # this name loaded (a consumer of an earlier export into this
+        # directory) keeps its own
+        tmp = os.path.join(args.export_dir, f".{library.name}.{os.getpid()}")
+        shutil.copy2(library, tmp)
+        os.replace(tmp, os.path.join(args.export_dir, library.name))
+        meta.update(custom_ops=[sweep_ops.OP_NAME], op_library=library.name)
     with open(os.path.join(args.export_dir,
                            f"{args.export_name}.meta.json"), "w") as fh:
         json.dump(meta, fh, indent=2)

@@ -116,6 +116,14 @@ def rotation_from_euler(angles):
     return rz @ ry @ rx
 
 
+def pose_from_offset(offset):
+    """[3] translation -> 4x4 [I | t] pose in offset's dtype and device
+    (JAX cameras.py:230, data_loader.py:177-180)."""
+    pose = torch.eye(4, dtype=offset.dtype, device=offset.device)
+    pose[:3, 3] = offset
+    return pose
+
+
 def random_jitter_pose(generator=None, rot_factor: float = 1.0,
                        tr_factor: float = 1.0, angle_range=(-0.03, 0.03),
                        offset_range=(-0.01, 0.01), device="cpu"):

@@ -38,6 +38,16 @@ def uv_grid(shape, device=None, dtype=torch.float32):
     return U, V
 
 
+def theta_y_grid(shape, device=None, dtype=torch.float32):
+    """(TH, Y): [H, W] cylindrical grid, theta in [-pi, pi] (along W) and
+    y in [-1, 1] (along H), with no half-pixel offset (JAX grids.py:54)."""
+    h, w = shape
+    th = torch.linspace(-PI, PI, w, device=device, dtype=dtype)
+    y = torch.linspace(-1.0, 1.0, h, device=device, dtype=dtype)
+    Y, TH = torch.meshgrid(y, th, indexing="ij")
+    return TH, Y
+
+
 _VECTORS = {}
 
 

@@ -45,17 +45,45 @@ def ods_sweep_coords(h: int, w: int, order: int, depths, pose, intrinsics):
     return cameras.project_ods(points, order, intrinsics, w, h)
 
 
-def ods_sphere_sweep(image, order: int, depths, pose, intrinsics):
-    """ODS sphere sweep of a batch: image [B, H, W, C], depths [P],
-    pose [B, 4, 4], intrinsics [B, 3, 3] -> [B, H, W, P*C] float32."""
+def centered_sweep_coords(h: int, w: int, depths, pose):
+    """Lookup coordinates of one example's centred sphere sweep
+    [P, H, W, 2]: the sphere points moved by pose, projected into a
+    centred ERP camera (cameras.project_spherical)."""
+    S, T = grids.lat_long_grid((h, w), device=depths.device)
+    points = cameras.backproject_spherical(S, T, depths)
+    return cameras.project_spherical(cameras.apply_pose(points, pose), w, h)
+
+
+def _sphere_sweep(image, depths, coords):
+    """image [B, H, W, C] resampled at coords(i) [P, H, W, 2] of each
+    example i -> [B, H, W, P*C] float32."""
     b, h, w, c = image.shape
     p = depths.shape[0]
     vols = []
     for i in range(b):
-        uv = ods_sweep_coords(h, w, order, depths, pose[i], intrinsics[i])
-        vol = resample_layers(image[i][None].expand(p, h, w, c), uv)
+        vol = resample_layers(image[i][None].expand(p, h, w, c), coords(i))
         vols.append(vol.permute(1, 2, 0, 3).reshape(h, w, p * c))
     return torch.stack(vols)
+
+
+def ods_sphere_sweep(image, order: int, depths, pose, intrinsics):
+    """ODS sphere sweep of a batch: image [B, H, W, C], depths [P],
+    pose [B, 4, 4], intrinsics [B, 3, 3] -> [B, H, W, P*C] float32."""
+    _, h, w, _ = image.shape
+    return _sphere_sweep(image, depths, lambda i: ods_sweep_coords(
+        h, w, order, depths, pose[i], intrinsics[i]))
+
+
+def ods_centered_sphere_sweep(image, order: int, depths, pose, intrinsics):
+    """Sphere sweep with a centred (non-ODS) spherical projection (JAX
+    sweep.py:77-85, projector.py:213-215; the reference's sweep_ref): the
+    arguments of ods_sphere_sweep, of which the projection reads neither
+    order nor intrinsics -> [B, H, W, P*C] float32. A gather, as in the
+    JAX package with use_pallas=False."""
+    del order, intrinsics
+    _, h, w, _ = image.shape
+    return _sphere_sweep(image, depths, lambda i: centered_sweep_coords(
+        h, w, depths, pose[i]))
 
 
 def perspective_sweep_coords(h: int, w: int, depths, pose, intrinsics):

@@ -9,11 +9,24 @@ carries a hash of the sources and flags: a changed source rebuilds, an
 unchanged one loads in milliseconds. The compiler's output, `-Xptxas -v`
 register and spill counts included, is kept beside the library as
 `<name>.log`.
+
+`op_library()` builds a second, self-contained library,
+`libmatry_ops-<hash>.so`: `csrc/sweep_op.cpp`, which registers the custom
+op `matry::sweep_volume` with libtorch's dispatcher (`TORCH_LIBRARY`), and,
+where CUDA is available, `csrc/sweep.cu` linked into it, so that a process
+loads it with `torch.ops.load_library` and needs no module of the port (an
+exported full program, `cli/export.py`). `g++` compiles `sweep_op.cpp`
+against the wheel's libtorch headers (its CPU and Meta implementations;
+with `-DMATRY_WITH_CUDA` the CUDA one too, beside `nvcc`'s object of
+`sweep.cu`). It lands in `_build/` under a hash of its sources, flags and
+`torch.__version__`, built under a file lock and renamed into place.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -128,6 +141,117 @@ def build() -> Path:
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
     return so
+
+
+#: The op library's sources: its C++ registration, and K1 with the headers
+#: it includes (linked in where CUDA is available).
+OP_SOURCE = CSRC / "sweep_op.cpp"
+OP_CUDA_SOURCES = [CSRC / "sweep.cu", CSRC / "project.cuh",
+                   CSRC / "common.cuh"]
+CXX_FLAGS = ["-std=c++20", "-O2", "-fPIC"]
+
+
+def _torch_dirs():
+    root = Path(torch.__file__).resolve().parent
+    return root / "include", root / "lib"
+
+
+def _op_flags(cuda: bool):
+    """(compile flags, link flags) of sweep_op.cpp."""
+    inc, libdir = _torch_dirs()
+    cflags = [*CXX_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI="
+              f"{int(torch._C._GLIBCXX_USE_CXX11_ABI)}", f"-I{inc}",
+              f"-I{inc / 'torch' / 'csrc' / 'api' / 'include'}"]
+    libs = ["-ltorch", "-ltorch_cpu", "-lc10"]
+    if cuda:
+        cuda_root = Path(_nvcc()).resolve().parent.parent
+        cflags += ["-DMATRY_WITH_CUDA", f"-I{cuda_root / 'include'}"]
+        # the CUDA runtime linked statically, as nvcc links the kernel
+        # library: the library needs no libcudart of the toolkit's version
+        libs += ["-ltorch_cuda", "-lc10_cuda",
+                 f"-L{cuda_root / 'lib64'}", "-lcudart_static", "-ldl",
+                 "-lrt", "-lpthread"]
+    return cflags, [f"-L{libdir}", *libs, f"-Wl,-rpath,{libdir}"]
+
+
+def op_library_path(cuda: bool) -> Path:
+    cflags, lflags = _op_flags(cuda)
+    h = hashlib.sha256(" ".join([torch.__version__, *NVCC_FLAGS, *cflags,
+                                 *lflags]).encode())
+    for src in [OP_SOURCE, *(OP_CUDA_SOURCES if cuda else [])]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmatry_ops-{h.hexdigest()[:16]}.so"
+
+
+@contextlib.contextmanager
+def _locked(path: Path):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def op_library() -> Path:
+    """The op library (matry::sweep_volume), built unless it exists: with
+    K1's CUDA implementation where torch.cuda.is_available() (nvcc
+    missing there raises), else its CPU and Meta implementations alone."""
+    cuda = torch.cuda.is_available()
+    if cuda:
+        _nvcc()
+    so = op_library_path(cuda)
+    if so.exists():
+        return so
+    with _locked(so.with_suffix(".lock")):
+        if not so.exists():
+            _build_op_library(so, cuda)
+    return so
+
+
+def _build_op_library(so: Path, cuda: bool) -> None:
+    cflags, lflags = _op_flags(cuda)
+    tag = f"{so.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    objs = [BUILD_DIR / f"{tag}.sweep_op.o"]
+    cmds = [["g++", *cflags, "-c", str(OP_SOURCE), "-o", str(objs[0])]]
+    if cuda:
+        objs.append(BUILD_DIR / f"{tag}.sweep.o")
+        cmds.append([_nvcc(), *NVCC_FLAGS, "-c", str(OP_CUDA_SOURCES[0]),
+                     "-o", str(objs[1])])
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    try:
+        log, failed = [], []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        if not failed:
+            link = ["g++", "-shared", "-o", str(tmp), *map(str, objs),
+                    *lflags]
+            done = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  check=False)
+            log.append(" ".join(link) + "\n" + done.stdout)
+            if done.returncode != 0:
+                failed.append(done.stdout)
+        so.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("the op library's build failed:\n"
+                               + "\n".join(failed)[-4000:])
+        os.replace(tmp, so)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
 
 
 def lib() -> ctypes.CDLL:

@@ -9,11 +9,14 @@ sweep is one launch; its source note gives the bound and the design. The
 output is the net's input, channels first and unflipped:
 [B, 2*P*3, H, W], channel (eye*P + p)*3 + c.
 
-`sweep_volume` is also the registered custom op `matry::sweep_volume`
-(`torch.ops.matry.sweep_volume`, with a fake kernel for `torch.export`),
-so that a program exported with `torch.export` can carry K1
-(`cli/export.py`, the full pipeline). Loading such a program needs the op
-registered in the loading process, which importing this module does.
+`sweep_volume` is also the custom op `matry::sweep_volume`
+(`torch.ops.matry.sweep_volume`), so that a program exported with
+`torch.export` can carry K1 (`cli/export.py`, the full pipeline). The op
+is registered in C++ (`csrc/sweep_op.cpp`: a CUDA implementation that is
+one launch of the same kernel, a CPU one that is this module's plain route
+transcribed into ATen, and a Meta one for `torch.export`), in the library
+`_build.op_library()` builds; `sweep_volume_op` loads it at its first call.
+A process that loads an exported program loads that library alone.
 """
 
 from __future__ import annotations
@@ -169,27 +172,39 @@ def sweep_volume(ref_image, src_image, depths, intrinsics,
     return out
 
 
-#: The custom op that carries sweep_volume into exported programs, and
-#: the module that registers it (what an exported program's meta.json
-#: names).
+#: The custom op that carries sweep_volume into exported programs.
 OP_NAME = "matry::sweep_volume"
-OP_MODULE = __name__
 
 
-@torch.library.custom_op(OP_NAME, mutates_args=())
-def sweep_volume_op(ref_image: torch.Tensor, src_image: torch.Tensor,
-                    depths: torch.Tensor, intrinsics: torch.Tensor,
-                    out_dtype: torch.dtype) -> torch.Tensor:
-    """sweep_volume as a registered op: the kernel's one launch for CUDA
-    tensors (counted in `launches`), the plain version for CPU ones."""
-    return sweep_volume(ref_image, src_image, depths, intrinsics, out_dtype)
+def _op_registered() -> bool:
+    try:
+        torch.ops.matry.sweep_volume
+    except (AttributeError, RuntimeError):
+        return False
+    return True
 
 
-@sweep_volume_op.register_fake
-def _sweep_volume_fake(ref_image, src_image, depths, intrinsics, out_dtype):
-    b, h, w, _ = ref_image.shape
-    return ref_image.new_empty((b, 2 * depths.shape[0] * 3, h, w),
-                               dtype=out_dtype)
+def load_op_library() -> None:
+    """Register matry::sweep_volume in this process by loading the op
+    library (built on first use), unless a loaded library registered it
+    already: a second registration of the op is an error."""
+    if not _op_registered():
+        torch.ops.load_library(str(_build.op_library()))
+
+
+def sweep_volume_op(ref_image, src_image, depths, intrinsics, out_dtype):
+    """sweep_volume through the registered op: on CUDA tensors one launch
+    of the kernel (counted by the library, op_launches), on CPU tensors
+    the plain route in ATen, equal to sweep_volume's bit for bit."""
+    load_op_library()
+    return torch.ops.matry.sweep_volume(ref_image, src_image, depths,
+                                        intrinsics, out_dtype)
+
+
+def op_launches() -> int:
+    """The op library's launches of the kernel in this process."""
+    load_op_library()
+    return torch.ops.matry.sweep_volume_launches()
 
 
 def sweep_row_params(depths, intrinsics, height: int, width: int):

@@ -22,9 +22,11 @@ with --net_only false, and --with_preprocess) against the JAX package's
   bfloat16 function's own distance from it): the port's standing bf16
   gate (PERF.md section 2) with chip_smoke.py path 11's margin.
 * The program carries the op once; `main` writes meta.json with the JAX
-  CLI's keys and values plus `custom_ops` and `op_module`; the consumer
-  tool runs the program in a subprocess, importing only the op's module;
-  flag poses with a relative pose are refused.
+  CLI's keys and values plus `custom_ops` and `op_library`, and copies
+  the op library (csrc/sweep_op.cpp, built with g++ here) beside the
+  program; the consumer tool runs the program in a subprocess with
+  PYTHONPATH="" that loads that library alone and imports no module of
+  either package or JAX; flag poses with a relative pose are refused.
 """
 
 import json
@@ -240,11 +242,12 @@ def test_preprocess_refuses_a_relative_pose():
 def test_main_meta_and_consumer(tmp_path):
     """Both CLIs export the full pipeline at --platform cpu with no
     checkpoint: the port's meta.json is the JAX CLI's plus the op it
-    carries and the module that registers it. The consumer tool, run as a
-    script, imports that module (and so the port's package) and nothing of
-    JAX, loads the program and writes its output for its seeded inputs;
-    the same for the --with_preprocess program, whose uint8 inputs meta.json
-    declares."""
+    carries and the op library beside the program. The consumer tool, run
+    as a script from another directory with PYTHONPATH="", loads that
+    library, imports no module of either package or of JAX, loads the
+    program and writes its output for its seeded inputs, equal to the
+    in-process load's; the same for the --with_preprocess program, whose
+    uint8 inputs meta.json declares, exported into the same directory."""
     flags = FLAGS + ["--checkpoint_dir", str(tmp_path / "none")]
     jexport.main(flags + ["--export_dir", str(tmp_path / "jax")])
     with pytest.warns(UserWarning, match="no checkpoint"):
@@ -252,26 +255,33 @@ def test_main_meta_and_consumer(tmp_path):
     jmeta = json.loads((tmp_path / "jax" / "msi_model.meta.json").read_text())
     tmeta = json.loads((tmp_path / "t" / "msi_model.meta.json").read_text())
     assert tmeta.pop("custom_ops") == [sweep_ops.OP_NAME]
-    assert tmeta.pop("op_module") == "matryodshka_tpu_torch.ops.sweep"
+    library = tmeta.pop("op_library")
+    assert library.startswith("libmatry_ops-") and library.endswith(".so")
+    assert (tmp_path / "t" / library).is_file()
     assert tmeta == jmeta
+    inode = os.stat(tmp_path / "t" / library).st_ino
     with pytest.warns(UserWarning, match="no checkpoint"):
         pre = texport.main(flags + ["--export_dir", str(tmp_path / "t"),
                                     "--export_name", "pre",
                                     "--with_preprocess", "--clip_to_fp16"])
+    # a second export into the directory renames a new copy into place: a
+    # consumer still running the first program keeps the file it mapped
+    assert os.stat(tmp_path / "t" / library).st_ino != inode
+    run_dir = tmp_path / "elsewhere"
+    run_dir.mkdir()
     for p, dtypes in ((path, [np.float32] * 6), (pre, [np.uint8] * 2)):
         out = tmp_path / "out.npy"
         res = subprocess.run(
             [sys.executable, os.path.join(
                 REPO, "matryodshka_tpu_torch", "tools", "consume_export.py"),
              p, "--device", "cpu", "--out", str(out)],
-            capture_output=True, text=True, timeout=300, cwd=str(tmp_path),
+            capture_output=True, text=True, timeout=300, cwd=str(run_dir),
             env=dict(os.environ, PYTHONPATH=""))
         assert res.returncode == 0, res.stderr
-        assert "registered ['matry::sweep_volume'] from " \
-               "matryodshka_tpu_torch.ops.sweep" in res.stdout
-        imported = res.stdout.split("imported: ")[-1]
-        assert "'matryodshka_tpu_torch.ops.sweep'" in imported
-        assert "'jax'" not in imported and "'matryodshka_tpu'" not in imported
+        assert f"loaded op library {library} for " \
+               f"['matry::sweep_volume']" in res.stdout
+        imported = res.stdout.split("imported: ")[-1].strip()
+        assert imported == "[]", imported
         meta = json.loads(open(p.rsplit(".", 1)[0] + ".meta.json").read())
         rng = np.random.RandomState(0)
         xs = [torch.from_numpy(

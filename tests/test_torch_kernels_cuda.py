@@ -108,6 +108,28 @@ def test_sweep_kernel_matches_plain(cuda, dtype, shape):
     assert (got - want).abs().max().item() <= tol
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_op_library_sweep_equals_sweep_volume(cuda, dtype, shape):
+    """The op library's matry::sweep_volume (csrc/sweep_op.cpp, linked
+    with its own build of csrc/sweep.cu) is one launch of the same kernel
+    on the same lookups: bit-equal to sweep_volume, counted by the
+    library; a width it does not take raises."""
+    h, w, p = shape
+    ref, src, depths, intr = _sweep_case(cuda, h, w, p)
+    n = sweep_ops.op_launches()
+    got = sweep_ops.sweep_volume_op(ref, src, depths, intr, dtype)
+    torch.cuda.synchronize()
+    assert sweep_ops.op_launches() == n + 1
+    assert torch.equal(got, sweep_ops.sweep_volume(ref, src, depths, intr,
+                                                   dtype))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        sweep_ops.sweep_volume_op(ref[:, :, :w - 4].contiguous(),
+                                  src[:, :, :w - 4].contiguous(), depths,
+                                  intr, dtype)
+
+
 #: Single conv layers at the edges of the kernel's tiles: (id, B, Cin, H,
 #: W, Cout, conv arguments; coord=True appends the coord channel). Heads of
 #: 67, 99 and 32 channels (Cout not a multiple of 8, or of the 64-channel
@@ -592,8 +614,9 @@ def test_smoothed_net_kernel_route_matches_plain(cuda, variant):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_full_export_on_the_card(cuda, tmp_path, dtype):
     """cli/export.main --net_only false --platform cuda: the loaded
-    program launches K1 (the registered op matry::sweep_volume) exactly
-    once a call and is within 1e-6 of the eager build_full_fn (the same
+    program launches K1 (the op library's matry::sweep_volume, counted by
+    the library, not by the Python wrapper) exactly once a call and is
+    within 1e-6 of the eager build_full_fn (the same
     operations); in bf16 the test CLI's kernel-route rgba_layers are held
     to the float32 function within max(2e-2, 1.5 x the bf16 program's
     distance from it) (chip_smoke.py path 11's rule: the two bf16 nets'
@@ -617,10 +640,11 @@ def test_full_export_on_the_card(cuda, tmp_path, dtype):
     tree = weights.seeded_init(cfg, 0)
     program = torch.export.load(path).module()
     with torch.no_grad():
-        n = sweep_ops.launches
+        n, n_py = sweep_ops.op_launches(), sweep_ops.launches
         got = program(*inputs)
         torch.cuda.synchronize()
-        assert sweep_ops.launches == n + 1
+        assert sweep_ops.op_launches() == n + 1
+        assert sweep_ops.launches == n_py
         eager = export_cli.build_full_fn(cfg, tree, cuda)(*inputs)
         params = entry.make_params(cfg, flax_params=tree, device=cuda)
         kern = cli_test.build_infer_fn(cfg, params, "rgba_layers")(b)
