@@ -5,8 +5,9 @@ once on an NVIDIA GPU.
 
 Builds the port's CUDA kernels from matryodshka_tpu_torch/csrc, reports
 the conv kernel's instantiations (ptxas registers, stack and spills; the
-HMMA/HGMMA count of each one's SASS, which must be above 0 for the bf16
-tensor-core instantiations), and checks each kernel against its plain
+HGMMA and HMMA counts of each one's SASS: the bf16 conv instantiations
+must hold HGMMA, the weight gradient's HMMA, and none may spill), and
+checks each kernel against its plain
 PyTorch version at the shapes its path gives it, all at the full width
 of the flagship configuration (640x320 ODS input, 32 planes per eye, 32
 shells, ngf 64, bf16) with seeded random weights. The sweep and the two
@@ -343,20 +344,21 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-#: Kernels the build report lists (demangled names), and those whose
-#: every instantiation must hold tensor-core instructions.
-REPORTED = r"conv_(tc|f32)_kernel|wgrad_(tc|f32)_kernel|wgrad_reduce|" \
+#: Kernels the build report lists (demangled names), and the bf16 kernels
+#: with the tensor-core instruction each of their instantiations must hold:
+#: the conv's wgmma (HGMMA), the weight gradient's mma.sync (HMMA).
+REPORTED = r"conv_(wgmma|f32)_kernel|wgrad_(tc|f32)_kernel|wgrad_reduce|" \
     r"stats_fold|ln_(onchip|stats|apply)\b"
-TENSOR_CORE = ("conv_tc_kernel", "wgrad_tc_kernel")
+TENSOR_CORE = {"conv_wgmma_kernel": "HGMMA", "wgrad_tc_kernel": "HMMA"}
 
 
 def kernel_build_report(so) -> None:
     """The conv, weight-gradient and layer-norm kernels' instantiations in
     the built library: ptxas's registers and spills for each (from the
-    build log, `-Xptxas -v`), and the tensor-core instructions (HMMA,
-    HGMMA) in each one's SASS (`cuobjdump -sass`). Fails if a bf16
-    instantiation (conv_tc_kernel, wgrad_tc_kernel) has none, or if
-    wgrad_tc_kernel spills."""
+    build log, `-Xptxas -v`), and the tensor-core instructions in each
+    one's SASS (`cuobjdump -sass`), HGMMA (wgmma) apart from HMMA
+    (mma.sync). Fails if a bf16 instantiation lacks its instruction
+    (conv_wgmma_kernel HGMMA, wgrad_tc_kernel HMMA) or spills."""
     import re
     from pathlib import Path
 
@@ -386,9 +388,11 @@ def kernel_build_report(so) -> None:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            mma[fn] = 0
-        elif fn and re.search(r"\bHG?MMA\b", line):
-            mma[fn] += 1
+            mma[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    mma[fn][op] += 1
     names = sorted(set(ptxas) | set(mma))
     try:
         short = subprocess.run([str(bin_dir / "cu++filt")],
@@ -408,24 +412,26 @@ def kernel_build_report(so) -> None:
         nice = re.sub(r"\((?:[^()]|\([^()]*\))*\)$", "", nice)
         info = ptxas.get(name, {})
         spill = info.get("spill", ("?", "?", "?"))
+        ops = mma.get(name, {"HGMMA": 0, "HMMA": 0})
         print(f"kernel build {nice}: {info.get('regs', '?')} registers, "
               f"stack frame {spill[0]} B, spill stores {spill[1]} B, spill "
-              f"loads {spill[2]} B, "
-              f"{mma.get(name, 0)} HMMA/HGMMA in its SASS")
-        for k in TENSOR_CORE:
+              f"loads {spill[2]} B, {ops['HGMMA']} HGMMA and {ops['HMMA']} "
+              f"HMMA in its SASS")
+        for k, op in TENSOR_CORE.items():
             if k in nice:
                 n_tc[k] += 1
-                if mma.get(name, 0) == 0:
-                    missing.append(nice)
-        if "wgrad_tc_kernel" in nice and spill[1:] != (0, 0):
-            spilled.append(nice)
+                if ops[op] == 0:
+                    missing.append(f"{nice} (no {op})")
+                if spill[1:] != (0, 0):
+                    spilled.append(nice)
     for k, n in n_tc.items():
-        print(f"kernel build: {n} bf16 (tensor-core) instantiations of {k}; "
-              f"{'ok' if n and not missing else 'FAIL'}")
+        print(f"kernel build: {n} bf16 instantiations of {k} "
+              f"({TENSOR_CORE[k]}); "
+              f"{'ok' if n and not missing and not spilled else 'FAIL'}")
     check(all(n_tc.values()) and not missing,
-          f"bf16 instantiations without tensor-core instructions: "
+          f"bf16 instantiations without their tensor-core instruction: "
           f"{missing or n_tc}")
-    check(not spilled, f"wgrad_tc_kernel spills: {spilled}")
+    check(not spilled, f"bf16 tensor-core instantiations spill: {spilled}")
 
 
 def check(ok: bool, what: str) -> None:
@@ -828,7 +834,7 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
                 flops)
         line = (f"{name:8s} fwd ({'K7c' if cin >= 160 else 'K7b'}) kernel "
                 f"{kt:7.3f} ms ({flops / kt / 1e9:6.2f} TFLOP/s, tile "
-                f"{conv_tile(1, 1, hh, ww, cout, x.dtype)}) plain "
+                f"{conv_tile(x, cout, kh=3, kw=3, pad=1)}) plain "
                 f"{pt:7.3f} library bf16 {lib_fwd:7.3f}")
         if name != "conv1_1":
             dt = time_ms(lambda: wc.conv3x3_wrap(gy, wadj))
@@ -838,7 +844,7 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
             add("wrap_conv_k7a", dt, dpt, dlt,
                 nbytes(gy, wt) + 4 * x.numel(), flops)
             line += (f" | dgrad kernel {dt:7.3f} ({flops / dt / 1e9:6.2f} "
-                     f"TFLOP/s, tile {conv_tile(1, 1, hh, ww, cin, x.dtype)})"
+                     f"TFLOP/s, tile {conv_tile(gy, cin, kh=3, kw=3, pad=1)})"
                      f" plain {dpt:7.3f} library {dlt:7.3f}")
         gt = time_ms(lambda: wc.conv3x3_wrap_wgrad(gy, x))
         gpt = time_ms(lambda: wc.conv3x3_wrap_wgrad_plain(gy, x))
@@ -935,6 +941,11 @@ def training_path(dev, tag, reset_counts, read_counts):
     for k in ("sweep", *K7_COUNTS):
         check(train_launches[k] > 0, f"kernel {k} was not launched on the "
                                      f"training path")
+    k7 = sum(train_launches[k] for k in ("wrap_conv_k7a", "wrap_conv_k7b",
+                                         "wrap_conv_k7c"))
+    check(train_launches["conv_wgmma"] == k7,
+          f"every K7a/b/c launch of the trainer was the wgmma kernel: "
+          f"{train_launches['conv_wgmma']} of {k7}")
     step_ms = statistics.median(s.elapsed_time(e)
                                 for s, e in step_events[TRAIN_WARMUP:])
     print(f"train step {step_ms:.3f} ms (median of {TRAIN_STEPS} after "
@@ -2641,7 +2652,7 @@ def smoothed_path(dev, tag, reset_counts, read_counts, k7_per_step, gate):
         got = read_counts()
         print(f"launches of the smoothed {net} net's entry.forward: {got}")
         check(got["sweep"] == got["render"] == 1 and got["conv"] == 18
-              and got["layernorm"] == 17
+              and got["conv_wgmma"] == 18 and got["layernorm"] == 17
               and got["conv_coord"] == (18 if coord else 0),
               f"smoothed {net}: one sweep, 18 conv, 17 LN, one render")
         err = (out - entry.forward_plain(sparams, sb)).abs()
@@ -3359,10 +3370,16 @@ def main() -> None:
         if name == "conv1_1":
             x = vol
         stage_inputs[name] = x
+        nw = conv_ops.wgmma_launches
         y = conv_ops.conv(x, st["w"], st["b"], **st["args"])
+        check(conv_ops.wgmma_launches == nw + 1,
+              f"conv {name}: one launch of the wgmma kernel")
         yp = conv_ops.conv_plain(x, st["w"], st["b"], **st["args"])
         gate("conv", f"{name} {kind} {tuple(x.shape[1:])}->{cout}", y, yp,
              2.0 ** -7 * yp.float().abs().max().item())
+        check(torch.equal(y, conv_ops.conv(x, st["w"], st["b"],
+                                           **st["args"])),
+              f"conv {name}: two launches differ")
         if "gamma" in st:
             # the LN+ReLU on this stage's output, bf16 (as the net runs it)
             # and f32: f64 partials against the plain version's two-pass
@@ -3391,9 +3408,15 @@ def main() -> None:
     for plan, st in zip(cparams.net.plan, cparams.stages):
         name, kind, _, _, cout, _, outd, _ = plan
         x = stage_inputs[name]
+        nw = conv_ops.wgmma_launches
         y = conv_ops.conv(x, st["w"], st["b"], **st["args"])
+        check(conv_ops.wgmma_launches == nw + 1,
+              f"coord {name}: one launch of the wgmma kernel")
         check(tuple(y.shape[2:]) == (h // outd, w // outd),
               f"coord {name} output {tuple(y.shape)}")
+        check(torch.equal(y, conv_ops.conv(x, st["w"], st["b"],
+                                           **st["args"])),
+              f"coord {name}: two launches differ")
         yp = conv_ops.conv_plain(x, st["w"], st["b"], **st["args"])
         gate("conv_coord", f"{name} {kind} {tuple(x.shape[1:])}->{cout}"
              f"{' +coord' if 'coord' in st['args'] else ''}", y, yp,
@@ -3450,9 +3473,13 @@ def main() -> None:
     for m in mods.values():
         m.launches = 0
     sweep_ops.row_params_launches = render_ops.uv_launches = 0
+    conv_ops.wgmma_launches = 0
     outs = [entry.forward(params, b) for b in batches]
     torch.cuda.synchronize()
     launches = {k: m.launches for k, m in mods.items()}
+    check(conv_ops.wgmma_launches == launches["conv"] == 18 * len(batches),
+          f"every conv stage of the {len(batches)} requests launched the "
+          f"wgmma kernel: {conv_ops.wgmma_launches} of {launches['conv']}")
     instruments = (sweep_ops.row_params_launches, render_ops.uv_launches)
     print(f"launches over {len(batches)} requests: {launches}; instruments "
           f"(row params, uv) {instruments}")
@@ -3515,6 +3542,7 @@ def main() -> None:
         rl_ops.ftb_launches = rl_ops.both_launches = 0
         render_lib.uv_builds = 0
         conv_ops.coord_launches = 0
+        conv_ops.wgmma_launches = 0
         sweep_lib.gather_sweeps = 0
         rl_ops.partial_launches = 0
 
@@ -3526,6 +3554,7 @@ def main() -> None:
         got["render_layers_both"] = rl_ops.both_launches
         got["uv_tables"] = render_lib.uv_builds
         got["conv_coord"] = conv_ops.coord_launches
+        got["conv_wgmma"] = conv_ops.wgmma_launches
         got["gather_sweep"] = sweep_lib.gather_sweeps
         got["render_layers_partial"] = rl_ops.partial_launches
         return got
@@ -3649,6 +3678,9 @@ def main() -> None:
     for k in ("sweep", "conv_coord", "layernorm", "render"):
         check(coord_launches[k] > 0, f"kernel {k} was not launched on the "
                                      f"coord net's entry.forward path")
+    check(coord_launches["conv_wgmma"] == coord_launches["conv_coord"]
+          == 18 * len(cbatches), "every coord conv stage launched the wgmma "
+                                 "kernel")
     for (seed, pos), b, out in zip(REQUESTS, cbatches, couts):
         check(tuple(out.shape) == (1, h, w, 3), f"coord output {out.shape}")
         check(bool(torch.isfinite(out).all()), "coord: non-finite output")
@@ -3778,13 +3810,7 @@ def main() -> None:
             flops += f
             cbytes += nbytes(x, st["w"], st["b"], y) + (
                 nbytes(args["coord"]) if "coord" in args else 0)
-            npar = args.get("npar", 1)
-            grid = conv_ops.out_size(x.shape[2], x.shape[3], args["kh"],
-                                     args["kw"], args.get("stride", 1),
-                                     args.get("dil", 1), args.get("pad", 0),
-                                     npar)
-            tile = conv_ops.tile_config(x.shape[0], npar, *grid, cout,
-                                        x.dtype)
+            tile = conv_ops.tile_config(x, cout, **args)
             line = (f"{key} {name:10s} kernel {kt:8.3f} ms "
                     f"({f / kt / 1e9:6.2f} TFLOP/s, tile {tile}) plain "
                     f"{pt:8.3f} ms library bf16 {lt:7.3f} ms")

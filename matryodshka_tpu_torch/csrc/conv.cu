@@ -6,8 +6,8 @@
 // three kernels of matryodshka_tpu/ops/pallas_conv.py (K7: _conv_kernel,
 // _conv_kernel_dma, _conv_ln_kernel; ops/wrap_conv.py), which are its wrap
 // mode at stride 1. The layer norm is layernorm.cu. One launch is one
-// layer: M = Cout, N = output pixels, K = KH*KW*Cin', with the input patch
-// gathered on the fly.
+// layer, an implicit GEMM over K = KH*KW*Cin', the input patch read in
+// place from NCHW x (no im2col copy).
 //
 // Input taps: input row iy = oy*stride + kh*dil - pad_h is zero outside
 // [0, Hi) (vertical zero padding; the high side needs no argument, so a
@@ -17,24 +17,22 @@
 //   * reads zero outside [0, Wi) in kZero and kCoord mode (the coord net's
 //     SAME padding).
 // kCoord adds the coord net's |sin(lat)| channel as input channel Cin
-// (Cin' = Cin + 1, its weights last in each tap): the patch loader reads
-// coord[iy], an f32 value per input row, where it would read channel Cin
-// of x (rounded to bf16 on the bf16 path, as the bf16 net appends it), and
-// zero where (iy, ix) falls in the padding. No Cin+1-channel copy of x is
-// made. npar == 4 is the transposed 4x4/2 conv in its subpixel form
-// (models/unet.py FusedDeconvCrop; the coord net's SAME ConvTranspose has
-// the same index map, with zero padding): blockIdx.z carries the output
-// parity (da, db), each parity is a 2x2 conv with pads (pad_h - da,
-// pad_w - db), and the epilogue writes output pixel (2*oy + da, 2*ox + db).
-// npar == 4 with KH == KW == 3 is the smoothed net's upsampling conv
-// (nearest 2x, then a 4x4 conv padded (1, 2); JAX models/unet.py:306-322)
-// folded onto the un-upsampled input: parity d of an axis reads input
-// offsets -1..1 with the 4x4 taps summed as {t0}, {t1, t2}, {t3} (d = 0) or
-// offsets 0..1 as {t0, t1}, {t2, t3} (d = 1), so parity (da, db) is a
-// (3 - da) x (3 - db) conv with the same pads (pad_h - da, pad_w - db) and
-// the same output map: 25 taps for the four parities where the upsampled
-// form has 64 (par_taps; ops/conv.py:pack_smoothed folds the weights, each
-// parity's block padded to 9 taps).
+// (Cin' = Cin + 1, its weights last in each tap), from coord[iy], an f32
+// value per input row; no Cin+1-channel copy of x is made. npar == 4 is
+// the transposed 4x4/2 conv in its subpixel form (models/unet.py
+// FusedDeconvCrop; the coord net's SAME ConvTranspose has the same index
+// map, with zero padding): blockIdx.z carries the output parity (da, db),
+// each parity is a 2x2 conv with pads (pad_h - da, pad_w - db), and the
+// epilogue writes output pixel (2*oy + da, 2*ox + db). npar == 4 with
+// KH == KW == 3 is the smoothed net's upsampling conv (nearest 2x, then a
+// 4x4 conv padded (1, 2); JAX models/unet.py:306-322) folded onto the
+// un-upsampled input: parity d of an axis reads input offsets -1..1 with
+// the 4x4 taps summed as {t0}, {t1, t2}, {t3} (d = 0) or offsets 0..1 as
+// {t0, t1}, {t2, t3} (d = 1), so parity (da, db) is a (3 - da) x (3 - db)
+// conv with the same pads (pad_h - da, pad_w - db) and the same output
+// map: 25 taps for the four parities where the upsampled form has 64
+// (par_taps; ops/conv.py:pack_smoothed folds the weights, each parity's
+// block padded to 9 taps).
 //
 // Bound: operations. 301.2 GFLOP per 640x320 frame for the wrap net (302.4
 // for the coord net), 0.3045 ms at the H100's 989 TFLOP/s in bf16; the
@@ -42,38 +40,64 @@
 // net's folded upsampling stages run 125.8 GFLOP where the transposed
 // ones run 80.5: 346.5 GFLOP a frame (347.7 coord).
 //
-// bf16 operands (conv_tc_kernel) run on the tensor cores:
-//   1. mma.sync.m16n8k16 (bf16 in, f32 accumulate); each warp owns a
-//      32 (Cout) x 32 (pixel) tile, fragments loaded with ldmatrix (the
-//      cp.async / ldmatrix / mma helpers are mma.cuh's, shared with
-//      conv_wgrad.cu).
-//   2. Operands stay bf16 in shared memory: the weight slab [BK][BM]
-//      (Cout contiguous, read with ldmatrix.trans) and the patch tile
-//      [BN][BK] (channels contiguous per pixel, read with plain ldmatrix,
-//      so each lane's row address is its own pixel's). Rows are padded by
-//      16 bytes so ldmatrix's eight rows fall in distinct banks.
-//   3. A ring of STAGES = 3 k-blocks in dynamic shared memory: the weight
-//      slab arrives by 16-byte cp.async STAGES - 1 blocks ahead; the patch
-//      of the block STAGES - 1 ahead is loaded into registers before the
-//      current block's mma and stored after it, so global latency hides
-//      behind the math. One __syncthreads per k-block.
-//   4. The gather works per k-block, not per element: a k-block is BK = 32
-//      channels of ONE tap (each tap's Cin' is cut into ceil(Cin'/32)
-//      blocks; the rows past Cin' read zero weights and zero patch), so a
-//      thread computes its pixel's (iy, ix), wrap and bounds once per
-//      k-block and then loads 16 channels at a stride of Hi*Wi, lanes on
-//      consecutive pixels, and stores them to shared memory as two 16-byte
-//      words. The k-blocks run tap-inner (all KH*KW taps of a channel
-//      chunk, then the next chunk), so the 9x re-read of a 3x3 conv's
-//      input hits the chunk's few KB of input rows in L1, not L2. The coord channel and ragged Cin' (193, 65, ...) take the
-//      checked form of the same loop; weights of a Cout that is not a
-//      multiple of 8 (the 67- and 99-channel heads) a masked scalar load.
-//   5. Two tiles, chosen per launch by shape (tc_bn): 64 x 128 (256
-//      threads) where that gives at least two blocks per SM, else 64 x 64
-//      (128 threads), which gives conv4_1-4_3 (512 -> 512 at 3,200 px) 400
-//      blocks. BM = 64 matches the four Cout = 64 layers at 204,800 px.
-// The epilogue adds the bias (and tanh for the head) in f32 and rounds
-// once to the output type.
+// bf16 operands (conv_wgmma_kernel) run on Hopper's warpgroup tensor-core
+// path; it replaces PR 6's mma.sync kernel (conv_tc_kernel: 32 x 32 warp
+// tiles, the patch gathered through registers, a 3-deep cp.async ring).
+//   1. GEMM orientation: M = output pixels (a tile is 128 pixels, rows x
+//      cols of the output, cols = 64, 32 or 16, the widest dividing Wo so
+//      no column of a 160- or 80-wide layer is wasted), N = Cout (128 or
+//      64 a tile), K = the taps x Cin. Each of two consumer warpgroups
+//      takes 64 pixels and all N, wgmma.mma_async.m64nNk16 (bf16 in, f32
+//      accumulate in registers), A from registers, B from shared memory
+//      through a matrix descriptor (MN-major, transpose bit set: the
+//      packed weights are Cout-contiguous, so they are not repacked).
+//      setmaxnreg gives the consumers 224 registers, the producer 56.
+//   2. One producer thread keeps TMA loads (cp.async.bulk.tensor) in
+//      flight into a ring of 2 stages (deeper rings timed no faster at
+//      the flagship stages) with full and empty mbarriers. A stage is (channel chunk of 64, kernel
+//      row kh): the weights of the row's taps through a 2-D tensor map over
+//      [npar*K, Cout] ([64 k][64 Cout] boxes, 128-byte swizzle), and the
+//      patch window through a 4-D map over x taken as (W, C, H, B): a main
+//      box {cols * stride, 64, rows, 1} at (ox0 * stride, c0, oy0 * stride
+//      + kh*dil - pad_h, b), taking every stride-th row (TMA's element
+//      stride, the downs), swizzled as wide as its rows, and two halo
+//      boxes of 8 columns either side. TMA's out-of-bounds zero fill gives
+//      the vertical padding, a ragged Cin (195) and the rows past Cin of a
+//      chunk.
+//   3. TMA traps on a box whose innermost start is not 16-byte aligned
+//      (illegal instruction at columns -1, 1, -3 in a probe; aligned starts
+//      and boxes past any edge load, with zeros outside), so a tap shifted
+//      by one or two columns cannot be its own box, and a wgmma descriptor
+//      cannot start between 16-byte groups either. Hence A in registers:
+//      for each tap kw of the stage the consumers load their fragment from
+//      the window with 16-bit shared loads at the tap's column shift
+//      (kw*dil - pad_w, at the stride), so one TMA window serves every tap
+//      of the row with no data moved in shared memory. The halos hold the
+//      columns beyond the tile: the neighbours', or in wrap mode across
+//      the seam the wrapped ones (the box at W - 8 or 0: the seam costs no
+//      extra step), or in zero mode a box at W, wholly outside, zeros.
+//   4. Shapes a tensor map cannot express (W % 8 != 0: x's row pitch is
+//      not a multiple of 16 bytes; in wrap mode a column tile that does
+//      not divide Wo, whose right halo would not be the wrapped columns)
+//      take the producer warpgroup's 128 threads, which gather the same
+//      window element by element (wrapping or bounds-checking each column)
+//      and arrive after fence.proxy.async; Cout % 8 != 0 (the 67- and
+//      99-channel heads) gathers the weights the same way.
+//   5. Persistent: one block per SM walks the tiles blockIdx.x + k *
+//      gridDim.x, Cout tile fastest, so the producer loads the next tile's
+//      stages while the consumers finish the last one.
+//   6. The coord channel is not a K block of its own (at Cin 64 it would
+//      add 50% of K): the epilogue adds sum over taps of bf16(w[tap, Cin,
+//      m]) * bf16(coord[iy]) where (iy, ix) is inside the input, each
+//      product exact in f32, summed in tap order in f32, to the
+//      accumulator before the bias (as the bf16 net appends the channel in
+//      bf16).
+//   7. Epilogue: the bias (and tanh for the head) in f32, one rounding to
+//      the output type, stores from the accumulator fragments; the parity
+//      modes write pixel (2*oy + da, 2*ox + db).
+//   8. The plan (make_plan, matry_conv_plan; mirrored by
+//      ops/conv.conv_plan): 128-Cout tiles where Cout > 64, else 64. No
+//      atomics: every output is the same from launch to launch.
 //
 // f32 operands (conv_f32_kernel, compute_dtype="float32") keep exact f32
 // FMA on the CUDA cores: a 64 x 128 tile per block, K in steps of 16
@@ -86,15 +110,20 @@
 // after the bias and the rounding to the output type, each thread sums y
 // and y^2 of its ROUNDED outputs in f32 in a fixed order (as
 // _conv_ln_kernel:368-370 does), warps combine by butterfly and the warp
-// sums are added in order into one (s1, s2) partial per (sample, block);
+// sums are added in order into one (s1, s2) partial per (sample, tile);
 // stats_fold then sums each sample's partials in a fixed order in f64. No
 // atomics, so the sums are the same on every run, and f64 keeps the layer
 // norm's var = s2/n - mean^2 from cancelling when mean^2 >> var.
 
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
+
+#include <cuda.h>
 
 #include "common.cuh"
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -116,8 +145,8 @@ struct ConvArgs {
 };
 
 // ---------------------------------------------------------------------------
-// The STATS epilogue's block sum, shared by both kernels: butterfly within
-// each warp, then the warp sums in order by thread 0, one partial per block.
+// The f32 kernel's STATS block sum: butterfly within each warp, then the
+// warp sums in order by thread 0, one partial per block.
 // ---------------------------------------------------------------------------
 template <int NT>
 __device__ __forceinline__ void block_stats(float s1, float s2,
@@ -147,262 +176,471 @@ __device__ __forceinline__ void block_stats(float s1, float s2,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands: tensor cores.
+// bf16 operands: wgmma fed by TMA (see the note above).
 // ---------------------------------------------------------------------------
-namespace tc {
+namespace wg {
 
-using namespace matry::mma;
+using namespace matry::hop;
 
-constexpr int BM = 64;        // output channels per block
-constexpr int BK = 32;        // channels of one tap per k-block
-constexpr int WM = 32;        // warp tile: channels
-constexpr int WN = 32;        // warp tile: pixels
-constexpr int STAGES = 3;     // k-blocks in the shared-memory ring
-constexpr int AST = BM + 8;   // weight slab row stride (elements), 144 B
-constexpr int BST = BK + 8;   // patch tile row stride (elements), 80 B
+constexpr int BK = 64;              // channels of one k-step
+constexpr int kThreads = 384;       // producer + two consumer warpgroups
+constexpr int kBoxW = 64 * BK * 2;  // one [64 k][64 Cout] weight box, bytes
+constexpr int kHalo = 8;            // window columns each side of the tile
+// Ring depth: 2 stages. At the flagship stages 3 timed within the spread
+// of two runs of 2 and 4 or as many as 220 KB hold slower
+// (tools/variants.py); mbarriers for up to kMaxStages.
+constexpr int kStages = 2;
+constexpr int kMaxStages = 8;
+constexpr int kMaxKW = 3;           // taps along a row
+constexpr int kTilePx = 128;        // output pixels of a tile
+// Dynamic shared memory a block may take (the ring), bytes.
+constexpr int kSmemBudget = 220 * 1024;
 
-template <int BN>
-struct Tile {
-  static constexpr int kThreads = (BM / WM) * (BN / WN) * 32;
-  static constexpr int kA = BK * AST;  // elements per stage
-  static constexpr int kB = BN * BST;
-  static constexpr int kSmem = STAGES * (kA + kB) * 2;  // bytes
-  // Blocks a SM must hold: three of the 64 x 128 tile (at most 85
-  // registers a thread). Left to itself the compiler gives some
-  // instantiations 98 registers, which leaves two blocks a SM; which ones
-  // shifts with unrelated edits of the kernel.
-  static constexpr int kMinBlocks = BN == 128 ? 3 : 1;
-  // the patch loader: one pixel and 16 channels per thread
-  static_assert(kThreads == 2 * BN, "two 16-channel groups per pixel");
+struct Params {
+  ConvArgs a;
+  int mode, stats, out_f32;
+  int ct_lg;        // log2 of the output columns of a tile
+  int rows;         // output rows of a tile, kTilePx >> ct_lg
+  int ntx, nty, mtiles;  // column and row tiles, Cout tiles
+  int tma_x, tma_w; // patch windows / weights by TMA (else gathered)
+  int halo;         // some tap is shifted: the window's halos are read
+  int krows;        // rows of the packed weight, npar * KH * KW * Cin'
+  int stages;       // ring depth
+  int stage_bytes;  // weights (KW taps), main window, two halos
+  int win_off, halo_off;  // offsets of the main window and the left halo
 };
 
-// avec: the weight rows may be copied as 16-byte words (Cout % 8 == 0 and
-// w 16-byte aligned), else the masked scalar path.
-template <typename TO, int MODE, bool STATS, int BN>
-__global__ void __launch_bounds__(Tile<BN>::kThreads, Tile<BN>::kMinBlocks)
-    conv_tc_kernel(const unsigned short* __restrict__ x,
-                   const unsigned short* __restrict__ w,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ coord, TO* __restrict__ out,
-                   float* __restrict__ partial, ConvArgs a, int avec) {
-  using T = Tile<BN>;
-  constexpr int NT = T::kThreads;
-  extern __shared__ __align__(16) unsigned short smem[];
-  unsigned short* As = smem;                     // [STAGES][BK][AST]
-  unsigned short* Bs = smem + STAGES * T::kA;    // [STAGES][BN][BST]
-  __shared__ float red[2][NT / 32];
-
-  const int tid = threadIdx.x;
-  const int z = blockIdx.z;
-  const int b = z / a.npar;
-  const int par = z - b * a.npar;
-  const int da = par >> 1, db = par & 1;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int Ck = a.Cin + (MODE == kCoord);  // channels per tap in K
-  const int KH = par_taps(a.KH, a.npar, da), KW = par_taps(a.KW, a.npar, db);
-  const int nchunk = (Ck + BK - 1) / BK;
-  const int nkb = KH * KW * nchunk;
-  const int npix = a.Ho * a.Wo;
-  const int HW = a.Hi * a.Wi;
-
-  // patch loader: pixel n0 + nl, channels cg*16 .. +16 of each k-block
-  const int nl = tid % BN;
-  const int cg = tid / BN;
-  const int pix = n0 + nl;
-  const bool pix_ok = pix < npix;
-  const int oy = pix_ok ? pix / a.Wo : 0;
-  const int ox = pix_ok ? pix - oy * a.Wo : 0;
-  const int iy0 = oy * a.stride - (a.pad_h - da);
-  const int ix0 = ox * a.stride - (a.pad_w - db);
-  const unsigned short* xb = x + (long long)b * a.Cin * HW;
-  const unsigned short* wp = w + (long long)par * a.KH * a.KW * Ck * a.Cout;
-
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp % (BM / WM)) * WM;
-  const int wn = (warp / (BM / WM)) * WN;
-
-  auto load_a = [&](int stage, int tap, int c0) {
-    unsigned short* dst = As + stage * T::kA;
-    for (int id = tid; id < BK * BM / 8; id += NT) {
-      const int kr = id >> 3, mc = (id & 7) * 8;
-      const int c = c0 + kr, m = m0 + mc;
-      const unsigned short* src = wp + (long long)(tap * Ck + c) * a.Cout + m;
-      if (avec) {
-        const bool ok = c < Ck && m < a.Cout;
-        cp_async16(dst + kr * AST + mc, ok ? src : w, ok);
-      } else {
-        uint32_t v[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok0 = c < Ck && m + 2 * e < a.Cout;
-          const bool ok1 = c < Ck && m + 2 * e + 1 < a.Cout;
-          v[e] = (ok0 ? (uint32_t)src[2 * e] : 0u) |
-                 ((ok1 ? (uint32_t)src[2 * e + 1] : 0u) << 16);
-        }
-        *reinterpret_cast<uint4*>(dst + kr * AST + mc) =
-            make_uint4(v[0], v[1], v[2], v[3]);
-      }
-    }
-  };
-
-  // v: the 16 channels as loaded; packed only in store_b, after the
-  // k-block's mma, so the loads stay in flight across the math
-  auto gather_b = [&](unsigned short* v, int tap, int c0) {
-    const int kh = tap / KW;
-    const int kw = tap - kh * KW;
-    const int iy = iy0 + kh * a.dil;
-    int ix = ix0 + kw * a.dil;
-    bool ok = pix_ok && iy >= 0 && iy < a.Hi;
-    if (MODE == kWrap)
-      ix = matry::wrap(ix, a.Wi);
-    else
-      ok = ok && ix >= 0 && ix < a.Wi;
-    const int cb = c0 + cg * 16;
-    if (ok && cb + 16 <= a.Cin) {
-      const unsigned short* src = xb + (long long)cb * HW + iy * a.Wi + ix;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) v[j] = src[(long long)j * HW];
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = cb + j;
-        unsigned short q = 0;
-        if (ok && c < a.Cin)
-          q = xb[(long long)c * HW + iy * a.Wi + ix];
-        else if (MODE == kCoord && ok && c == a.Cin)
-          q = bf16_bits(coord[iy]);
-        v[j] = q;
-      }
-    }
-  };
-
-  auto store_b = [&](int stage, const unsigned short* v) {
-    uint32_t r[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      r[j] = (uint32_t)v[2 * j] | ((uint32_t)v[2 * j + 1] << 16);
-    uint4* dst = reinterpret_cast<uint4*>(Bs + stage * T::kB + nl * BST +
-                                          cg * 16);
-    dst[0] = make_uint4(r[0], r[1], r[2], r[3]);
-    dst[1] = make_uint4(r[4], r[5], r[6], r[7]);
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  auto compute = [&](int stage) {
-    const unsigned short* as = As + stage * T::kA;
-    const unsigned short* bs = Bs + stage * T::kB;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[2][4], bf[4][2];
-      const int q = lane >> 3, r = lane & 7;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldsm_x4_trans(af[mt], as + (kk + r + (q >> 1) * 8) * AST + wm +
-                                  mt * 16 + (q & 1) * 8);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        uint32_t t[4];
-        ldsm_x4(t, bs + (wn + nt * 16 + r + (q >> 1) * 8) * BST + kk +
-                       (q & 1) * 8);
-        bf[2 * nt][0] = t[0];
-        bf[2 * nt][1] = t[1];
-        bf[2 * nt + 1][0] = t[2];
-        bf[2 * nt + 1][1] = t[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
-    }
-  };
-
-  // the ring: k-block j in stage j % STAGES. (ltap, lc0) is the next
-  // k-block to load; taps run inside channel chunks, so a chunk's input
-  // rows stay in L1 across its KH*KW taps.
-  const int taps = KH * KW;
-  int ltap = 0, lc0 = 0;
-  auto advance = [&]() {
-    if (++ltap == taps) {
-      ltap = 0;
-      lc0 += BK;
-    }
-  };
-  unsigned short breg[16];
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nkb) {
-      load_a(s, ltap, lc0);
-      gather_b(breg, ltap, lc0);
-      store_b(s, breg);
-      advance();
-    }
-    cp_async_commit();
-  }
-  for (int j = 0; j < nkb; ++j) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // block j visible; block j-1's stage free
-    const int ls = (j + STAGES - 1) % STAGES;
-    const bool more = j + STAGES - 1 < nkb;
-    if (more) {
-      load_a(ls, ltap, lc0);
-      gather_b(breg, ltap, lc0);
-    }
-    cp_async_commit();
-    compute(j % STAGES);
-    if (more) {
-      store_b(ls, breg);
-      advance();
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: C fragment rows are channels, columns pixels
-  const bool sub = a.npar == 4;
-  float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm + mt * 16 + (lane >> 2) + h * 8;
-      if (m >= a.Cout) continue;
-      const float bv = bias[m];
-      TO* om = out + ((long long)b * a.Cout + m) * a.out_h * a.out_w;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int p = n0 + wn + nt * 8 + (lane & 3) * 2 + e;
-          if (p >= npix) continue;
-          float v = acc[mt][nt][2 * h + e] + bv;
-          if (a.act == 1) v = tanhf(v);
-          const TO q = matry::from_f32<TO>(v);
-          long long o = p;
-          if (sub) {
-            const int py = p / a.Wo;
-            const int px = p - py * a.Wo;
-            o = (long long)(2 * py + da) * a.out_w + 2 * px + db;
-          }
-          om[o] = q;
-          if (STATS) {
-            const float rq = matry::to_f32(q);
-            s1 += rq;
-            s2 += rq * rq;
-          }
-        }
-    }
-  if (STATS) block_stats<NT>(s1, s2, red, partial, b);
+// Bytes of a window's main box (rows x 64 channels x cols * stride) and of
+// one halo box (rows x 64 channels x 8 columns).
+__host__ __device__ __forceinline__ int main_bytes(int rows, int ctw) {
+  return rows * BK * ctw * 2;
+}
+__host__ __device__ __forceinline__ int halo_bytes(int rows) {
+  return rows * BK * kHalo * 2;
 }
 
-}  // namespace tc
+// Generic producer, any row pitch: the weights of one tap, rows arow ..
+// arow + 63 of the packed [krows, Cout], 16-byte chunks of 8 Cout, into
+// BN / 64 [64 k][64 Cout] boxes with the 128-byte swizzle.
+template <int BN>
+__device__ __forceinline__ void gather_w(unsigned char* Ws,
+                                         const unsigned short* w,
+                                         const Params& p, int m0, int arow,
+                                         int tid) {
+  constexpr int per = BN / 8;  // chunks per k row
+  for (int q = tid; q < BK * per; q += 128) {
+    const int mc = q % per;
+    const int k = q / per;
+    const int row = arow + k;
+    const int m = m0 + 8 * mc;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (row < p.krows) {
+      const unsigned short* src = w + (long long)row * p.a.Cout + m;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (m + e < p.a.Cout) v[e >> 1] |= (uint32_t)src[e] << (16 * (e & 1));
+    }
+    const uint32_t off = (uint32_t)((k * 64 + (mc & 7) * 8) * 2);
+    *reinterpret_cast<uint4*>(Ws + (mc >> 3) * kBoxW +
+                              (off ^ (((off >> 7) & 7) << 4))) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Generic producer, any row pitch: one k-step's window, element by element
+// in 16-byte chunks of 8 columns of one (row, channel): input rows iy0 + r
+// * stride, columns ox0 * stride - 8 + wc for wc in [0, cols * stride +
+// 16), each column wrapped or bounds-checked, stored as the TMA boxes lie
+// (the main box swizzled, the halos plain).
+__device__ __forceinline__ void gather_window(unsigned char* win,
+                                              const unsigned short* x,
+                                              const Params& p, int b,
+                                              int iy0, int ox0, int c0,
+                                              int tid) {
+  const ConvArgs& a = p.a;
+  const int ctw = a.stride << p.ct_lg;  // window columns without halos
+  const int cpl = ctw / 8 + 2;          // chunks of a (row, channel) line
+  const uint32_t mask = (uint32_t)(ctw / 8) - 1;  // swizzle of 2 ctw bytes
+  const int n = p.rows * BK * cpl;
+  for (int q = tid; q < n; q += 128) {
+    const int cc = q % cpl;
+    const int line = q / cpl;
+    const int ch = line & (BK - 1), r = line >> 6;
+    const int c = c0 + ch;
+    const int iy = iy0 + r * a.stride;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (c < a.Cin && iy >= 0 && iy < a.Hi) {
+      const unsigned short* row =
+          x + (((long long)b * a.Cin + c) * a.Hi + iy) * a.Wi;
+      const int ixb = ox0 * a.stride - kHalo + 8 * cc;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int ix = ixb + j;
+        uint32_t q16 = 0;
+        if (p.mode == kWrap)
+          q16 = row[matry::wrap(ix, a.Wi)];
+        else if (ix >= 0 && ix < a.Wi)
+          q16 = row[ix];
+        v[j >> 1] |= q16 << (16 * (j & 1));
+      }
+    }
+    uint32_t off;
+    if (cc == 0) {
+      off = p.halo_off - p.win_off + (uint32_t)(line * 16);
+    } else if (cc == cpl - 1) {
+      off = p.halo_off - p.win_off + halo_bytes(p.rows) + (uint32_t)(line * 16);
+    } else {
+      const uint32_t o = (uint32_t)((line * ctw + 8 * (cc - 1)) * 2);
+      off = o ^ (((o >> 7) & mask) << 4);
+    }
+    *reinterpret_cast<uint4*>(win + off) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The coord channel's factors for output pixel (oy, ox), per tap kh * 3 +
+// kw: bf16(coord[iy]) where (iy, ix) lies inside [0, Hi) x [0, Wi), else 0.
+__device__ __forceinline__ void coord_factors(float* cf, const float* coord,
+                                              const ConvArgs& a, int oy,
+                                              int ox) {
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh) {
+    const int iy = oy * a.stride + kh * a.dil - a.pad_h;
+    const float cv = kh < a.KH && iy >= 0 && iy < a.Hi
+                         ? __bfloat162float(__float2bfloat16(coord[iy]))
+                         : 0.f;
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) {
+      const int ix = ox * a.stride + kw * a.dil - a.pad_w;
+      cf[kh * 3 + kw] = kw < a.KW && ix >= 0 && ix < a.Wi ? cv : 0.f;
+    }
+  }
+}
+
+// A tile of the launch: tiles run Cout tile fastest, then the pixel tiles
+// of a row of tiles, rows, parities and samples.
+struct Tile {
+  int b, par, m0, oy0, ox0, local;  // local: the tile's index in its sample
+};
+__device__ __forceinline__ Tile tile_of(const Params& p, int t, int bn) {
+  const int per = p.mtiles * p.ntx * p.nty;
+  Tile u;
+  const int z = t / per;
+  u.local = t - z * per;
+  u.b = z / p.a.npar;
+  u.par = z - u.b * p.a.npar;
+  const int mt = u.local % p.mtiles;
+  const int pt = u.local / p.mtiles;
+  u.m0 = mt * bn;
+  u.oy0 = (pt / p.ntx) * p.rows;
+  u.ox0 = (pt % p.ntx) << p.ct_lg;
+  return u;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                      const __grid_constant__ CUtensorMap tmh,
+                      const __grid_constant__ CUtensorMap tmw,
+                      const unsigned short* __restrict__ x,
+                      const unsigned short* __restrict__ w,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ coord,
+                      void* __restrict__ out, float* __restrict__ partial,
+                      const Params p) {
+  constexpr int kWB = BN / 64;           // weight boxes of a tap
+  constexpr int kTapW = kWB * kBoxW;     // a tap's weights, bytes
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ __align__(8) uint64_t empty[kMaxStages];
+  __shared__ float red[2][8];
+  __shared__ float wcs[9][128];  // coord weights (kCoord)
+  unsigned char* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+
+  const ConvArgs& a = p.a;
+  const int Ck = a.Cin + (p.mode == kCoord);
+  const int ctw = a.stride << p.ct_lg;  // window columns without halos
+  const int ntiles = p.mtiles * p.ntx * p.nty * a.B * a.npar;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      // one arrival (with the TMA bytes) by the issuing thread, then one
+      // by each producer thread after its gathers (if any) and the fence
+      mbar_init(&full[s], 129);
+      mbar_init(&empty[s], 8);  // each consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: a stage is (channel chunk c0, kernel row kh):
+    // the KWp taps' weights and the window of input rows iy0 + r * stride,
+    // columns [ox0 * stride - 8, ox0 * stride + ctw + 8) ---------------------
+    reg_dealloc<56>();
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+      if (p.tma_x) prefetch_tmap(&tmx);
+      if (p.tma_x && p.halo) prefetch_tmap(&tmh);
+      if (p.tma_w) prefetch_tmap(&tmw);
+    }
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const Tile u = tile_of(p, t, BN);
+      const int b = u.b, par = u.par, m0 = u.m0, oy0 = u.oy0, ox0 = u.ox0;
+      const int da = par >> 1, db = par & 1;
+      const int KHp = par_taps(a.KH, a.npar, da);
+      const int KWp = par_taps(a.KW, a.npar, db);
+      const int ph = a.pad_h - da;
+      const int wrow0 = par * a.KH * a.KW * Ck;
+      // the halo boxes' columns: the neighbours', wrapped across the seam, or
+      // (zero mode, outside) at Wi, a box wholly outside that reads zeros
+      int lcol = ox0 * a.stride - kHalo, rcol = ox0 * a.stride + ctw;
+      if (p.mode == kWrap) {
+        lcol += lcol < 0 ? a.Wi : 0;
+        rcol -= rcol >= a.Wi ? a.Wi : 0;
+      } else {
+        lcol = lcol < 0 ? a.Wi : lcol;
+      }
+      const uint32_t wbytes = p.tma_w ? KWp * kTapW : 0;
+      const uint32_t xbytes =
+          p.tma_x ? main_bytes(p.rows, ctw) + (p.halo ? 2 * halo_bytes(p.rows)
+                                                      : 0)
+                  : 0;
+      for (int c0 = 0; c0 < a.Cin; c0 += BK)
+        for (int kh = 0; kh < KHp; ++kh) {
+          const int iy0 = oy0 * a.stride + kh * a.dil - ph;
+          mbar_wait(&empty[s], phase ^ 1u);
+          unsigned char* st = smem + s * p.stage_bytes;
+          if (tid == 0) {
+            if (wbytes + xbytes)
+              mbar_arrive_tx(&full[s], wbytes + xbytes);
+            else
+              mbar_arrive(&full[s]);
+            if (p.tma_w)
+              for (int kw = 0; kw < KWp; ++kw)
+#pragma unroll
+                for (int i = 0; i < kWB; ++i)
+                  tma_load_2d(st + kw * kTapW + i * kBoxW, &tmw, &full[s],
+                              m0 + 64 * i,
+                              wrow0 + (kh * KWp + kw) * Ck + c0);
+            if (p.tma_x) {
+              tma_load_4d(st + p.win_off, &tmx, &full[s], ox0 * a.stride, c0,
+                          iy0, b);
+              if (p.halo) {
+                tma_load_4d(st + p.halo_off, &tmh, &full[s], lcol, c0, iy0, b);
+                tma_load_4d(st + p.halo_off + halo_bytes(p.rows), &tmh,
+                            &full[s], rcol, c0, iy0, b);
+              }
+            }
+          }
+          if (!p.tma_w)
+            for (int kw = 0; kw < KWp; ++kw)
+              gather_w<BN>(st + kw * kTapW, w, p, m0,
+                           wrow0 + (kh * KWp + kw) * Ck + c0, tid);
+          if (!p.tma_x)
+            gather_window(st + p.win_off, x, p, b, iy0, ox0, c0, tid);
+          fence_proxy_async();
+          mbar_arrive(&full[s]);
+          if (++s == p.stages) {
+            s = 0;
+            phase ^= 1u;
+          }
+        }
+    }
+  } else {
+    // ---- consumer warpgroups: warpgroup cw takes the tile's pixels
+    // [64 cw, 64 cw + 64) and all BN Cout: per stage and tap kw, the A
+    // fragment (64 pixels x 16 channels) from the window at the tap's
+    // column shift, by 16-bit shared loads, then wgmma with the tap's
+    // weights as B ------------------------------------------------------------
+    reg_alloc<224>();
+    const int ctid = threadIdx.x - 128;
+    const int cw = ctid >> 7;
+    const int warp = (ctid >> 5) & 3, lane = ctid & 31;
+    const int g = lane >> 2, q4 = lane & 3;
+    const int ct = 1 << p.ct_lg;
+    const uint32_t base = smem_u32(smem);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const Tile u = tile_of(p, t, BN);
+      const int b = u.b, m0 = u.m0, oy0 = u.oy0, ox0 = u.ox0;
+      const int da = u.par >> 1, db = u.par & 1;
+      const int KHp = par_taps(a.KH, a.npar, da);
+      const int KWp = par_taps(a.KW, a.npar, db);
+      const int pw = a.pad_w - db;
+      const int nsteps = (a.Cin + BK - 1) / BK * KHp;
+
+      // the window address of this thread's fragment elements, per tap kw,
+      // pixel half h (row g or g + 8 of the warp's 16) and channel parity e
+      // (channel 2 q4 + e, then + 8 t + 16 kk at `line` bytes a channel)
+      uint32_t aoff[kMaxKW][2][2], line[kMaxKW][2];
+      const uint32_t mmask = (uint32_t)(ctw / 8) - 1;  // main box swizzle
+#pragma unroll
+      for (int kw = 0; kw < kMaxKW; ++kw)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 64 * cw + 16 * warp + g + 8 * h;
+          const int pr = m >> p.ct_lg, pc = m & (ct - 1);
+          const int wc = pc * a.stride + kw * a.dil - pw + kHalo;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ch = 2 * q4 + e;
+            uint32_t o;
+            if (wc < kHalo) {
+              o = p.halo_off - p.win_off + ((pr * BK + ch) * kHalo + wc) * 2;
+            } else if (wc >= ctw + kHalo) {
+              o = p.halo_off - p.win_off + halo_bytes(p.rows) +
+                  ((pr * BK + ch) * kHalo + wc - ctw - kHalo) * 2;
+            } else {
+              const uint32_t o0 = ((pr * BK + ch) * ctw + wc - kHalo) * 2;
+              o = o0 ^ (((o0 >> 7) & mmask) << 4);
+            }
+            aoff[kw][h][e] = o;
+          }
+          line[kw][h] = wc < kHalo || wc >= ctw + kHalo ? kHalo * 2 : ctw * 2;
+        }
+
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int j = 0; j < nsteps; ++j) {
+        mbar_wait(&full[s], phase);
+        const uint32_t st = base + s * p.stage_bytes;
+        const uint32_t win = st + p.win_off;
+        uint32_t af[kMaxKW][4][4];
+#pragma unroll
+        for (int kw = 0; kw < kMaxKW; ++kw) {
+          if (kw >= KWp) break;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int t = 0; t < 2; ++t)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const uint32_t d = (16 * kk + 8 * t) * line[kw][h];
+                af[kw][kk][h + 2 * t] =
+                    lds_u16(win + aoff[kw][h][0] + d) |
+                    lds_u16(win + aoff[kw][h][1] + d) << 16;
+              }
+        }
+        fence_regs<BN / 2>(acc);
+        wg_fence();
+#pragma unroll
+        for (int kw = 0; kw < kMaxKW; ++kw) {
+          if (kw >= KWp) break;
+          const uint64_t dW = make_desc(st + kw * kTapW, kBoxW, 1024, 1);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_rs<BN>(acc, af[kw][kk], dW + (uint64_t)((kk * 2048) >> 4));
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs<BN / 2>(acc);
+        if (lane == 0) mbar_arrive(&empty[s]);
+        if (++s == p.stages) {
+          s = 0;
+          phase ^= 1u;
+        }
+      }
+
+      // ---- epilogue: fragment d[4j + 2h + e] is pixel 16 warp + g + 8h of
+      // the warpgroup's 64, Cout m0 + 8j + 2 q4 + e ---------------------------
+      const bool sub = a.npar == 4;
+      if (p.mode == kCoord) {
+        // the tile's coord weights, [tap][Cout in the tile], f32 of bf16,
+        // once the other warpgroup is done with the last tile's
+        named_sync(1, 256);
+        for (int i = ctid; i < 9 * BN; i += 256) {
+          const int t = i / BN, m = m0 + i % BN;
+          const int kh = t / 3, kw = t % 3;
+          wcs[t][i % BN] =
+              m < a.Cout && kh < a.KH && kw < a.KW
+                  ? matry::to_f32(__ushort_as_bfloat16(
+                        w[((long long)(kh * a.KW + kw) * Ck + a.Cin) * a.Cout +
+                          m]))
+                  : 0.f;
+        }
+        named_sync(1, 256);
+      }
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 64 * cw + 16 * warp + g + 8 * h;
+        const int oy = oy0 + (m >> p.ct_lg);
+        const int ox = ox0 + (m & (ct - 1));
+        if (oy >= a.Ho || ox >= a.Wo) continue;
+        const long long pix =
+            sub ? (long long)(2 * oy + da) * a.out_w + 2 * ox + db
+                : (long long)oy * a.out_w + ox;
+        float cf[9];
+        if (p.mode == kCoord) coord_factors(cf, coord, a, oy, ox);
+#pragma unroll
+        for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = m0 + 8 * jn + 2 * q4 + e;
+            if (n >= a.Cout) continue;
+            float v = acc[4 * jn + 2 * h + e];
+            if (p.mode == kCoord) {
+              // the coord channel: the exact bf16 products in tap order
+              float c = 0.f;
+#pragma unroll
+              for (int t9 = 0; t9 < 9; ++t9)
+                c = fmaf(wcs[t9][n - m0], cf[t9], c);
+              v += c;
+            }
+            v += __ldg(bias + n);
+            if (a.act == 1) v = tanhf(v);
+            const long long o =
+                ((long long)b * a.Cout + n) * a.out_h * a.out_w + pix;
+            float r;
+            if (p.out_f32) {
+              static_cast<float*>(out)[o] = v;
+              r = v;
+            } else {
+              const __nv_bfloat16 qv = __float2bfloat16(v);
+              static_cast<__nv_bfloat16*>(out)[o] = qv;
+              r = __bfloat162float(qv);
+            }
+            if (p.stats) {
+              s1 += r;
+              s2 += r * r;
+            }
+          }
+      }
+      if (p.stats) {
+        // butterfly within each warp, the eight warp sums in order by the
+        // first consumer thread: one partial per (sample, tile)
+        for (int off = 16; off > 0; off >>= 1) {
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+        }
+        if (lane == 0) {
+          red[0][cw * 4 + warp] = s1;
+          red[1][cw * 4 + warp] = s2;
+        }
+        named_sync(1, 256);
+        if (ctid == 0) {
+          float t1 = 0.f, t2 = 0.f;
+          for (int i = 0; i < 8; ++i) {
+            t1 += red[0][i];
+            t2 += red[1][i];
+          }
+          float* pb = partial +
+                      ((long long)b * p.mtiles * p.ntx * p.nty + u.local) * 2;
+          pb[0] = t1;
+          pb[1] = t2;
+        }
+        named_sync(1, 256);  // red is free for the next tile
+      }
+    }
+  }
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // f32 operands: exact f32 FMA on the CUDA cores.
@@ -589,51 +827,247 @@ int num_sms() {
   return n;
 }
 
-// The tensor-core kernel's pixel tile: 128 where 64 x 128 tiles give at
-// least two blocks per SM, else 64.
-int tc_bn(int B, int npar, int npix, int Cout) {
-  const long long blocks =
-      (long long)cdiv(npix, 128) * cdiv(Cout, tc::BM) * B * npar;
-  return blocks >= 2LL * num_sms() ? 128 : 64;
+// ---------------------------------------------------------------------------
+// The bf16 plan: tile and producer per launch (ops/conv.conv_plan mirrors
+// it in Python).
+// ---------------------------------------------------------------------------
+
+// The tiles, Cout x pixels: 0: 128 x 128, 1: 64 x 128.
+constexpr int kTileBM[2] = {128, 64};
+
+struct Plan {
+  int tile;    // index into kTileBM
+  int ct_lg;   // log2 of the output columns of a tile: 6, 5 or 4
+  int tma_x;   // the patch windows by TMA (else gathered)
+  int tma_w;   // the weights by TMA (else gathered)
+};
+
+// Columns: the widest of 64, 32, 16 that divides Wo (16 otherwise, the
+// last column tile ragged), at most 32 at stride 2 (the window's main box,
+// two columns an output one, is at most 64 wide). Tile: 128 Cout where
+// Cout > 64, else 64 (the persistent blocks need no count of waves; the
+// tools/variants.py times of 128 against 64 at every stage). Patch
+// windows by TMA at stride 1 or 2 when x's row pitch is a multiple of 16
+// bytes (Wi % 8 == 0) and, in wrap mode, the column tiles divide Wo (a
+// ragged tile's right halo would not be the wrapped columns), else
+// gathered; weights by TMA when Cout % 8 == 0.
+Plan make_plan(int Wi, int Cout, int Wo, int stride, int zero_w) {
+  Plan p;
+  p.ct_lg = Wo % 64 == 0 ? 6 : Wo % 32 == 0 ? 5 : 4;
+  if (stride == 2 && p.ct_lg > 5) p.ct_lg = 5;
+  const int ct = 1 << p.ct_lg;
+  p.tile = Cout > 64 ? 0 : 1;
+  p.tma_x = (stride == 1 || stride == 2) && Wi % 8 == 0 &&
+            (zero_w || Wo % ct == 0);
+  p.tma_w = Cout % 8 == 0;
+  return p;
 }
 
-void finish_stats(const ConvArgs& a, dim3 grid, void* partial, void* stats,
+int plan_code(const Plan& p) {
+  return p.tile | (p.ct_lg - 4) << 2 | p.tma_x << 4 | p.tma_w << 5;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda of its own.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// Encoded tensor maps by their arguments (pointer, shape, strides, box,
+// element strides, swizzle): a direct-mapped cache of 256, so that a
+// layer run again on the same buffers (the caching allocator hands them
+// back) costs no cuTensorMapEncodeTiled. A map holds nothing but these
+// arguments, so a hit is the map the call would encode.
+struct MapKey {
+  const void* ptr;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], es[4];
+  int rank, swizzle;
+};
+struct MapSlot {
+  MapKey key;
+  CUtensorMap map;
+  bool used;
+};
+MapSlot g_maps[256];
+std::mutex g_maps_mu;
+
+int encode_cached(CUtensorMap* m, const MapKey& k) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  uint64_t h = 1469598103934665603ull;  // FNV-1a over the key's bytes
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(&k);
+  for (size_t i = 0; i < sizeof(k); ++i) h = (h ^ kb[i]) * 1099511628211ull;
+  std::lock_guard<std::mutex> lock(g_maps_mu);
+  MapSlot& slot = g_maps[h & 255];
+  if (slot.used && memcmp(&slot.key, &k, sizeof(k)) == 0) {
+    *m = slot.map;
+    return 0;
+  }
+  const CUresult r = fn(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)k.rank,
+      const_cast<void*>(k.ptr), k.dims, k.strides, k.box, k.es,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, (CUtensorMapSwizzle)k.swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  slot.key = k;
+  slot.map = *m;
+  slot.used = true;
+  return 0;
+}
+
+CUtensorMapSwizzle swizzle_of(int bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                    : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+
+// x [B, Cin, Hi, Wi] bf16 as the 4-D tensor (W, C, H, B): box {cols, 64,
+// rows * stride, 1} taking every stride-th row, the swizzle as wide as a
+// box row (none for the 16-byte halo boxes).
+int encode_x(CUtensorMap* m, const void* x, const ConvArgs& a, int cols,
+             int rows) {
+  MapKey k;
+  memset(&k, 0, sizeof(k));
+  k.ptr = x;
+  k.rank = 4;
+  k.dims[0] = a.Wi;
+  k.dims[1] = a.Cin;
+  k.dims[2] = a.Hi;
+  k.dims[3] = a.B;
+  k.strides[0] = (cuuint64_t)a.Hi * a.Wi * 2;
+  k.strides[1] = (cuuint64_t)a.Wi * 2;
+  k.strides[2] = (cuuint64_t)a.Cin * a.Hi * a.Wi * 2;
+  k.box[0] = cols;
+  k.box[1] = wg::BK;
+  k.box[2] = rows * a.stride;
+  k.box[3] = 1;
+  k.es[0] = k.es[1] = k.es[3] = 1;
+  k.es[2] = a.stride;
+  k.swizzle = swizzle_of(cols == wg::kHalo ? 0 : 2 * cols);
+  return encode_cached(m, k);
+}
+
+// The packed weight [krows, Cout] bf16, box {64, 64}, 128-byte swizzle.
+int encode_w(CUtensorMap* m, const void* w, int cout, int krows) {
+  MapKey k;
+  memset(&k, 0, sizeof(k));
+  k.ptr = w;
+  k.rank = 2;
+  k.dims[0] = cout;
+  k.dims[1] = krows;
+  k.strides[0] = (cuuint64_t)cout * 2;
+  k.box[0] = 64;
+  k.box[1] = wg::BK;
+  k.es[0] = k.es[1] = 1;
+  k.swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+  return encode_cached(m, k);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+void finish_stats(const ConvArgs& a, int nblk, void* partial, void* stats,
                   cudaStream_t s) {
   stats_fold<<<a.B, 256, 0, s>>>((const float*)partial, (double*)stats,
-                                 grid.x * grid.y);
+                                 nblk);
 }
 
-template <typename TO, int MODE, bool STATS, int BN>
-void launch_tc_tile(const void* x, const void* w, const void* bias,
-                    const void* coord, void* out, void* partial, void* stats,
-                    const ConvArgs& a, cudaStream_t s) {
-  using T = tc::Tile<BN>;
-  auto kern = tc::conv_tc_kernel<TO, MODE, STATS, BN>;
+template <int BN>
+int launch_wg(const void* x, const void* w, const void* bias,
+              const void* coord, void* out, void* partial, void* stats,
+              const ConvArgs& a, const Plan& pl, int mode, int out_f32,
+              cudaStream_t s) {
+  auto kern = wg::conv_wgmma_kernel<BN>;
   static bool attr = false;  // once per instantiation
   if (!attr) {
-    if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             T::kSmem) != cudaSuccess)
-      return;  // the error stays for cudaGetLastError
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wg::kSmemBudget + 1024);
+    if (e != cudaSuccess) return (int)e;
     attr = true;
   }
-  const dim3 grid(cdiv(a.Ho * a.Wo, BN), cdiv(a.Cout, tc::BM), a.B * a.npar);
-  const int avec = a.Cout % 8 == 0 && ((uintptr_t)w & 15) == 0;
-  kern<<<grid, T::kThreads, T::kSmem, s>>>(
-      (const unsigned short*)x, (const unsigned short*)w, (const float*)bias,
-      (const float*)coord, (TO*)out, (float*)partial, a, avec);
-  if (STATS) finish_stats(a, grid, partial, stats, s);
+  wg::Params p;
+  memset(&p, 0, sizeof(p));
+  p.a = a;
+  p.mode = mode;
+  p.stats = partial != nullptr;
+  p.out_f32 = out_f32;
+  p.ct_lg = pl.ct_lg;
+  p.rows = wg::kTilePx >> pl.ct_lg;
+  p.ntx = cdiv(a.Wo, 1 << pl.ct_lg);
+  p.nty = cdiv(a.Ho, p.rows);
+  p.mtiles = cdiv(a.Cout, BN);
+  p.tma_x = pl.tma_x && aligned16(x);
+  p.tma_w = pl.tma_w && aligned16(w);
+  p.halo = !(a.KW == 1 && a.pad_w == 0);
+  p.krows = a.npar * a.KH * a.KW * (a.Cin + (mode == kCoord));
+  const int ctw = a.stride << pl.ct_lg;
+  p.win_off = a.KW * (BN / 64) * wg::kBoxW;
+  p.halo_off = p.win_off + wg::main_bytes(p.rows, ctw);
+  p.stage_bytes = p.halo_off + 2 * wg::halo_bytes(p.rows);
+  p.stages = wg::kSmemBudget / p.stage_bytes;
+  if (p.stages > wg::kStages) p.stages = wg::kStages;
+  if (p.stages < 2) return (int)cudaErrorInvalidValue;
+  CUtensorMap tmx, tmh, tmw;
+  memset(&tmx, 0, sizeof(tmx));
+  memset(&tmh, 0, sizeof(tmh));
+  memset(&tmw, 0, sizeof(tmw));
+  if (p.tma_x) {
+    int e = encode_x(&tmx, x, a, ctw, p.rows);
+    if (!e && p.halo) e = encode_x(&tmh, x, a, wg::kHalo, p.rows);
+    if (e) return e;
+  }
+  if (p.tma_w) {
+    const int e = encode_w(&tmw, w, a.Cout, p.krows);
+    if (e) return e;
+  }
+  // persistent: a block per SM, each walking the tiles blockIdx.x +
+  // k * gridDim.x
+  const int per = p.mtiles * p.ntx * p.nty;
+  const int ntiles = per * a.B * a.npar;
+  const dim3 grid(ntiles < num_sms() ? ntiles : num_sms());
+  kern<<<grid, wg::kThreads, p.stages * p.stage_bytes + 1024, s>>>(
+      tmx, tmh, tmw, (const unsigned short*)x, (const unsigned short*)w,
+      (const float*)bias, (const float*)coord, out, (float*)partial, p);
+  if (partial) finish_stats(a, per, partial, stats, s);
+  return 0;
 }
 
-template <typename TO, int MODE, bool STATS>
-void launch_tc(const void* x, const void* w, const void* bias,
-               const void* coord, void* out, void* partial, void* stats,
-               const ConvArgs& a, cudaStream_t s) {
-  if (tc_bn(a.B, a.npar, a.Ho * a.Wo, a.Cout) == 128)
-    launch_tc_tile<TO, MODE, STATS, 128>(x, w, bias, coord, out, partial,
-                                         stats, a, s);
-  else
-    launch_tc_tile<TO, MODE, STATS, 64>(x, w, bias, coord, out, partial,
-                                        stats, a, s);
+int launch_bf16(const void* x, const void* w, const void* bias,
+                const void* coord, void* out, void* partial, void* stats,
+                const ConvArgs& a, int mode, int out_f32, cudaStream_t s) {
+  // a tap's columns lie within the window's halos: shifts of -8 .. 8
+  if (a.pad_w > wg::kHalo || (a.KW - 1) * a.dil - a.pad_w > wg::kHalo ||
+      a.KW > wg::kMaxKW || a.KH > 3 || (a.stride != 1 && a.stride != 2))
+    return (int)cudaErrorInvalidValue;
+  const Plan pl = make_plan(a.Wi, a.Cout, a.Wo, a.stride, mode != kWrap);
+  if (pl.tile == 0)
+    return launch_wg<128>(x, w, bias, coord, out, partial, stats, a, pl,
+                          mode, out_f32, s);
+  return launch_wg<64>(x, w, bias, coord, out, partial, stats, a, pl, mode,
+                       out_f32, s);
 }
 
 template <typename TO, int MODE, bool STATS>
@@ -645,59 +1079,52 @@ void launch_f32(const void* x, const void* w, const void* bias,
   f32::conv_f32_kernel<TO, MODE, STATS><<<grid, 256, 0, s>>>(
       (const float*)x, (const float*)w, (const float*)bias,
       (const float*)coord, (TO*)out, (float*)partial, a);
-  if (STATS) finish_stats(a, grid, partial, stats, s);
-}
-
-template <typename TO, int MODE, bool STATS>
-void launch(bool in_f32, const void* x, const void* w, const void* bias,
-            const void* coord, void* out, void* partial, void* stats,
-            const ConvArgs& a, cudaStream_t s) {
-  if (in_f32)
-    launch_f32<TO, MODE, STATS>(x, w, bias, coord, out, partial, stats, a,
-                                s);
-  else
-    launch_tc<TO, MODE, STATS>(x, w, bias, coord, out, partial, stats, a, s);
+  if (STATS) finish_stats(a, grid.x * grid.y, partial, stats, s);
 }
 
 template <typename TO>
-void launch_mode(bool in_f32, const void* x, const void* w, const void* bias,
-                 const void* coord, void* out, void* partial, void* stats,
-                 const ConvArgs& a, int mode, cudaStream_t s) {
+void launch_f32_mode(const void* x, const void* w, const void* bias,
+                     const void* coord, void* out, void* partial,
+                     void* stats, const ConvArgs& a, int mode,
+                     cudaStream_t s) {
   if (partial)
-    launch<TO, kWrap, true>(in_f32, x, w, bias, coord, out, partial, stats,
-                            a, s);
+    launch_f32<TO, kWrap, true>(x, w, bias, coord, out, partial, stats, a, s);
   else if (mode == kCoord)
-    launch<TO, kCoord, false>(in_f32, x, w, bias, coord, out, partial,
-                              stats, a, s);
+    launch_f32<TO, kCoord, false>(x, w, bias, coord, out, partial, stats, a,
+                                  s);
   else if (mode == kZero)
-    launch<TO, kZero, false>(in_f32, x, w, bias, coord, out, partial, stats,
-                             a, s);
+    launch_f32<TO, kZero, false>(x, w, bias, coord, out, partial, stats, a,
+                                 s);
   else
-    launch<TO, kWrap, false>(in_f32, x, w, bias, coord, out, partial, stats,
-                             a, s);
+    launch_f32<TO, kWrap, false>(x, w, bias, coord, out, partial, stats, a,
+                                 s);
 }
 
 }  // namespace
 
 // Length of each sample's row of partials that a stats launch may write
-// (ho_wo output pixels, cout channels): its block count under the smallest
-// pixel tile, at least the count of whichever tile the launch takes.
+// (ho_wo output pixels, cout channels): at most one partial per (pixel,
+// 64-Cout tile), since every tile holds at least one output pixel; each
+// kernel writes its tiles' count densely and folds exactly those.
 extern "C" int matry_conv_stats_blocks(int ho_wo, int cout) {
-  return cdiv(ho_wo, 64) * cdiv(cout, 64);
+  return ho_wo * cdiv(cout, 64);
 }
 
-// The tile a bf16 launch takes, as BM * 1000 + BN (the f32 kernel has one
-// tile, 64 x 128).
-extern "C" int matry_conv_tile(int B, int npar, int ho_wo, int cout) {
-  return tc::BM * 1000 + tc_bn(B, npar, ho_wo, cout);
+// The bf16 launch's plan for this shape, as plan_code packs it: tile
+// (bit 0: 128 or 64 Cout x 128 pixels), log2(tile columns) - 4 (bits 2-3),
+// patch windows by TMA (bit 4), weights by TMA (bit 5). It assumes 16-byte
+// aligned x and w (the launch gathers an operand that is not).
+extern "C" int matry_conv_plan(int Wi, int Cout, int Wo, int stride,
+                               int zero_w) {
+  return plan_code(make_plan(Wi, Cout, Wo, stride, zero_w));
 }
 
 // coord: null, or the coord channel's f32 value per input row [Hi] (then
 // zero_w must be set); zero_w: zero horizontal padding, else wrap. in_f32:
-// x and w are float32 (the f32 kernel), else bfloat16 (the tensor-core
-// kernel). partial/stats: null, or (wrap mode, npar 1 only) the STATS
-// epilogue's f32 scratch [B, matry_conv_stats_blocks(Ho*Wo, Cout), 2] and
-// its f64 result [B, 2] = (sum y, sum y^2) per sample.
+// x and w are float32 (the f32 kernel), else bfloat16 (the wgmma kernel).
+// partial/stats: null, or (wrap mode, npar 1 only) the STATS epilogue's f32
+// scratch [B, matry_conv_stats_blocks(Ho*Wo, Cout), 2] and its f64 result
+// [B, 2] = (sum y, sum y^2) per sample.
 extern "C" int matry_conv(const void* x, const void* w, const void* bias,
                           const void* coord, void* out, int B, int Cin,
                           int Hi, int Wi, int Cout, int Ho, int Wo, int KH,
@@ -714,11 +1141,16 @@ extern "C" int matry_conv(const void* x, const void* w, const void* bias,
       (partial && (zero_w || npar != 1)))
     return (int)cudaErrorInvalidValue;
   const int mode = coord ? kCoord : (zero_w ? kZero : kWrap);
-  if (out_f32)
-    launch_mode<float>(in_f32, x, w, bias, coord, out, partial, stats, a,
-                       mode, s);
-  else
-    launch_mode<__nv_bfloat16>(in_f32, x, w, bias, coord, out, partial,
-                               stats, a, mode, s);
+  if (!in_f32) {
+    const int e = launch_bf16(x, w, bias, coord, out, partial, stats, a,
+                              mode, out_f32, s);
+    if (e) return e;
+  } else if (out_f32) {
+    launch_f32_mode<float>(x, w, bias, coord, out, partial, stats, a, mode,
+                           s);
+  } else {
+    launch_f32_mode<__nv_bfloat16>(x, w, bias, coord, out, partial, stats, a,
+                                   mode, s);
+  }
   return (int)cudaGetLastError();
 }

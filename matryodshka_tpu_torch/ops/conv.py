@@ -3,8 +3,9 @@ version.
 
 The kernel is `csrc/conv.cu` (the conv block of
 `matryodshka_tpu/ops/pallas_net.py:_build_kernel`, both variants); its
-source note gives the bound and the design. One call is one layer, in one
-of two forms:
+source note gives the bound and the design, and `conv_plan` mirrors its
+choice of tile and producer for bfloat16 operands. One call is one layer,
+in one of two forms:
 
 * npar=1: a KHxKW conv with stride and dilation, `pad` = (lo, hi) rows and
   columns before and after (an int means the same on both sides); input
@@ -34,6 +35,8 @@ smoothed parity's (3 - da) x (3 - db) taps fill the first rows of its
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -45,6 +48,9 @@ launches = 0
 #: Of those, the launches in the coord net's mode (hpad="zero": its convs
 #: and downs, which read the coord channel, its deconvs and its head).
 coord_launches = 0
+#: Launches of the bf16 kernel (csrc/conv.cu:conv_wgmma_kernel) in this
+#: process: conv's bf16 launches and the K7 wrappers' (ops/wrap_conv.py).
+wgmma_launches = 0
 
 HPADS = ("wrap", "zero")
 
@@ -164,17 +170,18 @@ def out_size(h: int, w: int, kh: int, kw: int, stride: int, dil: int,
 def conv_plain(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
                pad=0, npar: int = 1, tanh: bool = False, out_dtype=None,
                hpad: str = "wrap", coord=None):
-    """Plain version of the kernel: f32 math on the given operands, one
-    rounding to out_dtype (default x.dtype)."""
+    """Plain version of the kernel: f32 math on the given operands (f64
+    for f64 x), one rounding to out_dtype (default x.dtype)."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    x32 = x.float()
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x32 = x.to(acc)
     if coord is not None:
-        x32 = with_coord(x32, coord.float())
+        x32 = with_coord(x32, coord.to(acc))
     cin = wk.shape[1] // (kh * kw)
     if npar == 1:
         lo, hi = pad_pair(pad)
         y = F.conv2d(pad2d(x32, lo, hi, lo, hi, hpad),
-                     _unpack(wk, 0, kh, kw, cin).float(), stride=stride,
+                     _unpack(wk, 0, kh, kw, cin).to(acc), stride=stride,
                      dilation=dil)
     else:
         b, _, h, w = x.shape
@@ -184,23 +191,77 @@ def conv_plain(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
             ph, pw = par_taps(kh, npar, da), par_taps(kw, npar, db)
             y[:, :, da::2, db::2] = F.conv2d(
                 pad2d(x32, 1 - da, ph - 2 + da, 1 - db, pw - 2 + db, hpad),
-                _unpack(wk, par, ph, pw, cin).float())
-    y = y + bias.float()[None, :, None, None]
+                _unpack(wk, par, ph, pw, cin).to(acc))
+    y = y + bias.to(acc)[None, :, None, None]
     if tanh:
         y = torch.tanh(y)
     return y.to(out_dtype)
 
 
-def tile_config(b: int, npar: int, ho: int, wo: int, cout: int,
-                dtype) -> str:
-    """The tile a CUDA launch of this shape takes (the GEMM grid Ho x Wo
-    per parity): for bfloat16 operands the tensor-core kernel's Cout x
-    pixel tile, which csrc/conv.cu chooses by the number of blocks it
-    gives; for float32 the f32 kernel's one tile."""
-    if dtype == torch.float32:
+#: The bf16 kernel's tiles (Cout x pixels) in csrc/conv.cu's order
+#: (kTileBM, wg::kTilePx).
+WGMMA_TILES = ((128, 128), (64, 128))
+
+
+class ConvPlan(NamedTuple):
+    """A bf16 launch's plan (csrc/conv.cu:make_plan): the tile (index into
+    WGMMA_TILES, its Cout x pixel size), the tile's pixels as rows x cols
+    of output pixels, and the producers: tma_x, the patch windows by TMA
+    (else gathered); tma_w, the weights by TMA (else gathered)."""
+    tile: int
+    bm: int
+    bn: int
+    cols: int
+    rows: int
+    tma_x: bool
+    tma_w: bool
+
+    def code(self) -> int:
+        """The plan as matry_conv_plan packs it."""
+        return (self.tile | (self.cols.bit_length() - 5) << 2
+                | int(self.tma_x) << 4 | int(self.tma_w) << 5)
+
+    def __str__(self) -> str:
+        xs = "patch TMA" if self.tma_x else "patch gathered"
+        ws = "weights TMA" if self.tma_w else "weights gathered"
+        return (f"wgmma {self.bm}x{self.bn} ({self.rows}x{self.cols} px, "
+                f"{xs}, {ws})")
+
+
+def conv_plan(wi: int, cout: int, wo: int, stride: int,
+              hpad: str) -> ConvPlan:
+    """Plain-Python mirror of csrc/conv.cu:make_plan for a bf16 launch
+    (wo: the GEMM grid's width, per parity for npar=4): columns the widest
+    of 64, 32, 16 dividing wo (16 otherwise), at most 32 at stride 2;
+    128-Cout tiles where cout > 64, else 64; the patch windows by TMA at
+    stride 1 or 2 for wi % 8 == 0 and, wrapping, columns dividing wo (else
+    gathered); the weights by TMA for cout % 8 == 0."""
+    cols = 64 if wo % 64 == 0 else 32 if wo % 32 == 0 else 16
+    if stride == 2:
+        cols = min(cols, 32)
+    tile = 0 if cout > 64 else 1
+    bm, bn = WGMMA_TILES[tile]
+    return ConvPlan(tile, bm, bn, cols, bn // cols,
+                    stride in (1, 2) and wi % 8 == 0
+                    and (hpad == "zero" or wo % cols == 0), cout % 8 == 0)
+
+
+def grid_of(x_shape, kh: int, kw: int, stride: int = 1, dil: int = 1,
+            pad=0, npar: int = 1):
+    """(Ho, Wo) of a launch's GEMM grid for input shape [B, C, H, W]."""
+    return out_size(x_shape[2], x_shape[3], kh, kw, stride, dil, pad, npar)
+
+
+def tile_config(x, cout: int, kh: int, kw: int, stride: int = 1,
+                dil: int = 1, pad=0, npar: int = 1, hpad: str = "wrap",
+                **_) -> str:
+    """The tile a CUDA launch of conv(x, ...) with `cout` outputs takes:
+    for bfloat16 operands the wgmma kernel's plan (conv_plan), for float32
+    the f32 kernel's one tile. Takes conv's keyword arguments."""
+    if x.dtype == torch.float32:
         return "f32 FMA 64x128"
-    t = _build.lib().matry_conv_tile(b, npar, ho * wo, cout)
-    return f"mma.sync {t // 1000}x{t % 1000}"
+    _, wo = grid_of(x.shape, kh, kw, stride, dil, pad, npar)
+    return str(conv_plan(x.shape[3], cout, wo, stride, hpad))
 
 
 def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
@@ -213,7 +274,7 @@ def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
     if x.device.type == "cpu":
         return conv_plain(x, wk, bias, kh, kw, stride, dil, pad, npar, tanh,
                           out_dtype, hpad, coord)
-    global launches, coord_launches
+    global launches, coord_launches, wgmma_launches
     out_dtype = x.dtype if out_dtype is None else out_dtype
     b, cin, h, w = x.shape
     cout = wk.shape[2]
@@ -258,4 +319,5 @@ def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
     _build.check(err, "matry_conv")
     launches += 1
     coord_launches += hpad == "zero"
+    wgmma_launches += x.dtype == torch.bfloat16
     return out

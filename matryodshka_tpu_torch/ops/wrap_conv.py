@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from matryodshka_tpu_torch.ops import _build
+from matryodshka_tpu_torch.ops import conv as conv_ops
 from matryodshka_tpu_torch.ops.conv import pack_conv, wrap_pad
 
 #: Launches of each form's kernel in this process. K7a's count includes
@@ -169,6 +170,7 @@ def _launch(x, weight, bias, out_dtype, stats: bool, name: str):
         None if sums is None else sums.data_ptr(),
         _build.stream_ptr(x.device))
     _build.check(err, name)
+    conv_ops.wgmma_launches += x.dtype == torch.bfloat16
     return out, sums
 
 

@@ -1,9 +1,11 @@
-"""Design alternatives of the sweep and render kernels, timed on the card.
+"""Design alternatives of the sweep, render and conv kernels, timed on the
+card.
 
-    python -m matryodshka_tpu_torch.tools.variants
+    python -m matryodshka_tpu_torch.tools.variants [NAME ...]
 
-Builds `csrc/sweep.cu`, `csrc/render.cu` and `csrc/render_layers.cu` once
-as they are and once per variant (a textual edit of a constant or a line,
+(with names, only the variants whose name contains one of them). Builds
+`csrc/sweep.cu`, `csrc/render.cu`, `csrc/render_layers.cu` and
+`csrc/conv.cu` once as they are and once per variant (a textual edit of a constant or a line,
 into `_build/variants/<name>/`, one `nvcc` each, all started together),
 loads each build with `ctypes` and times its C entry at the flagship
 shapes (640x320, 32 planes and shells, bf16 volume or stack; the sweep and
@@ -24,7 +26,13 @@ limit. The variants:
   in one launch, the same as two one-output launches, and front to back):
   128 x 1 rows of pixels and 32 x 8 tiles against the built 32 x 4; a
   row's two taps as one aligned 4-byte load where x0 is even; the taps
-  and composite alone, the projection replaced by a fixed lookup.
+  and composite alone, the projection replaced by a fixed lookup;
+- conv (the bf16 wgmma kernel at the 18 stages of the 640x320 ngf-64 wrap
+  and coord nets, bf16 inputs, CUDA events per layer): every layer on the
+  64-Cout tile against the plan's choice (128 wherever Cout > 64); the
+  patch windows gathered by the producer's threads in place of TMA; rings
+  of 3, 4 and up to 8 stages (as many as 220 KB hold) in place of 2; the
+  producer at 40 registers and the consumers at 232.
 
 A variant that computes something else says so ("part"); the others must
 equal the built kernel's output bit for bit, or the tool raises.
@@ -74,6 +82,9 @@ _PAIRED_TAPS = """  for (int k = 0; k < 4; k += 2) {
   }
 """
 
+#: conv.cu's choice of tile in make_plan.
+_PLAN_TILE = "  p.tile = Cout > 64 ? 0 : 1;"
+
 #: name -> (source, [(old, new)], part): part variants time a piece of the
 #: kernel and are not compared with it.
 VARIANTS = {
@@ -121,15 +132,35 @@ VARIANTS = {
         ("  matry::shell_uv(q, radius, m, u, v);\n",
          "  u = blockIdx.x * TILE_X + threadIdx.x + 0.37f * p;\n"
          "  v = blockIdx.y * TILE_Y + threadIdx.y + 0.21f;\n")], True),
+    "conv": ("conv.cu", [], False),
+    "conv 64-Cout tiles": ("conv.cu", [(_PLAN_TILE, "  p.tile = 1;")],
+                           False),
+    "conv windows gathered": ("conv.cu", [
+        ("  p.tma_x = (stride == 1 || stride == 2) && Wi % 8 == 0 &&",
+         "  p.tma_x = 0 && Wi % 8 == 0 &&")], False),
+    "conv ring of 3 stages": ("conv.cu", [
+        ("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+        False),
+    "conv ring of 4 stages": ("conv.cu", [
+        ("constexpr int kStages = 2;", "constexpr int kStages = 4;")],
+        False),
+    "conv ring of up to 8 stages": ("conv.cu", [
+        ("constexpr int kStages = 2;", "constexpr int kStages = 8;")],
+        False),
+    "conv producer 40 registers": ("conv.cu", [
+        ("reg_dealloc<56>", "reg_dealloc<40>"),
+        ("reg_alloc<224>", "reg_alloc<232>")], False),
 }
 
 
-def _sources():
-    """[(name, variant source path)]: every variant's source written into
-    its directory; raises before any build if an edit does not apply."""
+def _sources(names):
+    """[(name, variant source path)]: every named variant's source written
+    into its directory; raises before any build if an edit does not
+    apply."""
     root = _build.BUILD_DIR / "variants"
     out = []
-    for name, (src, edits, _) in VARIANTS.items():
+    for name in names:
+        src, edits, _ = VARIANTS[name]
         text = (_build.CSRC / src).read_text()
         for old, new in edits:
             if old not in text:
@@ -144,11 +175,11 @@ def _sources():
     return out
 
 
-def _build_all():
-    """{name: ctypes library} of every variant, built in parallel."""
+def _build_all(names):
+    """{name: ctypes library} of the named variants, built in parallel."""
     procs = []
     try:
-        for name, src in _sources():
+        for name, src in _sources(names):
             so = src.parent / "lib.so"
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
                    str(so), str(src)]
@@ -162,7 +193,9 @@ def _build_all():
                 raise RuntimeError(f"variant {name!r} failed to build:\n"
                                    f"{out[-3000:]}")
             lib = ctypes.CDLL(str(so))
-            for fn in ("matry_sweep", "matry_render", "matry_render_layers"):
+            for fn in ("matry_sweep", "matry_render", "matry_render_layers",
+                       "matry_conv", "matry_conv_plan",
+                       "matry_conv_stats_blocks"):
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
                     getattr(lib, fn).restype = ctypes.c_int
@@ -234,8 +267,55 @@ def _layer_stack_times(lib, stack, target, part):
             f"{two:9.2f} us, ftb both {ftb:9.2f} us")
 
 
+def _conv_times(lib, nets, want):
+    """One conv variant at every stage of the two nets (CUDA events, 30
+    launches after 5): ops/conv.conv run on the variant's library, each
+    output equal to the built kernel's bit for bit. -> (text, ms per
+    layer)."""
+    from matryodshka_tpu_torch.ops import conv as conv_ops
+    saved = _build._lib
+    _build._lib = lib
+    try:
+        per = []
+        for key, stages in nets.items():
+            for (name, x, st), ref in zip(stages, want[key]):
+                per.append(_time_us(lambda: conv_ops.conv(
+                    x, st["w"], st["b"], **st["args"])) / 1e3)
+                if not torch.equal(conv_ops.conv(x, st["w"], st["b"],
+                                                 **st["args"]), ref):
+                    raise RuntimeError(f"conv variant differs at {key} "
+                                       f"{name}")
+    finally:
+        _build._lib = saved
+    n = len(per) // 2
+    return (f"wrap net {sum(per[:n]):7.3f} ms, coord net "
+            f"{sum(per[n:]):7.3f} ms; per layer "
+            + " ".join(f"{t:.3f}" for t in per)), per
+
+
+def _conv_nets(dev):
+    """{wrap, coord}: [(stage, bf16 input, stage operands)] of the
+    flagship nets, inputs uniform in [-1, 1] from a seed."""
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    nets = {}
+    for key, coord in (("wrap", False), ("coord", True)):
+        cfg = entry.flagship_cfg(coord_net=coord)
+        prm = entry.make_params(cfg, seed=0, device=dev)
+        stages = []
+        for plan, st in zip(prm.net.plan, prm.stages):
+            name, _, _, cins, _, ind, _, _ = plan
+            x = (torch.rand((1, sum(cins), cfg.height // ind,
+                             cfg.width // ind), generator=gen, device=dev)
+                 * 2 - 1).to(torch.bfloat16)
+            stages.append((name, x, st))
+        nets[key] = stages
+    return nets
+
+
 def main(argv=None) -> int:
-    del argv
+    argv = sys.argv[1:] if argv is None else argv
+    names = [n for n in VARIANTS
+             if not argv or any(a in n for a in argv)]
     if not torch.cuda.is_available():
         print("variants: no CUDA device", file=sys.stderr)
         return 2
@@ -244,7 +324,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    libs = _build_all()
+    libs = _build_all(names)
     cfg = entry.flagship_cfg()
     params = entry.make_params(cfg, seed=0, device=dev)
     batch = entry.synthetic_batch(cfg, 0, dev)
@@ -273,8 +353,21 @@ def main(argv=None) -> int:
               params.msi_depths)
     lat, lon = grids.lat_long_vectors(320, 640, dev)
     stacks = [_stack(gen, p, h, w) for h, w in ((320, 640), (2048, 4096))]
-    for name, (src, _, part) in VARIANTS.items():
+    conv_nets = conv_want = None
+    for name in names:
+        src, _, part = VARIANTS[name]
         lib = libs[name]
+        if src == "conv.cu":
+            if conv_nets is None:
+                from matryodshka_tpu_torch.ops import conv as conv_ops
+                conv_nets = _conv_nets(dev)
+                conv_want = {k: [conv_ops.conv(x, st["w"], st["b"],
+                                               **st["args"])
+                                 for _, x, st in v]
+                             for k, v in conv_nets.items()}
+            text, _ = _conv_times(lib, conv_nets, conv_want)
+            print(f"variant {name:28s} {text} [{card}]")
+            continue
         if src == "render_layers.cu":
             print(f"variant {name:28s} "
                   + "; ".join(_layer_stack_times(lib, st, target, part)

@@ -132,15 +132,21 @@ def test_op_library_sweep_equals_sweep_volume(cuda, dtype, shape):
 
 #: Single conv layers at the edges of the kernel's tiles: (id, B, Cin, H,
 #: W, Cout, conv arguments; coord=True appends the coord channel). Heads of
-#: 67, 99 and 32 channels (Cout not a multiple of 8, or of the 64-channel
-#: tile); pixel counts that fill no whole tile (Wo = 80, 200); W = 5, so
-#: the wrap crosses every tile; Cin' = Cin + 1 (coord) and Cin = 96 (a
-#: k-block past Cin' in every tap); Cin = 195, the RealEstate net's first
-#: layer (a ragged 16-channel group, with and without the coord channel:
-#: Cin' = 196); stride 2, dilation 2, the npar=4
-#: parity deconv in both paddings, transposed (2x2 taps) and smoothed (the
-#: folded 3x3 / 3x2 / 2x3 / 2x2 taps); B = 2; the conv4 shape (512 -> 512
-#: at 40x80, the 64x64 tile) and a shape that takes the 64x128 tile.
+#: 67, 99 and 32 channels (Cout not a multiple of 8: the weights gathered,
+#: or of the 64-channel tile); pixel counts that fill no whole tile (Wo =
+#: 200, 40: a ragged last column tile, whose wrapped window is gathered;
+#: Wo = 48, 80: 16-column tiles whose halos cross the wrap seam by TMA);
+#: W = 5 and 20 in both paddings, W = 12 with the coord channel (x's rows
+#: not a multiple of 16 bytes: the patch gathered), so the wrap crosses
+#: every tile at W = 5; Cin' = Cin + 1 (coord) and Cin = 96 (a k-step past
+#: Cin in every tap); Cin = 195, the RealEstate net's first layer (a ragged
+#: channel chunk, with and without the coord channel: Cin' = 196); stride
+#: 2 (gathered at W 24, by TMA at W 64), dilation 2 (W 20 gathered, W 32 by
+#: TMA with shifts of two columns), the npar=4 parity deconv in both
+#: paddings, transposed (2x2 taps) and smoothed (the folded 3x3 / 3x2 /
+#: 2x3 / 2x2 taps), at W 20 (gathered), 32 (by TMA) and 24 (zero mode by
+#: TMA, a ragged tile); B = 2; the conv4 shape (512 -> 512 at 40x80) and a
+#: shape that takes the 64x128 tile.
 EDGE_CASES = [
     ("head67", 1, 64, 8, 80, 67,
      dict(kh=1, kw=1, tanh=True, out_dtype=torch.float32)),
@@ -166,9 +172,31 @@ EDGE_CASES = [
     ("cin195_wrap", 1, 195, 12, 24, 64, dict(kh=3, kw=3, pad=1)),
     ("cin195_coord", 2, 195, 12, 24, 64,
      dict(kh=3, kw=3, pad=(1, 1), hpad="zero", coord=True)),
+    ("seam_w40", 1, 64, 12, 40, 64, dict(kh=3, kw=3, pad=1)),
+    ("seam_w48", 1, 64, 12, 48, 64, dict(kh=3, kw=3, pad=1)),
+    ("w5_zero", 2, 32, 40, 5, 64, dict(kh=3, kw=3, pad=(1, 1), hpad="zero")),
+    ("w12_coord", 1, 64, 10, 12, 64,
+     dict(kh=3, kw=3, pad=(1, 1), hpad="zero", coord=True)),
+    ("dil2_w32", 1, 96, 10, 32, 64, dict(kh=3, kw=3, dil=2, pad=2)),
+    ("down_w64", 1, 64, 16, 64, 128, dict(kh=3, kw=3, stride=2, pad=1)),
+    ("deconv_w32", 2, 96, 10, 32, 64, dict(kh=2, kw=2, npar=4)),
+    ("smoothed_w32", 1, 64, 10, 32, 128, dict(kh=3, kw=3, npar=4)),
+    ("smoothed_w24_zero", 1, 64, 10, 24, 32,
+     dict(kh=3, kw=3, npar=4, hpad="zero")),
 ]
-#: The tensor-core tile each of these must take (Cout x pixels).
-EDGE_TILES = {"conv4": "mma.sync 64x64", "tile128": "mma.sync 64x128"}
+#: The wgmma tile each of these must take (ops/conv.conv_plan: Cout x
+#: pixels, rows x columns of output pixels, the operands' producer).
+_T = "patch TMA, weights TMA"
+_G = "patch gathered, weights TMA"
+EDGE_TILES = {"conv4": f"wgmma 128x128 (8x16 px, {_T})",
+              "tile128": f"wgmma 64x128 (8x16 px, {_G})",
+              "seam_w40": f"wgmma 64x128 (8x16 px, {_G})",
+              "seam_w48": f"wgmma 64x128 (8x16 px, {_T})",
+              "head67": "wgmma 128x128 (8x16 px, patch TMA, weights "
+                        "gathered)",
+              "w5_zero": f"wgmma 64x128 (8x16 px, {_G})",
+              "down_w64": f"wgmma 128x128 (4x32 px, {_T})",
+              "deconv_w32": f"wgmma 64x128 (4x32 px, {_T})"}
 
 
 def _conv_plan_case(dev, dtype):
@@ -218,8 +246,9 @@ def test_conv_kernel_matches_plain(cuda, dtype, case):
     edges (EDGE_CASES), on the same (rounded) operands. f32 runs the exact
     f32 FMA kernel: it differs from the plain version in accumulation order
     only (1e-4 of the output scale over the plan, 1e-5 on the single
-    layers, whose K is at most 4,608); in bf16 (tensor cores) both sides
-    round once and may land one bf16 step apart (2^-7 of the scale)."""
+    layers, whose K is at most 4,608); in bf16 (the wgmma kernel) both sides
+    round once and may land one bf16 step apart (2^-7 of the scale), and
+    a second launch gives the same bits."""
     layers = (_conv_plan_case(cuda, dtype) if case == "plan"
               else _conv_edge_case(cuda, dtype, case))
     for name, x, wk, bias, args in layers:
@@ -230,15 +259,48 @@ def test_conv_kernel_matches_plain(cuda, dtype, case):
         tol = (rel if dtype == torch.float32 else 2.0 ** -7) * \
             want.abs().max().item()
         assert (got - want).abs().max().item() <= tol, name
+        if dtype == torch.bfloat16:
+            # no atomics: a second launch gives the same bits
+            again = conv_ops.conv(x, wk, bias, **args).float()
+            assert torch.equal(got, again), name
         if case in EDGE_TILES and dtype == torch.bfloat16:
-            npar = args.get("npar", 1)
-            ho, wo = conv_ops.out_size(x.shape[2], x.shape[3], args["kh"],
-                                       args["kw"], args.get("stride", 1),
-                                       args.get("dil", 1),
-                                       args.get("pad", 0), npar)
-            assert conv_ops.tile_config(x.shape[0], npar, ho, wo,
-                                        wk.shape[2], dtype) == \
+            assert conv_ops.tile_config(x, wk.shape[2], **args) == \
                 EDGE_TILES[case]
+
+
+@pytest.mark.cuda
+def test_conv_plan_matches_c(cuda):
+    """matry_conv_plan (csrc/conv.cu) equals ops/conv.conv_plan at every
+    stage of both 640x320 ngf-64 nets (and the smoothed folds), at K7's
+    trainer shapes at batch 1 and 2 (forward and dgrad) and at the edge
+    cases."""
+    from matryodshka_tpu_torch.ops import _build
+    from matryodshka_tpu_torch.ops.net import conv_args, unet_plan
+    shapes = []
+    for variant in ("wrap", "coord"):
+        for smoothed in (False, True):
+            for (_, kind, _, cins, cout, ind, _, rate) in unet_plan(
+                    64, 192, 64):
+                shapes.append(((1, sum(cins), 320 // ind, 640 // ind), cout,
+                               conv_args(kind, rate, variant, smoothed)))
+    for (_, kind, _, cins, cout, ind, _, rate) in unet_plan(64, 192, 64):
+        if kind == "conv" and rate == 1:
+            for b in (1, 2):
+                for ci, co in ((sum(cins), cout), (cout, sum(cins))):
+                    shapes.append(((b, ci, 320 // ind, 640 // ind), co,
+                                   dict(kh=3, kw=3, pad=1)))
+    for (_, b, cin, h, w, cout, args) in EDGE_CASES:
+        shapes.append(((b, cin, h, w), cout, args))
+    lib = _build.lib()
+    for (b, cin, h, w), cout, args in shapes:
+        stride = args.get("stride", 1)
+        hpad = args.get("hpad", "wrap")
+        _, wo = conv_ops.grid_of((b, cin, h, w), args["kh"], args["kw"],
+                                 stride, args.get("dil", 1),
+                                 args.get("pad", 0), args.get("npar", 1))
+        want = conv_ops.conv_plan(w, cout, wo, stride, hpad)
+        got = lib.matry_conv_plan(w, cout, wo, stride, int(hpad == "zero"))
+        assert got == want.code(), ((b, cin, h, w), cout, args, got, want)
 
 
 #: Layer-norm shapes (B, C, H, W) and the form each takes on an H100: the
