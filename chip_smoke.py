@@ -5,8 +5,9 @@ once on an NVIDIA GPU.
 
 Builds the port's CUDA kernels from matryodshka_tpu_torch/csrc, reports
 the conv kernel's instantiations (ptxas registers, stack and spills; the
-HGMMA and HMMA counts of each one's SASS: the bf16 conv instantiations
-must hold HGMMA, the weight gradient's HMMA, and none may spill), and
+HGMMA and HMMA counts of each one's SASS: the bf16 conv and weight-
+gradient instantiations must hold HGMMA, the weight gradient's no HMMA,
+and none may spill), and
 checks each kernel against its plain
 PyTorch version at the shapes its path gives it, all at the full width
 of the flagship configuration (640x320 ODS input, 32 planes per eye, 32
@@ -346,10 +347,12 @@ def nvidia_smi_line() -> str:
 
 #: Kernels the build report lists (demangled names), and the bf16 kernels
 #: with the tensor-core instruction each of their instantiations must hold:
-#: the conv's wgmma (HGMMA), the weight gradient's mma.sync (HMMA).
-REPORTED = r"conv_(wgmma|f32)_kernel|wgrad_(tc|f32)_kernel|wgrad_reduce|" \
-    r"stats_fold|ln_(onchip|stats|apply)\b"
-TENSOR_CORE = {"conv_wgmma_kernel": "HGMMA", "wgrad_tc_kernel": "HMMA"}
+#: the conv's and the weight gradient's wgmma (HGMMA); the weight gradient
+#: must hold no mma.sync (HMMA) either.
+REPORTED = r"conv_(wgmma|f32)_kernel|wgrad_(wgmma|f32)_kernel|" \
+    r"wgrad_reduce|stats_fold|ln_(onchip|stats|apply)\b"
+TENSOR_CORE = {"conv_wgmma_kernel": "HGMMA", "wgrad_wgmma_kernel": "HGMMA"}
+NO_HMMA = ("wgrad_wgmma_kernel",)
 
 
 def kernel_build_report(so) -> None:
@@ -358,7 +361,8 @@ def kernel_build_report(so) -> None:
     build log, `-Xptxas -v`), and the tensor-core instructions in each
     one's SASS (`cuobjdump -sass`), HGMMA (wgmma) apart from HMMA
     (mma.sync). Fails if a bf16 instantiation lacks its instruction
-    (conv_wgmma_kernel HGMMA, wgrad_tc_kernel HMMA) or spills."""
+    (conv_wgmma_kernel and wgrad_wgmma_kernel HGMMA) or spills, or if a
+    wgrad_wgmma_kernel instantiation holds any HMMA."""
     import re
     from pathlib import Path
 
@@ -422,6 +426,8 @@ def kernel_build_report(so) -> None:
                 n_tc[k] += 1
                 if ops[op] == 0:
                     missing.append(f"{nice} (no {op})")
+                if k in NO_HMMA and ops["HMMA"]:
+                    missing.append(f"{nice} ({ops['HMMA']} HMMA)")
                 if spill[1:] != (0, 0):
                     spilled.append(nice)
     for k, n in n_tc.items():
@@ -429,8 +435,8 @@ def kernel_build_report(so) -> None:
               f"({TENSOR_CORE[k]}); "
               f"{'ok' if n and not missing and not spilled else 'FAIL'}")
     check(all(n_tc.values()) and not missing,
-          f"bf16 instantiations without their tensor-core instruction: "
-          f"{missing or n_tc}")
+          f"bf16 instantiations without their tensor-core instruction or "
+          f"with mma.sync: {missing or n_tc}")
     check(not spilled, f"bf16 tensor-core instantiations spill: {spilled}")
 
 
@@ -486,31 +492,15 @@ def device_ms(fns, kernels, pattern: str, calls: int = 10):
     launches than the window made (none, now and then) is taken again, up
     to TRACE_TRIES times."""
     import re
-    import warnings
 
-    from matryodshka_tpu_torch.trace import device_events
     for _ in range(2):
         for fn in fns:
             fn()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     want = calls * sum(kernels)
     for i in range(TRACE_TRIES):
-        torch.cuda.synchronize()
-        with warnings.catch_warnings():
-            warnings.filterwarnings("ignore",
-                                    message=".*Profiler clears events")
-            with torch.profiler.profile(activities=acts) as prof:
-                torch.cuda._sleep(SPIN_CYCLES)
-                for _ in range(calls):
-                    for fn in fns:
-                        fn()
-                torch.cuda._sleep(SPIN_CYCLES)
-                torch.cuda.synchronize()
-            traced = device_events(prof)
-        spins = sum(SPIN_KERNEL in e[0] for e in traced)
-        events = sorted((e for e in traced if SPIN_KERNEL not in e[0]
-                         and re.search(pattern, e[0])), key=lambda e: e[1])
+        spins, traced = _spin_window(fns, calls)
+        events = sorted((e for e in traced if re.search(pattern, e[0])),
+                        key=lambda e: e[1])
         if len(events) == want:
             break
         print(f"  device_ms trace {i + 1}/{TRACE_TRIES}: {len(events)} of "
@@ -527,6 +517,44 @@ def device_ms(fns, kernels, pattern: str, calls: int = 10):
             for i, k in enumerate(kernels):
                 per_fn[i] += sum(next(durs) for _ in range(k)) / 1e3 / calls
     return per_fn, total, len(events) / calls
+
+
+def _spin_window(fns, calls):
+    """One torch.profiler trace of `calls` rounds of every fn in turn
+    between two spin kernels: (spins kept, [(name, start us, duration
+    us)] of the other device operations)."""
+    import warnings
+
+    from matryodshka_tpu_torch.trace import device_events
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*Profiler clears events")
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(calls):
+                for fn in fns:
+                    fn()
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        traced = device_events(prof)
+    return (sum(SPIN_KERNEL in e[0] for e in traced),
+            [e for e in traced if SPIN_KERNEL not in e[0]])
+
+
+def device_ops_per_call(fn, calls: int = 4):
+    """Device operations (kernels, copies, sets) one call of fn runs, for a
+    function whose launches are not known (a library call): from a trace
+    of `calls` calls that kept both spins and a multiple of `calls`
+    operations, up to TRACE_TRIES traces; None if none did."""
+    for _ in range(2):
+        fn()
+    for _ in range(TRACE_TRIES):
+        spins, events = _spin_window([fn], calls)
+        if spins == 2 and events and len(events) % calls == 0:
+            return len(events) // calls
+    return None
 
 
 def trace_counted(fn, counters=None):
@@ -732,8 +760,13 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
     plain versions, then the times of the forms each layer runs in a step
     (K7c for >= 160 input channels, else K7b; dgrad, a K7a launch, for all
     but conv1_1, whose input is the sweep; wgrad for all), their plain
-    versions and cuDNN bf16 on the same work. Returns per-step sums
-    {key: (ms, plain_ms, library_ms, bound)}."""
+    versions and cuDNN bf16 on the same work; then each form's device time
+    per layer from one profiler trace of its calls (device_ms: the
+    kernels alone, without the wrapper's weight packing and allocations),
+    and cuDNN's from one trace of its calls, device time against device
+    time. Returns per-step sums {key: (ms, plain_ms, library_ms, bound,
+    device_ms, library_device_ms)}, a device time None where its trace
+    lost operations."""
     import torch.nn.functional as F
 
     from matryodshka_tpu_torch.ops import wrap_conv as wc
@@ -748,6 +781,10 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
         s = sums[key]
         for i, v in enumerate((kt, pt, lt, nb, ops)):
             s[i] += v
+
+    # each form's calls of the step, (layer, kernel fn, CUDA events ms,
+    # library fn, its CUDA events ms), for the traces after the loop
+    calls = {k: [] for k in sums}
 
     for name, cin, cout, ind in wrap_conv_layers(64, 192):
         hh, ww = h // ind, w // ind
@@ -821,44 +858,102 @@ def wrap_conv_kernels(dev, h, w, gate, errs, tag):
         flops = 2.0 * 9 * cin * cout * hh * ww
         xp = wrap_pad(x, 1, 1, 1, 1)
         wb, bb = wt.to(torch.bfloat16), bias.to(torch.bfloat16)
-        lib_fwd = time_ms(lambda: F.conv2d(xp, wb, bb))
+        lib_fwd_fn = functools.partial(F.conv2d, xp, wb, bb)
+        lib_fwd = time_ms(lib_fwd_fn)
         if cin >= 160:
-            kt = time_ms(lambda: wc.conv3x3_ln_stats(x, wt, bias))
+            fwd = functools.partial(wc.conv3x3_ln_stats, x, wt, bias)
+            kt = time_ms(fwd)
             pt = time_ms(lambda: wc.conv3x3_ln_stats_plain(x, wt, bias))
             add("wrap_conv_k7c", kt, pt, lib_fwd,
                 nbytes(x, wt, bias, y) + 16, flops)
+            calls["wrap_conv_k7c"].append((name, fwd, kt, lib_fwd_fn,
+                                           lib_fwd))
         else:
-            kt = time_ms(lambda: wc.conv3x3_wrap_dma(x, wt, bias))
+            fwd = functools.partial(wc.conv3x3_wrap_dma, x, wt, bias)
+            kt = time_ms(fwd)
             pt = time_ms(lambda: wc.conv3x3_wrap_dma_plain(x, wt, bias))
             add("wrap_conv_k7b", kt, pt, lib_fwd, nbytes(x, wt, bias, y),
                 flops)
+            calls["wrap_conv_k7b"].append((name, fwd, kt, lib_fwd_fn,
+                                           lib_fwd))
         line = (f"{name:8s} fwd ({'K7c' if cin >= 160 else 'K7b'}) kernel "
                 f"{kt:7.3f} ms ({flops / kt / 1e9:6.2f} TFLOP/s, tile "
                 f"{conv_tile(x, cout, kh=3, kw=3, pad=1)}) plain "
                 f"{pt:7.3f} library bf16 {lib_fwd:7.3f}")
         if name != "conv1_1":
-            dt = time_ms(lambda: wc.conv3x3_wrap(gy, wadj))
+            dgrad = functools.partial(wc.conv3x3_wrap, gy, wadj)
+            dt = time_ms(dgrad)
             dpt = time_ms(lambda: wc.conv3x3_wrap_plain(gy, wadj))
-            dlt = time_ms(lambda: torch.nn.grad.conv2d_input(
-                xp.shape, wb, gy))
+            lib_dgrad = functools.partial(torch.nn.grad.conv2d_input,
+                                          xp.shape, wb, gy)
+            dlt = time_ms(lib_dgrad)
             add("wrap_conv_k7a", dt, dpt, dlt,
                 nbytes(gy, wt) + 4 * x.numel(), flops)
+            calls["wrap_conv_k7a"].append((name, dgrad, dt, lib_dgrad,
+                                           dlt))
             line += (f" | dgrad kernel {dt:7.3f} ({flops / dt / 1e9:6.2f} "
                      f"TFLOP/s, tile {conv_tile(gy, cin, kh=3, kw=3, pad=1)})"
                      f" plain {dpt:7.3f} library {dlt:7.3f}")
-        gt = time_ms(lambda: wc.conv3x3_wrap_wgrad(gy, x))
+        wgrad = functools.partial(wc.conv3x3_wrap_wgrad, gy, x)
+        gt = time_ms(wgrad)
         gpt = time_ms(lambda: wc.conv3x3_wrap_wgrad_plain(gy, x))
-        glt = time_ms(lambda: torch.nn.grad.conv2d_weight(xp, wt.shape, gy))
+        lib_wgrad = functools.partial(torch.nn.grad.conv2d_weight, xp,
+                                      wt.shape, gy)
+        glt = time_ms(lib_wgrad)
         add("wrap_conv_wgrad", gt, gpt, glt, nbytes(gy, x, dw, db),
             flops + 2.0 * cout * hh * ww)
-        splits, chunk = wc.wgrad_tc_splits(1, hh, ww, cout, cin)
-        part_mb = splits * cout * (9 * cin + 1) * 4 / 1e6
+        calls["wrap_conv_wgrad"].append((name, wgrad, gt, lib_wgrad, glt))
+        plan = wc.wgrad_plan(1, hh, ww, cout, cin,
+                             wc._sm_count(dev.index or 0))
+        part_mb = plan.splits * plan.tiles * wc.WGRAD_TILE_ENTRIES * 4 / 1e6
         print(f"{line} | wgrad kernel {gt:7.3f} ({flops / gt / 1e9:6.2f} "
-              f"TFLOP/s; {splits} splits of {chunk} k-blocks, f32 partials "
-              f"{part_mb:.1f} MB written and read) plain {gpt:7.3f} library "
-              f"{glt:7.3f} ms {tag}")
-    return {k: (v[0], v[1], v[2], bound(v[3], v[4], BF16_FLOPS))
-            for k, v in sums.items()}
+              f"TFLOP/s; {plan.tiles} tiles x {plan.splits} splits of "
+              f"{plan.chunk} k-steps of {plan.kp} pixels, "
+              f"{'TMA' if plan.tma else 'gathered'}, f32 partials "
+              f"{part_mb:.1f} MB written and read, folded in the launch) "
+              f"plain {gpt:7.3f} library {glt:7.3f} ms {tag}")
+    # device time of each form's calls (one trace a form; the forms run
+    # conv_wgmma_kernel, K7c also stats_fold, wgrad wgrad_wgmma_kernel)
+    patterns = {"wrap_conv_k7a": (r"\bconv_wgmma_kernel\b", 1),
+                "wrap_conv_k7b": (r"\bconv_wgmma_kernel\b", 1),
+                "wrap_conv_k7c": (r"\b(conv_wgmma_kernel|stats_fold)\b", 2),
+                "wrap_conv_wgrad": (r"\bwgrad_wgmma_kernel\b", 1)}
+    # cuDNN's calls likewise, each call's operations counted from a trace
+    # of its own (they differ by layer and by algorithm)
+    lost = "not measured (the trace lost operations)"
+
+    def fmt(v):
+        return lost if v is None else f"{v:.4f} ms"
+
+    dev_sum, lib_sum = {}, {}
+    for key, (pat, n) in patterns.items():
+        per, _, _ = device_ms([c[1] for c in calls[key]],
+                              [n] * len(calls[key]), pat)
+        lib_fns = [c[3] for c in calls[key]]
+        ops = [device_ops_per_call(fn) for fn in lib_fns]
+        lper = (device_ms(lib_fns, ops, r".")[0] if None not in ops
+                else None)
+        dev_sum[key] = sum(per) if per else None
+        lib_sum[key] = sum(lper) if lper else None
+        for i, (name, _, ev, _, lev) in enumerate(calls[key]):
+            kd = per[i] if per else None
+            ld = lper[i] if lper else None
+            ratio = (f", kernel / library device {kd / ld:.2f}x"
+                     if kd is not None and ld is not None else "")
+            print(f"{key} {name:8s} device {fmt(kd)} (trace), CUDA events "
+                  f"{ev:.4f} ms a call; library device {fmt(ld)} "
+                  f"({ops[i]} operations a call), CUDA events {lev:.4f} "
+                  f"ms{ratio} {tag}")
+        ratio = (f"; kernel / library: device {dev_sum[key] / lib_sum[key]:.2f}x"
+                 if dev_sum[key] is not None and lib_sum[key] is not None
+                 else "")
+        print(f"{key} per step: device {fmt(dev_sum[key])} (trace), CUDA "
+              f"events {sums[key][0]:.4f} ms; library device "
+              f"{fmt(lib_sum[key])}, CUDA events {sums[key][2]:.4f} ms; "
+              f"kernel / library: events {sums[key][0] / sums[key][2]:.2f}x"
+              f"{ratio} {tag}")
+    return {k: (v[0], v[1], v[2], bound(v[3], v[4], BF16_FLOPS),
+                dev_sum[k], lib_sum[k]) for k, v in sums.items()}
 
 
 def run_train_loop(tcfg, dev, reset_counts, read_counts, elpips, nsteps,
@@ -3853,17 +3948,21 @@ def main() -> None:
             lib_ms["layernorm"] = ln_lib[call]
             # the 17 layers' kernels in one trace: the on-chip form is one
             # kernel a call, the two-pass form two
-            per_layer, dev, nlaunch = device_ms(
+            per_layer, _, nlaunch = device_ms(
                 [fn for _, _, fn in ln_calls],
                 [1 if form == "onchip" else 2 for _, form, _ in ln_calls],
                 LN_KERNELS)
+            # a sum only of a complete trace
+            dev = sum(per_layer) if per_layer else None
             for i, (name, form, _) in enumerate(ln_calls):
                 us = (f"{per_layer[i] * 1e3:8.3f} us" if per_layer
                       else "not measured (the trace lost launches)")
                 print(f"layernorm {name:10s} form {form:8s} device {us} "
                       f"(trace) {tag}")
             device_only["layernorm"] = (dev, nlaunch)
-            print(f"net layernorm device time (trace) {dev:.4f} ms "
+            dev_txt = ("not measured (the trace lost launches)"
+                       if dev is None else f"{dev:.4f} ms")
+            print(f"net layernorm device time (trace) {dev_txt} "
                   f"per frame in {nlaunch:g} kernel launches; CUDA "
                   f"events {kernel_ms['layernorm']:.4f} ms {tag}")
             print(f"net layernorm library: F.group_norm "
@@ -4100,15 +4199,17 @@ def main() -> None:
                             "backward)"),
     }
     for k, (src, rep) in k7_sources.items():
-        kt, pt, lt, (bms, bby) = k7_ms[k]
-        print(f"kernel {k:16s} {kt:9.3f} ms  plain {pt:9.3f} ms  library "
-              f"{lt:9.3f} ms  bound {bms:.4f} ms ({bby}) per step, "
+        kt, pt, lt, (bms, bby), dms, lds = k7_ms[k]
+        print(f"kernel {k:16s} {kt:9.3f} ms (device {dms})  plain "
+              f"{pt:9.3f} ms  library {lt:9.3f} ms (device {lds})  bound "
+              f"{bms:.4f} ms ({bby}) per step, "
               f"{train_launches[k] / nsteps:g} launches per step {tag}")
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep, "launches": train_launches[k],
                      "launches_per_step": train_launches[k] / nsteps,
                      "max_abs_err": errs[k], "ms": kt, "plain_ms": pt,
-                     "bound_ms": bms, "bound_by": bby, "library_ms": lt})
+                     "bound_ms": bms, "bound_by": bby, "library_ms": lt,
+                     "device_ms": dms, "library_device_ms": lds})
     rows.extend(probe_rows)
 
     lap("times and traces")

@@ -98,6 +98,9 @@
 //   8. The plan (make_plan, matry_conv_plan; mirrored by
 //      ops/conv.conv_plan): 128-Cout tiles where Cout > 64, else 64. No
 //      atomics: every output is the same from launch to launch.
+//   9. Tensor maps are encoded through the runtime's driver entry point
+//      into hopper.cuh's cache (shared with conv_wgrad.cu), keyed by their
+//      arguments.
 //
 // f32 operands (conv_f32_kernel, compute_dtype="float32") keep exact f32
 // FMA on the CUDA cores: a 64 x 128 tile per block, K in steps of 16
@@ -117,8 +120,6 @@
 
 #include <stdint.h>
 #include <string.h>
-
-#include <mutex>
 
 #include <cuda.h>
 
@@ -815,18 +816,6 @@ __global__ void __launch_bounds__(256)
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-int num_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || n <= 0)
-      n = 132;
-  }
-  return n;
-}
-
 // ---------------------------------------------------------------------------
 // The bf16 plan: tile and producer per launch (ops/conv.conv_plan mirrors
 // it in Python).
@@ -867,112 +856,19 @@ int plan_code(const Plan& p) {
   return p.tile | (p.ct_lg - 4) << 2 | p.tma_x << 4 | p.tma_w << 5;
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library links no libcuda of its own.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// Encoded tensor maps by their arguments (pointer, shape, strides, box,
-// element strides, swizzle): a direct-mapped cache of 256, so that a
-// layer run again on the same buffers (the caching allocator hands them
-// back) costs no cuTensorMapEncodeTiled. A map holds nothing but these
-// arguments, so a hit is the map the call would encode.
-struct MapKey {
-  const void* ptr;
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4], es[4];
-  int rank, swizzle;
-};
-struct MapSlot {
-  MapKey key;
-  CUtensorMap map;
-  bool used;
-};
-MapSlot g_maps[256];
-std::mutex g_maps_mu;
-
-int encode_cached(CUtensorMap* m, const MapKey& k) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return (int)cudaErrorNotSupported;
-  uint64_t h = 1469598103934665603ull;  // FNV-1a over the key's bytes
-  const unsigned char* kb = reinterpret_cast<const unsigned char*>(&k);
-  for (size_t i = 0; i < sizeof(k); ++i) h = (h ^ kb[i]) * 1099511628211ull;
-  std::lock_guard<std::mutex> lock(g_maps_mu);
-  MapSlot& slot = g_maps[h & 255];
-  if (slot.used && memcmp(&slot.key, &k, sizeof(k)) == 0) {
-    *m = slot.map;
-    return 0;
-  }
-  const CUresult r = fn(
-      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)k.rank,
-      const_cast<void*>(k.ptr), k.dims, k.strides, k.box, k.es,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, (CUtensorMapSwizzle)k.swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  slot.key = k;
-  slot.map = *m;
-  slot.used = true;
-  return 0;
-}
-
-CUtensorMapSwizzle swizzle_of(int bytes) {
-  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                      : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                      : bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
-                                    : CU_TENSOR_MAP_SWIZZLE_NONE;
-}
-
 // x [B, Cin, Hi, Wi] bf16 as the 4-D tensor (W, C, H, B): box {cols, 64,
 // rows * stride, 1} taking every stride-th row, the swizzle as wide as a
 // box row (none for the 16-byte halo boxes).
 int encode_x(CUtensorMap* m, const void* x, const ConvArgs& a, int cols,
              int rows) {
-  MapKey k;
-  memset(&k, 0, sizeof(k));
-  k.ptr = x;
-  k.rank = 4;
-  k.dims[0] = a.Wi;
-  k.dims[1] = a.Cin;
-  k.dims[2] = a.Hi;
-  k.dims[3] = a.B;
-  k.strides[0] = (cuuint64_t)a.Hi * a.Wi * 2;
-  k.strides[1] = (cuuint64_t)a.Wi * 2;
-  k.strides[2] = (cuuint64_t)a.Cin * a.Hi * a.Wi * 2;
-  k.box[0] = cols;
-  k.box[1] = wg::BK;
-  k.box[2] = rows * a.stride;
-  k.box[3] = 1;
-  k.es[0] = k.es[1] = k.es[3] = 1;
-  k.es[2] = a.stride;
-  k.swizzle = swizzle_of(cols == wg::kHalo ? 0 : 2 * cols);
-  return encode_cached(m, k);
+  return matry::hop::encode_nchw(m, x, a.B, a.Cin, a.Hi, a.Wi, cols, wg::BK,
+                                 rows * a.stride, a.stride,
+                                 cols == wg::kHalo ? 0 : 2 * cols);
 }
 
 // The packed weight [krows, Cout] bf16, box {64, 64}, 128-byte swizzle.
 int encode_w(CUtensorMap* m, const void* w, int cout, int krows) {
-  MapKey k;
+  matry::hop::MapKey k;
   memset(&k, 0, sizeof(k));
   k.ptr = w;
   k.rank = 2;
@@ -983,7 +879,7 @@ int encode_w(CUtensorMap* m, const void* w, int cout, int krows) {
   k.box[1] = wg::BK;
   k.es[0] = k.es[1] = 1;
   k.swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
-  return encode_cached(m, k);
+  return matry::hop::encode_cached(m, k);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -1047,7 +943,8 @@ int launch_wg(const void* x, const void* w, const void* bias,
   // k * gridDim.x
   const int per = p.mtiles * p.ntx * p.nty;
   const int ntiles = per * a.B * a.npar;
-  const dim3 grid(ntiles < num_sms() ? ntiles : num_sms());
+  const int sms = matry::hop::num_sms();
+  const dim3 grid(ntiles < sms ? ntiles : sms);
   kern<<<grid, wg::kThreads, p.stages * p.stage_bytes + 1024, s>>>(
       tmx, tmh, tmw, (const unsigned short*)x, (const unsigned short*)w,
       (const float*)bias, (const float*)coord, out, (float*)partial, p);

@@ -1,14 +1,21 @@
-// Hopper (sm_90a) building blocks of conv.cu's wgmma kernel, as raw PTX:
-// mbarriers, TMA tensor loads (cp.async.bulk.tensor), shared-memory matrix
-// descriptors, wgmma.mma_async with A in registers and B in shared memory
-// (bf16, f32 accumulators), the proxy fence that makes generic
-// shared-memory writes visible to the async proxy (wgmma, TMA), named
-// barriers and setmaxnreg.
+// Hopper (sm_90a) building blocks of the wgmma kernels (conv.cu,
+// conv_wgrad.cu), as raw PTX: mbarriers, TMA tensor loads
+// (cp.async.bulk.tensor), shared-memory matrix descriptors, wgmma.mma_async
+// with A in registers and B in shared memory (bf16, f32 accumulators; B
+// MN-major or K-major), the proxy fence that makes generic shared-memory
+// writes visible to the async proxy (wgmma, TMA), named barriers and
+// setmaxnreg; and, on the host, the tensor maps those kernels load through
+// (encoded through the runtime's driver entry point, cached by their
+// arguments).
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 #include <cuda.h>  // CUtensorMap (the type only: no driver call is linked)
+#include <cuda_runtime.h>
 
 namespace matry {
 namespace hop {
@@ -154,76 +161,202 @@ __device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
   return v;
 }
 
-template <int N>
+// 32 bits of shared memory at a (4-byte aligned) byte address.
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16 fragment in registers a[4]) *
+// B (16 x N, bf16 in shared memory through the descriptor db), N = 64 or
+// 128. TB = 1: B is MN-major (transpose bit set; conv.cu's packed weights,
+// Cout-contiguous); TB = 0: B is K-major (conv_wgrad.cu's g tile, pixel-
+// contiguous rows of one output channel).
+template <int N, int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db);
-
-// d (64 x 64, f32) += A (64 x 16, bf16 fragment in registers a[4]) *
-// B (16 x 64, bf16 in shared memory, MN-major: transpose bit 1).
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TB));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63},"
+        " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TB));
+  }
 }
 
-// d (64 x 128, f32) += A (64 x 16, bf16 fragment in registers a[4]) *
-// B (16 x 128, bf16 in shared memory, MN-major: transpose bit 1).
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+// ---- tensor maps (host) -----------------------------------------------------
+
+// Streaming multiprocessors of the current device (132 if the query
+// fails), read once.
+inline int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0)
+      n = 132;
+  }
+  return n;
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda of its own.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// Encoded tensor maps by their arguments (pointer, shape, strides, box,
+// element strides, swizzle): a direct-mapped cache of 256, one for the
+// library (an inline variable), so that a layer run again on the same
+// buffers (the caching allocator hands them back) costs no
+// cuTensorMapEncodeTiled. A map holds nothing but these arguments, so a
+// hit is the map the call would encode.
+struct MapKey {
+  const void* ptr;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], es[4];
+  int rank, swizzle;
+};
+struct MapSlot {
+  MapKey key;
+  CUtensorMap map;
+  bool used;
+};
+inline MapSlot g_maps[256];
+inline std::mutex g_maps_mu;
+
+inline int encode_cached(CUtensorMap* m, const MapKey& k) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  uint64_t h = 1469598103934665603ull;  // FNV-1a over the key's bytes
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(&k);
+  for (size_t i = 0; i < sizeof(k); ++i) h = (h ^ kb[i]) * 1099511628211ull;
+  std::lock_guard<std::mutex> lock(g_maps_mu);
+  MapSlot& slot = g_maps[h & 255];
+  if (slot.used && memcmp(&slot.key, &k, sizeof(k)) == 0) {
+    *m = slot.map;
+    return 0;
+  }
+  const CUresult r = fn(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)k.rank,
+      const_cast<void*>(k.ptr), k.dims, k.strides, k.box, k.es,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, (CUtensorMapSwizzle)k.swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  slot.key = k;
+  slot.map = *m;
+  slot.used = true;
+  return 0;
+}
+
+inline CUtensorMapSwizzle swizzle_of(int bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                    : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+
+// An NCHW bf16 tensor [B, C, H, W] as the 4-D tensor (W, C, H, B): box
+// {box_w, box_c, box_h, 1}, taking every h_stride-th row, swizzled as
+// swz bytes (0: none). Boxes past any edge load zeros; the row pitch (2 W
+// bytes) must be a multiple of 16.
+inline int encode_nchw(CUtensorMap* m, const void* p, int B, int C, int H,
+                       int W, int box_w, int box_c, int box_h, int h_stride,
+                       int swz) {
+  MapKey k;
+  memset(&k, 0, sizeof(k));
+  k.ptr = p;
+  k.rank = 4;
+  k.dims[0] = W;
+  k.dims[1] = C;
+  k.dims[2] = H;
+  k.dims[3] = B;
+  k.strides[0] = (cuuint64_t)H * W * 2;
+  k.strides[1] = (cuuint64_t)W * 2;
+  k.strides[2] = (cuuint64_t)C * H * W * 2;
+  k.box[0] = box_w;
+  k.box[1] = box_c;
+  k.box[2] = box_h;
+  k.box[3] = 1;
+  k.es[0] = k.es[1] = k.es[3] = 1;
+  k.es[2] = h_stride;
+  k.swizzle = swizzle_of(swz);
+  return encode_cached(m, k);
+}
 
 }  // namespace hop
 }  // namespace matry

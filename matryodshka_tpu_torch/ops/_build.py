@@ -46,14 +46,16 @@ _I = ctypes.c_int
 #: C signature of each kernel entry: every pointer and the stream are
 #: c_void_p; each function returns its launch's cudaError_t (except
 #: matry_conv_stats_blocks, which returns a block count, and
-#: matry_conv_plan, a plan code).
+#: matry_conv_plan and matry_wgrad_plan, plan codes).
 SIGNATURES = {
     "matry_sweep": [_P] * 7 + [_I] * 5 + [_P],
     "matry_sweep_row_params": [_P] * 10 + [_I] * 4 + [_P],
     "matry_conv": [_P] * 5 + [_I] * 20 + [_P] * 3,
     "matry_conv_stats_blocks": [_I, _I],
     "matry_conv_plan": [_I] * 5,
-    "matry_conv_wgrad": [_P] * 5 + [_I] * 6 + [ctypes.c_longlong, _I, _P],
+    "matry_conv_wgrad": [_P] * 5 + [_I] * 6 + [ctypes.c_longlong, _I, _I,
+                                               _P],
+    "matry_wgrad_plan": [_I] * 6,
     "matry_layernorm": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _I, _I,
                                              _P],
     "matry_render": [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong]

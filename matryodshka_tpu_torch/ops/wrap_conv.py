@@ -29,8 +29,10 @@ trainer runs XLA's convs) is hand-written too:
   weights W'[ci, co, kh, kw] = W[co, ci, 2 - kh, 2 - kw], exact for stride
   1 and rate 1 with wrap in W and zeros in H; skipped when the input needs
   no gradient (the first layer reads the sweep);
-* wgrad and the bias gradient: `csrc/conv_wgrad.cu` (tensor cores for
-  bfloat16 operands, exact float32 FMA for float32 ones).
+* wgrad and the bias gradient: `csrc/conv_wgrad.cu` (wgmma fed by TMA
+  for bfloat16 operands, its split partials folded in the same launch;
+  exact float32 FMA for float32 ones). `wgrad_plan` mirrors the bfloat16
+  launch's plan.
 
 For K7c the incoming gradient first becomes gy + gs1 + 2 y gs2, in float32.
 Each kernel reads its operands in x's dtype (the gradient is rounded to it
@@ -43,6 +45,9 @@ launches its kernel or raises for CUDA tensors.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -64,12 +69,16 @@ wgrad_launches = 0
 #: split.
 _WGRAD_BLOCKS = 4 * 132
 _WGRAD_MIN_CHUNK = 256
-#: The bfloat16 (tensor-core) weight-gradient kernel's block tile: output
-#: channels, input channels (each with its nine taps), and pixels per
-#: k-block (a run of one image row); and the blocks it keeps within one
-#: wave (2 per SM of an H100, as its registers allow).
-WGRAD_TC_TILE = (64, 32, 32)
-_WGRAD_TC_BLOCKS = 2 * 132
+#: The bfloat16 (wgmma) weight-gradient kernel's tile: input channels
+#: (wgmma M) and output channels (wgmma N), each pair with its nine taps;
+#: the halo columns its windows hold either side of a k-step; and the
+#: floats of one tile's split partial (nine taps of 64 x 64 accumulators
+#: and the 64 bias sums).
+WGRAD_TILE = (64, 64)
+WGRAD_HALO = 8
+WGRAD_TILE_ENTRIES = 9 * 64 * 64 + 64
+#: SMs of an H100, the plan's default.
+H100_SMS = 132
 
 
 def _acc(x) -> torch.dtype:
@@ -219,26 +228,58 @@ def wgrad_splits(k: int, cout: int, cin: int):
     return -(-k // chunk), chunk
 
 
-def wgrad_tc_kblocks(b: int, h: int, w: int) -> int:
-    """k-blocks of the bfloat16 weight-gradient kernel's pixel sum: each
-    image row (b, y) is cut into ceil(W / 32) runs of 32 pixels, the last
-    one masked past the row end."""
-    return b * h * -(-w // WGRAD_TC_TILE[2])
+class WgradPlan(NamedTuple):
+    """The bfloat16 weight-gradient kernel's launch (csrc/conv_wgrad.cu
+    make_wplan): k-steps of `kp` pixels of one image row, `kpr` a row and
+    `kblocks` in all (k-step k: image row k // kpr of the batch's B*H,
+    columns from kp * (k % kpr)); stages by TMA or gathered; Cin and Cout
+    tiles of 64; `splits` blocks per tile, each summing `chunk` consecutive
+    k-steps."""
+    kp: int
+    tma: bool
+    kpr: int
+    kblocks: int
+    ctiles: int
+    mtiles: int
+    splits: int
+    chunk: int
+
+    @property
+    def tiles(self) -> int:
+        return self.ctiles * self.mtiles
+
+    @property
+    def code(self) -> int:
+        """matry_wgrad_plan's packing: log2(kp) - 4, tma << 2, splits <<
+        3."""
+        return (self.kp.bit_length() - 5) | int(self.tma) << 2 \
+            | self.splits << 3
 
 
-def wgrad_tc_splits(b: int, h: int, w: int, cout: int, cin: int):
-    """(splits, chunk) of the bfloat16 weight-gradient kernel: split z sums
-    k-blocks [z*chunk, (z+1)*chunk) of wgrad_tc_kblocks(b, h, w), into its
-    own float32 partial [Cout, 9*Cin + 1]. As many splits as keep the
-    blocks (one per 64 x 32-channel tile and split) within one wave of
-    _WGRAD_TC_BLOCKS, which also bounds the partials (~19 MB at each
-    trainer layer). Fixed by the shape, so the summation order is too."""
-    bm, bc, _ = WGRAD_TC_TILE
-    kblocks = wgrad_tc_kblocks(b, h, w)
-    tiles = -(-cin // bc) * -(-cout // bm)
-    splits = max(1, min(_WGRAD_TC_BLOCKS // tiles, kblocks))
+def wgrad_plan(b: int, h: int, w: int, cout: int, cin: int,
+               sms: int = H100_SMS) -> WgradPlan:
+    """The bfloat16 weight-gradient kernel's plan (matry_wgrad_plan's
+    mirror): k-steps of the widest of 64, 32, 16 pixels dividing W (16
+    otherwise, the last of a row ragged); stages by TMA where W % 16 == 0
+    (the kernel gathers them instead where an operand is not 16-byte
+    aligned); as many splits of each tile's pixel sum as keep tiles x
+    splits within one block per SM (every block resident for the in-launch
+    fold; one split when the tiles alone fill the card), the k-steps shared
+    out evenly. Fixed by the shape, so the summation order is too."""
+    kp = 64 if w % 64 == 0 else 32 if w % 32 == 0 else 16
+    kpr = -(-w // kp)
+    kblocks = b * h * kpr
+    bc, bn = WGRAD_TILE
+    ctiles, mtiles = -(-cin // bc), -(-cout // bn)
+    splits = max(1, min(sms // (ctiles * mtiles), kblocks))
     chunk = -(-kblocks // splits)
-    return -(-kblocks // chunk), chunk
+    return WgradPlan(kp, w % 16 == 0, kpr, kblocks, ctiles, mtiles,
+                     -(-kblocks // chunk), chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def conv3x3_wrap_wgrad(g, x):
@@ -258,18 +299,21 @@ def conv3x3_wrap_wgrad(g, x):
         and g.dim() == 4 and g.shape[0] == b and tuple(g.shape[2:]) == (h, w),
         f"conv3x3_wrap_wgrad: g {g.dtype} {tuple(g.shape)}")
     cout = g.shape[1]
+    sms = _sm_count(x.device.index)
     if x.dtype == torch.float32:
         splits, chunk = wgrad_splits(b * h * w, cout, cin)
+        shape = (splits, cout, 9 * cin + 1)
     else:
-        splits, chunk = wgrad_tc_splits(b, h, w, cout, cin)
-    partial = torch.empty((splits, cout, 9 * cin + 1), dtype=torch.float32,
-                          device=x.device)
+        plan = wgrad_plan(b, h, w, cout, cin, sms)
+        splits, chunk = plan.splits, plan.chunk
+        shape = (splits, plan.tiles, WGRAD_TILE_ENTRIES)
+    partial = torch.empty(shape, dtype=torch.float32, device=x.device)
     dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=x.device)
     db = torch.empty(cout, dtype=torch.float32, device=x.device)
     err = _build.lib().matry_conv_wgrad(
         g.data_ptr(), x.data_ptr(), partial.data_ptr(), dw.data_ptr(),
         db.data_ptr(), b, cin, cout, h, w, splits, chunk,
-        int(x.dtype == torch.float32), _build.stream_ptr(x.device))
+        int(x.dtype == torch.float32), sms, _build.stream_ptr(x.device))
     _build.check(err, "matry_conv_wgrad")
     wgrad_launches += 1
     return dw, db

@@ -14,8 +14,19 @@ seeded bf16 inputs at the flagship (640x320, ngf 64, batch 1):
   same operands (F.conv2d on the zero-padded input with the coord channel
   appended, F.conv_transpose2d for the deconvs), TFLOP/s, the net's total;
 - the frame (entry.forward, median of 10) of each net;
+- the weight gradient of the trainer's eight wrap-conv layers
+  (ops/wrap_conv.conv3x3_wrap_wgrad, bf16, batch 1; CUDA events around one
+  call, median of 10) and cuDNN bf16 on the same work
+  (torch.nn.grad.conv2d_weight on the wrap-padded input), TFLOP/s, the
+  step's sum;
 - the default trainer's step in parts (sweep, net forward, assemble +
-  render + loss, backward, optimizer; median of 6 after 2).
+  render + loss, backward, optimizer; median of 6 after 2);
+- the backward's device time: one torch.profiler trace of each of 5
+  steps' backward (after 2) between two spin kernels, the rest of the
+  step outside the window; medians of the device busy ms (the union of
+  the operations' intervals), the span between the spins, the idle share
+  1 - busy / span, the device operations, and the weight-gradient
+  kernels' ms and launches (names holding "wgrad").
 
 Prints each process's lines, then a table of the four processes side by
 side, every line with the card's name and power limit; with --out, also
@@ -91,6 +102,20 @@ def _measure() -> None:
         emit(kind="frame", net=key,
              ms=cs.time_ms(lambda: entry.forward(prm, batch)))
 
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    for name, cin, cout, ind in cs.wrap_conv_layers(64, 192):
+        h, w = 320 // ind, 640 // ind
+        x = torch.relu(torch.rand((1, cin, h, w), generator=gen,
+                                  device=dev) * 2 - 1).to(torch.bfloat16)
+        g = torch.randn((1, cout, h, w), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        xp = conv_ops.wrap_pad(x, 1, 1, 1, 1)
+        kt = cs.time_ms(lambda: wc.conv3x3_wrap_wgrad(g, x))
+        lt = cs.time_ms(lambda: torch.nn.grad.conv2d_weight(
+            xp, (cout, cin, 3, 3), g))
+        emit(kind="wgrad", name=name, ms=kt, cudnn_ms=lt,
+             gflop=2.0 * 9 * cin * cout * h * w / 1e9)
+
     tcfg = entry.flagship_cfg()
     tstate = state_lib.init_state(tcfg, 0, dev)
     tbatch = {k: torch.from_numpy(v).to(dev)
@@ -118,6 +143,39 @@ def _measure() -> None:
             for j, k in enumerate(parts):
                 parts[k].append(ev[j].elapsed_time(ev[j + 1]))
     emit(kind="train", **{k: statistics.median(v) for k, v in parts.items()})
+
+    from matryodshka_tpu_torch import trace as trace_lib
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    bw = {"busy": [], "span": [], "idle": [], "ops": [], "wgrad_ms": [],
+          "wgrad_launches": []}
+    for i in range(warm + 5):
+        vol = loss_fn.sweep(tbatch)
+        loss, _ = loss_fn.tail(tbatch, vol, tstate.net(vol))
+        tstate.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(cs.SPIN_CYCLES)
+            loss.backward()
+            torch.cuda._sleep(cs.SPIN_CYCLES)
+            torch.cuda.synchronize()
+        tstate.optimizer.step()
+        events = trace_lib.device_events(prof)
+        spins = sorted((e for e in events if cs.SPIN_KERNEL in e[0]),
+                       key=lambda e: e[1])
+        if i < warm or len(spins) != 2:
+            continue
+        ops = [e for e in events if cs.SPIN_KERNEL not in e[0]]
+        wg = [e for e in ops if "wgrad" in e[0]]
+        busy = trace_lib.busy_us(ops) / 1e3
+        span = (spins[1][1] - spins[0][1] - spins[0][2]) / 1e3
+        for k, v in (("busy", busy), ("span", span),
+                     ("idle", 1.0 - busy / span), ("ops", len(ops)),
+                     ("wgrad_ms", sum(e[2] for e in wg) / 1e3),
+                     ("wgrad_launches", len(wg))):
+            bw[k].append(v)
+    emit(kind="backward_trace", traces=len(bw["busy"]),
+         **{k: statistics.median(v) if v else None for k, v in bw.items()})
 
 
 def _run(root: Path, tag: str, log):
@@ -193,11 +251,38 @@ def main(argv=None) -> int:
                    and r["net"] == net) for run in runs]
         print(f"frame {net:5s} " + " ".join(
             f"{h} {t:7.3f}" for h, t in zip(heads, ms)) + f" ms [{card}]")
+    tot = [0.0] * len(runs)
+    lib, gflop = [], 0.0
+    for r0 in (r for r in runs[0] if r["kind"] == "wgrad"):
+        ms = [next(r for r in run if r["kind"] == "wgrad"
+                   and r["name"] == r0["name"]) for run in runs]
+        gflop += r0["gflop"]
+        for i, r in enumerate(ms):
+            tot[i] += r["ms"]
+        lib.append(statistics.median(r["cudnn_ms"] for r in ms))
+        print(f"wgrad {r0['name']:10s} " + " ".join(
+            f"{h} {r['ms']:7.4f}" for h, r in zip(heads, ms))
+            + " ms (TFLOP/s " + " ".join(
+                f"{r0['gflop'] / r['ms']:6.1f}" for r in ms)
+            + f"); cuDNN bf16 {lib[-1]:7.4f} ms [{card}]")
+    print(f"wgrad step {gflop:.1f} GFLOP " + " ".join(
+        f"{h} {t:7.3f} ms ({gflop / t:6.1f} TFLOP/s)"
+        for h, t in zip(heads, tot))
+        + f"; cuDNN bf16 {sum(lib):7.3f} ms [{card}]")
     tr = [next(r for r in run if r["kind"] == "train") for run in runs]
     for k in ("sweep", "net_forward", "assemble_render_loss", "backward",
               "optimizer"):
         print(f"train {k:20s} " + " ".join(
             f"{h} {r[k]:8.3f}" for h, r in zip(heads, tr)) + f" ms [{card}]")
+    bt = [next(r for r in run if r["kind"] == "backward_trace")
+          for run in runs]
+    for k, unit in (("busy", "ms"), ("span", "ms"), ("idle", ""),
+                    ("ops", ""), ("wgrad_ms", "ms"), ("wgrad_launches", ""),
+                    ("traces", "")):
+        print(f"backward {k:14s} " + " ".join(
+            f"{h} " + ("none" if r[k] is None else f"{r[k]:8.3f}")
+            for h, r in zip(heads, bt)) + f" {unit} (device trace, median) "
+            f"[{card}]")
     return 0
 
 

@@ -1,12 +1,13 @@
-"""Design alternatives of the sweep, render and conv kernels, timed on the
-card.
+"""Design alternatives of the sweep, render, conv and weight-gradient
+kernels, timed on the card.
 
     python -m matryodshka_tpu_torch.tools.variants [NAME ...]
 
 (with names, only the variants whose name contains one of them). Builds
-`csrc/sweep.cu`, `csrc/render.cu`, `csrc/render_layers.cu` and
-`csrc/conv.cu` once as they are and once per variant (a textual edit of a constant or a line,
-into `_build/variants/<name>/`, one `nvcc` each, all started together),
+`csrc/sweep.cu`, `csrc/render.cu`, `csrc/render_layers.cu`, `csrc/conv.cu`
+and `csrc/conv_wgrad.cu` once as they are and once per variant (a textual
+edit of a constant or a line, into `_build/variants/<name>/`, one `nvcc`
+each, all started together),
 loads each build with `ctypes` and times its C entry at the flagship
 shapes (640x320, 32 planes and shells, bf16 volume or stack; the sweep and
 the layer-stack render also at 4096x2048) with CUDA events around 30
@@ -33,6 +34,13 @@ limit. The variants:
   patch windows gathered by the producer's threads in place of TMA; rings
   of 3, 4 and up to 8 stages (as many as 220 KB hold) in place of 2; the
   producer at 40 registers and the consumers at 232.
+- wgrad (the bf16 weight-gradient kernel, csrc/conv_wgrad.cu, at the
+  trainer's eight wrap-conv layers, batch 1, CUDA events per layer): rings
+  of 2, 3 and up to 8 stages (as many as 200 KB hold) in place of 4; the
+  window addresses held across the loop in place of recomputed each
+  k-slice; and parts of its time: without the halo loads, without the
+  fold, the grid barrier without the fold, without the MMAs, the loads
+  alone, without the A fragments' shared loads.
 
 A variant that computes something else says so ("part"); the others must
 equal the built kernel's output bit for bit, or the tool raises.
@@ -150,6 +158,50 @@ VARIANTS = {
     "conv producer 40 registers": ("conv.cu", [
         ("reg_dealloc<56>", "reg_dealloc<40>"),
         ("reg_alloc<224>", "reg_alloc<232>")], False),
+    "wgrad": ("conv_wgrad.cu", [], False),
+    "wgrad ring of 2 stages": ("conv_wgrad.cu", [
+        ("constexpr int kStages = 4;", "constexpr int kStages = 2;")], False),
+    "wgrad ring of 3 stages": ("conv_wgrad.cu", [
+        ("constexpr int kStages = 4;", "constexpr int kStages = 3;")], False),
+    "wgrad ring of up to 8 stages": ("conv_wgrad.cu", [
+        ("constexpr int kStages = 4;", "constexpr int kStages = 8;")], False),
+    "wgrad addresses held": ("conv_wgrad.cu", [
+        ('  asm volatile("" : "+r"(v));\n', "")], False),
+    "wgrad without halo loads": ("conv_wgrad.cu", [
+        ("  mbar_arrive_tx(&full[s], G::kStage);",
+         "  mbar_arrive_tx(&full[s], G::kStage - 2 * G::kH);"),
+        ("  tma_load_4d(st + G::kHL, tmh, &full[s],\n"
+         "              x0 == 0 ? p.W - kHalo : x0 - kHalo, blk.c0, y - 1, "
+         "b);\n"
+         "  tma_load_4d(st + G::kHR, tmh, &full[s], x0 + KP >= p.W ? 0 : "
+         "x0 + KP,\n"
+         "              blk.c0, y - 1, b);\n", "")], True),
+    "wgrad without fold": ("conv_wgrad.cu", [
+        ("  sync_all(p.coop);\n", ""),
+        ("  fold(partial, dw, db, p, b2.tile, lo, hi, tid, kThreads);\n",
+         "")], True),
+    "wgrad barrier without fold": ("conv_wgrad.cu", [
+        ("  fold(partial, dw, db, p, b2.tile, lo, hi, tid, kThreads);\n",
+         "")], True),
+    "wgrad without wgmma": ("conv_wgrad.cu", [
+        ("        wgmma_rs<BN, 0>(acc[t], af[j & 1][t],\n"
+         "                        dB + (uint64_t)((j * 32) >> 4));",
+         "        acc[t][0] += __uint_as_float(af[j & 1][t][0] ^ "
+         "af[j & 1][t][3]) + (float)dB;")], True),
+    "wgrad loads only": ("conv_wgrad.cu", [
+        ("    load_a<KP>(af[0], opaque(base + s * G::kStage), "
+         "lines_of<KP>(opaque(tid)),\n               0);\n", ""),
+        ("    for (int j = 0; j < G::kSlices; ++j) {",
+         "    for (int j = 0; j < 0; ++j) {"),
+        ("    if (bias) {\n      if (tid < kChunks)",
+         "    if (bias && !bias) {\n      if (tid < kChunks)")], True),
+    "wgrad without A loads": ("conv_wgrad.cu", [
+        ("  const int q4 = (int)ln.q4;\n",
+         "  for (int t = 0; t < 3; ++t)\n"
+         "    for (int e = 0; e < 4; ++e)\n"
+         "      af[t][e] = st + ln.row + e + t + ks;\n"
+         "  if (st != 0xffffffffu) return;\n"
+         "  const int q4 = (int)ln.q4;\n")], True),
 }
 
 
@@ -195,7 +247,8 @@ def _build_all(names):
             lib = ctypes.CDLL(str(so))
             for fn in ("matry_sweep", "matry_render", "matry_render_layers",
                        "matry_conv", "matry_conv_plan",
-                       "matry_conv_stats_blocks"):
+                       "matry_conv_stats_blocks", "matry_conv_wgrad",
+                       "matry_wgrad_plan"):
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
                     getattr(lib, fn).restype = ctypes.c_int
@@ -293,6 +346,53 @@ def _conv_times(lib, nets, want):
             + " ".join(f"{t:.3f}" for t in per)), per
 
 
+def _wgrad_layers(dev):
+    """[(layer, g, x)] of the trainer's eight wrap-conv layers at 640x320,
+    batch 1, bf16: x post-ReLU-like, g normal, from a seed."""
+    import chip_smoke as cs
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    out = []
+    for name, cin, cout, ind in cs.wrap_conv_layers(64, 192):
+        h, w = 320 // ind, 640 // ind
+        x = torch.relu(torch.rand((1, cin, h, w), generator=gen, device=dev)
+                       * 2 - 1).to(torch.bfloat16)
+        g = torch.randn((1, cout, h, w), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        out.append((name, g, x))
+    return out
+
+
+def _wgrad_times(lib, layers, want, part):
+    """One weight-gradient variant at the eight layers (CUDA events, 30
+    launches after 5), its dW and db equal to the built kernel's bit for
+    bit unless it is a part. -> text."""
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    per = []
+    for (name, g, x), (dw0, db0) in zip(layers, want):
+        b, cin, h, w = x.shape
+        cout = g.shape[1]
+        sms = wc._sm_count(x.device.index)
+        plan = wc.wgrad_plan(b, h, w, cout, cin, sms)
+        partial = torch.empty((plan.splits, plan.tiles,
+                               wc.WGRAD_TILE_ENTRIES), dtype=torch.float32,
+                              device=x.device)
+        dw, db = torch.empty_like(dw0), torch.empty_like(db0)
+        stream = _build.stream_ptr(x.device)
+
+        def call():
+            _build.check(lib.matry_conv_wgrad(
+                g.data_ptr(), x.data_ptr(), partial.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), b, cin, cout, h, w,
+                plan.splits, plan.chunk, 0, sms, stream),
+                "matry_conv_wgrad")
+
+        per.append(_time_us(call) / 1e3)
+        if not part and not (torch.equal(dw, dw0) and torch.equal(db, db0)):
+            raise RuntimeError(f"wgrad variant differs at {name}")
+    return (f"step {sum(per):7.4f} ms; per layer "
+            + " ".join(f"{t:.4f}" for t in per))
+
+
 def _conv_nets(dev):
     """{wrap, coord}: [(stage, bf16 input, stage operands)] of the
     flagship nets, inputs uniform in [-1, 1] from a seed."""
@@ -353,10 +453,20 @@ def main(argv=None) -> int:
               params.msi_depths)
     lat, lon = grids.lat_long_vectors(320, 640, dev)
     stacks = [_stack(gen, p, h, w) for h, w in ((320, 640), (2048, 4096))]
-    conv_nets = conv_want = None
+    conv_nets = conv_want = wgrad_layers = wgrad_want = None
     for name in names:
         src, _, part = VARIANTS[name]
         lib = libs[name]
+        if src == "conv_wgrad.cu":
+            if wgrad_layers is None:
+                from matryodshka_tpu_torch.ops import wrap_conv as wc
+                wgrad_layers = _wgrad_layers(dev)
+                wgrad_want = [wc.conv3x3_wrap_wgrad(g, x)
+                              for _, g, x in wgrad_layers]
+            print(f"variant {name:28s} "
+                  f"{_wgrad_times(lib, wgrad_layers, wgrad_want, part)}"
+                  f"{' (part)' if part else ''} [{card}]")
+            continue
         if src == "conv.cu":
             if conv_nets is None:
                 from matryodshka_tpu_torch.ops import conv as conv_ops

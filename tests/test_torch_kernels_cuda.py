@@ -956,10 +956,10 @@ def test_wrap_conv_kernels_match_plain(cuda, layer):
 
 
 #: Weight-gradient shapes (B, Cin, Cout, H, W) that fill no tile: odd
-#: channel counts, W = 40 (a k-block half past the row end), a pixel sum
-#: that splits unevenly (148 k-blocks in 50 splits of 3), W = 37 and W = 5
-#: (not a multiple of 8: the bf16 kernel's scalar loads; W = 5 wraps every
-#: tap onto the row).
+#: channel counts, W = 40 (not a multiple of 16: the bf16 kernel gathers
+#: its stages; a k-step of 16 pixels half past the row end), a pixel sum
+#: that splits unevenly (222 k-steps in 56 splits of 4), W = 37 and W = 5
+#: (W = 5 wraps every tap onto the row).
 WGRAD_RAGGED = [(2, 13, 19, 6, 40), (2, 33, 65, 37, 40), (1, 7, 9, 5, 37),
                 (2, 5, 3, 4, 5)]
 
@@ -992,8 +992,63 @@ def test_wgrad_kernel_ragged_matches_plain(cuda, dtype, shape):
     assert ((dw - dwp).norm() / dwp.norm()).item() <= tol
     assert ((db - dbp).norm() / dbp.norm()).item() <= tol
     if shape == (2, 33, 65, 37, 40):
-        splits, chunk = wc.wgrad_tc_splits(b, h, w, cout, cin)
-        assert splits * chunk > wc.wgrad_tc_kblocks(b, h, w)
+        plan = wc.wgrad_plan(b, h, w, cout, cin,
+                             wc._sm_count(cuda.index or 0))
+        assert plan.splits * plan.chunk > plan.kblocks
+
+
+#: The trainer's eight wrap-conv layers at the flagship shape (name, Cin,
+#: Cout, H, W), the bf16 weight gradient's main path.
+WGRAD_TRAINER = [(name, sum(cins), cout, 320 // ind, 640 // ind)
+                 for (name, kind, _, cins, cout, ind, _, rate)
+                 in net_ops.unet_plan(64, 192, 1)
+                 if kind == "conv" and rate == 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WGRAD_TRAINER,
+                         ids=[s[0] for s in WGRAD_TRAINER])
+def test_wgrad_kernel_trainer_matches_plain(cuda, shape):
+    """The bf16 weight-gradient kernel at the trainer's eight layer shapes
+    (stages by TMA, k-steps of 64 or 32 pixels, 120-132 blocks folded in
+    the launch) against its plain version: relative L2 1e-3 (f32 sums of
+    exact bf16 products in another blocking), bit-identical over two
+    launches, one launch counted per call."""
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    _, cin, cout, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(cin * 1000 + cout + w)
+    x = torch.relu(torch.randn((1, cin, h, w), generator=gen,
+                               device=cuda)).to(torch.bfloat16)
+    g = torch.randn((1, cout, h, w), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    before = wc.wgrad_launches
+    dw, db = wc.conv3x3_wrap_wgrad(g, x)
+    dw2, db2 = wc.conv3x3_wrap_wgrad(g, x)
+    torch.cuda.synchronize()
+    assert wc.wgrad_launches == before + 2
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    dwp, dbp = wc.conv3x3_wrap_wgrad_plain(g, x)
+    assert ((dw - dwp).norm() / dwp.norm()).item() <= 1e-3
+    assert ((db - dbp).norm() / dbp.norm()).item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_wgrad_plan_matches_c(cuda):
+    """matry_wgrad_plan (csrc/conv_wgrad.cu) equals ops/wrap_conv.wgrad_plan
+    at the trainer's shapes at batch 1 and 2, PP's first layer (Cin 192 and
+    195) and the ragged shapes, on this card's SMs and on 7."""
+    from matryodshka_tpu_torch.ops import _build
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    shapes = [(b, cin, cout, h, w) for (_, cin, cout, h, w) in WGRAD_TRAINER
+              for b in (1, 2)]
+    shapes += [(1, 192, 64, 320, 640), (1, 195, 64, 320, 640)]
+    shapes += WGRAD_RAGGED
+    lib = _build.lib()
+    for sms in (wc._sm_count(cuda.index or 0), 7):
+        for b, cin, cout, h, w in shapes:
+            want = wc.wgrad_plan(b, h, w, cout, cin, sms)
+            got = lib.matry_wgrad_plan(b, cin, cout, h, w, sms)
+            assert got == want.code, ((b, cin, cout, h, w), sms, got, want)
 
 
 @pytest.mark.cuda

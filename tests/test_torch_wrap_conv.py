@@ -204,82 +204,233 @@ def test_trainer_wgrad_shapes():
         "conv7_2", "conv8_2"]
 
 
+#: PP and RealEstate's first layer (Cin 192 or, with the coord channel,
+#: 195) at the flagship size, and tests/test_torch_kernels_cuda.py's
+#: WGRAD_RAGGED shapes (B, Cin, Cout, H, W): odd channel counts, W = 40,
+#: 37 and 5 (not a multiple of 16: gathered stages; W = 5 wraps every
+#: tap onto the row).
+PP_WGRAD = [(1, 192, 64, 320, 640), (1, 195, 64, 320, 640)]
+WGRAD_RAGGED = [(2, 13, 19, 6, 40), (2, 33, 65, 37, 40), (1, 7, 9, 5, 37),
+                (2, 5, 3, 4, 5)]
+
+
+def _check_wgrad_plan(b, cin, cout, h, w, sms=wc.H100_SMS):
+    """The bfloat16 kernel's plan is a function of the shape and covers
+    the work once: k-steps of kp pixels of one image row cover every pixel
+    once (kp divides W where the stages come by TMA), the splits cover
+    every k-step once and none is empty, the 64 x 64 tiles cover every
+    (Cout, Cin) pair, tiles x splits blocks fit one per SM when there is
+    more than one split (the fold's cooperative launch), and the splits'
+    slices of a tile's entries cover each entry once. Returns the plan."""
+    plan = wc.wgrad_plan(b, h, w, cout, cin, sms)
+    assert plan == wc.wgrad_plan(b, h, w, cout, cin, sms)
+    assert plan.kp in (16, 32, 64) and plan.kpr == -(-w // plan.kp)
+    assert plan.tma == (w % 16 == 0)
+    assert not plan.tma or w % plan.kp == 0
+    assert w % plan.kp == 0 or plan.kp == 16
+    assert plan.kblocks == b * h * plan.kpr
+    k = plan.splits * plan.chunk
+    assert k >= plan.kblocks > k - plan.chunk
+    kb = np.arange(plan.kblocks)
+    row, x0 = kb // plan.kpr, (kb % plan.kpr) * plan.kp
+    count = np.zeros((b * h, w), np.int64)
+    for d in range(plan.kp):
+        ok = x0 + d < w
+        np.add.at(count, (row[ok], x0[ok] + d), 1)
+    assert (count == 1).all()
+    bc, bn = wc.WGRAD_TILE
+    assert plan.ctiles * bc >= cin > (plan.ctiles - 1) * bc
+    assert plan.mtiles * bn >= cout > (plan.mtiles - 1) * bn
+    assert plan.splits == 1 or plan.tiles * plan.splits <= sms
+    for tile_c in (0, 1):
+        n = 9 * bc * bn + (bn if tile_c == 0 else 0)
+        cover = np.zeros(n, np.int64)
+        for z in range(plan.splits):
+            cover[n * z // plan.splits:n * (z + 1) // plan.splits] += 1
+        assert (cover == 1).all()
+    return plan
+
+
 @pytest.mark.parametrize("shape", TRAINER_WGRAD,
                          ids=[s[0] for s in TRAINER_WGRAD])
 @pytest.mark.parametrize("batch", [1, 2])
 def test_wgrad_tc_plan(shape, batch):
-    """The bfloat16 kernel's plan at the trainer's shapes: the k-blocks
-    (runs of 32 pixels of one image row) cover every pixel once, the
-    splits cover every k-block once, the 64 x 32-channel tiles cover every
-    (Cout, Cin) column, the grid stays within one wave of 2 blocks per SM,
-    the f32 partials stay under 24 MB, and the plan is a function of the
-    shape alone."""
+    """The bfloat16 kernel's plan at the trainer's shapes: every stage by
+    TMA, k-steps of 64 pixels at W = 640 and 320 and of 32 at W = 160, the
+    pixel sum split so that tiles x splits fill 120-132 of the H100's 132
+    SMs, and the f32 partials under 24 MB."""
     _, cin, cout, h, w = shape
-    bm, bc, bk = wc.WGRAD_TC_TILE
-    splits, chunk = wc.wgrad_tc_splits(batch, h, w, cout, cin)
-    assert (splits, chunk) == wc.wgrad_tc_splits(batch, h, w, cout, cin)
-    nkb = wc.wgrad_tc_kblocks(batch, h, w)
-    kpr = -(-w // bk)
-    assert nkb == batch * h * kpr
-    assert splits * chunk >= nkb > (splits - 1) * chunk
-    kb = np.arange(nkb)
-    row, x0 = kb // kpr, (kb % kpr) * bk
-    count = np.zeros((batch * h, w), np.int64)
-    for d in range(bk):
-        ok = x0 + d < w
-        np.add.at(count, (row[ok], x0[ok] + d), 1)
-    assert (count == 1).all()
-    tiles = -(-cin // bc) * -(-cout // bm)
-    assert tiles * bc * bm >= cin * cout
-    assert tiles * splits <= 2 * 132
-    assert splits * cout * (9 * cin + 1) * 4 <= 24e6
+    plan = _check_wgrad_plan(batch, cin, cout, h, w)
+    assert plan.tma and plan.kp == (32 if w == 160 else 64)
+    assert 120 <= plan.tiles * plan.splits <= 132
+    assert plan.splits * plan.tiles * wc.WGRAD_TILE_ENTRIES * 4 <= 24e6
 
 
-def _wgrad_tc_emulated(g, x):
-    """The bfloat16 kernel's algorithm in float64 on the CPU: per split, per
-    k-block (b, y, x0), the g run g[b, :, y, x0:x0+32] (zero past the row
-    end) times the nine tap views of the x halo tile (rows y-1..y+1, zero
-    outside [0, H); the run shifted by -1, 0, +1 pixel, wrapped), summed
-    into the split's partial; db from the same g runs; then the splits in
-    order."""
+@pytest.mark.parametrize("shape", PP_WGRAD + WGRAD_RAGGED,
+                         ids=["x".join(map(str, s))
+                              for s in PP_WGRAD + WGRAD_RAGGED])
+@pytest.mark.parametrize("sms", [wc.H100_SMS, 7])
+def test_wgrad_plan_valid(shape, sms):
+    """The plan at PP's and RealEstate's first layer (Cin 192 and 195: a
+    ragged last Cin tile) and at the CUDA tests' ragged shapes (gathered
+    stages, ragged k-steps), on the H100's SMs and on 7 (several k-steps a
+    split; one split where the tiles alone exceed the SMs)."""
+    b, cin, cout, h, w = shape
+    plan = _check_wgrad_plan(b, cin, cout, h, w, sms)
+    if sms == wc.H100_SMS and w == 640:
+        assert plan.tma and plan.kp == 64 and plan.ctiles == 3 + (cin > 192)
+
+
+def _fragment_store():
+    """[9, 64, 64] -> the partial entry a consumer thread of the kernel
+    stores accumulator (tap, ci, co) at: thread wtid of the tap's
+    warpgroup (warp wtid // 32, lane's group gq = lane // 4 and q4 =
+    lane % 4) holds accumulator 4 j + 2 h + e = (ci 16 warp + gq + 8 h, co
+    8 j + 2 q4 + e) and stores it at ((tap * 8 + j) * 128 + wtid) * 4 +
+    2 h + e."""
+    out = np.full((9, 64, 64), -1, np.int64)
+    for tap in range(9):
+        for wtid in range(128):
+            warp, lane = divmod(wtid, 32)
+            gq, q4 = divmod(lane, 4)
+            for j in range(8):
+                for h in range(2):
+                    for e in range(2):
+                        out[tap, 16 * warp + gq + 8 * h, 8 * j + 2 * q4 + e] \
+                            = ((tap * 8 + j) * 128 + wtid) * 4 + 2 * h + e
+    return out
+
+
+def _fragment_decode(f):
+    """The fold's decoding of entries f < 9 * 4096: (tap, ci, co)."""
+    rem = f & 4095
+    thr, v = (rem >> 2) & 127, rem & 3
+    return (f >> 12, 16 * (thr >> 5) + ((thr & 31) >> 2) + 8 * (v >> 1),
+            8 * (rem >> 9) + 2 * (thr & 3) + (v & 1))
+
+
+def test_wgrad_partial_layout():
+    """The consumers' stores fill each of a tile's 9 * 64 * 64 partial
+    entries once, and the fold decodes every entry to the accumulator that
+    was stored there."""
+    store = _fragment_store()
+    assert sorted(store.ravel()) == list(range(9 * 64 * 64))
+    tap, ci, co = _fragment_decode(store)
+    grid = np.indices(store.shape)
+    assert (tap == grid[0]).all() and (ci == grid[1]).all() \
+        and (co == grid[2]).all()
+
+
+def _wgrad_tc_emulated(g, x, sms=wc.H100_SMS, tma=None):
+    """The bfloat16 kernel's algorithm in float64 on the CPU, as the plan
+    lays it out: per split, per k-step (b, y, x0) in order, the g tile
+    g[b, :, y, x0:x0+kp] (zero past the row end and past Cout) and the
+    window of input rows y-1..y+1 (zero outside [0, H) and past Cin) with
+    8 halo columns either side, loaded as the TMA boxes lie (the main box
+    at x0, the halo boxes at x0 - 8 or W - 8 and at x0 + kp or 0) or
+    gathered (columns x0 - 8 + j wrapped mod W); tap (kh, kw) takes window
+    row kh shifted by kw - 1 columns. Each split's accumulators go to its
+    partial in the consumers' fragment order (db from the same g tiles,
+    first Cin tile only); the fold sums the splits in order and decodes
+    each entry to dW."""
     b, cin, h, w = x.shape
     cout = g.shape[1]
-    bk = wc.WGRAD_TC_TILE[2]
-    kpr = -(-w // bk)
-    nkb = wc.wgrad_tc_kblocks(b, h, w)
-    splits, chunk = wc.wgrad_tc_splits(b, h, w, cout, cin)
-    xp = F.pad(x, (0, 0, 1, 1))
-    dw = torch.zeros(cout, cin, 3, 3, dtype=torch.float64)
-    db = torch.zeros(cout, dtype=torch.float64)
-    for z in range(splits):
-        pw = torch.zeros_like(dw)
-        pb = torch.zeros_like(db)
-        for k in range(z * chunk, min((z + 1) * chunk, nkb)):
-            r, xs = divmod(k, kpr)
-            bi, y = divmod(r, h)
-            cols = torch.arange(xs * bk, xs * bk + bk)
-            a = g[bi, :, y, cols % w] * (cols < w)
+    plan = wc.wgrad_plan(b, h, w, cout, cin, sms)
+    tma = plan.tma if tma is None else tma
+    kp, halo = plan.kp, wc.WGRAD_HALO
+    bc, bn = wc.WGRAD_TILE
+    ci_n, co_n = plan.ctiles * bc, plan.mtiles * bn
+    xp = torch.zeros(b, ci_n, h + 2, w, dtype=torch.float64)
+    xp[:, :cin, 1:h + 1] = x
+    gp = torch.zeros(b, co_n, h, w, dtype=torch.float64)
+    gp[:, :cout] = g
+    ntap = 9 * bc * bn
+    store = torch.from_numpy(_fragment_store().reshape(9, -1))
+    partial = torch.zeros(plan.splits, plan.tiles, wc.WGRAD_TILE_ENTRIES,
+                          dtype=torch.float64)
+    for z in range(plan.splits):
+        acc = torch.zeros(9, ci_n, co_n, dtype=torch.float64)
+        dbs = torch.zeros(co_n, dtype=torch.float64)
+        for k in range(z * plan.chunk,
+                       min((z + 1) * plan.chunk, plan.kblocks)):
+            row, xc = divmod(k, plan.kpr)
+            bi, y = divmod(row, h)
+            x0 = xc * kp
+            cols = torch.arange(x0, x0 + kp)
+            gt = gp[bi, :, y, cols % w] * (cols < w)
+            rows = xp[bi, :, y:y + 3]
+            if tma:
+                lcol = w - halo if x0 == 0 else x0 - halo
+                rcol = 0 if x0 + kp >= w else x0 + kp
+                win = torch.cat([rows[..., lcol:lcol + halo],
+                                 rows[..., x0:x0 + kp],
+                                 rows[..., rcol:rcol + halo]], dim=-1)
+            else:
+                win = rows[..., torch.arange(x0 - halo, x0 + kp + halo) % w]
             for kh in range(3):
                 for kw in range(3):
-                    pw[:, :, kh, kw] += a @ xp[bi, :, y + kh,
-                                               (cols + kw - 1) % w].T
-            pb += a.sum(dim=1)
-        dw += pw
-        db += pb
-    return dw, db
+                    a = win[:, kh, halo + kw - 1:halo + kw - 1 + kp]
+                    acc[3 * kh + kw] += a @ gt.T
+            dbs += gt.sum(dim=1)
+        for ct in range(plan.ctiles):
+            for mt in range(plan.mtiles):
+                tile = ct * plan.mtiles + mt
+                sub = acc[:, ct * bc:(ct + 1) * bc, mt * bn:(mt + 1) * bn]
+                partial[z, tile, store.ravel()] = sub.reshape(-1)
+                if ct == 0:
+                    partial[z, tile, ntap:] = dbs[mt * bn:(mt + 1) * bn]
+    total = torch.zeros_like(partial[0])
+    for z in range(plan.splits):
+        total += partial[z]
+    tap, ci, co = (torch.from_numpy(a)
+                   for a in _fragment_decode(np.arange(ntap)))
+    dw = torch.zeros(co_n, ci_n, 9, dtype=torch.float64)
+    db = torch.zeros(co_n, dtype=torch.float64)
+    for ct in range(plan.ctiles):
+        for mt in range(plan.mtiles):
+            tile = ct * plan.mtiles + mt
+            dw[mt * bn + co, ct * bc + ci, tap] = total[tile, :ntap]
+            if ct == 0:
+                db[mt * bn:(mt + 1) * bn] = total[tile, ntap:]
+    return dw[:cout, :cin].reshape(cout, cin, 3, 3), db[:cout]
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 7, 6, 40), (1, 3, 4, 3, 37),
                                    (2, 33, 65, 5, 8), (1, 4, 3, 4, 1)])
 def test_wgrad_tc_algorithm_matches_plain(shape):
-    """The emulated tensor-core algorithm (k-blocks past the row end,
-    ragged W, W < 32, odd channel counts, several splits) against the
+    """The emulated wgmma algorithm (gathered stages: k-steps past the row
+    end, ragged W, W < 16, odd channel counts, several splits) against the
     plain version, float64."""
     b, cin, cout, h, w = shape
     rng = np.random.RandomState(sum(shape))
     x = torch.from_numpy(rng.randn(b, cin, h, w))
     g = torch.from_numpy(rng.randn(b, cout, h, w))
     dw, db = _wgrad_tc_emulated(g, x)
+    dwp, dbp = wc.conv3x3_wrap_wgrad_plain(g, x)
+    torch.testing.assert_close(dw, dwp, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(db, dbp, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape,sms,tma", [
+    ((2, 6, 5, 3, 5), 132, False),     # W = 5: every tap wraps, batch 2
+    ((1, 4, 6, 4, 3), 5, False),       # W = 3 on 5 SMs: splits of 3 k-steps
+    ((2, 70, 65, 3, 16), 132, True),   # TMA, kp 16: both halos at the seam
+    ((2, 9, 12, 3, 96), 6, True),      # TMA, kp 32 (as W = 160)
+    ((1, 5, 70, 4, 128), 9, True),     # TMA, kp 64, two Cout tiles
+    ((2, 7, 5, 3, 64), 132, False),    # the same window gathered
+])
+def test_wgrad_window_emulation_matches_plain(shape, sms, tma):
+    """The tap-shifted window with its wrapped halo boxes (or gathered
+    columns) and the fixed split order, emulated in float64, against the
+    plain version: W = 5 and W = 3 (every tap wraps), batch 2, both stage
+    forms at k-steps of 16, 32 and 64 pixels."""
+    b, cin, cout, h, w = shape
+    rng = np.random.RandomState(sum(shape) + sms)
+    x = torch.from_numpy(rng.randn(b, cin, h, w))
+    g = torch.from_numpy(rng.randn(b, cout, h, w))
+    plan = wc.wgrad_plan(b, h, w, cout, cin, sms)
+    assert plan.tma == (w % 16 == 0)
+    dw, db = _wgrad_tc_emulated(g, x, sms, tma)
     dwp, dbp = wc.conv3x3_wrap_wgrad_plain(g, x)
     torch.testing.assert_close(dw, dwp, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(db, dbp, rtol=1e-12, atol=1e-12)
