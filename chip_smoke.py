@@ -17,8 +17,13 @@ checked in two halves, also at 4096x2048 (the sweep and the layer-stack
 render): their projection, through its instrument entry, against the
 plain projection in float64 (the worst errors and the bound printed),
 and the kernel against its plain version fed the instrument's tables,
-the layer-stack render in each output mode (image, depth, both in one
-launch), back to front and front to back, bf16 and f32 stacks.
+the layer-stack render (on the interleaved stack [B, P, H, W, 4]) in each
+output mode (image, depth, both in one launch), back to front and front
+to back, bf16 and f32 stacks. The sweep's assembled mode
+(csrc/sweep_assembled.cu, which writes the high-res re-render's stack) is
+checked against its plain version at 4096x2048 for each colour rule,
+whole and for a shell block, f32 within 1e-5 and bf16 within one bf16
+step.
 Then it drives fifteen paths, each with every launch count set to 0 just
 before it and read just after (on the first, exactly one sweep and one
 render launch per frame, and one device operation per stage in a
@@ -33,8 +38,10 @@ profiler trace):
    three); then once front to back (the ftb=True prepared render); no
    lookup table (uv_tables) is built;
 3. the test CLI's 4096x2048 high-res re-render from the blend_psv
-   request's blend weights and alphas (one layer-stack launch, no
-   tables);
+   request's blend weights and alphas (one launch of the sweep's assembled
+   mode, which writes the interleaved stack, and one layer-stack launch;
+   no tables, no K1 volume; a profiler trace of one re-render lists its
+   device operations, none an upsample or a stack-sized f32 copy);
 4. the coord net (coord_net=True, the released checkpoints' architecture:
    the conv kernel in its zero-padding and coord-channel mode) through
    entry.forward on two requests and the test CLI once (blend_psv, image
@@ -110,8 +117,9 @@ profiler trace):
    upsampling stages in the conv kernel's folded form, gated and timed
    beside the transposed form's), and its trainer for 3 steps (K7 at path
    5's count, one step against the all-plain routes); the 4096x2048
-   re-render of blend_bg, blend_bg_psv and alpha_only (one sweep and one
-   layer-stack launch each) against the plain composite;
+   re-render of blend_bg, blend_bg_psv and alpha_only (one assembled-sweep
+   and one layer-stack launch each) against the plain composite, its ms
+   and peak whole and in 4 shell blocks;
 15. the GCN (--gcn true, icosphere subdiv 7: 163,842 vertices; its mesh
    generated unless cached, in a subprocess beside the kernels' build and
    finished before the first timed path, then loaded):
@@ -123,9 +131,10 @@ profiler trace):
    f32 route); a one-rank NCCL process group through
    parallel/dp.make_dp_train_step and steps_per_call=3 on the default
    trainer, each against the single-device step; the 4096x2048 re-render
-   in 4 shell blocks on the one card (per block one K1 launch over its
-   planes and one launch of the layer-stack render's partial mode, then
-   combine_partials) against the unsharded K5 render, and the partial mode
+   in 4 shell blocks on the one card (per block one assembled-sweep launch
+   over its planes and one launch of the layer-stack render's partial
+   mode, then combine_partials) against the unsharded K5 render, and the
+   partial mode
    against its plain version (partial_composite) at one block's shapes,
    bf16 and f32.
 Each path's wall and the whole run's are printed.
@@ -203,6 +212,14 @@ OPS_RENDER_BOTH = OPS_RENDER_LAYERS + 4
 #: squares, then normalize, scale, shift, ReLU).
 OPS_SWEEP = 9
 OPS_LAYERNORM = 7
+#: f32 operations per texel of the sweep's assembled mode, by colour rule:
+#: per eye read three channels of OPS_SWEEP; the upsampled alpha's (and
+#: blend weight's) horizontal lerp, 3 each, and its vertical one shared by
+#: a tile's columns; the rule's blend, 3 a channel; blend_bg's three
+#: upsampled background channels, 3 each.
+OPS_ASSEMBLED = {"alpha_only": 3 * OPS_SWEEP + 3,
+                 "blend_psv": 2 * 3 * OPS_SWEEP + 2 * 3 + 9,
+                 "blend_bg": 3 * OPS_SWEEP + 2 * 3 + 9 + 9}
 #: f32 operations of the lookups the sweep and render kernels project
 #: (estimates): one row's parameters, 16 probes of the ODS projection
 #: (~40 single-rounded operations, five divisions, two sqrtf, two atan2f,
@@ -314,6 +331,11 @@ GCN_STEPS = 5
 DP_STEPS = 3
 SHELL_BLOCKS = 4
 BLOCK_SHELLS = 8
+#: A device operation of the 4096x2048 re-render other than its two
+#: kernels takes at most this long (ms): the image's deprocess and the
+#: small copies take ~0.1 ms, and an f32 copy of a stack-sized tensor
+#: (1 GB and more) would take over 0.6 ms at 3.35 TB/s.
+RERENDER_OTHER_MS = 0.25
 #: Path 15c: the one-rank data-parallel step against the single-device
 #: step on the same batch from the same parameters: the same kernels on
 #: the same inputs (the loss's forward is deterministic; the gather
@@ -587,6 +609,41 @@ def trace_counted(fn, counters=None):
     check(False, f"{TRACE_TRIES} traces lost device events")
 
 
+def rerender_trace(fn, what, tag, kernels=("assembled_kernel",
+                                             "render_layers_kernel")):
+    """One profiler trace of one high-res re-render (fn), between two spin
+    kernels: its device operations printed by name and time. Fails unless
+    each of `kernels` ran once, none of the operations is an upsample
+    (upsample_bilinear2d) or K1's volume (sweep_kernel), and every other
+    operation is short (RERENDER_OTHER_MS: no f32 copy of a stack-sized
+    tensor). A trace that lost a spin or a kernel is taken again, up to
+    TRACE_TRIES times."""
+    import re
+    for i in range(TRACE_TRIES):
+        spins, events = _spin_window([fn], 1)
+        ran = [sum(k in e[0] for e in events) for k in kernels]
+        if spins == 2 and all(n >= 1 for n in ran):
+            break
+        print(f"  {what} trace {i + 1}/{TRACE_TRIES}: {spins} of 2 spins, "
+              f"kernels {ran}; taken again")
+    for name, _, dur in events:
+        print(f"  {what} device op {dur / 1e3:9.4f} ms  {name[:100]}")
+    busy = sum(d for _, _, d in events) / 1e3
+    print(f"{what}: {len(events)} device operations, {busy:.4f} ms in "
+          f"them {tag}")
+    check(ran == [1] * len(kernels), f"{what}: each of {kernels} once, "
+                                     f"traced {ran}")
+    check(not any("upsample" in n or re.search(r"\bsweep_kernel\b", n)
+                  for n, _, _ in events),
+          f"{what}: no upsample and no K1 volume on the device")
+    long_ops = [(n, d / 1e3) for n, _, d in events
+                if not any(k in n for k in kernels)
+                and d / 1e3 > RERENDER_OTHER_MS]
+    check(not long_ops, f"{what}: other device operations over "
+                        f"{RERENDER_OTHER_MS} ms (a stack-sized copy?): "
+                        f"{long_ops}")
+
+
 def rot_y(deg: float, device) -> torch.Tensor:
     a = math.radians(deg)
     rt = torch.eye(4, device=device)
@@ -596,11 +653,81 @@ def rot_y(deg: float, device) -> torch.Tensor:
 
 
 def random_stack(rng, p: int, h: int, w: int, dev) -> torch.Tensor:
-    """A bf16 layer stack [1, P, 4, H, W]: colours uniform in [-1, 1],
-    alphas in [0, 1]."""
-    stack = torch.rand((1, p, 4, h, w), generator=rng, device=dev) * 2 - 1
-    stack[:, :, 3] = torch.sigmoid(3.0 * stack[:, :, 3])
+    """A bf16 interleaved layer stack [1, P, H, W, 4]: colours uniform in
+    [-1, 1], alphas in [0, 1]."""
+    stack = torch.rand((1, p, h, w, 4), generator=rng, device=dev) * 2 - 1
+    stack[..., 3] = torch.sigmoid(3.0 * stack[..., 3])
     return stack.to(torch.bfloat16)
+
+
+def bf16_steps(got, want):
+    """|got - want| in bf16 steps, elementwise, of two bf16 tensors: their
+    bit patterns as ordered integers."""
+    def ordered(x):
+        i = x.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(got) - ordered(want)).abs()
+
+
+def assembled_gates(gate, what, ref, src, depths, intr, low, blocks):
+    """The sweep's assembled mode (sweep_ops.sweep_assembled, one launch)
+    against sweep_assembled_plain on the same inputs fed the kernel's own
+    row parameters (sweep_row_params, K1's projection, which path 3's
+    sweep gates hold to float64), for each colour rule and each (p0, p1)
+    of blocks, f32 and bf16: the same taps, upsample and rule, each
+    rounded once in f32 but in other orders (1e-5 on values in [-1, 1]);
+    in bf16 both round the f32 stack once, so every value lies within one
+    bf16 step, or, near 0, where a bf16 step is finer than the two f32
+    sums' difference, within that f32 bound (the shares one step off and
+    beyond it are printed). The plain version runs four shells at a time.
+    Two launches are bit-identical. low: (alphas, blend, bg_rgb)
+    [1, h, w, .] f32."""
+    from matryodshka_tpu_torch.ops import sweep as sweep_ops
+    for rule in sweep_ops.RULES:
+        for p0, p1 in blocks:
+            d = depths[p0:p1].contiguous()
+            for dt in (torch.float32, torch.bfloat16):
+                n = sweep_ops.assembled_launches
+                got = sweep_ops.sweep_assembled(ref, src, d, intr, *low,
+                                                rule=rule, p0=p0,
+                                                out_dtype=dt)
+                check(sweep_ops.assembled_launches == n + 1,
+                      "sweep_assembled is one launch")
+                check(torch.equal(got, sweep_ops.sweep_assembled(
+                    ref, src, d, intr, *low, rule=rule, p0=p0,
+                    out_dtype=dt)), f"assembled {rule}: two launches differ")
+                errs, off, near0 = [], 0, 0
+                for q in range(p0, p1, 4):
+                    dq = depths[q:q + 4].contiguous()
+                    want = sweep_ops.sweep_assembled_plain(
+                        ref, src, dq, intr, *low, rule, q, dt,
+                        sweep_ops.sweep_row_params(dq, intr, *ref.shape[1:3]))
+                    mine = got[:, q - p0:q - p0 + 4]
+                    check(bool(torch.isfinite(mine.float()).all()),
+                          f"assembled {rule} finite")
+                    if dt == torch.bfloat16:
+                        steps = bf16_steps(mine, want)
+                        small = (mine.float() - want.float()).abs() <= 1e-5
+                        errs.append(torch.where(small, 0, steps).max())
+                        off += int((steps == 1).sum())
+                        near0 += int(((steps > 1) & small).sum())
+                    else:
+                        errs.append((mine - want).abs().max())
+                    del want
+                err = torch.stack(errs).max()
+                tag = f"{what} {rule} shells {p0}..{p1 - 1}"
+                if dt == torch.float32:
+                    gate("sweep_assembled", f"{tag} f32", err,
+                         torch.zeros(()), 1e-5)
+                else:
+                    ok = err.item() <= 1
+                    print(f"sweep_assembled {tag} bf16: max "
+                          f"{err.item():g} bf16 steps beyond 1e-5 (tol 1); "
+                          f"{off / got.numel():.3e} of the values one step "
+                          f"off, {near0 / got.numel():.3e} more near 0 "
+                          f"within 1e-5 {'ok' if ok else 'FAIL'}")
+                    check(ok, f"sweep_assembled {tag} bf16")
+                del got
 
 
 def sweep_kernels(what, ref, src, depths, intr, gate):
@@ -2817,10 +2944,11 @@ def hres_schemes_path(dev, tag, cli, cli_outs, hres_images, reset_counts,
     blend_bg_psv and alpha_only from path 2's requests of those schemes
     (their saved outputs: alphas, blend_weights where the scheme's rule
     blends, bg_rgb for blend_bg), each with its colour rule
-    (cli/test.py:HRES_ASSEMBLY): one K1 launch at 4096x2048 and one K5
-    launch for image and depth, no uv_tables; image and depth against
-    hres_render_plain (path 3's gates); ms (median of 3) and peak
-    memory."""
+    (cli/test.py:HRES_ASSEMBLY): one launch of the sweep's assembled mode
+    at 4096x2048 (no K1 volume) and one K5 launch for image and depth, no
+    uv_tables; image and depth against hres_render_plain (path 3's gates);
+    ms (median of 3) and peak memory, whole and in SHELL_BLOCKS shell
+    blocks (one assembled-sweep and one partial-mode launch a block)."""
     from matryodshka_tpu_torch.cli import test as cli_test
 
     eye = torch.eye(4, device=dev)[None]
@@ -2840,10 +2968,11 @@ def hres_schemes_path(dev, tag, cli, cli_outs, hres_images, reset_counts,
         peak = torch.cuda.max_memory_allocated()
         print(f"launches of the {scheme} 4096x2048 re-render (reads "
               f"{sorted(low)}): {got}")
-        check(got["sweep"] == got["render_layers"] == got[
+        check(got["sweep_assembled"] == got["render_layers"] == got[
             "render_layers_both"] == 1 and got["uv_tables"] == 0
-              and got["conv"] == 0,
-              f"hres {scheme}: one K1 and one K5 launch, no lookup tables")
+              and got["sweep"] == got["conv"] == 0,
+              f"hres {scheme}: one assembled-sweep and one K5 launch, no "
+              f"K1 volume, no lookup tables")
         rgb_p, depth_p = cli_test.hres_render_plain(
             c, hres_images[0], hres_images[1], low.get("blend_weights"),
             low["alphas"], b["intrinsics"], b["tgt_pose"],
@@ -2857,6 +2986,31 @@ def hres_schemes_path(dev, tag, cli, cli_outs, hres_images, reset_counts,
         print(f"hres {scheme} 4096x2048 e2e {ms:.3f} ms (median of 3); "
               f"peak {peak / 2**30:.3f} GiB ({(peak - mem0) / 2**30:.3f} "
               f"GiB above the {mem0 / 2**30:.3f} GiB held before) {tag}")
+        blocks = cli_test.build_hres_render_fn(c, shards=SHELL_BLOCKS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        reset_counts()
+        brgb, bdepth = blocks(*args, bg_rgb=low.get("bg_rgb"))
+        got = read_counts()
+        bpeak = torch.cuda.max_memory_allocated()
+        check(got["sweep_assembled"] == got["render_layers_partial"]
+              == SHELL_BLOCKS and got["sweep"] == got["render_layers"] == 0,
+              f"hres {scheme} in {SHELL_BLOCKS} blocks: one assembled-sweep "
+              f"and one partial-mode launch a block")
+        whole = render(*args, bg_rgb=low.get("bg_rgb"))
+        berr = max((brgb - whole[0]).abs().max().item(),
+                   (bdepth - whole[1]).abs().max().item())
+        check(berr <= 1e-5, f"hres {scheme}: {SHELL_BLOCKS} blocks vs the "
+                            f"whole render {berr:.3e}")
+        del brgb, bdepth, whole
+        bms = time_ms(lambda: blocks(*args, bg_rgb=low.get("bg_rgb")),
+                      iters=3, warmup=1)
+        print(f"hres {scheme} 4096x2048 in {SHELL_BLOCKS} shell blocks e2e "
+              f"{bms:.3f} ms (median of 3); peak {bpeak / 2**30:.3f} GiB "
+              f"({(bpeak - mem0) / 2**30:.3f} GiB above the "
+              f"{mem0 / 2**30:.3f} GiB held before); vs the whole "
+              f"{berr:.3e} {tag}")
 
 
 def start_mesh_generation(cfg):
@@ -3138,9 +3292,10 @@ def sharded_hres_path(dev, tag, cfg, hargs, depths, rng, reset_counts,
                       read_counts, gate, gate_e2e, k5_ms):
     """Path 15d: the test CLI's 4096x2048 re-render (path 3's request) in
     SHELL_BLOCKS contiguous shell blocks on the one card
-    (build_hres_render_fn(shards=SHELL_BLOCKS): per block one K1 launch
-    over its planes, the prepared assembly and one partial-mode launch;
-    then combine_partials), against the unsharded render (one K5 launch)
+    (build_hres_render_fn(shards=SHELL_BLOCKS): per block one launch of
+    the sweep's assembled mode over its planes and one partial-mode
+    launch; then combine_partials), against the unsharded render (one K5
+    launch)
     within 1e-5 and the all-plain f32 re-render within E2E_TOL; then the
     partial mode on one block's shapes (BLOCK_SHELLS shells at 4096x2048,
     bf16 and f32 stacks, the first block, with global shell 0, and an
@@ -3157,16 +3312,18 @@ def sharded_hres_path(dev, tag, cfg, hargs, depths, rng, reset_counts,
     sharded = cli_test.build_hres_render_fn(cfg, shards=SHELL_BLOCKS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     reset_counts()
     rgb, depth = sharded(*hargs)
     n = read_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"launches of the {hw}x{hh} re-render in {SHELL_BLOCKS} shell "
           f"blocks: {n}")
-    check(n["sweep"] == SHELL_BLOCKS
+    check(n["sweep_assembled"] == SHELL_BLOCKS
           and n["render_layers_partial"] == SHELL_BLOCKS
-          and n["render_layers"] == 0 and n["uv_tables"] == 0,
-          "sharded re-render: one K1 and one partial-mode launch a block")
+          and n["sweep"] == n["render_layers"] == 0 and n["uv_tables"] == 0,
+          "sharded re-render: one assembled-sweep and one partial-mode "
+          "launch a block")
     whole = cli_test.build_hres_render_fn(cfg)(*hargs)
     gate("render_layers_partial", f"{SHELL_BLOCKS} blocks vs K5", rgb,
          whole[0], 1e-5)
@@ -3219,7 +3376,9 @@ def sharded_hres_path(dev, tag, cfg, hargs, depths, rng, reset_counts,
           f"{bnd[0]:.4f} ms ({bnd[1]}) {tag}")
     e_sh = time_ms(lambda: sharded(*hargs), iters=3, warmup=1)
     print(f"hres {hw}x{hh} in {SHELL_BLOCKS} shell blocks e2e {e_sh:.3f} ms "
-          f"(median of 3); peak {peak / 2**30:.3f} GiB {tag}")
+          f"(median of 3); peak {peak / 2**30:.3f} GiB "
+          f"({(peak - mem0) / 2**30:.3f} GiB above the {mem0 / 2**30:.3f} "
+          f"GiB held before) {tag}")
     return {"name": "render_layers_partial", "route": "cuda",
             "source": "matryodshka_tpu_torch/csrc/render_layers.cu",
             "replaces": "matryodshka_tpu/ops/pallas_render.py:132",
@@ -3423,7 +3582,7 @@ def main() -> None:
             "render_layers_k5": 0.0, "render_layers_k6": 0.0,
             "wrap_conv_k7a": 0.0, "wrap_conv_k7b": 0.0,
             "wrap_conv_k7c": 0.0, "wrap_conv_wgrad": 0.0,
-            "render_layers_partial": 0.0}
+            "render_layers_partial": 0.0, "sweep_assembled": 0.0}
 
     def gate(name, what, got, want, tol_abs):
         err = (got.float() - want.float()).abs().max().item()
@@ -3640,6 +3799,7 @@ def main() -> None:
         conv_ops.wgmma_launches = 0
         sweep_lib.gather_sweeps = 0
         rl_ops.partial_launches = 0
+        sweep_ops.assembled_launches = 0
 
     def read_counts():
         torch.cuda.synchronize()
@@ -3652,6 +3812,7 @@ def main() -> None:
         got["conv_wgmma"] = conv_ops.wgmma_launches
         got["gather_sweep"] = sweep_lib.gather_sweeps
         got["render_layers_partial"] = rl_ops.partial_launches
+        got["sweep_assembled"] = sweep_ops.assembled_launches
         return got
 
     def gate_e2e(what, got, want):
@@ -3733,13 +3894,17 @@ def main() -> None:
     print(f"hres peak device memory {hres_peak / 2**30:.3f} GiB "
           f"({(hres_peak - mem0) / 2**30:.3f} GiB above the "
           f"{mem0 / 2**30:.3f} GiB held before) {tag}")
-    for k in ("sweep", "render_layers"):
+    for k in ("sweep_assembled", "render_layers"):
         check(hres_launches[k] > 0, f"kernel {k} was not launched on the "
                                     f"high-res path")
-    check(hres_launches["sweep"] == 1, "the high-res sweep is one launch")
+    check(hres_launches["sweep_assembled"] == 1
+          and hres_launches["sweep"] == 0,
+          "the high-res sweep and assembly: one assembled-sweep launch, no "
+          "K1 volume")
     check(hres_launches["render_layers"] == hres_launches[
         "render_layers_both"] == 1 and hres_launches["uv_tables"] == 0,
         "the high-res render: one layer-stack launch, no lookup tables")
+    rerender_trace(lambda: hres_render(*hargs), f"{hw}x{hh} re-render", tag)
     rgb_p, depth_p = cli_test.hres_render_plain(
         c0, hargs[0], hargs[1], hargs[2], hargs[3], hargs[7], hargs[8])
     gate_e2e(f"hres {hw}x{hh}",
@@ -3759,6 +3924,16 @@ def main() -> None:
     layer_stack_gates(gate, "render_layers_k5", f"{hw}x{hh} bf16", hstack,
                       htarget, hu, hv, False)
     del hu, hv
+    # the sweep's assembled mode at the re-render's shapes: the whole stack
+    # and one of the 4-block re-render's shell blocks, each colour rule,
+    # on the blend_psv request's alphas and blend weights (its background
+    # colour a seeded one: blend_psv saves none)
+    hlow = (cli_outs[0]["alphas"].float().contiguous(),
+            cli_outs[0]["blend_weights"].float().contiguous(),
+            (torch.rand((1, h, w, 3), generator=rng, device=dev) * 2 - 1))
+    assembled_gates(gate, f"{hw}x{hh}", hres_images[0], hres_images[1],
+                    params.psv_depths, bq["intrinsics"], hlow,
+                    ((0, p), (BLOCK_SHELLS, 2 * BLOCK_SHELLS)))
 
     lap("path 3")
 
@@ -4035,7 +4210,7 @@ def main() -> None:
             ("render_layers_k4", stack, target0, False),
             ("render_layers_k6", stack, target0, True),
             ("render_layers_k5", hstack, htarget, False)):
-        sh, sw = st.shape[3:]
+        sh, sw = st.shape[2:4]
         big = sh > h
         fns = [functools.partial(rl_ops.render_layers_both, st, *tgt,
                                  ftb=ftb)] + [
@@ -4062,7 +4237,7 @@ def main() -> None:
                f"{dev_ms[1] + dev_ms[2]:.4f})")
         frac = 1.0
         if ftb:
-            frac = visited(st[0, :, 3].float(), u0[0], v0[0])
+            frac = visited(st[0, ..., 3].float(), u0[0], v0[0])
             print(f"K6 front to back takes {frac:.4f} of the (pixel, shell) "
                   f"samples on this stack")
         bounds[name] = bound(
@@ -4071,8 +4246,41 @@ def main() -> None:
         print(f"kernel {name} {sw}x{sh} device time (trace) {how}; CUDA "
               f"events {kernel_ms[name]:.4f} ms; bound "
               f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) {tag}")
+    # the sweep's assembled mode at the re-render's shapes (blend_psv, the
+    # whole bf16 stack): CUDA events and profiler device time; its plain
+    # version (sweep_assembled_plain, four blocks of 8 shells in turn);
+    # its bound: the stack written, the images and the low-res arrays it
+    # reads once, and OPS_ASSEMBLED per texel
+    asm_in = (*hres_images, params.psv_depths, bq["intrinsics"], hlow[0],
+              hlow[1])
+    asm_fn = functools.partial(sweep_ops.sweep_assembled, *asm_in,
+                               rule="blend_psv", out_dtype=torch.bfloat16)
+    kernel_ms["sweep_assembled"] = time_ms(asm_fn, iters=5)
+
+    def asm_plain():
+        return torch.cat([sweep_ops.sweep_assembled_plain(
+            *asm_in[:2], params.psv_depths[q:q + BLOCK_SHELLS].contiguous(),
+            *asm_in[3:], rule="blend_psv", p0=q,
+            out_dtype=torch.bfloat16) for q in range(0, p, BLOCK_SHELLS)],
+            dim=1)
+
+    plain_ms["sweep_assembled"] = time_ms(asm_plain, iters=1, warmup=1)
+    _, total, seen = device_ms([asm_fn], [1], r"\bassembled_kernel\b",
+                               calls=5)
+    device_only["sweep_assembled"] = (total / seen, 1)
+    stack_bytes = p * hh * hw * 4 * 2
+    bounds["sweep_assembled"] = bound(
+        stack_bytes + nbytes(*asm_in),
+        OPS_ASSEMBLED["blend_psv"] * p * hh * hw
+        + OPS_ROW_PARAM * 2 * p * hh * math.ceil(hw / 512), F32_FLOPS)
+    print(f"kernel sweep_assembled {hw}x{hh}x{p} bf16 blend_psv device time "
+          f"(trace) {total / seen:.4f} ms per launch; CUDA events "
+          f"{kernel_ms['sweep_assembled']:.4f} ms; plain "
+          f"{plain_ms['sweep_assembled']:.3f} ms; bound "
+          f"{bounds['sweep_assembled'][0]:.4f} ms "
+          f"({bounds['sweep_assembled'][1]}) {tag}")
     for k in ("render", "render_depth", "render_layers_k4",
-              "render_layers_k5", "render_layers_k6"):
+              "render_layers_k5", "render_layers_k6", "sweep_assembled"):
         lib_ms[k] = None
     for k in kernel_ms:
         lib = "null" if lib_ms[k] is None else f"{lib_ms[k]:9.3f} ms"
@@ -4114,23 +4322,18 @@ def main() -> None:
     print(f"cli coord {cscheme} e2e {ce2e:.3f} e2e_plain_f32 {cplain:.3f} "
           f"ms {tag}")
 
-    # the 4096x2048 re-render: stages (each on the previous one's output)
+    # the 4096x2048 re-render: stages (the render on the assembled stack)
     # and end to end (median of 3)
-    hb, ha = hargs[2], hargs[3]
-    hs = {"sweep": lambda: sweep_ops.sweep_volume(
-        hargs[0], hargs[1], params.psv_depths, bq["intrinsics"],
+    hs = {"sweep_assembled": functools.partial(
+        sweep_ops.sweep_assembled, *hargs[:2], params.psv_depths,
+        bq["intrinsics"], hargs[3].float().contiguous(),
+        hargs[2].float().contiguous(), rule="blend_psv",
         out_dtype=torch.bfloat16)}
-    hs["upsample"] = lambda: msi_lib.upsample_align_corners_cf(
-        torch.cat([hb, ha], dim=-1).permute(0, 3, 1, 2), hh, hw)
-    hvol, hup = hs["sweep"](), hs["upsample"]()
-    hs["assemble"] = lambda: msi_lib.assemble_hres_prepared(
-        c0.which_color_pred, hup[:, :p], hup[:, p:], hvol,
-        dtype=torch.bfloat16)
-    hlayers = hs["assemble"]()
+    hlayers = hs["sweep_assembled"]()
     hs["render_depth"] = lambda: render_lib.render_equirect_view_prepared_both(
         hlayers, eye, bq["tgt_pose"], params.psv_depths)
     hms = {k: time_ms(fn, iters=3) for k, fn in hs.items()}
-    del hvol, hup, hlayers
+    del hlayers
     hms["e2e"] = time_ms(lambda: hres_render(*hargs), iters=3, warmup=1)
     print(f"hres {hw}x{hh} " + " ".join(
         f"{k} {t:.3f}" for k, t in hms.items()) + f" ms (render kernel "
@@ -4144,13 +4347,14 @@ def main() -> None:
     launches["render_layers_k4"] = cli_launches["render_layers"]
     launches["render_layers_k5"] = hres_launches["render_layers"]
     launches["render_layers_k6"] = ftb_launches["render_layers_ftb"]
+    launches["sweep_assembled"] = hres_launches["sweep_assembled"]
     launches["conv_coord"] = (coord_launches["conv_coord"]
                               + ccli_launches["conv_coord"])
     frames = {"sweep": len(batches), "conv": len(batches),
               "layernorm": len(batches), "render": len(batches),
               "render_depth": 1, "render_layers_k4": len(cli) - 1,
               "render_layers_k5": 1, "render_layers_k6": 1,
-              "conv_coord": len(cbatches) + 1}
+              "sweep_assembled": 1, "conv_coord": len(cbatches) + 1}
     sources = {
         "sweep": ("matryodshka_tpu_torch/csrc/sweep.cu",
                   "matryodshka_tpu/ops/pallas_sweep.py:230"),
@@ -4171,6 +4375,11 @@ def main() -> None:
                              "matryodshka_tpu/ops/pallas_render.py:132"),
         "render_layers_k6": ("matryodshka_tpu_torch/csrc/render_layers.cu",
                              "matryodshka_tpu/ops/pallas_render.py:694"),
+        "sweep_assembled": ("matryodshka_tpu_torch/csrc/sweep_assembled.cu",
+                            "matryodshka_tpu/ops/pallas_sweep.py:230 (K1 as "
+                            "ods_sweep_identity_chunked, :669, runs it at "
+                            "high res, with the XLA upsample and "
+                            "models/msi.py:284 assemble_hres_prepared)"),
     }
     rows = [{"name": k, "route": "cuda", "source": sources[k][0],
              "replaces": sources[k][1], "launches": launches[k],

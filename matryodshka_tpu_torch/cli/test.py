@@ -27,9 +27,10 @@ net's with `--coord_net true`; layernorm.cu), then for blend_psv the
 blend-fused render (render.cu, colour and depth mode) and for the other
 schemes the prepared assembly and the layer-stack render
 (render_layers.cu, one launch for image and depth, lookups made in the
-kernel); the high-res re-render of every scheme sweeps at full size (one
-sweep launch) and draws through render_layers.cu the same way (one
-launch). `--device cpu` runs each kernel's plain
+kernel); the high-res re-render of every scheme sweeps, upsamples and
+assembles its interleaved stack at full size in one launch of the sweep's
+assembled mode (sweep_assembled.cu) and draws through render_layers.cu the
+same way (one launch). `--device cpu` runs each kernel's plain
 version. `--use_pallas false` takes the JAX CLI's routes without Pallas
 and none of the port's kernels: the gather sweep, the plain net in the
 compute dtype and the gather renders, and for high_res the shell-streamed
@@ -297,11 +298,12 @@ def _psv_depths(cfg: MatryConfig, device):
                         dtype=torch.float32, device=device)
 
 
-#: The high-res re-render's colour rule per scheme, as the scheme that
-#: assemble_hres_prepared is called with (JAX models/msi.py:312-339
-#: assemble_hres_rgba): blend_psv blends the ref eye's shells (fg) with the
-#: src eye's, blend_bg fg with the upsampled background colour, and
-#: alpha_only and blend_bg_psv take fg as it is.
+#: The high-res re-render's colour rule per scheme, as the rule the sweep's
+#: assembled mode (ops/sweep.py:sweep_assembled) and assemble_hres_prepared
+#: are called with (JAX models/msi.py:312-339 assemble_hres_rgba):
+#: blend_psv blends the ref eye's shells (fg) with the src eye's, blend_bg
+#: fg with the upsampled background colour, and alpha_only and blend_bg_psv
+#: take fg as it is.
 HRES_ASSEMBLY = {"blend_psv": "blend_psv", "blend_bg": "blend_bg",
                  "blend_bg_psv": "alpha_only", "alpha_only": "alpha_only"}
 
@@ -323,14 +325,17 @@ def build_hres_render_fn(cfg: MatryConfig, shards: int = 1):
     row chunks), the low-res blend weights, alphas and background colour
     upsampled (align corners), the high-res prepared assembly, and the
     layer-stack render of colour and depth (on the card one launch for
-    both) with the PSV depths as radii.
+    both) with the PSV depths as radii. The sweep, upsample and assembly
+    are one call of the sweep's assembled mode (ops/sweep.py:
+    sweep_assembled; on the card one launch, which writes the interleaved
+    stack and builds no upsampled weights or f32 stack).
 
     shards > 1: the shells split into that many contiguous back-to-front
     blocks (JAX build_hres_render_fn with a 'shell' mesh, cli/test.py:
-    241-330; parallel/sharded_render.py): each block is swept (one sweep
-    launch over its planes), assembled and rendered by the layer-stack
-    kernel's partial mode (one launch: partial colour, depth and
-    transmittance), and the blocks' partials are combined
+    241-330; parallel/sharded_render.py): each block is swept and
+    assembled (one assembled-sweep launch over its planes) and rendered by
+    the layer-stack kernel's partial mode (one launch: partial colour,
+    depth and transmittance), and the blocks' partials are combined
     (combine_partials). In a process group of `shards` ranks each rank
     renders its own block and the partials are all_gathered, so every
     rank returns the view; in one process it renders every block in turn.
@@ -343,7 +348,7 @@ def build_hres_render_fn(cfg: MatryConfig, shards: int = 1):
     As in the fused JAX path, the ODS loader's identity ref/src poses are
     assumed, not read. With use_pallas false, hres_render_plain with the
     gather sweep (the JAX CLI's shell scan, cli/test.py:232-334)."""
-    hh, hw, p = cfg.hres_height, cfg.hres_width, cfg.num_psv_planes
+    p = cfg.num_psv_planes
     dtype = cfg.torch_compute_dtype
     assembly = HRES_ASSEMBLY[cfg.which_color_pred]
     if not cfg.use_pallas:
@@ -365,28 +370,24 @@ def build_hres_render_fn(cfg: MatryConfig, shards: int = 1):
                src_pose, ref_pose_inv, intrinsics, tgt_pose, bg_rgb=None):
         del ref_pose, src_pose, ref_pose_inv
         depths = _psv_depths(cfg, hres_ref.device)
-        low = {"alphas": alphas, "blend_weights": blend_weights,
-               "bg_rgb": bg_rgb}
-        up = msi_lib.upsample_align_corners_cf(torch.cat(
-            [low[k] for k in hres_inputs(cfg.which_color_pred)],
-            dim=-1).permute(0, 3, 1, 2), hh, hw)
-        u_bg = up[:, 2 * p:] if assembly == "blend_bg" else None
+        read = hres_inputs(cfg.which_color_pred)
+        low = {k: (x.float().contiguous() if k in read else None)
+               for k, x in (("alphas", alphas),
+                            ("blend_weights", blend_weights),
+                            ("bg_rgb", bg_rgb))}
         eye = _eye(hres_ref.shape[0], hres_ref.device)
 
         def block(p0, p1):
-            """The prepared layer stack of shells p0 .. p1-1 [B, p1-p0, 4,
-            Hh, Wh]: their sweep (one launch) and assembly."""
-            vol = sweep_ops.sweep_volume(hres_ref, hres_src, depths[p0:p1],
-                                         intrinsics, out_dtype=dtype)
-            u_blend = (up[:, p + p0:p + p1] if assembly != "alpha_only"
-                       else None)
-            return msi_lib.assemble_hres_prepared(
-                assembly, u_blend, up[:, p0:p1], vol, u_bg_rgb=u_bg,
-                dtype=dtype)
+            """The interleaved layer stack of shells p0 .. p1-1 [B, p1-p0,
+            Hh, Wh, 4]: their sweep, upsampled weights and assembly, one
+            call of the assembled mode."""
+            return sweep_ops.sweep_assembled(
+                hres_ref, hres_src, depths[p0:p1], intrinsics,
+                low["alphas"], low["blend_weights"], low["bg_rgb"],
+                rule=assembly, p0=p0, out_dtype=dtype)
 
         if shards == 1:
             layers = block(0, p)
-            del up, u_bg
             rgb, depth = render_lib.render_equirect_view_prepared_both(
                 layers, eye, tgt_pose, depths)
             return msi_lib.deprocess_image(rgb), depth
@@ -394,7 +395,6 @@ def build_hres_render_fn(cfg: MatryConfig, shards: int = 1):
         parts = [rl_ops.render_layers_partial(block(p0, p1), eye, tgt_pose,
                                               depths[p0:p1], p0, p)
                  for p0, p1 in mine]
-        del up, u_bg
         if world > 1:
             c, d, t = sharded_render.gather_partials(parts[0])
         else:
@@ -449,8 +449,7 @@ def hres_render_plain(cfg: MatryConfig, hres_ref, hres_src, blend_weights,
             wa[:, :1], vol, u_bg_rgb=u_bg, dtype=torch.float32)
         u, v = render_lib.uv_tables(eye, tgt_pose, d, hh, hw)
         for i in range(b):
-            img = resample_layers_uv(
-                layer[i, 0].permute(1, 2, 0)[None], u[i], v[i])[0]
+            img = resample_layers_uv(layer[i, 0][None], u[i], v[i])[0]
             a = img[..., 3:] if s > 0 else 1.0
             rgb[i] += img[..., :3] * a * trans[i]
             dep[i] += (s / p) * a * trans[i]

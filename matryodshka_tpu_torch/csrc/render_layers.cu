@@ -39,25 +39,28 @@
 //
 // Bound: at 4096x2048x32 in bf16 the stack is 2.15 GB (0.64 ms at
 // 3.35 TB/s), read about once (a source texel serves about one sample at
-// the stack's own resolution), and no table is read: the tables were 8 B
-// per sample, half the old kernel's bytes. Per (pixel, shell) the
-// projection is ~140 f32 operations (two atan2f, two sqrtf; ~130 SASS
+// the stack's own resolution), and no table is read. Per (pixel, shell)
+// the projection is ~140 f32 operations (two atan2f, two sqrtf; ~130 SASS
 // instructions) and the taps and composites ~45, so operations bound the
-// kernel (~0.74 ms at 67 TFLOP/s). What holds it back: the instruction
-// throughput those take, and the 16 planar 2-byte gathers a colour sample
-// makes (tools/variants.py: the taps and composites alone take ~55% of
-// the time). Design: a block is a 32 x 4 pixel tile, a warp one row of 32
-// pixels, so a shell's taps of a warp fall in about two source rows that
-// L1 serves; the four taps' in-plane offsets are computed once a shell
-// for all planes; two shells a step, sampled before either is
-// composited, so one shell's projection overlaps the other's loads; the
-// ray's shell-independent terms, the composites and T stay in registers.
-// tools/variants.py times 128 x 1 rows and 32 x 8 tiles, one and four
-// shells a step, paired 4-byte tap loads (slower: lanes of odd x0
-// diverge), and the image and depth as two launches. Plane offsets are
-// 64-bit: at 4096x2048x32 the stack holds 2^30 values.
+// kernel (~0.74 ms at 67 TFLOP/s). Design for this card:
+// - the stack is interleaved, [B, P, H, W, 4] with the channels r, g, b,
+//   alpha innermost, so a tap is one aligned vector load of its texel:
+//   8 bytes in bf16, 16 in f32 (a colour sample makes 4 loads, where the
+//   planar stack [B, P, 4, H, W] of the first design made 16 two-byte
+//   gathers, each in its own 32-byte sector); the depth-only mode loads
+//   the alpha alone;
+// - a block is a 32 x 4 pixel tile, a warp one row of 32 pixels, so a
+//   shell's taps of a warp fall in about two source rows that L1 serves;
+//   the four taps' texel offsets and weights are computed once a shell;
+// - two shells a step, sampled before either is composited, so one
+//   shell's projection overlaps the other's loads; the ray's
+//   shell-independent terms, the composites and T stay in registers.
+// tools/variants.py times 32 x 8 and 64 x 2 tiles, one and four shells a
+// step, and the taps and composite alone (the projection replaced by a
+// fixed lookup). Shell offsets are 64-bit: at 4096x2048x32 the stack
+// holds 2^30 values.
 //
-// Inputs: layers [B, P, 4, H, W] (bf16 or f32; channels r, g, b, alpha),
+// Inputs: layers [B, P, H, W, 4] (bf16 or f32; channels r, g, b, alpha),
 // pose [B, 4, 4] f32 (batch stride pose_stride floats, 0 for one pose
 // shared), pos [B, 3] f32, radii [P] f32, lat [H] and lon [W]
 // (lat_long_grid's vectors); outputs rgb and depth [B, H, W, 3] f32, a
@@ -82,32 +85,32 @@ namespace {
 constexpr int TILE_X = 32, TILE_Y = 4;
 constexpr int SHELLS = 2;
 
-// The bilinear sample of one plane at the four taps' in-plane offsets o
-// (y0 x0, y0 x1, y1 x0, y1 x1), with weights wt in the same order: each
-// tap's address is one wide multiply-add of its 32-bit offset, shared by
-// the four planes, to the plane's 64-bit base.
-template <typename TL>
-__device__ __forceinline__ float bilerp(const TL* __restrict__ plane,
-                                        const unsigned (&o)[4],
-                                        const float (&wt)[4]) {
-  float t[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) t[k] = matry::to_f32(plane[o[k]]);
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) s = fmaf(wt[k], t[k], s);
-  return s;
+// One texel's four channels (r, g, b, alpha) as one aligned vector load:
+// 16 bytes of f32, 8 of bf16 (a bf16 value is the top half of its f32).
+__device__ __forceinline__ float4 load_texel(const float* __restrict__ shell,
+                                             unsigned o) {
+  return __ldg(reinterpret_cast<const float4*>(shell) + o);
+}
+__device__ __forceinline__ float4 load_texel(
+    const __nv_bfloat16* __restrict__ shell, unsigned o) {
+  const uint2 t = __ldg(reinterpret_cast<const uint2*>(shell) + o);
+  return make_float4(__uint_as_float(t.x << 16),
+                     __uint_as_float(t.x & 0xffff0000u),
+                     __uint_as_float(t.y << 16),
+                     __uint_as_float(t.y & 0xffff0000u));
 }
 
 // One shell's bilinear sample at the pixel's ray: alpha (1 on shell 0)
-// and, when RGB, the colour. lp: the shell's first plane.
+// and, when RGB, the colour. lp: the shell's first texel. The four taps
+// (y0 x0, y0 x1, y1 x0, y1 x1) are one vector load each (the alpha alone
+// without RGB) and are weighted in that order.
 struct Sample {
   float a, r, g, b;
 };
 
 template <typename TL, bool RGB>
 __device__ __forceinline__ Sample sample_shell(const TL* __restrict__ lp,
-                                               long long hw, int p,
+                                               int p,
                                                const matry::Ray& q,
                                                float radius,
                                                const matry::PixelAffine& m,
@@ -130,13 +133,22 @@ __device__ __forceinline__ Sample sample_shell(const TL* __restrict__ lp,
   const unsigned oy0 = (unsigned)(y0 * W), oy1 = (unsigned)(y1 * W);
   const unsigned o[4] = {oy0 + x0, oy0 + x1, oy1 + x0, oy1 + x1};
   Sample s;
-  s.a = p > 0 ? bilerp(lp + 3 * hw, o, wt) : 1.f;
-  s.r = s.g = s.b = 0.f;
+  s.a = s.r = s.g = s.b = 0.f;
   if (RGB) {
-    s.r = bilerp(lp, o, wt);
-    s.g = bilerp(lp + hw, o, wt);
-    s.b = bilerp(lp + 2 * hw, o, wt);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 t = load_texel(lp, o[k]);
+      s.r = fmaf(wt[k], t.x, s.r);
+      s.g = fmaf(wt[k], t.y, s.g);
+      s.b = fmaf(wt[k], t.z, s.b);
+      s.a = fmaf(wt[k], t.w, s.a);
+    }
+  } else if (p > 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      s.a = fmaf(wt[k], matry::to_f32(lp[4 * o[k] + 3]), s.a);
   }
+  if (p == 0) s.a = 1.f;
   return s;
 }
 
@@ -156,7 +168,7 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y)
   const matry::Ray q = matry::target_ray(g.pose + b * g.pose_stride,
                                          g.pos + b * g.pos_stride, g.lat[i],
                                          g.lon[j]);
-  const TL* lb = layers + (long long)b * P * 4 * hw;
+  const TL* lb = layers + (long long)b * P * hw * 4;
   const float inv_p = 1.f / (float)p_total;
 
   // SHELLS shells a step: their samples are taken before any of them is
@@ -171,7 +183,7 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y)
     for (int k = 0; k < SHELLS; ++k) {
       const int s = min(s0 + k, P - 1);  // a ragged last step repeats
       const int p = FTB ? P - 1 - s : s;
-      sm[k] = sample_shell<TL, RGB>(lb + p * 4 * hw, hw, p0 + p, q,
+      sm[k] = sample_shell<TL, RGB>(lb + p * hw * 4, p0 + p, q,
                                     g.radii[p], m, W, H);
     }
 #pragma unroll

@@ -26,7 +26,8 @@
 //   the taps of consecutive items. Every thread computes the same windows
 //   from the shared parameters; each window's rows are staged once in
 //   shared memory, preprocessed (2x - 1) and split into planar channels,
-//   and the items it serves are written from there;
+//   and the items it serves are written from there (sweep_window.cuh,
+//   shared with the assembled mode, sweep_assembled.cu);
 // - a thread writes COLS consecutive columns of one row: per channel,
 //   COLS + 1 staged columns (the reversed ramp x0 - j, wrapping) and
 //   16-byte vector stores. Staged rows are padded by one word per COLS
@@ -48,7 +49,7 @@
 // parameters into [B, 2, P, H] tables, so that the projection and the
 // sweep can be checked apart.
 
-#include "project.cuh"
+#include "sweep_window.cuh"
 
 namespace {
 
@@ -68,46 +69,8 @@ __host__ __device__ constexpr int padded(int cols) {
   return cols + cols / COLS;
 }
 
-struct Args {
-  const float* ref;
-  const float* src;
-  const float* depths;
-  const float* intr;
-  const float* lat;
-  const float* lon;
-  int B, P, H, W;
-};
-
-// Grows the circular window [start, start + len) of a ring of n to hold
-// the span [s, s + span), within cap; false (window unchanged) if it
-// cannot. A cap of n or more holds everything.
-__device__ __forceinline__ bool grow(int& start, int& len, int s, int span,
-                                     int n, int cap) {
-  if (cap >= n) {
-    start = 0;
-    len = n;
-    return true;
-  }
-  if (len == 0) {
-    if (span > cap) return false;
-    start = s;
-    len = span;
-    return true;
-  }
-  const int fwd = matry::wrap(s - start, n);
-  if (fwd + span <= cap) {
-    len = max(len, fwd + span);
-    return true;
-  }
-  const int back = matry::wrap(start - s, n);
-  const int grown = max(back + len, span);
-  if (grown <= cap) {
-    start = s;
-    len = grown;
-    return true;
-  }
-  return false;
-}
+using Args = matry::SweepArgs;
+using matry::grow;
 
 // COLS consecutive outputs as 16-byte streaming stores (st.global.cs:
 // the volume is written once, larger than L2, and read by the next
@@ -179,16 +142,8 @@ __global__ void __launch_bounds__(THREADS)
       ys = ys2, yn = yn2, cs = cs2, cn = cn2;
     }
     __syncthreads();                  // the previous window is consumed
-    for (int idx = tid; idx < yn * cn; idx += THREADS) {
-      const int sr = idx / cn, cc = idx - sr * cn;
-      const int y = ys + sr >= H ? ys + sr - H : ys + sr;
-      const int x = cs + cc >= W ? cs + cc - W : cs + cc;
-      const float* px = img + ((long long)y * W + x) * 3;
-      float* dst = stage + sr * 3 * stride + cc + cc / COLS;
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        dst[c * stride] = matry::fsub(matry::fmul(px[c], 2.f), 1.f);
-    }
+    matry::stage_window<COLS, THREADS>(img, stage, ys, yn, cs, cn, stride,
+                                       H, W);
     __syncthreads();
 
     // ---- the window's items, COLS columns a thread: task = item-major

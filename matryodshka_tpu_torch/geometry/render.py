@@ -155,7 +155,7 @@ def uv_tables(tgt_pose, tgt_pos, radii, height: int, width: int):
 
 def render_equirect_view_prepared(layers, tgt_pose, tgt_pos, radii,
                                   ftb: bool = False, depth: bool = False):
-    """The layer-stack render of a batch: layers [B, P, 4, H, W] (the
+    """The layer-stack render of a batch: layers [B, P, H, W, 4] (the
     prepared assembly's stack, models/msi.py), tgt_pose [B, 4, 4], tgt_pos
     [B, 3] -> [B, H, W, 3] float32, any pose. ftb composites front to back
     with early termination; depth renders the depth proxy. On the card one

@@ -15,9 +15,13 @@ then
 * blend_psv: the blend-fused render kernel blends, samples and composites
   straight from the sweep volume and the prediction (no layer stack);
 * the other schemes: the prepared assembly writes the layer stack
-  [B, P, 4, H, W] (channels first, unflipped, unpadded, in the compute
-  dtype) and the layer-stack render kernel draws it, image and depth in
-  one launch.
+  [B, P, H, W, 4] (interleaved, the channels r, g, b, alpha innermost, so
+  that each of the render's taps is one vector load; unflipped, unpadded,
+  in the compute dtype) and the layer-stack render kernel draws it, image
+  and depth in one launch. The high-res re-render takes its stack of the
+  same layout from the sweep's assembled mode (ops/sweep.py:
+  sweep_assembled) in one launch; assemble_hres_prepared is that mode's
+  plain version's last step.
 
 The JAX prepared stack is W-flipped, row-padded and split from two pole-cap
 bands for the TPU ladder kernels; none of that is needed here.
@@ -151,12 +155,13 @@ def _shell_rgb(which_color_pred: str, vol, num_planes: int, blend,
 
 
 def _layer_stack(rgb, alpha, dtype):
-    """[B, P, 3, H, W] + [B, P, H, W] float32 -> [B, P, 4, H, W] in dtype,
-    one rounding (the storage cast of _finish_prepared, msi.py:217-242)."""
+    """[B, P, 3, H, W] + [B, P, H, W] float32 -> the interleaved stack
+    [B, P, H, W, 4] in dtype, one rounding (the storage cast of
+    _finish_prepared, msi.py:217-242)."""
     b, p, _, h, w = rgb.shape
-    out = torch.empty((b, p, 4, h, w), dtype=dtype, device=rgb.device)
-    out[:, :, :3] = rgb
-    out[:, :, 3] = alpha
+    out = torch.empty((b, p, h, w, 4), dtype=dtype, device=rgb.device)
+    out[..., :3] = rgb.permute(0, 1, 3, 4, 2)
+    out[..., 3] = alpha
     return out
 
 
@@ -164,8 +169,8 @@ def assemble_rgba_prepared(which_color_pred: str, pred, vol,
                            num_planes: int, dtype=None):
     """Counterpart of assemble_rgba_prepared (msi.py:146): the net's tanh
     prediction pred [B, K, H, W] + the sweep volume vol [B, 2*P*3, H, W] ->
-    the layer stack [B, P, 4, H, W] in dtype (default vol's), blended in
-    float32. Same colour math as assemble_rgba."""
+    the interleaved layer stack [B, P, H, W, 4] in dtype (default vol's),
+    blended in float32. Same colour math as assemble_rgba."""
     p = num_planes
     pred = pred.float()
     if which_color_pred == "alpha_only":
@@ -185,10 +190,11 @@ def assemble_hres_prepared(which_color_pred: str, u_blend, u_alphas, vol,
                            dtype=None):
     """Counterpart of assemble_hres_prepared (msi.py:284): upsampled blend
     weights and alphas [B, P, H, W] (already in [0, 1], msi.py:149-165)
-    applied to the high-res sweep volume vol [B, 2*P*3, H, W] -> the layer
-    stack [B, P, 4, H, W] in dtype (default vol's). As in the JAX function,
-    blend_bg_psv blends with the src eye only (no background blend), and
-    blend_bg takes the upsampled background u_bg_rgb [B, 3, H, W]."""
+    applied to the high-res sweep volume vol [B, 2*P*3, H, W] -> the
+    interleaved layer stack [B, P, H, W, 4] in dtype (default vol's). As in
+    the JAX function, blend_bg_psv blends with the src eye only (no
+    background blend), and blend_bg takes the upsampled background u_bg_rgb
+    [B, 3, H, W]."""
     which = "blend_psv" if which_color_pred == "blend_bg_psv" \
         else which_color_pred
     rgb = _shell_rgb(which, vol, u_alphas.shape[1], u_blend,

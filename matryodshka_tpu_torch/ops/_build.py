@@ -50,6 +50,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "matry_sweep": [_P] * 7 + [_I] * 5 + [_P],
     "matry_sweep_row_params": [_P] * 10 + [_I] * 4 + [_P],
+    "matry_sweep_assembled": [_P] * 10 + [_I] * 10 + [_P],
     "matry_conv": [_P] * 5 + [_I] * 20 + [_P] * 3,
     "matry_conv_stats_blocks": [_I, _I],
     "matry_conv_plan": [_I] * 5,
@@ -148,8 +149,8 @@ def build() -> Path:
 #: The op library's sources: its C++ registration, and K1 with the headers
 #: it includes (linked in where CUDA is available).
 OP_SOURCE = CSRC / "sweep_op.cpp"
-OP_CUDA_SOURCES = [CSRC / "sweep.cu", CSRC / "project.cuh",
-                   CSRC / "common.cuh"]
+OP_CUDA_SOURCES = [CSRC / "sweep.cu", CSRC / "sweep_window.cuh",
+                   CSRC / "project.cuh", CSRC / "common.cuh"]
 CXX_FLAGS = ["-std=c++20", "-O2", "-fPIC"]
 
 

@@ -11,10 +11,12 @@ builds no lookup tables; one launch writes the image, the depth proxy or
 both. Its partial mode (`render_layers_partial`) renders one block of a
 shell-sharded stack and also writes the block's transmittance
 (parallel/sharded_render.py). Its source note gives the bound and the
-design. Inputs are the layer stack [B, P, 4, H, W]
-(`models/msi.py:assemble_rgba_prepared` / `assemble_hres_prepared`), the
-target poses [B, 4, 4], positions [B, 3] and the shell radii [P]; each
-output is an ERP view [B, H, W, 3] float32.
+design. Inputs are the layer stack [B, P, H, W, 4], interleaved with the
+channels r, g, b, alpha innermost, so that a tap is one vector load
+(`models/msi.py:assemble_rgba_prepared` / `assemble_hres_prepared`, or
+on the high-res path `ops/sweep.py:sweep_assembled`), the target poses
+[B, 4, 4], positions [B, 3] and the shell radii [P]; each output is an ERP
+view [B, H, W, 3] float32.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ def render_layers_plain(layers, u, v, depth: bool = False):
     (geometry/render.py:gather_hres), so memory stays at one shell at any
     resolution. depth: rgb is p/P. Same result as over_composite
     (over_composite_depth) of all sampled shells."""
-    b, p, _, h, w = layers.shape
+    b, p, h, w, _ = layers.shape
     outs = []
     for i in range(b):
         out = torch.zeros((h, w, 3), dtype=torch.float32,
@@ -57,9 +59,9 @@ def render_layers_plain(layers, u, v, depth: bool = False):
         trans = torch.ones((h, w, 1), dtype=torch.float32,
                            device=layers.device)
         for s in range(p - 1, -1, -1):
-            shell = layers[i, s, 3:] if depth else layers[i, s]
-            img = resample_layers_uv(shell.permute(1, 2, 0)[None],
-                                     u[i, s][None], v[i, s][None])[0]
+            shell = layers[i, s, ..., 3:] if depth else layers[i, s]
+            img = resample_layers_uv(shell[None], u[i, s][None],
+                                     v[i, s][None])[0]
             rgb = s / p if depth else img[..., :3]
             a = img[..., -1:] if s > 0 else 1.0
             out = out + rgb * a * trans
@@ -77,7 +79,7 @@ def render_layers(layers, tgt_pose, tgt_pos, radii, ftb: bool = False,
     the front-to-back early-termination mode (K6); depth renders the depth
     proxy in place of the image."""
     if layers.device.type == "cpu":
-        u, v = uv_tables(tgt_pose, tgt_pos, radii, *layers.shape[3:])
+        u, v = uv_tables(tgt_pose, tgt_pos, radii, *layers.shape[2:4])
         return render_layers_plain(layers, u, v, depth)
     rgb, dep = _launch(layers, tgt_pose, tgt_pos, radii, ftb, not depth,
                        depth)
@@ -90,7 +92,7 @@ def render_layers_both(layers, tgt_pose, tgt_pos, radii, ftb: bool = False):
     build and render_layers_plain twice; CUDA tensors: one launch that
     composites both in one pass over the shells."""
     if layers.device.type == "cpu":
-        u, v = uv_tables(tgt_pose, tgt_pos, radii, *layers.shape[3:])
+        u, v = uv_tables(tgt_pose, tgt_pos, radii, *layers.shape[2:4])
         return (render_layers_plain(layers, u, v),
                 render_layers_plain(layers, u, v, depth=True))
     return _launch(layers, tgt_pose, tgt_pos, radii, ftb, True, True)
@@ -102,9 +104,9 @@ def render_layers_partial_plain(layers, u, v, p0: int, p_total: int):
     geometry/render.partial_composite, global shell 0's alpha taken as 1,
     colour and depth (p0 + p) / p_total -> (rgb, depth, trans): [B, H, W,
     3], [B, H, W, 3], [B, H, W, 1] float32."""
-    b, p, _, h, w = layers.shape
-    proj = torch.stack([resample_layers_uv(
-        layers[i].permute(0, 2, 3, 1), u[i], v[i]) for i in range(b)])
+    b, p, h, w, _ = layers.shape
+    proj = torch.stack([resample_layers_uv(layers[i], u[i], v[i])
+                        for i in range(b)])
     proj = proj.permute(0, 2, 3, 1, 4)                       # [B, H, W, P, 4]
     alpha = proj[..., 3:]
     if p0 == 0:
@@ -120,23 +122,19 @@ def render_layers_partial_plain(layers, u, v, p0: int, p_total: int):
 
 def render_layers_partial(layers, tgt_pose, tgt_pos, radii, p0: int,
                           p_total: int):
-    """The partial mode: layers [B, P, 4, H, W] are global shells p0 ..
+    """The partial mode: layers [B, P, H, W, 4] are global shells p0 ..
     p0+P-1 of p_total, radii [P] theirs -> (rgb, depth, trans) as
     render_layers_partial_plain returns them. CPU tensors take the plain
     route (uv_tables, render_layers_partial_plain); CUDA tensors one launch
     of the kernel's partial mode; any other device raises."""
     global partial_launches
-    b, p, c, h, w = layers.shape
+    b, p, h, w, _ = layers.shape
     if layers.device.type == "cpu":
         u, v = uv_tables(tgt_pose, tgt_pos, radii, h, w)
         return render_layers_partial_plain(layers, u, v, p0, p_total)
     dev = layers.device
+    _check_stack("render_layers_partial", layers)
     req = _build.require
-    req(layers.is_cuda, f"render_layers_partial: unsupported device {dev}")
-    req(c == 4 and layers.dtype in (torch.float32, torch.bfloat16)
-        and layers.is_contiguous(),
-        f"render_layers_partial: layers {layers.dtype} "
-        f"{tuple(layers.shape)}")
     req(radii.shape == (p,) and 0 <= p0 and p0 + p <= p_total,
         f"render_layers_partial: radii {tuple(radii.shape)}, shells "
         f"{p0}..{p0 + p - 1} of {p_total}")
@@ -158,13 +156,10 @@ def render_layers_partial(layers, tgt_pose, tgt_pos, radii, p0: int,
 def _launch(layers, tgt_pose, tgt_pos, radii, ftb, want_rgb, want_depth):
     """One launch of the kernel -> (rgb or None, depth or None)."""
     global launches, ftb_launches, both_launches
-    b, p, c, h, w = layers.shape
+    b, p, h, w, _ = layers.shape
     dev = layers.device
+    _check_stack("render_layers", layers)
     req = _build.require
-    req(layers.is_cuda, f"render_layers: unsupported device {dev}")
-    req(c == 4 and layers.dtype in (torch.float32, torch.bfloat16)
-        and layers.is_contiguous(),
-        f"render_layers: layers {layers.dtype} {tuple(layers.shape)}")
     req(radii.shape == (p,), f"render_layers: radii {tuple(radii.shape)} "
                              f"for {p} shells")
     geo = _build.geometry_args("render_layers", tgt_pose, tgt_pos, radii, b,
@@ -186,3 +181,15 @@ def _launch(layers, tgt_pose, tgt_pos, radii, ftb, want_rgb, want_depth):
     if want_rgb and want_depth:
         both_launches += 1
     return rgb, dep
+
+
+def _check_stack(what, layers):
+    """The kernel reads a contiguous [B, P, H, W, 4] stack on the card in
+    f32 or bf16, each texel one aligned vector load."""
+    req = _build.require
+    req(layers.is_cuda, f"{what}: unsupported device {layers.device}")
+    req(layers.dim() == 5 and layers.shape[-1] == 4
+        and layers.dtype in (torch.float32, torch.bfloat16)
+        and layers.is_contiguous() and layers.data_ptr() % 16 == 0,
+        f"{what}: layers {layers.dtype} {tuple(layers.shape)} (a "
+        f"contiguous, 16-byte aligned [B, P, H, W, 4] f32 or bf16 stack)")

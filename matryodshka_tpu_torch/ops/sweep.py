@@ -9,6 +9,14 @@ sweep is one launch; its source note gives the bound and the design. The
 output is the net's input, channels first and unflipped:
 [B, 2*P*3, H, W], channel (eye*P + p)*3 + c.
 
+`sweep_assembled` is the sweep's assembled mode (`csrc/sweep_assembled.cu`,
+sharing K1's staged windows through `csrc/sweep_window.cuh`): for the
+high-res re-render it writes the interleaved layer stack [B, P', H, W, 4]
+that the layer-stack render reads, both eyes' samples blended by the
+scheme's rule with the upsampled low-res weights, in one launch; its plain
+version `sweep_assembled_plain` is the sweep, upsample and assembly it
+stands in for.
+
 `sweep_volume` is also the custom op `matry::sweep_volume`
 (`torch.ops.matry.sweep_volume`), so that a program exported with
 `torch.export` can carry K1 (`cli/export.py`, the full pipeline). The op
@@ -26,10 +34,16 @@ import torch
 from matryodshka_tpu_torch.geometry import cameras, grids
 from matryodshka_tpu_torch.ops import _build
 
-#: Launches of the sweep kernel in this process, and of the row-parameter
-#: instrument (sweep_row_params).
+#: Launches of the sweep kernel in this process, of the row-parameter
+#: instrument (sweep_row_params) and of the assembled mode
+#: (sweep_assembled).
 launches = 0
 row_params_launches = 0
+assembled_launches = 0
+
+#: The assembled mode's colour rules (cli/test.py:HRES_ASSEMBLY's values)
+#: and their codes in csrc/sweep_assembled.cu.
+RULES = {"alpha_only": 0, "blend_psv": 1, "blend_bg": 2}
 
 
 def _probe_columns(width: int):
@@ -169,6 +183,107 @@ def sweep_volume(ref_image, src_image, depths, intrinsics,
         _build.stream_ptr(dev))
     _build.check(err, "matry_sweep")
     launches += 1
+    return out
+
+
+def sweep_assembled_plain(hres_ref, hres_src, depths, intrinsics, alphas,
+                          blend=None, bg_rgb=None, rule="blend_psv",
+                          p0: int = 0, out_dtype=torch.float32,
+                          row_params=None):
+    """Plain version of the assembled mode: the composition the high-res
+    re-render ran before the mode existed, kept in float32 and rounded once
+    to out_dtype: sweep_inputs + ods_sweep_plain, the align-corners
+    upsample of the low-res arrays (models/msi.py:
+    upsample_align_corners_cf) and the high-res assembly (models/msi.py:
+    assemble_hres_prepared). Arguments as sweep_assembled's; row_params
+    (dual_row_params' tables of these depths, e.g. the kernel's own from
+    sweep_row_params) replaces the plain row parameters."""
+    from matryodshka_tpu_torch.models import msi as msi_lib
+    _, hh, hw, _ = hres_ref.shape
+    p = depths.shape[0]
+    images, params = sweep_inputs(_preprocess(hres_ref),
+                                  _preprocess(hres_src), depths, intrinsics)
+    vol = ods_sweep_plain(images, params if row_params is None
+                          else row_params, torch.float32)
+
+    def up(x):
+        return msi_lib.upsample_align_corners_cf(x.permute(0, 3, 1, 2), hh,
+                                                 hw)
+
+    u_blend = None if rule == "alpha_only" else up(blend[..., p0:p0 + p])
+    u_bg = up(bg_rgb) if rule == "blend_bg" else None
+    stack = msi_lib.assemble_hres_prepared(
+        rule, u_blend, up(alphas[..., p0:p0 + p]), vol, u_bg_rgb=u_bg,
+        dtype=torch.float32)
+    return stack.to(out_dtype)
+
+
+def sweep_assembled(hres_ref, hres_src, depths, intrinsics, alphas,
+                    blend=None, bg_rgb=None, rule="blend_psv", p0: int = 0,
+                    out_dtype=torch.float32):
+    """The high-res layer stack of shells p0 .. p0+P'-1 straight from the
+    batch's image pair: the assembled mode of the sweep
+    (csrc/sweep_assembled.cu), what the high-res re-render's shell block
+    computed as a sweep, an upsample and an assembly.
+
+    hres_ref, hres_src: [B, Hh, Wh, 3] float32 in [0, 1]; depths [P'] (the
+    block's shells); intrinsics [B, 3, 3]; alphas and blend [B, h, w, P]
+    float32, the low-res prediction of every shell (blend None for
+    alpha_only), read at planes p0 .. p0+P'-1; bg_rgb [B, h, w, 3]
+    (blend_bg only); rule one of RULES: alpha_only (fg), blend_psv
+    (w fg + (1 - w) bg) or blend_bg (w fg + (1 - w) up(bg_rgb)), fg and
+    bg the ref and src eyes' sweeps. -> the interleaved stack
+    [B, P', Hh, Wh, 4] in out_dtype (r, g, b, alpha), blended in float32
+    and rounded once. CPU tensors take the plain route
+    (sweep_assembled_plain); CUDA tensors one launch of the kernel, which
+    computes its own row parameters and upsamples in registers; any other
+    device raises."""
+    if hres_ref.device.type == "cpu":
+        return sweep_assembled_plain(hres_ref, hres_src, depths, intrinsics,
+                                     alphas, blend, bg_rgb, rule, p0,
+                                     out_dtype)
+    global assembled_launches
+    req = _build.require
+    dev = hres_ref.device
+    req(hres_ref.is_cuda, f"sweep_assembled: unsupported device {dev}")
+    b, hh, hw, _ = hres_ref.shape
+    p = depths.shape[0]
+    req(rule in RULES, f"sweep_assembled: rule {rule!r} (one of "
+                       f"{sorted(RULES)})")
+    for name, t in (("hres_ref", hres_ref), ("hres_src", hres_src)):
+        req(t.device == dev and t.dtype == torch.float32
+            and t.is_contiguous() and tuple(t.shape) == (b, hh, hw, 3),
+            f"sweep_assembled: {name} {t.dtype} {tuple(t.shape)} "
+            f"(contiguous float32 [B, H, W, 3])")
+    req(hw % 4 == 0, f"sweep_assembled: width {hw} is not a multiple of 4")
+    _check_geometry("sweep_assembled", depths, intrinsics, b, dev)
+    _, h, w, p_low = alphas.shape
+    low = []
+    for name, t, c, read in (("alphas", alphas, p_low, True),
+                             ("blend", blend, p_low, rule != "alpha_only"),
+                             ("bg_rgb", bg_rgb, 3, rule == "blend_bg")):
+        req(not read or (t is not None and t.device == dev
+                         and t.dtype == torch.float32 and t.is_contiguous()
+                         and tuple(t.shape) == (b, h, w, c)),
+            f"sweep_assembled: rule {rule} reads {name} as a contiguous "
+            f"float32 [{b}, {h}, {w}, {c}]; got "
+            f"{None if t is None else (t.dtype, tuple(t.shape))}")
+        low.append(t.data_ptr() if read else None)
+    req(h <= hh and w <= hw and 0 <= p0 and p0 + p <= p_low,
+        f"sweep_assembled: low-res {h}x{w} into {hh}x{hw}, shells "
+        f"{p0}..{p0 + p - 1} of {p_low}")
+    req(out_dtype in (torch.float32, torch.bfloat16),
+        f"sweep_assembled: out_dtype {out_dtype}")
+    lat, lon = grids.lat_long_vectors(hh, hw, dev)
+    out = torch.empty((b, p, hh, hw, 4), dtype=out_dtype, device=dev)
+    err = _build.lib().matry_sweep_assembled(
+        hres_ref.data_ptr(), hres_src.data_ptr(), depths.data_ptr(),
+        intrinsics.data_ptr(), lat.data_ptr(), lon.data_ptr(),
+        *low,
+        out.data_ptr(), b, p, hh, hw, h, w, p_low, p0, RULES[rule],
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev))
+    _build.check(err, "matry_sweep_assembled")
+    assembled_launches += 1
     return out
 
 

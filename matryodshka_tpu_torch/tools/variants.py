@@ -4,13 +4,15 @@ kernels, timed on the card.
     python -m matryodshka_tpu_torch.tools.variants [NAME ...]
 
 (with names, only the variants whose name contains one of them). Builds
-`csrc/sweep.cu`, `csrc/render.cu`, `csrc/render_layers.cu`, `csrc/conv.cu`
-and `csrc/conv_wgrad.cu` once as they are and once per variant (a textual
+`csrc/sweep.cu`, `csrc/sweep_assembled.cu`, `csrc/render.cu`,
+`csrc/render_layers.cu`, `csrc/conv.cu` and `csrc/conv_wgrad.cu` once as
+they are and once per variant (a textual
 edit of a constant or a line, into `_build/variants/<name>/`, one `nvcc`
 each, all started together),
 loads each build with `ctypes` and times its C entry at the flagship
 shapes (640x320, 32 planes and shells, bf16 volume or stack; the sweep and
-the layer-stack render also at 4096x2048) with CUDA events around 30
+the layer-stack render also at 4096x2048, the sweep's assembled mode there
+alone) with CUDA events around 30
 back-to-back launches (5 at 4096x2048) after 5 warm-up, all inputs made
 from seeds. Each line carries the card's name and power
 limit. The variants:
@@ -23,11 +25,16 @@ limit. The variants:
 - render: 32 x 8 pixel tiles against the built 32 x 4; the taps and
   composite alone, the projection replaced by a fixed lookup, which splits
   its time between the two halves;
-- render_layers (640x320x32 and 4096x2048x32, bf16 stack; image and depth
-  in one launch, the same as two one-output launches, and front to back):
-  128 x 1 rows of pixels and 32 x 8 tiles against the built 32 x 4; a
-  row's two taps as one aligned 4-byte load where x0 is even; the taps
-  and composite alone, the projection replaced by a fixed lookup;
+- sweep_assembled (4096x2048x32, bf16 stack, each colour rule, the
+  low-res 640x320 weights): 256-column tiles and 16 planes a block
+  against the built 512 x 32; windows of 5 source rows and 8 columns a
+  lane (and both, the first design) against the built 3 rows and 4
+  columns; 4 blocks an SM; plain stores in place of streaming ones;
+- render_layers (the interleaved stack, 640x320x32 and 4096x2048x32,
+  bf16; image and depth in one launch, the same as two one-output
+  launches, and front to back): 32 x 8, 64 x 2 and 128 x 1 pixel tiles
+  against the built 32 x 4; one and four shells a step against two; the
+  taps and composite alone, the projection replaced by a fixed lookup;
 - conv (the bf16 wgmma kernel at the 18 stages of the 640x320 ngf-64 wrap
   and coord nets, bf16 inputs, CUDA events per layer): every layer on the
   64-Cout tile against the plan's choice (128 wherever Cout > 64); the
@@ -64,32 +71,6 @@ from matryodshka_tpu_torch.ops import sweep as sweep_ops
 _SYNC_END = "  __syncthreads();\n\n  const int ngroups"
 _TAP_READ = ("          col[t] = fmaf(q.fy, rb[c * stride + pos[t]] - a, a);")
 
-_TAP_LOADS = ("  for (int k = 0; k < 4; ++k) t[k] = "
-              "matry::to_f32(plane[o[k]]);\n")
-#: The layer-stack render's two taps of a row (x0, x0 + 1) as one 4-byte
-#: (bf16) or 8-byte (f32) load where that pair is aligned, i.e. x0 even
-#: in a row of even width; two loads elsewhere (odd x0, the wrap at W - 1).
-_PAIRED_TAPS = """  for (int k = 0; k < 4; k += 2) {
-    const TL* t0 = plane + o[k];
-    if (o[k + 1] == o[k] + 1 &&
-        !(reinterpret_cast<unsigned long long>(t0) & (2 * sizeof(TL) - 1))) {
-      if constexpr (sizeof(TL) == 2) {
-        const __nv_bfloat162 pr =
-            *reinterpret_cast<const __nv_bfloat162*>(t0);
-        t[k] = __low2float(pr);
-        t[k + 1] = __high2float(pr);
-      } else {
-        const float2 pr = *reinterpret_cast<const float2*>(t0);
-        t[k] = pr.x;
-        t[k + 1] = pr.y;
-      }
-    } else {
-      t[k] = matry::to_f32(t0[0]);
-      t[k + 1] = matry::to_f32(plane[o[k + 1]]);
-    }
-  }
-"""
-
 #: conv.cu's choice of tile in make_plan.
 _PLAN_TILE = "  p.tile = Cout > 64 ? 0 : 1;"
 
@@ -116,6 +97,25 @@ VARIANTS = {
     "sweep without tap reads": ("sweep.cu", [
         ("          const float a = ra[c * stride + pos[t]];\n" + _TAP_READ,
          "          col[t] = (float)pos[t];")], True),
+    "sweep_assembled": ("sweep_assembled.cu", [], False),
+    "sweep_assembled 256-column tiles": ("sweep_assembled.cu", [
+        ("int TILE_W = 512;", "int TILE_W = 256;")], False),
+    "sweep_assembled 16 planes a block": ("sweep_assembled.cu", [
+        ("int PLANES = 32;", "int PLANES = 16;")], False),
+    "sweep_assembled 5 window rows": ("sweep_assembled.cu", [
+        ("int WIN_ROWS = 3;", "int WIN_ROWS = 5;")], False),
+    "sweep_assembled 8 columns a lane": ("sweep_assembled.cu", [
+        ("int COLS = 4;", "int COLS = 8;")], False),
+    "sweep_assembled 8 columns a lane, 5 window rows": (
+        "sweep_assembled.cu", [("int COLS = 4;", "int COLS = 8;"),
+                               ("int WIN_ROWS = 3;", "int WIN_ROWS = 5;")],
+        False),
+    "sweep_assembled 4 blocks an SM": ("sweep_assembled.cu", [
+        ("__launch_bounds__(THREADS)", "__launch_bounds__(THREADS, 4)")],
+        False),
+    "sweep_assembled without streaming stores": ("sweep_assembled.cu", [
+        ("__stcs(reinterpret_cast<uint4*>(o + 4 * t), w);",
+         "*reinterpret_cast<uint4*>(o + 4 * t) = w;")], False),
     "render": ("render.cu", [], False),
     "render 32 x 8 tiles": ("render.cu", [
         ("TILE_X = 32, TILE_Y = 4;", "TILE_X = 32, TILE_Y = 8;")], False),
@@ -134,8 +134,8 @@ VARIANTS = {
         ("TILE_X = 32, TILE_Y = 4;", "TILE_X = 128, TILE_Y = 1;")], False),
     "render_layers 32 x 8 tiles": ("render_layers.cu", [
         ("TILE_X = 32, TILE_Y = 4;", "TILE_X = 32, TILE_Y = 8;")], False),
-    "render_layers paired taps": ("render_layers.cu", [
-        (_TAP_LOADS, _PAIRED_TAPS)], False),
+    "render_layers 64 x 2 tiles": ("render_layers.cu", [
+        ("TILE_X = 32, TILE_Y = 4;", "TILE_X = 64, TILE_Y = 2;")], False),
     "render_layers without projection": ("render_layers.cu", [
         ("  matry::shell_uv(q, radius, m, u, v);\n",
          "  u = blockIdx.x * TILE_X + threadIdx.x + 0.37f * p;\n"
@@ -245,7 +245,8 @@ def _build_all(names):
                 raise RuntimeError(f"variant {name!r} failed to build:\n"
                                    f"{out[-3000:]}")
             lib = ctypes.CDLL(str(so))
-            for fn in ("matry_sweep", "matry_render", "matry_render_layers",
+            for fn in ("matry_sweep", "matry_sweep_assembled",
+                       "matry_render", "matry_render_layers",
                        "matry_conv", "matry_conv_plan",
                        "matry_conv_stats_blocks", "matry_conv_wgrad",
                        "matry_wgrad_plan"):
@@ -276,10 +277,10 @@ def _time_us(fn, iters: int = 30) -> float:
 
 
 def _stack(gen, p, h, w):
-    """A bf16 layer stack [1, P, 4, H, W]: colours uniform in [-1, 1],
-    alphas sigmoid(3 U(-1, 1))."""
-    stack = torch.rand((1, p, 4, h, w), generator=gen, device="cuda") * 2 - 1
-    stack[:, :, 3] = torch.sigmoid(3.0 * stack[:, :, 3])
+    """A bf16 interleaved layer stack [1, P, H, W, 4]: colours uniform in
+    [-1, 1], alphas sigmoid(3 U(-1, 1))."""
+    stack = torch.rand((1, p, h, w, 4), generator=gen, device="cuda") * 2 - 1
+    stack[..., 3] = torch.sigmoid(3.0 * stack[..., 3])
     return stack.to(torch.bfloat16)
 
 
@@ -288,7 +289,7 @@ def _layer_stack_times(lib, stack, target, part):
     image and depth in one launch against the two one-output launches,
     and front to back in one launch; each output must equal the built
     kernel's bit for bit unless the variant is a part. -> text."""
-    _, p, _, h, w = stack.shape
+    _, p, h, w, _ = stack.shape
     dev = stack.device
     lat, lon = grids.lat_long_vectors(h, w, dev)
     stream = _build.stream_ptr(dev)
@@ -318,6 +319,38 @@ def _layer_stack_times(lib, stack, target, part):
                     raise RuntimeError("a layer-stack variant differs")
     return (f"{w}x{h}x{p} bf16 both {both:9.2f} us, rgb + depth launches "
             f"{two:9.2f} us, ftb both {ftb:9.2f} us")
+
+
+def _assembled_times(lib, hres, depths, intr, low, part):
+    """One variant of the sweep's assembled mode at 4096x2048x32, bf16
+    stack, each colour rule (CUDA events, 5 launches after 5), each output
+    equal to the built kernel's bit for bit unless the variant is a part.
+    -> text."""
+    ref, src = hres
+    _, h, w, _ = ref.shape
+    _, lh, lw, p = low[0].shape
+    dev = ref.device
+    lat, lon = grids.lat_long_vectors(h, w, dev)
+    stream = _build.stream_ptr(dev)
+    out = []
+    for rule, code in sweep_ops.RULES.items():
+        want = sweep_ops.sweep_assembled(ref, src, depths, intr, *low,
+                                         rule=rule,
+                                         out_dtype=torch.bfloat16)
+        got = torch.empty_like(want)
+
+        def call(code=code):
+            _build.check(lib.matry_sweep_assembled(
+                ref.data_ptr(), src.data_ptr(), depths.data_ptr(),
+                intr.data_ptr(), lat.data_ptr(), lon.data_ptr(),
+                *(t.data_ptr() for t in low), got.data_ptr(), 1, p, h, w,
+                lh, lw, p, 0, code, 1, stream), "matry_sweep_assembled")
+
+        out.append(f"{rule} {_time_us(call, 5):9.2f} us")
+        if not part and not torch.equal(got, want):
+            raise RuntimeError(f"an assembled variant differs ({rule})")
+        del want, got
+    return f"{w}x{h}x{p} bf16 " + ", ".join(out)
 
 
 def _conv_times(lib, nets, want):
@@ -453,6 +486,9 @@ def main(argv=None) -> int:
               params.msi_depths)
     lat, lon = grids.lat_long_vectors(320, 640, dev)
     stacks = [_stack(gen, p, h, w) for h, w in ((320, 640), (2048, 4096))]
+    low = (torch.rand((1, 320, 640, p), generator=gen, device=dev),
+           torch.rand((1, 320, 640, p), generator=gen, device=dev),
+           torch.rand((1, 320, 640, 3), generator=gen, device=dev) * 2 - 1)
     conv_nets = conv_want = wgrad_layers = wgrad_want = None
     for name in names:
         src, _, part = VARIANTS[name]
@@ -477,6 +513,11 @@ def main(argv=None) -> int:
                              for k, v in conv_nets.items()}
             text, _ = _conv_times(lib, conv_nets, conv_want)
             print(f"variant {name:28s} {text} [{card}]")
+            continue
+        if src == "sweep_assembled.cu":
+            print(f"variant {name:28s} "
+                  + _assembled_times(lib, hres, depths, intr, low, part)
+                  + f"{' (part)' if part else ''} [{card}]")
             continue
         if src == "render_layers.cu":
             print(f"variant {name:28s} "

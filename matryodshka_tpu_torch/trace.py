@@ -38,7 +38,8 @@ CALLS = 10    # traced calls per part
 TOP = 10      # kernels listed per part
 #: The port's hand-written kernels (csrc/*.cu), summed per part by name
 #: whatever their template arguments.
-PORT_KERNELS = ("sweep_kernel", "row_params_kernel", "conv_wgmma_kernel",
+PORT_KERNELS = ("sweep_kernel", "row_params_kernel", "assembled_kernel",
+                "conv_wgmma_kernel",
                 "conv_f32_kernel", "uv_project_kernel",
                 "stats_fold", "ln_onchip", "ln_stats", "ln_apply",
                 "render_kernel", "render_layers_kernel", "wgrad_wgmma_kernel",

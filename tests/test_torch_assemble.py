@@ -4,10 +4,11 @@ high-res prepared assembly, the align-corners upsample, and the net's head
 width for each scheme.
 
 Inputs are numpy from a seed at 32x64 with 4 planes. The port's layer
-stack is [B, P, 4, H, W], unflipped and unpadded; the JAX stack is
-W-flipped and row-wrap-padded by `pad` with two pole-cap bands beside it,
-so the test compares the port's stack with prepared[:, :, pad:pad+H, ::-1]
-and rebuilds each cap band from the port's rows.
+stack is [B, P, H, W, 4], interleaved, unflipped and unpadded; the JAX
+stack is planar, W-flipped and row-wrap-padded by `pad` with two pole-cap
+bands beside it, so the test compares the port's stack, permuted to
+[P, 4, H, W], with prepared[:, :, pad:pad+H, ::-1] and rebuilds each cap
+band from the port's rows.
 
 Tolerances: in float32 both packages evaluate the same expressions on the
 same values, so 1e-6 (measured 0). In bfloat16 the stack is rounded once
@@ -60,8 +61,8 @@ def _planar(net_input):
 
 
 def _check_stack(got, want, pad, tol):
-    """got: the port's [P, 4, H, W]; want: the JAX prepared dict."""
-    got = got.float().numpy()
+    """got: the port's [P, H, W, 4]; want: the JAX prepared dict."""
+    got = got.permute(0, 3, 1, 2).float().numpy()
     prep = np.asarray(want["prepared"].astype(jnp.float32))
     np.testing.assert_allclose(got, prep[:, :, pad:pad + H, ::-1], rtol=0,
                                atol=tol)
@@ -97,7 +98,7 @@ def test_assemble_rgba_prepared_matches_jax(scheme, dtype):
     vol, fgF, bgF = _planar(net_input)
     got = tmsi.assemble_rgba_prepared(
         scheme, torch.from_numpy(pred).permute(0, 3, 1, 2), vol, P, tdt)
-    assert got.shape == (1, P, 4, H, W) and got.dtype == tdt
+    assert got.shape == (1, P, H, W, 4) and got.dtype == tdt
     want = jmsi.assemble_rgba_prepared(scheme, jnp.asarray(pred[0]), fgF,
                                        bgF, P, cap_pad=CAP_PAD, dtype=jdt)
     pad = pallas_render.prepared_geometry(H, W)["pad"]

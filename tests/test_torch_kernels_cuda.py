@@ -400,11 +400,11 @@ def test_render_kernel_matches_plain(cuda, rot_deg, dtype, depth):
 
 
 def _stack(dev, dtype, b, p, h, w, seed=9):
-    """A layer stack [B, P, 4, H, W]: colours uniform in [-1, 1], alphas
-    in (0, 1)."""
+    """An interleaved layer stack [B, P, H, W, 4]: colours uniform in
+    [-1, 1], alphas in (0, 1)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    layers = torch.rand((b, p, 4, h, w), generator=gen, device=dev) * 2 - 1
-    layers[:, :, 3] = torch.sigmoid(3.0 * layers[:, :, 3])
+    layers = torch.rand((b, p, h, w, 4), generator=gen, device=dev) * 2 - 1
+    layers[..., 3] = torch.sigmoid(3.0 * layers[..., 3])
     return layers.to(dtype)
 
 
@@ -477,16 +477,19 @@ def test_render_layers_kernel_flagship(cuda, dtype, ftb):
 
 @pytest.mark.cuda
 def test_render_layers_kernel_hres(cuda):
-    """The high-res re-render's case: a bf16 stack of 32 4096x2048 shells
-    (2^30 values: 64-bit plane offsets), back to front, every mode."""
+    """The high-res re-render's case: a stack of 32 4096x2048 shells (2^30
+    values: 64-bit shell offsets), bf16 and f32, back to front, every
+    mode."""
     from matryodshka_tpu_torch.geometry import sweep as sweep_lib
     radii = torch.tensor(sweep_lib.inv_depths(1.0, 100.0, 32),
                          dtype=torch.float32, device=cuda)
     pose, pos, _ = _target(cuda, 0.0)
-    rgb, depth = _check_layer_stack_modes(
-        _stack(cuda, torch.bfloat16, 1, 32, 2048, 4096), (pose, pos, radii),
-        False, 2048, 4096)
-    assert torch.isfinite(rgb).all() and torch.isfinite(depth).all()
+    for dtype in (torch.bfloat16, torch.float32):
+        rgb, depth = _check_layer_stack_modes(
+            _stack(cuda, dtype, 1, 32, 2048, 4096), (pose, pos, radii),
+            False, 2048, 4096)
+        assert torch.isfinite(rgb).all() and torch.isfinite(depth).all()
+        del rgb, depth
 
 
 @pytest.mark.cuda
@@ -596,8 +599,9 @@ def test_hres_render_matches_plain(cuda):
                                     "alpha_only"])
 def test_hres_render_schemes_match_plain(cuda, scheme):
     """The high-res re-render of the other schemes, each with its colour
-    rule (cli/test.py:HRES_ASSEMBLY), at 128x256: one sweep and one
-    layer-stack launch for image and depth, no lookup table, against the
+    rule (cli/test.py:HRES_ASSEMBLY), at 128x256: one assembled-sweep
+    launch (no K1 volume) and one layer-stack launch for image and depth,
+    no lookup table, against the
     shell-streamed plain f32 path at test_hres_render_matches_plain's
     bound. alpha_only is given no blend weights."""
     from matryodshka_tpu_torch.cli import test as cli_test
@@ -619,14 +623,15 @@ def test_hres_render_schemes_match_plain(cuda, scheme):
     intr = torch.eye(3, device=cuda)[None].clone()
     intr[0, 0, 0] = 0.032
     pos = torch.tensor([[0.02, 0.01, -0.015]], device=cuda)
-    counts = ((sweep_ops, "launches"), (rl_ops, "launches"),
-              (rl_ops, "both_launches"), (render_lib, "uv_builds"))
+    counts = ((sweep_ops, "assembled_launches"), (sweep_ops, "launches"),
+              (rl_ops, "launches"), (rl_ops, "both_launches"),
+              (render_lib, "uv_builds"))
     before = [getattr(m, c) for m, c in counts]
     rgb, depth = cli_test.build_hres_render_fn(cfg)(
         ref, src, bw, al, eye, eye, eye, intr, pos, bg_rgb=bg)
     torch.cuda.synchronize()
     assert [getattr(m, c) - n for (m, c), n in zip(counts, before)] == \
-        [1, 1, 1, 0]
+        [1, 0, 1, 1, 0]
     rgb_p, depth_p = cli_test.hres_render_plain(cfg, ref, src, bw, al, intr,
                                                 pos, bg_rgb=bg)
     assert (rgb - rgb_p).abs().max().item() <= 2e-2
@@ -1588,7 +1593,8 @@ def test_render_layers_partial_matches_plain(cuda, dtype, rot_deg, blocks):
 @pytest.mark.cuda
 def test_hres_render_shell_blocks_match_unsharded(cuda):
     """The test CLI's high-res re-render in 4 shell blocks in one process
-    (4 sweep and 4 partial-mode launches) against the unsharded render."""
+    (4 assembled-sweep and 4 partial-mode launches) against the unsharded
+    render."""
     from matryodshka_tpu_torch.cli import test as cli_test
     cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=8,
                              num_msi_planes=8, ngf=NGF, hres_height=2 * H,
@@ -1605,9 +1611,9 @@ def test_hres_render_shell_blocks_match_unsharded(cuda):
             t(1, H, W, 8), eye, eye, eye, intr,
             torch.tensor([[0.02, 0.01, -0.015]], device=cuda))
     whole = cli_test.build_hres_render_fn(cfg)(*args)
-    sweeps, parts = sweep_ops.launches, rl_ops.partial_launches
+    sweeps, parts = sweep_ops.assembled_launches, rl_ops.partial_launches
     blocks = cli_test.build_hres_render_fn(cfg, shards=4)(*args)
-    assert sweep_ops.launches - sweeps == 4
+    assert sweep_ops.assembled_launches - sweeps == 4
     assert rl_ops.partial_launches - parts == 4
     for g, wnt in zip(blocks, whole):
         assert (g - wnt).abs().max().item() <= 1e-5
@@ -1634,3 +1640,117 @@ def test_gcn_infer_fn_matches_plain(cuda, scheme, tmp_path):
     want = cli_test.infer_plain(cfg, params, b)
     for k in ("output_image", "output_depth"):
         assert (got[k] - want[k]).abs().max().item() <= 1e-4, k
+
+
+# ---------------------------------------------------------------------------
+# The sweep's assembled mode (csrc/sweep_assembled.cu).
+# ---------------------------------------------------------------------------
+
+def bf16_ulps(got, want):
+    """|got - want| in bf16 steps (ulps), elementwise, of two bf16
+    tensors: their bit patterns as ordered integers."""
+    def ordered(x):
+        i = x.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(got) - ordered(want)).abs()
+
+
+def _assembled_case(dev, hh, hw, p, seed=21):
+    """The batch's high-res pair [1, hh, hw, 3] in [0, 1], the low-res
+    (hh/2 x hw/2) alphas and blend weights [1, ., ., p] in [0, 1] and
+    background colour in [-1, 1], the depths (1 m to 100 m) and
+    intrinsics."""
+    from matryodshka_tpu_torch.geometry import sweep as sweep_lib
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    depths = torch.tensor(sweep_lib.inv_depths(1.0, 100.0, p),
+                          dtype=torch.float32, device=dev)
+    intr = torch.eye(3, device=dev)[None].clone()
+    intr[0, 0, 0] = 0.032
+    return (rand(1, hh, hw, 3), rand(1, hh, hw, 3), depths, intr,
+            rand(1, hh // 2, hw // 2, p), rand(1, hh // 2, hw // 2, p),
+            rand(1, hh // 2, hw // 2, 3) * 2 - 1)
+
+
+#: (high-res rows, columns, shells, the block's first and last shell): the
+#: flagship's whole stack at 640x320, the re-render's at 4096x2048 and one
+#: of its four shell blocks.
+ASSEMBLED_CASES = [(320, 640, 32, 0, 32), (2048, 4096, 32, 0, 32),
+                   (2048, 4096, 32, 8, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rule", ["alpha_only", "blend_psv", "blend_bg"])
+@pytest.mark.parametrize("case", ASSEMBLED_CASES)
+def test_sweep_assembled_matches_plain(cuda, case, rule, dtype):
+    """One launch of the assembled mode against sweep_assembled_plain
+    (compared four shells at a time) fed the kernel's own row parameters
+    (sweep_row_params: K1's projection, held to float64 by the sweep
+    gates): the same taps, upsample and rule, each rounded once in f32 but
+    in other orders: 1e-5
+    on values in [-1, 1] in f32; in bf16 both round the f32 stack once, so
+    every value lies within one bf16 step, or, near 0, where a bf16 step
+    is finer than the two f32 sums' difference, within that f32 bound (the
+    shares one step off and beyond it are printed). Two launches are
+    bit-identical."""
+    hh, hw, p, p0, p1 = case
+    ref, src, depths, intr, alphas, blend, bg = _assembled_case(cuda, hh,
+                                                                 hw, p)
+    args = (ref, src, depths[p0:p1].contiguous(), intr, alphas, blend, bg)
+    n = sweep_ops.assembled_launches
+    got = sweep_ops.sweep_assembled(*args, rule=rule, p0=p0, out_dtype=dtype)
+    assert sweep_ops.assembled_launches == n + 1
+    assert got.shape == (1, p1 - p0, hh, hw, 4) and got.dtype == dtype
+    assert torch.equal(got, sweep_ops.sweep_assembled(
+        *args, rule=rule, p0=p0, out_dtype=dtype))
+    off = near0 = 0
+    for q in range(p0, p1, 4):
+        dq = depths[q:q + 4].contiguous()
+        want = sweep_ops.sweep_assembled_plain(
+            ref, src, dq, intr, alphas, blend, bg, rule, q, dtype,
+            sweep_ops.sweep_row_params(dq, intr, hh, hw))
+        mine = got[:, q - p0:q - p0 + 4]
+        if dtype == torch.float32:
+            assert (mine - want).abs().max().item() <= 1e-5, q
+        else:
+            ulps = bf16_ulps(mine, want)
+            small = (mine.float() - want.float()).abs() <= 1e-5
+            assert torch.where(small, 0, ulps).max().item() <= 1, q
+            off += int((ulps == 1).sum())
+            near0 += int(((ulps > 1) & small).sum())
+    if dtype == torch.bfloat16:
+        print(f"assembled {hw}x{hh} shells {p0}..{p1 - 1} {rule}: "
+              f"{off / got.numel():.3e} of the values one bf16 step off, "
+              f"{near0 / got.numel():.3e} more near 0 within 1e-5")
+
+
+@pytest.mark.cuda
+def test_hres_rerender_launches(cuda):
+    """A re-render at 4096x2048 is one assembled-sweep launch and one K5
+    launch (image and depth); in 4 shell blocks one of each a block (the
+    partial mode); no K1 volume and no lookup table."""
+    from matryodshka_tpu_torch.cli import test as cli_test
+    cfg = entry.flagship_cfg(which_color_pred="blend_bg")
+    hh, hw, p = cfg.hres_height, cfg.hres_width, cfg.num_psv_planes
+    ref, src, _, intr, alphas, blend, bg = _assembled_case(cuda, hh, hw, p)
+    small = [torch.nn.functional.interpolate(
+        x.permute(0, 3, 1, 2), size=(cfg.height, cfg.width)).permute(
+        0, 2, 3, 1).contiguous() for x in (alphas, blend, bg)]
+    eye = torch.eye(4, device=cuda)[None]
+    pos = torch.tensor([[0.02, 0.01, -0.015]], device=cuda)
+    counts = ((sweep_ops, "assembled_launches"), (sweep_ops, "launches"),
+              (rl_ops, "launches"), (rl_ops, "partial_launches"),
+              (render_lib, "uv_builds"))
+    for shards, want in ((1, [1, 0, 1, 0, 0]), (4, [4, 0, 0, 4, 0])):
+        before = [getattr(m, c) for m, c in counts]
+        rgb, depth = cli_test.build_hres_render_fn(cfg, shards)(
+            ref, src, small[1], small[0], eye, eye, eye, intr, pos,
+            bg_rgb=small[2])
+        torch.cuda.synchronize()
+        assert [getattr(m, c) - n for (m, c), n in zip(counts, before)] \
+            == want
+        assert torch.isfinite(rgb).all() and torch.isfinite(depth).all()

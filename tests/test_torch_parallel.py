@@ -332,7 +332,7 @@ def test_partial_mode_blocks_combine_to_the_full_render(blocks):
     stack: 1e-5 (the render-layer gates); one block is the full render."""
     rng = np.random.RandomState(3)
     p, h, w = 8, 16, 32
-    stack = torch.from_numpy(rng.rand(1, p, 4, h, w).astype(np.float32))
+    stack = torch.from_numpy(rng.rand(1, p, h, w, 4).astype(np.float32))
     pose, pos = torch.eye(4)[None], torch.tensor([[0.02, -0.01, 0.03]])
     radii = torch.linspace(20.0, 2.0, p)
     want = rl_ops.render_layers_both(stack, pose, pos, radii)

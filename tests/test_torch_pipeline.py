@@ -198,7 +198,7 @@ def test_wrappers_raise_off_cpu_and_cuda():
                                 depth=True)
     with pytest.raises(ValueError):
         render_ops.uv_project(pose, pos, depths, 8, 16)
-    layers = torch.empty((1, 2, 4, 8, 16), device=meta)
+    layers = torch.empty((1, 2, 8, 16, 4), device=meta)
     for ftb in (False, True):
         for depth in (False, True):
             with pytest.raises(ValueError):

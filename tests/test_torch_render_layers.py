@@ -107,7 +107,7 @@ def test_plain_composite_equals_closed_form(depth):
     """The shell-streamed plain composite equals over_composite
     (over_composite_depth) of all sampled shells, to f32 order (1e-6)."""
     rng = np.random.RandomState(2)
-    layers = torch.from_numpy(rng.rand(2, P, 4, 16, 32).astype(np.float32))
+    layers = torch.from_numpy(rng.rand(2, P, 16, 32, 4).astype(np.float32))
     u = torch.from_numpy(rng.uniform(-40, 80, (2, P, 16, 32)).astype(
         np.float32))
     v = torch.from_numpy(rng.uniform(-20, 40, (2, P, 16, 32)).astype(
@@ -117,8 +117,7 @@ def test_plain_composite_equals_closed_form(depth):
                  else trender.over_composite)
     from matryodshka_tpu_torch.ops.resample import resample_layers_uv
     want = torch.stack([composite(resample_layers_uv(
-        layers[i].permute(0, 2, 3, 1), u[i], v[i]).permute(1, 2, 0, 3))
-        for i in range(2)])
+        layers[i], u[i], v[i]).permute(1, 2, 0, 3)) for i in range(2)])
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
 
 
@@ -163,8 +162,8 @@ def test_both_equals_two_calls(kind, ftb):
     ops/render_layers.render_layers_both) gives the image and the depth of
     the two one-output calls bit for bit, on a random f32 and bf16 stack."""
     rng = np.random.RandomState(5)
-    stack = rng.uniform(-1, 1, (2, P, 4, H, W)).astype(np.float32)
-    stack[:, :, 3] = 1.0 / (1.0 + np.exp(-3.0 * stack[:, :, 3]))
+    stack = rng.uniform(-1, 1, (2, P, H, W, 4)).astype(np.float32)
+    stack[..., 3] = 1.0 / (1.0 + np.exp(-3.0 * stack[..., 3]))
     pose, pos = _pose(kind)
     targs = (torch.from_numpy(pose).expand(2, 4, 4),
              torch.from_numpy(np.concatenate([pos, -pos])),
