@@ -87,8 +87,8 @@ profiler trace):
    6 steps each (the gather sweeps, the coord net's PyTorch convs), the
    step in parts; the wrap net's PP pixel step for 3 (K7 at path 5's count
    a step); one test-CLI request each (the gather sweep, 18 conv launches
-   in the coord mode and 17 layer-norm launches, the assembly, the MPI
-   render), its view against the all-plain f32 route and its first conv
+   in the coord mode, 17 of them with their inputs' layer norm fused, the
+   assembly, the MPI render), its view against the all-plain f32 route and its first conv
    (Cin' 193 and 196) against its plain version, its stages timed; then
    cli/evaluate.py on the two outputs;
 13. the rest of the trainer's options: the released recipe with src and
@@ -113,8 +113,8 @@ profiler trace):
    against its eager function and the test CLI's kernel route, the
    consumer tool in subprocesses that load the op library and no module
    and count K1 once a call in a profiler trace; the smoothed net through
-   entry.forward, wrap and coord (18 conv and 17 layer-norm launches, the
-   upsampling stages in the conv kernel's folded form, gated and timed
+   entry.forward, wrap and coord (18 conv launches, 17 with the layer norm
+   fused, the upsampling stages in the conv kernel's folded form, gated and timed
    beside the transposed form's), and its trainer for 3 steps (K7 at path
    5's count, one step against the all-plain routes); the 4096x2048
    re-render of blend_bg, blend_bg_psv and alpha_only (one assembled-sweep
@@ -141,8 +141,9 @@ Each path's wall and the whole run's are printed.
 
 Every output is gated against its all-plain float32 twin. Stages, kernels
 and plain versions are timed with CUDA events (the conv layers with their
-TFLOP/s and the tile each took; the sweep, the renders, the layer norm
-and the probes also by profiler device time), and beside each kernel the
+TFLOP/s and the tile each took; the sweep, the renders, the net's convs
+with and without the fused layer norm and the probes also by profiler
+device time), and beside each kernel the
 least time the card could take for its work (bound_ms: the larger of its
 bytes over the memory rate and its operations over the peak rate for
 their type, computed from this run's inputs) and, where one PyTorch call
@@ -207,11 +208,20 @@ OPS_RENDER_BLEND = 80
 OPS_RENDER_LAYERS = 40
 OPS_RENDER_DEPTH = 16
 OPS_RENDER_BOTH = OPS_RENDER_LAYERS + 4
-#: f32 operations per output element: the sweep (two vertical and one
-#: horizontal lerp, 3 ops each) and the layer norm (sum and sum of
-#: squares, then normalize, scale, shift, ReLU).
+#: f32 operations per output element of the sweep (two vertical and one
+#: horizontal lerp, 3 ops each); what the fused layer norm adds to the
+#: convs: per output element of a producer the epilogue's sum and sum of
+#: squares (an add and an FMA), per element a consumer reads
+#: relu(a * y + b) (an FMA and a max).
 OPS_SWEEP = 9
-OPS_LAYERNORM = 7
+OPS_LN_STATS = 2
+OPS_LN_APPLY = 2
+#: The 18 convs and 17 layer-norm launches of one flagship frame before the
+#: layer norm was fused, device ms (PERF.md section 6: the conv kernel's
+#: sums and the layer norm's one-trace sum; NVIDIA H100 80GB HBM3, 700.00
+#: W), printed beside this run's 18 fused stages; the two are compared
+#: only within one call of tools/conv_ab.py.
+PARENT_NET_MS = {"conv": (1.772, 0.245), "conv_coord": (1.874, 0.245)}
 #: f32 operations per texel of the sweep's assembled mode, by colour rule:
 #: per eye read three channels of OPS_SWEEP; the upsampled alpha's (and
 #: blend weight's) horizontal lerp, 3 each, and its vertical one shared by
@@ -372,19 +382,25 @@ def nvidia_smi_line() -> str:
 #: the conv's and the weight gradient's wgmma (HGMMA); the weight gradient
 #: must hold no mma.sync (HMMA) either.
 REPORTED = r"conv_(wgmma|f32)_kernel|wgrad_(wgmma|f32)_kernel|" \
-    r"wgrad_reduce|stats_fold|ln_(onchip|stats|apply)\b"
+    r"wgrad_reduce|stats_fold"
+#: Names of a layer-norm kernel of its own (the parent's csrc/layernorm.cu
+#: ln_onchip, ln_stats, ln_apply): the build holds none since the layer
+#: norm is fused into the conv kernel, and no trace of the net shows one.
+LN_KERNEL_NAMES = r"\bln_(onchip|stats|apply)\b|layernorm"
 TENSOR_CORE = {"conv_wgmma_kernel": "HGMMA", "wgrad_wgmma_kernel": "HGMMA"}
 NO_HMMA = ("wgrad_wgmma_kernel",)
 
 
 def kernel_build_report(so) -> None:
-    """The conv, weight-gradient and layer-norm kernels' instantiations in
-    the built library: ptxas's registers and spills for each (from the
-    build log, `-Xptxas -v`), and the tensor-core instructions in each
-    one's SASS (`cuobjdump -sass`), HGMMA (wgmma) apart from HMMA
-    (mma.sync). Fails if a bf16 instantiation lacks its instruction
-    (conv_wgmma_kernel and wgrad_wgmma_kernel HGMMA) or spills, or if a
-    wgrad_wgmma_kernel instantiation holds any HMMA."""
+    """The conv and weight-gradient kernels' instantiations in the built
+    library (conv_wgmma_kernel's with the fused layer norm's fold and
+    transform): ptxas's registers and spills for each (from the build log,
+    `-Xptxas -v`), and the tensor-core instructions in each one's SASS
+    (`cuobjdump -sass`), HGMMA (wgmma) apart from HMMA (mma.sync). Fails
+    if a bf16 instantiation lacks its instruction (conv_wgmma_kernel and
+    wgrad_wgmma_kernel HGMMA) or spills, if a wgrad_wgmma_kernel
+    instantiation holds any HMMA, or if the library holds a layer-norm
+    kernel of its own (LN_KERNEL_NAMES)."""
     import re
     from pathlib import Path
 
@@ -456,6 +472,10 @@ def kernel_build_report(so) -> None:
         print(f"kernel build: {n} bf16 instantiations of {k} "
               f"({TENSOR_CORE[k]}); "
               f"{'ok' if n and not missing and not spilled else 'FAIL'}")
+    ln = [n for n in short if re.search(LN_KERNEL_NAMES, n)]
+    print(f"kernel build: {len(ln)} layer-norm kernels of their own "
+          f"{'ok' if not ln else 'FAIL'}")
+    check(not ln, f"the build holds layer-norm kernels: {ln}")
     check(all(n_tc.values()) and not missing,
           f"bf16 instantiations without their tensor-core instruction or "
           f"with mma.sync: {missing or n_tc}")
@@ -486,13 +506,12 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 #: Profiler traces taken of one window before device_ms gives up.
 TRACE_TRIES = 3
-#: The layer-norm kernel's device functions (csrc/layernorm.cu), as the
-#: profiler names them.
-LN_KERNELS = r"\bln_(onchip|stats|apply)\b"
+#: The bf16 conv kernel, as the profiler names it.
+CONV_KERNELS = r"\bconv_wgmma_kernel\b"
 #: Cycles of the spin kernel (torch.cuda._sleep, "spin_kernel", ~10 ms)
 #: that opens and closes each device_ms window, outside the calls it
-#: counts. Without the spins the layer norm's per-layer traces kept 169 of
-#: their 170 launches in every run of this script, while a fresh process
+#: counts. Without the spins the parent's per-layer traces of its layer
+#: norm kept 169 of their 170 launches in every run, while a fresh process
 #: keeps all 170: the profiler drops a device event at an edge of a
 #: window (one whose timestamp falls outside the window it recorded on the
 #: host), so the window's first and last kernels are spins, and its
@@ -849,6 +868,96 @@ def layer_stack_gates(gate, name, what, stack, target, u, v, ftb):
             and torch.equal(got["both"][1], got["depth"][0]))
     print(f"{name:10s} {what} both mode vs the two one-output launches: "
           f"{'bit-identical' if same else 'DIFFER (within the gates)'}")
+
+
+def fused_norm_gates(prm, key, stage_inputs, gate, gen, tag):
+    """The conv kernel with its inputs' layer norm + ReLU fused, at the 17
+    stages of one flagship net (prm) that read layer-normed inputs. Each
+    source is made by its own stage's kernel (stats=True: its output and
+    partials) on that stage's gate input (stage_inputs), and each source's
+    gamma and beta are the stage's, perturbed from gen (gamma x (1 + 0.1
+    N), beta + 0.1 N). In bf16 and in f32 (the f32 kernel, weights cast),
+    the fused consumer is gated ("conv_ln") against conv_plain of
+    layer_norm_relu_plain of each source: one bf16 step (2^-7 of the
+    output's largest magnitude; both sides round the normalized input and
+    the output once, the sums in other orders), 1e-5 of it in f32; two
+    launches bit-identical. Then one profiler trace (device_ms) of every
+    bf16 stage as the net runs it (norm and stats) and of the same conv
+    alone on the same input: each stage's device us with and without the
+    fusion. Returns {"stages": {name: (x, norm, st)} (bf16, the net's 18
+    stages), "fused_ms", "alone_ms": per-stage device ms lists or None if
+    the trace lost a launch}."""
+    from matryodshka_tpu_torch.ops import conv as conv_ops
+    stages = {}
+    for dtype, rel in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
+        outs = {}
+        for plan, st in zip(prm.net.plan, prm.stages):
+            if st["stats"]:
+                n0 = conv_ops.stats_launches
+                outs[plan[0]] = conv_ops.conv(
+                    stage_inputs[plan[0]].to(dtype), st["w"].to(dtype),
+                    st["b"], **st["args"], stats=True)
+                check(conv_ops.stats_launches == n0 + 1,
+                      f"{key} {plan[0]}: one launch with statistics")
+        if dtype == torch.bfloat16:
+            # where var = s2 / n - mean^2 cancels (tests/test_torch_conv_ln:
+            # the fold's error grows with mean^2 / var)
+            ratios = [(y.double().mean() ** 2 / y.double().var()).item()
+                      for y, _ in outs.values()]
+            print(f"conv_ln {key} mean^2 / var of the 17 normed outputs "
+                  f"(seeded weights): {min(ratios):.3g} .. "
+                  f"{max(ratios):.3g} {tag}")
+        for plan, st in zip(prm.net.plan, prm.stages):
+            name = plan[0]
+            if st["norm"] is None:
+                stages[name] = (stage_inputs[name], None, st)
+                continue
+            ys = [outs[s][0] for s in st["srcs"]]
+            x = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+            norm = [conv_ops.Norm(
+                outs[s][1],
+                g * (1 + 0.1 * torch.randn(g.shape, generator=gen,
+                                           device=g.device)),
+                bt + 0.1 * torch.randn(bt.shape, generator=gen,
+                                       device=bt.device))
+                for s, (g, bt) in zip(st["srcs"], st["norm"])]
+            wk = st["w"].to(dtype)
+            n0 = conv_ops.norm_launches
+            got = conv_ops.conv(x, wk, st["b"], **st["args"], norm=norm)
+            check(conv_ops.norm_launches == n0 + 1,
+                  f"{key} {name}: one launch with the layer norm fused")
+            want = conv_ops.conv_plain(conv_ops.normalize_plain(x, norm), wk,
+                                       st["b"], **st["args"])
+            gate("conv_ln", f"{key} {name} {tuple(x.shape[1:])} "
+                 f"{str(dtype)[6:]}", got, want,
+                 rel * want.float().abs().max().item())
+            check(torch.equal(got, conv_ops.conv(x, wk, st["b"],
+                                                 **st["args"], norm=norm)),
+                  f"conv_ln {key} {name} {dtype}: two launches differ")
+            if dtype == torch.bfloat16:
+                stages[name] = (x, norm, st)
+        del outs
+    fns = []
+    for name, (x, norm, st) in stages.items():
+        fns.append(functools.partial(conv_ops.conv, x, st["w"], st["b"],
+                                     **st["args"], norm=norm,
+                                     stats=st["stats"]))
+        fns.append(functools.partial(conv_ops.conv, x, st["w"], st["b"],
+                                     **st["args"]))
+    per, _, _ = device_ms(fns, [1] * len(fns), CONV_KERNELS)
+    fused_ms = per[0::2] if per else None
+    alone_ms = per[1::2] if per else None
+    for i, name in enumerate(stages):
+        txt = ("not measured (the trace lost launches)" if per is None else
+               f"fused {fused_ms[i] * 1e3:8.3f} us, conv alone "
+               f"{alone_ms[i] * 1e3:8.3f} us, added "
+               f"{(fused_ms[i] - alone_ms[i]) * 1e3:8.3f} us")
+        print(f"conv_ln {key:10s} {name:10s} device {txt} (trace) {tag}")
+    if per:
+        print(f"conv_ln {key} 18 stages device: fused {sum(fused_ms):.4f} "
+              f"ms, conv alone {sum(alone_ms):.4f} ms, the layer norm's "
+              f"added {sum(fused_ms) - sum(alone_ms):.4f} ms {tag}")
+    return {"stages": stages, "fused_ms": fused_ms, "alone_ms": alone_ms}
 
 
 def wrap_conv_layers(ngf: int, cin0: int):
@@ -1606,8 +1715,8 @@ def rerender_path(dev, tag, reset_counts, read_counts):
     launches = read_counts()
     print(f"launches of the re-render request: {launches}")
     check(launches["sweep"] == 1 and launches["conv"] == 18
-          and launches["layernorm"] > 0, "the re-render request's sweep "
-                                         "and net kernels")
+          and launches["conv_norm"] == 17, "the re-render request's sweep "
+                                           "and net kernels")
     check(sorted(outs) == sorted([f"output_psp{i}" for i in range(4)]
                                  + ["output_src", "output_ref"]),
           f"re-render outputs {sorted(outs)}")
@@ -1841,7 +1950,7 @@ def evaluator_path(dev, tag, reset_counts, read_counts):
         launches = read_counts()
         print(f"launches of the test CLI runs the evaluator reads: "
               f"{launches}")
-        for k in ("sweep", "conv_coord", "layernorm", "render",
+        for k in ("sweep", "conv_coord", "conv_norm", "render",
                   "render_depth"):
             check(launches[k] > 0, f"kernel {k} was not launched on the "
                                    f"evaluator's test CLI path")
@@ -1942,8 +2051,8 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
     training/loop.train on the loader's batches for MPI_WRAP_STEPS steps,
     K7a/b/c and wgrad at path 5's count a step (k7_per_step). Then one
     test-CLI request of each recipe's checkpoint (cli/test.main): 18 conv
-    launches (all in the coord mode) and 17 layer-norm launches, no sweep
-    or render kernel; the request's view against the all-plain f32 route
+    launches (all in the coord mode), 17 of them with their inputs' layer
+    norm fused and 17 writing their statistics, no sweep or render kernel; the request's view against the all-plain f32 route
     (E2E_TOL) and its first conv (Cin' 193, 196) against its plain
     version (one bf16 step); its ms. Then cli/evaluate.main (E-LPIPS on
     random features) on the two requests' outputs."""
@@ -2088,9 +2197,9 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
             rl = read_counts()
             print(f"{recipe} test CLI request launches: {rl}")
             check(rl["conv"] == 18 and rl["conv_coord"] == 18
-                  and rl["layernorm"] == 17,
-                  f"{recipe}: 18 conv (coord mode) and 17 layer-norm "
-                  f"launches per request")
+                  and rl["conv_norm"] == rl["conv_stats"] == 17,
+                  f"{recipe}: 18 conv launches (coord mode) per request, "
+                  f"17 with the layer norm fused")
             check(rl["sweep"] == 0 and rl["render"] == 0
                   and rl["render_layers"] == 0 and rl["gather_sweep"] == 1,
                   f"{recipe}: the gather sweep, no sweep or render kernel")
@@ -2256,9 +2365,9 @@ def options_path(dev, tag, reset_counts, read_counts, k7_per_step):
         moments bfloat16, losses finite;
     (e) cli/train.main --dry_run (tgt_hrestgt), --dry_run_inference on
         (a)'s checkpoint and --profile_steps 2,3: the files, the launches
-        of the inference dump (K1, 18 coord-mode convs, 17 layer norms,
-        one layer-stack render for image and depth), a trace with device
-        events;
+        of the inference dump (K1, 18 coord-mode convs, 17 of them with
+        the layer norm fused, one layer-stack render for image and
+        depth), a trace with device events;
     (f) use_pallas false: one test-CLI request and one train step with
         every kernel count at 0; the view within E2E_TOL of its all-plain
         f32 twin and, but for the far shell's park flips (PARK_SHARE), of
@@ -2282,7 +2391,7 @@ def options_path(dev, tag, reset_counts, read_counts, k7_per_step):
     fcfg = entry.flagship_cfg()
     h, w = fcfg.height, fcfg.width
     nsteps = TRAIN_WARMUP + TRAIN_STEPS
-    kernels = ("sweep", "conv", "layernorm", "render", "render_layers",
+    kernels = ("sweep", "conv", "conv_norm", "render", "render_layers",
                "render_depth", "render_layers_ftb", "render_layers_both",
                "conv_coord", *K7_COUNTS)
 
@@ -2564,7 +2673,7 @@ def options_path(dev, tag, reset_counts, read_counts, k7_per_step):
             check(files == want_inf, f"--dry_run_inference files "
                                      f"{sorted(files ^ want_inf)[:6]}")
             check(got["sweep"] == 1 and got["conv"] == 18
-                  and got["conv_coord"] == 18 and got["layernorm"] == 17
+                  and got["conv_coord"] == 18 and got["conv_norm"] == 17
                   and got["render_layers"] == 1
                   and got["render_layers_both"] == 1,
                   "--dry_run_inference: K1, 18 coord convs, 17 layer "
@@ -2849,7 +2958,7 @@ def smoothed_path(dev, tag, reset_counts, read_counts, k7_per_step, gate):
     """Path 14b-c: the smoothed net (nearest 2x and a 4x4 conv in place of
     each transposed conv). (b) entry.forward, wrap and coord net, one
     request each: 18 conv launches (the three upsampling stages in the
-    conv kernel's folded parity form) and 17 layer-norm launches, the
+    conv kernel's folded parity form), 17 with the layer norm fused, the
     view within E2E_TOL of the all-plain f32 route, the frame's ms; the
     three upsampling stages' conv kernel against its plain version (gate)
     and their kernel ms beside the transposed net's same stages on the
@@ -2874,9 +2983,11 @@ def smoothed_path(dev, tag, reset_counts, read_counts, k7_per_step, gate):
         got = read_counts()
         print(f"launches of the smoothed {net} net's entry.forward: {got}")
         check(got["sweep"] == got["render"] == 1 and got["conv"] == 18
-              and got["conv_wgmma"] == 18 and got["layernorm"] == 17
+              and got["conv_wgmma"] == 18
+              and got["conv_norm"] == got["conv_stats"] == 17
               and got["conv_coord"] == (18 if coord else 0),
-              f"smoothed {net}: one sweep, 18 conv, 17 LN, one render")
+              f"smoothed {net}: one sweep, 18 conv (17 with the layer norm "
+              f"fused), one render")
         err = (out - entry.forward_plain(sparams, sb)).abs()
         print(f"smoothed {net} request: |bf16 kernels - f32 plain| max "
               f"{err.max().item():.3e} mean {err.mean().item():.3e} (gate "
@@ -3056,7 +3167,7 @@ def gcn_path(dev, tag, reset_counts, read_counts, gate_e2e):
     """Path 15a-b: the GCN (--gcn true) at full width, subdiv GCN_SUBDIV.
     (a) The test CLI's request for blend_psv (image and depth through K3's
     two modes) and blend_bg (the prepared assembly and one layer-stack
-    launch for both): one K1 launch each, no conv or layer-norm launch, no
+    launch for both): one K1 launch each, no conv launch, no
     lookup tables; each view and depth within E2E_TOL of the all-plain f32
     route (infer_plain); the request's stages and the GCN forward timed.
     (b) The GCN trainer through training/loop.train for GCN_STEPS steps on
@@ -3093,7 +3204,7 @@ def gcn_path(dev, tag, reset_counts, read_counts, gate_e2e):
         want = ({"render": 1, "render_depth": 1, "render_layers": 0}
                 if scheme == "blend_psv" else
                 {"render": 0, "render_layers": 1, "render_layers_both": 1})
-        check(n["sweep"] == 1 and n["conv"] == n["layernorm"] == 0
+        check(n["sweep"] == 1 and n["conv"] == n["conv_norm"] == 0
               and n["uv_tables"] == 0
               and all(n[k] == v for k, v in want.items()),
               f"gcn {scheme}: one K1 and one render launch per output set")
@@ -3535,7 +3646,8 @@ def main() -> None:
     from matryodshka_tpu_torch.models import msi as msi_lib
     from matryodshka_tpu_torch.ops import _build
     from matryodshka_tpu_torch.ops import conv as conv_ops
-    from matryodshka_tpu_torch.ops import layernorm as ln_ops
+    from matryodshka_tpu_torch.ops.layernorm import \
+        layer_norm_relu_plain as ln_plain_fn
     from matryodshka_tpu_torch.ops import render as render_ops
     from matryodshka_tpu_torch.ops import render_layers as rl_ops
     from matryodshka_tpu_torch.ops import sweep as sweep_ops
@@ -3577,7 +3689,7 @@ def main() -> None:
     batch = entry.synthetic_batch(cfg, 0, dev)
     rng = torch.Generator(device=dev).manual_seed(1234)
     h, w, p = cfg.height, cfg.width, cfg.num_msi_planes
-    errs = {"sweep": 0.0, "conv": 0.0, "conv_coord": 0.0, "layernorm": 0.0,
+    errs = {"sweep": 0.0, "conv": 0.0, "conv_coord": 0.0, "conv_ln": 0.0,
             "render": 0.0, "render_depth": 0.0, "render_layers_k4": 0.0,
             "render_layers_k5": 0.0, "render_layers_k6": 0.0,
             "wrap_conv_k7a": 0.0, "wrap_conv_k7b": 0.0,
@@ -3610,12 +3722,12 @@ def main() -> None:
                                  params.psv_depths, batch["intrinsics"],
                                  torch.bfloat16)
 
-    # conv + layer norm: every stage of unet_plan at ngf 64 on bf16 inputs
-    # of the stage's shape. Kernel and plain version see the same rounded
-    # operands, accumulate in f32 (in different orders) and round to bf16
-    # once each, so an output may land one bf16 step apart where the two
-    # sums straddle a rounding boundary: tolerance 2^-7 of the output's
-    # largest magnitude, which is at least one bf16 step there.
+    # conv: every stage of unet_plan at ngf 64 on bf16 inputs of the
+    # stage's shape, the conv alone. Kernel and plain version see the same
+    # rounded operands, accumulate in f32 (in different orders) and round
+    # to bf16 once each, so an output may land one bf16 step apart where
+    # the two sums straddle a rounding boundary: tolerance 2^-7 of the
+    # output's largest magnitude, which is at least one bf16 step there.
     stage_inputs = {}
     for plan, st in zip(params.net.plan, params.stages):
         name, kind, _, cins, cout, ind, _, _ = plan
@@ -3634,24 +3746,6 @@ def main() -> None:
         check(torch.equal(y, conv_ops.conv(x, st["w"], st["b"],
                                            **st["args"])),
               f"conv {name}: two launches differ")
-        if "gamma" in st:
-            # the LN+ReLU on this stage's output, bf16 (as the net runs it)
-            # and f32: f64 partials against the plain version's two-pass
-            # f32 mean/variance, 1e-5 of the output scale in f32, one bf16
-            # step (2^-7 of it) in bf16; two launches bit-identical
-            g = st["gamma"] * (1 + 0.1 * torch.randn(
-                cout, generator=rng, device=dev))
-            bt = 0.1 * torch.randn(cout, generator=rng, device=dev)
-            for yd, rel in ((y, 2.0 ** -7), (y.float(), 1e-5)):
-                form = ln_ops.plan_for(yd)
-                zp = ln_ops.layer_norm_relu_plain(yd, g, bt)
-                z = ln_ops.layer_norm_relu(yd, g, bt)
-                gate("layernorm", f"{name} {tuple(y.shape[1:])} "
-                     f"{str(yd.dtype)[6:]} {form[0]} ({form[1]} x "
-                     f"{form[2]})", z, zp, rel * zp.float().abs().max().item())
-                check(torch.equal(z, ln_ops.layer_norm_relu(yd, g, bt)),
-                      f"layernorm {name} {yd.dtype}: two launches differ")
-            del z, zp
 
     # the coord net's conv kernel mode: every stage of its plan at ngf 64,
     # on the wrap stages' inputs (same shapes), with the same tolerance.
@@ -3675,6 +3769,14 @@ def main() -> None:
         gate("conv_coord", f"{name} {kind} {tuple(x.shape[1:])}->{cout}"
              f"{' +coord' if 'coord' in st['args'] else ''}", y, yp,
              2.0 ** -7 * yp.float().abs().max().item())
+
+    # the layer norm + ReLU fused into the conv (K2's LN+ReLU stage): the
+    # 17 stages that read layer-normed inputs, wrap and coord net, bf16
+    # and f32, each against conv_plain of layer_norm_relu_plain of its
+    # sources; each stage's device time with and without it
+    # (fused_norm_gates)
+    fused = {key: fused_norm_gates(prm, key, stage_inputs, gate, rng, tag)
+             for key, prm in (("conv", params), ("conv_coord", cparams))}
 
     # render: translated and rotated target, bf16 volume, f32 prediction,
     # in K3's two halves: the kernel's projection (its uv instrument)
@@ -3719,8 +3821,7 @@ def main() -> None:
     lap("kernel gates")
 
     # ---- the slice: three requests through entry.forward -----------------
-    mods = {"sweep": sweep_ops, "conv": conv_ops, "layernorm": ln_ops,
-            "render": render_ops}
+    mods = {"sweep": sweep_ops, "conv": conv_ops, "render": render_ops}
     batches = [entry.synthetic_batch(cfg, seed, dev, tgt_pos=pos)
                for seed, pos in REQUESTS]
     torch.cuda.synchronize()
@@ -3728,12 +3829,19 @@ def main() -> None:
         m.launches = 0
     sweep_ops.row_params_launches = render_ops.uv_launches = 0
     conv_ops.wgmma_launches = 0
+    conv_ops.norm_launches = conv_ops.stats_launches = 0
     outs = [entry.forward(params, b) for b in batches]
     torch.cuda.synchronize()
     launches = {k: m.launches for k, m in mods.items()}
+    launches["conv_norm"] = conv_ops.norm_launches
+    launches["conv_stats"] = conv_ops.stats_launches
     check(conv_ops.wgmma_launches == launches["conv"] == 18 * len(batches),
           f"every conv stage of the {len(batches)} requests launched the "
           f"wgmma kernel: {conv_ops.wgmma_launches} of {launches['conv']}")
+    check(launches["conv_norm"] == launches["conv_stats"]
+          == 17 * len(batches),
+          "17 conv launches a frame with their inputs' layer norm fused and "
+          "17 writing their statistics, no layer-norm launch")
     instruments = (sweep_ops.row_params_launches, render_ops.uv_launches)
     print(f"launches over {len(batches)} requests: {launches}; instruments "
           f"(row params, uv) {instruments}")
@@ -3746,6 +3854,9 @@ def main() -> None:
     # the stages' device operations per frame: one profiler trace each
     # (trace.trace_part, 10 calls after 2 warm-up; a sweep or render trace
     # whose kernel events differ from the counted launches is taken again)
+    import re
+
+    from matryodshka_tpu_torch.trace import CALLS, port_kernels
     b0, rt0 = batches[0], torch.eye(4, device=dev)[None]
     with torch.no_grad():
         vq = msi_lib.sweep_stage(cfg, b0, params.psv_depths)
@@ -3754,6 +3865,8 @@ def main() -> None:
                 ("sweep", lambda: msi_lib.sweep_stage(cfg, b0,
                                                       params.psv_depths), 1,
                  sweep_ops),
+                ("net", lambda: msi_lib.net_stage(params.stages, vq), None,
+                 conv_ops),
                 ("render", lambda: msi_lib.render_stage(
                     vq, pq, rt0, b0["tgt_pose"], params.msi_depths), 1,
                  render_ops),
@@ -3763,11 +3876,20 @@ def main() -> None:
             print(f"stage {name:6s} {ops:g} device ops/frame (trace: host "
                   f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
                   f"share {idle:.3f}) {tag}")
-            if want_ops is not None and ops != want_ops:
+            if name == "net" or (want_ops is not None and ops != want_ops):
                 for op, n in counts.most_common():
                     print(f"  {n} x {op[:100]} ({by_name[op]:.1f} us)")
             check(want_ops is None or ops == want_ops,
                   f"the {name} stage is {want_ops} device operation")
+            if name in ("net", "frame"):
+                ln = [op for op in counts if re.search(LN_KERNEL_NAMES, op)]
+                convs = port_kernels(by_name, counts).get(
+                    "conv_wgmma_kernel", (0, 0.0))[0] / CALLS
+                print(f"stage {name}: {convs:g} conv kernel launches a "
+                      f"frame, {len(ln)} layer-norm kernels in its trace")
+                check(convs == 18 and not ln,
+                      f"the {name} stage launches 18 port kernels, the "
+                      f"conv's, and no layer-norm kernel")
     del vq, pq
     for (seed, pos), b, out in zip(REQUESTS, batches, outs):
         check(tuple(out.shape) == (1, h, w, 3), f"output shape {out.shape}")
@@ -3785,8 +3907,8 @@ def main() -> None:
     lap("path 1")
 
     # ---- path 2: the test CLI, one request per colour scheme ---------------
-    counted = {"sweep": sweep_ops, "conv": conv_ops, "layernorm": ln_ops,
-               "render": render_ops, "render_layers": rl_ops}
+    counted = {"sweep": sweep_ops, "conv": conv_ops, "render": render_ops,
+               "render_layers": rl_ops}
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -3797,6 +3919,7 @@ def main() -> None:
         render_lib.uv_builds = 0
         conv_ops.coord_launches = 0
         conv_ops.wgmma_launches = 0
+        conv_ops.norm_launches = conv_ops.stats_launches = 0
         sweep_lib.gather_sweeps = 0
         rl_ops.partial_launches = 0
         sweep_ops.assembled_launches = 0
@@ -3810,6 +3933,8 @@ def main() -> None:
         got["uv_tables"] = render_lib.uv_builds
         got["conv_coord"] = conv_ops.coord_launches
         got["conv_wgmma"] = conv_ops.wgmma_launches
+        got["conv_norm"] = conv_ops.norm_launches
+        got["conv_stats"] = conv_ops.stats_launches
         got["gather_sweep"] = sweep_lib.gather_sweeps
         got["render_layers_partial"] = rl_ops.partial_launches
         got["sweep_assembled"] = sweep_ops.assembled_launches
@@ -3838,7 +3963,7 @@ def main() -> None:
                 for _, c, prm, b in cli]
     cli_launches = read_counts()
     print(f"launches over the {len(cli)} test CLI requests: {cli_launches}")
-    for k in ("sweep", "conv", "layernorm", "render", "render_depth",
+    for k in ("sweep", "conv", "conv_norm", "render", "render_depth",
               "render_layers"):
         check(cli_launches[k] > 0, f"kernel {k} was not launched on the "
                                    f"test CLI's low-res path")
@@ -3945,7 +4070,7 @@ def main() -> None:
     coord_launches = read_counts()
     print(f"launches over {len(cbatches)} coord-net requests: "
           f"{coord_launches}")
-    for k in ("sweep", "conv_coord", "layernorm", "render"):
+    for k in ("sweep", "conv_coord", "conv_norm", "render"):
         check(coord_launches[k] > 0, f"kernel {k} was not launched on the "
                                      f"coord net's entry.forward path")
     check(coord_launches["conv_wgmma"] == coord_launches["conv_coord"]
@@ -3968,7 +4093,7 @@ def main() -> None:
     ccli_out = cli_test.build_infer_fn(ccfg, cparams, cli_outputs)(cb_cli)
     ccli_launches = read_counts()
     print(f"launches of the coord-net test CLI request: {ccli_launches}")
-    for k in ("sweep", "conv_coord", "layernorm", "render", "render_depth"):
+    for k in ("sweep", "conv_coord", "conv_norm", "render", "render_depth"):
         check(ccli_launches[k] > 0, f"kernel {k} was not launched on the "
                                     f"coord net's test CLI path")
     gate_e2e(f"cli coord {cscheme} tgt_pos {cpos}", ccli_out,
@@ -4036,39 +4161,60 @@ def main() -> None:
         OPS_SWEEP * out_elems + OPS_ROW_PARAM * 2 * p * h, F32_FLOPS)
 
     def time_net(prm, key):
-        """Per stage: the conv kernel, its plain version and the library
-        conv (cuDNN in bf16 on the same operands, zero padded: F.conv2d on
-        the input with the coord channel appended for coord stages,
-        F.conv_transpose2d for deconvs); for the wrap net also the LN+ReLU
-        kernel, its plain version and two library calls, F.group_norm
-        with one group and F.layer_norm over (C, H, W) with gamma and beta
-        expanded, each + relu_. Sums into kernel_ms / plain_ms / lib_ms
-        (for the LN the faster call's sum) and the bounds."""
+        """Per stage, as the net runs it on fused[key]'s operands (its
+        inputs' layer norm fused, its output's statistics written): the
+        kernel, its plain version (conv_plain after layer_norm_relu_plain
+        of each source) and the library calls: cuDNN in bf16 on the same
+        input, zero padded (F.conv2d on the input with the coord channel
+        appended for coord stages, F.conv_transpose2d for deconvs), and on
+        each output but the head's F.group_norm with one group and
+        F.layer_norm over (C, H, W), each + relu_. Sums into kernel_ms /
+        plain_ms / lib_ms (cuDNN's alone) and the bounds; the 18 stages
+        beside the parent's conv + LN (PARENT_NET_MS) and cuDNN beside
+        cuDNN + the faster library norm. For the wrap net also the fused
+        layer norm's row, conv_ln: its device ms the 18 stages' fused
+        device time less the convs' alone (fused_norm_gates' trace), its
+        plain ms layer_norm_relu_plain's on the 17 normed outputs, its
+        library ms the faster library norm's, its bound what the fusion
+        adds to the convs: the epilogue's sums over the 17 outputs, each
+        consumer's fold of its sources' partials (f64, at half the f32
+        rate) and relu(a * y + b) once per element it reads, and the
+        partials' bytes (written once, read once per consumer) and the
+        vectors' gamma and beta."""
         kernel_ms[key] = plain_ms[key] = lib_ms[key] = 0.0
-        with_ln = key == "conv"
-        if with_ln:
-            kernel_ms["layernorm"] = plain_ms["layernorm"] = 0.0
-            ln_lib = {"group_norm": 0.0, "layer_norm": 0.0}
-            ln_calls = []  # (layer, form, the kernel call)
-        flops = cbytes = ln_bytes = ln_elems = 0.0
+        ln_lib = {"group_norm": 0.0, "layer_norm": 0.0}
+        ln_plain = 0.0
+        flops = cbytes = ln_bytes = ln_ops = 0.0
         for plan, st in zip(prm.net.plan, prm.stages):
             name, kind, _, cins, cout, _, _, rate = plan
             args = st["args"]
-            x = stage_inputs[name]
-            y = conv_ops.conv(x, st["w"], st["b"], **args)
-            kt = time_ms(lambda: conv_ops.conv(x, st["w"], st["b"], **args))
-            pt = time_ms(lambda: conv_ops.conv_plain(x, st["w"], st["b"],
-                                                     **args))
+            x, norm, _ = fused[key]["stages"][name]
+            fn = functools.partial(conv_ops.conv, x, st["w"], st["b"],
+                                   **args, norm=norm, stats=st["stats"])
+            y, part = fn() if st["stats"] else (fn(), None)
+            kt = time_ms(fn)
+            for n in norm or ():
+                # the consumer: its fold (a sum a partial, ~8 per channel
+                # and sample; f64) and relu(a * y + b) per element read
+                ln_ops += 2 * (n.partial.numel()
+                              + 8 * x.shape[0] * n.gamma.numel())
+                ln_bytes += nbytes(n.partial, n.gamma, n.beta)
+            if norm:
+                ln_ops += OPS_LN_APPLY * x.numel()
+            xn = x if norm is None else conv_ops.normalize_plain(x, norm)
+            pt = time_ms(lambda: conv_ops.conv_plain(
+                x if norm is None else conv_ops.normalize_plain(x, norm),
+                st["w"], st["b"], **args))
             layer = getattr(prm.net, name)
             wb = layer.weight.detach().to(torch.bfloat16)
             bb = st["b"].to(torch.bfloat16)
             if kind == "deconv":
                 wt = wb.flip(2, 3).transpose(0, 1).contiguous()
                 lt = time_ms(lambda: torch.nn.functional.conv_transpose2d(
-                    x, wt, bb, stride=2, padding=1))
+                    xn, wt, bb, stride=2, padding=1))
             else:
-                xl = (conv_ops.with_coord(x, args["coord"])
-                      if "coord" in args else x)
+                xl = (conv_ops.with_coord(xn, args["coord"])
+                      if "coord" in args else xn)
                 lo = conv_ops.pad_pair(args.get("pad", 0))
                 xl = torch.nn.functional.pad(xl, (lo[0], lo[1], lo[0],
                                                   lo[1]))
@@ -4082,73 +4228,65 @@ def main() -> None:
                 nbytes(args["coord"]) if "coord" in args else 0)
             tile = conv_ops.tile_config(x, cout, **args)
             line = (f"{key} {name:10s} kernel {kt:8.3f} ms "
-                    f"({f / kt / 1e9:6.2f} TFLOP/s, tile {tile}) plain "
+                    f"({f / kt / 1e9:6.2f} TFLOP/s, tile {tile}"
+                    f"{', norm' if norm else ''}"
+                    f"{', stats' if st['stats'] else ''}) plain "
                     f"{pt:8.3f} ms library bf16 {lt:7.3f} ms")
             kernel_ms[key] += kt
             plain_ms[key] += pt
             lib_ms[key] += lt
-            if with_ln and "gamma" in st:
-                g, bt = st["gamma"], st["beta"]
-                nt = time_ms(lambda: ln_ops.layer_norm_relu(y, g, bt))
-                npt = time_ms(lambda: ln_ops.layer_norm_relu_plain(y, g, bt))
+            if st["stats"]:
+                g = torch.ones(cout, device=dev)
+                bt = torch.zeros(cout, device=dev)
+                npt = time_ms(lambda: ln_plain_fn(y, g, bt))
                 gnt = time_ms(lambda: torch.relu_(
                     torch.nn.functional.group_norm(
-                        y, 1, g.to(y.dtype), bt.to(y.dtype),
-                        eps=ln_ops.EPS)))
+                        y, 1, g.to(y.dtype), bt.to(y.dtype), eps=1e-12)))
                 chw = y.shape[1:]
-                ge = g.to(y.dtype)[:, None, None].expand(chw).contiguous()
-                be = bt.to(y.dtype)[:, None, None].expand(chw).contiguous()
+                ge = torch.ones(chw, dtype=y.dtype, device=dev)
+                be = torch.zeros(chw, dtype=y.dtype, device=dev)
                 lnt = time_ms(lambda: torch.relu_(
                     torch.nn.functional.layer_norm(y, chw, ge, be,
-                                                   eps=ln_ops.EPS)))
-                kernel_ms["layernorm"] += nt
-                plain_ms["layernorm"] += npt
+                                                   eps=1e-12)))
+                ln_plain += npt
                 ln_lib["group_norm"] += gnt
                 ln_lib["layer_norm"] += lnt
-                ln_bytes += 2 * nbytes(y) + nbytes(g, bt)
-                ln_elems += y.numel()
-                ln_calls.append((name, ln_ops.plan_for(y)[0],
-                                 functools.partial(ln_ops.layer_norm_relu,
-                                                   y, g, bt)))
-                line += (f" | layernorm ({ln_calls[-1][1]}) kernel "
-                         f"{nt:7.3f} ms plain "
-                         f"{npt:7.3f} ms library group_norm {gnt:7.3f} ms "
-                         f"layer_norm {lnt:7.3f} ms")
+                ln_bytes += nbytes(part)
+                ln_ops += OPS_LN_STATS * y.numel()
+                line += (f" | its layer norm: plain {npt:7.3f} ms library "
+                         f"group_norm {gnt:7.3f} ms layer_norm {lnt:7.3f} "
+                         f"ms")
             print(line, tag)
+        call = min(ln_lib, key=ln_lib.get)
         bounds[key] = bound(cbytes, flops, BF16_FLOPS)
-        if with_ln:
-            bounds["layernorm"] = bound(ln_bytes, OPS_LAYERNORM * ln_elems,
-                                        F32_FLOPS)
-            call = min(ln_lib, key=ln_lib.get)
-            lib_ms["layernorm"] = ln_lib[call]
-            # the 17 layers' kernels in one trace: the on-chip form is one
-            # kernel a call, the two-pass form two
-            per_layer, _, nlaunch = device_ms(
-                [fn for _, _, fn in ln_calls],
-                [1 if form == "onchip" else 2 for _, form, _ in ln_calls],
-                LN_KERNELS)
-            # a sum only of a complete trace
-            dev = sum(per_layer) if per_layer else None
-            for i, (name, form, _) in enumerate(ln_calls):
-                us = (f"{per_layer[i] * 1e3:8.3f} us" if per_layer
-                      else "not measured (the trace lost launches)")
-                print(f"layernorm {name:10s} form {form:8s} device {us} "
-                      f"(trace) {tag}")
-            device_only["layernorm"] = (dev, nlaunch)
-            dev_txt = ("not measured (the trace lost launches)"
-                       if dev is None else f"{dev:.4f} ms")
-            print(f"net layernorm device time (trace) {dev_txt} "
-                  f"per frame in {nlaunch:g} kernel launches; CUDA "
-                  f"events {kernel_ms['layernorm']:.4f} ms {tag}")
-            print(f"net layernorm library: F.group_norm "
-                  f"{ln_lib['group_norm']:.3f} ms, F.layer_norm "
-                  f"{ln_lib['layer_norm']:.3f} ms; "
-                  f"library_ms is F.{call} {tag}")
-        print(f"net {key} total {flops / 1e9:.1f} GFLOP: kernel "
-              f"{kernel_ms[key]:.3f} ms = "
-              f"{flops / kernel_ms[key] / 1e9:.2f} TFLOP/s; library bf16 "
-              f"{lib_ms[key]:.3f} ms; bound {bounds[key][0]:.3f} ms "
-              f"({bounds[key][1]}) {tag}")
+        fz, al = fused[key]["fused_ms"], fused[key]["alone_ms"]
+        dev_ms = sum(fz) if fz else None
+        device_only[key] = (dev_ms, 18)
+        pc, pl = PARENT_NET_MS[key]
+        print(f"net {key} 18 stages {flops / 1e9:.1f} GFLOP: kernel "
+              f"{kernel_ms[key]:.3f} ms events = "
+              f"{flops / kernel_ms[key] / 1e9:.2f} TFLOP/s, device "
+              + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+              + f" in 18 launches (the parent's conv {pc} + layer norm {pl}"
+              f" = {pc + pl:.3f} ms device, PERF.md); library cuDNN bf16 "
+              f"{lib_ms[key]:.3f} ms, + F.{call} of the 17 outputs "
+              f"{lib_ms[key] + ln_lib[call]:.3f} ms; bound "
+              f"{bounds[key][0]:.3f} ms ({bounds[key][1]}) {tag}")
+        if key != "conv":
+            return
+        kernel_ms["conv_ln"] = (sum(fz) - sum(al)) if fz else None
+        plain_ms["conv_ln"] = ln_plain
+        lib_ms["conv_ln"] = ln_lib[call]
+        bounds["conv_ln"] = bound(ln_bytes, ln_ops, F32_FLOPS)
+        print(f"net conv_ln (the fused layer norm of 17 stages): device "
+              + ("not measured" if fz is None else
+                 f"{kernel_ms['conv_ln']:.4f} ms added to the convs' "
+                 f"{sum(al):.4f}")
+              + f"; plain {ln_plain:.3f} ms; library F.group_norm "
+              f"{ln_lib['group_norm']:.3f} ms, F.layer_norm "
+              f"{ln_lib['layer_norm']:.3f} ms; bound "
+              f"{bounds['conv_ln'][0]:.4f} ms ({bounds['conv_ln'][1]}) "
+              f"{tag}")
 
     time_net(params, "conv")
     time_net(cparams, "conv_coord")
@@ -4350,8 +4488,9 @@ def main() -> None:
     launches["sweep_assembled"] = hres_launches["sweep_assembled"]
     launches["conv_coord"] = (coord_launches["conv_coord"]
                               + ccli_launches["conv_coord"])
+    launches["conv_ln"] = launches.pop("conv_norm")
     frames = {"sweep": len(batches), "conv": len(batches),
-              "layernorm": len(batches), "render": len(batches),
+              "conv_ln": len(batches), "render": len(batches),
               "render_depth": 1, "render_layers_k4": len(cli) - 1,
               "render_layers_k5": 1, "render_layers_k6": 1,
               "sweep_assembled": 1, "conv_coord": len(cbatches) + 1}
@@ -4363,8 +4502,9 @@ def main() -> None:
         "conv_coord": ("matryodshka_tpu_torch/csrc/conv.cu",
                        "matryodshka_tpu/ops/pallas_net.py:356 "
                        "(variant=coord)"),
-        "layernorm": ("matryodshka_tpu_torch/csrc/layernorm.cu",
-                      "matryodshka_tpu/ops/pallas_net.py:356"),
+        "conv_ln": ("matryodshka_tpu_torch/csrc/conv.cu",
+                    "matryodshka_tpu/ops/pallas_net.py:356 (the LN+ReLU "
+                    "stage: norm_vectors :644, norm_row :680)"),
         "render": ("matryodshka_tpu_torch/csrc/render.cu",
                    "matryodshka_tpu/ops/pallas_render.py:920"),
         "render_depth": ("matryodshka_tpu_torch/csrc/render.cu",

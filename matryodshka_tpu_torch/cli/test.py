@@ -23,8 +23,9 @@ ROADMAP Queue 3.)
 
 Every stage runs through the port's kernels on a CUDA device: the sweep
 (csrc/sweep.cu), the U-Net (conv.cu in the wrap net's mode, or in the coord
-net's with `--coord_net true`; layernorm.cu), then for blend_psv the
-blend-fused render (render.cu, colour and depth mode) and for the other
+net's with `--coord_net true`; the layer norms fused into the convs),
+then for blend_psv the blend-fused render (render.cu, colour and depth
+mode) and for the other
 schemes the prepared assembly and the layer-stack render
 (render_layers.cu, one launch for image and depth, lookups made in the
 kernel); the high-res re-render of every scheme sweeps, upsamples and
@@ -39,7 +40,7 @@ gather (hres_render_plain at the batch's poses).
 PP and REALESTATE_PP input (the non-spherical branch of JAX
 cli/test.py:137-147): the gather sweep (perspective or homography plane
 sweep; the JAX package has no TPU kernel for it), the net through the same
-conv and layer-norm kernels, the assembly, and the MPI render of the target
+conv kernel, the assembly, and the MPI render of the target
 view at tgt_pose @ ref_pose_inv (homography warps, plain PyTorch), written
 as output_tgt_*; there is no depth output, and psp, src_output_image,
 ref_output_image and high_res are ODS outputs, as in the JAX CLI.
@@ -160,7 +161,7 @@ def _build_mpi_infer_fn(cfg: MatryConfig, params: entry.Params,
                         test_outputs: str):
     """build_infer_fn for PP and REALESTATE_PP input (JAX
     cli/test.py:137-147): msi_lib.infer_mpi, the gather sweep, the net
-    through the conv and layer-norm kernels, the assembly and the MPI
+    through the conv kernel, the assembly and the MPI
     render at tgt_pose @ ref_pose_inv -> output_image ([0, 1]; no depth
     output, as in the JAX CLI), rgba_layers, blend_weights, alphas, psv."""
 

@@ -5,9 +5,11 @@
 // the three 4x4 stride-2 transposed convs and the 1x1 tanh head) and the
 // three kernels of matryodshka_tpu/ops/pallas_conv.py (K7: _conv_kernel,
 // _conv_kernel_dma, _conv_ln_kernel; ops/wrap_conv.py), which are its wrap
-// mode at stride 1. The layer norm is layernorm.cu. One launch is one
-// layer, an implicit GEMM over K = KH*KW*Cin', the input patch read in
-// place from NCHW x (no im2col copy).
+// mode at stride 1, and the K2 stage's layer norm + ReLU (_build_kernel's
+// norm_vectors and norm_row), fused as the TPU kernel fuses it: the
+// producer sums its outputs, the consumer normalizes its input (see the
+// last note). One launch is one layer, an implicit GEMM over K =
+// KH*KW*Cin', the input patch read in place from NCHW x (no im2col copy).
 //
 // Input taps: input row iy = oy*stride + kh*dil - pad_h is zero outside
 // [0, Hi) (vertical zero padding; the high side needs no argument, so a
@@ -109,14 +111,47 @@
 // Weights are packed [npar, K, Cout] with k = (kh*KW + kw)*Cin' + c
 // (ops/conv.py:pack_conv / pack_deconv / pack_smoothed).
 //
-// K7c's layer-norm statistics are the STATS epilogue (wrap mode, npar 1):
-// after the bias and the rounding to the output type, each thread sums y
-// and y^2 of its ROUNDED outputs in f32 in a fixed order (as
-// _conv_ln_kernel:368-370 does), warps combine by butterfly and the warp
-// sums are added in order into one (s1, s2) partial per (sample, tile);
-// stats_fold then sums each sample's partials in a fixed order in f64. No
-// atomics, so the sums are the same on every run, and f64 keeps the layer
-// norm's var = s2/n - mean^2 from cancelling when mean^2 >> var.
+// The layer norm + ReLU between two layers (slim.layer_norm over (C, H,
+// W) per example, eps 1e-12, per-channel gamma and beta) has no launch of
+// its own, as in the TPU kernel (pallas_net.py:42-46):
+//   * statistics in the producer's epilogue (STATS, every mode and form):
+//     after the coord term, the bias and the rounding to the output type,
+//     each thread sums y and y^2 of its ROUNDED outputs in f32 in a fixed
+//     order (the stored tensor is what the consumer normalizes), warps
+//     combine by butterfly and the warp sums are added in order into one
+//     (s1, s2) partial per (sample, tile), tiles of a sample numbered
+//     parity, pixel tile, Cout tile; no atomics;
+//   * the fold at the consumer's start (fold_norm): where a block's tile
+//     changes sample, its 256 consumer threads sum each source's partials
+//     of the sample in f64 in a fixed order (f64 keeps var = s2/n - mean^2
+//     from cancelling when mean^2 >> var) into per-channel vectors a =
+//     gamma * rsqrt(var + eps), b = beta - mean * a in shared memory after
+//     the ring (norm_vectors), a channel pair's (a, a', b, b') a 16-byte
+//     float4; every launch runs the same code in the same order, so a
+//     source read by two consumers gives both the same bits; a skip concat
+//     (x = cat of two raw sources) takes the two sources' vectors end to
+//     end;
+//   * normalize + ReLU on the A fragments (norm_frag), as each tap's 16-bit
+//     shared loads produce them: relu(a[c] * y + b[c]) in f32, rounded
+//     once to bf16, a thread's 8 channel pairs' (a, b) loaded once per
+//     channel chunk. A window element outside the input (rows outside [0,
+//     Hi), columns outside [0, Wi) in zero and coord mode, channels past
+//     Cin, the parity forms' padding) must stay zero, as norm_row keeps pad
+//     rows zero: the launch's tensor maps fill them with NaN (a gathered
+//     window too), and fmaxf(NaN, 0) is 0, so no element needs a mask;
+//     wrap mode's halos are real wrapped columns and are normalized. The
+//     coord channel is not in the window, so it is never normalized. An
+//     element is normalized once per tap that reads it, in registers, where
+//     normalizing each stage's window in place once (by the consumers, or
+//     by the producer warpgroup one stage ahead) added shared-memory
+//     traffic to a kernel whose A fragments already come by 16-bit shared
+//     loads, and timed slower (tools/variants.py). conv_wgmma_kernel is
+//     instantiated with the layer norm and without (NORM), so a launch
+//     without it runs the code it ran before. The f32 kernel folds once
+//     per block and applies the transform, with its masks, where it stages
+//     x in shared memory.
+// K7c (the trainer's net, ops/wrap_conv.py) takes the same partials and
+// folds them in stats_fold, a second launch, into f64 (s1, s2) per sample.
 
 #include <stdint.h>
 #include <string.h>
@@ -145,14 +180,100 @@ struct ConvArgs {
       out_h, out_w, act;
 };
 
-// ---------------------------------------------------------------------------
-// The f32 kernel's STATS block sum: butterfly within each warp, then the
-// warp sums in order by thread 0, one partial per block.
-// ---------------------------------------------------------------------------
+// The layer norm + ReLU a consumer applies to x (see the note above): x's
+// channels [0, c0) are source 0's, [c0, Cin) source 1's (nsrc == 2, a skip
+// concat; c0 == Cin for one source); each source has its producer's
+// partials [B, nblk, 2] and its gamma, beta. nsrc == 0: x as it is.
+struct Norm {
+  const float* partial[2];
+  const float* gamma[2];
+  const float* beta[2];
+  int nblk[2];
+  int nsrc, c0;
+};
+constexpr double kEps = 1e-12;  // ops/layernorm.EPS
+
+// The layer norm's vectors in shared memory, a channel pair (c, c + 1), c
+// even, a float4 (a_c, a_c+1, b_c, b_c+1), Cin rounded up to a multiple of
+// 64 channels (the pad channels' a = b = 0): one 16-byte load gives a
+// thread both channels of a fragment register.
+__host__ __device__ __forceinline__ int vec_bytes(int cin) {
+  return (cin + 63) / 64 * 64 * 8;
+}
+__device__ __forceinline__ float vec_a(const float* v, int c) {
+  return v[(c >> 1) * 4 + (c & 1)];
+}
+__device__ __forceinline__ float vec_b(const float* v, int c) {
+  return v[(c >> 1) * 4 + 2 + (c & 1)];
+}
+
+// Sample b's vectors of every source into vec (norm_vectors) by NT
+// threads: thread t sums the source's partials t, t + NT, ... in f64 in
+// order, a butterfly sums each warp, and every thread adds the NT / 32
+// warp sums in order; mean = s1 / n, var = max(s2 / n - mean^2, 0) over n
+// = C * Hi * Wi, a = gamma * rsqrt(var + eps), b = beta - mean * a. sync
+// is a barrier of the NT threads; vec is complete when it returns. Every
+// launch of one kernel folds with the same NT, so a source read by two
+// consumers gives both the same bits.
+template <int NT, typename Sync>
+__device__ __forceinline__ void fold_norm(const Norm& nm, int b,
+                                          const ConvArgs& a, float* vec,
+                                          double (*sh)[8], int tid,
+                                          Sync sync) {
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int c = a.Cin + tid; c < (a.Cin + 63) / 64 * 64; c += NT) {
+    vec[(c >> 1) * 4 + (c & 1)] = 0.f;
+    vec[(c >> 1) * 4 + 2 + (c & 1)] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (s == nm.nsrc) break;
+    const int lo = s ? nm.c0 : 0, hi = s ? a.Cin : nm.c0;
+    const float* pb = nm.partial[s] + (long long)b * nm.nblk[s] * 2;
+    double t1 = 0.0, t2 = 0.0;
+    for (int i = tid; i < nm.nblk[s]; i += NT) {
+      t1 += (double)pb[2 * i];
+      t2 += (double)pb[2 * i + 1];
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+      t2 += __shfl_xor_sync(0xffffffffu, t2, off);
+    }
+    if (lane == 0) {
+      sh[0][warp] = t1;
+      sh[1][warp] = t2;
+    }
+    sync();
+    double s1 = 0.0, s2 = 0.0;
+    for (int i = 0; i < NT / 32; ++i) {
+      s1 += sh[0][i];
+      s2 += sh[1][i];
+    }
+    const double n = (double)(hi - lo) * a.Hi * a.Wi;
+    const double mean = s1 / n;
+    const double var = fmax(s2 / n - mean * mean, 0.0);
+    const float r = (float)(1.0 / sqrt(var + kEps));
+    const float m = (float)mean;
+    for (int c = lo + tid; c < hi; c += NT) {
+      const float ga = nm.gamma[s][c - lo] * r;
+      vec[(c >> 1) * 4 + (c & 1)] = ga;
+      vec[(c >> 1) * 4 + 2 + (c & 1)] = fmaf(-m, ga, nm.beta[s][c - lo]);
+    }
+    sync();  // sh is free, vec complete
+  }
+}
+
+// relu(a * y + b) in f32.
+__device__ __forceinline__ float norm_relu(float y, float ka, float kb) {
+  return fmaxf(fmaf(ka, y, kb), 0.f);
+}
+
+// The STATS block sum of the f32 kernel: butterfly within each warp, then
+// the warp sums in order by thread 0, into the partial at pb.
 template <int NT>
 __device__ __forceinline__ void block_stats(float s1, float s2,
                                             float (*red)[NT / 32],
-                                            float* partial, int b) {
+                                            float* pb) {
   for (int off = 16; off > 0; off >>= 1) {
     s1 += __shfl_xor_sync(0xffffffffu, s1, off);
     s2 += __shfl_xor_sync(0xffffffffu, s2, off);
@@ -169,8 +290,6 @@ __device__ __forceinline__ void block_stats(float s1, float s2,
       t1 += red[0][i];
       t2 += red[1][i];
     }
-    float* pb = partial + (((long long)b * gridDim.y + blockIdx.y) *
-                               gridDim.x + blockIdx.x) * 2;
     pb[0] = t1;
     pb[1] = t2;
   }
@@ -199,7 +318,9 @@ constexpr int kSmemBudget = 220 * 1024;
 
 struct Params {
   ConvArgs a;
+  Norm nm;          // the input's layer norm (nm.nsrc == 0: none)
   int mode, stats, out_f32;
+  int stat_blocks;  // partials a sample: npar * ntx * nty * mtiles
   int ct_lg;        // log2 of the output columns of a tile
   int rows;         // output rows of a tile, kTilePx >> ct_lg
   int ntx, nty, mtiles;  // column and row tiles, Cout tiles
@@ -209,6 +330,7 @@ struct Params {
   int stages;       // ring depth
   int stage_bytes;  // weights (KW taps), main window, two halos
   int win_off, halo_off;  // offsets of the main window and the left halo
+  int vec_off;      // the norm's vectors (vec_bytes), after the ring
 };
 
 // Bytes of a window's main box (rows x 64 channels x cols * stride) and of
@@ -252,12 +374,13 @@ __device__ __forceinline__ void gather_w(unsigned char* Ws,
 // in 16-byte chunks of 8 columns of one (row, channel): input rows iy0 + r
 // * stride, columns ox0 * stride - 8 + wc for wc in [0, cols * stride +
 // 16), each column wrapped or bounds-checked, stored as the TMA boxes lie
-// (the main box swizzled, the halos plain).
+// (the main box swizzled, the halos plain), fill (a bf16 bit pattern)
+// outside the input.
 __device__ __forceinline__ void gather_window(unsigned char* win,
                                               const unsigned short* x,
                                               const Params& p, int b,
                                               int iy0, int ox0, int c0,
-                                              int tid) {
+                                              int tid, uint32_t fill) {
   const ConvArgs& a = p.a;
   const int ctw = a.stride << p.ct_lg;  // window columns without halos
   const int cpl = ctw / 8 + 2;          // chunks of a (row, channel) line
@@ -269,7 +392,8 @@ __device__ __forceinline__ void gather_window(unsigned char* win,
     const int ch = line & (BK - 1), r = line >> 6;
     const int c = c0 + ch;
     const int iy = iy0 + r * a.stride;
-    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    const uint32_t f2 = fill | fill << 16;
+    uint32_t v[4] = {f2, f2, f2, f2};
     if (c < a.Cin && iy >= 0 && iy < a.Hi) {
       const unsigned short* row =
           x + (((long long)b * a.Cin + c) * a.Hi + iy) * a.Wi;
@@ -277,12 +401,13 @@ __device__ __forceinline__ void gather_window(unsigned char* win,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int ix = ixb + j;
-        uint32_t q16 = 0;
+        uint32_t q16 = fill;
         if (p.mode == kWrap)
           q16 = row[matry::wrap(ix, a.Wi)];
         else if (ix >= 0 && ix < a.Wi)
           q16 = row[ix];
-        v[j >> 1] |= q16 << (16 * (j & 1));
+        v[j >> 1] = j & 1 ? (v[j >> 1] & 0xffffu) | q16 << 16
+                          : (v[j >> 1] & 0xffff0000u) | q16;
       }
     }
     uint32_t off;
@@ -337,7 +462,18 @@ __device__ __forceinline__ Tile tile_of(const Params& p, int t, int bn) {
   return u;
 }
 
-template <int BN>
+// The layer norm + ReLU of one A fragment register (channels c, c + 1 of
+// one pixel; ab: (a_c, a_c+1, b_c, b_c+1)): relu(a y + b) in f32, rounded
+// once to bf16. An element outside the input holds TMA's NaN fill, and
+// fmaxf(NaN, 0) is 0: the pads come out zero with no mask.
+__device__ __forceinline__ uint32_t norm_frag(uint32_t u, float4 ab) {
+  const float lo = norm_relu(__uint_as_float(u << 16), ab.x, ab.z);
+  const float hi = norm_relu(__uint_as_float(u & 0xffff0000u), ab.y, ab.w);
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h2);
+}
+
+template <int BN, bool NORM>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                       const __grid_constant__ CUtensorMap tmh,
@@ -355,6 +491,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ __align__(8) uint64_t empty[kMaxStages];
   __shared__ float red[2][8];
   __shared__ float wcs[9][128];  // coord weights (kCoord)
+  __shared__ double fsh[2][8];   // the norm's fold
   unsigned char* smem =
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
 
@@ -385,6 +522,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (p.tma_x && p.halo) prefetch_tmap(&tmh);
       if (p.tma_w) prefetch_tmap(&tmw);
     }
+    // the gathered windows' fill outside the input: as the tensor maps'
+    // (NaN with the layer norm, else zero)
+    const uint32_t fill = NORM ? 0x7fc0u : 0u;
     int s = 0;
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
@@ -396,7 +536,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int ph = a.pad_h - da;
       const int wrow0 = par * a.KH * a.KW * Ck;
       // the halo boxes' columns: the neighbours', wrapped across the seam, or
-      // (zero mode, outside) at Wi, a box wholly outside that reads zeros
+      // (zero mode, outside) at Wi, a box wholly outside the input
       int lcol = ox0 * a.stride - kHalo, rcol = ox0 * a.stride + ctw;
       if (p.mode == kWrap) {
         lcol += lcol < 0 ? a.Wi : 0;
@@ -441,7 +581,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               gather_w<BN>(st + kw * kTapW, w, p, m0,
                            wrow0 + (kh * KWp + kw) * Ck + c0, tid);
           if (!p.tma_x)
-            gather_window(st + p.win_off, x, p, b, iy0, ox0, c0, tid);
+            gather_window(st + p.win_off, x, p, b, iy0, ox0, c0, tid, fill);
           fence_proxy_async();
           mbar_arrive(&full[s]);
           if (++s == p.stages) {
@@ -452,10 +592,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumer warpgroups: warpgroup cw takes the tile's pixels
-    // [64 cw, 64 cw + 64) and all BN Cout: per stage and tap kw, the A
+    // [64 cw, 64 cw + 64) and all BN Cout: per stage, tap by tap, the A
     // fragment (64 pixels x 16 channels) from the window at the tap's
-    // column shift, by 16-bit shared loads, then wgmma with the tap's
-    // weights as B ------------------------------------------------------------
+    // column shift, by 16-bit shared loads (normalized with NORM), then
+    // the tap's wgmma with its weights as B, which runs while the next
+    // tap's fragment is loaded ----------------------------------------------
     reg_alloc<224>();
     const int ctid = threadIdx.x - 128;
     const int cw = ctid >> 7;
@@ -463,7 +604,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int g = lane >> 2, q4 = lane & 3;
     const int ct = 1 << p.ct_lg;
     const uint32_t base = smem_u32(smem);
-    int s = 0;
+    float* vec = reinterpret_cast<float*>(smem + p.vec_off);
+    int s = 0, held = -1;  // held: the sample whose vectors vec holds
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
       const Tile u = tile_of(p, t, BN);
@@ -473,6 +615,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int KWp = par_taps(a.KW, a.npar, db);
       const int pw = a.pad_w - db;
       const int nsteps = (a.Cin + BK - 1) / BK * KHp;
+      if (NORM && b != held) {
+        // both warpgroups walk the same tiles: the fold's first barrier
+        // finds the other one done with the last tile's fragments
+        fold_norm<256>(p.nm, b, a, vec, fsh, ctid,
+                       [] { named_sync(1, 256); });
+        held = b;
+      }
 
       // the window address of this thread's fragment elements, per tap kw,
       // pixel half h (row g or g + 8 of the warp's 16) and channel parity e
@@ -507,11 +656,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       float acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      float4 ab[BK / 16][2];  // the layer norm's a, b of the fragments
       for (int j = 0; j < nsteps; ++j) {
         mbar_wait(&full[s], phase);
         const uint32_t st = base + s * p.stage_bytes;
         const uint32_t win = st + p.win_off;
+        if (NORM && j % KHp == 0) {
+          // this thread's channel pairs c0 + 16 kk + 8 t + 2 q4 of the
+          // chunk, for its KHp stages
+          const int c0 = j / KHp * BK;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int t = 0; t < 2; ++t)
+              ab[kk][t] = *reinterpret_cast<const float4*>(
+                  vec + ((c0 + 16 * kk + 8 * t + 2 * q4) >> 1) * 4);
+        }
         uint32_t af[kMaxKW][4][4];
+        fence_regs<BN / 2>(acc);
 #pragma unroll
         for (int kw = 0; kw < kMaxKW; ++kw) {
           if (kw >= KWp) break;
@@ -522,16 +684,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const uint32_t d = (16 * kk + 8 * t) * line[kw][h];
-                af[kw][kk][h + 2 * t] =
-                    lds_u16(win + aoff[kw][h][0] + d) |
-                    lds_u16(win + aoff[kw][h][1] + d) << 16;
+                const uint32_t v = lds_u16(win + aoff[kw][h][0] + d) |
+                                   lds_u16(win + aoff[kw][h][1] + d) << 16;
+                af[kw][kk][h + 2 * t] = NORM ? norm_frag(v, ab[kk][t]) : v;
               }
-        }
-        fence_regs<BN / 2>(acc);
-        wg_fence();
-#pragma unroll
-        for (int kw = 0; kw < kMaxKW; ++kw) {
-          if (kw >= KWp) break;
+          wg_fence();
           const uint64_t dW = make_desc(st + kw * kTapW, kBoxW, 1024, 1);
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk)
@@ -630,8 +787,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             t1 += red[0][i];
             t2 += red[1][i];
           }
-          float* pb = partial +
-                      ((long long)b * p.mtiles * p.ntx * p.nty + u.local) * 2;
+          float* pb = partial + ((long long)b * p.stat_blocks +
+                                 (long long)u.par * p.mtiles * p.ntx * p.nty +
+                                 u.local) * 2;
           pb[0] = t1;
           pb[1] = t2;
         }
@@ -654,19 +812,26 @@ constexpr int BK = 16;   // reduction step
 constexpr int TM = 4;    // channels per thread
 constexpr int TN = 8;    // pixels per thread
 
-template <typename TO, int MODE, bool STATS>
+// partial: null, or the STATS partials [B, npar * gridDim.y * gridDim.x,
+// 2]; nm: the input's layer norm, its vectors in dynamic shared memory
+// (vec_bytes).
+template <typename TO, int MODE>
 __global__ void __launch_bounds__(256)
     conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ bias,
                     const float* __restrict__ coord, TO* __restrict__ out,
-                    float* __restrict__ partial, ConvArgs a) {
+                    float* __restrict__ partial, ConvArgs a, Norm nm) {
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
   __shared__ float red[2][256 / 32];
+  __shared__ double fsh[2][8];
+  extern __shared__ float vec[];  // the norm's vectors (vec_bytes)
 
   const int tid = threadIdx.x;
   const int z = blockIdx.z;
   const int b = z / a.npar;
+  if (nm.nsrc)
+    fold_norm<256>(nm, b, a, vec, fsh, tid, [] { __syncthreads(); });
   const int par = z - b * a.npar;
   const int da = par >> 1, db = par & 1;
   const int m0 = blockIdx.y * BM;
@@ -722,12 +887,18 @@ __global__ void __launch_bounds__(256)
           if (MODE == kWrap) {
             const int ix = matry::wrap(ix0 + kw * a.dil, a.Wi);
             v = xb[((long long)c * a.Hi + iy) * a.Wi + ix];
+            if (nm.nsrc) v = norm_relu(v, vec_a(vec, c), vec_b(vec, c));
           } else {
             const int ix = ix0 + kw * a.dil;
-            if (ix >= 0 && ix < a.Wi)
-              v = (MODE == kCoord && c == a.Cin)
-                      ? coord[iy]
-                      : xb[((long long)c * a.Hi + iy) * a.Wi + ix];
+            if (ix >= 0 && ix < a.Wi) {
+              if (MODE == kCoord && c == a.Cin) {
+                v = coord[iy];
+              } else {
+                v = xb[((long long)c * a.Hi + iy) * a.Wi + ix];
+                if (nm.nsrc)
+                  v = norm_relu(v, vec_a(vec, c), vec_b(vec, c));
+              }
+            }
           }
         }
       }
@@ -773,14 +944,17 @@ __global__ void __launch_bounds__(256)
       if (a.act == 1) v = tanhf(v);
       const TO q = matry::from_f32<TO>(v);
       om[(long long)(py * ostr + da) * a.out_w + px * ostr + db] = q;
-      if (STATS) {
+      if (partial) {
         const float r = matry::to_f32(q);
         s1 += r;
         s2 += r * r;
       }
     }
   }
-  if (STATS) block_stats<256>(s1, s2, red, partial, b);
+  if (partial)
+    block_stats<256>(s1, s2, red,
+                     partial + (((long long)z * gridDim.y + blockIdx.y) *
+                                    gridDim.x + blockIdx.x) * 2);
 }
 
 }  // namespace f32
@@ -858,12 +1032,13 @@ int plan_code(const Plan& p) {
 
 // x [B, Cin, Hi, Wi] bf16 as the 4-D tensor (W, C, H, B): box {cols, 64,
 // rows * stride, 1} taking every stride-th row, the swizzle as wide as a
-// box row (none for the 16-byte halo boxes).
+// box row (none for the 16-byte halo boxes); zeros outside the input, or
+// NaN for a launch with the layer norm (nan_fill).
 int encode_x(CUtensorMap* m, const void* x, const ConvArgs& a, int cols,
-             int rows) {
+             int rows, int nan_fill) {
   return matry::hop::encode_nchw(m, x, a.B, a.Cin, a.Hi, a.Wi, cols, wg::BK,
                                  rows * a.stride, a.stride,
-                                 cols == wg::kHalo ? 0 : 2 * cols);
+                                 cols == wg::kHalo ? 0 : 2 * cols, nan_fill);
 }
 
 // The packed weight [krows, Cout] bf16, box {64, 64}, 128-byte swizzle.
@@ -890,12 +1065,44 @@ void finish_stats(const ConvArgs& a, int nblk, void* partial, void* stats,
                                  nblk);
 }
 
-template <int BN>
+// The bf16 launch's shared memory: a stage's bytes (the KW taps' weights,
+// the main window, two halos), the norm's vectors after the ring, the ring
+// depth (at most kStages, as many as the budget holds beside the vectors;
+// 0 if fewer than 2) and the dynamic bytes the launch asks for (the ring,
+// the vectors and 1024 for the alignment). ops/conv.conv_smem mirrors it.
+struct Smem {
+  int stage_bytes, vec_bytes, stages, dynamic;
+};
+Smem smem_of(const ConvArgs& a, const Plan& pl, int norm) {
+  const int bn = kTileBM[pl.tile];
+  const int rows = wg::kTilePx >> pl.ct_lg;
+  Smem m;
+  m.stage_bytes = a.KW * (bn / 64) * wg::kBoxW +
+                  wg::main_bytes(rows, a.stride << pl.ct_lg) +
+                  2 * wg::halo_bytes(rows);
+  m.vec_bytes = norm ? vec_bytes(a.Cin) : 0;
+  m.stages = (wg::kSmemBudget - m.vec_bytes) / m.stage_bytes;
+  if (m.stages > wg::kStages) m.stages = wg::kStages;
+  if (m.stages < 2) m.stages = 0;
+  m.dynamic = m.stages * m.stage_bytes + m.vec_bytes + 1024;
+  return m;
+}
+
+// Partials a sample of the STATS epilogue: one per (parity, pixel tile,
+// Cout tile) of the bf16 kernel, one per block of the f32 kernel.
+int stat_blocks(const ConvArgs& a, const Plan& pl, int in_f32) {
+  if (in_f32)
+    return cdiv(a.Ho * a.Wo, f32::BN) * cdiv(a.Cout, f32::BM) * a.npar;
+  return cdiv(a.Wo, 1 << pl.ct_lg) * cdiv(a.Ho, wg::kTilePx >> pl.ct_lg) *
+         cdiv(a.Cout, kTileBM[pl.tile]) * a.npar;
+}
+
+template <int BN, bool NORM>
 int launch_wg(const void* x, const void* w, const void* bias,
               const void* coord, void* out, void* partial, void* stats,
-              const ConvArgs& a, const Plan& pl, int mode, int out_f32,
-              cudaStream_t s) {
-  auto kern = wg::conv_wgmma_kernel<BN>;
+              const Norm& nm, const ConvArgs& a, const Plan& pl, int mode,
+              int out_f32, cudaStream_t s) {
+  auto kern = wg::conv_wgmma_kernel<BN, NORM>;
   static bool attr = false;  // once per instantiation
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -904,9 +1111,12 @@ int launch_wg(const void* x, const void* w, const void* bias,
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
+  const Smem sm = smem_of(a, pl, nm.nsrc);
+  if (!sm.stages) return (int)cudaErrorInvalidValue;
   wg::Params p;
   memset(&p, 0, sizeof(p));
   p.a = a;
+  p.nm = nm;
   p.mode = mode;
   p.stats = partial != nullptr;
   p.out_f32 = out_f32;
@@ -915,6 +1125,7 @@ int launch_wg(const void* x, const void* w, const void* bias,
   p.ntx = cdiv(a.Wo, 1 << pl.ct_lg);
   p.nty = cdiv(a.Ho, p.rows);
   p.mtiles = cdiv(a.Cout, BN);
+  p.stat_blocks = stat_blocks(a, pl, 0);
   p.tma_x = pl.tma_x && aligned16(x);
   p.tma_w = pl.tma_w && aligned16(w);
   p.halo = !(a.KW == 1 && a.pad_w == 0);
@@ -922,17 +1133,16 @@ int launch_wg(const void* x, const void* w, const void* bias,
   const int ctw = a.stride << pl.ct_lg;
   p.win_off = a.KW * (BN / 64) * wg::kBoxW;
   p.halo_off = p.win_off + wg::main_bytes(p.rows, ctw);
-  p.stage_bytes = p.halo_off + 2 * wg::halo_bytes(p.rows);
-  p.stages = wg::kSmemBudget / p.stage_bytes;
-  if (p.stages > wg::kStages) p.stages = wg::kStages;
-  if (p.stages < 2) return (int)cudaErrorInvalidValue;
+  p.stage_bytes = sm.stage_bytes;
+  p.stages = sm.stages;
+  p.vec_off = p.stages * p.stage_bytes;
   CUtensorMap tmx, tmh, tmw;
   memset(&tmx, 0, sizeof(tmx));
   memset(&tmh, 0, sizeof(tmh));
   memset(&tmw, 0, sizeof(tmw));
   if (p.tma_x) {
-    int e = encode_x(&tmx, x, a, ctw, p.rows);
-    if (!e && p.halo) e = encode_x(&tmh, x, a, wg::kHalo, p.rows);
+    int e = encode_x(&tmx, x, a, ctw, p.rows, nm.nsrc);
+    if (!e && p.halo) e = encode_x(&tmh, x, a, wg::kHalo, p.rows, nm.nsrc);
     if (e) return e;
   }
   if (p.tma_w) {
@@ -941,71 +1151,68 @@ int launch_wg(const void* x, const void* w, const void* bias,
   }
   // persistent: a block per SM, each walking the tiles blockIdx.x +
   // k * gridDim.x
-  const int per = p.mtiles * p.ntx * p.nty;
-  const int ntiles = per * a.B * a.npar;
+  const int ntiles = p.stat_blocks * a.B;
   const int sms = matry::hop::num_sms();
   const dim3 grid(ntiles < sms ? ntiles : sms);
-  kern<<<grid, wg::kThreads, p.stages * p.stage_bytes + 1024, s>>>(
+  kern<<<grid, wg::kThreads, sm.dynamic, s>>>(
       tmx, tmh, tmw, (const unsigned short*)x, (const unsigned short*)w,
       (const float*)bias, (const float*)coord, out, (float*)partial, p);
-  if (partial) finish_stats(a, per, partial, stats, s);
+  if (stats) finish_stats(a, p.stat_blocks, partial, stats, s);
   return 0;
 }
 
 int launch_bf16(const void* x, const void* w, const void* bias,
                 const void* coord, void* out, void* partial, void* stats,
-                const ConvArgs& a, int mode, int out_f32, cudaStream_t s) {
+                const Norm& nm, const ConvArgs& a, const Plan& pl, int mode,
+                int out_f32, cudaStream_t s) {
   // a tap's columns lie within the window's halos: shifts of -8 .. 8
   if (a.pad_w > wg::kHalo || (a.KW - 1) * a.dil - a.pad_w > wg::kHalo ||
       a.KW > wg::kMaxKW || a.KH > 3 || (a.stride != 1 && a.stride != 2))
     return (int)cudaErrorInvalidValue;
-  const Plan pl = make_plan(a.Wi, a.Cout, a.Wo, a.stride, mode != kWrap);
+  if (pl.tile == 0 && nm.nsrc)
+    return launch_wg<128, true>(x, w, bias, coord, out, partial, stats, nm,
+                                a, pl, mode, out_f32, s);
   if (pl.tile == 0)
-    return launch_wg<128>(x, w, bias, coord, out, partial, stats, a, pl,
-                          mode, out_f32, s);
-  return launch_wg<64>(x, w, bias, coord, out, partial, stats, a, pl, mode,
-                       out_f32, s);
+    return launch_wg<128, false>(x, w, bias, coord, out, partial, stats, nm,
+                                 a, pl, mode, out_f32, s);
+  if (nm.nsrc)
+    return launch_wg<64, true>(x, w, bias, coord, out, partial, stats, nm, a,
+                               pl, mode, out_f32, s);
+  return launch_wg<64, false>(x, w, bias, coord, out, partial, stats, nm, a,
+                              pl, mode, out_f32, s);
 }
 
-template <typename TO, int MODE, bool STATS>
-void launch_f32(const void* x, const void* w, const void* bias,
-                const void* coord, void* out, void* partial, void* stats,
-                const ConvArgs& a, cudaStream_t s) {
+template <typename TO, int MODE>
+int launch_f32(const void* x, const void* w, const void* bias,
+               const void* coord, void* out, void* partial, void* stats,
+               const Norm& nm, const ConvArgs& a, cudaStream_t s) {
   const dim3 grid(cdiv(a.Ho * a.Wo, f32::BN), cdiv(a.Cout, f32::BM),
                   a.B * a.npar);
-  f32::conv_f32_kernel<TO, MODE, STATS><<<grid, 256, 0, s>>>(
+  const int vec = nm.nsrc ? vec_bytes(a.Cin) : 0;
+  if (vec > 32 * 1024) return (int)cudaErrorInvalidValue;
+  f32::conv_f32_kernel<TO, MODE><<<grid, 256, vec, s>>>(
       (const float*)x, (const float*)w, (const float*)bias,
-      (const float*)coord, (TO*)out, (float*)partial, a);
-  if (STATS) finish_stats(a, grid.x * grid.y, partial, stats, s);
+      (const float*)coord, (TO*)out, (float*)partial, a, nm);
+  if (stats) finish_stats(a, grid.x * grid.y * a.npar, partial, stats, s);
+  return 0;
 }
 
 template <typename TO>
-void launch_f32_mode(const void* x, const void* w, const void* bias,
-                     const void* coord, void* out, void* partial,
-                     void* stats, const ConvArgs& a, int mode,
-                     cudaStream_t s) {
-  if (partial)
-    launch_f32<TO, kWrap, true>(x, w, bias, coord, out, partial, stats, a, s);
-  else if (mode == kCoord)
-    launch_f32<TO, kCoord, false>(x, w, bias, coord, out, partial, stats, a,
-                                  s);
-  else if (mode == kZero)
-    launch_f32<TO, kZero, false>(x, w, bias, coord, out, partial, stats, a,
-                                 s);
-  else
-    launch_f32<TO, kWrap, false>(x, w, bias, coord, out, partial, stats, a,
-                                 s);
+int launch_f32_mode(const void* x, const void* w, const void* bias,
+                    const void* coord, void* out, void* partial, void* stats,
+                    const Norm& nm, const ConvArgs& a, int mode,
+                    cudaStream_t s) {
+  if (mode == kCoord)
+    return launch_f32<TO, kCoord>(x, w, bias, coord, out, partial, stats, nm,
+                                  a, s);
+  if (mode == kZero)
+    return launch_f32<TO, kZero>(x, w, bias, coord, out, partial, stats, nm,
+                                 a, s);
+  return launch_f32<TO, kWrap>(x, w, bias, coord, out, partial, stats, nm, a,
+                               s);
 }
 
 }  // namespace
-
-// Length of each sample's row of partials that a stats launch may write
-// (ho_wo output pixels, cout channels): at most one partial per (pixel,
-// 64-Cout tile), since every tile holds at least one output pixel; each
-// kernel writes its tiles' count densely and folds exactly those.
-extern "C" int matry_conv_stats_blocks(int ho_wo, int cout) {
-  return ho_wo * cdiv(cout, 64);
-}
 
 // The bf16 launch's plan for this shape, as plan_code packs it: tile
 // (bit 0: 128 or 64 Cout x 128 pixels), log2(tile columns) - 4 (bits 2-3),
@@ -1016,38 +1223,93 @@ extern "C" int matry_conv_plan(int Wi, int Cout, int Wo, int stride,
   return plan_code(make_plan(Wi, Cout, Wo, stride, zero_w));
 }
 
+// Partials a sample that a launch of this shape with STATS writes
+// (stat_blocks; ops/conv.stats_blocks mirrors it); Ho, Wo: the GEMM grid
+// (per parity for npar 4).
+extern "C" int matry_conv_stats_blocks(int Wi, int Cout, int Ho, int Wo,
+                                       int stride, int npar, int zero_w,
+                                       int in_f32) {
+  ConvArgs a;
+  memset(&a, 0, sizeof(a));
+  a.Cout = Cout;
+  a.Ho = Ho;
+  a.Wo = Wo;
+  a.npar = npar;
+  return stat_blocks(a, make_plan(Wi, Cout, Wo, stride, zero_w), in_f32);
+}
+
+// The dynamic shared memory (bytes) a bf16 launch of this shape asks for,
+// with (norm != 0) or without the layer norm's vectors; 0 if its ring does
+// not fit.
+extern "C" int matry_conv_smem(int Cin, int Wi, int Cout, int Wo, int KW,
+                               int stride, int zero_w, int norm) {
+  ConvArgs a;
+  memset(&a, 0, sizeof(a));
+  a.Cin = Cin;
+  a.KW = KW;
+  a.stride = stride;
+  const Smem m = smem_of(a, make_plan(Wi, Cout, Wo, stride, zero_w), norm);
+  return m.stages ? m.dynamic : 0;
+}
+
 // coord: null, or the coord channel's f32 value per input row [Hi] (then
 // zero_w must be set); zero_w: zero horizontal padding, else wrap. in_f32:
 // x and w are float32 (the f32 kernel), else bfloat16 (the wgmma kernel).
-// partial/stats: null, or (wrap mode, npar 1 only) the STATS epilogue's f32
-// scratch [B, matry_conv_stats_blocks(Ho*Wo, Cout), 2] and its f64 result
-// [B, 2] = (sum y, sum y^2) per sample.
+// partial: null, or the STATS epilogue's partials [B, nblk, 2] f32, nblk
+// the launch's partials a sample (ops/conv.stats_blocks; checked here);
+// stats: null, or (with partial) their fold, f64 [B, 2] = (sum y, sum y^2)
+// per sample, by stats_fold (K7c). nsrc: 0, or the sources of x's layer
+// norm (1, or 2 for a skip concat whose first source has c0 channels),
+// source i with its producer's partials part_i [B, nblk_i, 2] and its
+// gamma_i, beta_i (f32, one per channel of the source).
 extern "C" int matry_conv(const void* x, const void* w, const void* bias,
                           const void* coord, void* out, int B, int Cin,
                           int Hi, int Wi, int Cout, int Ho, int Wo, int KH,
                           int KW, int stride, int dil, int pad_h, int pad_w,
                           int npar, int out_h, int out_w, int act,
                           int in_f32, int out_f32, int zero_w, void* partial,
-                          void* stats, void* stream) {
+                          void* stats, int nblk, int nsrc, int c0,
+                          const void* part0, const void* gamma0,
+                          const void* beta0, int nblk0, const void* part1,
+                          const void* gamma1, const void* beta1, int nblk1,
+                          void* stream) {
   const ConvArgs a{B,  Cin,    Hi,  Wi,    Cout,  Ho,    Wo,
                    KH, KW,     stride, dil, pad_h, pad_w, npar,
                    out_h, out_w, act};
   cudaStream_t s = (cudaStream_t)stream;
   if (coord && !zero_w) return (int)cudaErrorInvalidValue;
-  if ((partial != nullptr) != (stats != nullptr) ||
-      (partial && (zero_w || npar != 1)))
-    return (int)cudaErrorInvalidValue;
   const int mode = coord ? kCoord : (zero_w ? kZero : kWrap);
-  if (!in_f32) {
-    const int e = launch_bf16(x, w, bias, coord, out, partial, stats, a,
-                              mode, out_f32, s);
-    if (e) return e;
-  } else if (out_f32) {
-    launch_f32_mode<float>(x, w, bias, coord, out, partial, stats, a, mode,
-                           s);
-  } else {
-    launch_f32_mode<__nv_bfloat16>(x, w, bias, coord, out, partial, stats, a,
-                                   mode, s);
-  }
+  const Plan pl = make_plan(Wi, Cout, Wo, stride, mode != kWrap);
+  if ((stats && !partial) ||
+      (partial && nblk != stat_blocks(a, pl, in_f32)))
+    return (int)cudaErrorInvalidValue;
+  Norm nm;
+  memset(&nm, 0, sizeof(nm));
+  nm.nsrc = nsrc;
+  nm.c0 = c0;
+  nm.partial[0] = (const float*)part0;
+  nm.partial[1] = (const float*)part1;
+  nm.gamma[0] = (const float*)gamma0;
+  nm.gamma[1] = (const float*)gamma1;
+  nm.beta[0] = (const float*)beta0;
+  nm.beta[1] = (const float*)beta1;
+  nm.nblk[0] = nblk0;
+  nm.nblk[1] = nblk1;
+  if (nsrc < 0 || nsrc > 2 ||
+      (nsrc && (!part0 || !gamma0 || !beta0 || nblk0 < 1 || c0 < 1 ||
+                c0 > Cin || (nsrc == 1) != (c0 == Cin))) ||
+      (nsrc == 2 && (!part1 || !gamma1 || !beta1 || nblk1 < 1)))
+    return (int)cudaErrorInvalidValue;
+  int e;
+  if (!in_f32)
+    e = launch_bf16(x, w, bias, coord, out, partial, stats, nm, a, pl, mode,
+                    out_f32, s);
+  else if (out_f32)
+    e = launch_f32_mode<float>(x, w, bias, coord, out, partial, stats, nm, a,
+                               mode, s);
+  else
+    e = launch_f32_mode<__nv_bfloat16>(x, w, bias, coord, out, partial,
+                                       stats, nm, a, mode, s);
+  if (e) return e;
   return (int)cudaGetLastError();
 }

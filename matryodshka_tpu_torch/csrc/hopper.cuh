@@ -289,7 +289,7 @@ struct MapKey {
   const void* ptr;
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4], es[4];
-  int rank, swizzle;
+  int rank, swizzle, nan_fill;
 };
 struct MapSlot {
   MapKey key;
@@ -315,7 +315,9 @@ inline int encode_cached(CUtensorMap* m, const MapKey& k) {
       m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)k.rank,
       const_cast<void*>(k.ptr), k.dims, k.strides, k.box, k.es,
       CU_TENSOR_MAP_INTERLEAVE_NONE, (CUtensorMapSwizzle)k.swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      k.nan_fill ? CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA
+                 : CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   slot.key = k;
   slot.map = *m;
@@ -332,11 +334,11 @@ inline CUtensorMapSwizzle swizzle_of(int bytes) {
 
 // An NCHW bf16 tensor [B, C, H, W] as the 4-D tensor (W, C, H, B): box
 // {box_w, box_c, box_h, 1}, taking every h_stride-th row, swizzled as
-// swz bytes (0: none). Boxes past any edge load zeros; the row pitch (2 W
-// bytes) must be a multiple of 16.
+// swz bytes (0: none). Boxes past any edge load zeros, or NaN with
+// nan_fill; the row pitch (2 W bytes) must be a multiple of 16.
 inline int encode_nchw(CUtensorMap* m, const void* p, int B, int C, int H,
                        int W, int box_w, int box_c, int box_h, int h_stride,
-                       int swz) {
+                       int swz, int nan_fill = 0) {
   MapKey k;
   memset(&k, 0, sizeof(k));
   k.ptr = p;
@@ -355,6 +357,7 @@ inline int encode_nchw(CUtensorMap* m, const void* p, int B, int C, int H,
   k.es[0] = k.es[1] = k.es[3] = 1;
   k.es[2] = h_stride;
   k.swizzle = swizzle_of(swz);
+  k.nan_fill = nan_fill;
   return encode_cached(m, k);
 }
 

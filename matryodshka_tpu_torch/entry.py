@@ -2,8 +2,8 @@
 
 Counterpart of `__graft_entry__.py` (`_flagship_cfg`, `_synthetic_batch`,
 `entry`). `forward(params, batch)` runs the hot path -- sweep kernel, U-Net
-(the wrap net, or the coord net with `coord_net=True`) through the conv and
-layer-norm kernels, blend-fused render kernel;
+(the wrap net, or the coord net with `coord_net=True`) through the conv
+kernel (its layer norms fused), blend-fused render kernel;
 `forward_plain(params, batch)` the same path with each kernel's plain
 version in float32; `forward_reference(params, batch)` the
 reference-semantics path (general-pose gather sweep, plain MSIUNet,

@@ -9,7 +9,8 @@ JAX layouts. The kernel path (`infer_msi_prepared` ->
 `render_equirect_view_from_prepared` / `render_equirect_depth_from_prepared`)
 runs the sweep kernel, which writes the net input channels first, and the
 net (either variant: its stages carry their padding mode and coord
-vectors, `ops/net.py:prepare`) through the conv and layer-norm kernels;
+vectors, `ops/net.py:prepare`) through the conv kernel, its layer norms
+fused into the convs;
 then
 
 * blend_psv: the blend-fused render kernel blends, samples and composites
@@ -352,7 +353,7 @@ def assemble_outputs_planar(cfg, vol, pred) -> Dict[str, torch.Tensor]:
 def infer_mpi(cfg, stages, batch, psv_depths, msi_depths):
     """The PP / RealEstate kernel route (the non-spherical branch of JAX
     cli/test.py:137-147): sweep_stage (the gather sweep), net_stage (the
-    conv and layer-norm kernels), assemble_rgba in the compute dtype, and
+    conv kernel with its fused layer norms), assemble_rgba in the compute dtype, and
     the MPI render at mpi_view_pose. Returns assemble_rgba's dict plus
     'psv' ([B, H, W, C]) and 'output_image' ([B, H, W, 3] in [-1, 1])."""
     vol = sweep_stage(cfg, batch, psv_depths)

@@ -45,20 +45,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signature of each kernel entry: every pointer and the stream are
 #: c_void_p; each function returns its launch's cudaError_t (except
-#: matry_conv_stats_blocks, which returns a block count, and
-#: matry_conv_plan and matry_wgrad_plan, plan codes).
+#: matry_conv_plan and matry_wgrad_plan, plan codes, matry_conv_smem, a
+#: byte count, and matry_conv_stats_blocks, a count).
 SIGNATURES = {
     "matry_sweep": [_P] * 7 + [_I] * 5 + [_P],
     "matry_sweep_row_params": [_P] * 10 + [_I] * 4 + [_P],
     "matry_sweep_assembled": [_P] * 10 + [_I] * 10 + [_P],
-    "matry_conv": [_P] * 5 + [_I] * 20 + [_P] * 3,
-    "matry_conv_stats_blocks": [_I, _I],
+    "matry_conv": [_P] * 5 + [_I] * 20 + [_P] * 2 + [_I] * 3 + [_P] * 3
+    + [_I] + [_P] * 3 + [_I, _P],
     "matry_conv_plan": [_I] * 5,
+    "matry_conv_smem": [_I] * 8,
+    "matry_conv_stats_blocks": [_I] * 8,
     "matry_conv_wgrad": [_P] * 5 + [_I] * 6 + [ctypes.c_longlong, _I, _I,
                                                _P],
     "matry_wgrad_plan": [_I] * 6,
-    "matry_layernorm": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _I, _I,
-                                             _P],
     "matry_render": [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong]
     + [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P],
     "matry_uv_project": [_P, ctypes.c_longlong, _P, ctypes.c_longlong]
@@ -281,10 +281,12 @@ def check(err: int, name: str) -> None:
                            f"{err}")
 
 
-def require(cond: bool, msg: str) -> None:
-    """Argument check for a kernel wrapper (kept under python -O)."""
+def require(cond: bool, msg) -> None:
+    """Argument check for a kernel wrapper (kept under python -O). msg: the
+    error's text, or a callable that makes it (a launch path that is
+    called every frame formats nothing while its checks pass)."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
 
 
 def geometry_args(what, tgt_pose, tgt_pos, radii, b, dev):

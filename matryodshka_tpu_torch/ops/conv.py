@@ -31,17 +31,27 @@ Weights are packed [npar, KH*KW*Cin', Cout], k = (kh*KW + kw)*Cin' + c,
 Cin' = Cin + 1 with a coord channel (its weights last), else Cin; a
 smoothed parity's (3 - da) x (3 - db) taps fill the first rows of its
 9-tap block.
+
+The net's layer norm + ReLU (`SpatialLayerNorm` then ReLU, between every
+two stages) has no launch of its own: a producer asks for its output's
+statistics (`stats=True`: one (sum y, sum y^2) partial per tile and sample,
+`stats_blocks`), and its consumer takes each source's `Norm` (those
+partials, gamma, beta), folds them into per-channel vectors and applies
+relu(a * y + b) to its input as it stages it. For CPU tensors the same call
+is `conv_plain` after `ops/layernorm.layer_norm_relu_plain` of each source.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from matryodshka_tpu_torch.ops import _build
+from matryodshka_tpu_torch.ops.layernorm import layer_norm_relu_plain
 
 #: Launches of the conv kernel in this process (both paddings).
 launches = 0
@@ -51,6 +61,11 @@ coord_launches = 0
 #: Launches of the bf16 kernel (csrc/conv.cu:conv_wgmma_kernel) in this
 #: process: conv's bf16 launches and the K7 wrappers' (ops/wrap_conv.py).
 wgmma_launches = 0
+#: Of conv's launches, those that applied the layer norm + ReLU to their
+#: input (the K2 stage's LN+ReLU, fused), and those whose epilogue wrote
+#: their output's statistics.
+norm_launches = 0
+stats_launches = 0
 
 HPADS = ("wrap", "zero")
 
@@ -246,6 +261,75 @@ def conv_plan(wi: int, cout: int, wo: int, stride: int,
                     and (hpad == "zero" or wo % cols == 0), cout % 8 == 0)
 
 
+#: csrc/conv.cu's shared-memory plan (wg::kSmemBudget, wg::kStages,
+#: wg::kBoxW, wg::kTilePx, wg::kHalo, wg::BK): the ring's budget, its
+#: depth, a [64 k][64 Cout] weight box's bytes, a tile's pixels, a halo's
+#: columns, the channels of a k-step.
+SMEM_BUDGET = 220 * 1024
+RING_STAGES = 2
+BOX_BYTES = 64 * 64 * 2
+TILE_PX = 128
+HALO = 8
+BK = 64
+
+
+def conv_smem(cin: int, wi: int, cout: int, wo: int, kw: int, stride: int,
+              hpad: str, norm: bool):
+    """Plain-Python mirror of csrc/conv.cu:smem_of for a bf16 launch, to
+    check a shape's fit without a card (a launch that does not fit refuses
+    itself, with cudaErrorInvalidValue): (stage bytes, ring stages,
+    dynamic bytes the launch asks for). A stage holds the kw taps'
+    weights, the main window and two halos; the layer norm's vectors (a
+    and b in f32 for cin rounded up to 64 channels) follow the ring; the
+    ring takes at most RING_STAGES stages, as many as SMEM_BUDGET holds
+    beside the vectors, and the launch refuses fewer than 2 (stages 0)."""
+    plan = conv_plan(wi, cout, wo, stride, hpad)
+    stage = (kw * (plan.bm // 64) * BOX_BYTES
+             + plan.rows * BK * plan.cols * stride * 2
+             + 2 * plan.rows * BK * HALO * 2)
+    vec = -(-cin // BK) * BK * 8 if norm else 0
+    stages = min(RING_STAGES, (SMEM_BUDGET - vec) // stage)
+    if stages < 2:
+        return stage, 0, 0
+    return stage, stages, stages * stage + vec + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def stats_blocks(x_shape, cout: int, kh: int, kw: int, stride: int = 1,
+                 dil: int = 1, pad=0, npar: int = 1, hpad: str = "wrap",
+                 dtype=torch.bfloat16) -> int:
+    """Partials a sample that a launch of conv(x, ..., stats=True) writes
+    (csrc/conv.cu:stat_blocks): one per (parity, pixel tile, Cout tile) of
+    the bf16 kernel's plan, one per 128-pixel x 64-Cout block of the f32
+    kernel. Memoized: conv sizes each launch's partials with it, and a
+    stage's shape stays the same from frame to frame."""
+    ho, wo = grid_of(x_shape, kh, kw, stride, dil, pad, npar)
+    if dtype == torch.float32:
+        return -(-ho * wo // 128) * -(-cout // 64) * npar
+    plan = conv_plan(x_shape[3], cout, wo, stride, hpad)
+    return (-(-wo // plan.cols) * -(-ho // plan.rows) * -(-cout // plan.bm)
+            * npar)
+
+
+class Norm(NamedTuple):
+    """The layer norm + ReLU a consumer applies to one source of its input
+    (`models/unet.py:SpatialLayerNorm` then ReLU): partial, the source's
+    producer's partial sums [B, nblk, 2] float32 (conv(..., stats=True);
+    None on the CPU, whose plain route takes the statistics from the
+    source itself); gamma, beta [C] float32."""
+    partial: Optional[torch.Tensor]
+    gamma: torch.Tensor
+    beta: torch.Tensor
+
+
+def normalize_plain(x, norm: Sequence[Norm]):
+    """x [B, sum C, H, W], the channel concat of the norm's sources, with
+    each source's layer_norm_relu_plain: what a conv with `norm` reads."""
+    parts = torch.split(x, [n.gamma.shape[0] for n in norm], dim=1)
+    return torch.cat([layer_norm_relu_plain(p, n.gamma, n.beta)
+                      for p, n in zip(parts, norm)], dim=1)
+
+
 def grid_of(x_shape, kh: int, kw: int, stride: int = 1, dil: int = 1,
             pad=0, npar: int = 1):
     """(Ho, Wo) of a launch's GEMM grid for input shape [B, C, H, W]."""
@@ -264,39 +348,91 @@ def tile_config(x, cout: int, kh: int, kw: int, stride: int = 1,
     return str(conv_plan(x.shape[3], cout, wo, stride, hpad))
 
 
+#: matry_conv's layer-norm arguments for an input taken as it is.
+NO_NORM = (0, 0, None, None, None, 0, None, None, None, 0)
+#: matry_conv's arguments for an absent second source.
+NO_SOURCE = [None, None, None, 0]
+
+
+def _norm_args(norm, x):
+    """matry_conv's layer-norm arguments (nsrc, c0, then per source its
+    partials, gamma, beta and partials a sample) after checking them."""
+    if norm is None:
+        return NO_NORM
+    req = _build.require
+    b, cin = x.shape[:2]
+    dev = x.device
+    req(len(norm) in (1, 2), lambda: f"conv: norm has {len(norm)} sources; "
+                                     f"the kernel takes one or two")
+    out = [len(norm), norm[0].gamma.shape[0]]
+    total = 0
+    for i, (p, g, bt) in enumerate(norm):
+        ps = None if p is None else p.shape
+        req(ps is not None and p.dtype == torch.float32 and p.is_contiguous()
+            and p.device == dev and len(ps) == 3 and ps[0] == b
+            and ps[1] >= 1 and ps[2] == 2,
+            lambda: f"conv: norm source {i} partials must be float32 "
+                    f"[B, nblk, 2] on x's device (conv(..., stats=True) of "
+                    f"its producer)")
+        c = g.shape[0]
+        total += c
+        for name, t in (("gamma", g), ("beta", bt)):
+            req(t.dtype == torch.float32 and t.is_contiguous()
+                and t.device == dev and t.shape == (c,),
+                lambda: f"conv: norm source {i} {name} {t.dtype} "
+                        f"{tuple(t.shape)}")
+        out += [p.data_ptr(), g.data_ptr(), bt.data_ptr(), ps[1]]
+    req(total == cin, lambda: f"conv: norm covers "
+                              f"{[n.gamma.shape[0] for n in norm]} "
+                              f"channels of {cin}")
+    return out if len(norm) == 2 else out + NO_SOURCE
+
+
 def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
          pad=0, npar: int = 1, tanh: bool = False, out_dtype=None,
-         hpad: str = "wrap", coord=None):
+         hpad: str = "wrap", coord=None, norm: Sequence[Norm] = None,
+         stats: bool = False):
     """One conv layer: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. x [B, Cin, H, W]; wk from pack_conv / pack_deconv /
-    pack_smoothed;
-    bias [Cout] float32; coord None or [H] float32 (hpad="zero" only)."""
+    pack_smoothed; bias [Cout] float32; coord None or [H] float32
+    (hpad="zero" only). norm: None (x as it is), or one Norm per source of
+    x in channel order (x the torch.cat of one or two raw sources): the
+    conv reads relu(a * x + b) of each source's layer norm. stats: also
+    return the output's partial sums, [B, stats_blocks, 2] float32 (None
+    for CPU tensors), which a consumer's Norm takes. -> out, or (out,
+    partials) with stats."""
     if x.device.type == "cpu":
-        return conv_plain(x, wk, bias, kh, kw, stride, dil, pad, npar, tanh,
-                          out_dtype, hpad, coord)
+        if norm is not None:
+            x = normalize_plain(x, norm)
+        y = conv_plain(x, wk, bias, kh, kw, stride, dil, pad, npar, tanh,
+                       out_dtype, hpad, coord)
+        return (y, None) if stats else y
     global launches, coord_launches, wgmma_launches
+    global norm_launches, stats_launches
     out_dtype = x.dtype if out_dtype is None else out_dtype
     b, cin, h, w = x.shape
     cout = wk.shape[2]
     lo, hi = pad_pair(pad)
     kcin = cin + (coord is not None)
+    dev = x.device
     req = _build.require
-    req(x.is_cuda, f"conv: unsupported device {x.device}")
+    req(x.is_cuda, lambda: f"conv: unsupported device {dev}")
     req(x.dtype in (torch.float32, torch.bfloat16) and x.is_contiguous(),
-        f"conv: x must be contiguous float32/bfloat16, got {x.dtype}")
-    req(wk.dtype == x.dtype and wk.is_contiguous() and wk.device == x.device
-        and tuple(wk.shape) == (npar, kh * kw * kcin, cout),
-        f"conv: packed weight {wk.dtype} {tuple(wk.shape)}")
+        lambda: f"conv: x must be contiguous float32/bfloat16, got "
+                f"{x.dtype}")
+    req(wk.dtype == x.dtype and wk.is_contiguous() and wk.device == dev
+        and wk.shape == (npar, kh * kw * kcin, cout),
+        lambda: f"conv: packed weight {wk.dtype} {tuple(wk.shape)}")
     req(bias.dtype == torch.float32 and bias.is_contiguous()
-        and bias.device == x.device and tuple(bias.shape) == (cout,),
-        f"conv: bias {bias.dtype} {tuple(bias.shape)}")
+        and bias.device == dev and bias.shape == (cout,),
+        lambda: f"conv: bias {bias.dtype} {tuple(bias.shape)}")
     req(out_dtype in (torch.float32, torch.bfloat16),
-        f"conv: out_dtype {out_dtype}")
-    req(hpad in HPADS, f"conv: hpad {hpad!r}; known: {HPADS}")
+        lambda: f"conv: out_dtype {out_dtype}")
+    req(hpad in HPADS, lambda: f"conv: hpad {hpad!r}; known: {HPADS}")
     req(coord is None or (
         hpad == "zero" and npar == 1 and coord.dtype == torch.float32
-        and coord.is_contiguous() and coord.device == x.device
-        and tuple(coord.shape) == (h,)),
+        and coord.is_contiguous() and coord.device == dev
+        and coord.shape == (h,)),
         "conv: coord must be float32 [H] on x's device, with hpad='zero' "
         "and npar=1")
     req(npar == 1 or (npar == 4 and kh == kw and kh in (2, 3)
@@ -305,19 +441,29 @@ def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
         "3x3 folded form of the smoothed one")
     req(npar == 4 or hpad == "zero" or lo == hi,
         "conv: wrap padding is symmetric")
+    nargs = _norm_args(norm, x)
     ho, wo = out_size(h, w, kh, kw, stride, dil, (lo, hi), npar)
     oh, ow = (2 * ho, 2 * wo) if npar == 4 else (ho, wo)
-    out = torch.empty((b, cout, oh, ow), dtype=out_dtype, device=x.device)
+    out = torch.empty((b, cout, oh, ow), dtype=out_dtype, device=dev)
+    partial, nblk = None, 0
+    if stats:
+        nblk = stats_blocks(x.shape, cout, kh, kw, stride, dil, (lo, hi),
+                            npar, hpad, x.dtype)
+        partial = torch.empty((b, nblk, 2), dtype=torch.float32,
+                              device=dev)
     err = _build.lib().matry_conv(
         x.data_ptr(), wk.data_ptr(), bias.data_ptr(),
         None if coord is None else coord.data_ptr(), out.data_ptr(),
         b, cin, h, w, cout, ho, wo, kh, kw, stride, dil,
         1 if npar == 4 else lo, 1 if npar == 4 else lo, npar, oh, ow,
         int(tanh), int(x.dtype == torch.float32),
-        int(out_dtype == torch.float32), int(hpad == "zero"), None, None,
-        _build.stream_ptr(x.device))
+        int(out_dtype == torch.float32), int(hpad == "zero"),
+        None if partial is None else partial.data_ptr(), None, nblk, *nargs,
+        _build.stream_ptr(dev))
     _build.check(err, "matry_conv")
     launches += 1
     coord_launches += hpad == "zero"
     wgmma_launches += x.dtype == torch.bfloat16
-    return out
+    norm_launches += norm is not None
+    stats_launches += stats
+    return (out, partial) if stats else out

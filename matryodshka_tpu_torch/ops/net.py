@@ -1,12 +1,16 @@
-"""The MSI U-Net run stage by stage through the conv and layer-norm kernels.
+"""The MSI U-Net run stage by stage through the conv kernel.
 
 Counterpart of `matryodshka_tpu/ops/pallas_net.py` (`unet_plan`,
 `prepare_params`, `coord_operands`, `unet_forward`), for both variants of
 the net. On the TPU the whole net is one kernel because every custom-call
 boundary cost XLA its cross-layer pipelining; on the GPU each stage is one
-conv launch (`ops/conv.py`) and, except for the head, one layer-norm launch
-(`ops/layernorm.py`). Skip concats are a `torch.cat` of the two sources.
-Activations are [B, C, H, W] in the compute dtype; the head writes float32.
+conv launch (`ops/conv.py`), and the layer norm + ReLU between two stages
+is fused into them as the TPU kernel fuses it: each stage but the head
+stores its raw output with its statistics' partials, and each consumer
+normalizes its input as it reads it (`conv(..., norm=, stats=)`). Skip
+concats are a `torch.cat` of the two raw sources, whose normalizations
+the consumer applies end to end. Activations are [B, C, H, W] in the
+compute dtype; the head writes float32.
 
 The two variants share the topology and differ in each stage's padding
 (`conv_args`): the wrap net wraps columns horizontally; the coord net pads
@@ -25,7 +29,6 @@ from typing import Dict, List
 import torch
 
 from matryodshka_tpu_torch.ops import conv as conv_ops
-from matryodshka_tpu_torch.ops import layernorm as ln_ops
 
 VARIANTS = ("wrap", "coord")
 
@@ -115,12 +118,20 @@ def pack_stage(model, name: str, kind: str, dtype):
 
 def prepare(model, dtype, height: int = None) -> List[Dict]:
     """Kernel operands from an MSIUNet's own parameters: per stage the
-    packed weight (compute dtype), the bias and the LN gamma/beta (f32),
-    and for the coord net's convs and downs the coord channel per input
-    row (float32, `conv.coord_column`), which needs the net's input
+    packed weight (compute dtype), the bias (f32), `stats` (whether its
+    output is layer-normed, every stage but the head) and `norm`, the
+    (gamma, beta) f32 of each source's layer norm (None for the net's
+    input), and for the coord net's convs and downs the coord channel per
+    input row (float32, `conv.coord_column`), which needs the net's input
     height. Call again after the model's parameters change."""
     if model.variant == "coord" and height is None:
         raise ValueError("prepare: the coord net needs the input height")
+    ln = {}
+    for (name, kind, *_) in model.plan:
+        if kind != "head":
+            m = getattr(model, name + "_ln")
+            ln[name] = (m.gamma.detach().float().contiguous(),
+                        m.beta.detach().float().contiguous())
     stages = []
     for (name, kind, srcs, _, _, ind, _, rate) in model.plan:
         layer = getattr(model, name)
@@ -128,27 +139,37 @@ def prepare(model, dtype, height: int = None) -> List[Dict]:
         if has_coord(kind, model.variant):
             args["coord"] = conv_ops.coord_column(height // ind,
                                                   layer.weight.device)
-        st = {"name": name, "srcs": srcs, "args": args,
-              "w": pack_stage(model, name, kind, dtype),
-              "b": layer.bias.detach().float().contiguous()}
-        if kind != "head":
-            ln = getattr(model, name + "_ln")
-            st["gamma"] = ln.gamma.detach().float().contiguous()
-            st["beta"] = ln.beta.detach().float().contiguous()
-        stages.append(st)
+        stages.append({
+            "name": name, "srcs": srcs, "args": args,
+            "w": pack_stage(model, name, kind, dtype),
+            "b": layer.bias.detach().float().contiguous(),
+            "stats": kind != "head",
+            "norm": None if srcs == ["x"] else [ln[s] for s in srcs]})
     return stages
+
+
+def stage_input(st: Dict, acts: Dict):
+    """A stage's conv input and its norm from the raw activations and
+    their partials, acts[name] = (y, partials): the one source or the
+    channel concat of two, with one conv.Norm per source."""
+    srcs = [acts[s] for s in st["srcs"]]
+    x = srcs[0][0] if len(srcs) == 1 else torch.cat([y for y, _ in srcs],
+                                                    dim=1)
+    if st["norm"] is None:
+        return x, None
+    return x, [conv_ops.Norm(part, g, b)
+               for (_, part), (g, b) in zip(srcs, st["norm"])]
 
 
 def unet_forward(stages: List[Dict], x) -> torch.Tensor:
     """x [B, Cin, H, W] in the compute dtype -> tanh prediction
     [B, K, H, W] float32."""
-    acts = {"x": x}
+    acts = {"x": (x, None)}
     y = x
     for st in stages:
-        srcs = [acts[s] for s in st["srcs"]]
-        inp = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
-        y = conv_ops.conv(inp, st["w"], st["b"], **st["args"])
-        if "gamma" in st:
-            y = ln_ops.layer_norm_relu(y, st["gamma"], st["beta"])
-        acts[st["name"]] = y
+        inp, norm = stage_input(st, acts)
+        out = conv_ops.conv(inp, st["w"], st["b"], **st["args"], norm=norm,
+                            stats=st["stats"])
+        y, part = out if st["stats"] else (out, None)
+        acts[st["name"]] = (y, part)
     return y

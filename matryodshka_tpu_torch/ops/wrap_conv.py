@@ -165,8 +165,10 @@ def _launch(x, weight, bias, out_dtype, stats: bool, name: str):
     lib = _build.lib()
     out = torch.empty((b, cout, h, w), dtype=out_dtype, device=x.device)
     partial = sums = None
+    nblk = 0
     if stats:
-        nblk = lib.matry_conv_stats_blocks(h * w, cout)
+        nblk = conv_ops.stats_blocks(x.shape, cout, 3, 3, pad=1,
+                                     dtype=x.dtype)
         partial = torch.empty((b, nblk, 2), dtype=torch.float32,
                               device=x.device)
         sums = torch.empty((b, 2), dtype=torch.float64, device=x.device)
@@ -176,8 +178,8 @@ def _launch(x, weight, bias, out_dtype, stats: bool, name: str):
         b, cin, h, w, cout, h, w, 3, 3, 1, 1, 1, 1, 1, h, w, 0,
         int(x.dtype == torch.float32), int(out_dtype == torch.float32), 0,
         None if partial is None else partial.data_ptr(),
-        None if sums is None else sums.data_ptr(),
-        _build.stream_ptr(x.device))
+        None if sums is None else sums.data_ptr(), nblk,
+        *conv_ops.NO_NORM, _build.stream_ptr(x.device))
     _build.check(err, name)
     conv_ops.wgmma_launches += x.dtype == torch.bfloat16
     return out, sums

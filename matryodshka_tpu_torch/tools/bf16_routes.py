@@ -6,7 +6,7 @@ over many inputs, on the card.
 
 The two bf16 routes are the exported net-only program (cli/export.py: the
 plain MSIUNet in bf16, cuDNN's convs) and the kernel route
-(ops/net.unet_forward: csrc/conv.cu and csrc/layernorm.cu in bf16). For
+(ops/net.unet_forward: csrc/conv.cu, its layer norms fused, in bf16). For
 each seed the input is torch.rand from a torch.Generator seeded with it,
 the weights weights.seeded_init(cfg, 0) (the coord net unless
 --wrap_net), and each route's atlas (models/unet.atlas_pack) is held to

@@ -41,7 +41,7 @@ TOP = 10      # kernels listed per part
 PORT_KERNELS = ("sweep_kernel", "row_params_kernel", "assembled_kernel",
                 "conv_wgmma_kernel",
                 "conv_f32_kernel", "uv_project_kernel",
-                "stats_fold", "ln_onchip", "ln_stats", "ln_apply",
+                "stats_fold",
                 "render_kernel", "render_layers_kernel", "wgrad_wgmma_kernel",
                 "wgrad_f32_kernel", "wgrad_reduce")
 

@@ -151,7 +151,7 @@ BK = 64  # channels of one tap per k-step (csrc/conv.cu:wg::BK)
 
 def _emulated(x, wk, bias, kh, kw, stride=1, dil=1, pad=0, npar=1,
               tanh=False, hpad="wrap", coord=None, out_dtype=None,
-              halo_hpad=None):
+              halo_hpad=None, transform=None):
     """csrc/conv.cu's wgmma kernel in float64: block by block (Cout tile,
     pixel tile of plan.rows x plan.cols output pixels, sample and parity),
     stage by stage (channel chunk c0 outer, kernel row kh inner: the
@@ -163,7 +163,9 @@ def _emulated(x, wk, bias, kh, kw, stride=1, dil=1, pad=0, npar=1,
     adds the coord term (the coord weights times the coord value over the
     taps inside the input), then the bias, and writes the tile's valid
     pixels, at (2 oy + da, 2 ox + db) for npar 4. halo_hpad overrides the
-    horizontal padding of the TMA halos alone."""
+    horizontal padding of the TMA halos alone; transform(win, bi, c0,
+    iy0, ox0), if given, replaces each stage's window (the fused layer
+    norm's in-place pass, tests/test_torch_conv_ln.py)."""
     b, cin, h, w = x.shape
     cout = wk.shape[2]
     lo = conv_ops.pad_pair(pad)[0] if npar == 1 else 1
@@ -195,10 +197,12 @@ def _emulated(x, wk, bias, kh, kw, stride=1, dil=1, pad=0, npar=1,
                                       dtype=torch.float64)
                     for c0 in range(0, cin, BK):
                         for i in range(khp):
-                            win = _window(xz, bi, c0,
-                                          oy0 * stride + i * dil - ph, ox0,
-                                          ry, plan, stride, hpad, h, w,
+                            iy0 = oy0 * stride + i * dil - ph
+                            win = _window(xz, bi, c0, iy0, ox0, ry, plan,
+                                          stride, hpad, h, w,
                                           halo_hpad or hpad)
+                            if transform is not None:
+                                win = transform(win, bi, c0, iy0, ox0)
                             for j in range(kwp):
                                 cols = rx * stride + j * dil - pw + HALO
                                 arow = par * kh * kw * kcin + (

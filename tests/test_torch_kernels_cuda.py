@@ -28,7 +28,6 @@ from matryodshka_tpu_torch.losses.elpips import api as elpips_api
 from matryodshka_tpu_torch.models import msi as msi_lib
 from matryodshka_tpu_torch.models.unet import MSIUNet
 from matryodshka_tpu_torch.ops import conv as conv_ops
-from matryodshka_tpu_torch.ops import layernorm as ln_ops
 from matryodshka_tpu_torch.ops import net as net_ops
 from matryodshka_tpu_torch.ops import render as render_ops
 from matryodshka_tpu_torch.ops import render_layers as rl_ops
@@ -303,47 +302,200 @@ def test_conv_plan_matches_c(cuda):
         assert got == want.code(), ((b, cin, h, w), cout, args, got, want)
 
 
-#: Layer-norm shapes (B, C, H, W) and the form each takes on an H100: the
-#: original batch-2 case; one example on chip; odd sizes (not a whole
-#: number of 16-byte vectors: the scalar path) in both forms; conv1_1's
-#: output, on chip in bf16 and two-pass in f32 (too large for shared
-#: memory).
-LN_CASES = {
-    "batch2": ((2, 16, 24, 40), "two_pass", "two_pass"),
-    "onchip": ((1, 16, 24, 40), "onchip", "onchip"),
-    "odd_onchip": ((1, 3, 5, 7), "onchip", "onchip"),
-    "odd_batch3": ((3, 3, 5, 7), "two_pass", "two_pass"),
-    "conv1_1": ((1, 64, 320, 640), "onchip", "two_pass"),
-}
+def _fused_stage(plan, stages, name, dev, dtype, seed=0):
+    """A consumer stage of a net with its layer-normed inputs: each source
+    produced by its own stage's kernel on a uniform [-1, 1] input (with
+    its partials), gamma 1 + 0.1 N(0, 1) and beta 0.1 N(0, 1) per source.
+    -> (x, norm, stage operands): the raw sources' concat and one Norm
+    each."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    by = {p[0]: (p, st) for p, st in zip(plan, stages)}
+    (_, _, srcs, _, _, _, _, _), st = by[name]
+    ys, norm = [], []
+    for s in srcs:
+        (_, _, _, cins, cout, ind, _, _), pst = by[s]
+        shape = (1, sum(cins), 320 // ind, 640 // ind)
+        xs = (torch.rand(shape, generator=gen, device=dev) * 2 - 1).to(dtype)
+        y, part = conv_ops.conv(xs, pst["w"].to(dtype), pst["b"],
+                                **pst["args"], stats=True)
+        g = 1 + 0.1 * torch.randn(cout, generator=gen, device=dev)
+        bt = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        ys.append(y)
+        norm.append(conv_ops.Norm(part, g, bt))
+    x = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    return x, norm, st
+
+
+#: The 17 stages of the flagship net that read layer-normed inputs.
+LN_STAGES = ["conv1_2", "conv2_1", "conv2_2", "conv3_1", "conv3_2",
+             "conv3_3", "conv4_1", "conv4_2", "conv4_3", "conv6_1",
+             "conv6_2", "conv6_3", "conv7_1", "conv7_2", "conv8_1",
+             "conv8_2", "color_pred"]
+
+
+@functools.lru_cache(maxsize=None)
+def _flagship_params(net):
+    cfg = entry.flagship_cfg(coord_net=net.startswith("coord"),
+                             smoothed=net.endswith("smoothed"))
+    return entry.make_params(cfg, seed=0, device=torch.device("cuda"))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(LN_CASES))
+@pytest.mark.parametrize("stage", LN_STAGES)
+@pytest.mark.parametrize("net", ["wrap", "coord", "wrap_smoothed"])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_layernorm_kernel_matches_plain(cuda, dtype, case):
-    """f64 partial sums against a two-pass f32 mean/variance: 1e-5 of the
-    output scale in f32; in bf16 both sides round once (one bf16 step,
-    2^-7 of the scale). Each case takes the form the shape asks for, two
-    launches give bit-identical outputs, and each call counts one
-    launch."""
-    shape, form_bf16, form_f32 = LN_CASES[case]
-    rng = np.random.RandomState(7)
-    x = torch.from_numpy((rng.randn(*shape) * 2 + 0.5).astype(
-        np.float32)).to(cuda, dtype)
-    gamma = torch.from_numpy(rng.randn(shape[1]).astype(np.float32)).to(cuda)
-    beta = torch.from_numpy(rng.randn(shape[1]).astype(np.float32)).to(cuda)
-    assert ln_ops.plan_for(x)[0] == (form_f32 if dtype == torch.float32
-                                     else form_bf16)
-    before = ln_ops.launches
-    got = ln_ops.layer_norm_relu(x, gamma, beta)
-    again = ln_ops.layer_norm_relu(x, gamma, beta)
+def test_fused_layer_norm_conv_matches_plain(cuda, dtype, net, stage):
+    """The conv kernel with its sources' layer norm + ReLU fused (the
+    producers' partials folded in the launch, relu(a * y + b) on the
+    staged input) against conv_plain of layer_norm_relu_plain of each
+    source, at the flagship's 17 layer-normed inputs (640x320, ngf 64) of
+    the wrap, coord and smoothed nets: float32 within 1e-5 of the output's
+    scale, bf16 within one bf16 step (2^-7 of it: each side rounds the
+    normalized input and the output once, the sums in other orders); two
+    launches bit-identical, each counted once as a normed launch."""
+    params = _flagship_params(net)
+    x, norm, st = _fused_stage(params.net.plan, params.stages, stage, cuda,
+                               dtype)
+    wk = st["w"].to(dtype)
+    n0 = conv_ops.norm_launches
+    got = conv_ops.conv(x, wk, st["b"], **st["args"], norm=norm)
+    again = conv_ops.conv(x, wk, st["b"], **st["args"], norm=norm)
     torch.cuda.synchronize()
-    assert ln_ops.launches == before + 2
+    assert conv_ops.norm_launches == n0 + 2
     assert torch.equal(got, again)
-    want = ln_ops.layer_norm_relu_plain(x, gamma, beta).float()
+    xn = conv_ops.normalize_plain(x, norm)
+    want = conv_ops.conv_plain(xn, wk, st["b"], **st["args"]).float()
     tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * \
         want.abs().max().item()
     assert (got.float() - want).abs().max().item() <= tol
+
+
+#: Small consumers of every mode and form (name, batch, source channels,
+#: H, W, Cout, args): ragged channel chunks (40, 72), a gathered window
+#: (W 20, wrap), a main box past W (W 40, zero), a skip concat, the
+#: parity forms, the head.
+FUSED_CASES = [
+    ("wrap_conv", 1, [72], 10, 32, 16, dict(kh=3, kw=3, pad=1)),
+    ("wrap_down", 2, [72], 12, 64, 136, dict(kh=3, kw=3, stride=2, pad=1)),
+    ("wrap_dil2", 1, [40], 10, 32, 16, dict(kh=3, kw=3, dil=2, pad=2)),
+    ("wrap_concat_deconv", 2, [24, 40], 8, 32, 16,
+     dict(kh=2, kw=2, npar=4)),
+    ("wrap_smoothed", 1, [40], 8, 32, 16, dict(kh=3, kw=3, npar=4)),
+    ("wrap_gathered", 1, [24], 6, 20, 16, dict(kh=3, kw=3, pad=1)),
+    ("wrap_head", 1, [16], 8, 32, 5,
+     dict(kh=1, kw=1, tanh=True, out_dtype=torch.float32)),
+    ("zero_down", 1, [72], 12, 64, 24,
+     dict(kh=3, kw=3, stride=2, pad=(0, 1), hpad="zero")),
+    ("zero_ragged", 2, [24], 6, 40, 16,
+     dict(kh=3, kw=3, pad=(1, 1), hpad="zero")),
+    ("zero_concat_smoothed", 1, [24, 40], 8, 32, 16,
+     dict(kh=3, kw=3, npar=4, hpad="zero")),
+    ("coord_concat", 2, [24, 40], 8, 32, 16,
+     dict(kh=3, kw=3, pad=(1, 1), hpad="zero", coord=True)),
+    ("coord_dil2_ragged", 1, [72], 10, 40, 16,
+     dict(kh=3, kw=3, dil=2, pad=(2, 2), hpad="zero", coord=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[0] for c in FUSED_CASES])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_layer_norm_small_cases(cuda, dtype, case):
+    """Each source's producer a stride-1 3x3 conv of the consumer's mode
+    with stats (its partials), beta near 5 so that a normalized pad
+    element would show; the fused consumer against conv_plain of
+    layer_norm_relu_plain of each source, with the tolerances of
+    test_fused_layer_norm_conv_matches_plain; two launches bit-identical;
+    the producer's partials folded equal the plain sums within float32's
+    noise."""
+    _, b, cins, h, w, cout, args = next(c for c in FUSED_CASES
+                                        if c[0] == case)
+    args = dict(args)
+    rng = np.random.RandomState(sum(map(ord, case)))
+    hpad = args.get("hpad", "wrap")
+    if args.pop("coord", False):
+        args["coord"] = conv_ops.coord_column(h, cuda)
+    kcin = sum(cins) + ("coord" in args)
+
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    ys, norm = [], []
+    for c in cins:
+        xs = tensor(rng.uniform(-1, 1, (b, 8, h, w))).to(dtype)
+        wp = conv_ops.pack_conv(tensor(rng.randn(c, 8, 3, 3) * 0.3), dtype)
+        y, part = conv_ops.conv(xs, wp, tensor(rng.randn(c) + 1), 3, 3,
+                                pad=1 if hpad == "wrap" else (1, 1),
+                                hpad=hpad, stats=True)
+        yf = y.float()
+        sums = part.double().sum(1)
+        want_sums = torch.stack([yf.double().sum((1, 2, 3)),
+                                 yf.double().square().sum((1, 2, 3))], 1)
+        assert torch.allclose(sums, want_sums, rtol=1e-5)
+        ys.append(y)
+        norm.append(conv_ops.Norm(part, tensor(1 + 0.2 * rng.randn(c)),
+                                  tensor(5 + 0.5 * rng.randn(c))))
+    x = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    if args.get("npar") == 4:
+        wt = tensor(rng.randn(cout, kcin, 4, 4) * 0.1)
+        wk = (conv_ops.pack_smoothed(wt, dtype) if args["kh"] == 3 else
+              conv_ops.pack_deconv(wt, dtype, smoothed=False))
+    else:
+        wk = conv_ops.pack_conv(tensor(rng.randn(
+            cout, kcin, args["kh"], args["kw"]) * 0.1), dtype)
+    bias = tensor(rng.randn(cout) * 0.1)
+    got = conv_ops.conv(x, wk, bias, **args, norm=norm)
+    again = conv_ops.conv(x, wk, bias, **args, norm=norm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = conv_ops.conv_plain(conv_ops.normalize_plain(x, norm), wk, bias,
+                               **args).float()
+    tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * \
+        want.abs().max().item()
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_conv_smem_matches_c(cuda):
+    """ops/conv.conv_smem against csrc/conv.cu:smem_of (matry_conv_smem)
+    at every stage of the flagship nets, with and without the layer
+    norm's vectors, and ops/conv.stats_blocks against stat_blocks
+    (matry_conv_stats_blocks) in bf16 and f32."""
+    from matryodshka_tpu_torch.ops import _build
+    lib = _build.lib()
+    for net in ("wrap", "coord", "wrap_smoothed"):
+        params = _flagship_params(net)
+        for (name, _, _, cins, cout, ind, _, _), st in zip(
+                params.net.plan, params.stages):
+            a = st["args"]
+            w = 640 // ind
+            _, wo = conv_ops.grid_of((1, sum(cins), 320 // ind, w), a["kh"],
+                                     a["kw"], a.get("stride", 1),
+                                     a.get("dil", 1), a.get("pad", 0),
+                                     a.get("npar", 1))
+            for norm in (False, True):
+                want = conv_ops.conv_smem(sum(cins), w, cout, wo, a["kw"],
+                                          a.get("stride", 1),
+                                          a.get("hpad", "wrap"), norm)[2]
+                got = lib.matry_conv_smem(sum(cins), w, cout, wo, a["kw"],
+                                          a.get("stride", 1),
+                                          int(a.get("hpad") == "zero"),
+                                          int(norm))
+                assert got == want, (net, name, norm)
+            shape = (1, sum(cins), 320 // ind, w)
+            ho, _ = conv_ops.grid_of(shape, a["kh"], a["kw"],
+                                     a.get("stride", 1), a.get("dil", 1),
+                                     a.get("pad", 0), a.get("npar", 1))
+            for dtype in DTYPES:
+                want = conv_ops.stats_blocks(
+                    shape, cout, a["kh"], a["kw"], a.get("stride", 1),
+                    a.get("dil", 1), a.get("pad", 0), a.get("npar", 1),
+                    a.get("hpad", "wrap"), dtype)
+                got = lib.matry_conv_stats_blocks(
+                    w, cout, ho, wo, a.get("stride", 1), a.get("npar", 1),
+                    int(a.get("hpad") == "zero"),
+                    int(dtype == torch.float32))
+                assert got == want, (net, name, dtype)
 
 
 def _target(dev, rot_deg):
@@ -643,8 +795,9 @@ def test_hres_render_schemes_match_plain(cuda, scheme):
 def test_smoothed_net_kernel_route_matches_plain(cuda, variant):
     """A smoothed net (upsampling convs in place of the transposed ones)
     through ops/net.unet_forward: 18 conv launches (the three upsampling
-    stages in the kernel's folded parity form) and 17 layer-norm
-    launches. In float32 the f32 kernels against the plain versions to
+    stages in the kernel's folded parity form), 17 of them with their
+    inputs' layer norm fused, and no layer-norm launch. In float32 the
+    f32 kernels against the plain versions to
     1e-4 (the plan's bound in test_conv_kernel_matches_plain); in bf16 the
     kernel route against the float32 plain net within max(2e-2, 1.5 x
     the bf16 plain net's own distance from it) (chip_smoke.py path 11's
@@ -660,16 +813,18 @@ def test_smoothed_net_kernel_route_matches_plain(cuda, variant):
         plain16 = params.net(x, dtype=torch.bfloat16)
         stages32 = net_ops.prepare(params.net, torch.float32, H)
         got32 = net_ops.unet_forward(stages32, x)
-        n_conv, n_ln = conv_ops.launches, ln_ops.launches
+        n_conv, n_ln = conv_ops.launches, conv_ops.norm_launches
         got16 = net_ops.unet_forward(params.stages, x.to(torch.bfloat16))
         torch.cuda.synchronize()
-        assert (conv_ops.launches - n_conv, ln_ops.launches - n_ln) == \
-            (18, 17)
+        assert (conv_ops.launches - n_conv,
+                conv_ops.norm_launches - n_ln) == (18, 17)
         cpu = [{k: (v.cpu() if torch.is_tensor(v) else v)
                 for k, v in st.items()} for st in stages32]
         for st in cpu:
             if "coord" in st["args"]:
                 st["args"] = dict(st["args"], coord=st["args"]["coord"].cpu())
+            if st["norm"] is not None:
+                st["norm"] = [(g.cpu(), bt.cpu()) for g, bt in st["norm"]]
         plain32 = net_ops.unet_forward(cpu, x.cpu())
     assert (got32.cpu() - plain32).abs().max().item() <= \
         1e-4 * plain32.abs().max().item()
@@ -749,11 +904,13 @@ def test_forward_runs_every_kernel(cuda):
     matches its all-plain f32 twin to the bf16 bound of chip_smoke.py."""
     cfg, b = _batch(cuda, seed=1)
     params = entry.make_params(cfg, seed=2, device=cuda)
-    mods = (sweep_ops, conv_ops, ln_ops, render_ops)
+    mods = (sweep_ops, conv_ops, render_ops)
     before = [m.launches for m in mods]
+    n_norm = conv_ops.norm_launches
     out = entry.forward(params, b)
     torch.cuda.synchronize()
     assert all(m.launches > n for m, n in zip(mods, before))
+    assert conv_ops.norm_launches - n_norm == 17
     assert torch.isfinite(out).all()
     err = (out - entry.forward_plain(params, b)).abs().max().item()
     assert err <= 2e-2, err
@@ -862,20 +1019,21 @@ def test_coord_conv_first_layer_mpi_inputs(cuda, input_type, cin):
 @pytest.mark.parametrize("coord", [False, True])
 def test_infer_mpi_runs_the_net_kernels(cuda, input_type, coord):
     """The test CLI's MPI route (msi.infer_mpi) on the card at a small
-    size: one conv launch per stage (18) and one layer-norm launch per
-    stage but the head (17), no sweep or render kernel launch; its view
+    size: one conv launch per stage (18), 17 of them with their inputs'
+    layer norm fused (no layer-norm launch), no sweep or render kernel
+    launch; its view
     within chip_smoke.py's bf16 bound of the all-plain f32 route."""
     cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
                              num_msi_planes=P, ngf=NGF, coord_net=coord,
                              input_type=input_type)
     b = entry.synthetic_batch(cfg, 3, cuda)
     params = entry.make_params(cfg, seed=4, device=cuda)
-    before = (conv_ops.launches, ln_ops.launches, sweep_ops.launches,
+    before = (conv_ops.launches, conv_ops.norm_launches, sweep_ops.launches,
               render_ops.launches, rl_ops.launches)
     out = msi_lib.infer_mpi(cfg, params.stages, b, params.psv_depths,
                             params.msi_depths)["output_image"]
     torch.cuda.synchronize()
-    after = (conv_ops.launches, ln_ops.launches, sweep_ops.launches,
+    after = (conv_ops.launches, conv_ops.norm_launches, sweep_ops.launches,
              render_ops.launches, rl_ops.launches)
     assert [a - n for a, n in zip(after, before)] == [18, 17, 0, 0, 0]
     assert out.shape == (1, H, W, 3) and torch.isfinite(out).all()
@@ -1144,20 +1302,21 @@ def test_train_step_kernel_route_matches_plain(cuda):
 @pytest.mark.cuda
 def test_forward_coord_runs_every_kernel(cuda):
     """The small coord slice on the card goes through the sweep, the conv
-    kernel's coord mode, the layer norm and the render, and matches its
+    kernel's coord mode (17 launches with the layer norm fused) and the
+    render, and matches its
     all-plain f32 twin to the bf16 bound of chip_smoke.py."""
     cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
                              num_msi_planes=P, ngf=NGF, coord_net=True)
     b = entry.synthetic_batch(cfg, 1, cuda)
     params = entry.make_params(cfg, seed=2, device=cuda)
     before = (sweep_ops.launches, conv_ops.coord_launches,
-              ln_ops.launches, render_ops.launches)
+              conv_ops.norm_launches, render_ops.launches)
     out = entry.forward(params, b)
     torch.cuda.synchronize()
     after = (sweep_ops.launches, conv_ops.coord_launches,
-             ln_ops.launches, render_ops.launches)
+             conv_ops.norm_launches, render_ops.launches)
     assert all(a > n for a, n in zip(after, before))
-    assert after[1] - before[1] == 18
+    assert after[1] - before[1] == 18 and after[2] - before[2] == 17
     assert torch.isfinite(out).all()
     err = (out - entry.forward_plain(params, b)).abs().max().item()
     assert err <= 2e-2, err

@@ -139,7 +139,7 @@ def test_layer_norm_relu_matches_flax():
     ln = junet.SpatialLayerNorm()
     ref = jax.nn.relu(ln.apply({"params": {"gamma": gamma, "beta": beta}},
                                jnp.asarray(x)))
-    got = ln_ops.layer_norm_relu(
+    got = ln_ops.layer_norm_relu_plain(
         torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(gamma),
         torch.from_numpy(beta))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),

@@ -32,7 +32,6 @@ from matryodshka_tpu.training import state as state_lib
 from matryodshka_tpu_torch import entry
 from matryodshka_tpu_torch.models import msi as tmsi
 from matryodshka_tpu_torch.ops import conv as conv_ops
-from matryodshka_tpu_torch.ops import layernorm as ln_ops
 from matryodshka_tpu_torch.ops import render as render_ops
 from matryodshka_tpu_torch.ops import render_layers as rl_ops
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
@@ -175,9 +174,13 @@ def test_wrappers_raise_off_cpu_and_cuda():
     wrappers raise instead of running the plain version."""
     meta = torch.device("meta")
     x = torch.empty((1, 4, 8, 16), device=meta)
+    norm = [conv_ops.Norm(torch.empty((1, 4, 2), device=meta),
+                          torch.ones(4, device=meta),
+                          torch.zeros(4, device=meta))]
     with pytest.raises(ValueError):
-        ln_ops.layer_norm_relu(x, torch.ones(4, device=meta),
-                               torch.zeros(4, device=meta))
+        conv_ops.conv(x, torch.empty((1, 36, 4), device=meta),
+                      torch.empty(4, device=meta), kh=3, kw=3, pad=1,
+                      norm=norm, stats=True)
     with pytest.raises(ValueError):
         conv_ops.conv(x, torch.empty((1, 36, 4), device=meta),
                       torch.empty(4, device=meta), kh=3, kw=3, pad=1)

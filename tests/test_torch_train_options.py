@@ -51,7 +51,6 @@ from matryodshka_tpu_torch.geometry import render as render_lib
 from matryodshka_tpu_torch.geometry import sweep as tsweep
 from matryodshka_tpu_torch.models import msi as tmsi
 from matryodshka_tpu_torch.ops import conv as conv_ops
-from matryodshka_tpu_torch.ops import layernorm as ln_ops
 from matryodshka_tpu_torch.ops import render as render_ops
 from matryodshka_tpu_torch.ops import render_layers as rl_ops
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
@@ -404,7 +403,6 @@ def no_kernel_wrappers(monkeypatch):
 
     for mod, names in ((sweep_ops, ("sweep_volume",)),
                        (conv_ops, ("conv",)),
-                       (ln_ops, ("layer_norm_relu",)),
                        (render_ops, ("render_blend",)),
                        (rl_ops, ("render_layers", "render_layers_both")),
                        (wc, ("wrap_conv3x3", "conv3x3_wrap",
