@@ -601,24 +601,28 @@ def device_ops_per_call(fn, calls: int = 4):
 def trace_counted(fn, counters=None):
     """trace.trace_part(fn), checked against the wrappers' launch counts
     where counters is given (counters() sums the counts of the kernels fn
-    launches, each count one kernel). A trace that holds no device event,
-    or whose events of the port's kernels (trace.PORT_KERNELS) per call
-    differ from the launches counted per call over its window, missed part
-    of the window (the profiler now and then drops device events) and is
-    taken again, up to TRACE_TRIES times. Returns trace_part's tuple of the
-    first complete trace."""
+    launches, each count one kernel). A trace whose events of the port's
+    kernels (trace.PORT_KERNELS) per call differ from the launches one
+    untraced call counts missed part of the window (the profiler now and
+    then drops device events) and is taken again, up to TRACE_TRIES times,
+    as is one whose spins trace_part lost TRIES times. Returns trace_part's
+    tuple of the first complete trace."""
     from matryodshka_tpu_torch.trace import CALLS, port_kernels, trace_part
+    launched = None
+    if counters is not None:          # one call's launches
+        before = counters()
+        fn()
+        torch.cuda.synchronize()
+        launched = counters() - before
     for i in range(TRACE_TRIES):
         torch.cuda.synchronize()
-        before = counters() if counters else 0
         try:
             got = trace_part(fn)
-        except RuntimeError as e:     # no device event in the window
+        except RuntimeError as e:     # no window kept both spins
             print(f"  trace {i + 1}/{TRACE_TRIES}: {e}; taken again")
             continue
         if counters is None:
             return got
-        launched = (counters() - before) / (CALLS + 2)   # 2 warm-up calls
         traced = sum(n for n, _ in port_kernels(*got[4:]).values()) / CALLS
         if traced == launched:
             return got

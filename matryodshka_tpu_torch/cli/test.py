@@ -76,7 +76,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from matryodshka_tpu_torch import entry
+from matryodshka_tpu_torch import entry, trace
 from matryodshka_tpu_torch.config import (MatryConfig, add_config_args,
                                           config_from_args)
 from matryodshka_tpu_torch.data.images import write_image
@@ -318,6 +318,7 @@ def hres_inputs(which_color_pred: str):
             + (("bg_rgb",) if assembly == "blend_bg" else ()))
 
 
+@trace.setup_span("test.build_hres_render_fn")
 def build_hres_render_fn(cfg: MatryConfig, shards: int = 1):
     """High-res re-render with the semantics of the JAX
     build_hres_render_fn_fused (cli/test.py:178-229) and, per scheme, the
@@ -369,38 +370,40 @@ def build_hres_render_fn(cfg: MatryConfig, shards: int = 1):
     @torch.no_grad()
     def render(hres_ref, hres_src, blend_weights, alphas, ref_pose,
                src_pose, ref_pose_inv, intrinsics, tgt_pose, bg_rgb=None):
-        del ref_pose, src_pose, ref_pose_inv
-        depths = _psv_depths(cfg, hres_ref.device)
-        read = hres_inputs(cfg.which_color_pred)
-        low = {k: (x.float().contiguous() if k in read else None)
-               for k, x in (("alphas", alphas),
-                            ("blend_weights", blend_weights),
-                            ("bg_rgb", bg_rgb))}
-        eye = _eye(hres_ref.shape[0], hres_ref.device)
+        with trace.span("test.hres_render"):
+            del ref_pose, src_pose, ref_pose_inv
+            depths = _psv_depths(cfg, hres_ref.device)
+            read = hres_inputs(cfg.which_color_pred)
+            low = {k: (x.float().contiguous() if k in read else None)
+                   for k, x in (("alphas", alphas),
+                                ("blend_weights", blend_weights),
+                                ("bg_rgb", bg_rgb))}
+            eye = _eye(hres_ref.shape[0], hres_ref.device)
 
-        def block(p0, p1):
-            """The interleaved layer stack of shells p0 .. p1-1 [B, p1-p0,
-            Hh, Wh, 4]: their sweep, upsampled weights and assembly, one
-            call of the assembled mode."""
-            return sweep_ops.sweep_assembled(
-                hres_ref, hres_src, depths[p0:p1], intrinsics,
-                low["alphas"], low["blend_weights"], low["bg_rgb"],
-                rule=assembly, p0=p0, out_dtype=dtype)
+            def block(p0, p1):
+                """The interleaved layer stack of shells p0 .. p1-1 [B, p1-p0,
+                Hh, Wh, 4]: their sweep, upsampled weights and assembly, one
+                call of the assembled mode."""
+                return sweep_ops.sweep_assembled(
+                    hres_ref, hres_src, depths[p0:p1], intrinsics,
+                    low["alphas"], low["blend_weights"], low["bg_rgb"],
+                    rule=assembly, p0=p0, out_dtype=dtype)
 
-        if shards == 1:
-            layers = block(0, p)
-            rgb, depth = render_lib.render_equirect_view_prepared_both(
-                layers, eye, tgt_pose, depths)
-            return msi_lib.deprocess_image(rgb), depth
-        mine = [blocks[rank]] if world > 1 else blocks
-        parts = [rl_ops.render_layers_partial(block(p0, p1), eye, tgt_pose,
-                                              depths[p0:p1], p0, p)
-                 for p0, p1 in mine]
-        if world > 1:
-            c, d, t = sharded_render.gather_partials(parts[0])
-        else:
-            c, d, t = (torch.stack(x) for x in zip(*parts))
-        return (msi_lib.deprocess_image(sharded_render.combine_partials(c, t)),
+            if shards == 1:
+                layers = block(0, p)
+                rgb, depth = render_lib.render_equirect_view_prepared_both(
+                    layers, eye, tgt_pose, depths)
+                return msi_lib.deprocess_image(rgb), depth
+            mine = [blocks[rank]] if world > 1 else blocks
+            parts = [rl_ops.render_layers_partial(block(p0, p1), eye, tgt_pose,
+                                                  depths[p0:p1], p0, p)
+                     for p0, p1 in mine]
+            if world > 1:
+                c, d, t = sharded_render.gather_partials(parts[0])
+            else:
+                c, d, t = (torch.stack(x) for x in zip(*parts))
+            return (msi_lib.deprocess_image(
+                sharded_render.combine_partials(c, t)),
                 sharded_render.combine_partials(d, t))
 
     return render

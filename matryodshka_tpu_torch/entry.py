@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from matryodshka_tpu_torch import weights
+from matryodshka_tpu_torch import trace, weights
 from matryodshka_tpu_torch.config import MatryConfig
 from matryodshka_tpu_torch.geometry.cameras import interpolate_pose
 from matryodshka_tpu_torch.geometry import render as render_lib
@@ -123,14 +123,20 @@ class Params:
     gcn_inputs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
+@trace.setup_span("entry.make_params")
 def make_params(cfg: MatryConfig, flax_params=None, seed: int = 0,
                 device="cuda") -> Params:
     """Net of cfg's variant (cfg.coord_net, cfg.smoothed; the GCN and its
     mesh with cfg.gcn, which has no kernel stages) from a flax parameter
     tree (numpy leaves), or from weights.seeded_init(cfg, seed) when none
-    is given, on device (the card unless the caller asks for the CPU)."""
-    tree = weights.seeded_init(cfg, seed) if flax_params is None \
-        else flax_params
+    is given, on device (the card unless the caller asks for the CPU).
+    Its parts are setup spans: weights.seeded_init, weights.from_flax,
+    unet.MSIUNet (the module built, loaded and moved), net.prepare."""
+    if flax_params is None:
+        with trace.setup_span("weights.seeded_init"):
+            tree = weights.seeded_init(cfg, seed)
+    else:
+        tree = flax_params
 
     def depths(n):
         return torch.tensor(sweep_lib.inv_depths(cfg.min_depth,
@@ -142,14 +148,18 @@ def make_params(cfg: MatryConfig, flax_params=None, seed: int = 0,
         net.load_state_dict(weights.gcn_from_flax(tree))
         return Params(cfg, net.eval(), [], depths(cfg.num_psv_planes),
                       depths(cfg.num_msi_planes), (coords, p2v))
-    net = MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
-                  dtype=cfg.torch_compute_dtype, variant=cfg.net_variant,
-                  smoothed=cfg.smoothed)
-    net.load_state_dict(weights.from_flax(tree))
-    net = net.to(device).eval()
-    return Params(cfg, net,
-                  net_ops.prepare(net, cfg.torch_compute_dtype, cfg.height),
-                  depths(cfg.num_psv_planes), depths(cfg.num_msi_planes))
+    with trace.setup_span("weights.from_flax"):
+        state = weights.from_flax(tree)
+    with trace.setup_span("unet.MSIUNet"):
+        net = MSIUNet(cfg.num_net_inputs(), cfg.num_net_outputs(), cfg.ngf,
+                      dtype=cfg.torch_compute_dtype, variant=cfg.net_variant,
+                      smoothed=cfg.smoothed)
+        net.load_state_dict(state)
+        net = net.to(device).eval()
+    with trace.setup_span("net.prepare"):
+        stages = net_ops.prepare(net, cfg.torch_compute_dtype, cfg.height)
+    return Params(cfg, net, stages, depths(cfg.num_psv_planes),
+                  depths(cfg.num_msi_planes))
 
 
 def _identity_rt(batch):
@@ -162,11 +172,12 @@ def forward(params: Params, batch, tgt_pose_rt=None) -> torch.Tensor:
     """Hot path -> rendered view [B, H, W, 3] float32 (values in [-1, 1]).
     tgt_pose_rt [B, 4, 4] rotates the target view (identity by default);
     batch['tgt_pose'] [B, 3] is the target position."""
-    rt = _identity_rt(batch) if tgt_pose_rt is None else tgt_pose_rt
-    vol = msi_lib.sweep_stage(params.cfg, batch, params.psv_depths)
-    pred = msi_lib.net_stage(params.stages, vol)
-    return msi_lib.render_stage(vol, pred, rt, batch["tgt_pose"],
-                                params.msi_depths)
+    with trace.span("entry.forward"):
+        rt = _identity_rt(batch) if tgt_pose_rt is None else tgt_pose_rt
+        vol = msi_lib.sweep_stage(params.cfg, batch, params.psv_depths)
+        pred = msi_lib.net_stage(params.stages, vol)
+        return msi_lib.render_stage(vol, pred, rt, batch["tgt_pose"],
+                                    params.msi_depths)
 
 
 @torch.no_grad()

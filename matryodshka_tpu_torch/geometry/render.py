@@ -15,6 +15,7 @@ import torch
 
 import math
 
+from matryodshka_tpu_torch import trace
 from matryodshka_tpu_torch.geometry import cameras, intersect
 from matryodshka_tpu_torch.ops.resample import resample_layers
 
@@ -172,8 +173,9 @@ def render_equirect_view_prepared_both(layers, tgt_pose, tgt_pos, radii,
     that writes both; on the CPU one uv_tables build and the plain version
     twice."""
     from matryodshka_tpu_torch.ops import render_layers as rl_ops
-    return rl_ops.render_layers_both(layers, tgt_pose, tgt_pos, radii,
-                                     ftb=ftb)
+    with trace.span("render.render_equirect_view_prepared_both"):
+        return rl_ops.render_layers_both(layers, tgt_pose, tgt_pos, radii,
+                                         ftb=ftb)
 
 
 def render_equirect_view_fused_blend(vol, pred, tgt_pose, tgt_pos, radii,

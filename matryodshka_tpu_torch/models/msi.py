@@ -55,6 +55,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from matryodshka_tpu_torch import trace
 from matryodshka_tpu_torch.geometry import homography
 from matryodshka_tpu_torch.geometry import render as render_lib
 from matryodshka_tpu_torch.geometry import sweep as sweep_lib
@@ -318,24 +319,28 @@ def sweep_stage(cfg, batch, psv_depths, jitter_pose_inv=None):
     plane sweeps (no TPU kernel exists for either); with cfg.use_pallas
     false the gather always (JAX sweep.py:150). The arguments pick the
     route, so the kernel never sees a posed batch."""
-    if (cfg.input_type == "ODS" and jitter_pose_inv is None
-            and cfg.use_pallas):
-        return sweep_ops.sweep_volume(batch["ref_image"], batch["src_image"],
-                                      psv_depths, batch["intrinsics"],
-                                      out_dtype=cfg.torch_compute_dtype)
-    vol = format_input(cfg, batch, psv_depths, jitter_pose_inv)
-    return vol.permute(0, 3, 1, 2).to(cfg.torch_compute_dtype).contiguous()
+    with trace.span("msi.sweep_stage"):
+        if (cfg.input_type == "ODS" and jitter_pose_inv is None
+                and cfg.use_pallas):
+            return sweep_ops.sweep_volume(
+                batch["ref_image"], batch["src_image"], psv_depths,
+                batch["intrinsics"], out_dtype=cfg.torch_compute_dtype)
+        vol = format_input(cfg, batch, psv_depths, jitter_pose_inv)
+        return vol.permute(0, 3, 1, 2).to(
+            cfg.torch_compute_dtype).contiguous()
 
 
 def net_stage(stages, vol):
     """Stage 2: the U-Net -> prediction [B, K, H, W] f32."""
-    return net_ops.unet_forward(stages, vol)
+    with trace.span("msi.net_stage"):
+        return net_ops.unet_forward(stages, vol)
 
 
 def render_stage(vol, pred, tgt_pose_rt, tgt_pos, msi_depths):
     """Stage 3 of blend_psv: blend-fused render -> [B, H, W, 3] f32."""
-    return render_lib.render_equirect_view_fused_blend(
-        vol, pred, tgt_pose_rt, tgt_pos, msi_depths)
+    with trace.span("msi.render_stage"):
+        return render_lib.render_equirect_view_fused_blend(
+            vol, pred, tgt_pose_rt, tgt_pos, msi_depths)
 
 
 def assemble_outputs_planar(cfg, vol, pred) -> Dict[str, torch.Tensor]:

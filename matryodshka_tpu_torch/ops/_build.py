@@ -35,6 +35,8 @@ from pathlib import Path
 
 import torch
 
+from matryodshka_tpu_torch import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -100,10 +102,17 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists (the
+    compile inside a setup span, `_build.build`)."""
     so = library_path()
     if so.exists():
         return so
+    with trace.setup_span("_build.build"):
+        _compile(so)
+    return so
+
+
+def _compile(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{so.stem}.{os.getpid()}"
@@ -143,7 +152,6 @@ def build() -> Path:
                 proc.wait()
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
-    return so
 
 
 #: The op library's sources: its C++ registration, and K1 with the headers
@@ -258,16 +266,26 @@ def _build_op_library(so: Path, cuda: bool) -> None:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (the load inside a
+    setup span, `_build.lib`)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = handle
+        with trace.setup_span("_build.lib"):
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
     return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call the library's kernel entry `name` (a key of SIGNATURES) with
+    args, inside a span `launch.<name>`; raise if it reported a CUDA
+    error."""
+    with trace.span("launch." + name):
+        check(getattr(lib(), name)(*args), name)
 
 
 def stream_ptr(device: torch.device) -> int:

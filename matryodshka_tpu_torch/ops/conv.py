@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from matryodshka_tpu_torch import trace
 from matryodshka_tpu_torch.ops import _build
 from matryodshka_tpu_torch.ops.layernorm import layer_norm_relu_plain
 
@@ -401,69 +402,69 @@ def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
     return the output's partial sums, [B, stats_blocks, 2] float32 (None
     for CPU tensors), which a consumer's Norm takes. -> out, or (out,
     partials) with stats."""
-    if x.device.type == "cpu":
-        if norm is not None:
-            x = normalize_plain(x, norm)
-        y = conv_plain(x, wk, bias, kh, kw, stride, dil, pad, npar, tanh,
-                       out_dtype, hpad, coord)
-        return (y, None) if stats else y
     global launches, coord_launches, wgmma_launches
     global norm_launches, stats_launches
-    out_dtype = x.dtype if out_dtype is None else out_dtype
-    b, cin, h, w = x.shape
-    cout = wk.shape[2]
-    lo, hi = pad_pair(pad)
-    kcin = cin + (coord is not None)
-    dev = x.device
-    req = _build.require
-    req(x.is_cuda, lambda: f"conv: unsupported device {dev}")
-    req(x.dtype in (torch.float32, torch.bfloat16) and x.is_contiguous(),
-        lambda: f"conv: x must be contiguous float32/bfloat16, got "
-                f"{x.dtype}")
-    req(wk.dtype == x.dtype and wk.is_contiguous() and wk.device == dev
-        and wk.shape == (npar, kh * kw * kcin, cout),
-        lambda: f"conv: packed weight {wk.dtype} {tuple(wk.shape)}")
-    req(bias.dtype == torch.float32 and bias.is_contiguous()
-        and bias.device == dev and bias.shape == (cout,),
-        lambda: f"conv: bias {bias.dtype} {tuple(bias.shape)}")
-    req(out_dtype in (torch.float32, torch.bfloat16),
-        lambda: f"conv: out_dtype {out_dtype}")
-    req(hpad in HPADS, lambda: f"conv: hpad {hpad!r}; known: {HPADS}")
-    req(coord is None or (
-        hpad == "zero" and npar == 1 and coord.dtype == torch.float32
-        and coord.is_contiguous() and coord.device == dev
-        and coord.shape == (h,)),
-        "conv: coord must be float32 [H] on x's device, with hpad='zero' "
-        "and npar=1")
-    req(npar == 1 or (npar == 4 and kh == kw and kh in (2, 3)
-                      and stride == 1 and dil == 1),
-        "conv: npar=4 is the 2x2 parity form of the transposed conv or the "
-        "3x3 folded form of the smoothed one")
-    req(npar == 4 or hpad == "zero" or lo == hi,
-        "conv: wrap padding is symmetric")
-    nargs = _norm_args(norm, x)
-    ho, wo = out_size(h, w, kh, kw, stride, dil, (lo, hi), npar)
-    oh, ow = (2 * ho, 2 * wo) if npar == 4 else (ho, wo)
-    out = torch.empty((b, cout, oh, ow), dtype=out_dtype, device=dev)
-    partial, nblk = None, 0
-    if stats:
-        nblk = stats_blocks(x.shape, cout, kh, kw, stride, dil, (lo, hi),
-                            npar, hpad, x.dtype)
-        partial = torch.empty((b, nblk, 2), dtype=torch.float32,
-                              device=dev)
-    err = _build.lib().matry_conv(
-        x.data_ptr(), wk.data_ptr(), bias.data_ptr(),
-        None if coord is None else coord.data_ptr(), out.data_ptr(),
-        b, cin, h, w, cout, ho, wo, kh, kw, stride, dil,
-        1 if npar == 4 else lo, 1 if npar == 4 else lo, npar, oh, ow,
-        int(tanh), int(x.dtype == torch.float32),
-        int(out_dtype == torch.float32), int(hpad == "zero"),
-        None if partial is None else partial.data_ptr(), None, nblk, *nargs,
-        _build.stream_ptr(dev))
-    _build.check(err, "matry_conv")
-    launches += 1
-    coord_launches += hpad == "zero"
-    wgmma_launches += x.dtype == torch.bfloat16
-    norm_launches += norm is not None
-    stats_launches += stats
-    return (out, partial) if stats else out
+    with trace.span("conv.conv"):
+        if x.device.type == "cpu":
+            if norm is not None:
+                x = normalize_plain(x, norm)
+            y = conv_plain(x, wk, bias, kh, kw, stride, dil, pad, npar, tanh,
+                           out_dtype, hpad, coord)
+            return (y, None) if stats else y
+        out_dtype = x.dtype if out_dtype is None else out_dtype
+        b, cin, h, w = x.shape
+        cout = wk.shape[2]
+        lo, hi = pad_pair(pad)
+        kcin = cin + (coord is not None)
+        dev = x.device
+        req = _build.require
+        req(x.is_cuda, lambda: f"conv: unsupported device {dev}")
+        req(x.dtype in (torch.float32, torch.bfloat16) and x.is_contiguous(),
+            lambda: f"conv: x must be contiguous float32/bfloat16, got "
+                    f"{x.dtype}")
+        req(wk.dtype == x.dtype and wk.is_contiguous() and wk.device == dev
+            and wk.shape == (npar, kh * kw * kcin, cout),
+            lambda: f"conv: packed weight {wk.dtype} {tuple(wk.shape)}")
+        req(bias.dtype == torch.float32 and bias.is_contiguous()
+            and bias.device == dev and bias.shape == (cout,),
+            lambda: f"conv: bias {bias.dtype} {tuple(bias.shape)}")
+        req(out_dtype in (torch.float32, torch.bfloat16),
+            lambda: f"conv: out_dtype {out_dtype}")
+        req(hpad in HPADS, lambda: f"conv: hpad {hpad!r}; known: {HPADS}")
+        req(coord is None or (
+            hpad == "zero" and npar == 1 and coord.dtype == torch.float32
+            and coord.is_contiguous() and coord.device == dev
+            and coord.shape == (h,)),
+            "conv: coord must be float32 [H] on x's device, with hpad='zero' "
+            "and npar=1")
+        req(npar == 1 or (npar == 4 and kh == kw and kh in (2, 3)
+                          and stride == 1 and dil == 1),
+            "conv: npar=4 is the 2x2 parity form of the transposed conv or "
+            "the 3x3 folded form of the smoothed one")
+        req(npar == 4 or hpad == "zero" or lo == hi,
+            "conv: wrap padding is symmetric")
+        nargs = _norm_args(norm, x)
+        ho, wo = out_size(h, w, kh, kw, stride, dil, (lo, hi), npar)
+        oh, ow = (2 * ho, 2 * wo) if npar == 4 else (ho, wo)
+        out = torch.empty((b, cout, oh, ow), dtype=out_dtype, device=dev)
+        partial, nblk = None, 0
+        if stats:
+            nblk = stats_blocks(x.shape, cout, kh, kw, stride, dil, (lo, hi),
+                                npar, hpad, x.dtype)
+            partial = torch.empty((b, nblk, 2), dtype=torch.float32,
+                                  device=dev)
+        _build.launch(
+            "matry_conv", x.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+            None if coord is None else coord.data_ptr(), out.data_ptr(),
+            b, cin, h, w, cout, ho, wo, kh, kw, stride, dil,
+            1 if npar == 4 else lo, 1 if npar == 4 else lo, npar, oh, ow,
+            int(tanh), int(x.dtype == torch.float32),
+            int(out_dtype == torch.float32), int(hpad == "zero"),
+            None if partial is None else partial.data_ptr(), None, nblk,
+            *nargs, _build.stream_ptr(dev))
+        launches += 1
+        coord_launches += hpad == "zero"
+        wgmma_launches += x.dtype == torch.bfloat16
+        norm_launches += norm is not None
+        stats_launches += stats
+        return (out, partial) if stats else out

@@ -67,10 +67,8 @@ def trig(x: torch.Tensor) -> torch.Tensor:
     global trig_launches
     _rows("probe trig", x, (torch.float32,))
     out = torch.empty_like(x)
-    err = _build.lib().matry_probe_trig(x.data_ptr(), out.data_ptr(),
-                                        x.numel(),
-                                        _build.stream_ptr(x.device))
-    _build.check(err, "matry_probe_trig")
+    _build.launch("matry_probe_trig", x.data_ptr(), out.data_ptr(),
+                  x.numel(), _build.stream_ptr(x.device))
     trig_launches += 1
     return out
 
@@ -92,10 +90,8 @@ def roll(x: torch.Tensor, shift: int) -> torch.Tensor:
     rows, width = _rows("probe roll", x, (torch.float32, torch.bfloat16))
     bf16 = x.dtype == torch.bfloat16
     out = torch.empty_like(x)
-    err = _build.lib().matry_probe_roll(x.data_ptr(), out.data_ptr(), rows,
-                                        width, s, int(bf16),
-                                        _build.stream_ptr(x.device))
-    _build.check(err, "matry_probe_roll")
+    _build.launch("matry_probe_roll", x.data_ptr(), out.data_ptr(), rows,
+                  width, s, int(bf16), _build.stream_ptr(x.device))
     if bf16:
         roll_bf16_launches += 1
     else:
@@ -122,9 +118,7 @@ def window_shift(x: torch.Tensor, shift: int) -> torch.Tensor:
                    f"probe window_shift: {rows} rows of {width} (at most "
                    f"{WINDOW_SHIFT_MAX_W} wide)")
     out = torch.empty_like(x)
-    err = _build.lib().matry_probe_window_shift(
-        x.data_ptr(), out.data_ptr(), rows, width, s,
-        _build.stream_ptr(x.device))
-    _build.check(err, "matry_probe_window_shift")
+    _build.launch("matry_probe_window_shift", x.data_ptr(), out.data_ptr(),
+                  rows, width, s, _build.stream_ptr(x.device))
     window_shift_launches += 1
     return out

@@ -87,12 +87,11 @@ def render_blend(vol, pred, tgt_pose, tgt_pos, radii, depth: bool = False):
                                b, dev)
     lat, lon = grids.lat_long_vectors(h, w, dev)
     out = torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
-    err = _build.lib().matry_render(
-        vol.data_ptr(), pred.data_ptr(), *geo, lat.data_ptr(),
-        lon.data_ptr(), out.data_ptr(), b, p, h, w,
+    _build.launch(
+        "matry_render", vol.data_ptr(), pred.data_ptr(), *geo,
+        lat.data_ptr(), lon.data_ptr(), out.data_ptr(), b, p, h, w,
         int(vol.dtype == torch.bfloat16), int(depth), EPS,
         _build.stream_ptr(dev))
-    _build.check(err, "matry_render")
     if depth:
         depth_launches += 1
     else:
@@ -118,9 +117,8 @@ def uv_project(tgt_pose, tgt_pos, radii, height: int, width: int):
     lat, lon = grids.lat_long_vectors(height, width, dev)
     u = torch.empty((b, p, height, width), dtype=torch.float32, device=dev)
     v = torch.empty_like(u)
-    err = _build.lib().matry_uv_project(
-        *geo, lat.data_ptr(), lon.data_ptr(), u.data_ptr(), v.data_ptr(), b,
-        p, height, width, _build.stream_ptr(dev))
-    _build.check(err, "matry_uv_project")
+    _build.launch("matry_uv_project", *geo, lat.data_ptr(), lon.data_ptr(),
+                  u.data_ptr(), v.data_ptr(), b, p, height, width,
+                  _build.stream_ptr(dev))
     uv_launches += 1
     return u, v

@@ -144,11 +144,11 @@ def render_layers_partial(layers, tgt_pose, tgt_pos, radii, p0: int,
     rgb, dep = (torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
                 for _ in range(2))
     trans = torch.empty((b, h, w, 1), dtype=torch.float32, device=dev)
-    err = _build.lib().matry_render_layers_partial(
-        layers.data_ptr(), *geo, lat.data_ptr(), lon.data_ptr(),
-        rgb.data_ptr(), dep.data_ptr(), trans.data_ptr(), b, p, h, w, p0,
-        p_total, int(layers.dtype == torch.bfloat16), _build.stream_ptr(dev))
-    _build.check(err, "matry_render_layers_partial")
+    _build.launch(
+        "matry_render_layers_partial", layers.data_ptr(), *geo,
+        lat.data_ptr(), lon.data_ptr(), rgb.data_ptr(), dep.data_ptr(),
+        trans.data_ptr(), b, p, h, w, p0, p_total,
+        int(layers.dtype == torch.bfloat16), _build.stream_ptr(dev))
     partial_launches += 1
     return rgb, dep, trans
 
@@ -167,13 +167,12 @@ def _launch(layers, tgt_pose, tgt_pos, radii, ftb, want_rgb, want_depth):
     lat, lon = grids.lat_long_vectors(h, w, dev)
     rgb, dep = (torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
                 if want else None for want in (want_rgb, want_depth))
-    err = _build.lib().matry_render_layers(
-        layers.data_ptr(), *geo, lat.data_ptr(), lon.data_ptr(),
-        None if rgb is None else rgb.data_ptr(),
+    _build.launch(
+        "matry_render_layers", layers.data_ptr(), *geo, lat.data_ptr(),
+        lon.data_ptr(), None if rgb is None else rgb.data_ptr(),
         None if dep is None else dep.data_ptr(), b, p, h, w,
         int(layers.dtype == torch.bfloat16), int(ftb), EPS,
         _build.stream_ptr(dev))
-    _build.check(err, "matry_render_layers")
     if ftb:
         ftb_launches += 1
     else:

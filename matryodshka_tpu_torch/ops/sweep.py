@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from matryodshka_tpu_torch import trace
 from matryodshka_tpu_torch.geometry import cameras, grids
 from matryodshka_tpu_torch.ops import _build
 
@@ -176,12 +177,11 @@ def sweep_volume(ref_image, src_image, depths, intrinsics,
         f"sweep_volume: out_dtype {out_dtype}")
     lat, lon = grids.lat_long_vectors(h, w, dev)
     out = torch.empty((b, 2 * p * 3, h, w), dtype=out_dtype, device=dev)
-    err = _build.lib().matry_sweep(
-        ref_image.data_ptr(), src_image.data_ptr(), depths.data_ptr(),
-        intrinsics.data_ptr(), lat.data_ptr(), lon.data_ptr(),
-        out.data_ptr(), b, p, h, w, int(out_dtype == torch.bfloat16),
-        _build.stream_ptr(dev))
-    _build.check(err, "matry_sweep")
+    _build.launch(
+        "matry_sweep", ref_image.data_ptr(), src_image.data_ptr(),
+        depths.data_ptr(), intrinsics.data_ptr(), lat.data_ptr(),
+        lon.data_ptr(), out.data_ptr(), b, p, h, w,
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev))
     launches += 1
     return out
 
@@ -238,53 +238,53 @@ def sweep_assembled(hres_ref, hres_src, depths, intrinsics, alphas,
     (sweep_assembled_plain); CUDA tensors one launch of the kernel, which
     computes its own row parameters and upsamples in registers; any other
     device raises."""
-    if hres_ref.device.type == "cpu":
-        return sweep_assembled_plain(hres_ref, hres_src, depths, intrinsics,
-                                     alphas, blend, bg_rgb, rule, p0,
-                                     out_dtype)
     global assembled_launches
-    req = _build.require
-    dev = hres_ref.device
-    req(hres_ref.is_cuda, f"sweep_assembled: unsupported device {dev}")
-    b, hh, hw, _ = hres_ref.shape
-    p = depths.shape[0]
-    req(rule in RULES, f"sweep_assembled: rule {rule!r} (one of "
-                       f"{sorted(RULES)})")
-    for name, t in (("hres_ref", hres_ref), ("hres_src", hres_src)):
-        req(t.device == dev and t.dtype == torch.float32
-            and t.is_contiguous() and tuple(t.shape) == (b, hh, hw, 3),
-            f"sweep_assembled: {name} {t.dtype} {tuple(t.shape)} "
-            f"(contiguous float32 [B, H, W, 3])")
-    req(hw % 4 == 0, f"sweep_assembled: width {hw} is not a multiple of 4")
-    _check_geometry("sweep_assembled", depths, intrinsics, b, dev)
-    _, h, w, p_low = alphas.shape
-    low = []
-    for name, t, c, read in (("alphas", alphas, p_low, True),
-                             ("blend", blend, p_low, rule != "alpha_only"),
-                             ("bg_rgb", bg_rgb, 3, rule == "blend_bg")):
-        req(not read or (t is not None and t.device == dev
-                         and t.dtype == torch.float32 and t.is_contiguous()
-                         and tuple(t.shape) == (b, h, w, c)),
-            f"sweep_assembled: rule {rule} reads {name} as a contiguous "
-            f"float32 [{b}, {h}, {w}, {c}]; got "
-            f"{None if t is None else (t.dtype, tuple(t.shape))}")
-        low.append(t.data_ptr() if read else None)
-    req(h <= hh and w <= hw and 0 <= p0 and p0 + p <= p_low,
-        f"sweep_assembled: low-res {h}x{w} into {hh}x{hw}, shells "
-        f"{p0}..{p0 + p - 1} of {p_low}")
-    req(out_dtype in (torch.float32, torch.bfloat16),
-        f"sweep_assembled: out_dtype {out_dtype}")
-    lat, lon = grids.lat_long_vectors(hh, hw, dev)
-    out = torch.empty((b, p, hh, hw, 4), dtype=out_dtype, device=dev)
-    err = _build.lib().matry_sweep_assembled(
-        hres_ref.data_ptr(), hres_src.data_ptr(), depths.data_ptr(),
-        intrinsics.data_ptr(), lat.data_ptr(), lon.data_ptr(),
-        *low,
-        out.data_ptr(), b, p, hh, hw, h, w, p_low, p0, RULES[rule],
-        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev))
-    _build.check(err, "matry_sweep_assembled")
-    assembled_launches += 1
-    return out
+    with trace.span("sweep.sweep_assembled"):
+        if hres_ref.device.type == "cpu":
+            return sweep_assembled_plain(hres_ref, hres_src, depths,
+                                         intrinsics, alphas, blend, bg_rgb,
+                                         rule, p0, out_dtype)
+        req = _build.require
+        dev = hres_ref.device
+        req(hres_ref.is_cuda, f"sweep_assembled: unsupported device {dev}")
+        b, hh, hw, _ = hres_ref.shape
+        p = depths.shape[0]
+        req(rule in RULES, f"sweep_assembled: rule {rule!r} (one of "
+                           f"{sorted(RULES)})")
+        for name, t in (("hres_ref", hres_ref), ("hres_src", hres_src)):
+            req(t.device == dev and t.dtype == torch.float32
+                and t.is_contiguous() and tuple(t.shape) == (b, hh, hw, 3),
+                f"sweep_assembled: {name} {t.dtype} {tuple(t.shape)} "
+                f"(contiguous float32 [B, H, W, 3])")
+        req(hw % 4 == 0, f"sweep_assembled: width {hw} is not a multiple of 4")
+        _check_geometry("sweep_assembled", depths, intrinsics, b, dev)
+        _, h, w, p_low = alphas.shape
+        low = []
+        for name, t, c, read in (("alphas", alphas, p_low, True),
+                                 ("blend", blend, p_low, rule != "alpha_only"),
+                                 ("bg_rgb", bg_rgb, 3, rule == "blend_bg")):
+            req(not read or (t is not None and t.device == dev
+                             and t.dtype == torch.float32 and t.is_contiguous()
+                             and tuple(t.shape) == (b, h, w, c)),
+                f"sweep_assembled: rule {rule} reads {name} as a contiguous "
+                f"float32 [{b}, {h}, {w}, {c}]; got "
+                f"{None if t is None else (t.dtype, tuple(t.shape))}")
+            low.append(t.data_ptr() if read else None)
+        req(h <= hh and w <= hw and 0 <= p0 and p0 + p <= p_low,
+            f"sweep_assembled: low-res {h}x{w} into {hh}x{hw}, shells "
+            f"{p0}..{p0 + p - 1} of {p_low}")
+        req(out_dtype in (torch.float32, torch.bfloat16),
+            f"sweep_assembled: out_dtype {out_dtype}")
+        lat, lon = grids.lat_long_vectors(hh, hw, dev)
+        out = torch.empty((b, p, hh, hw, 4), dtype=out_dtype, device=dev)
+        _build.launch(
+            "matry_sweep_assembled", hres_ref.data_ptr(), hres_src.data_ptr(),
+            depths.data_ptr(), intrinsics.data_ptr(), lat.data_ptr(),
+            lon.data_ptr(), *low,
+            out.data_ptr(), b, p, hh, hw, h, w, p_low, p0, RULES[rule],
+            int(out_dtype == torch.bfloat16), _build.stream_ptr(dev))
+        assembled_launches += 1
+        return out
 
 
 #: The custom op that carries sweep_volume into exported programs.
@@ -341,11 +341,11 @@ def sweep_row_params(depths, intrinsics, height: int, width: int):
                           dtype=torch.float32 if n in ("fy", "fx")
                           else torch.int32, device=dev)
            for n in ("y0", "y1", "fy", "x0", "fx", "valid")}
-    err = _build.lib().matry_sweep_row_params(
-        depths.data_ptr(), intrinsics.data_ptr(), lat.data_ptr(),
-        lon.data_ptr(), *(t.data_ptr() for t in out.values()), b, p,
-        height, width, _build.stream_ptr(dev))
-    _build.check(err, "matry_sweep_row_params")
+    _build.launch(
+        "matry_sweep_row_params", depths.data_ptr(), intrinsics.data_ptr(),
+        lat.data_ptr(), lon.data_ptr(),
+        *(t.data_ptr() for t in out.values()), b, p, height, width,
+        _build.stream_ptr(dev))
     row_params_launches += 1
     return out
 

@@ -162,7 +162,6 @@ def _launch(x, weight, bias, out_dtype, stats: bool, name: str):
     bias = _check(x, weight, bias, name)
     b, cin, h, w = x.shape
     cout = weight.shape[0]
-    lib = _build.lib()
     out = torch.empty((b, cout, h, w), dtype=out_dtype, device=x.device)
     partial = sums = None
     nblk = 0
@@ -173,14 +172,13 @@ def _launch(x, weight, bias, out_dtype, stats: bool, name: str):
                               device=x.device)
         sums = torch.empty((b, 2), dtype=torch.float64, device=x.device)
     wk = pack_conv(weight, x.dtype)
-    err = lib.matry_conv(
-        x.data_ptr(), wk.data_ptr(), bias.data_ptr(), None, out.data_ptr(),
-        b, cin, h, w, cout, h, w, 3, 3, 1, 1, 1, 1, 1, h, w, 0,
-        int(x.dtype == torch.float32), int(out_dtype == torch.float32), 0,
-        None if partial is None else partial.data_ptr(),
+    _build.launch(
+        "matry_conv", x.data_ptr(), wk.data_ptr(), bias.data_ptr(), None,
+        out.data_ptr(), b, cin, h, w, cout, h, w, 3, 3, 1, 1, 1, 1, 1, h, w,
+        0, int(x.dtype == torch.float32), int(out_dtype == torch.float32),
+        0, None if partial is None else partial.data_ptr(),
         None if sums is None else sums.data_ptr(), nblk,
         *conv_ops.NO_NORM, _build.stream_ptr(x.device))
-    _build.check(err, name)
     conv_ops.wgmma_launches += x.dtype == torch.bfloat16
     return out, sums
 
@@ -312,11 +310,10 @@ def conv3x3_wrap_wgrad(g, x):
     partial = torch.empty(shape, dtype=torch.float32, device=x.device)
     dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=x.device)
     db = torch.empty(cout, dtype=torch.float32, device=x.device)
-    err = _build.lib().matry_conv_wgrad(
-        g.data_ptr(), x.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), b, cin, cout, h, w, splits, chunk,
+    _build.launch(
+        "matry_conv_wgrad", g.data_ptr(), x.data_ptr(), partial.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), b, cin, cout, h, w, splits, chunk,
         int(x.dtype == torch.float32), sms, _build.stream_ptr(x.device))
-    _build.check(err, "matry_conv_wgrad")
     wgrad_launches += 1
     return dw, db
 

@@ -1,20 +1,41 @@
-"""Where a flagship frame's or training step's time goes on the card,
-from a torch.profiler trace.
+"""The port's spans, and where a flagship frame's or training step's time
+goes on the card, from a torch.profiler trace.
+
+Spans. `with span(name):` marks a layer boundary on the hot path: a
+request (`entry.forward`, `test.hres_render`), a stage (`msi.sweep_stage`,
+`msi.net_stage`, `msi.render_stage`, `sweep.sweep_assembled`,
+`render.render_equirect_view_prepared_both`), the net's host path
+(`conv.conv`) and each kernel launch (`launch.<C entry>`,
+`ops/_build.launch`). While a profiler records it is a `record_function`,
+so it lands in the profiler's trace beside the device events, on their
+clock: a kernel belongs to the span that holds its runtime launch event
+(the Chrome trace's `args.correlation`). Otherwise it is one shared no-op
+context, and a call pays the profiler-flag check alone. `setup_span(name)`
+marks a cold path (`_build.lib`, `_build.build`, `entry.make_params` and
+its parts, `test.build_hres_render_fn`): it always records (name, start,
+end, depth) on time.perf_counter() in a bounded list, `setup_spans()`, and
+is a record_function too while a profiler records.
+
+The CLI:
 
     python -m matryodshka_tpu_torch.trace [--coord_net] [--train]
 
-Runs entry.forward at the flagship configuration (640x320, 32 + 32 planes,
+runs entry.forward at the flagship configuration (640x320, 32 + 32 planes,
 32 shells, ngf 64, bf16, blend_psv; the wrap net, or the coord net with
 --coord_net) with seeded weights, and for each part -- the sweep stage,
 the net stage, the render stage and then the whole frame -- traces
 CALLS calls after 2 warm-up under torch.profiler (CPU and CUDA
-activities). With --train it traces the default trainer's step instead
-(training/step.py's train step with Adam, batch 1, on a synthetic batch).
+activities), between two spin kernels: the profiler now and then drops a
+device event at an edge of its window, so a window that lost a spin is
+taken again, up to TRIES times. With --train it traces the default
+trainer's step instead (training/step.py's train step with Adam, batch 1,
+on a synthetic batch).
 Per part it prints the host wall ms per call (a synchronize ends the
 window), the device busy ms per call (the union of the trace's kernel,
 memcpy and memset intervals), the idle share 1 - busy / wall, the device
-operations per call, the part's TOP largest kernels by device time, and
-the device time and launches of each of the port's kernels.
+operations per call, the part's TOP largest kernels by device time, the
+device time and launches of each of the port's kernels, and each program
+span's host self time per call (its duration less its child spans').
 Every line carries the card's name and power limit. Needs a CUDA device.
 """
 
@@ -22,20 +43,30 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
+from typing import NamedTuple
 
 import torch
+from torch.autograd.profiler import record_function
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: The Chrome trace's category of a record_function.
+SPAN_CAT = "user_annotation"
 CALLS = 10    # traced calls per part
 TOP = 10      # kernels listed per part
+TRIES = 5     # windows taken before trace_window gives up
+#: The spin kernel (torch.cuda._sleep) that opens and closes a window.
+SPIN_CYCLES = 20_000_000
+SPIN_KERNEL = "spin_kernel"
 #: The port's hand-written kernels (csrc/*.cu), summed per part by name
 #: whatever their template arguments.
 PORT_KERNELS = ("sweep_kernel", "row_params_kernel", "assembled_kernel",
@@ -44,6 +75,50 @@ PORT_KERNELS = ("sweep_kernel", "row_params_kernel", "assembled_kernel",
                 "stats_fold",
                 "render_kernel", "render_layers_kernel", "wgrad_wgmma_kernel",
                 "wgrad_f32_kernel", "wgrad_reduce")
+#: The setup spans kept; the oldest drop out first.
+SETUP_SPANS_MAX = 4096
+
+_profiling = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A hot-path span: record_function(name) while a profiler records,
+    else the one shared no-op context."""
+    return record_function(name) if _profiling() else _NO_SPAN
+
+
+class SetupSpan(NamedTuple):
+    """A closed setup span: start and end on time.perf_counter(); depth,
+    the setup spans open around it on its thread."""
+    name: str
+    start: float
+    end: float
+    depth: int
+
+
+_setup_spans = collections.deque(maxlen=SETUP_SPANS_MAX)
+_setup_depth = threading.local()
+
+
+@contextlib.contextmanager
+def setup_span(name: str):
+    """A cold-path span, recorded whether or not a profiler records."""
+    depth = getattr(_setup_depth, "n", 0)
+    _setup_depth.n = depth + 1
+    start = time.perf_counter()
+    try:
+        with span(name):
+            yield
+    finally:
+        _setup_depth.n = depth
+        _setup_spans.append(SetupSpan(name, start, time.perf_counter(),
+                                      depth))
+
+
+def setup_spans():
+    """The process's setup spans in the order they closed."""
+    return list(_setup_spans)
 
 
 def _card() -> str:
@@ -54,16 +129,24 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_events(prof):
-    """The trace's device events: [(name, start us, duration us)]."""
+def chrome_events(prof):
+    """The trace's complete ("X") events, as its Chrome export has them."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
+    return [e for e in events if e.get("ph") == "X"]
+
+
+def _device(events):
     return [(e.get("name", ""), float(e["ts"]), float(e.get("dur", 0.0)))
-            for e in events
-            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+            for e in events if e.get("cat") in DEVICE_CATS]
+
+
+def device_events(prof):
+    """The trace's device events: [(name, start us, duration us)]."""
+    return _device(chrome_events(prof))
 
 
 def busy_us(events) -> float:
@@ -80,23 +163,70 @@ def busy_us(events) -> float:
     return total
 
 
-def trace_part(fn):
-    """(host wall ms, device busy ms, idle share, device ops) per call,
-    and device us by kernel name over the window."""
+def span_self_us(spans):
+    """spans [(name, start us, duration us, thread)] -> {name: (count,
+    self us)}: each span's duration less that of the spans directly
+    inside it on its thread, summed by name."""
+    out = collections.defaultdict(lambda: [0, 0.0])
+    by_thread = collections.defaultdict(list)
+    for name, ts, dur, tid in spans:
+        by_thread[tid].append((ts, -dur, name))
+    for items in by_thread.values():
+        stack = []                  # [name, end, self]
+
+        def close():
+            name, _, own = stack.pop()
+            out[name][0] += 1
+            out[name][1] += own
+
+        for ts, neg, name in sorted(items):
+            while stack and ts >= stack[-1][1]:
+                close()
+            if stack:
+                stack[-1][2] += neg
+            stack.append([name, ts - neg, -neg])
+        while stack:
+            close()
+    return {name: tuple(v) for name, v in out.items()}
+
+
+def trace_window(fn):
+    """fn's CALLS calls after 2 warm-up, traced between two spins ->
+    (host wall ms per call, device events, program spans [(name, start
+    us, duration us, thread)])."""
     for _ in range(2):
         fn()
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(CALLS):
-            fn()
+    for i in range(TRIES):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / CALLS
-    events = device_events(prof)
-    if not events:
-        raise RuntimeError("the profiler recorded no device activity")
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CALLS):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / CALLS
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        events = chrome_events(prof)
+        dev = _device(events)
+        spins = sum(SPIN_KERNEL in e[0] for e in dev)
+        dev = [e for e in dev if SPIN_KERNEL not in e[0]]
+        if spins == 2 and dev:
+            return wall, dev, [
+                (e.get("name", ""), float(e["ts"]), float(e.get("dur", 0.0)),
+                 e.get("tid")) for e in events if e.get("cat") == SPAN_CAT]
+        print(f"trace: window {i + 1}/{TRIES} kept {spins} of 2 spins and "
+              f"{len(dev)} device operations; taken again", file=sys.stderr)
+    raise RuntimeError(f"no window of {TRIES} kept both spins and a device "
+                       f"operation")
+
+
+def summary(wall, events):
+    """(host wall ms, device busy ms, idle share, device ops) per call,
+    and device us and launches by kernel name over the window."""
     busy = busy_us(events) / 1e3 / CALLS
     by_name, counts = collections.Counter(), collections.Counter()
     for name, _, dur in events:
@@ -104,6 +234,12 @@ def trace_part(fn):
         counts[name] += 1
     return (wall, busy, 1.0 - busy / wall, len(events) / CALLS, by_name,
             counts)
+
+
+def trace_part(fn):
+    """summary() of trace_window(fn)."""
+    wall, events, _ = trace_window(fn)
+    return summary(wall, events)
 
 
 def port_kernels(by_name, counts):
@@ -162,7 +298,8 @@ def main(argv=None):
           f"part {tag}")
     with torch.set_grad_enabled(args.train):
         for part, fn in parts.items():
-            wall, busy, idle, ops, by_name, counts = trace_part(fn)
+            wall, events, spans = trace_window(fn)
+            wall, busy, idle, ops, by_name, counts = summary(wall, events)
             print(f"{part:7s} host wall {wall:.3f} ms/{unit}, device busy "
                   f"{busy:.3f} ms/{unit}, idle share {idle:.3f}, "
                   f"{ops:.0f} device ops/{unit} {tag}")
@@ -172,6 +309,9 @@ def main(argv=None):
             for kern, (n, us) in port_kernels(by_name, counts).items():
                 print(f"    port kernel {kern}: {us / 1e3 / CALLS:.4f} "
                       f"ms/{unit} in {n / CALLS:g} launches/{unit}")
+            for name, (n, us) in sorted(span_self_us(spans).items()):
+                print(f"    span {name}: host self {us / 1e3 / CALLS:.4f} "
+                      f"ms/{unit} in {n / CALLS:g} spans/{unit}")
 
 
 if __name__ == "__main__":
