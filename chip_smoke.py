@@ -914,7 +914,8 @@ def fused_norm_gates(prm, key, stage_inputs, gate, gen, tag):
         for plan, st in zip(prm.net.plan, prm.stages):
             name = plan[0]
             if st["norm"] is None:
-                stages[name] = (stage_inputs[name], None, st)
+                if dtype == torch.bfloat16:
+                    stages[name] = (stage_inputs[name], None, st)
                 continue
             ys = [outs[s][0] for s in st["srcs"]]
             x = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
@@ -939,29 +940,55 @@ def fused_norm_gates(prm, key, stage_inputs, gate, gen, tag):
                                                  **st["args"], norm=norm)),
                   f"conv_ln {key} {name} {dtype}: two launches differ")
             if dtype == torch.bfloat16:
-                stages[name] = (x, norm, st)
+                # the main path's form: x channels-last, read by ldmatrix,
+                # the output in the layout the net gives it
+                xc = x.contiguous(memory_format=torch.channels_last)
+                fmt = st["memory_format"]
+                n0 = conv_ops.cl_launches
+                got_cl = conv_ops.conv(xc, wk, st["b"], **st["args"],
+                                       norm=norm, memory_format=fmt)
+                check(conv_ops.cl_launches == n0 + 1
+                      and got_cl.is_contiguous(memory_format=fmt),
+                      f"{key} {name}: one launch reading a channels-last "
+                      f"window, its output {fmt}")
+                gate("conv_ln", f"{key} {name} {tuple(x.shape[1:])} "
+                     f"bfloat16 channels-last", got_cl, want,
+                     rel * want.float().abs().max().item())
+                check(torch.equal(got_cl, got),
+                      f"conv_ln {key} {name}: the channels-last launch "
+                      f"differs from the NCHW launch")
+                stages[name] = (xc, norm, st)
         del outs
     fns = []
     for name, (x, norm, st) in stages.items():
+        xn = x.contiguous()
         fns.append(functools.partial(conv_ops.conv, x, st["w"], st["b"],
                                      **st["args"], norm=norm,
+                                     stats=st["stats"],
+                                     memory_format=st["memory_format"]))
+        fns.append(functools.partial(conv_ops.conv, xn, st["w"], st["b"],
+                                     **st["args"], norm=norm,
                                      stats=st["stats"]))
-        fns.append(functools.partial(conv_ops.conv, x, st["w"], st["b"],
+        fns.append(functools.partial(conv_ops.conv, xn, st["w"], st["b"],
                                      **st["args"]))
     per, _, _ = device_ms(fns, [1] * len(fns), CONV_KERNELS)
-    fused_ms = per[0::2] if per else None
-    alone_ms = per[1::2] if per else None
+    net_ms = per[0::3] if per else None
+    fused_ms = per[1::3] if per else None
+    alone_ms = per[2::3] if per else None
     for i, name in enumerate(stages):
         txt = ("not measured (the trace lost launches)" if per is None else
-               f"fused {fused_ms[i] * 1e3:8.3f} us, conv alone "
+               f"as the net runs it {net_ms[i] * 1e3:8.3f} us; NCHW: fused "
+               f"{fused_ms[i] * 1e3:8.3f} us, conv alone "
                f"{alone_ms[i] * 1e3:8.3f} us, added "
                f"{(fused_ms[i] - alone_ms[i]) * 1e3:8.3f} us")
         print(f"conv_ln {key:10s} {name:10s} device {txt} (trace) {tag}")
     if per:
-        print(f"conv_ln {key} 18 stages device: fused {sum(fused_ms):.4f} "
+        print(f"conv_ln {key} 18 stages device: as the net runs them "
+              f"{sum(net_ms):.4f} ms; NCHW: fused {sum(fused_ms):.4f} "
               f"ms, conv alone {sum(alone_ms):.4f} ms, the layer norm's "
               f"added {sum(fused_ms) - sum(alone_ms):.4f} ms {tag}")
-    return {"stages": stages, "fused_ms": fused_ms, "alone_ms": alone_ms}
+    return {"stages": stages, "net_ms": net_ms, "fused_ms": fused_ms,
+            "alone_ms": alone_ms}
 
 
 def wrap_conv_layers(ngf: int, cin0: int):
@@ -2201,9 +2228,11 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
             rl = read_counts()
             print(f"{recipe} test CLI request launches: {rl}")
             check(rl["conv"] == 18 and rl["conv_coord"] == 18
-                  and rl["conv_norm"] == rl["conv_stats"] == 17,
+                  and rl["conv_norm"] == rl["conv_stats"] == 17
+                  and rl["conv_cl"] == 17,
                   f"{recipe}: 18 conv launches (coord mode) per request, "
-                  f"17 with the layer norm fused")
+                  f"17 with the layer norm fused, reading a channels-last "
+                  f"window")
             check(rl["sweep"] == 0 and rl["render"] == 0
                   and rl["render_layers"] == 0 and rl["gather_sweep"] == 1,
                   f"{recipe}: the gather sweep, no sweep or render kernel")
@@ -2229,7 +2258,8 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
                   f"{recipe} request vs all-plain f32 route")
             vol = msi_lib.sweep_stage(cfg, ebatch, params.psv_depths)
             st = params.stages[0]
-            c = conv_ops.conv(vol, st["w"], st["b"], **st["args"]).float()
+            c = conv_ops.conv(vol, st["w"], st["b"], **st["args"],
+                              memory_format=st["memory_format"]).float()
             cp = conv_ops.conv_plain(vol, st["w"], st["b"],
                                      **st["args"]).float()
             cerr = (c - cp).abs().max().item()
@@ -3732,7 +3762,16 @@ def main() -> None:
     # to bf16 once each, so an output may land one bf16 step apart where
     # the two sums straddle a rounding boundary: tolerance 2^-7 of the
     # output's largest magnitude, which is at least one bf16 step there.
+    # conv1_1 reads the sweep's volume and writes its output as the net
+    # does, channels-last; the other stages' NCHW x without the norm
+    # writes NCHW (their channels-last form reads normed inputs:
+    # fused_norm_gates).
     stage_inputs = {}
+
+    def first_fmt(name, st):
+        return (st["memory_format"] if name == "conv1_1"
+                else torch.contiguous_format)
+
     for plan, st in zip(params.net.plan, params.stages):
         name, kind, _, cins, cout, ind, _, _ = plan
         x = (torch.rand((1, sum(cins), h // ind, w // ind), generator=rng,
@@ -3740,10 +3779,14 @@ def main() -> None:
         if name == "conv1_1":
             x = vol
         stage_inputs[name] = x
+        fmt = first_fmt(name, st)
         nw = conv_ops.wgmma_launches
-        y = conv_ops.conv(x, st["w"], st["b"], **st["args"])
-        check(conv_ops.wgmma_launches == nw + 1,
-              f"conv {name}: one launch of the wgmma kernel")
+        y = conv_ops.conv(x, st["w"], st["b"], **st["args"],
+                          memory_format=fmt)
+        check(conv_ops.wgmma_launches == nw + 1
+              and y.is_contiguous(memory_format=fmt),
+              f"conv {name}: one launch of the wgmma kernel, its output "
+              f"{fmt}")
         yp = conv_ops.conv_plain(x, st["w"], st["b"], **st["args"])
         gate("conv", f"{name} {kind} {tuple(x.shape[1:])}->{cout}", y, yp,
              2.0 ** -7 * yp.float().abs().max().item())
@@ -3760,10 +3803,14 @@ def main() -> None:
     for plan, st in zip(cparams.net.plan, cparams.stages):
         name, kind, _, _, cout, _, outd, _ = plan
         x = stage_inputs[name]
+        fmt = first_fmt(name, st)
         nw = conv_ops.wgmma_launches
-        y = conv_ops.conv(x, st["w"], st["b"], **st["args"])
-        check(conv_ops.wgmma_launches == nw + 1,
-              f"coord {name}: one launch of the wgmma kernel")
+        y = conv_ops.conv(x, st["w"], st["b"], **st["args"],
+                          memory_format=fmt)
+        check(conv_ops.wgmma_launches == nw + 1
+              and y.is_contiguous(memory_format=fmt),
+              f"coord {name}: one launch of the wgmma kernel, its output "
+              f"{fmt}")
         check(tuple(y.shape[2:]) == (h // outd, w // outd),
               f"coord {name} output {tuple(y.shape)}")
         check(torch.equal(y, conv_ops.conv(x, st["w"], st["b"],
@@ -3832,13 +3879,14 @@ def main() -> None:
     for m in mods.values():
         m.launches = 0
     sweep_ops.row_params_launches = render_ops.uv_launches = 0
-    conv_ops.wgmma_launches = 0
+    conv_ops.wgmma_launches = conv_ops.cl_launches = 0
     conv_ops.norm_launches = conv_ops.stats_launches = 0
     outs = [entry.forward(params, b) for b in batches]
     torch.cuda.synchronize()
     launches = {k: m.launches for k, m in mods.items()}
     launches["conv_norm"] = conv_ops.norm_launches
     launches["conv_stats"] = conv_ops.stats_launches
+    launches["conv_cl"] = conv_ops.cl_launches
     check(conv_ops.wgmma_launches == launches["conv"] == 18 * len(batches),
           f"every conv stage of the {len(batches)} requests launched the "
           f"wgmma kernel: {conv_ops.wgmma_launches} of {launches['conv']}")
@@ -3846,6 +3894,9 @@ def main() -> None:
           == 17 * len(batches),
           "17 conv launches a frame with their inputs' layer norm fused and "
           "17 writing their statistics, no layer-norm launch")
+    check(launches["conv_cl"] == 17 * len(batches),
+          "17 conv launches a frame reading a channels-last window (all "
+          "but conv1_1, which reads the sweep's NCHW volume)")
     instruments = (sweep_ops.row_params_launches, render_ops.uv_launches)
     print(f"launches over {len(batches)} requests: {launches}; instruments "
           f"(row params, uv) {instruments}")
@@ -3922,7 +3973,7 @@ def main() -> None:
         rl_ops.ftb_launches = rl_ops.both_launches = 0
         render_lib.uv_builds = 0
         conv_ops.coord_launches = 0
-        conv_ops.wgmma_launches = 0
+        conv_ops.wgmma_launches = conv_ops.cl_launches = 0
         conv_ops.norm_launches = conv_ops.stats_launches = 0
         sweep_lib.gather_sweeps = 0
         rl_ops.partial_launches = 0
@@ -3939,6 +3990,7 @@ def main() -> None:
         got["conv_wgmma"] = conv_ops.wgmma_launches
         got["conv_norm"] = conv_ops.norm_launches
         got["conv_stats"] = conv_ops.stats_launches
+        got["conv_cl"] = conv_ops.cl_launches
         got["gather_sweep"] = sweep_lib.gather_sweeps
         got["render_layers_partial"] = rl_ops.partial_launches
         got["sweep_assembled"] = sweep_ops.assembled_launches
@@ -4194,7 +4246,8 @@ def main() -> None:
             args = st["args"]
             x, norm, _ = fused[key]["stages"][name]
             fn = functools.partial(conv_ops.conv, x, st["w"], st["b"],
-                                   **args, norm=norm, stats=st["stats"])
+                                   **args, norm=norm, stats=st["stats"],
+                                   memory_format=st["memory_format"])
             y, part = fn() if st["stats"] else (fn(), None)
             kt = time_ms(fn)
             for n in norm or ():
@@ -4230,7 +4283,7 @@ def main() -> None:
             flops += f
             cbytes += nbytes(x, st["w"], st["b"], y) + (
                 nbytes(args["coord"]) if "coord" in args else 0)
-            tile = conv_ops.tile_config(x, cout, **args)
+            tile = conv_ops.tile_config(x, cout, **args, norm=norm)
             line = (f"{key} {name:10s} kernel {kt:8.3f} ms "
                     f"({f / kt / 1e9:6.2f} TFLOP/s, tile {tile}"
                     f"{', norm' if norm else ''}"
@@ -4264,7 +4317,8 @@ def main() -> None:
         call = min(ln_lib, key=ln_lib.get)
         bounds[key] = bound(cbytes, flops, BF16_FLOPS)
         fz, al = fused[key]["fused_ms"], fused[key]["alone_ms"]
-        dev_ms = sum(fz) if fz else None
+        nm_ms = fused[key]["net_ms"]
+        dev_ms = sum(nm_ms) if nm_ms else None
         device_only[key] = (dev_ms, 18)
         pc, pl = PARENT_NET_MS[key]
         print(f"net {key} 18 stages {flops / 1e9:.1f} GFLOP: kernel "

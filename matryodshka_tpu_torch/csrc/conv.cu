@@ -9,7 +9,8 @@
 // norm_vectors and norm_row), fused as the TPU kernel fuses it: the
 // producer sums its outputs, the consumer normalizes its input (see the
 // last note). One launch is one layer, an implicit GEMM over K =
-// KH*KW*Cin', the input patch read in place from NCHW x (no im2col copy).
+// KH*KW*Cin', the input patch read in place from x (no im2col copy), NCHW
+// or channels-last (NHWC memory; see items 3 and 4).
 //
 // Input taps: input row iy = oy*stride + kh*dil - pad_h is zero outside
 // [0, Hi) (vertical zero padding; the high side needs no argument, so a
@@ -55,36 +56,60 @@
 //      packed weights are Cout-contiguous, so they are not repacked).
 //      setmaxnreg gives the consumers 224 registers, the producer 56.
 //   2. One producer thread keeps TMA loads (cp.async.bulk.tensor) in
-//      flight into a ring of 2 stages (deeper rings timed no faster at
-//      the flagship stages) with full and empty mbarriers. A stage is (channel chunk of 64, kernel
-//      row kh): the weights of the row's taps through a 2-D tensor map over
-//      [npar*K, Cout] ([64 k][64 Cout] boxes, 128-byte swizzle), and the
-//      patch window through a 4-D map over x taken as (W, C, H, B): a main
-//      box {cols * stride, 64, rows, 1} at (ox0 * stride, c0, oy0 * stride
-//      + kh*dil - pad_h, b), taking every stride-th row (TMA's element
-//      stride, the downs), swizzled as wide as its rows, and two halo
-//      boxes of 8 columns either side. TMA's out-of-bounds zero fill gives
-//      the vertical padding, a ragged Cin (195) and the rows past Cin of a
-//      chunk.
-//   3. TMA traps on a box whose innermost start is not 16-byte aligned
-//      (illegal instruction at columns -1, 1, -3 in a probe; aligned starts
-//      and boxes past any edge load, with zeros outside), so a tap shifted
-//      by one or two columns cannot be its own box, and a wgmma descriptor
-//      cannot start between 16-byte groups either. Hence A in registers:
-//      for each tap kw of the stage the consumers load their fragment from
-//      the window with 16-bit shared loads at the tap's column shift
-//      (kw*dil - pad_w, at the stride), so one TMA window serves every tap
-//      of the row with no data moved in shared memory. The halos hold the
-//      columns beyond the tile: the neighbours', or in wrap mode across
-//      the seam the wrapped ones (the box at W - 8 or 0: the seam costs no
-//      extra step), or in zero mode a box at W, wholly outside, zeros.
-//   4. Shapes a tensor map cannot express (W % 8 != 0: x's row pitch is
-//      not a multiple of 16 bytes; in wrap mode a column tile that does
-//      not divide Wo, whose right halo would not be the wrapped columns)
-//      take the producer warpgroup's 128 threads, which gather the same
-//      window element by element (wrapping or bounds-checking each column)
-//      and arrive after fence.proxy.async; Cout % 8 != 0 (the 67- and
-//      99-channel heads) gathers the weights the same way.
+//      flight into a ring of 2 stages (kStages) with full and empty
+//      mbarriers. A stage is (channel chunk of 64, kernel row kh): the
+//      weights of the row's taps through a 2-D tensor map over [npar*K,
+//      Cout] ([64 k][64 Cout] boxes, 128-byte swizzle), and the patch
+//      window of input rows oy0 * stride + kh*dil - pad_h + r * stride
+//      (TMA's element stride takes every stride-th row, the downs): the
+//      tile's cols * stride columns and the columns either side (item 3).
+//      TMA's out-of-bounds fill gives the vertical padding, a ragged Cin
+//      (195) and the rows past Cin of a chunk.
+//   3. A fragments, by the layout of x. The tensor map's innermost start
+//      must be 16-byte aligned (TMA traps otherwise: illegal instruction at
+//      columns -1, 1, -3 of an NCHW row in a probe), and so must a wgmma
+//      descriptor's or an ldmatrix row's; the consumers therefore hold A in
+//      registers and load each tap kw's fragment from the stage's one
+//      window at the tap's column shift (kw*dil - pad_w, at the stride), so
+//      one window serves every tap of the row with no data moved in shared
+//      memory.
+//      * Channels-last x (the net's activations from conv1_2 on; CL): a
+//        4-D map over x taken as (C, W, H, B), boxes {64 channels, columns,
+//        rows, 1} with the 128-byte swizzle: a pixel's 64 channels of the
+//        chunk are one 128-byte line, the 16-byte chunk k of line q at k ^
+//        (q % 8). One box holds the window: the tile's columns and 2
+//        (kHaloCL) either side, its start at any column (negative or past
+//        W: the fill); a tile whose window crosses the wrap seam also loads
+//        the 2 wrapped columns as a seam box (each box 1024-byte aligned),
+//        whose lines those columns' taps read. Any column shift, stride or
+//        dilation moves a whole line, so each tap's fragment (16 pixels x
+//        16 channels a warp per k16) is one ldmatrix.x4 from the lines of
+//        the warp's pixels at the tap's shift: 4 instructions a tap and
+//        chunk, each 8-lane phase one 128-byte wavefront. The 8 rows of a
+//        matrix are 8 consecutive pixels of one output row: 8 consecutive
+//        lines at stride 1 (any dilation), so 8 distinct bank groups (but
+//        where a seam box's line is among them); every second line at
+//        stride 2, a 2-way conflict on the downs.
+//      * NCHW x (the net's first conv, which reads the sweep's volume, and
+//        K7): a map over x taken as (W, C, H, B), the main box {cols *
+//        stride, 64, rows, 1} swizzled as wide as its rows and halo boxes
+//        of 8 columns (kHalo), so that a 16-byte-aligned start holds the
+//        column shift; the fragment comes by 16-bit shared loads at the
+//        tap's shift, two a 32-bit register.
+//        The halos hold the columns beyond the tile: the neighbours', or
+//        in wrap mode across the seam the wrapped ones (the box at W - 8 or
+//        0: the seam costs no extra step), or in zero mode a box at W,
+//        wholly outside.
+//   4. Shapes a tensor map cannot express (x's innermost line not a
+//      multiple of 16 bytes: W % 8 != 0 in NCHW, Cin % 8 != 0 in
+//      channels-last; in wrap mode a column tile that does not divide Wo,
+//      whose right halo would not be the wrapped columns) take the
+//      producer warpgroup's 128 threads, which gather the same window
+//      (channels-last: the window's box, its columns wrapped in place)
+//      element by element, wrapping or bounds-checking each column, and
+//      arrive after fence.proxy.async;
+//      Cout % 8 != 0 (the 67- and 99-channel heads) gathers the weights the
+//      same way.
 //   5. Persistent: one block per SM walks the tiles blockIdx.x + k *
 //      gridDim.x, Cout tile fastest, so the producer loads the next tile's
 //      stages while the consumers finish the last one.
@@ -95,8 +120,22 @@
 //      accumulator before the bias (as the bf16 net appends the channel in
 //      bf16).
 //   7. Epilogue: the bias (and tanh for the head) in f32, one rounding to
-//      the output type, stores from the accumulator fragments; the parity
-//      modes write pixel (2*oy + da, 2*ox + db).
+//      the output type, in the output's layout: NCHW, stores from the
+//      accumulator fragments; channels-last bf16 (Cout % 8 == 0), the
+//      fragments packed a channel pair a register, stored by stmatrix into
+//      a tile buffer after the norm's vectors and copied out 16 bytes a
+//      thread, a pixel's channels contiguous (store_tile_cl; stores
+//      element by element in that layout made the net's convs 7% slower);
+//      the parity modes write pixel (2*oy + da, 2*ox + db). The pixels of
+//      a fragment row and the order of every sum are those of either
+//      layout, so a channels-last launch gives the NCHW launch's bits.
+//      The channels-last epilogue is a template choice (CLO), compiled
+//      into the forms that write it (the channels-last forms, and the NCHW
+//      form of the net's first conv, 64 Cout without the norm) and only
+//      there: the NCHW forms that K7 and the f32-output callers run carry
+//      neither it nor its tile. A channels-last output that is f32, has
+//      Cout % 8 != 0 or leaves the ring fewer than 2 stages beside the
+//      tile is refused.
 //   8. The plan (make_plan, matry_conv_plan; mirrored by
 //      ops/conv.conv_plan): 128-Cout tiles where Cout > 64, else 64. No
 //      atomics: every output is the same from launch to launch.
@@ -131,25 +170,30 @@
 //     source read by two consumers gives both the same bits; a skip concat
 //     (x = cat of two raw sources) takes the two sources' vectors end to
 //     end;
-//   * normalize + ReLU on the A fragments (norm_frag), as each tap's 16-bit
-//     shared loads produce them: relu(a[c] * y + b[c]) in f32, rounded
-//     once to bf16, a thread's 8 channel pairs' (a, b) loaded once per
-//     channel chunk. A window element outside the input (rows outside [0,
-//     Hi), columns outside [0, Wi) in zero and coord mode, channels past
-//     Cin, the parity forms' padding) must stay zero, as norm_row keeps pad
-//     rows zero: the launch's tensor maps fill them with NaN (a gathered
-//     window too), and fmaxf(NaN, 0) is 0, so no element needs a mask;
-//     wrap mode's halos are real wrapped columns and are normalized. The
-//     coord channel is not in the window, so it is never normalized. An
-//     element is normalized once per tap that reads it, in registers, where
-//     normalizing each stage's window in place once (by the consumers, or
-//     by the producer warpgroup one stage ahead) added shared-memory
-//     traffic to a kernel whose A fragments already come by 16-bit shared
-//     loads, and timed slower (tools/variants.py). conv_wgmma_kernel is
-//     instantiated with the layer norm and without (NORM), so a launch
-//     without it runs the code it ran before. The f32 kernel folds once
-//     per block and applies the transform, with its masks, where it stages
-//     x in shared memory.
+//   * normalize + ReLU on the A fragments (norm_frag), as each tap's shared
+//     loads (16-bit loads or ldmatrix) produce them: relu(a[c] * y + b[c])
+//     in f32, rounded once to bf16, a thread's 8 channel pairs' (a, b)
+//     loaded once per channel chunk. A window element outside the input
+//     (rows outside [0, Hi), columns outside [0, Wi) in zero and coord
+//     mode, channels past Cin, the parity forms' padding) must stay zero,
+//     as norm_row keeps pad rows zero: the launch's tensor maps fill them
+//     with NaN (a gathered window too), and fmaxf(NaN, 0) is 0, so no
+//     element needs a mask; wrap mode's halos and seam boxes are real
+//     wrapped columns and are normalized. The coord channel is not in the
+//     window, so it is never normalized. An element is normalized once
+//     per tap that reads it (up to 9 times), in registers. Normalizing
+//     each stage's window in place once timed slower in every placement
+//     (tools/variants.py): for NCHW x by the consumers or by the producer
+//     warpgroup one stage ahead; for channels-last x by the consumers one
+//     stage ahead, or by the producer warpgroup's last three warps
+//     between a stage's loads and its release to the consumers (the
+//     fragments' transform takes 14% of the net's conv time; the
+//     producer's pass took more: its three warps could not hide it).
+//     conv_wgmma_kernel is instantiated with the layer norm and without
+//     (NORM) for NCHW x, and with it for channels-last x (every such
+//     input of the net is normed). The f32 kernel folds once per block
+//     and applies the transform, with its masks, where it stages x in
+//     shared memory.
 // K7c (the trainer's net, ops/wrap_conv.py) takes the same partials and
 // folds them in stats_fold, a second launch, into f64 (s1, s2) per sample.
 
@@ -306,8 +350,10 @@ constexpr int BK = 64;              // channels of one k-step
 constexpr int kThreads = 384;       // producer + two consumer warpgroups
 constexpr int kBoxW = 64 * BK * 2;  // one [64 k][64 Cout] weight box, bytes
 constexpr int kHalo = 8;            // window columns each side of the tile
+constexpr int kHaloCL = 2;          // the same, channels-last x
 // Ring depth: 2 stages. At the flagship stages 3 timed within the spread
-// of two runs of 2 and 4 or as many as 220 KB hold slower
+// of two runs of 2 and 4 or as many as 220 KB hold slower, for NCHW x with
+// 16-bit A loads; for channels-last x 2, 3 and 4 within 0.3%
 // (tools/variants.py); mbarriers for up to kMaxStages.
 constexpr int kStages = 2;
 constexpr int kMaxStages = 8;
@@ -320,6 +366,8 @@ struct Params {
   ConvArgs a;
   Norm nm;          // the input's layer norm (nm.nsrc == 0: none)
   int mode, stats, out_f32;
+  int cl_out;       // CLO forms: the output channels-last bf16, through
+                    // the output tile (else NCHW)
   int stat_blocks;  // partials a sample: npar * ntx * nty * mtiles
   int ct_lg;        // log2 of the output columns of a tile
   int rows;         // output rows of a tile, kTilePx >> ct_lg
@@ -330,7 +378,9 @@ struct Params {
   int stages;       // ring depth
   int stage_bytes;  // weights (KW taps), main window, two halos
   int win_off, halo_off;  // offsets of the main window and the left halo
+  int hb;           // offset of the right halo from the left one
   int vec_off;      // the norm's vectors (vec_bytes), after the ring
+  int out_off;      // cl_out: the output tile (128 px x BN), after them
 };
 
 // Bytes of a window's main box (rows x 64 channels x cols * stride) and of
@@ -340,6 +390,20 @@ __host__ __device__ __forceinline__ int main_bytes(int rows, int ctw) {
 }
 __host__ __device__ __forceinline__ int halo_bytes(int rows) {
   return rows * BK * kHalo * 2;
+}
+// Channels-last x: the window's box (rows x ctw + 4 columns of 128-byte
+// lines: the tile's columns and kHaloCL either side), a seam box's (rows x
+// kHaloCL lines) and the region a seam box takes, rounded up to 1024 bytes
+// so that every box starts where the 128-byte swizzle's pattern does (rows
+// is even, so the window's box is a multiple of 1024 bytes too).
+__host__ __device__ __forceinline__ int cl_main_bytes(int rows, int ctw) {
+  return rows * (ctw + 2 * kHaloCL) * BK * 2;
+}
+__host__ __device__ __forceinline__ int cl_halo_bytes(int rows) {
+  return rows * kHaloCL * BK * 2;
+}
+__host__ __device__ __forceinline__ int cl_halo_region(int rows) {
+  return (cl_halo_bytes(rows) + 1023) / 1024 * 1024;
 }
 
 // Generic producer, any row pitch: the weights of one tap, rows arow ..
@@ -423,6 +487,76 @@ __device__ __forceinline__ void gather_window(unsigned char* win,
   }
 }
 
+// Channels-last x: the byte offset (from the window) of the 128-byte line
+// of window pixel (r, wc) of a tile whose window starts at input column x0
+// - kHaloCL (wc counts from there, ncol = ctw + 4 columns): the window
+// box's line r * ncol + wc, or, for a column across the wrap seam of a
+// window TMA loads (whose box holds the fill there), the line of the seam
+// box on that side. Boxes start 1024-byte aligned, so a line's swizzle
+// key, its index in its box mod 8, is (offset >> 7) & 7.
+__device__ __forceinline__ uint32_t cl_line(const Params& p, int r, int wc,
+                                            int x0, int ncol) {
+  const int col = x0 - kHaloCL + wc;
+  if (p.mode == kWrap && p.tma_x) {
+    if (col < 0)
+      return p.halo_off - p.win_off + (r * kHaloCL + col + kHaloCL) * BK * 2;
+    if (col >= p.a.Wi)
+      return p.halo_off - p.win_off + p.hb +
+             (r * kHaloCL + col - p.a.Wi) * BK * 2;
+  }
+  return (r * ncol + wc) * BK * 2;
+}
+
+// The layer norm + ReLU of one A fragment register (channels c, c + 1 of
+// one pixel; ab: (a_c, a_c+1, b_c, b_c+1)): relu(a y + b) in f32, rounded
+// once to bf16. An element outside the input holds TMA's NaN fill, and
+// fmaxf(NaN, 0) is 0: the pads come out zero with no mask.
+__device__ __forceinline__ uint32_t norm_frag(uint32_t u, float4 ab) {
+  const float lo = norm_relu(__uint_as_float(u << 16), ab.x, ab.z);
+  const float hi = norm_relu(__uint_as_float(u & 0xffff0000u), ab.y, ab.w);
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h2);
+}
+
+// Generic producer, channels-last x: one k-step's window, 16-byte chunks
+// of 8 channels of one pixel, input rows iy0 + r * stride, columns ox0 *
+// stride - 2 + wc for wc in [0, cols * stride + 4), each column wrapped or
+// bounds-checked, fill (a bf16 bit pattern) outside the input and past
+// Cin, stored as the window's TMA box lies (swizzled; no seam box).
+__device__ __forceinline__ void gather_window_cl(unsigned char* win,
+                                                 const unsigned short* x,
+                                                 const Params& p, int b,
+                                                 int iy0, int ox0, int c0,
+                                                 int tid, uint32_t fill) {
+  const ConvArgs& a = p.a;
+  const int ctw = a.stride << p.ct_lg;
+  const int ncol = ctw + 2 * kHaloCL;
+  const int n = p.rows * ncol * (BK / 8);
+  for (int q = tid; q < n; q += 128) {
+    const int k = q & (BK / 8 - 1), rc = q / (BK / 8);
+    const int wc = rc % ncol, r = rc / ncol;
+    const int iy = iy0 + r * a.stride;
+    int ix = ox0 * a.stride - kHaloCL + wc;
+    if (p.mode == kWrap) ix = matry::wrap(ix, a.Wi);
+    const uint32_t f2 = fill | fill << 16;
+    uint32_t v[4] = {f2, f2, f2, f2};
+    if (iy >= 0 && iy < a.Hi && ix >= 0 && ix < a.Wi) {
+      const unsigned short* px =
+          x + (((long long)b * a.Hi + iy) * a.Wi + ix) * a.Cin;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = c0 + 8 * k + j;
+        const uint32_t q16 = c < a.Cin ? px[c] : fill;
+        v[j >> 1] = j & 1 ? (v[j >> 1] & 0xffffu) | q16 << 16
+                          : (v[j >> 1] & 0xffff0000u) | q16;
+      }
+    }
+    const uint32_t off = (uint32_t)(rc * BK * 2);  // line r * ncol + wc
+    *reinterpret_cast<uint4*>(win + off + (((k ^ (off >> 7)) & 7) << 4)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
 // The coord channel's factors for output pixel (oy, ox), per tap kh * 3 +
 // kw: bf16(coord[iy]) where (iy, ix) lies inside [0, Hi) x [0, Wi), else 0.
 __device__ __forceinline__ void coord_factors(float* cf, const float* coord,
@@ -462,18 +596,45 @@ __device__ __forceinline__ Tile tile_of(const Params& p, int t, int bn) {
   return u;
 }
 
-// The layer norm + ReLU of one A fragment register (channels c, c + 1 of
-// one pixel; ab: (a_c, a_c+1, b_c, b_c+1)): relu(a y + b) in f32, rounded
-// once to bf16. An element outside the input holds TMA's NaN fill, and
-// fmaxf(NaN, 0) is 0: the pads come out zero with no mask.
-__device__ __forceinline__ uint32_t norm_frag(uint32_t u, float4 ab) {
-  const float lo = norm_relu(__uint_as_float(u << 16), ab.x, ab.z);
-  const float hi = norm_relu(__uint_as_float(u & 0xffff0000u), ab.y, ab.w);
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h2);
+// A warpgroup's 64 output pixels x BN channels of a channels-last bf16
+// output (Cout % 8 == 0), which its 4 warps have stored by stmatrix into
+// [64 px][BN] at its half of the tile buffer, each pixel's 16-byte chunk k
+// at k ^ (px % 8) (the 8 rows of a matrix in 8 bank groups): after the
+// warpgroup's barrier its 128 threads copy them out a 16-byte chunk each,
+// consecutive threads a pixel's consecutive chunks, the pixels inside the
+// output only (the parity forms' pixel (2 oy + da, 2 ox + db)); a second
+// barrier frees the buffer for the next tile.
+template <int BN>
+__device__ __forceinline__ void store_tile_cl(const Params& p,
+                                              unsigned char* tile, void* out,
+                                              int b, int da, int db, int m0,
+                                              int oy0, int ox0, int cw,
+                                              int t) {
+  constexpr int C8 = BN / 8;  // 16-byte chunks of a pixel
+  const ConvArgs& a = p.a;
+  named_sync(2 + cw, 128);
+  const int ct = 1 << p.ct_lg;
+  for (int q = t; q < 64 * C8; q += 128) {
+    const int k = q % C8, px = q / C8;
+    const int m = 64 * cw + px;
+    const int oy = oy0 + (m >> p.ct_lg), ox = ox0 + (m & (ct - 1));
+    if (oy >= a.Ho || ox >= a.Wo || m0 + 8 * k >= a.Cout) continue;
+    const long long pix = a.npar == 4
+                              ? (long long)(2 * oy + da) * a.out_w + 2 * ox + db
+                              : (long long)oy * a.out_w + ox;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        tile + (cw * 64 + px) * BN * 2 + ((k ^ (px & 7)) << 4));
+    *reinterpret_cast<uint4*>(
+        static_cast<__nv_bfloat16*>(out) +
+        ((long long)b * a.out_h * a.out_w + pix) * a.Cout + m0 + 8 * k) = v;
+  }
+  named_sync(2 + cw, 128);
 }
 
-template <int BN, bool NORM>
+// NORM: the input layer-normed; CL: x channels-last (NCHW otherwise); CLO:
+// the form has the channels-last epilogue, which p.cl_out selects (conv1_1's
+// form and the channels-last forms; the NCHW forms compile without it).
+template <int BN, bool NORM, bool CL, bool CLO>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                       const __grid_constant__ CUtensorMap tmh,
@@ -514,7 +675,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: a stage is (channel chunk c0, kernel row kh):
     // the KWp taps' weights and the window of input rows iy0 + r * stride,
-    // columns [ox0 * stride - 8, ox0 * stride + ctw + 8) ---------------------
+    // columns [ox0 * stride - 8, ox0 * stride + ctw + 8) (CL: - 2 to + 2)
+    // -----------------------------------------------------------------------
     reg_dealloc<56>();
     const int tid = threadIdx.x;
     if (tid == 0) {
@@ -536,8 +698,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int ph = a.pad_h - da;
       const int wrow0 = par * a.KH * a.KW * Ck;
       // the halo boxes' columns: the neighbours', wrapped across the seam, or
-      // (zero mode, outside) at Wi, a box wholly outside the input
-      int lcol = ox0 * a.stride - kHalo, rcol = ox0 * a.stride + ctw;
+      // (zero mode, outside) at Wi, a box wholly outside the input; CL: the
+      // seam boxes of a tile whose window crosses the wrap seam
+      int lcol = ox0 * a.stride - (CL ? kHaloCL : kHalo);
+      int rcol = ox0 * a.stride + ctw;
+      const bool seam_l = CL && p.mode == kWrap && p.halo && lcol < 0;
+      const bool seam_r =
+          CL && p.mode == kWrap && p.halo && rcol + kHaloCL > a.Wi;
       if (p.mode == kWrap) {
         lcol += lcol < 0 ? a.Wi : 0;
         rcol -= rcol >= a.Wi ? a.Wi : 0;
@@ -546,9 +713,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       const uint32_t wbytes = p.tma_w ? KWp * kTapW : 0;
       const uint32_t xbytes =
-          p.tma_x ? main_bytes(p.rows, ctw) + (p.halo ? 2 * halo_bytes(p.rows)
-                                                      : 0)
-                  : 0;
+          !p.tma_x ? 0
+          : CL     ? cl_main_bytes(p.rows, ctw) +
+                     (seam_l + seam_r) * cl_halo_bytes(p.rows)
+                   : main_bytes(p.rows, ctw) +
+                     (p.halo ? 2 * halo_bytes(p.rows) : 0);
       for (int c0 = 0; c0 < a.Cin; c0 += BK)
         for (int kh = 0; kh < KHp; ++kh) {
           const int iy0 = oy0 * a.stride + kh * a.dil - ph;
@@ -566,7 +735,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                   tma_load_2d(st + kw * kTapW + i * kBoxW, &tmw, &full[s],
                               m0 + 64 * i,
                               wrow0 + (kh * KWp + kw) * Ck + c0);
-            if (p.tma_x) {
+            if (p.tma_x && CL) {
+              tma_load_4d(st + p.win_off, &tmx, &full[s], c0,
+                          ox0 * a.stride - kHaloCL, iy0, b);
+              if (seam_l)
+                tma_load_4d(st + p.halo_off, &tmh, &full[s], c0,
+                            a.Wi - kHaloCL, iy0, b);
+              if (seam_r)
+                tma_load_4d(st + p.halo_off + p.hb, &tmh, &full[s], c0, 0,
+                            iy0, b);
+            } else if (p.tma_x) {
               tma_load_4d(st + p.win_off, &tmx, &full[s], ox0 * a.stride, c0,
                           iy0, b);
               if (p.halo) {
@@ -580,7 +758,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int kw = 0; kw < KWp; ++kw)
               gather_w<BN>(st + kw * kTapW, w, p, m0,
                            wrow0 + (kh * KWp + kw) * Ck + c0, tid);
-          if (!p.tma_x)
+          if (!p.tma_x && CL)
+            gather_window_cl(st + p.win_off, x, p, b, iy0, ox0, c0, tid, fill);
+          else if (!p.tma_x)
             gather_window(st + p.win_off, x, p, b, iy0, ox0, c0, tid, fill);
           fence_proxy_async();
           mbar_arrive(&full[s]);
@@ -594,9 +774,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- consumer warpgroups: warpgroup cw takes the tile's pixels
     // [64 cw, 64 cw + 64) and all BN Cout: per stage, tap by tap, the A
     // fragment (64 pixels x 16 channels) from the window at the tap's
-    // column shift, by 16-bit shared loads (normalized with NORM), then
-    // the tap's wgmma with its weights as B, which runs while the next
-    // tap's fragment is loaded ----------------------------------------------
+    // column shift, by ldmatrix (CL) or 16-bit shared loads (normalized
+    // with NORM), then the tap's wgmma with its weights as B, which runs
+    // while the next tap's fragment is loaded ------------------------------
     reg_alloc<224>();
     const int ctid = threadIdx.x - 128;
     const int cw = ctid >> 7;
@@ -627,11 +807,28 @@ __global__ void __launch_bounds__(kThreads, 1)
       // pixel half h (row g or g + 8 of the warp's 16) and channel parity e
       // (channel 2 q4 + e, then + 8 t + 16 kk at `line` bytes a channel)
       uint32_t aoff[kMaxKW][2][2], line[kMaxKW][2];
+      // CL: this lane's ldmatrix row per tap kw, pixel 16 warp + (lane & 15)
+      // of the warpgroup's 64, channels 8 (lane >> 4) + 16 kk of the chunk
+      // (matrix lane >> 3 of the x4: pixel half, then channel half), its
+      // 16-byte chunk swizzled by its line's key; + 16 kk channels is the
+      // chunk's bits 1-2, XOR kk << 5
+      uint32_t arow[kMaxKW];
       const uint32_t mmask = (uint32_t)(ctw / 8) - 1;  // main box swizzle
+      if constexpr (CL) {
+        const int m = 64 * cw + 16 * warp + (lane & 15);
+        const int pr = m >> p.ct_lg, pc = m & (ct - 1);
+#pragma unroll
+        for (int kw = 0; kw < kMaxKW; ++kw) {
+          const uint32_t o =
+              cl_line(p, pr, pc * a.stride + kw * a.dil - pw + kHaloCL,
+                      ox0 * a.stride, ctw + 2 * kHaloCL);
+          arow[kw] = o | ((((o >> 7) ^ (uint32_t)(lane >> 4)) & 7u) << 4);
+        }
+      }
 #pragma unroll
       for (int kw = 0; kw < kMaxKW; ++kw)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int h = 0; h < 2 && !CL; ++h) {
           const int m = 64 * cw + 16 * warp + g + 8 * h;
           const int pr = m >> p.ct_lg, pc = m & (ct - 1);
           const int wc = pc * a.stride + kw * a.dil - pw + kHalo;
@@ -678,7 +875,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kw = 0; kw < kMaxKW; ++kw) {
           if (kw >= KWp) break;
 #pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
+          for (int kk = 0; kk < BK / 16 && CL; ++kk) {
+            ldsm_x4(af[kw][kk], win + (arow[kw] ^ (uint32_t)(kk << 5)));
+#pragma unroll
+            for (int i = 0; i < 4 && NORM; ++i)
+              af[kw][kk][i] = norm_frag(af[kw][kk][i], ab[kk][i >> 1]);
+          }
+#pragma unroll
+          for (int kk = 0; kk < BK / 16 && !CL; ++kk)
 #pragma unroll
             for (int t = 0; t < 2; ++t)
 #pragma unroll
@@ -724,50 +928,114 @@ __global__ void __launch_bounds__(kThreads, 1)
         named_sync(1, 256);
       }
       float s1 = 0.f, s2 = 0.f;
+      bool nchw = true;
+      if constexpr (CLO) {
+        if (p.cl_out) {
+          // channels-last bf16: the values packed a channel pair a register
+          // (the accumulator's fragment layout) and stored by stmatrix,
+          // four 8-channel chunks at a time, into the tile buffer, which
+          // store_tile_cl copies out. Every lane takes part in the
+          // stmatrix, a pixel outside the output too
+          nchw = false;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = 64 * cw + 16 * warp + g + 8 * h;
-        const int oy = oy0 + (m >> p.ct_lg);
-        const int ox = ox0 + (m & (ct - 1));
-        if (oy >= a.Ho || ox >= a.Wo) continue;
-        const long long pix =
-            sub ? (long long)(2 * oy + da) * a.out_w + 2 * ox + db
-                : (long long)oy * a.out_w + ox;
-        float cf[9];
-        if (p.mode == kCoord) coord_factors(cf, coord, a, oy, ox);
+          for (int h = 0; h < 2; ++h) {
+            const int m = 64 * cw + 16 * warp + g + 8 * h;
+            const int oy = oy0 + (m >> p.ct_lg);
+            const int ox = ox0 + (m & (ct - 1));
+            const bool inside = oy < a.Ho && ox < a.Wo;
+            float cf[9];
+            if (p.mode == kCoord && inside)
+              coord_factors(cf, coord, a, oy, ox);
 #pragma unroll
-        for (int jn = 0; jn < BN / 8; ++jn)
+            for (int jq = 0; jq < BN / 32; ++jq) {
+              uint32_t pk[4];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int n = m0 + 8 * jn + 2 * q4 + e;
-            if (n >= a.Cout) continue;
-            float v = acc[4 * jn + 2 * h + e];
-            if (p.mode == kCoord) {
-              // the coord channel: the exact bf16 products in tap order
-              float c = 0.f;
+              for (int i = 0; i < 4; ++i) {
+                const int jn = 4 * jq + i;
+                pk[i] = 0u;
 #pragma unroll
-              for (int t9 = 0; t9 < 9; ++t9)
-                c = fmaf(wcs[t9][n - m0], cf[t9], c);
-              v += c;
-            }
-            v += __ldg(bias + n);
-            if (a.act == 1) v = tanhf(v);
-            const long long o =
-                ((long long)b * a.Cout + n) * a.out_h * a.out_w + pix;
-            float r;
-            if (p.out_f32) {
-              static_cast<float*>(out)[o] = v;
-              r = v;
-            } else {
-              const __nv_bfloat16 qv = __float2bfloat16(v);
-              static_cast<__nv_bfloat16*>(out)[o] = qv;
-              r = __bfloat162float(qv);
-            }
-            if (p.stats) {
-              s1 += r;
-              s2 += r * r;
+                for (int e = 0; e < 2; ++e) {
+                  const int n = m0 + 8 * jn + 2 * q4 + e;
+                  if (!inside || n >= a.Cout) continue;
+                  float v = acc[4 * jn + 2 * h + e];
+                  if (p.mode == kCoord) {
+                    // the coord channel: the exact bf16 products in tap
+                    // order
+                    float c = 0.f;
+#pragma unroll
+                    for (int t9 = 0; t9 < 9; ++t9)
+                      c = fmaf(wcs[t9][n - m0], cf[t9], c);
+                    v += c;
+                  }
+                  v += __ldg(bias + n);
+                  if (a.act == 1) v = tanhf(v);
+                  const __nv_bfloat16 qv = __float2bfloat16(v);
+                  pk[i] |= (uint32_t)__bfloat16_as_ushort(qv) << (16 * e);
+                  if (p.stats) {
+                    const float r = __bfloat162float(qv);
+                    s1 += r;
+                    s2 += r * r;
+                  }
+                }
+              }
+              // chunk 4 jq + i of row 16 warp + 8 h + lane % 8 from lane
+              // 8 i + lane % 8, its 16 bytes at chunk ^ (row % 8)
+              const int row = 16 * warp + 8 * h + (lane & 7);
+              stsm_x4(smem_u32(smem + p.out_off) + (cw * 64 + row) * BN * 2 +
+                          (((4 * jq + (lane >> 3)) ^ (lane & 7)) << 4),
+                      pk[0], pk[1], pk[2], pk[3]);
             }
           }
+          store_tile_cl<BN>(p, smem + p.out_off, out, b, da, db, m0, oy0,
+                            ox0, cw, ctid & 127);
+        }
+      }
+      if (nchw) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 64 * cw + 16 * warp + g + 8 * h;
+          const int oy = oy0 + (m >> p.ct_lg);
+          const int ox = ox0 + (m & (ct - 1));
+          if (oy >= a.Ho || ox >= a.Wo) continue;
+          const long long pix =
+              sub ? (long long)(2 * oy + da) * a.out_w + 2 * ox + db
+                  : (long long)oy * a.out_w + ox;
+          float cf[9];
+          if (p.mode == kCoord) coord_factors(cf, coord, a, oy, ox);
+#pragma unroll
+          for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int n = m0 + 8 * jn + 2 * q4 + e;
+              if (n >= a.Cout) continue;
+              float v = acc[4 * jn + 2 * h + e];
+              if (p.mode == kCoord) {
+                // the coord channel: the exact bf16 products in tap order
+                float c = 0.f;
+#pragma unroll
+                for (int t9 = 0; t9 < 9; ++t9)
+                  c = fmaf(wcs[t9][n - m0], cf[t9], c);
+                v += c;
+              }
+              v += __ldg(bias + n);
+              if (a.act == 1) v = tanhf(v);
+              const long long o =
+                  ((long long)b * a.Cout + n) * a.out_h * a.out_w + pix;
+              float r;
+              if (p.out_f32) {
+                static_cast<float*>(out)[o] = v;
+                r = v;
+              } else {
+                const __nv_bfloat16 qv = __float2bfloat16(v);
+                static_cast<__nv_bfloat16*>(out)[o] = qv;
+                r = __bfloat162float(qv);
+              }
+              if (p.stats) {
+                s1 += r;
+                s2 += r * r;
+              }
+            }
+        }
       }
       if (p.stats) {
         // butterfly within each warp, the eight warp sums in order by the
@@ -1010,17 +1278,19 @@ struct Plan {
 // two columns an output one, is at most 64 wide). Tile: 128 Cout where
 // Cout > 64, else 64 (the persistent blocks need no count of waves; the
 // tools/variants.py times of 128 against 64 at every stage). Patch
-// windows by TMA at stride 1 or 2 when x's row pitch is a multiple of 16
-// bytes (Wi % 8 == 0) and, in wrap mode, the column tiles divide Wo (a
-// ragged tile's right halo would not be the wrapped columns), else
-// gathered; weights by TMA when Cout % 8 == 0.
-Plan make_plan(int Wi, int Cout, int Wo, int stride, int zero_w) {
+// windows by TMA at stride 1 or 2 when x's innermost line is a multiple
+// of 16 bytes (Wi % 8 == 0 for NCHW x, Cin % 8 == 0 for channels-last x,
+// cl) and, in wrap mode, the column tiles divide Wo (a ragged tile's right
+// halo would not be the wrapped columns), else gathered; weights by TMA
+// when Cout % 8 == 0.
+Plan make_plan(int Cin, int Wi, int Cout, int Wo, int stride, int zero_w,
+               int cl) {
   Plan p;
   p.ct_lg = Wo % 64 == 0 ? 6 : Wo % 32 == 0 ? 5 : 4;
   if (stride == 2 && p.ct_lg > 5) p.ct_lg = 5;
   const int ct = 1 << p.ct_lg;
   p.tile = Cout > 64 ? 0 : 1;
-  p.tma_x = (stride == 1 || stride == 2) && Wi % 8 == 0 &&
+  p.tma_x = (stride == 1 || stride == 2) && (cl ? Cin : Wi) % 8 == 0 &&
             (zero_w || Wo % ct == 0);
   p.tma_w = Cout % 8 == 0;
   return p;
@@ -1065,26 +1335,34 @@ void finish_stats(const ConvArgs& a, int nblk, void* partial, void* stats,
                                  nblk);
 }
 
-// The bf16 launch's shared memory: a stage's bytes (the KW taps' weights,
-// the main window, two halos), the norm's vectors after the ring, the ring
-// depth (at most kStages, as many as the budget holds beside the vectors;
-// 0 if fewer than 2) and the dynamic bytes the launch asks for (the ring,
-// the vectors and 1024 for the alignment). ops/conv.conv_smem mirrors it.
+// The bf16 launch's shared memory: a stage's bytes (the KW taps' weights
+// and the window: the main box and two halos, or for channels-last x, cl,
+// the window's box and two seam boxes), the norm's vectors after the ring,
+// the output tile after them (cl_out: a channels-last bf16 output, 128
+// pixels x the tile's Cout), the ring depth (at most kStages, as many as
+// the budget holds beside the vectors and the tile; 0 if fewer than 2: the
+// launch refuses the shape) and the dynamic bytes the launch asks for (the
+// ring, the vectors, the tile and 1024 for the alignment).
+// ops/conv.conv_smem mirrors it.
 struct Smem {
-  int stage_bytes, vec_bytes, stages, dynamic;
+  int stage_bytes, vec_bytes, out_bytes, stages, dynamic;
 };
-Smem smem_of(const ConvArgs& a, const Plan& pl, int norm) {
+Smem smem_of(const ConvArgs& a, const Plan& pl, int norm, int cl,
+             int cl_out) {
   const int bn = kTileBM[pl.tile];
   const int rows = wg::kTilePx >> pl.ct_lg;
   Smem m;
+  const int ctw = a.stride << pl.ct_lg;
   m.stage_bytes = a.KW * (bn / 64) * wg::kBoxW +
-                  wg::main_bytes(rows, a.stride << pl.ct_lg) +
-                  2 * wg::halo_bytes(rows);
+                  (cl ? wg::cl_main_bytes(rows, ctw) +
+                            2 * wg::cl_halo_region(rows)
+                      : wg::main_bytes(rows, ctw) + 2 * wg::halo_bytes(rows));
   m.vec_bytes = norm ? vec_bytes(a.Cin) : 0;
-  m.stages = (wg::kSmemBudget - m.vec_bytes) / m.stage_bytes;
+  m.out_bytes = cl_out ? wg::kTilePx * bn * 2 : 0;
+  m.stages = (wg::kSmemBudget - m.vec_bytes - m.out_bytes) / m.stage_bytes;
   if (m.stages > wg::kStages) m.stages = wg::kStages;
   if (m.stages < 2) m.stages = 0;
-  m.dynamic = m.stages * m.stage_bytes + m.vec_bytes + 1024;
+  m.dynamic = m.stages * m.stage_bytes + m.vec_bytes + m.out_bytes + 1024;
   return m;
 }
 
@@ -1097,12 +1375,15 @@ int stat_blocks(const ConvArgs& a, const Plan& pl, int in_f32) {
          cdiv(a.Cout, kTileBM[pl.tile]) * a.npar;
 }
 
-template <int BN, bool NORM>
+template <int BN, bool NORM, bool CL, bool CLO>
 int launch_wg(const void* x, const void* w, const void* bias,
               const void* coord, void* out, void* partial, void* stats,
               const Norm& nm, const ConvArgs& a, const Plan& pl, int mode,
-              int out_f32, cudaStream_t s) {
-  auto kern = wg::conv_wgmma_kernel<BN, NORM>;
+              int out_f32, int cl_out, cudaStream_t s) {
+  // a channels-last output is bf16 in whole 16-byte chunks of a pixel
+  if (cl_out && (!CLO || out_f32 || a.Cout % 8))
+    return (int)cudaErrorInvalidValue;
+  auto kern = wg::conv_wgmma_kernel<BN, NORM, CL, CLO>;
   static bool attr = false;  // once per instantiation
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1111,7 +1392,7 @@ int launch_wg(const void* x, const void* w, const void* bias,
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
-  const Smem sm = smem_of(a, pl, nm.nsrc);
+  const Smem sm = smem_of(a, pl, nm.nsrc, CL, cl_out);
   if (!sm.stages) return (int)cudaErrorInvalidValue;
   wg::Params p;
   memset(&p, 0, sizeof(p));
@@ -1120,6 +1401,7 @@ int launch_wg(const void* x, const void* w, const void* bias,
   p.mode = mode;
   p.stats = partial != nullptr;
   p.out_f32 = out_f32;
+  p.cl_out = cl_out;
   p.ct_lg = pl.ct_lg;
   p.rows = wg::kTilePx >> pl.ct_lg;
   p.ntx = cdiv(a.Wo, 1 << pl.ct_lg);
@@ -1132,15 +1414,27 @@ int launch_wg(const void* x, const void* w, const void* bias,
   p.krows = a.npar * a.KH * a.KW * (a.Cin + (mode == kCoord));
   const int ctw = a.stride << pl.ct_lg;
   p.win_off = a.KW * (BN / 64) * wg::kBoxW;
-  p.halo_off = p.win_off + wg::main_bytes(p.rows, ctw);
+  p.halo_off = p.win_off + (CL ? wg::cl_main_bytes(p.rows, ctw)
+                                : wg::main_bytes(p.rows, ctw));
+  p.hb = CL ? wg::cl_halo_region(p.rows) : wg::halo_bytes(p.rows);
   p.stage_bytes = sm.stage_bytes;
   p.stages = sm.stages;
   p.vec_off = p.stages * p.stage_bytes;
+  p.out_off = p.vec_off + sm.vec_bytes;
   CUtensorMap tmx, tmh, tmw;
   memset(&tmx, 0, sizeof(tmx));
   memset(&tmh, 0, sizeof(tmh));
   memset(&tmw, 0, sizeof(tmw));
-  if (p.tma_x) {
+  if (p.tma_x && CL) {
+    using matry::hop::encode_nhwc;
+    int e = encode_nhwc(&tmx, x, a.B, a.Cin, a.Hi, a.Wi,
+                        ctw + 2 * wg::kHaloCL, p.rows * a.stride, a.stride,
+                        nm.nsrc);
+    if (!e && p.halo)
+      e = encode_nhwc(&tmh, x, a.B, a.Cin, a.Hi, a.Wi, wg::kHaloCL,
+                      p.rows * a.stride, a.stride, nm.nsrc);
+    if (e) return e;
+  } else if (p.tma_x) {
     int e = encode_x(&tmx, x, a, ctw, p.rows, nm.nsrc);
     if (!e && p.halo) e = encode_x(&tmh, x, a, wg::kHalo, p.rows, nm.nsrc);
     if (e) return e;
@@ -1164,22 +1458,50 @@ int launch_wg(const void* x, const void* w, const void* bias,
 int launch_bf16(const void* x, const void* w, const void* bias,
                 const void* coord, void* out, void* partial, void* stats,
                 const Norm& nm, const ConvArgs& a, const Plan& pl, int mode,
-                int out_f32, cudaStream_t s) {
+                int out_f32, int cl_in, int cl_out, cudaStream_t s) {
   // a tap's columns lie within the window's halos: shifts of -8 .. 8
+  // (NCHW x), or of -2 .. 2 past the tile's columns (channels-last x; a
+  // parity form's right shift one more than its pads say)
   if (a.pad_w > wg::kHalo || (a.KW - 1) * a.dil - a.pad_w > wg::kHalo ||
       a.KW > wg::kMaxKW || a.KH > 3 || (a.stride != 1 && a.stride != 2))
     return (int)cudaErrorInvalidValue;
+  if (cl_in) {
+    // every channels-last input of the net is layer-normed
+    if (!nm.nsrc || a.pad_w > wg::kHaloCL ||
+        (a.KW - 1) * a.dil - a.pad_w + (a.npar == 4) - (a.stride - 1) >
+            wg::kHaloCL)
+      return (int)cudaErrorInvalidValue;
+    if (pl.tile == 0)
+      return launch_wg<128, true, true, true>(x, w, bias, coord, out,
+                                              partial, stats, nm, a, pl,
+                                              mode, out_f32, cl_out, s);
+    return launch_wg<64, true, true, true>(x, w, bias, coord, out, partial,
+                                           stats, nm, a, pl, mode, out_f32,
+                                           cl_out, s);
+  }
+  if (cl_out) {
+    // NCHW x, channels-last output: the net's first conv (64 Cout, its
+    // input the sweep's volume, not normed)
+    if (pl.tile == 0 || nm.nsrc) return (int)cudaErrorInvalidValue;
+    return launch_wg<64, false, false, true>(x, w, bias, coord, out, partial,
+                                             stats, nm, a, pl, mode, out_f32,
+                                             cl_out, s);
+  }
   if (pl.tile == 0 && nm.nsrc)
-    return launch_wg<128, true>(x, w, bias, coord, out, partial, stats, nm,
-                                a, pl, mode, out_f32, s);
+    return launch_wg<128, true, false, false>(x, w, bias, coord, out,
+                                              partial, stats, nm, a, pl,
+                                              mode, out_f32, 0, s);
   if (pl.tile == 0)
-    return launch_wg<128, false>(x, w, bias, coord, out, partial, stats, nm,
-                                 a, pl, mode, out_f32, s);
+    return launch_wg<128, false, false, false>(x, w, bias, coord, out,
+                                               partial, stats, nm, a, pl,
+                                               mode, out_f32, 0, s);
   if (nm.nsrc)
-    return launch_wg<64, true>(x, w, bias, coord, out, partial, stats, nm, a,
-                               pl, mode, out_f32, s);
-  return launch_wg<64, false>(x, w, bias, coord, out, partial, stats, nm, a,
-                              pl, mode, out_f32, s);
+    return launch_wg<64, true, false, false>(x, w, bias, coord, out, partial,
+                                             stats, nm, a, pl, mode, out_f32,
+                                             0, s);
+  return launch_wg<64, false, false, false>(x, w, bias, coord, out, partial,
+                                            stats, nm, a, pl, mode, out_f32,
+                                            0, s);
 }
 
 template <typename TO, int MODE>
@@ -1216,11 +1538,12 @@ int launch_f32_mode(const void* x, const void* w, const void* bias,
 
 // The bf16 launch's plan for this shape, as plan_code packs it: tile
 // (bit 0: 128 or 64 Cout x 128 pixels), log2(tile columns) - 4 (bits 2-3),
-// patch windows by TMA (bit 4), weights by TMA (bit 5). It assumes 16-byte
-// aligned x and w (the launch gathers an operand that is not).
-extern "C" int matry_conv_plan(int Wi, int Cout, int Wo, int stride,
-                               int zero_w) {
-  return plan_code(make_plan(Wi, Cout, Wo, stride, zero_w));
+// patch windows by TMA (bit 4), weights by TMA (bit 5); cl: x
+// channels-last. It assumes 16-byte aligned x and w (the launch gathers an
+// operand that is not).
+extern "C" int matry_conv_plan(int Cin, int Wi, int Cout, int Wo,
+                               int stride, int zero_w, int cl) {
+  return plan_code(make_plan(Cin, Wi, Cout, Wo, stride, zero_w, cl));
 }
 
 // Partials a sample that a launch of this shape with STATS writes
@@ -1235,20 +1558,26 @@ extern "C" int matry_conv_stats_blocks(int Wi, int Cout, int Ho, int Wo,
   a.Ho = Ho;
   a.Wo = Wo;
   a.npar = npar;
-  return stat_blocks(a, make_plan(Wi, Cout, Wo, stride, zero_w), in_f32);
+  return stat_blocks(a, make_plan(0, Wi, Cout, Wo, stride, zero_w, 0),
+                     in_f32);
 }
 
 // The dynamic shared memory (bytes) a bf16 launch of this shape asks for,
-// with (norm != 0) or without the layer norm's vectors; 0 if its ring does
-// not fit.
+// with (norm != 0) or without the layer norm's vectors, x channels-last
+// (cl != 0) or NCHW, out channels-last bf16 (cl_out != 0) or not; 0 if the
+// launch refuses the shape (its ring does not fit beside the vectors and
+// the output tile, or a channels-last output with Cout % 8 != 0).
 extern "C" int matry_conv_smem(int Cin, int Wi, int Cout, int Wo, int KW,
-                               int stride, int zero_w, int norm) {
+                               int stride, int zero_w, int norm, int cl,
+                               int cl_out) {
   ConvArgs a;
   memset(&a, 0, sizeof(a));
   a.Cin = Cin;
   a.KW = KW;
   a.stride = stride;
-  const Smem m = smem_of(a, make_plan(Wi, Cout, Wo, stride, zero_w), norm);
+  if (cl_out && Cout % 8) return 0;
+  const Smem m = smem_of(
+      a, make_plan(Cin, Wi, Cout, Wo, stride, zero_w, cl), norm, cl, cl_out);
   return m.stages ? m.dynamic : 0;
 }
 
@@ -1261,7 +1590,12 @@ extern "C" int matry_conv_smem(int Cin, int Wi, int Cout, int Wo, int KW,
 // per sample, by stats_fold (K7c). nsrc: 0, or the sources of x's layer
 // norm (1, or 2 for a skip concat whose first source has c0 channels),
 // source i with its producer's partials part_i [B, nblk_i, 2] and its
-// gamma_i, beta_i (f32, one per channel of the source).
+// gamma_i, beta_i (f32, one per channel of the source). cl_in, cl_out: x,
+// out channels-last (NHWC memory of the [B, C, H, W] tensor), else NCHW:
+// bf16 x only, cl_in with the layer norm, cl_out a bf16 output with Cout %
+// 8 == 0 from x channels-last, or from NCHW x without the norm at 64 Cout
+// (the net's first conv); other combinations return
+// cudaErrorInvalidValue.
 extern "C" int matry_conv(const void* x, const void* w, const void* bias,
                           const void* coord, void* out, int B, int Cin,
                           int Hi, int Wi, int Cout, int Ho, int Wo, int KH,
@@ -1272,14 +1606,15 @@ extern "C" int matry_conv(const void* x, const void* w, const void* bias,
                           const void* part0, const void* gamma0,
                           const void* beta0, int nblk0, const void* part1,
                           const void* gamma1, const void* beta1, int nblk1,
-                          void* stream) {
+                          int cl_in, int cl_out, void* stream) {
   const ConvArgs a{B,  Cin,    Hi,  Wi,    Cout,  Ho,    Wo,
                    KH, KW,     stride, dil, pad_h, pad_w, npar,
                    out_h, out_w, act};
   cudaStream_t s = (cudaStream_t)stream;
   if (coord && !zero_w) return (int)cudaErrorInvalidValue;
   const int mode = coord ? kCoord : (zero_w ? kZero : kWrap);
-  const Plan pl = make_plan(Wi, Cout, Wo, stride, mode != kWrap);
+  const Plan pl = make_plan(Cin, Wi, Cout, Wo, stride, mode != kWrap, cl_in);
+  if (in_f32 && (cl_in || cl_out)) return (int)cudaErrorInvalidValue;
   if ((stats && !partial) ||
       (partial && nblk != stat_blocks(a, pl, in_f32)))
     return (int)cudaErrorInvalidValue;
@@ -1303,7 +1638,7 @@ extern "C" int matry_conv(const void* x, const void* w, const void* bias,
   int e;
   if (!in_f32)
     e = launch_bf16(x, w, bias, coord, out, partial, stats, nm, a, pl, mode,
-                    out_f32, s);
+                    out_f32, cl_in, cl_out, s);
   else if (out_f32)
     e = launch_f32_mode<float>(x, w, bias, coord, out, partial, stats, nm, a,
                                mode, s);

@@ -2,11 +2,11 @@
 // conv_wgrad.cu), as raw PTX: mbarriers, TMA tensor loads
 // (cp.async.bulk.tensor), shared-memory matrix descriptors, wgmma.mma_async
 // with A in registers and B in shared memory (bf16, f32 accumulators; B
-// MN-major or K-major), the proxy fence that makes generic shared-memory
-// writes visible to the async proxy (wgmma, TMA), named barriers and
-// setmaxnreg; and, on the host, the tensor maps those kernels load through
-// (encoded through the runtime's driver entry point, cached by their
-// arguments).
+// MN-major or K-major), ldmatrix, the proxy fence that makes generic
+// shared-memory writes visible to the async proxy (wgmma, TMA), named
+// barriers and setmaxnreg; and, on the host, the tensor maps those kernels
+// load through (encoded through the runtime's driver entry point, cached by
+// their arguments).
 #pragma once
 
 #include <stdint.h>
@@ -159,6 +159,29 @@ __device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
   unsigned short v;
   asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
   return v;
+}
+
+// Four 8x8 b16 matrices of shared memory (ldmatrix.x4): lane l gives the
+// address of a 16-byte row of matrix l / 8 (row l % 8) and receives in
+// r[i] the elements (l / 4, 2 (l % 4)) and (l / 4, 2 (l % 4) + 1) of matrix
+// i, the lower in the low half.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The inverse of ldsm_x4 (stmatrix.x4): lane l gives the address of row
+// l % 8 of matrix l / 8 and r[i] holds its elements (l / 4, 2 (l % 4)) and
+// (l / 4, 2 (l % 4) + 1) of matrix i, the lower in the low half.
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0,
+                                        uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 // 32 bits of shared memory at a (4-byte aligned) byte address.
@@ -357,6 +380,36 @@ inline int encode_nchw(CUtensorMap* m, const void* p, int B, int C, int H,
   k.es[0] = k.es[1] = k.es[3] = 1;
   k.es[2] = h_stride;
   k.swizzle = swizzle_of(swz);
+  k.nan_fill = nan_fill;
+  return encode_cached(m, k);
+}
+
+// A channels-last bf16 tensor [B, C, H, W] (strides C: 1, W: C, H: W C,
+// B: H W C elements) as the 4-D tensor (C, W, H, B): box {64, box_w,
+// box_h, 1}, taking every h_stride-th row, the 128-byte swizzle (a pixel's
+// 64 channels are one 128-byte line). Boxes past any edge load zeros, or
+// NaN with nan_fill; the pixel pitch (2 C bytes) must be a multiple of 16.
+inline int encode_nhwc(CUtensorMap* m, const void* p, int B, int C, int H,
+                       int W, int box_w, int box_h, int h_stride,
+                       int nan_fill = 0) {
+  MapKey k;
+  memset(&k, 0, sizeof(k));
+  k.ptr = p;
+  k.rank = 4;
+  k.dims[0] = C;
+  k.dims[1] = W;
+  k.dims[2] = H;
+  k.dims[3] = B;
+  k.strides[0] = (cuuint64_t)C * 2;
+  k.strides[1] = (cuuint64_t)W * C * 2;
+  k.strides[2] = (cuuint64_t)H * W * C * 2;
+  k.box[0] = 64;
+  k.box[1] = box_w;
+  k.box[2] = box_h;
+  k.box[3] = 1;
+  k.es[0] = k.es[1] = k.es[3] = 1;
+  k.es[2] = h_stride;
+  k.swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
   k.nan_fill = nan_fill;
   return encode_cached(m, k);
 }

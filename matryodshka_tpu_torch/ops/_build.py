@@ -54,9 +54,9 @@ SIGNATURES = {
     "matry_sweep_row_params": [_P] * 10 + [_I] * 4 + [_P],
     "matry_sweep_assembled": [_P] * 10 + [_I] * 10 + [_P],
     "matry_conv": [_P] * 5 + [_I] * 20 + [_P] * 2 + [_I] * 3 + [_P] * 3
-    + [_I] + [_P] * 3 + [_I, _P],
-    "matry_conv_plan": [_I] * 5,
-    "matry_conv_smem": [_I] * 8,
+    + [_I] + [_P] * 3 + [_I] * 3 + [_P],
+    "matry_conv_plan": [_I] * 7,
+    "matry_conv_smem": [_I] * 10,
     "matry_conv_stats_blocks": [_I] * 8,
     "matry_conv_wgrad": [_P] * 5 + [_I] * 6 + [ctypes.c_longlong, _I, _I,
                                                _P],

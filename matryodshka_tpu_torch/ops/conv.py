@@ -39,6 +39,14 @@ statistics (`stats=True`: one (sum y, sum y^2) partial per tile and sample,
 partials, gamma, beta), folds them into per-channel vectors and applies
 relu(a * y + b) to its input as it stages it. For CPU tensors the same call
 is `conv_plain` after `ops/layernorm.layer_norm_relu_plain` of each source.
+
+x is [B, C, H, W] in either memory format: NCHW-contiguous, or
+channels-last (`torch.channels_last`, C innermost), which the bf16 kernel
+reads, with a layer norm, by `ldmatrix` from a channel-innermost window
+(the source note, item 3); `memory_format` names the output's. A CUDA
+launch takes only the layouts the kernel has a form for (`check_layouts`)
+and raises on the others: it copies no layout. The net's activations
+between its convs are channels-last (`ops/net.py`).
 """
 
 from __future__ import annotations
@@ -67,6 +75,8 @@ wgmma_launches = 0
 #: their output's statistics.
 norm_launches = 0
 stats_launches = 0
+#: Of the bf16 launches, those that read a channels-last window.
+cl_launches = 0
 
 HPADS = ("wrap", "zero")
 
@@ -244,55 +254,71 @@ class ConvPlan(NamedTuple):
                 f"{xs}, {ws})")
 
 
-def conv_plan(wi: int, cout: int, wo: int, stride: int,
-              hpad: str) -> ConvPlan:
+def conv_plan(wi: int, cout: int, wo: int, stride: int, hpad: str,
+              cl_cin: Optional[int] = None) -> ConvPlan:
     """Plain-Python mirror of csrc/conv.cu:make_plan for a bf16 launch
-    (wo: the GEMM grid's width, per parity for npar=4): columns the widest
-    of 64, 32, 16 dividing wo (16 otherwise), at most 32 at stride 2;
-    128-Cout tiles where cout > 64, else 64; the patch windows by TMA at
-    stride 1 or 2 for wi % 8 == 0 and, wrapping, columns dividing wo (else
-    gathered); the weights by TMA for cout % 8 == 0."""
+    (wo: the GEMM grid's width, per parity for npar=4; cl_cin: x's
+    channels where x is channels-last, None for NCHW x): columns the
+    widest of 64, 32, 16 dividing wo (16 otherwise), at most 32 at stride
+    2; 128-Cout tiles where cout > 64, else 64; the patch windows by TMA at
+    stride 1 or 2 where x's innermost line is a multiple of 16 bytes (wi %
+    8 == 0 NCHW, cl_cin % 8 == 0 channels-last) and, wrapping, columns
+    dividing wo (else gathered); the weights by TMA for cout % 8 == 0."""
     cols = 64 if wo % 64 == 0 else 32 if wo % 32 == 0 else 16
     if stride == 2:
         cols = min(cols, 32)
     tile = 0 if cout > 64 else 1
     bm, bn = WGMMA_TILES[tile]
+    line = wi if cl_cin is None else cl_cin
     return ConvPlan(tile, bm, bn, cols, bn // cols,
-                    stride in (1, 2) and wi % 8 == 0
+                    stride in (1, 2) and line % 8 == 0
                     and (hpad == "zero" or wo % cols == 0), cout % 8 == 0)
 
 
 #: csrc/conv.cu's shared-memory plan (wg::kSmemBudget, wg::kStages,
-#: wg::kBoxW, wg::kTilePx, wg::kHalo, wg::BK): the ring's budget, its
-#: depth, a [64 k][64 Cout] weight box's bytes, a tile's pixels, a halo's
-#: columns, the channels of a k-step.
+#: wg::kBoxW, wg::kTilePx, wg::kHalo, wg::kHaloCL, wg::BK): the ring's
+#: budget, its depth, a [64 k][64 Cout] weight box's bytes, a tile's
+#: pixels, a halo's columns (NCHW x, channels-last x), the channels of a
+#: k-step.
 SMEM_BUDGET = 220 * 1024
 RING_STAGES = 2
 BOX_BYTES = 64 * 64 * 2
 TILE_PX = 128
 HALO = 8
+HALO_CL = 2
 BK = 64
 
 
 def conv_smem(cin: int, wi: int, cout: int, wo: int, kw: int, stride: int,
-              hpad: str, norm: bool):
+              hpad: str, norm: bool, cl: bool = False, cl_out: bool = False):
     """Plain-Python mirror of csrc/conv.cu:smem_of for a bf16 launch, to
     check a shape's fit without a card (a launch that does not fit refuses
     itself, with cudaErrorInvalidValue): (stage bytes, ring stages,
     dynamic bytes the launch asks for). A stage holds the kw taps'
-    weights, the main window and two halos; the layer norm's vectors (a
-    and b in f32 for cin rounded up to 64 channels) follow the ring; the
-    ring takes at most RING_STAGES stages, as many as SMEM_BUDGET holds
-    beside the vectors, and the launch refuses fewer than 2 (stages 0)."""
-    plan = conv_plan(wi, cout, wo, stride, hpad)
-    stage = (kw * (plan.bm // 64) * BOX_BYTES
-             + plan.rows * BK * plan.cols * stride * 2
-             + 2 * plan.rows * BK * HALO * 2)
+    weights and the window: for NCHW x the main box (rows x 64 channels x
+    cols * stride) and two HALO-column halo boxes; for channels-last x (cl)
+    one box of cols * stride + 2 HALO_CL columns of 128-byte lines and two
+    HALO_CL-column seam boxes, each in a region rounded up to 1024 bytes.
+    The layer norm's vectors (a and b in f32 for cin rounded up to 64
+    channels) follow the ring, and for a channels-last bf16 output (cl_out)
+    the output tile (TILE_PX x the tile's Cout, bf16) after them; the ring
+    takes at most RING_STAGES stages, as many as SMEM_BUDGET holds beside
+    them, and the launch refuses fewer than 2 (stages 0), as it refuses a
+    channels-last output with cout % 8 != 0."""
+    plan = conv_plan(wi, cout, wo, stride, hpad, cin if cl else None)
+    ctw = plan.cols * stride
+    if cl:
+        seam = -(-plan.rows * HALO_CL * BK * 2 // 1024) * 1024
+        window = plan.rows * (ctw + 2 * HALO_CL) * BK * 2 + 2 * seam
+    else:
+        window = plan.rows * BK * ctw * 2 + 2 * plan.rows * BK * HALO * 2
+    stage = kw * (plan.bm // 64) * BOX_BYTES + window
     vec = -(-cin // BK) * BK * 8 if norm else 0
-    stages = min(RING_STAGES, (SMEM_BUDGET - vec) // stage)
-    if stages < 2:
+    tile = TILE_PX * plan.bm * 2 if cl_out else 0
+    stages = min(RING_STAGES, (SMEM_BUDGET - vec - tile) // stage)
+    if stages < 2 or (cl_out and cout % 8):
         return stage, 0, 0
-    return stage, stages, stages * stage + vec + 1024
+    return stage, stages, stages * stage + vec + tile + 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -339,14 +365,56 @@ def grid_of(x_shape, kh: int, kw: int, stride: int = 1, dil: int = 1,
 
 def tile_config(x, cout: int, kh: int, kw: int, stride: int = 1,
                 dil: int = 1, pad=0, npar: int = 1, hpad: str = "wrap",
-                **_) -> str:
+                norm=None, **_) -> str:
     """The tile a CUDA launch of conv(x, ...) with `cout` outputs takes:
     for bfloat16 operands the wgmma kernel's plan (conv_plan), for float32
     the f32 kernel's one tile. Takes conv's keyword arguments."""
     if x.dtype == torch.float32:
         return "f32 FMA 64x128"
     _, wo = grid_of(x.shape, kh, kw, stride, dil, pad, npar)
-    return str(conv_plan(x.shape[3], cout, wo, stride, hpad))
+    return str(conv_plan(x.shape[3], cout, wo, stride, hpad,
+                         x.shape[1] if is_channels_last(x) else None))
+
+
+def is_channels_last(x) -> bool:
+    """Whether x [B, C, H, W] is taken as channels-last: False where it is
+    NCHW-contiguous (a tensor contiguous in both formats is NCHW), True
+    where it is channels-last-contiguous; anything else raises."""
+    if x.is_contiguous():
+        return False
+    _build.require(
+        x.is_contiguous(memory_format=torch.channels_last),
+        lambda: f"conv: x {tuple(x.shape)} with strides {x.stride()} is "
+                f"contiguous in neither NCHW nor channels-last format")
+    return True
+
+
+def check_layouts(x, cout: int, out_dtype, norm, memory_format):
+    """(x channels-last, output channels-last) of a CUDA launch of conv,
+    after checking them against the layouts the kernel has forms for: x
+    NCHW-contiguous, or channels-last-contiguous in bfloat16 with a layer
+    norm (every conv input of the net but its first); the output NCHW
+    (torch.contiguous_format), or channels-last (torch.channels_last) in
+    bfloat16 with cout % 8 == 0 from a channels-last x, or from an NCHW x
+    without a norm at cout <= 64 (the net's first conv, its 64-Cout tile;
+    conv_plan). Anything else raises: no
+    layout is copied. (The CPU route, conv_plain, takes either layout of x
+    and writes either.)"""
+    req = _build.require
+    cl_out = memory_format == torch.channels_last
+    cl_in = is_channels_last(x)
+    req(not cl_in or (x.dtype == torch.bfloat16 and norm is not None),
+        lambda: f"conv: a channels-last x must be bfloat16 and layer-normed "
+                f"(norm=...), got {x.dtype}, norm {norm is not None}")
+    req(not cl_out or (x.dtype == out_dtype == torch.bfloat16
+                       and cout % 8 == 0
+                       and (cl_in or (norm is None and cout <= 64))),
+        lambda: f"conv: a channels-last output takes bfloat16 x and output "
+                f"with Cout % 8 == 0, from a channels-last x or an NCHW x "
+                f"without a norm at Cout <= 64; got x {x.dtype} "
+                f"{'channels-last' if cl_in else 'NCHW'}, output "
+                f"{out_dtype}, Cout {cout}, norm {norm is not None}")
+    return cl_in, cl_out
 
 
 #: matry_conv's layer-norm arguments for an input taken as it is.
@@ -392,26 +460,38 @@ def _norm_args(norm, x):
 def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
          pad=0, npar: int = 1, tanh: bool = False, out_dtype=None,
          hpad: str = "wrap", coord=None, norm: Sequence[Norm] = None,
-         stats: bool = False):
+         stats: bool = False, memory_format=torch.contiguous_format):
     """One conv layer: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. x [B, Cin, H, W]; wk from pack_conv / pack_deconv /
+    for CPU tensors. x [B, Cin, H, W], NCHW- or channels-last-contiguous
+    (anything else raises); wk from pack_conv / pack_deconv /
     pack_smoothed; bias [Cout] float32; coord None or [H] float32
     (hpad="zero" only). norm: None (x as it is), or one Norm per source of
     x in channel order (x the torch.cat of one or two raw sources): the
     conv reads relu(a * x + b) of each source's layer norm. stats: also
     return the output's partial sums, [B, stats_blocks, 2] float32 (None
-    for CPU tensors), which a consumer's Norm takes. -> out, or (out,
-    partials) with stats."""
+    for CPU tensors), which a consumer's Norm takes. memory_format: the
+    output's, torch.contiguous_format (NCHW) or torch.channels_last; the
+    values do not depend on either layout; a CUDA launch raises on those
+    the kernel has no form for (check_layouts). -> out, or (out, partials)
+    with stats."""
     global launches, coord_launches, wgmma_launches
-    global norm_launches, stats_launches
+    global norm_launches, stats_launches, cl_launches
     with trace.span("conv.conv"):
+        _build.require(memory_format in (torch.contiguous_format,
+                                         torch.channels_last),
+                       lambda: f"conv: memory_format {memory_format}")
+        out_dtype = x.dtype if out_dtype is None else out_dtype
         if x.device.type == "cpu":
+            is_channels_last(x)
+            x = x.contiguous()
             if norm is not None:
                 x = normalize_plain(x, norm)
             y = conv_plain(x, wk, bias, kh, kw, stride, dil, pad, npar, tanh,
                            out_dtype, hpad, coord)
+            y = y.contiguous(memory_format=memory_format)
             return (y, None) if stats else y
-        out_dtype = x.dtype if out_dtype is None else out_dtype
+        cl_in, cl_out = check_layouts(x, wk.shape[2], out_dtype, norm,
+                                      memory_format)
         b, cin, h, w = x.shape
         cout = wk.shape[2]
         lo, hi = pad_pair(pad)
@@ -419,9 +499,8 @@ def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
         dev = x.device
         req = _build.require
         req(x.is_cuda, lambda: f"conv: unsupported device {dev}")
-        req(x.dtype in (torch.float32, torch.bfloat16) and x.is_contiguous(),
-            lambda: f"conv: x must be contiguous float32/bfloat16, got "
-                    f"{x.dtype}")
+        req(x.dtype in (torch.float32, torch.bfloat16),
+            lambda: f"conv: x must be float32/bfloat16, got {x.dtype}")
         req(wk.dtype == x.dtype and wk.is_contiguous() and wk.device == dev
             and wk.shape == (npar, kh * kw * kcin, cout),
             lambda: f"conv: packed weight {wk.dtype} {tuple(wk.shape)}")
@@ -446,7 +525,8 @@ def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
         nargs = _norm_args(norm, x)
         ho, wo = out_size(h, w, kh, kw, stride, dil, (lo, hi), npar)
         oh, ow = (2 * ho, 2 * wo) if npar == 4 else (ho, wo)
-        out = torch.empty((b, cout, oh, ow), dtype=out_dtype, device=dev)
+        out = torch.empty((b, cout, oh, ow), dtype=out_dtype, device=dev,
+                          memory_format=memory_format)
         partial, nblk = None, 0
         if stats:
             nblk = stats_blocks(x.shape, cout, kh, kw, stride, dil, (lo, hi),
@@ -461,10 +541,11 @@ def conv(x, wk, bias, kh: int, kw: int, stride: int = 1, dil: int = 1,
             int(tanh), int(x.dtype == torch.float32),
             int(out_dtype == torch.float32), int(hpad == "zero"),
             None if partial is None else partial.data_ptr(), None, nblk,
-            *nargs, _build.stream_ptr(dev))
+            *nargs, int(cl_in), int(cl_out), _build.stream_ptr(dev))
         launches += 1
         coord_launches += hpad == "zero"
         wgmma_launches += x.dtype == torch.bfloat16
         norm_launches += norm is not None
         stats_launches += stats
+        cl_launches += cl_in
         return (out, partial) if stats else out

@@ -10,7 +10,12 @@ stores its raw output with its statistics' partials, and each consumer
 normalizes its input as it reads it (`conv(..., norm=, stats=)`). Skip
 concats are a `torch.cat` of the two raw sources, whose normalizations
 the consumer applies end to end. Activations are [B, C, H, W] in the
-compute dtype; the head writes float32.
+compute dtype; the head writes float32. In bfloat16 the activations
+between two convs are channels-last (`torch.channels_last`: conv1_1 reads
+the sweep's NCHW volume and writes channels-last, the head reads
+channels-last and writes the NCHW prediction), which the conv kernel reads
+by `ldmatrix`; a skip concat of two channels-last sources is
+channels-last. No stage copies a layout.
 
 The two variants share the topology and differ in each stage's padding
 (`conv_args`): the wrap net wraps columns horizontally; the coord net pads
@@ -119,11 +124,14 @@ def pack_stage(model, name: str, kind: str, dtype):
 def prepare(model, dtype, height: int = None) -> List[Dict]:
     """Kernel operands from an MSIUNet's own parameters: per stage the
     packed weight (compute dtype), the bias (f32), `stats` (whether its
-    output is layer-normed, every stage but the head) and `norm`, the
+    output is layer-normed, every stage but the head), `norm`, the
     (gamma, beta) f32 of each source's layer norm (None for the net's
-    input), and for the coord net's convs and downs the coord channel per
-    input row (float32, `conv.coord_column`), which needs the net's input
-    height. Call again after the model's parameters change."""
+    input), `memory_format`, its output's layout (channels-last where the
+    next stage reads it by the kernel's channels-last form: every stage
+    but the head, in bfloat16), and for the coord net's convs and downs
+    the coord channel per input row (float32, `conv.coord_column`), which
+    needs the net's input height. Call again after the model's parameters
+    change."""
     if model.variant == "coord" and height is None:
         raise ValueError("prepare: the coord net needs the input height")
     ln = {}
@@ -144,7 +152,10 @@ def prepare(model, dtype, height: int = None) -> List[Dict]:
             "w": pack_stage(model, name, kind, dtype),
             "b": layer.bias.detach().float().contiguous(),
             "stats": kind != "head",
-            "norm": None if srcs == ["x"] else [ln[s] for s in srcs]})
+            "norm": None if srcs == ["x"] else [ln[s] for s in srcs],
+            "memory_format": (torch.channels_last
+                              if kind != "head" and dtype == torch.bfloat16
+                              else torch.contiguous_format)})
     return stages
 
 
@@ -163,13 +174,14 @@ def stage_input(st: Dict, acts: Dict):
 
 def unet_forward(stages: List[Dict], x) -> torch.Tensor:
     """x [B, Cin, H, W] in the compute dtype -> tanh prediction
-    [B, K, H, W] float32."""
+    [B, K, H, W] float32, NCHW-contiguous."""
     acts = {"x": (x, None)}
     y = x
     for st in stages:
         inp, norm = stage_input(st, acts)
         out = conv_ops.conv(inp, st["w"], st["b"], **st["args"], norm=norm,
-                            stats=st["stats"])
+                            stats=st["stats"],
+                            memory_format=st["memory_format"])
         y, part = out if st["stats"] else (out, None)
         acts[st["name"]] = (y, part)
     return y

@@ -178,7 +178,7 @@ def _launch(x, weight, bias, out_dtype, stats: bool, name: str):
         0, int(x.dtype == torch.float32), int(out_dtype == torch.float32),
         0, None if partial is None else partial.data_ptr(),
         None if sums is None else sums.data_ptr(), nblk,
-        *conv_ops.NO_NORM, _build.stream_ptr(x.device))
+        *conv_ops.NO_NORM, 0, 0, _build.stream_ptr(x.device))
     conv_ops.wgmma_launches += x.dtype == torch.bfloat16
     return out, sums
 

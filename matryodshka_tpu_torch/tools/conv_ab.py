@@ -12,8 +12,9 @@ kernels. Each process measures, on
 seeded bf16 inputs at the flagship (640x320, ngf 64, batch 1):
 
 - every stage of the wrap and the coord net as that checkout's
-  ops/net.py runs it, on the activations of one forward of a seeded net
-  input: a conv launch whose input's layer norm + ReLU is fused and whose
+  ops/net.py runs it (in the layouts it gives the activations), on the
+  activations of one forward of a seeded net input: a conv launch whose
+  input's layer norm + ReLU is fused and whose
   epilogue writes its statistics (a checkout whose ops/conv.py has Norm),
   or a conv launch and, but for the head, a layer-norm launch (the
   parent's ops/layernorm.layer_norm_relu); per stage its CUDA events
@@ -86,9 +87,12 @@ def _stages(prm, x0):
         acts = {"x": (x0, None)}
         for plan, st in zip(prm.net.plan, prm.stages):
             x, norm = net_ops.stage_input(st, acts)
+            # the output's layout, where the checkout's net picks one
+            fmt = ({"memory_format": st["memory_format"]}
+                   if "memory_format" in st else {})
             fn = functools.partial(conv_ops.conv, x, st["w"], st["b"],
                                    **st["args"], norm=norm,
-                                   stats=st["stats"])
+                                   stats=st["stats"], **fmt)
             y = fn()
             acts[st["name"]] = y if st["stats"] else (y, None)
             out.append((plan, st, x, acts[st["name"]][0], fn, 1,

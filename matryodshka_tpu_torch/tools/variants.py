@@ -38,20 +38,15 @@ limit. The variants:
   taps and composite alone, the projection replaced by a fixed lookup;
 - conv (the bf16 wgmma kernel at the 18 stages of the 640x320 ngf-64 wrap
   and coord nets on the raw activations and partials of one forward of a
-  seeded input, CUDA events per layer): each stage as the net runs it
-  (its inputs' layer norm fused, its output's statistics written) and in
-  three parts, the conv alone, with the statistics epilogue alone and with
-  the layer norm's fold and transform alone; every layer on the 64-Cout
-  tile against the plan's choice (128 wherever Cout > 64); the patch
-  windows gathered by the producer's threads in place of TMA; rings of 3,
-  4 and up to 8 stages (as many as 220 KB hold) in place of 2; the
-  producer at 40 registers and the consumers at 232; the layer norm's
-  transform applied once per stage to the window in shared memory by the
-  consumers (placement b) in place of the A fragments as each tap's shared
-  loads produce them (placement a, up to 9 times an element); and a part,
-  the fold and the (a, b) loads without the fragment transform; every
-  tap's fragments first and then all the taps' wgmma, in place of each
-  tap's fragments and its wgmma in turn.
+  seeded input, in the layouts the net gives them (channels-last past the
+  first conv), CUDA events per layer): each stage as the net runs it (its
+  inputs' layer norm fused, its output's statistics written); every layer
+  on the 64-Cout tile
+  against the plan's choice (128 wherever Cout > 64); the patch windows
+  gathered by the producer's threads in place of TMA; rings of 3, 4 and
+  up to 8 stages (as many as 220 KB hold) in place of 2; the producer at
+  40 registers and the consumers at 232; and a part, the channels-last
+  taps' fragments without the layer norm.
 - wgrad (the bf16 weight-gradient kernel, csrc/conv_wgrad.cu, at the
   trainer's eight wrap-conv layers, batch 1, CUDA events per layer): rings
   of 2, 3 and up to 8 stages (as many as 200 KB hold) in place of 4; the
@@ -67,7 +62,6 @@ equal the built kernel's output bit for bit, or the tool raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 import subprocess
 import sys
 
@@ -86,105 +80,7 @@ _TAP_READ = ("          col[t] = fmaf(q.fy, rb[c * stride + pos[t]] - a, a);")
 #: conv.cu's choice of tile in make_plan.
 _PLAN_TILE = "  p.tile = Cout > 64 ? 0 : 1;"
 
-#: conv.cu's layer norm on the A fragments (placement a): the fragment
-#: load, and the window's stage, where placement (b) normalizes instead.
-_FRAG_NORMED = "af[kw][kk][h + 2 * t] = NORM ? norm_frag(v, ab[kk][t]) : v;"
-_FRAG_PLAIN = "af[kw][kk][h + 2 * t] = v;"
-_STAGE_WIN = "        const uint32_t win = st + p.win_off;\n"
-#: Placement (b): after the stage's full barrier each consumer warpgroup
-#: normalizes, in place, the window rows its pixels read (its half of the
-#: main box's lines and of the halos' lines: the transform is elementwise,
-#: so the swizzle within a line does not matter, and TMA's NaN fill comes
-#: out zero), then the proxy fence (TMA writes the slot again) and a named
-#: barrier of its 128 threads.
-_WINDOW_PASS = _STAGE_WIN + """        if (NORM) {
-          const int half = p.rows >> 1, lb = ctw * 2;
-          const int c0 = j / KHp * BK;
-          unsigned char* wp = smem + s * p.stage_bytes + p.win_off;
-          const int nm = half * BK * lb / 16;            // main-box chunks
-          const int nh = p.halo ? half * BK : 0;         // a halo's chunks
-          for (int q = ctid & 127; q < nm + 2 * nh; q += 128) {
-            int l;
-            uint4* ptr;
-            if (q < nm) {
-              l = cw * half * BK + q * 16 / lb;
-              ptr = reinterpret_cast<uint4*>(wp + cw * half * BK * lb +
-                                             q * 16);
-            } else {
-              const int k = q - nm, side = k >= nh;
-              l = cw * half * BK + k - side * nh;
-              ptr = reinterpret_cast<uint4*>(
-                  wp + p.halo_off - p.win_off +
-                  side * halo_bytes(p.rows) + l * 16);
-            }
-            const int c = c0 + (l & (BK - 1));
-            const float4 cab = make_float4(vec_a(vec, c), vec_a(vec, c),
-                                           vec_b(vec, c), vec_b(vec, c));
-            uint4 v = *ptr;
-            v.x = norm_frag(v.x, cab);
-            v.y = norm_frag(v.y, cab);
-            v.z = norm_frag(v.z, cab);
-            v.w = norm_frag(v.w, cab);
-            *ptr = v;
-          }
-          fence_proxy_async();  // before TMA writes the slot again
-          named_sync(2 + cw, 128);
-        }
-"""
 
-#: The stage's A fragments and MMAs batched: every tap's fragments loaded
-#: (and normalized), then one fence and all the taps' wgmma.
-_TAPS_BATCHED = """#pragma unroll
-        for (int kw = 0; kw < kMaxKW; ++kw) {
-          if (kw >= KWp) break;
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-            for (int t = 0; t < 2; ++t)
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const uint32_t d = (16 * kk + 8 * t) * line[kw][h];
-                const uint32_t v = lds_u16(win + aoff[kw][h][0] + d) |
-                                   lds_u16(win + aoff[kw][h][1] + d) << 16;
-                af[kw][kk][h + 2 * t] = NORM ? norm_frag(v, ab[kk][t]) : v;
-              }
-        }
-        fence_regs<BN / 2>(acc);
-        wg_fence();
-#pragma unroll
-        for (int kw = 0; kw < kMaxKW; ++kw) {
-          if (kw >= KWp) break;
-          const uint64_t dW = make_desc(st + kw * kTapW, kBoxW, 1024, 1);
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma_rs<BN>(acc, af[kw][kk], dW + (uint64_t)((kk * 2048) >> 4));
-        }
-"""
-#: Tap by tap (the built kernel): a tap's fragments loaded and normalized,
-#: a fence, its four wgmma, so that the next tap's loads and transform run
-#: beside them.
-_TAPS_INTERLEAVED = """        fence_regs<BN / 2>(acc);
-#pragma unroll
-        for (int kw = 0; kw < kMaxKW; ++kw) {
-          if (kw >= KWp) break;
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-            for (int t = 0; t < 2; ++t)
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const uint32_t d = (16 * kk + 8 * t) * line[kw][h];
-                const uint32_t v = lds_u16(win + aoff[kw][h][0] + d) |
-                                   lds_u16(win + aoff[kw][h][1] + d) << 16;
-                af[kw][kk][h + 2 * t] = NORM ? norm_frag(v, ab[kk][t]) : v;
-              }
-          wg_fence();
-          const uint64_t dW = make_desc(st + kw * kTapW, kBoxW, 1024, 1);
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma_rs<BN>(acc, af[kw][kk], dW + (uint64_t)((kk * 2048) >> 4));
-        }
-"""
 
 #: name -> (source, [(old, new)], part): part variants time a piece of the
 #: kernel and are not compared with it.
@@ -256,8 +152,8 @@ VARIANTS = {
     "conv 64-Cout tiles": ("conv.cu", [(_PLAN_TILE, "  p.tile = 1;")],
                            False),
     "conv windows gathered": ("conv.cu", [
-        ("  p.tma_x = (stride == 1 || stride == 2) && Wi % 8 == 0 &&",
-         "  p.tma_x = 0 && Wi % 8 == 0 &&")], False),
+        ("  p.tma_x = (stride == 1 || stride == 2) && (cl ? Cin : Wi) % 8 == "
+         "0 &&", "  p.tma_x = 0 &&")], False),
     "conv ring of 3 stages": ("conv.cu", [
         ("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
         False),
@@ -270,12 +166,10 @@ VARIANTS = {
     "conv producer 40 registers": ("conv.cu", [
         ("reg_dealloc<56>", "reg_dealloc<40>"),
         ("reg_alloc<224>", "reg_alloc<232>")], False),
-    "conv norm on the window by the consumers": ("conv.cu", [
-        (_STAGE_WIN, _WINDOW_PASS), (_FRAG_NORMED, _FRAG_PLAIN)], False),
-    "conv norm without the fragment transform": ("conv.cu", [
-        (_FRAG_NORMED, _FRAG_PLAIN)], True),
-    "conv taps batched before their MMAs": ("conv.cu", [
-        (_TAPS_INTERLEAVED, _TAPS_BATCHED)], False),
+    "conv without the norm": ("conv.cu", [
+        ("            for (int i = 0; i < 4 && NORM; ++i)\n"
+         "              af[kw][kk][i] = norm_frag(af[kw][kk][i], "
+         "ab[kk][i >> 1]);", "            ;")], True),
     "wgrad": ("conv_wgrad.cu", [], False),
     "wgrad ring of 2 stages": ("conv_wgrad.cu", [
         ("constexpr int kStages = 4;", "constexpr int kStages = 2;")], False),
@@ -472,19 +366,13 @@ def _assembled_times(lib, hres, depths, intr, low, part):
     return f"{w}x{h}x{p} bf16 " + ", ".join(out)
 
 
-#: The parts of a conv stage timed beside it: (name, norm, stats).
-CONV_PARTS = (("conv alone", False, False), ("+ stats", False, True),
-              ("+ norm", True, False))
-
-
 def _conv_times(lib, nets, want, part=False):
     """One conv variant at every stage of the two nets (CUDA events, 30
     launches after 5): ops/conv.conv run on the variant's library (its own
     count of partials, matry_conv_stats_blocks, where its plan differs) as
-    the net runs it (norm and stats) and in CONV_PARTS, the fused output
-    equal to the built kernel's bit for bit, and its partials where the
-    tiles are the same, unless the variant is a part. -> (text, ms per
-    layer)."""
+    the net runs it (norm, stats and layouts), the output equal to the
+    built kernel's bit for bit, and its partials where the tiles are the
+    same, unless the variant is a part. -> (text, ms per layer)."""
     from matryodshka_tpu_torch.ops import conv as conv_ops
 
     def stats_blocks(x_shape, cout, kh, kw, stride=1, dil=1, pad=0, npar=1,
@@ -497,17 +385,14 @@ def _conv_times(lib, nets, want, part=False):
     saved = _build._lib, conv_ops.stats_blocks
     _build._lib, conv_ops.stats_blocks = lib, stats_blocks
     try:
-        per, parts = [], {k: [] for k, _, _ in CONV_PARTS}
+        per = []
         for key, stages in nets.items():
             for (name, x, norm, st), ref in zip(stages, want[key]):
-                def call(use_norm=True, stats=st["stats"]):
+                def call():
                     return conv_ops.conv(x, st["w"], st["b"], **st["args"],
-                                         norm=norm if use_norm else None,
-                                         stats=stats)
+                                         norm=norm, stats=st["stats"],
+                                         memory_format=st["memory_format"])
                 per.append(_time_us(call) / 1e3)
-                for k, use_norm, stats in CONV_PARTS:
-                    parts[k].append(_time_us(functools.partial(
-                        call, use_norm, stats and st["stats"])) / 1e3)
                 got = call()
                 got = got if st["stats"] else (got, None)
                 if part:
@@ -523,12 +408,8 @@ def _conv_times(lib, nets, want, part=False):
 
     def nets_sum(t):
         return f"wrap {sum(t[:n]):7.3f} coord {sum(t[n:]):7.3f} ms"
-    return ("fused " + nets_sum(per) + "; " + "; ".join(
-        f"{k} {nets_sum(t)}" for k, t in parts.items())
-        + "; per layer fused " + " ".join(f"{t:.3f}" for t in per)
-        + "; + norm " + " ".join(f"{t:.3f}" for t in parts["+ norm"])
-        + "; conv alone " + " ".join(
-            f"{t:.3f}" for t in parts["conv alone"])), per
+    return ("fused " + nets_sum(per) + "; per layer "
+            + " ".join(f"{t:.3f}" for t in per)), per
 
 
 def _wgrad_layers(dev):
@@ -596,7 +477,8 @@ def _conv_nets(dev):
         for st in prm.stages:
             x, norm = net_ops.stage_input(st, acts)
             out = conv_ops.conv(x, st["w"], st["b"], **st["args"], norm=norm,
-                                stats=st["stats"])
+                                stats=st["stats"],
+                                memory_format=st["memory_format"])
             acts[st["name"]] = out if st["stats"] else (out, None)
             stages.append((st["name"], x, norm, st))
         nets[key] = stages
@@ -666,15 +548,15 @@ def main(argv=None) -> int:
             if conv_nets is None:
                 from matryodshka_tpu_torch.ops import conv as conv_ops
                 conv_nets = _conv_nets(dev)
-                conv_want = {k: [conv_ops.conv(x, st["w"], st["b"],
-                                               **st["args"], norm=norm,
-                                               stats=st["stats"])
-                                 if st["stats"] else
-                                 (conv_ops.conv(x, st["w"], st["b"],
-                                                **st["args"], norm=norm),
-                                  None)
-                                 for _, x, norm, st in v]
-                             for k, v in conv_nets.items()}
+                conv_want = {k: [conv_ops.conv(
+                    x, st["w"], st["b"], **st["args"], norm=norm,
+                    stats=st["stats"], memory_format=st["memory_format"])
+                    if st["stats"] else
+                    (conv_ops.conv(x, st["w"], st["b"], **st["args"],
+                                   norm=norm,
+                                   memory_format=st["memory_format"]), None)
+                    for _, x, norm, st in v]
+                    for k, v in conv_nets.items()}
             text, _ = _conv_times(lib, conv_nets, conv_want, part)
             print(f"variant {name:28s} {text}{' (part)' if part else ''} "
                   f"[{card}]")

@@ -136,8 +136,10 @@ def _ln_relu64(y, gamma, beta):
 
 def _norm_window(va, vb, cin, h, w, stride, cols, hpad, fill=math.nan):
     """What the kernel's taps read of one stage's window [64, rows, cols *
-    stride + 16] (input rows iy0 + r * stride, columns ox0 * stride - 8
-    ..): its tensor maps fill every element outside the input (a channel
+    stride + 2 halo] (input rows iy0 + r * stride, columns ox0 * stride -
+    halo ..; halo 8 for NCHW x, 2 for channels-last x, the window's width
+    says which): its tensor maps fill every element outside the input (a
+    channel
     at or past cin, a row outside [0, h), in zero mode a column outside [0,
     w)) with NaN, where the emulation's window holds zeros, and every
     element goes through fmax(a[c] * y + b[c], 0) with a = b = 0 past cin,
@@ -148,12 +150,13 @@ def _norm_window(va, vb, cin, h, w, stride, cols, hpad, fill=math.nan):
     def f(win, bi, c0, iy0, ox0):
         c = c0 + torch.arange(win.shape[0])
         iy = iy0 + torch.arange(win.shape[1]) * stride
-        ix = ox0 * stride - 8 + torch.arange(ctw + 16)
+        ix = ox0 * stride - (win.shape[2] - ctw) // 2 + torch.arange(
+            win.shape[2])
         m = (c < cin)[:, None, None] & ((iy >= 0) & (iy < h))[None, :, None]
         if hpad == "zero":
             m = m & ((ix >= 0) & (ix < w))[None, None, :]
         else:
-            m = m.expand(-1, -1, ctw + 16)
+            m = m.expand(-1, -1, win.shape[2])
         assert bool((win[~m] == 0).all()), "a pad element is not zero"
         inside = c < cin
         cc = c.clamp(max=cin - 1)
@@ -217,13 +220,14 @@ def _weights(rng, cout, kcin, args):
     return conv_ops.pack_conv(wt, torch.float64)
 
 
+@pytest.mark.parametrize("layout", ["nchw", "cl"])
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
-def test_fused_layer_norm_matches_plain(case):
+def test_fused_layer_norm_matches_plain(case, layout):
     """The emulated fused algorithm (each source's partials from a
     producer at its shape, the fold, the vectors, the consumer's windows
     normalized in place with their masks) against conv_plain of the plain
-    layer norm of each source, float64, within 1e-10; beta near 5, so a
-    normalized pad element shows."""
+    layer norm of each source, float64, within 1e-10, x NCHW and
+    channels-last; beta near 5, so a normalized pad element shows."""
     _, b, cins, h, w, cout, args = next(c for c in CASES if c[0] == case)
     args = dict(args)
     rng = np.random.RandomState(sum(map(ord, case)))
@@ -254,16 +258,19 @@ def test_fused_layer_norm_matches_plain(case):
                               args.get("stride", 1), args.get("dil", 1),
                               args.get("pad", 0), args.get("npar", 1))
     plan = conv_ops.conv_plan(w, cout, wo, args.get("stride", 1), hpad)
-    got = _emulated(x, wk, bias, **args, transform=_norm_window(
-        va, vb, cin, h, w, args.get("stride", 1), plan.cols, hpad))
+    got = _emulated(x, wk, bias, **args, layout=layout,
+                    transform=_norm_window(va, vb, cin, h, w,
+                                           args.get("stride", 1), plan.cols,
+                                           hpad))
     xn = torch.cat([_ln_relu64(y, g, bt) for y, g, bt in srcs], dim=1)
     want = conv_ops.conv_plain(xn, wk, bias, **args)
     torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
     # filled with zeros instead of NaN, the pads would read relu(b) ~ 5
     if "pad" in args or args.get("npar") == 4:
-        leak = _emulated(x, wk, bias, **args, transform=_norm_window(
-            va, vb, cin, h, w, args.get("stride", 1), plan.cols, hpad,
-            fill=0.0))
+        leak = _emulated(x, wk, bias, **args, layout=layout,
+                         transform=_norm_window(va, vb, cin, h, w,
+                                                args.get("stride", 1),
+                                                plan.cols, hpad, fill=0.0))
         assert (leak - want).abs().max() > 1e-2
 
 
@@ -445,7 +452,9 @@ def test_flagship_consumer_fits(net, stage):
     64): its sources' channels cover its Cin; each source's producer
     writes stats_blocks partials a sample (its own plan); the consumer's
     ring keeps two stages beside the vectors (8 bytes a channel), within a
-    block's shared memory with the kernel's static arrays."""
+    block's shared memory with the kernel's static arrays, x NCHW and
+    channels-last (the net's layout, its output tile staged in shared
+    memory but for the head's)."""
     variant, smoothed = net.split("_")[0], net.endswith("smoothed")
     plan = {p[0]: p for p in unet_plan(NGF, 192, 64)}
     name, kind, srcs, cins, cout, ind, _, rate = plan[stage]
@@ -473,6 +482,11 @@ def test_flagship_consumer_fits(net, stage):
     assert stages == stages0 == 2
     assert dyn - dyn0 == -(-sum(cins) // 64) * 64 * 8
     assert dyn + STATIC_SMEM <= BLOCK_SMEM
+    _, stages_cl, dyn_cl = conv_ops.conv_smem(
+        sum(cins), w, cout, wo, args["kw"], args.get("stride", 1),
+        args.get("hpad", "wrap"), True, True, kind != "head")
+    assert stages_cl == 2
+    assert dyn_cl + STATIC_SMEM <= BLOCK_SMEM
 
 
 def test_conv_smem_refuses_what_does_not_fit():

@@ -5,12 +5,18 @@ rows x columns, and which operands arrive by TMA); here it is held to what
 every stage of the flagship nets, the smoothed folds, K7's trainer shapes,
 the PP / RealEstate first layers and the CUDA edge cases need. Then the
 kernel's algorithm is emulated in float64 (`_emulated`): per block, per
-stage, the TMA window (a main box and two halo boxes with their
-out-of-bounds zero fill, the halos wrapped across the seam by their
-coordinates) or the gathered one, each tap's A fragment at its column
-shift within the window, the coord term the epilogue adds and the parity
-scatter, held to `conv_plain` in float64 within 1e-12. The card runs the same plan
-(`tests/test_torch_kernels_cuda.py` compares `matry_conv_plan` with it).
+stage, the window and each tap's A fragment at its column shift within
+it, the coord term the epilogue adds and the parity scatter, held to
+`conv_plain` in float64 within 1e-12. The window, by x's layout: NCHW, a
+main box and two halo boxes with their out-of-bounds zero fill, the halos
+wrapped across the seam by their coordinates, or the gathered one;
+channels-last, the shared memory as the kernel's boxes lay it (one box of
+the tile's columns and two either side, 128-byte lines of 64 channels
+with the 128-byte swizzle, the wrap seam's columns in seam boxes of their
+own, or the gathered box), each lane's ldmatrix row address per tap and
+k16 (`_cl_rows`), and the bank groups of each 8x8 matrix's rows. The card
+runs the same plan (`tests/test_torch_kernels_cuda.py` compares
+`matry_conv_plan` with it).
 """
 
 import functools
@@ -151,7 +157,7 @@ BK = 64  # channels of one tap per k-step (csrc/conv.cu:wg::BK)
 
 def _emulated(x, wk, bias, kh, kw, stride=1, dil=1, pad=0, npar=1,
               tanh=False, hpad="wrap", coord=None, out_dtype=None,
-              halo_hpad=None, transform=None):
+              halo_hpad=None, transform=None, layout="nchw"):
     """csrc/conv.cu's wgmma kernel in float64: block by block (Cout tile,
     pixel tile of plan.rows x plan.cols output pixels, sample and parity),
     stage by stage (channel chunk c0 outer, kernel row kh inner: the
@@ -165,12 +171,16 @@ def _emulated(x, wk, bias, kh, kw, stride=1, dil=1, pad=0, npar=1,
     pixels, at (2 oy + da, 2 ox + db) for npar 4. halo_hpad overrides the
     horizontal padding of the TMA halos alone; transform(win, bi, c0,
     iy0, ox0), if given, replaces each stage's window (the fused layer
-    norm's in-place pass, tests/test_torch_conv_ln.py)."""
+    norm's in-place pass, tests/test_torch_conv_ln.py). layout="cl": x is
+    read as channels-last (`_cl_stage`: the window's columns start 2
+    before the tile's, and each tap's fragment comes through the lanes'
+    ldmatrix rows)."""
     b, cin, h, w = x.shape
     cout = wk.shape[2]
+    cl = layout == "cl"
     lo = conv_ops.pad_pair(pad)[0] if npar == 1 else 1
     ho, wo = conv_ops.out_size(h, w, kh, kw, stride, dil, pad, npar)
-    plan = conv_ops.conv_plan(w, cout, wo, stride, hpad)
+    plan = conv_ops.conv_plan(w, cout, wo, stride, hpad, cin if cl else None)
     kcin = cin + (coord is not None)
     krows = npar * kh * kw * kcin
     nchunk = -(-cin // BK)
@@ -198,16 +208,24 @@ def _emulated(x, wk, bias, kh, kw, stride=1, dil=1, pad=0, npar=1,
                     for c0 in range(0, cin, BK):
                         for i in range(khp):
                             iy0 = oy0 * stride + i * dil - ph
-                            win = _window(xz, bi, c0, iy0, ox0, ry, plan,
-                                          stride, hpad, h, w,
-                                          halo_hpad or hpad)
-                            if transform is not None:
-                                win = transform(win, bi, c0, iy0, ox0)
+                            if cl:
+                                taps = _cl_stage(xz, bi, c0, iy0, ox0, ry,
+                                                 plan, stride, dil, pw, kwp,
+                                                 hpad, h, w, transform)
+                            else:
+                                win = _window(xz, bi, c0, iy0, ox0, ry, plan,
+                                              stride, hpad, h, w,
+                                              halo_hpad or hpad)
+                                if transform is not None:
+                                    win = transform(win, bi, c0, iy0, ox0)
                             for j in range(kwp):
-                                cols = rx * stride + j * dil - pw + HALO
                                 arow = par * kh * kw * kcin + (
                                     i * kwp + j) * kcin + c0
                                 a = wrows[arow:arow + BK, m0:m0 + plan.bm]
+                                if cl:
+                                    acc += a.T @ taps[j]
+                                    continue
+                                cols = rx * stride + j * dil - pw + HALO
                                 acc += a.T @ win[:, :, cols].reshape(BK, -1)
                     _epilogue(out, acc, bias, wrows, coord, kcin, cin, kh,
                               kw, stride, dil, lo, h, w, ho, wo, bi, da, db,
@@ -251,6 +269,152 @@ def _window(xz, bi, c0, iy0, ox0, ry, plan, stride, hpad, h, w, halo_hpad):
     if hpad == "wrap":
         ix = ix % w
     return xz[bi, c0:c0 + BK, MARGIN + iy[:, None], MARGIN + ix[None, :]]
+
+
+HALO_CL = conv_ops.HALO_CL  # the channels-last window's columns either side
+LINE = BK * 2                # bytes of a pixel's 64 channels, one line
+
+
+def _region(nbytes):
+    """A box's region in a stage, rounded up to 1024 bytes."""
+    return -(-nbytes // 1024) * 1024
+
+
+def _cl_line(r, wc, x0, plan, stride, w, seams):
+    """csrc/conv.cu:cl_line: the byte offset from the window of the line of
+    window pixel (r, wc) (wc from input column x0 - 2): the window box's
+    line r * ncol + wc, or with seams (a TMA-loaded wrap window) a column
+    outside [0, w) in the left or right seam box. r, wc: int tensors."""
+    ncol = plan.cols * stride + 2 * HALO_CL
+    main = plan.rows * ncol * LINE
+    hb = _region(plan.rows * HALO_CL * LINE)
+    col = x0 - HALO_CL + wc
+    off = (r * ncol + wc) * LINE
+    if seams:
+        off = torch.where(col < 0, main + (r * HALO_CL + col + HALO_CL)
+                          * LINE, off)
+        off = torch.where(col >= w, main + hb + (r * HALO_CL + col - w)
+                          * LINE, off)
+    return off
+
+
+def _cl_rows(plan, stride, dil, pw, kwp, x0, w, seams):
+    """Each lane's ldmatrix.x4 row address (bytes from the window) per tap
+    and k16, [kwp, 4 kk, 2 cw, 4 warps, 32 lanes], as the kernel computes
+    it: lane l of warp `warp` in warpgroup cw gives the row of pixel m = 64
+    cw + 16 warp + (l & 15) of the tile (output row m / cols, column m %
+    cols), channels 16 kk + 8 (l >> 4) of the chunk; its line at the tap's
+    shift (cl_line), the 16-byte chunk swizzled by the line's key, + 16 kk
+    channels as XOR kk << 5. -> (addresses, pixel m, channel half t)."""
+    lane = torch.arange(32)
+    m = (64 * torch.arange(2)[:, None, None] + 16 * torch.arange(4)[
+        None, :, None] + (lane & 15)[None, None, :])
+    t = (lane >> 4).expand_as(m)
+    pr, pc = m // plan.cols, m % plan.cols
+    out = []
+    for j in range(kwp):
+        o = _cl_line(pr, pc * stride + j * dil - pw + HALO_CL, x0, plan,
+                     stride, w, seams)
+        row = o | ((((o >> 7) ^ t) & 7) << 4)
+        out.append(torch.stack([row ^ (kk << 5) for kk in range(BK // 16)]))
+    return torch.stack(out), m, t
+
+
+def bank_conflict_degree(addrs):
+    """The most rows of one 8x8 matrix (an 8-lane phase of an ldmatrix.x4)
+    that share a 16-byte bank group (address bits 4-6): 1 where each phase
+    reads a 128-byte wavefront."""
+    phases = addrs.reshape(-1, 8)
+    groups = (phases >> 4) & 7
+    counts = torch.zeros(phases.shape[0], 8, dtype=torch.int64)
+    counts.scatter_add_(1, groups, torch.ones_like(groups))
+    return int(counts.max())
+
+
+def _cl_smem(boxes, nbytes):
+    """The window's shared memory as the channels-last TMA boxes (or the
+    gathered window) lay it: each box [64, rows, ncol] at its byte offset,
+    line q = r * ncol + c, 16-byte chunk k at (k ^ (q % 8)) * 16 within the
+    line; slots of 2 bytes, NaN where nothing is written."""
+    img = torch.full((nbytes // 2,), float("nan"), dtype=torch.float64)
+    for off, box in boxes:
+        rows, ncol = box.shape[1:]
+        q = torch.arange(rows * ncol)[:, None, None]
+        k = torch.arange(8)[None, :, None]
+        j = torch.arange(8)[None, None, :]
+        slot = (off + q * LINE + ((k ^ (q & 7)) << 4)) // 2 + j
+        img[slot.reshape(-1)] = box.permute(1, 2, 0).reshape(-1)
+    return img
+
+
+@functools.lru_cache(maxsize=None)
+def _cl_index(plan, stride, dil, pw, kwp, x0, w, seams):
+    """The slots (2-byte units from the window) the taps of a tile at input
+    column x0 read: the window as lines [rows, ncol, 64 channels] (each
+    line at cl_line, its 16-byte chunks swizzled), and per tap the (row,
+    window column) of each of the tile's 128 pixels. Checked once here: the
+    lanes' ldmatrix rows (_cl_rows) name exactly the slots of channels 16
+    kk + 8 t .. + 7 of their pixel's line at the tap's shift."""
+    ncol = plan.cols * stride + 2 * HALO_CL
+    r = torch.arange(plan.rows)[:, None].expand(-1, ncol)
+    wc = torch.arange(ncol)[None, :].expand(plan.rows, -1)
+    line = _cl_line(r, wc, x0, plan, stride, w, seams)[..., None, None]
+    k = torch.arange(8)[:, None]
+    raw = ((line + ((k ^ ((line >> 7) & 7)) << 4)) // 2
+           + torch.arange(8)).reshape(plan.rows, ncol, BK)
+    rows_, m, t = _cl_rows(plan, stride, dil, pw, kwp, x0, w, seams)
+    pr, pc = m // plan.cols, m % plan.cols
+    taps = []
+    for j in range(kwp):
+        cols = pc * stride + j * dil - pw + HALO_CL
+        for kk in range(BK // 16):
+            ch = 16 * kk + 8 * t[..., None] + torch.arange(8)
+            got = rows_[j, kk][..., None] // 2 + torch.arange(8)
+            want = raw[pr[..., None].expand_as(ch), cols[..., None].expand_as(
+                ch), ch]
+            assert torch.equal(got, want), (j, kk)
+        first = t == 0  # each pixel's lane of channels 0-7
+        order = torch.argsort(m[first])
+        taps.append((pr[first][order], cols[first][order]))
+    return raw, taps
+
+
+def _cl_stage(xz, bi, c0, iy0, ox0, ry, plan, stride, dil, pw, kwp, hpad,
+              h, w, transform):
+    """One stage of a channels-last launch: [kwp][64 channels, rows * cols
+    pixels], each tap's A as the lanes' ldmatrix rows read it (_cl_index).
+    By TMA (plan.tma_x): the window's box (columns x0 - 2 .. x0 + cols *
+    stride + 1, zero outside the input) and, in wrap mode, where the
+    window crosses the seam, the seam box of the 2 wrapped columns (W - 2
+    or 0); else the gathered box, each column wrapped or bounds-checked.
+    Every slot a tap reads was written by a box; transform, if given,
+    applies to the window as the taps read it (its columns from x0 - 2),
+    as the producer normalizes it in place."""
+    iy = iy0 + ry * stride
+    ctw = plan.cols * stride
+    x0 = ox0 * stride
+    ncol = ctw + 2 * HALO_CL
+    seams = plan.tma_x and hpad == "wrap"
+    main = plan.rows * ncol * LINE
+    hb = _region(plan.rows * HALO_CL * LINE)
+    if plan.tma_x:
+        boxes = [(0, _box(xz, bi, c0, iy, x0 - HALO_CL, ncol))]
+        if seams and x0 - HALO_CL < 0:
+            boxes.append((main, _box(xz, bi, c0, iy, w - HALO_CL, HALO_CL)))
+        if seams and x0 + ctw + HALO_CL > w:
+            boxes.append((main + hb, _box(xz, bi, c0, iy, 0, HALO_CL)))
+    else:
+        ix = x0 - HALO_CL + torch.arange(ncol)
+        if hpad == "wrap":
+            ix = ix % w
+        boxes = [(0, xz[bi, c0:c0 + BK, MARGIN + iy[:, None],
+                        MARGIN + ix[None, :]])]
+    raw_idx, taps = _cl_index(plan, stride, dil, pw, kwp, x0, w, seams)
+    win = _cl_smem(boxes, main + 2 * hb)[raw_idx].permute(2, 0, 1)
+    assert not win.isnan().any(), "a tap reads a slot no box wrote"
+    if transform is not None:
+        win = transform(win, bi, c0, iy0, ox0)
+    return [win[:, pr, cols] for pr, cols in taps]
 
 
 def _epilogue(out, acc, bias, wrows, coord, kcin, cin, kh, kw, stride, dil,
@@ -310,23 +474,26 @@ def _case(case):
     return x, pack(wt, torch.float64), bias, args
 
 
+@pytest.mark.parametrize("layout", ["nchw", "cl"])
 @pytest.mark.parametrize("case", [c[0] for c in EDGE_CASES])
-def test_emulated_kernel_matches_plain_edge_cases(case):
+def test_emulated_kernel_matches_plain_edge_cases(case, layout):
     """The emulated kernel against conv_plain, float64, at each CUDA edge
-    case: seams, ragged tiles and channels, the generic producer, the
-    coord term, both parity forms, heads."""
+    case, x NCHW and channels-last: seams, ragged tiles and channels, the
+    generic producer, the coord term, both parity forms, heads."""
     x, wk, bias, args = _case(case)
-    got = _emulated(x, wk, bias, **args)
+    got = _emulated(x, wk, bias, **args, layout=layout)
     want = conv_ops.conv_plain(x, wk, bias, **args)
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("layout", ["nchw", "cl"])
 @pytest.mark.parametrize("variant,smoothed", [("wrap", False),
                                               ("coord", False),
                                               ("wrap", True)])
-def test_emulated_kernel_matches_plain_net(variant, smoothed):
+def test_emulated_kernel_matches_plain_net(variant, smoothed, layout):
     """Every stage of a 64x128 ngf-8 net (both variants, and the smoothed
-    wrap net's folded stages), batch 2: the emulated kernel against
+    wrap net's folded stages), batch 2, x NCHW and channels-last (the
+    net's layout past its first conv): the emulated kernel against
     conv_plain in float64."""
     h, w, ngf = 64, 128, 8
     rng = np.random.RandomState(17)
@@ -348,7 +515,7 @@ def test_emulated_kernel_matches_plain_net(variant, smoothed):
         bias = torch.from_numpy(rng.randn(cout) * 0.1)
         x = torch.from_numpy(rng.uniform(-1, 1, (2, cin, h // ind,
                                                  w // ind)))
-        got = _emulated(x, wk, bias, **args)
+        got = _emulated(x, wk, bias, **args, layout=layout)
         want = conv_ops.conv_plain(x, wk, bias, **args)
         torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12,
                                    msg=name)
@@ -367,3 +534,60 @@ def test_emulated_halos_carry_the_wrap():
     diff = (part - want).abs().amax(dim=(0, 1, 2))
     assert diff[0] > 1e-3 and diff[-1] > 1e-3
     assert diff[1:-1].max() < 1e-12
+
+
+def test_emulated_seam_boxes_carry_the_wrap():
+    """Channels-last, the window's box holds the fill across the wrap
+    seam, and the seam boxes the wrapped columns: a wrap net's 3x3 conv
+    read from the window's box alone (zero mode's addressing) differs from
+    conv_plain at the first and last columns only, and with the seam
+    boxes matches it."""
+    x, wk, bias, args = _case("seam_w48")
+    want = conv_ops.conv_plain(x, wk, bias, **args)
+    full = _emulated(x, wk, bias, **args, layout="cl")
+    assert torch.allclose(full, want, rtol=1e-12, atol=1e-12)
+    zero = conv_ops.conv_plain(x, wk, bias, **dict(args, hpad="zero",
+                                                   pad=(1, 1)))
+    diff = (zero - want).abs().amax(dim=(0, 1, 2))
+    assert diff[0] > 1e-3 and diff[-1] > 1e-3
+    assert diff[1:-1].max() < 1e-12
+
+
+#: Flagship stages whose ldmatrix rows are checked for bank groups: (net,
+#: stage name) over the wrap and coord nets' 17 channels-last inputs.
+_CL_STAGES = [(v, p[0]) for v in ("wrap", "coord")
+              for p in unet_plan(NGF, 192, 64) if p[2] != ["x"]]
+
+
+@pytest.mark.parametrize("variant,stage", _CL_STAGES)
+def test_ldmatrix_rows_bank_groups(variant, stage):
+    """At each channels-last flagship stage (640x320, ngf 64), for the
+    first, a middle and the last column tile, every tap and k16: the 8 row
+    addresses of each 8x8 matrix fall in 8 distinct 16-byte bank groups
+    at stride 1 (dilation 1 or 2, the parity forms); the stride-2 downs
+    read every second line, a 2-way conflict; where a wrap tile's seam box
+    serves a row, one row more may share a group."""
+    name, kind, _, cins, cout, ind, _, rate = next(
+        p for p in unet_plan(NGF, 192, 64) if p[0] == stage)
+    args = conv_args(kind, rate, variant)
+    h, w = H // ind, W // ind
+    stride = args.get("stride", 1)
+    plan, _, wo = _plan(1, sum(cins), h, w, cout, args)
+    npar = args.get("npar", 1)
+    lo = conv_ops.pad_pair(args.get("pad", 0))[0] if npar == 1 else 1
+    seams = plan.tma_x and args.get("hpad", "wrap") == "wrap"
+    degrees = {}
+    for ox0 in (0, wo // 2 // plan.cols * plan.cols, wo - plan.cols):
+        for db in range(2 if npar == 4 else 1):
+            kwp = conv_ops.par_taps(args["kw"], npar, db)
+            rows, _, _ = _cl_rows(plan, stride, args.get("dil", 1), lo - db,
+                                  kwp, ox0 * stride, w, seams)
+            edge = ox0 == 0 or ox0 + plan.cols >= wo
+            degrees[edge] = max(degrees.get(edge, 1),
+                                bank_conflict_degree(rows))
+    print(f"{variant} {stage}: stride {stride}, dilation "
+          f"{args.get('dil', 1)}: {degrees[False]}-way inside, "
+          f"{degrees[True]}-way at the edge tiles")
+    assert degrees[False] == stride
+    assert degrees[True] == stride if not seams else \
+        stride <= degrees[True] <= stride + 1

@@ -14,6 +14,7 @@ chip_smoke.py checks the same pairs at the flagship shapes.
 import copy
 import dataclasses
 import functools
+import itertools
 import math
 import warnings
 
@@ -272,7 +273,7 @@ def test_conv_plan_matches_c(cuda):
     """matry_conv_plan (csrc/conv.cu) equals ops/conv.conv_plan at every
     stage of both 640x320 ngf-64 nets (and the smoothed folds), at K7's
     trainer shapes at batch 1 and 2 (forward and dgrad) and at the edge
-    cases."""
+    cases, for NCHW and channels-last x."""
     from matryodshka_tpu_torch.ops import _build
     from matryodshka_tpu_torch.ops.net import conv_args, unet_plan
     shapes = []
@@ -297,9 +298,13 @@ def test_conv_plan_matches_c(cuda):
         _, wo = conv_ops.grid_of((b, cin, h, w), args["kh"], args["kw"],
                                  stride, args.get("dil", 1),
                                  args.get("pad", 0), args.get("npar", 1))
-        want = conv_ops.conv_plan(w, cout, wo, stride, hpad)
-        got = lib.matry_conv_plan(w, cout, wo, stride, int(hpad == "zero"))
-        assert got == want.code(), ((b, cin, h, w), cout, args, got, want)
+        for cl in (False, True):
+            want = conv_ops.conv_plan(w, cout, wo, stride, hpad,
+                                      cin if cl else None)
+            got = lib.matry_conv_plan(cin, w, cout, wo, stride,
+                                      int(hpad == "zero"), int(cl))
+            assert got == want.code(), ((b, cin, h, w), cout, args, cl, got,
+                                        want)
 
 
 def _fused_stage(plan, stages, name, dev, dtype, seed=0):
@@ -459,8 +464,9 @@ def test_fused_layer_norm_small_cases(cuda, dtype, case):
 def test_conv_smem_matches_c(cuda):
     """ops/conv.conv_smem against csrc/conv.cu:smem_of (matry_conv_smem)
     at every stage of the flagship nets, with and without the layer
-    norm's vectors, and ops/conv.stats_blocks against stat_blocks
-    (matry_conv_stats_blocks) in bf16 and f32."""
+    norm's vectors, for NCHW and channels-last x and output, and
+    ops/conv.stats_blocks
+    against stat_blocks (matry_conv_stats_blocks) in bf16 and f32."""
     from matryodshka_tpu_torch.ops import _build
     lib = _build.lib()
     for net in ("wrap", "coord", "wrap_smoothed"):
@@ -473,15 +479,16 @@ def test_conv_smem_matches_c(cuda):
                                      a["kw"], a.get("stride", 1),
                                      a.get("dil", 1), a.get("pad", 0),
                                      a.get("npar", 1))
-            for norm in (False, True):
-                want = conv_ops.conv_smem(sum(cins), w, cout, wo, a["kw"],
-                                          a.get("stride", 1),
-                                          a.get("hpad", "wrap"), norm)[2]
-                got = lib.matry_conv_smem(sum(cins), w, cout, wo, a["kw"],
-                                          a.get("stride", 1),
-                                          int(a.get("hpad") == "zero"),
-                                          int(norm))
-                assert got == want, (net, name, norm)
+            for norm, cl, cl_out in itertools.product((False, True),
+                                                      repeat=3):
+                want = conv_ops.conv_smem(
+                    sum(cins), w, cout, wo, a["kw"], a.get("stride", 1),
+                    a.get("hpad", "wrap"), norm, cl, cl_out)[2]
+                got = lib.matry_conv_smem(
+                    sum(cins), w, cout, wo, a["kw"], a.get("stride", 1),
+                    int(a.get("hpad") == "zero"), int(norm), int(cl),
+                    int(cl_out))
+                assert got == want, (net, name, norm, cl, cl_out)
             shape = (1, sum(cins), 320 // ind, w)
             ho, _ = conv_ops.grid_of(shape, a["kh"], a["kw"],
                                      a.get("stride", 1), a.get("dil", 1),
@@ -496,6 +503,165 @@ def test_conv_smem_matches_c(cuda):
                     int(a.get("hpad") == "zero"),
                     int(dtype == torch.float32))
                 assert got == want, (net, name, dtype)
+
+
+def _cl(x):
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def _both_layouts(x, wk, bias, args, norm, cl_out):
+    """One layer launched twice, on x NCHW with an NCHW output (the form
+    the K7 and f32 callers run) and on x channels-last with the output
+    channels-last (cl_out) or NCHW (the second counted as a channels-last
+    launch), each with its partials: -> ((out, partials) NCHW, (out,
+    partials) channels-last)."""
+    fmt = torch.channels_last if cl_out else torch.contiguous_format
+    nchw = conv_ops.conv(x.contiguous(), wk, bias, **args, norm=norm,
+                         stats=True)
+    n = conv_ops.cl_launches
+    cl = conv_ops.conv(_cl(x), wk, bias, **args, norm=norm, stats=True,
+                       memory_format=fmt)
+    torch.cuda.synchronize()
+    assert conv_ops.cl_launches == n + 1
+    assert cl[0].is_contiguous(memory_format=fmt)
+    return nchw, cl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", LN_STAGES)
+@pytest.mark.parametrize("net", ["wrap", "coord", "wrap_smoothed"])
+def test_channels_last_launch_is_bit_identical(cuda, net, stage):
+    """At each of the flagship's 17 layer-normed stages of the wrap, coord
+    and smoothed nets (bf16), the launch that reads x channels-last (its
+    A fragments by ldmatrix) gives the NCHW launch's output and STATS
+    partials bit for bit, in the output layout the net asks for."""
+    params = _flagship_params(net)
+    x, norm, st = _fused_stage(params.net.plan, params.stages, stage, cuda,
+                               torch.bfloat16)
+    (y0, p0), (y1, p1) = _both_layouts(
+        x, st["w"], st["b"], st["args"], norm,
+        st["memory_format"] == torch.channels_last)
+    assert torch.equal(y0, y1) and torch.equal(p0, p1)
+
+
+def _edge_norm(x, gen):
+    """A one-source layer norm of x as a consumer takes it: one partial a
+    sample (x's own sums), gamma 1 + 0.1 N(0, 1), beta 0.1 N(0, 1)."""
+    xf = x.float()
+    part = torch.stack([xf.sum(dim=(1, 2, 3)), xf.square().sum(
+        dim=(1, 2, 3))], dim=-1)[:, None].contiguous()
+    c = x.shape[1]
+    return [conv_ops.Norm(part, 1 + 0.1 * torch.randn(
+        c, generator=gen, device=x.device), 0.1 * torch.randn(
+            c, generator=gen, device=x.device))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[0] for c in EDGE_CASES])
+def test_channels_last_edge_cases_are_bit_identical(cuda, case):
+    """Each CUDA edge case with a layer-normed input (bf16), channels-last
+    x against NCHW x: the same output and partials bit for bit, out
+    channels-last and NCHW. The cases take the channels-last window's
+    every path: its seam boxes (the wrap net's tiles at either end), its
+    fill (zero mode, rows outside, Cin 96 and 195's ragged chunks), the
+    gathered window (Cin 195: a pixel's line not a multiple of 16 bytes;
+    W 5 and a ragged wrap tile), stride 2, dilation 2, the parity forms,
+    the coord term and the heads. A channels-last output the kernel has
+    no form for (the f32 heads) raises."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for name, x, wk, bias, args in _conv_edge_case(cuda, torch.bfloat16,
+                                                   case):
+        norm = _edge_norm(x, gen)
+        for cl_out in (False, True):
+            if cl_out and (args.get("out_dtype") == torch.float32
+                           or wk.shape[2] % 8):
+                with pytest.raises(ValueError, match="channels-last output"):
+                    conv_ops.conv(_cl(x), wk, bias, **args, norm=norm,
+                                  memory_format=torch.channels_last)
+                continue
+            (y0, p0), (y1, p1) = _both_layouts(x, wk, bias, args, norm,
+                                               cl_out)
+            assert torch.equal(y0, y1) and torch.equal(p0, p1), (name,
+                                                                cl_out)
+            want = conv_ops.conv_plain(conv_ops.normalize_plain(x, norm),
+                                       wk, bias, **args).float()
+            tol = 2.0 ** -7 * want.abs().max().item()
+            assert (y1.float() - want).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["wrap", "coord", "wrap_smoothed"])
+def test_unet_forward_channels_last_matches_nchw(cuda, net):
+    """The flagship net stage (640x320, ngf 64, bf16, batch 2): its
+    activations channels-last from conv1_1 to the head (17 of its 18
+    launches read a channels-last window) give the same prediction bit
+    for bit as the same stages run on NCHW activations, a contiguous
+    [B, K, H, W] float32 tensor."""
+    params = _flagship_params(net)
+    cfg = entry.flagship_cfg(coord_net=net.startswith("coord"))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.rand((2, cfg.num_net_inputs(), 320, 640), generator=gen,
+                    device=cuda) * 2 - 1).to(torch.bfloat16)
+    nchw = [dict(st, memory_format=torch.contiguous_format)
+            for st in params.stages]
+    n = conv_ops.cl_launches
+    got = net_ops.unet_forward(params.stages, x)
+    torch.cuda.synchronize()
+    assert conv_ops.cl_launches - n == 17
+    want = net_ops.unet_forward(nchw, x)
+    torch.cuda.synchronize()
+    assert conv_ops.cl_launches - n == 17
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_net_stage_runs_convs_and_concats_only(cuda):
+    """A profiler trace of the flagship net stage (bf16, batch 4): its
+    device operations are the 18 conv launches and the 3 skip concats,
+    with no layout copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from matryodshka_tpu_torch.trace import device_events
+    params = _flagship_params("coord")
+    cfg = entry.flagship_cfg(coord_net=True)
+    x = torch.rand((4, cfg.num_net_inputs(), 320, 640), device=cuda).to(
+        torch.bfloat16)
+    msi_lib.net_stage(params.stages, x)
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then drops a device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            msi_lib.net_stage(params.stages, x)
+            torch.cuda.synchronize()
+        names = [e[0] for e in device_events(prof)]
+        conv = [n for n in names if "conv_wgmma_kernel" in n]
+        if len(conv) == 18:
+            break
+    assert len(conv) == 18, names
+    assert len(names) == 21, [n for n in names if n not in conv]
+
+
+@pytest.mark.cuda
+def test_train_step_reads_no_channels_last_window(cuda):
+    """The trainer's K7 route (NCHW activations, ops/wrap_conv.py) reads
+    no channels-last window: cl_launches stays put over a train step that
+    launches every K7 kernel."""
+    from matryodshka_tpu_torch.ops import wrap_conv as wc
+    from matryodshka_tpu_torch.training import state as state_lib
+    from matryodshka_tpu_torch.training import step as step_lib
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P)
+    b = entry.synthetic_batch(cfg, 4, cuda, tgt_pos=(0.03, 0.01, -0.02))
+    state = state_lib.init_state(cfg, 5, cuda)
+    n = conv_ops.cl_launches
+    k7 = (wc.k7a_launches, wc.k7b_launches, wc.k7c_launches)
+    loss, _ = step_lib.make_loss_fn(cfg, state.net, None)(b)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert all(a > c for a, c in zip(
+        (wc.k7a_launches, wc.k7b_launches, wc.k7c_launches), k7))
+    assert conv_ops.cl_launches == n
 
 
 def _target(dev, rot_deg):
