@@ -3,7 +3,9 @@
 Counterpart of `__graft_entry__.py` (`_flagship_cfg`, `_synthetic_batch`,
 `entry`). `forward(params, batch)` runs the hot path -- sweep kernel, U-Net
 (the wrap net, or the coord net with `coord_net=True`) through the conv
-kernel (its layer norms fused), blend-fused render kernel;
+kernel (its layer norms fused), blend-fused render kernel; for PP and
+REALESTATE_PP input the planar route (gather sweep, the same net, MPI
+render), the test CLI's;
 `forward_plain(params, batch)` the same path with each kernel's plain
 version in float32; `forward_reference(params, batch)` the
 reference-semantics path (general-pose gather sweep, plain MSIUNet,
@@ -170,9 +172,24 @@ def _identity_rt(batch):
 @torch.no_grad()
 def forward(params: Params, batch, tgt_pose_rt=None) -> torch.Tensor:
     """Hot path -> rendered view [B, H, W, 3] float32 (values in [-1, 1]).
-    tgt_pose_rt [B, 4, 4] rotates the target view (identity by default);
-    batch['tgt_pose'] [B, 3] is the target position."""
+    ODS input: tgt_pose_rt [B, 4, 4] rotates the target view (identity by
+    default); batch['tgt_pose'] [B, 3] is the target position. PP and
+    REALESTATE_PP input: the planar route (msi.infer_mpi: the gather
+    sweep, the net, the assembly and the MPI render at
+    msi.mpi_view_pose(batch)); the batch carries ref_pose, src_pose,
+    tgt_pose, ref_pose_inv [B, 4, 4] and intrinsics [B, 3, 3], as
+    mpi_poses and the loaders give them, and tgt_pose_rt is refused (the
+    target's rotation is in tgt_pose)."""
     with trace.span("entry.forward"):
+        cfg = params.cfg
+        if cfg.input_type != "ODS":
+            if tgt_pose_rt is not None:
+                raise ValueError(f"forward: tgt_pose_rt with input_type "
+                                 f"{cfg.input_type}; the target's rotation "
+                                 f"is in batch['tgt_pose']")
+            return msi_lib.infer_mpi(cfg, params.stages, batch,
+                                     params.psv_depths,
+                                     params.msi_depths)["output_image"]
         rt = _identity_rt(batch) if tgt_pose_rt is None else tgt_pose_rt
         vol = msi_lib.sweep_stage(params.cfg, batch, params.psv_depths)
         pred = msi_lib.net_stage(params.stages, vol)

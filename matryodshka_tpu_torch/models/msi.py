@@ -35,9 +35,12 @@ MSIUNet (its stride-1 wrap convs through K7, with autograd), then
 PP and REALESTATE_PP input make an MPI, not an MSI: `sweep_stage` takes
 the perspective or homography plane sweep by gather (the JAX package has
 no TPU kernel for either), the net runs as for ODS (the conv kernel reads
-the 192 or 195 input channels), the layers are assemble_rgba's, and the
-view is `render_mpi_view` (homography warps and the over-composite,
-plain PyTorch: no TPU kernel either); `infer_mpi` is the test CLI's route.
+the 192 or 195 input channels), and `mpi_render_stage` assembles the
+layers (assemble_rgba's) and renders the view with `render_mpi_view`
+(homography warps and the over-composite, plain PyTorch: no TPU kernel
+either). `infer_mpi` chains the three stages; the served path
+(`entry.forward` on a PP or REALESTATE_PP batch) and the test CLI both
+run it, so there is one planar route.
 
 The GCN variant (`infer_gcn_msi`, the reference path; `infer_gcn_prepared`,
 the kernel route) predicts on icosphere vertices from a per-vertex sweep
@@ -316,18 +319,25 @@ def sweep_stage(cfg, batch, psv_depths, jitter_pose_inv=None):
     at ref_pose_inv @ jitter_pose_inv, as the JAX package takes its kernel
     only without jitter (JAX sweep.py:150-151); for PP the perspective
     plane sweep and for REALESTATE_PP the ref image and the homography
-    plane sweeps (no TPU kernel exists for either); with cfg.use_pallas
-    false the gather always (JAX sweep.py:150). The arguments pick the
-    route, so the kernel never sees a posed batch."""
+    plane sweeps (no TPU kernel exists for either; inside the span
+    msi.mpi_sweep); with cfg.use_pallas false the gather always (JAX
+    sweep.py:150). The arguments pick the route, so the kernel never sees
+    a posed batch."""
     with trace.span("msi.sweep_stage"):
-        if (cfg.input_type == "ODS" and jitter_pose_inv is None
-                and cfg.use_pallas):
-            return sweep_ops.sweep_volume(
-                batch["ref_image"], batch["src_image"], psv_depths,
-                batch["intrinsics"], out_dtype=cfg.torch_compute_dtype)
-        vol = format_input(cfg, batch, psv_depths, jitter_pose_inv)
-        return vol.permute(0, 3, 1, 2).to(
-            cfg.torch_compute_dtype).contiguous()
+        if cfg.input_type == "ODS":
+            if jitter_pose_inv is None and cfg.use_pallas:
+                return sweep_ops.sweep_volume(
+                    batch["ref_image"], batch["src_image"], psv_depths,
+                    batch["intrinsics"], out_dtype=cfg.torch_compute_dtype)
+            return _gather_volume(cfg, batch, psv_depths, jitter_pose_inv)
+        with trace.span("msi.mpi_sweep"):
+            return _gather_volume(cfg, batch, psv_depths, jitter_pose_inv)
+
+
+def _gather_volume(cfg, batch, psv_depths, jitter_pose_inv):
+    """format_input's volume [B, C, H, W] in the compute dtype."""
+    vol = format_input(cfg, batch, psv_depths, jitter_pose_inv)
+    return vol.permute(0, 3, 1, 2).to(cfg.torch_compute_dtype).contiguous()
 
 
 def net_stage(stages, vol):
@@ -355,21 +365,32 @@ def assemble_outputs_planar(cfg, vol, pred) -> Dict[str, torch.Tensor]:
     return out
 
 
+def mpi_render_stage(cfg, vol, pred, batch, msi_depths):
+    """Stage 3 of PP and REALESTATE_PP input: assemble_rgba in the compute
+    dtype (vol's; fg = channels [0, 3P), bg = [3P, 6P)), then the MPI
+    render at mpi_view_pose(batch) with the batch's intrinsics. Returns
+    assemble_rgba's dict plus 'psv' ([B, H, W, C]) and 'output_image'
+    ([B, H, W, 3] float32 in [-1, 1])."""
+    with trace.span("msi.mpi_render_stage"):
+        outs = assemble_train(cfg, vol, pred)
+        outs["output_image"] = render_mpi_view(
+            outs["rgba_layers"], mpi_view_pose(batch), msi_depths,
+            batch["intrinsics"])
+        return outs
+
+
 def infer_mpi(cfg, stages, batch, psv_depths, msi_depths):
     """The PP / RealEstate kernel route (the non-spherical branch of JAX
-    cli/test.py:137-147): sweep_stage (the gather sweep), net_stage (the
-    conv kernel with its fused layer norms), assemble_rgba in the compute dtype, and
-    the MPI render at mpi_view_pose. Returns assemble_rgba's dict plus
-    'psv' ([B, H, W, C]) and 'output_image' ([B, H, W, 3] in [-1, 1])."""
+    cli/test.py:137-147), which the served path (`entry.forward`) and the
+    test CLI share: sweep_stage (the gather sweep), net_stage (the conv
+    kernel with its fused layer norms) and mpi_render_stage. Returns
+    mpi_render_stage's dict."""
     vol = sweep_stage(cfg, batch, psv_depths)
     if vol.shape[2] != cfg.height:
         raise ValueError(f"net input height {vol.shape[2]}: the prepared "
                          f"coord column is for {cfg.height} rows")
-    outs = assemble_train(cfg, vol, net_stage(stages, vol))
-    outs["output_image"] = render_mpi_view(
-        outs["rgba_layers"], mpi_view_pose(batch), msi_depths,
-        batch["intrinsics"])
-    return outs
+    return mpi_render_stage(cfg, vol, net_stage(stages, vol), batch,
+                            msi_depths)
 
 
 def infer_msi_prepared(cfg, stages, batch, psv_depths):

@@ -4,8 +4,9 @@ goes on the card, from a torch.profiler trace.
 Spans. `with span(name):` marks a layer boundary on the hot path: a
 request (`entry.forward`, `test.hres_render`), a stage (`msi.sweep_stage`,
 `msi.net_stage`, `msi.render_stage`, `sweep.sweep_assembled`,
-`render.render_equirect_view_prepared_both`), the net's host path
-(`conv.conv`) and each kernel launch (`launch.<C entry>`,
+`render.render_equirect_view_prepared_both`; for PP and RealEstate input
+`msi.mpi_sweep` inside `msi.sweep_stage`, and `msi.mpi_render_stage`), the
+net's host path (`conv.conv`) and each kernel launch (`launch.<C entry>`,
 `ops/_build.launch`). While a profiler records it is a `record_function`,
 so it lands in the profiler's trace beside the device events, on their
 clock: a kernel belongs to the span that holds its runtime launch event
