@@ -87,10 +87,12 @@ profiler trace):
    6 steps each (the gather sweeps, the coord net's PyTorch convs), the
    step in parts; the wrap net's PP pixel step for 3 (K7 at path 5's count
    a step); one test-CLI request each (the gather sweep, 18 conv launches
-   in the coord mode, 17 of them with their inputs' layer norm fused, the
-   assembly, the MPI render), its view against the all-plain f32 route and its first conv
-   (Cin' 193 and 196) against its plain version, its stages timed; then
-   cli/evaluate.py on the two outputs;
+   in the coord mode, 17 of them with their inputs' layer norm fused, one
+   launch of the MPI render kernel), its view against the all-plain f32
+   route and its first conv (Cin' 193 and 196) against its plain version,
+   its stages timed; then cli/evaluate.py on the two outputs; then the MPI
+   render kernel at realestate-coord.mpi-video's shape against its plain
+   version, timed beside its bound (mpi_render_row);
 13. the rest of the trainer's options: the released recipe with src and
    ref supervision through cli/train.py, without and with the
    transform-inverse regularizer (one step against the all-plain f32
@@ -304,6 +306,8 @@ RERENDER_TOL = 1e-5
 MPI_STEPS = 6
 MPI_WRAP_STEPS = 3
 MPI_RE_FRAMES = 91
+#: Views a call of realestate-coord.mpi-video renders (its viewers).
+MPI_CELL_BATCH = 4
 #: Path 11: the loaded export against the eager plain net on the card
 #: (bf16, bit-equal measured; float32 at tests/test_torch_net.py's f32
 #: bound for two evaluations of the net: the exported graph's f32 convs
@@ -2083,10 +2087,16 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
     K7a/b/c and wgrad at path 5's count a step (k7_per_step). Then one
     test-CLI request of each recipe's checkpoint (cli/test.main): 18 conv
     launches (all in the coord mode), 17 of them with their inputs' layer
-    norm fused and 17 writing their statistics, no sweep or render kernel; the request's view against the all-plain f32 route
+    norm fused and 17 writing their statistics, no sweep, K3 or
+    layer-stack render kernel, one MPI render kernel launch; the request's
+    view against the all-plain f32 route
     (E2E_TOL) and its first conv (Cin' 193, 196) against its plain
-    version (one bf16 step); its ms. Then cli/evaluate.main (E-LPIPS on
-    random features) on the two requests' outputs."""
+    version (one bf16 step); its ms; one entry.forward of the request's
+    example repeated to the MPI cell's batch (MPI_CELL_BATCH), the counts
+    zeroed just before: one MPI render launch. Then cli/evaluate.main
+    (E-LPIPS on random features) on the two requests' outputs. Returns
+    that forward's counts, {input type: {"launches": MPI render launches,
+    "frames": MPI_CELL_BATCH}}."""
     import warnings
 
     from matryodshka_tpu_torch import entry
@@ -2124,7 +2134,7 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
                                  "images"),
                     "--checkpoint_dir", f"{tmp}/ckpt"]
                 for k, g in globs.items()}
-        outs = {}
+        outs, served = {}, {}
         for input_type, recipe in recipes.items():
             flags = recipe_flags(recipe) + data[input_type]
             cfg = config_from_args(cli_train.build_parser().parse_args(flags))
@@ -2234,8 +2244,10 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
                   f"17 with the layer norm fused, reading a channels-last "
                   f"window")
             check(rl["sweep"] == 0 and rl["render"] == 0
-                  and rl["render_layers"] == 0 and rl["gather_sweep"] == 1,
-                  f"{recipe}: the gather sweep, no sweep or render kernel")
+                  and rl["render_layers"] == 0 and rl["gather_sweep"] == 1
+                  and rl["mpi_render"] == 1,
+                  f"{recipe}: the gather sweep, no sweep, K3 or layer-stack "
+                  f"render, one MPI render kernel launch")
             outs[input_type] = f"{out_root}/{recipe}"
 
             tree, _ = restore_params(f"{tmp}/ckpt/{recipe}/{MPI_STEPS}/"
@@ -2270,6 +2282,22 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
                   f"{'ok' if cerr <= ctol else 'FAIL'}")
             check(st["w"].shape[1] == 9 * (cfg.num_net_inputs() + 1)
                   and cerr <= ctol, f"{recipe} first conv vs plain")
+            # the served path at realestate-coord.mpi-video's batch of 4
+            fbatch = {k: v.repeat(MPI_CELL_BATCH, *([1] * (v.dim() - 1)))
+                      for k, v in ebatch.items()}
+            reset_counts()
+            fview = entry.forward(params, fbatch)
+            torch.cuda.synchronize()
+            fl = read_counts()
+            print(f"{recipe} entry.forward at batch {MPI_CELL_BATCH} "
+                  f"launches: {fl}")
+            check(tuple(fview.shape) == (MPI_CELL_BATCH, h, w, 3)
+                  and bool(torch.isfinite(fview).all())
+                  and fl["mpi_render"] == 1 and fl["render_layers"] == 0,
+                  f"{recipe}: one MPI render launch a batch of "
+                  f"{MPI_CELL_BATCH}, no layer stack")
+            served[input_type] = {"launches": fl["mpi_render"],
+                                  "frames": MPI_CELL_BATCH}
             req_ms = time_ms(lambda: infer(ebatch), iters=5)
             with torch.no_grad():
                 pred = msi_lib.net_stage(params.stages, vol)
@@ -2279,9 +2307,11 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
                     "sweep": lambda: msi_lib.sweep_stage(
                         cfg, ebatch, params.psv_depths),
                     "net": lambda: msi_lib.net_stage(params.stages, vol),
-                    "assemble": lambda: msi_lib.assemble_train(cfg, vol,
-                                                               pred),
-                    "mpi_render": lambda: msi_lib.render_mpi_view(
+                    "mpi_render": lambda: msi_lib.mpi_render_stage(
+                        cfg, vol, pred, ebatch, params.msi_depths),
+                    "bf16_stack_assemble": lambda: msi_lib.assemble_train(
+                        cfg, vol, pred),
+                    "bf16_stack_render": lambda: msi_lib.render_mpi_view(
                         rgba, rel, params.msi_depths, ebatch["intrinsics"])}
                 stage_ms = {k: time_ms(fn, iters=5)
                             for k, fn in stages.items()}
@@ -2289,7 +2319,7 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
                   + " ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
                   + f" ms; test CLI main {cli_wall:.2f} s (params restored, "
                     f"one example written) {tag}")
-            del params, vol, c, cp, pred, rgba
+            del params, vol, c, cp, pred, rgba, fbatch, fview
 
         # the wrap net's PP pixel step: K7 at path 5's count a step
         wcfg = dataclasses.replace(config_from_args(
@@ -2329,7 +2359,88 @@ def mpi_path(dev, tag, reset_counts, read_counts, k7_per_step):
                   f"psnr {table['avg_psnr']:.3f} elpips "
                   f"{table['avg_elpips']:.5f} in "
                   f"{time.perf_counter() - t0:.2f} s {tag}")
-    return wl
+    return served
+
+
+#: The MPI render kernel's f32 operations a (pixel, plane) sample, as
+#: msi_bench/work/mpi_render.py counts them: the homography and the divide
+#: (15), the bilinear weights (8), four taps of 4 channels (32), the blend
+#: (9) and the over step (8).
+OPS_MPI_RENDER = 15 + 8 + 32 + 9 + 8
+#: Bound on |MPI render kernel - its plain version| (f32, the same
+#: homographies; the sums in another order).
+MPI_RENDER_TOL = 2e-4
+
+
+def mpi_render_row(dev, tag, served):
+    """The MPI render kernel (csrc/mpi_render.cu) at
+    realestate-coord.mpi-video's shape: batch 4, 640x320, 32 planes, the
+    195-channel bf16 volume and an f32 prediction uniform in [-1, 1], each
+    viewer's target within 0.1 m and 5 degrees (the cell's intrinsics):
+    gated against its plain version in f32 (MPI_RENDER_TOL) and against a
+    second launch bit for bit, then its time by CUDA events and by
+    profiler device time, the plain version's time, and its bound (the
+    volume's fg and bg channels, the prediction and the view once;
+    OPS_MPI_RENDER a sample). Returns its row of the kernel table, its
+    launches and launches a frame those of the served path's counted
+    forward (served: mpi_path's count of the REALESTATE_PP forward)."""
+    from matryodshka_tpu_torch.geometry.sweep import inv_depths
+    from matryodshka_tpu_torch.ops import mpi_render as mpi_ops
+
+    b, c, h, w, p = MPI_CELL_BATCH, 195, 320, 640, 32
+    gen = torch.Generator(device=dev).manual_seed(2609)
+    vol = (torch.rand((b, c, h, w), generator=gen, device=dev) * 2
+           - 1).to(torch.bfloat16)
+    pred = torch.rand((b, 2 * p, h, w), generator=gen, device=dev) * 2 - 1
+    k = torch.tensor([[0.9 * w, 0.0, 0.5 * w], [0.0, 1.2 * h, 0.5 * h],
+                      [0.0, 0.0, 1.0]], device=dev).repeat(b, 1, 1)
+    pose = torch.eye(4, device=dev).repeat(b, 1, 1)
+    for i in range(b):
+        a, e = (math.radians(5.0) * (2 * torch.rand(
+            (2,), generator=gen, device=dev) - 1)).tolist()
+        pitch = torch.tensor([[1.0, 0.0, 0.0],
+                              [0.0, math.cos(e), -math.sin(e)],
+                              [0.0, math.sin(e), math.cos(e)]], device=dev)
+        pose[i, :3, :3] = rot_y(math.degrees(a), dev)[0, :3, :3] @ pitch
+        pose[i, :3, 3] = 0.1 / math.sqrt(3) * (2 * torch.rand(
+            (3,), generator=gen, device=dev) - 1)
+    depths = torch.tensor(inv_depths(1.0, 100.0, p), dtype=torch.float32,
+                          device=dev)
+    args = (vol, pred, pose, k, depths)
+    mpi_ops.launches = 0
+    got = mpi_ops.render_mpi_blend(*args)
+    torch.cuda.synchronize()
+    check(mpi_ops.launches == 1, "mpi_render: one launch a render")
+    want = mpi_ops.render_mpi_blend_plain(vol.float(), pred, pose, k, depths)
+    err = (got - want).abs().max().item()
+    print(f"mpi_render kernel vs plain (f32, same values) at {b}x{w}x{h}, "
+          f"{p} planes, C {c}: max_abs_err {err:.3e} tol "
+          f"{MPI_RENDER_TOL:.0e} {'ok' if err <= MPI_RENDER_TOL else 'FAIL'}")
+    check(bool(torch.isfinite(got).all()) and err <= MPI_RENDER_TOL,
+          "mpi_render kernel vs plain")
+    check(torch.equal(got, mpi_ops.render_mpi_blend(*args)),
+          "mpi_render: two launches bit-identical")
+    kern = functools.partial(mpi_ops.render_mpi_blend, *args)
+    ms = time_ms(kern)
+    _, dev_ms, seen = device_ms([kern], [1], r"\bmpi_render_kernel\b")
+    plain_ms = time_ms(lambda: mpi_ops.render_mpi_blend_plain(*args),
+                       iters=3, warmup=1)
+    nb = (b * 6 * p * h * w * vol.element_size() + nbytes(pred)
+          + b * h * w * 3 * 4)
+    bms, bby = bound(nb, OPS_MPI_RENDER * b * p * h * w, F32_FLOPS)
+    print(f"kernel mpi_render device {dev_ms:.4f} ms per launch ({seen:g} "
+          f"of 1 kept), CUDA events {ms:.4f} ms; plain {plain_ms:.3f} ms; "
+          f"bound {bms:.4f} ms ({bby}, {nb / 1e6:.1f} MB), "
+          f"{100 * bms / dev_ms:.1f}% of it; per call of {b} views {tag}")
+    return {"name": "mpi_render", "route": "cuda",
+            "source": "matryodshka_tpu_torch/csrc/mpi_render.cu",
+            "replaces": "none (the JAX package renders an MPI with XLA "
+                        "gathers: geometry/homography.py:mpi_render_view)",
+            "launches": served["launches"],
+            "launches_per_frame": served["launches"] / served["frames"],
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": None}
 
 
 def hres_training_batch(cfg):
@@ -3680,6 +3791,7 @@ def main() -> None:
     from matryodshka_tpu_torch.models import msi as msi_lib
     from matryodshka_tpu_torch.ops import _build
     from matryodshka_tpu_torch.ops import conv as conv_ops
+    from matryodshka_tpu_torch.ops import mpi_render as mpi_ops
     from matryodshka_tpu_torch.ops.layernorm import \
         layer_norm_relu_plain as ln_plain_fn
     from matryodshka_tpu_torch.ops import render as render_ops
@@ -3963,7 +4075,7 @@ def main() -> None:
 
     # ---- path 2: the test CLI, one request per colour scheme ---------------
     counted = {"sweep": sweep_ops, "conv": conv_ops, "render": render_ops,
-               "render_layers": rl_ops}
+               "render_layers": rl_ops, "mpi_render": mpi_ops}
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -4648,8 +4760,9 @@ def main() -> None:
     lap("path 11")
 
     # ---- path 12: the PP and RealEstate recipes ----------------------------
-    mpi_path(dev, tag, reset_counts, read_counts,
-             {k: train_launches[k] // nsteps for k in K7_COUNTS})
+    served = mpi_path(dev, tag, reset_counts, read_counts,
+                      {k: train_launches[k] // nsteps for k in K7_COUNTS})
+    rows.append(mpi_render_row(dev, tag, served["REALESTATE_PP"]))
     lap("path 12")
 
     # ---- path 13: the rest of the trainer's options ------------------------

@@ -40,9 +40,10 @@ gather (hres_render_plain at the batch's poses).
 PP and REALESTATE_PP input (the non-spherical branch of JAX
 cli/test.py:137-147): the gather sweep (perspective or homography plane
 sweep; the JAX package has no TPU kernel for it), the net through the same
-conv kernel, the assembly, and the MPI render of the target
-view at tgt_pose @ ref_pose_inv (homography warps, plain PyTorch), written
-as output_tgt_*; there is no depth output, and psp, src_output_image,
+conv kernel, and the MPI render of the target view at
+tgt_pose @ ref_pose_inv (blend_psv: the MPI render kernel, which builds no
+layer stack; the other schemes: the assembly and homography warps in plain
+PyTorch), written as output_tgt_*; there is no depth output, and psp, src_output_image,
 ref_output_image and high_res are ODS outputs, as in the JAX CLI.
 
 The GCN (`--gcn true --subdiv S --mesh_dir DIR`, JAX cli/test.py:57-70):
@@ -161,15 +162,21 @@ def _build_mpi_infer_fn(cfg: MatryConfig, params: entry.Params,
                         test_outputs: str):
     """build_infer_fn for PP and REALESTATE_PP input (JAX
     cli/test.py:137-147): msi_lib.infer_mpi, the gather sweep, the net
-    through the conv kernel, the assembly and the MPI
-    render at tgt_pose @ ref_pose_inv -> output_image ([0, 1]; no depth
-    output, as in the JAX CLI), rgba_layers, blend_weights, alphas, psv."""
+    through the conv kernel and the MPI render at
+    tgt_pose @ ref_pose_inv -> output_image ([0, 1]; no depth
+    output, as in the JAX CLI), rgba_layers, blend_weights, alphas, psv.
+    assemble_train runs only when test_outputs asks for one of its
+    outputs."""
 
     @torch.no_grad()
     def infer(batch):
         asm = msi_lib.infer_mpi(cfg, params.stages, batch, params.psv_depths,
                                 params.msi_depths)
-        outs = _assembly_outputs(asm, test_outputs)
+        outs = {}
+        if any(k in test_outputs for k in ASSEMBLY_OUTPUTS):
+            outs = _assembly_outputs(
+                msi_lib.assemble_train(cfg, asm["vol"], asm["pred"]),
+                test_outputs)
         if "tgt_image" in test_outputs:
             outs["output_image"] = msi_lib.deprocess_image(
                 asm["output_image"])
@@ -223,11 +230,15 @@ def _reference_assembly(cfg: MatryConfig, params: entry.Params, batch,
                              dtype=dtype)
 
 
+#: The assembly's outputs that the test CLI writes where asked for.
+ASSEMBLY_OUTPUTS = ("rgba_layers", "blend_weights", "bg_rgb", "alphas",
+                    "psv")
+
+
 def _assembly_outputs(asm, test_outputs: str):
     """The assembly's outputs that test_outputs asks for, where the scheme
-    has them: rgba_layers, blend_weights, bg_rgb, alphas, psv."""
-    return {k: asm[k] for k in ("rgba_layers", "blend_weights", "bg_rgb",
-                                "alphas", "psv")
+    has them (ASSEMBLY_OUTPUTS)."""
+    return {k: asm[k] for k in ASSEMBLY_OUTPUTS
             if k in asm and k in test_outputs}
 
 

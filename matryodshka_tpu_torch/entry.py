@@ -175,8 +175,8 @@ def forward(params: Params, batch, tgt_pose_rt=None) -> torch.Tensor:
     ODS input: tgt_pose_rt [B, 4, 4] rotates the target view (identity by
     default); batch['tgt_pose'] [B, 3] is the target position. PP and
     REALESTATE_PP input: the planar route (msi.infer_mpi: the gather
-    sweep, the net, the assembly and the MPI render at
-    msi.mpi_view_pose(batch)); the batch carries ref_pose, src_pose,
+    sweep, the net and the MPI render at msi.mpi_view_pose(batch), one
+    kernel launch for blend_psv); the batch carries ref_pose, src_pose,
     tgt_pose, ref_pose_inv [B, 4, 4] and intrinsics [B, 3, 3], as
     mpi_poses and the loaders give them, and tgt_pose_rt is refused (the
     target's rotation is in tgt_pose)."""

@@ -27,17 +27,6 @@ def _divide_safe(num, den, eps: float = 1e-8):
     return num / (den + eps * (den == 0.0).to(num.dtype))
 
 
-def inv_homography(k_s, k_t_inv, rot, t, n_hat, a):
-    """The homography from target to source pixels through the plane
-    n_hat . x + a = 0: k_s [..., 3, 3], k_t_inv [..., 3, 3], rot
-    [..., 3, 3], t [..., 3, 1], n_hat [..., 1, 3], a [..., 1, 1] (any
-    broadcast-common batch) -> [..., 3, 3]."""
-    rot_t = rot.transpose(-1, -2)
-    denom = a - n_hat @ rot_t @ t
-    numerator = rot_t @ t @ n_hat @ rot_t
-    return k_s @ (rot_t + _divide_safe(numerator, denom)) @ k_t_inv
-
-
 def transform_points(points, homography):
     """[..., H, W, 3] homogeneous points through [..., 3, 3] homographies
     (one per leading index) -> [..., H, W, 3]."""
@@ -62,30 +51,47 @@ def meshgrid_abs(height: int, width: int, device=None,
     return torch.stack([X, Y, torch.ones_like(X)])
 
 
-def planar_transform(imgs, k_s, k_t_inv, rot, t, n_hat, a):
-    """Warp layer p of imgs [..., P, H, W, C] into the target frame by the
-    homography of its plane: k_s, k_t_inv, rot [..., 3, 3], t [..., 3, 1],
-    n_hat [..., P, 1, 3], a [..., P, 1, 1] -> [..., P, H, W, C] float32."""
-    h, w = imgs.shape[-3], imgs.shape[-2]
-    hom = inv_homography(k_s[..., None, :, :], k_t_inv[..., None, :, :],
-                         rot[..., None, :, :], t[..., None, :, :], n_hat, a)
-    grid = meshgrid_abs(h, w, imgs.device, hom.dtype).permute(1, 2, 0)
-    grid = grid.expand(*hom.shape[:-2], h, w, 3)
-    return bilinear_zero_resample(
-        imgs, normalize_homogeneous(transform_points(grid, hom)))
+def _mat3(a, b):
+    """a @ b for [..., 3, 3] matrices as three products summed in order,
+    (a_0 b_0 + a_1 b_1) + a_2 b_2: each operation rounds once, so a
+    kernel that takes the same steps gets the same bits."""
+    return (a[..., :, 0:1] * b[..., 0:1, :] + a[..., :, 1:2] * b[..., 1:2, :]
+            + a[..., :, 2:3] * b[..., 2:3, :])
+
+
+def mpi_homographies(intrinsics, intrinsics_inv, pose, depths):
+    """The forward homographies of MPI planes at depths [P] into the view at
+    pose [..., 4, 4] (source to target) -> [..., P, 3, 3]: the JAX
+    package's inv_homography with n_hat = +z and a = -depth
+    (projector.py:343-373),
+    K (R^T + (R^T t)(n R^T) / (a - n R^T t)) K^-1, where n R^T is R's
+    last column and n R^T t the last entry of R^T t. Every step is one
+    elementwise operation in a fixed order (no matmul, whose sums have no
+    fixed order), the steps of csrc/mpi_render.cu's homography_entry,
+    so that the kernel and this plain route warp by the same matrices bit
+    for bit."""
+    rot, t = pose[..., :3, :3], pose[..., :3, 3]
+    rtt = (rot[..., 0, :] * t[..., 0:1] + rot[..., 1, :] * t[..., 1:2]
+           + rot[..., 2, :] * t[..., 2:3])                    # [..., 3]
+    den = -depths - rtt[..., 2:3]                             # [..., P]
+    num = rtt[..., :, None] * rot[..., None, :, 2]            # [..., 3, 3]
+    m = (rot.transpose(-1, -2)[..., None, :, :]
+         + _divide_safe(num[..., None, :, :], den[..., None, None]))
+    return _mat3(_mat3(intrinsics[..., None, :, :], m),
+                 intrinsics_inv[..., None, :, :])
 
 
 def projective_forward_homography(src_images, intrinsics, intrinsics_inv,
                                   pose, depths):
     """Forward-warp MPI layers src_images [..., P, H, W, C] into the view
     at pose [..., 4, 4] (source to target), plane p at depth depths[p]
-    (n_hat = +z, a = -depth; projector.py:343-373)."""
-    p = depths.shape[0]
-    n_hat = torch.tensor([[0.0, 0.0, 1.0]], dtype=depths.dtype,
-                         device=depths.device).expand(p, 1, 3)
-    return planar_transform(src_images, intrinsics, intrinsics_inv,
-                            pose[..., :3, :3], pose[..., :3, 3:], n_hat,
-                            -depths.reshape(p, 1, 1))
+    (mpi_homographies) -> [..., P, H, W, C] float32."""
+    hom = mpi_homographies(intrinsics, intrinsics_inv, pose, depths)
+    h, w = src_images.shape[-3], src_images.shape[-2]
+    grid = meshgrid_abs(h, w, src_images.device, hom.dtype).permute(1, 2, 0)
+    grid = grid.expand(*hom.shape[:-2], h, w, 3)
+    return bilinear_zero_resample(
+        src_images, normalize_homogeneous(transform_points(grid, hom)))
 
 
 def inverse_warp_coords(height: int, width: int, depths, pose, intrinsics,

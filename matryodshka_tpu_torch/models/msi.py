@@ -35,10 +35,13 @@ MSIUNet (its stride-1 wrap convs through K7, with autograd), then
 PP and REALESTATE_PP input make an MPI, not an MSI: `sweep_stage` takes
 the perspective or homography plane sweep by gather (the JAX package has
 no TPU kernel for either), the net runs as for ODS (the conv kernel reads
-the 192 or 195 input channels), and `mpi_render_stage` assembles the
-layers (assemble_rgba's) and renders the view with `render_mpi_view`
-(homography warps and the over-composite, plain PyTorch: no TPU kernel
-either). `infer_mpi` chains the three stages; the served path
+the 192 or 195 input channels), and `mpi_render_stage` renders the view:
+for blend_psv on the card one launch of the blend-fused MPI render kernel
+(ops/mpi_render.py: homography warps, the blend at the taps and the
+over-composite; no layer stack), else it assembles the layers
+(assemble_rgba's) and renders them with `render_mpi_view` (plain PyTorch;
+the JAX package has no TPU kernel for either). `infer_mpi` chains the
+three stages; the served path
 (`entry.forward` on a PP or REALESTATE_PP batch) and the test CLI both
 run it, so there is one planar route.
 
@@ -63,6 +66,7 @@ from matryodshka_tpu_torch.geometry import homography
 from matryodshka_tpu_torch.geometry import render as render_lib
 from matryodshka_tpu_torch.geometry import sweep as sweep_lib
 from matryodshka_tpu_torch.models import gcn as gcn_lib
+from matryodshka_tpu_torch.ops import mpi_render as mpi_render_ops
 from matryodshka_tpu_torch.ops import net as net_ops
 from matryodshka_tpu_torch.ops import sweep as sweep_ops
 
@@ -366,17 +370,24 @@ def assemble_outputs_planar(cfg, vol, pred) -> Dict[str, torch.Tensor]:
 
 
 def mpi_render_stage(cfg, vol, pred, batch, msi_depths):
-    """Stage 3 of PP and REALESTATE_PP input: assemble_rgba in the compute
-    dtype (vol's; fg = channels [0, 3P), bg = [3P, 6P)), then the MPI
-    render at mpi_view_pose(batch) with the batch's intrinsics. Returns
-    assemble_rgba's dict plus 'psv' ([B, H, W, C]) and 'output_image'
-    ([B, H, W, 3] float32 in [-1, 1])."""
+    """Stage 3 of PP and REALESTATE_PP input: the MPI view at
+    mpi_view_pose(batch) with the batch's intrinsics -> {'vol', 'pred',
+    'output_image' ([B, H, W, 3] float32 in [-1, 1])}; assemble_train(cfg,
+    vol, pred) gives the assembly's outputs where a caller wants them.
+    blend_psv on CUDA tensors: one launch of the blend-fused MPI render
+    (ops/mpi_render.py), which reads vol and pred as they are and builds no
+    layer stack. Otherwise assemble_rgba in the compute dtype (vol's; fg =
+    channels [0, 3P), bg = [3P, 6P)), then render_mpi_view."""
     with trace.span("msi.mpi_render_stage"):
-        outs = assemble_train(cfg, vol, pred)
-        outs["output_image"] = render_mpi_view(
-            outs["rgba_layers"], mpi_view_pose(batch), msi_depths,
-            batch["intrinsics"])
-        return outs
+        pose = mpi_view_pose(batch)
+        if vol.is_cuda and cfg.which_color_pred == "blend_psv":
+            view = mpi_render_ops.render_mpi_blend(
+                vol, pred, pose, batch["intrinsics"], msi_depths)
+        else:
+            view = render_mpi_view(
+                assemble_train(cfg, vol, pred)["rgba_layers"], pose,
+                msi_depths, batch["intrinsics"])
+        return {"vol": vol, "pred": pred, "output_image": view}
 
 
 def infer_mpi(cfg, stages, batch, psv_depths, msi_depths):

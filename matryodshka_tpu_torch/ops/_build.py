@@ -63,6 +63,8 @@ SIGNATURES = {
     "matry_wgrad_plan": [_I] * 6,
     "matry_render": [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong]
     + [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P],
+    "matry_mpi_render": [_P, _P, _P, ctypes.c_longlong] + [_P] * 4
+    + [_I] * 6 + [_P],
     "matry_uv_project": [_P, ctypes.c_longlong, _P, ctypes.c_longlong]
     + [_P] * 5 + [_I] * 4 + [_P],
     "matry_render_layers": [_P, _P, ctypes.c_longlong, _P, ctypes.c_longlong]

@@ -74,7 +74,8 @@ PORT_KERNELS = ("sweep_kernel", "row_params_kernel", "assembled_kernel",
                 "conv_wgmma_kernel",
                 "conv_f32_kernel", "uv_project_kernel",
                 "stats_fold",
-                "render_kernel", "render_layers_kernel", "wgrad_wgmma_kernel",
+                "render_kernel", "render_layers_kernel", "mpi_render_kernel",
+                "wgrad_wgmma_kernel",
                 "wgrad_f32_kernel", "wgrad_reduce")
 #: The setup spans kept; the oldest drop out first.
 SETUP_SPANS_MAX = 4096

@@ -278,8 +278,11 @@ def test_homography_algebra_matches_jax():
     a = -rng.uniform(1, 10, (P, 1, 1)).astype(np.float32)
     want = jhom.inv_homography(*(jnp.asarray(v) for v in (
         np.tile(K, (P, 1, 1)), np.tile(k_inv, (P, 1, 1)), rot, t, n_hat, a)))
-    got = thom.inv_homography(_t(K), _t(k_inv), _t(rot), _t(t), _t(n_hat),
-                              _t(a))
+    # the port's form, n_hat = +z and a = -depth: plane i at pose i
+    pose = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
+    pose[:, :3, :3], pose[:, :3, 3:] = rot, t
+    got = thom.mpi_homographies(_t(K), _t(k_inv), _t(pose),
+                                _t(-a.reshape(P)))[range(P), range(P)]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
     grid = np.transpose(np.asarray(jhom.meshgrid_abs(H, W)), (1, 2, 0))

@@ -29,6 +29,7 @@ from matryodshka_tpu_torch.losses.elpips import api as elpips_api
 from matryodshka_tpu_torch.models import msi as msi_lib
 from matryodshka_tpu_torch.models.unet import MSIUNet
 from matryodshka_tpu_torch.ops import conv as conv_ops
+from matryodshka_tpu_torch.ops import mpi_render as mpi_ops
 from matryodshka_tpu_torch.ops import net as net_ops
 from matryodshka_tpu_torch.ops import render as render_ops
 from matryodshka_tpu_torch.ops import render_layers as rl_ops
@@ -1186,8 +1187,8 @@ def test_coord_conv_first_layer_mpi_inputs(cuda, input_type, cin):
 def test_infer_mpi_runs_the_net_kernels(cuda, input_type, coord):
     """The test CLI's MPI route (msi.infer_mpi) on the card at a small
     size: one conv launch per stage (18), 17 of them with their inputs'
-    layer norm fused (no layer-norm launch), no sweep or render kernel
-    launch; its view
+    layer norm fused (no layer-norm launch), no sweep, K3 or layer-stack
+    render launch, one launch of the MPI render kernel; its view
     within chip_smoke.py's bf16 bound of the all-plain f32 route."""
     cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
                              num_msi_planes=P, ngf=NGF, coord_net=coord,
@@ -1195,17 +1196,143 @@ def test_infer_mpi_runs_the_net_kernels(cuda, input_type, coord):
     b = entry.synthetic_batch(cfg, 3, cuda)
     params = entry.make_params(cfg, seed=4, device=cuda)
     before = (conv_ops.launches, conv_ops.norm_launches, sweep_ops.launches,
-              render_ops.launches, rl_ops.launches)
+              render_ops.launches, rl_ops.launches, mpi_ops.launches)
     out = msi_lib.infer_mpi(cfg, params.stages, b, params.psv_depths,
                             params.msi_depths)["output_image"]
     torch.cuda.synchronize()
     after = (conv_ops.launches, conv_ops.norm_launches, sweep_ops.launches,
-             render_ops.launches, rl_ops.launches)
-    assert [a - n for a, n in zip(after, before)] == [18, 17, 0, 0, 0]
+             render_ops.launches, rl_ops.launches, mpi_ops.launches)
+    assert [a - n for a, n in zip(after, before)] == [18, 17, 0, 0, 0, 1]
     assert out.shape == (1, H, W, 3) and torch.isfinite(out).all()
     from matryodshka_tpu_torch.cli.test import infer_plain
     want = infer_plain(cfg, params, b)["output_image"] * 2 - 1
     assert (out - want).abs().max().item() <= 2e-2
+
+
+def _rot_yp(yaw, pitch):
+    cy, sy, cp, sp = (math.cos(yaw), math.sin(yaw), math.cos(pitch),
+                      math.sin(pitch))
+    ry = torch.tensor([[cy, 0.0, sy], [0.0, 1.0, 0.0], [-sy, 0.0, cy]])
+    rx = torch.tensor([[1.0, 0.0, 0.0], [0.0, cp, -sp], [0.0, sp, cp]])
+    return ry @ rx
+
+
+def _mpi_case(dev, b, c, h, w, p, kind, dtype, seed=0):
+    """The MPI render's inputs on dev: vol [b, c, h, w] in dtype and pred
+    [b, 2p, h, w] f32, uniform in [-1, 1]; target poses [b, 4, 4],
+    intrinsics [b, 3, 3], depths [p] (1-100 m). near: a viewer's head
+    motion; outside: 0.7 m and 25 degrees off, so most near taps fall
+    outside the image; edge_on: the target turned 90 degrees about y with
+    a wide field of view (f = w/4), so the planes are seen edge-on down
+    the middle column (coordinates beyond any integer) and obliquely
+    beside it."""
+    g = torch.Generator().manual_seed(seed)
+    vol = (torch.rand((b, c, h, w), generator=g) * 2 - 1).to(dev, dtype)
+    pred = (torch.rand((b, 2 * p, h, w), generator=g) * 2 - 1).to(dev)
+    f = (w / 4, w / 4) if kind == "edge_on" else (0.9 * w, 1.2 * h)
+    k = torch.tensor([[f[0], 0.0, w / 2], [0.0, f[1], h / 2],
+                      [0.0, 0.0, 1.0]]).repeat(b, 1, 1)
+    pose = torch.eye(4).repeat(b, 1, 1)
+    for i in range(b):
+        s = (i + 1) / b
+        if kind == "near":
+            pose[i, :3, :3] = _rot_yp(math.radians(4 * s),
+                                      math.radians(-3 * s))
+            pose[i, :3, 3] = torch.tensor([0.06, -0.03, 0.05]) * s
+        elif kind == "outside":
+            pose[i, :3, :3] = _rot_yp(math.radians(25 * s), math.radians(10))
+            pose[i, :3, 3] = torch.tensor([0.6, -0.3, 0.2]) * s
+        else:
+            pose[i, :3, :3] = torch.tensor([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0],
+                                            [-1.0, 0.0, 0.0]])
+            pose[i, :3, 3] = torch.tensor([0.0, 0.02, 0.0]) * s
+    from matryodshka_tpu_torch.geometry.sweep import inv_depths
+    depths = torch.tensor(inv_depths(1.0, 100.0, p), dtype=torch.float32)
+    return vol, pred, pose.to(dev), k.to(dev), depths.to(dev)
+
+
+#: (B, C, H, W, P): a small shape and realestate-coord.mpi-video's (640x320,
+#: 32 planes; its volume has C = 195), each with C = 6P and C > 6P.
+MPI_SHAPES = [(1, 6 * P, 32, 128, P), (4, 6 * P + 3, 32, 128, P),
+              (1, 192, 320, 640, 32), (4, 195, 320, 640, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["near", "outside", "edge_on"])
+@pytest.mark.parametrize("shape", MPI_SHAPES,
+                         ids=["x".join(map(str, s)) for s in MPI_SHAPES])
+def test_mpi_render_matches_plain(cuda, shape, kind, dtype):
+    """The MPI render kernel (one launch) against its plain version in f32
+    on the same values (a bf16 volume upcast): within 2e-4. The two warp
+    by the same homographies; what remains is the order of the f32 sums
+    (the blend as bg + w (fg - bg), the composite front to back)."""
+    b, c, h, w, p = shape
+    vol, pred, pose, k, depths = _mpi_case(cuda, b, c, h, w, p, kind, dtype)
+    n = mpi_ops.launches
+    got = mpi_ops.render_mpi_blend(vol, pred, pose, k, depths)
+    torch.cuda.synchronize()
+    assert mpi_ops.launches == n + 1 and got.shape == (b, h, w, 3)
+    want = mpi_ops.render_mpi_blend_plain(vol.float(), pred, pose, k, depths)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-4
+    assert want.abs().max().item() > 0.1
+
+
+@pytest.mark.cuda
+def test_mpi_render_is_deterministic(cuda):
+    args = _mpi_case(cuda, 4, 195, 320, 640, 32, "near", torch.bfloat16)
+    first = mpi_ops.render_mpi_blend(*args)
+    second = mpi_ops.render_mpi_blend(*args)
+    assert torch.equal(first, second)
+
+
+def _mpi_entry(dev, b=2, dtype="bfloat16"):
+    cfg = entry.flagship_cfg(height=H, width=W, num_psv_planes=P,
+                             num_msi_planes=P, ngf=NGF, batch_size=b,
+                             coord_net=True, input_type="REALESTATE_PP",
+                             compute_dtype=dtype)
+    return (cfg, entry.make_params(cfg, seed=6, device=dev),
+            entry.synthetic_batch(cfg, 6, dev))
+
+
+@pytest.mark.cuda
+def test_mpi_render_stage_does_not_synchronize(cuda):
+    """mpi_render_stage on the card (the homographies, K^-1 by inv_ex, and
+    the launch) under torch.cuda.set_sync_debug_mode("error"): no call
+    waits on the card."""
+    cfg, params, batch = _mpi_entry(cuda)
+    vol = msi_lib.sweep_stage(cfg, batch, params.psv_depths)
+    pred = msi_lib.net_stage(params.stages, vol)
+    msi_lib.mpi_render_stage(cfg, vol, pred, batch, params.msi_depths)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = msi_lib.mpi_render_stage(cfg, vol, pred, batch,
+                                        params.msi_depths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert set(outs) == {"vol", "pred", "output_image"}
+
+
+@pytest.mark.cuda
+def test_forward_renders_the_mpi_in_one_launch(cuda):
+    """One entry.forward of a REALESTATE_PP batch: one launch of the MPI
+    render kernel, no layer stack; its view within chip_smoke.py's bf16
+    bound of the bf16-stack route (assemble_train, render_mpi_view)."""
+    cfg, params, batch = _mpi_entry(cuda)
+    n = mpi_ops.launches
+    got = entry.forward(params, batch)
+    torch.cuda.synchronize()
+    assert mpi_ops.launches == n + 1
+    vol = msi_lib.sweep_stage(cfg, batch, params.psv_depths)
+    pred = msi_lib.net_stage(params.stages, vol)
+    layers = msi_lib.assemble_train(cfg, vol, pred)["rgba_layers"]
+    assert layers.dtype == torch.bfloat16
+    want = msi_lib.render_mpi_view(layers, msi_lib.mpi_view_pose(batch),
+                                   params.msi_depths, batch["intrinsics"])
+    assert (got - want).abs().max().item() <= 2e-2
 
 
 #: The trainer's stride-1 wrap convs at ngf 64 (name, Cin, Cout, size
